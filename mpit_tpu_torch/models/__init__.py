@@ -1,0 +1,17 @@
+"""Models of the port."""
+
+from mpit_tpu_torch.models.gpt2 import (
+    GPT2,
+    GPT2Config,
+    cache_update,
+    cached_attention,
+    default_attention,
+)
+
+__all__ = [
+    "GPT2",
+    "GPT2Config",
+    "cache_update",
+    "cached_attention",
+    "default_attention",
+]

@@ -1,0 +1,221 @@
+"""Serving entry point: ``python -m mpit_tpu_torch.serve [options]``.
+
+Loads a dense checkpoint (``--ckpt state.npz``, the format the JAX
+package's ``train.convert --save-dense`` writes) or random-initialises a
+model from ``--seed`` (``--model tiny|small``), serves a closed-loop
+synthetic stream (``--requests N``, all submitted up front, run to
+drain) through the continuous-batching engine, and prints one JSON
+result: the serving stats (decode tokens/s, TTFT and latency
+percentiles, occupancy) plus the obs phase summary.
+
+Runs on the GPU (``--device cuda``, the default; it raises without
+one); ``--device cpu`` is for testing. The flags of paths this port
+does not carry yet are kept, and a non-default value raises
+``SystemExit`` naming the later slice that brings them: they are never
+silently ignored.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import sys
+import time
+
+import numpy as np
+
+from mpit_tpu_torch.config import from_argv
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    """Options for the serving CLI."""
+
+    ckpt: str = ""  # dense .npz ("" = random init)
+    model: str = "tiny"  # random-init size: tiny | small
+    num_heads: int = 0  # ckpt head-count override (0 = d_model//64)
+    slots: int = 4  # concurrent KV-cache slots
+    max_len: int = 96  # per-slot cache length (prompt + generation)
+    prefill_len: int = 32  # padded prompt buffer width
+    requests: int = 16  # synthetic stream size
+    prompt_len: int = 8  # max synthetic prompt length (uniform 1..N)
+    max_new_tokens: int = 16
+    temperature: float = 0.0  # <=0 greedy
+    top_k: int = 0  # 0 = full vocab
+    # kernel = flash-decode CUDA kernel + blocked LM-head sampling;
+    # reference = plain cached attention + dense sampling (the oracle).
+    decode_attention: str = "kernel"
+    sample_k_cap: int = 128  # blocked sampler's candidate buffer (bounds top_k)
+    seed: int = 0
+    device: str = "cuda"  # cpu only for testing
+    # Flags of later slices: non-default values are rejected.
+    kv_pages: int = 0
+    kv_page_size: int = 16
+    prefill_chunk: int = 0
+    kv_host_pages: int = 0
+    kv_dtype: str = ""
+    weights_dtype: str = ""
+    spec_k: int = 0
+    draft_ckpt: str = ""
+    draft_config: str = ""
+    draft_num_heads: int = 0
+    mesh: str = ""
+    sentinel: bool = False
+    trace: str = ""
+    loadgen: str = ""
+    duration: float = 10.0
+    drain: bool = True
+    window_s: float = 5.0
+    stats_interval: float = 2.0
+    max_queue: int = 0
+    slo_ttft_p95: float = 0.0
+    slo_latency_p95: float = 0.0
+    slo_shed_rate: float = 0.0
+    policy: str = ""
+    fleet: str = ""
+
+
+# Flag -> the later slice of the port that brings it (see ROADMAP.md).
+_LATER_SLICES = {
+    "kv_pages": "the paged-engine slice",
+    "kv_page_size": "the paged-engine slice",
+    "prefill_chunk": "the paged-engine slice",
+    "kv_host_pages": "the paged-engine slice (host KV tier)",
+    "kv_dtype": "the int8-KV slice",
+    "weights_dtype": "the int8-weights slice",
+    "spec_k": "the speculative-decoding slice",
+    "draft_ckpt": "the speculative-decoding slice",
+    "draft_config": "the speculative-decoding slice",
+    "draft_num_heads": "the speculative-decoding slice",
+    "mesh": "the tensor-parallel slice",
+    "loadgen": "the open-loop load-harness slice",
+    "duration": "the open-loop load-harness slice",
+    "drain": "the open-loop load-harness slice",
+    "window_s": "the open-loop load-harness slice",
+    "stats_interval": "the open-loop load-harness slice",
+    "max_queue": "the open-loop load-harness slice",
+    "policy": "the scheduling-policy slice",
+    "fleet": "the KV-shipment (fleet) slice",
+    "slo_ttft_p95": "the SLO/sentinel observability slice",
+    "slo_latency_p95": "the SLO/sentinel observability slice",
+    "slo_shed_rate": "the SLO/sentinel observability slice",
+    "sentinel": "the SLO/sentinel observability slice",
+    "trace": "the trace-export observability slice",
+}
+
+
+def _reject_later_slices(cfg: ServeConfig) -> None:
+    defaults = ServeConfig()
+    for name, slice_name in _LATER_SLICES.items():
+        val = getattr(cfg, name)
+        if name == "weights_dtype" and val == "f32":
+            continue  # the default store, spelled out
+        if val != getattr(defaults, name):
+            raise SystemExit(
+                f"--{name.replace('_', '-')} {val!r}: not in this port yet; "
+                f"it arrives with {slice_name}"
+            )
+    if cfg.decode_attention not in ("kernel", "reference"):
+        raise SystemExit(
+            f"--decode-attention {cfg.decode_attention!r}: expected kernel "
+            "or reference (the Pallas interpreter has no counterpart here)"
+        )
+
+
+def _build_engine(cfg: ServeConfig):
+    import torch
+
+    from mpit_tpu_torch.models import GPT2, GPT2Config
+    from mpit_tpu_torch.serve import Engine, load_gpt2_params, resolve_device
+
+    device = resolve_device(cfg.device)  # before any weights are made
+    if cfg.ckpt:
+        params, mcfg = load_gpt2_params(cfg.ckpt, num_heads=cfg.num_heads)
+    else:
+        mcfg = (
+            GPT2Config.small()
+            if cfg.model == "small"
+            else GPT2Config.tiny(max_seq_len=max(cfg.max_len, 128))
+        )
+        gen = torch.Generator().manual_seed(cfg.seed)
+        params = GPT2(mcfg, generator=gen).state_dict()
+    engine = Engine(
+        mcfg,
+        params,
+        slots=cfg.slots,
+        max_len=cfg.max_len,
+        prefill_len=cfg.prefill_len,
+        seed=cfg.seed,
+        device=device,
+        decode_attention=cfg.decode_attention,
+        sample_k_cap=max(cfg.sample_k_cap, cfg.top_k),
+    )
+    return engine, mcfg
+
+
+def synthetic_requests(cfg: ServeConfig, vocab_size: int):
+    """A reproducible request stream: uniform prompt lengths 1..N,
+    uniform token ids, the CLI's sampling settings."""
+    from mpit_tpu_torch.serve import Request
+
+    rng = np.random.RandomState(cfg.seed)
+    for i in range(cfg.requests):
+        plen = int(rng.randint(1, cfg.prompt_len + 1))
+        yield Request(
+            rid=i,
+            prompt=rng.randint(0, vocab_size, size=plen).tolist(),
+            max_new_tokens=cfg.max_new_tokens,
+            temperature=cfg.temperature,
+            top_k=cfg.top_k,
+        )
+
+
+def main(argv: list[str] | None = None) -> dict:
+    cfg = from_argv(ServeConfig, argv, prog="python -m mpit_tpu_torch.serve")
+    _reject_later_slices(cfg)
+    from mpit_tpu_torch import obs
+    from mpit_tpu_torch.serve import Server
+
+    rec = obs.enable(obs.Recorder())
+    try:
+        engine, mcfg = _build_engine(cfg)
+        server = Server(engine)
+        for req in synthetic_requests(cfg, mcfg.vocab_size):
+            server.submit(req)
+        t0 = time.perf_counter()
+        server.run()
+        wall = time.perf_counter() - t0
+    finally:
+        obs.disable()
+    summ = rec.summary()
+    stats = server.stats()
+    decode_s = summ["phases"].get("decode", {}).get("total_s", 0.0)
+    # First tokens come from prefill; decode throughput counts the rest.
+    decode_tokens = stats["generated_tokens"] - stats["requests_completed"]
+    return {
+        "model": {
+            "layers": mcfg.num_layers,
+            "d_model": mcfg.d_model,
+            "vocab": mcfg.vocab_size,
+            "source": cfg.ckpt or f"random-init {cfg.model}",
+        },
+        "device": str(engine.device),
+        "wall_s": round(wall, 4),
+        "decode_tokens_per_sec": (
+            round(decode_tokens / decode_s, 2) if decode_s else None
+        ),
+        "decode_attention": engine.decode_attention,
+        "decode_sampler": engine.decode_sampler,
+        **stats,
+        "obs_summary": {
+            name: {
+                k: round(v, 6) if isinstance(v, float) else v
+                for k, v in p.items()
+            }
+            for name, p in summ["phases"].items()
+        },
+    }
+
+
+if __name__ == "__main__":
+    print(json.dumps(main(sys.argv[1:])))

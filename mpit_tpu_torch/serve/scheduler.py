@@ -1,0 +1,330 @@
+"""Continuous batching: the request loop over the slot-batched engine.
+
+Requests queue on the host and are admitted into free KV-cache slots
+between decode ticks (a new request rides the next prefill while the
+others keep decoding); each slot retires on EOS, max-new-tokens or a
+full cache, and its slot goes to the next queued request at once.
+FIFO order, closed loop: :meth:`Server.run` drains everything submitted.
+
+Observability (:mod:`mpit_tpu_torch.obs`):
+
+- spans ``prefill`` (per admission batch) and ``decode`` (per tick),
+  each closed by the host fetch of the sampled tokens, labelled with
+  the attention mode and sampler actually running;
+- per-request spans from explicit timestamps: ``queue_wait`` (submit →
+  admit), ``request_ttft`` (submit → first token), ``request_latency``
+  (submit → retire);
+- gauges ``slot_occupancy`` and ``kv_tokens_cached``; counters
+  ``serve_tokens``, ``serve_requests`` and, in kernel
+  mode, ``decode_blocks_skipped`` (cache tiles the length-aware kernel
+  did not read this tick, from :func:`num_kv_blocks`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import deque
+from typing import Any
+
+import numpy as np
+
+from mpit_tpu_torch import obs
+from mpit_tpu_torch.ops.decode_attention import num_kv_blocks
+
+__all__ = ["Completed", "Request", "Server", "warm_engine"]
+
+
+def warm_engine(engine) -> None:
+    """Run one throwaway request through ``engine`` (spanned
+    ``warmup``), then reset it: the first launches' one-off costs land
+    outside a timed window."""
+    with obs.span("warmup"):
+        warm = Server(engine)
+        warm.submit(Request(rid="warm", prompt=[1, 2, 3], max_new_tokens=2))
+        warm.run()
+    engine.reset()
+
+
+@dataclasses.dataclass
+class Request:
+    """One generation request. ``temperature <= 0`` = greedy;
+    ``top_k = 0`` = full vocabulary; ``eos_id = None`` = never stop
+    early."""
+
+    rid: Any
+    prompt: list[int]
+    max_new_tokens: int = 16
+    temperature: float = 0.0
+    top_k: int = 0
+    eos_id: int | None = None
+
+
+@dataclasses.dataclass
+class Completed:
+    """A finished request: output + the latency facts the histograms
+    aggregate. ``tokens`` includes the EOS token when one stopped it."""
+
+    rid: Any
+    prompt: list[int]
+    tokens: list[int]
+    submit_t: float
+    first_token_t: float
+    finish_t: float
+    truncated: bool = False  # retired by cache-full, not EOS/max-tokens
+
+    @property
+    def ttft_s(self) -> float:
+        return self.first_token_t - self.submit_t
+
+    @property
+    def latency_s(self) -> float:
+        return self.finish_t - self.submit_t
+
+
+@dataclasses.dataclass
+class _Live:
+    req: Request
+    submit_t: float
+    first_token_t: float = 0.0
+    tokens: list = dataclasses.field(default_factory=list)
+
+    def cache_fill(self) -> int:
+        """Host mirror of the slot's device cache fill. Prefill cached
+        the prompt; each decode tick appends ONE token; the newest
+        sampled token is not written yet — so the fill is ``prompt +
+        generated - 1``, and the next decode append lands exactly here."""
+        return len(self.req.prompt) + len(self.tokens) - 1
+
+
+class Server:
+    """The continuous-batching loop around one
+    :class:`~mpit_tpu_torch.serve.Engine`.
+
+    Host-side only: slot bookkeeping, the FIFO queue, retirement and
+    telemetry. ``submit()`` enqueues; ``run()`` drives admit/decode
+    ticks until the queue and all slots drain (or ``max_ticks``).
+    """
+
+    def __init__(self, engine):
+        self.engine = engine
+        # Stamped on every prefill/decode span: the attention mode and
+        # the sampler this engine runs.
+        self._attn_mode = engine.decode_attention
+        self._sampler = engine.decode_sampler
+        self.queue: deque[_Live] = deque()
+        self.live: dict[int, _Live] = {}  # slot -> in-flight request
+        self.free: list[int] = list(range(engine.slots))[::-1]  # pop() = slot 0 first
+        self.completed: list[Completed] = []
+        self.tick = 0
+        self.admissions = 0
+        self._occupancy_sum = 0.0
+        self._concurrency_peak = 0
+        self._truncated = False  # a run stopped with work still pending
+        # Per-slot sampling-control arrays (host; refreshed on admit/retire).
+        s = engine.slots
+        self._temp = np.zeros((s,), np.float32)
+        self._topk = np.zeros((s,), np.int32)
+
+    # -- intake -------------------------------------------------------------
+    def submit(self, req: Request) -> None:
+        """Enqueue one request; malformed requests raise."""
+        if not req.prompt:
+            raise ValueError(f"request {req.rid!r}: empty prompt")
+        if req.max_new_tokens < 1:
+            raise ValueError(
+                f"request {req.rid!r}: max_new_tokens must be >= 1 "
+                f"(prefill always samples the first token), got "
+                f"{req.max_new_tokens}"
+            )
+        if len(req.prompt) > self.engine.prefill_len:
+            raise ValueError(
+                f"request {req.rid!r}: prompt length {len(req.prompt)} > "
+                f"engine prefill_len {self.engine.prefill_len}"
+            )
+        if len(req.prompt) + req.max_new_tokens > self.engine.max_len:
+            raise ValueError(
+                f"request {req.rid!r}: prompt + max_new_tokens "
+                f"({len(req.prompt)} + {req.max_new_tokens}) exceeds the "
+                f"engine's max_len {self.engine.max_len}"
+            )
+        k_cap = self.engine.sample_k_cap
+        if k_cap is not None and req.top_k > k_cap:
+            raise ValueError(
+                f"request {req.rid!r}: top_k {req.top_k} exceeds the "
+                f"blocked sampler's candidate buffer (sample_k_cap="
+                f"{k_cap}); raise Engine(sample_k_cap=...) or use "
+                f"top_k=0 (full vocab)"
+            )
+        self.queue.append(_Live(req, time.perf_counter()))
+
+    # -- the loop -----------------------------------------------------------
+    def _admit(self) -> None:
+        """Move queued requests into free slots and prefill them, in one
+        batched call however many were admitted this tick."""
+        if not self.queue or not self.free:
+            return
+        s, plen = self.engine.slots, self.engine.prefill_len
+        tokens = np.zeros((s, plen), np.int32)
+        lens = np.ones((s,), np.int32)
+        admit = np.zeros((s,), bool)
+        batch: list[tuple[int, _Live]] = []
+        now = time.perf_counter()
+        while self.free and self.queue:
+            live = self.queue.popleft()
+            slot = self.free.pop()
+            p = live.req.prompt
+            tokens[slot, : len(p)] = p
+            lens[slot] = len(p)
+            admit[slot] = True
+            self._temp[slot] = live.req.temperature
+            self._topk[slot] = live.req.top_k
+            obs.span_at("queue_wait", live.submit_t, now, rid=live.req.rid)
+            batch.append((slot, live))
+        with obs.span(
+            "prefill", admitted=len(batch), attention=self._attn_mode,
+            sampler=self._sampler,
+            rids=[live.req.rid for _, live in batch],
+        ):
+            first = self.engine.prefill(
+                tokens, lens, admit, self._temp, self._topk
+            )
+        t_first = time.perf_counter()
+        self.admissions += len(batch)
+        for slot, live in batch:
+            live.first_token_t = t_first
+            live.tokens = [int(first[slot])]
+            obs.span_at(
+                "request_ttft", live.submit_t, t_first, rid=live.req.rid
+            )
+            self.live[slot] = live
+            self._maybe_retire(slot, t_first)
+
+    def _maybe_retire(self, slot: int, now: float) -> None:
+        """Retire ``slot`` if its newest token finished the request."""
+        live = self.live[slot]
+        req = live.req
+        tok = live.tokens[-1]
+        # The next decode would write at the fill position: at max_len
+        # the slot must retire or it would overrun its buffer.
+        full = live.cache_fill() >= self.engine.max_len
+        done = (
+            (req.eos_id is not None and tok == req.eos_id)
+            or len(live.tokens) >= req.max_new_tokens
+            or full
+        )
+        if not done:
+            return
+        del self.live[slot]
+        self.free.append(slot)
+        self._temp[slot] = 0.0
+        self._topk[slot] = 0
+        obs.span_at("request_latency", live.submit_t, now, rid=req.rid)
+        obs.counter("serve_requests")
+        truncated = (
+            full and tok != req.eos_id and len(live.tokens) < req.max_new_tokens
+        )
+        self.completed.append(
+            Completed(
+                rid=req.rid,
+                prompt=list(req.prompt),
+                tokens=list(live.tokens),
+                submit_t=live.submit_t,
+                first_token_t=live.first_token_t,
+                finish_t=now,
+                truncated=truncated,
+            )
+        )
+
+    def _decode_tick(self) -> None:
+        active = np.zeros((self.engine.slots,), bool)
+        for slot in self.live:
+            active[slot] = True
+        with obs.span(
+            "decode", active=int(active.sum()), attention=self._attn_mode,
+            sampler=self._sampler,
+            rids=[live.req.rid for live in self.live.values()],
+        ):
+            toks = self.engine.decode(active, self._temp, self._topk)
+        now = time.perf_counter()
+        obs.counter("serve_tokens", float(active.sum()))
+        if self._attn_mode == "kernel":
+            # Cache tiles the length-aware kernel skipped this tick, by
+            # the kernel's own bound (num_kv_blocks). Free slots run
+            # with length 0 and visit one tile each.
+            lens = np.asarray([live.cache_fill() for live in self.live.values()])
+            bk = self.engine.decode_block_k
+            total = self.engine.max_len // bk
+            visited = num_kv_blocks(lens, 1, self.engine.max_len, bk)
+            n_free = self.engine.slots - lens.size
+            obs.counter(
+                "decode_blocks_skipped",
+                float(total * self.engine.slots - int(visited.sum()) - n_free),
+            )
+        for slot in list(self.live):
+            self.live[slot].tokens.append(int(toks[slot]))
+            self._maybe_retire(slot, now)
+
+    def _pending(self) -> bool:
+        """Work outstanding: queued or live."""
+        return bool(self.queue or self.live)
+
+    def _run_tick(self) -> None:
+        """One loop iteration: admit, gauges, decode."""
+        self._admit()
+        busy = len(self.live)
+        self._concurrency_peak = max(self._concurrency_peak, busy)
+        occupancy = busy / self.engine.slots
+        self._occupancy_sum += occupancy
+        obs.gauge("slot_occupancy", occupancy)
+        obs.gauge(
+            "kv_tokens_cached",
+            float(sum(live.cache_fill() for live in self.live.values())),
+        )
+        if self.live:
+            self._decode_tick()
+        self.tick += 1
+
+    def run(self, *, max_ticks: int = 1_000_000) -> list[Completed]:
+        """Drive admit/decode until everything submitted has completed,
+        then return ALL completions so far, in finish order. Hitting
+        ``max_ticks`` with work still queued or live sets the
+        ``truncated`` flag that :meth:`stats` reports."""
+        self._truncated = False
+        while self._pending() and self.tick < max_ticks:
+            self._run_tick()
+        if self._pending():
+            self._truncated = True
+        return self.completed
+
+    # -- reporting ----------------------------------------------------------
+    def stats(self) -> dict:
+        """Host-side serving roll-up (the obs summary carries the
+        span-derived histograms; this is the request-math view)."""
+        done = self.completed
+        out = {
+            # A standalone server (fleet workers arrive in a later slice).
+            "worker_id": "single",
+            "role": "standalone",
+            "requests_completed": len(done),
+            "ticks": self.tick,
+            "admissions": self.admissions,
+            "generated_tokens": sum(len(c.tokens) for c in done),
+            "occupancy_mean": round(
+                self._occupancy_sum / max(self.tick, 1), 4
+            ),
+            "truncated": self._truncated,
+            "concurrency_peak": self._concurrency_peak,
+            "kv_dtype": self.engine.kv_dtype,
+            "weights_dtype": self.engine.weights_dtype,
+        }
+        if done:
+            lat = np.asarray([c.latency_s for c in done])
+            ttft = np.asarray([c.ttft_s for c in done])
+            out.update(
+                latency_p50_s=round(float(np.percentile(lat, 50)), 6),
+                latency_p95_s=round(float(np.percentile(lat, 95)), 6),
+                ttft_p50_s=round(float(np.percentile(ttft, 50)), 6),
+                ttft_p95_s=round(float(np.percentile(ttft, 95)), 6),
+            )
+        return out
