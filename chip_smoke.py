@@ -1,4 +1,4 @@
-"""Chip smoke test of mpit_tpu_torch: the port's serving path on one GPU.
+"""Chip smoke test of mpit_tpu_torch: the port's serving paths on one GPU.
 
     python3 chip_smoke.py
 
@@ -10,25 +10,57 @@ for an H100). Phases, each of which raises (exit code != 0) on failure:
 2. build — compiles every kernel source of the port with ``nvcc`` (one
    process per source, all at once); compiler output goes to
    ``chiprun_out/chip_smoke_build.log``;
-3. kernel vs plain — the flash-decode kernel against its plain PyTorch
-   version at GPT-2 small's head geometry (8 slots, 12 heads, head dim
-   64) for cache lengths 512 and 1024, query widths 1 (a decode tick)
-   and 128 (a prefill), bf16 and f32, with slot lengths spread from 0 to
-   S - T: max |error| within 1e-4 (f32) / 5e-2 (bf16, the JAX package's
-   own bf16 kernel tolerance), visited-tile counts exact; times the
-   kernel, its plain version and ``scaled_dot_product_attention`` (the
-   library yardstick, never called by the port) with CUDA events on a
-   cold L2, beside the bound the card's HBM rate and peak arithmetic
+3. kernel vs plain, dense — the flash-decode kernel against its plain
+   PyTorch version at GPT-2 small's head geometry (8 slots, 12 heads,
+   head dim 64) for cache lengths 512 and 1024, query widths 1 (a decode
+   tick) and 128 (a prefill), bf16 and f32, with slot lengths spread from
+   0 to S - T: max |error| within 1e-4 (f32) / 5e-2 (bf16, the JAX
+   package's own bf16 kernel tolerance), visited-tile counts exact;
+   times the kernel, its plain version and ``scaled_dot_product_attention``
+   (the library yardstick, never called by the port) with CUDA events on
+   a cold L2, after a second of matmuls that lifts the clocks from idle,
+   beside the bound the card's HBM rate and peak arithmetic
    rate set for the same work;
+3b. kernel vs plain, paged and int8 — the three other forms at the same
+   head geometry: paged pools of page size 16 and 64 for virtual lengths
+   512 and 1024, T = 1 and 64 (a prefill chunk), q bf16/f32 over K/V of
+   the same dtype and over int8 K/V; dense int8 at S 512/1024, T 1/64.
+   Block tables name a seeded random permutation of the pool's pages,
+   two slots sharing their first pages. Tolerances are q's: both sides
+   dequantize the same int8 bytes to f32, and with a bf16 q the kernel
+   keeps p in f32 (as on the TPU, V is f32 once dequantized) where the
+   plain version rounds the probabilities to bf16 — well inside 5e-2.
+   The paged kernel over the pre-gathered dense view, mapped page by
+   page in order, must equal the dense kernel bit for bit at the same
+   block_k. SDPA runs on the pre-gathered (and dequantized) dense view;
+   the gather is not timed. Every case goes to
+   ``chiprun_out/chip_smoke_kernels.json``;
 4. serve — ``python -m mpit_tpu_torch.serve``'s ``main`` in process:
    GPT-2 small at full width (12 layers, d_model 768, 12 heads, vocab
    50257, random weights from seed 0) in bf16, 8 slots, 16 greedy
-   requests; every request completes with its tokens, and the kernel's
-   launch count, set to 0 just before, reaches at least num_layers x
-   (prefill calls + decode ticks);
-5. parity — the same stream in f32 through the kernel engine and the
-   reference engine (plain attention + dense sampling) on the card, same
-   weights: the greedy tokens must be identical (TF32 off).
+   requests of 32 new tokens, four times: the dense cache; the paged
+   pool (256 pages of 16 tokens, prefill chunk 64); the paged pool with
+   ``--kv-dtype int8``; the dense cache with ``--kv-dtype int8``. Every
+   request completes with its tokens, and the launch count of the form
+   each run drives, set to 0 just before, reaches at least num_layers x
+   (prefill calls + decode ticks), while the other forms stay at 0;
+5. parity — f32 on the card, TF32 off, same weights: PR 1's stream
+   through the dense kernel engine and the reference engine; then a
+   shared-prefix stream of 16 greedy requests (8 behind one 70-token
+   system prompt, two prompts each submitted twice a few ticks apart)
+   through the paged kernel engine with 48 pages, whose greedy tokens
+   must equal the dense reference engine's, with prefix hits, COW copies
+   and an admission that waited on pages all non-zero. A divergence
+   fails with its first token and the logit margin there. The same
+   stream with int8 K/V on both sides: int8 rounding turns last-bit
+   differences between two schedules of the same f32 math (cuBLAS GEMMs
+   are not row-invariant in the batch's row count; the kernel sums in
+   another order than the plain version) into whole quantization steps,
+   so greedy tokens part at near-ties — the plain version run at the
+   paged schedule parts from itself at the dense one. Each request must
+   equal the dense reference, or part from it first where its two tokens'
+   teacher-forced plain int8 logits lie within ``INT8_TIE`` of each
+   other; every such divergence is printed with its gap and margin.
 
 The last lines are the kernels JSON line, the card's name and power
 limit as ``nvidia-smi`` prints them, and ``{"ok": true, "device":
@@ -50,11 +82,23 @@ OUT = HERE / "chiprun_out"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 / f32 non-tensor
 TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# Logits: the widest gap at which int8 greedy tokens may part from the
+# dense reference (observed on an H100 at seed 0: 0.00014 and 0.0014;
+# a wrong page or scale moves logits by tenths).
+INT8_TIE = 0.01
+B, H, DH = 8, 12, 64  # GPT-2 small's head geometry, 8 slots
 SERVE_ARGS = [
     "--model", "small", "--slots", "8", "--max-len", "512",
     "--prefill-len", "128", "--prompt-len", "128", "--requests", "16",
     "--max-new-tokens", "32", "--seed", "0",
 ]
+PAGED_ARGS = ["--kv-pages", "256", "--kv-page-size", "16", "--prefill-chunk", "64"]
+FORMS = (
+    "flash_decode_attention",
+    "flash_decode_attention_int8",
+    "flash_paged_decode_attention",
+    "flash_paged_decode_attention_int8",
+)
 
 
 def fail(msg: str) -> None:
@@ -99,13 +143,53 @@ def cold_time_ms(fn, torch, flush, iters: int = 20) -> float:
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
 
 
-def kernel_phase(torch, flush):
-    """Phase 3: the flash-decode kernel against its plain version."""
+def warm_up(torch, seconds: float = 1.0) -> None:
+    """Keep the card busy for about ``seconds`` before the first timed
+    case, so that no case is timed while the clocks ramp up from idle."""
+    a = torch.randn(4096, 4096, device="cuda")
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        torch.mm(a, a)
+        torch.cuda.synchronize()
+
+
+def bound(torch, lens, t: int, s: int, kv_row_bytes: float, q, extra_bytes=0):
+    """The least time the card could take: the visible K and V rows
+    (``min(L + T, S)`` per slot, at their wire size), q, o, lengths and
+    visited once each (plus ``extra_bytes``: the block-table rows) over
+    the HBM rate, against 4 operations per (query, visible key, dim)
+    over q's peak rate. Returns ``(bound_ms, bound_by)``."""
+    visible = (lens.long() + t).clamp(max=s)
+    nbytes = (
+        2 * int(visible.sum()) * kv_row_bytes
+        + 2 * q.numel() * q.element_size() + 2 * 4 * lens.numel() + extra_bytes
+    )
+    h, d = q.shape[2:]
+    nops = 4 * h * d * int(
+        (lens.long()[:, None] + torch.arange(1, t + 1, device=lens.device))
+        .clamp(max=s).sum()
+    )
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / PEAK_OPS_PER_S[str(q.dtype).removeprefix("torch.")] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def sdpa_call(torch, q, k, v, lens):
+    """``scaled_dot_product_attention`` over dense ``[B, S, H, Dh]`` K/V
+    with the kernel's visibility mask, as a zero-argument call."""
     import torch.nn.functional as F
 
+    t, s = q.shape[1], k.shape[1]
+    q_pos = lens.long()[:, None] + torch.arange(t, device=q.device)
+    mask = (torch.arange(s, device=q.device) <= q_pos[..., None])[:, None]
+    qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+    return lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+
+
+def kernel_phase(torch, flush):
+    """Phase 3: the dense flash-decode kernel against its plain version."""
     from mpit_tpu_torch.ops import decode_attention as da
 
-    b, h, d = 8, 12, 64
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
         for s in (512, 1024):
@@ -113,9 +197,9 @@ def kernel_phase(torch, flush):
                 gen = torch.Generator(device="cuda").manual_seed(s + t)
                 q, k, v = (
                     torch.randn(shape, generator=gen, device="cuda").to(dtype)
-                    for shape in ((b, t, h, d), (b, s, h, d), (b, s, h, d))
+                    for shape in ((B, t, H, DH), (B, s, H, DH), (B, s, H, DH))
                 )
-                lens = torch.linspace(0, s - t, b, device="cuda").int()
+                lens = torch.linspace(0, s - t, B, device="cuda").int()
                 bk = da.pick_block_k(s)
                 out, visited = da.flash_decode_attention(
                     q, k, v, lens, return_visited=True
@@ -129,27 +213,11 @@ def kernel_phase(torch, flush):
                 want = da.num_kv_blocks(lens.cpu(), t, s, bk)
                 if not torch.equal(visited.cpu(), want):
                     fail(f"visited {visited.tolist()} != num_kv_blocks {want.tolist()}")
-                # SDPA over the padded cache with the same visibility mask.
-                q_pos = lens.long()[:, None] + torch.arange(t, device="cuda")
-                mask = (torch.arange(s, device="cuda") <= q_pos[..., None])[:, None]
-                qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
-                # Bound: the visible K/V rows, q, o, lengths and visited
-                # once each; 4 operations per (query, visible key, dim).
-                visible = (lens.long() + t).clamp(max=s)
-                isz = q.element_size()
-                nbytes = (
-                    2 * int(visible.sum()) * h * d * isz
-                    + 2 * q.numel() * isz + 2 * 4 * b
-                )
-                nops = 4 * h * d * int(
-                    (lens.long()[:, None] + torch.arange(1, t + 1, device="cuda"))
-                    .clamp(max=s).sum()
-                )
-                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-                t_ops = nops / PEAK_OPS_PER_S[name] * 1e3
+                bound_ms, bound_by = bound(torch, lens, t, s, H * DH * q.element_size(), q)
                 cases.append({
-                    "dtype": name, "B": b, "S": s, "T": t, "H": h, "Dh": d,
-                    "block_k": bk, "lengths": lens.tolist(),
+                    "form": "flash_decode_attention",
+                    "dtype": name, "kv": name, "B": B, "S": s, "T": t, "H": H,
+                    "Dh": DH, "block_k": bk, "lengths": lens.tolist(),
                     "max_abs_err": err, "tol": TOL[name],
                     "ms": cold_time_ms(
                         lambda: da.flash_decode_attention(q, k, v, lens),
@@ -159,62 +227,173 @@ def kernel_phase(torch, flush):
                         lambda: da.reference_decode_attention(q, k, v, lens),
                         torch, flush,
                     ),
-                    "library_ms": cold_time_ms(
-                        lambda: F.scaled_dot_product_attention(
-                            qh, kh, vh, attn_mask=mask
-                        ),
-                        torch, flush,
-                    ),
-                    "bound_ms": max(t_bytes, t_ops),
-                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                    "library_ms": cold_time_ms(sdpa_call(torch, q, k, v, lens), torch, flush),
+                    "bound_ms": bound_ms,
+                    "bound_by": bound_by,
                 })
                 print(json.dumps({"kernel_case": cases[-1]}), flush=True)
     return cases
 
 
-def serve_phase(torch, card):
-    """Phase 4: the port's serving main path at GPT-2 small's width."""
-    from mpit_tpu_torch.ops import flash_decode_attention
+def paged_kernel_phase(torch, flush):
+    """Phase 3b: the paged and int8 forms against their plain versions."""
+    from mpit_tpu_torch.models.gpt2 import paged_gather
+    from mpit_tpu_torch.ops import decode_attention as da
+    from mpit_tpu_torch.ops.kv_quant import (
+        QuantizedKV,
+        dequantize_kv,
+        kv_wire_bytes_per_row,
+        quantize_kv,
+    )
+
+    def as_pool(x, ps):  # [B, S, H, Dh] (or QuantizedKV) -> pages in order
+        if isinstance(x, QuantizedKV):
+            return QuantizedKV(as_pool(x.q, ps), as_pool(x.scale, ps))
+        return x.reshape(-1, ps, *x.shape[2:])
+
+    cases = []
+    layouts = [("dense", None)] + [("paged", ps) for ps in (16, 64)]
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).removeprefix("torch.")
+        for int8 in (False, True):
+            for layout, ps in layouts:
+                if layout == "dense" and not int8:
+                    continue  # phase 3
+                for s in (512, 1024):
+                    for t in (1, 64):
+                        seed = s + t + (ps or 0) + 7 * int8
+                        gen = torch.Generator(device="cuda").manual_seed(seed)
+                        q = torch.randn((B, t, H, DH), generator=gen, device="cuda").to(dtype)
+                        lens = torch.linspace(0, s - t, B, device="cuda").int()
+                        if layout == "paged":
+                            n_ps = s // ps
+                            p = B * n_ps + 1
+                            k, v = (
+                                torch.randn((p, ps, H, DH), generator=gen, device="cuda").to(dtype)
+                                for _ in range(2)
+                            )
+                            if int8:
+                                k, v = quantize_kv(k), quantize_kv(v)
+                            perm = torch.randperm(
+                                p, generator=torch.Generator().manual_seed(seed)
+                            )[: B * n_ps]
+                            bt = perm.reshape(B, n_ps).int()
+                            bt[1, :2] = bt[0, :2]  # two slots share pages
+                            bt = bt.cuda()
+                            kd, vd = paged_gather(k, bt), paged_gather(v, bt)
+                            bk = da.pick_block_k(ps)
+                            run = lambda: da.flash_paged_decode_attention(  # noqa: E731
+                                q, k, v, lens, bt, return_visited=True
+                            )
+                            plain = lambda: da.reference_paged_decode_attention(  # noqa: E731
+                                q, k, v, lens, bt
+                            )
+                            form = "flash_paged_decode_attention"
+                            extra = bt.numel() * 4
+                        else:
+                            k, v = (
+                                quantize_kv(
+                                    torch.randn((B, s, H, DH), generator=gen, device="cuda").to(dtype)
+                                )
+                                for _ in range(2)
+                            )
+                            kd, vd, bk = k, v, da.pick_block_k(s)
+                            run = lambda: da.flash_decode_attention(  # noqa: E731
+                                q, k, v, lens, return_visited=True
+                            )
+                            plain = lambda: da.reference_decode_attention(q, k, v, lens)  # noqa: E731
+                            form, extra = "flash_decode_attention", 0
+                        form += "_int8" if int8 else ""
+                        label = f"{form} q={name} ps={ps} S={s} T={t}"
+                        out, visited = run()
+                        torch.cuda.synchronize()
+                        err = (out.float() - plain().float()).abs().max().item()
+                        if not math.isfinite(err) or err > TOL[name]:
+                            fail(f"kernel vs plain {label}: {err} > {TOL[name]}")
+                        want = da.num_kv_blocks(lens.cpu(), t, s, bk)
+                        if not torch.equal(visited.cpu(), want):
+                            fail(f"{label}: visited {visited.tolist()} != {want.tolist()}")
+                        if layout == "paged":
+                            # The pre-gathered dense view, mapped in order.
+                            ident = torch.arange(B * n_ps, dtype=torch.int32, device="cuda")
+                            paged_id = da.flash_paged_decode_attention(
+                                q, as_pool(kd, ps), as_pool(vd, ps), lens,
+                                ident.reshape(B, n_ps),
+                            )
+                            dense = da.flash_decode_attention(q, kd, vd, lens, block_k=bk)
+                            if not torch.equal(paged_id, dense):
+                                fail(f"{label}: identity-mapped paged != dense kernel")
+                        if int8:
+                            kd, vd = dequantize_kv(kd).to(dtype), dequantize_kv(vd).to(dtype)
+                        row = kv_wire_bytes_per_row(H, DH, torch.int8 if int8 else dtype)
+                        bound_ms, bound_by = bound(torch, lens, t, s, row, q, extra)
+                        cases.append({
+                            "form": form, "dtype": name,
+                            "kv": "int8" if int8 else name, "page_size": ps,
+                            "B": B, "S": s, "T": t, "H": H, "Dh": DH,
+                            "block_k": bk, "max_abs_err": err, "tol": TOL[name],
+                            "ms": cold_time_ms(run, torch, flush),
+                            "plain_ms": cold_time_ms(plain, torch, flush),
+                            "library_ms": cold_time_ms(
+                                sdpa_call(torch, q, kd, vd, lens), torch, flush
+                            ),
+                            "bound_ms": bound_ms, "bound_by": bound_by,
+                        })
+                        print(json.dumps({"kernel_case": cases[-1]}), flush=True)
+    return cases
+
+
+def serve_phase(torch, card, extra_args, form):
+    """Phase 4: the port's serving main path at GPT-2 small's width,
+    through the kernel ``form`` (its launch count read around the run)."""
+    from mpit_tpu_torch.ops import decode_attention as da
     from mpit_tpu_torch.serve.__main__ import main
 
-    flash_decode_attention.launches = 0
-    out = main(SERVE_ARGS)
-    launches = flash_decode_attention.launches
+    da.launches.update(dict.fromkeys(da.launches, 0))
+    out = main(SERVE_ARGS + extra_args)
+    counts = dict(da.launches)
+    launches = counts[form]
     phases = out["obs_summary"]
     n_prefill = phases["prefill"]["count"]
     n_decode = phases["decode"]["count"]
     need = out["model"]["layers"] * (n_prefill + n_decode)
+    tag = " ".join(extra_args) or "dense"
     if out["requests_completed"] != 16 or out["truncated"]:
-        fail(f"serve: {out['requests_completed']} of 16 requests completed")
+        fail(f"serve {tag}: {out['requests_completed']} of 16 requests completed")
     if out["generated_tokens"] != 16 * 32:
-        fail(f"serve: {out['generated_tokens']} tokens, expected {16 * 32}")
+        fail(f"serve {tag}: {out['generated_tokens']} tokens, expected {16 * 32}")
     if launches < need or launches == 0:
-        fail(f"serve: {launches} kernel launches < {need} (layers x calls)")
+        fail(f"serve {tag}: {launches} {form} launches < {need} (layers x calls)")
+    if any(n for f, n in counts.items() if f != form):
+        fail(f"serve {tag}: other kernel forms launched: {counts}")
     if out["decode_attention"] != "kernel" or out["device"] != "cuda":
         fail(f"serve ran {out['decode_attention']} on {out['device']}")
+    keys = (
+        "model", "device", "wall_s", "decode_tokens_per_sec",
+        "requests_completed", "generated_tokens", "ticks", "admissions",
+        "ttft_p50_s", "ttft_p95_s", "latency_p50_s", "latency_p95_s",
+        "kv_dtype", "kv_page_size", "kv_pool_pages", "kv_pool_occupancy_mean",
+        "kv_pool_occupancy_peak", "prefix_hit_rate", "prefix_hits",
+        "prefix_pages_shared_peak", "kv_cow_copies", "concurrency_peak",
+    )
     print(json.dumps({
         "card": card,
-        "serve": {
-            k: out[k] for k in (
-                "model", "device", "wall_s", "decode_tokens_per_sec",
-                "requests_completed", "generated_tokens", "ticks",
-                "admissions", "ttft_p50_s", "ttft_p95_s", "latency_p50_s",
-                "latency_p95_s", "kv_dtype",
-            )
-        },
+        "serve": {k: out[k] for k in keys if k in out},
+        "args": extra_args,
         "prefill_calls": n_prefill,
         "decode_ticks": n_decode,
         "prefill_ms_p50": phases["prefill"]["p50_s"] * 1e3,
         "prefill_ms_p95": phases["prefill"]["p95_s"] * 1e3,
         "decode_tick_ms_p50": phases["decode"]["p50_s"] * 1e3,
         "decode_tick_ms_p95": phases["decode"]["p95_s"] * 1e3,
+        "kernel_form": form,
         "kernel_launches": launches,
     }), flush=True)
     return launches
 
 
 def parity_phase(torch):
-    """Phase 5: f32 greedy tokens, kernel engine vs reference engine."""
+    """Phase 5: f32 greedy tokens, dense kernel engine vs reference engine."""
     from mpit_tpu_torch.config import from_argv
     from mpit_tpu_torch.models import GPT2, GPT2Config
     from mpit_tpu_torch.serve import Engine, Server
@@ -242,6 +421,177 @@ def parity_phase(torch):
     print(json.dumps({"parity_f32": "identical", "requests": 16,
                       "tokens": sum(len(t) for t in tokens["kernel"].values())}),
           flush=True)
+    return mcfg, state
+
+
+def shared_prefix_stream(vocab: int, seed: int = 0):
+    """16 greedy requests in two waves. The first wave holds two prompts
+    of 37 and 50 tokens (whole pages plus a partial one), one request
+    behind a 70-token system prompt (4 pages of 16 plus 6 tokens) and a
+    long prompt of its own; the second, submitted a few ticks later,
+    repeats the two prompts (full-prompt reuse: the copy-on-write
+    happens at the first decode append), then 7 more system-prompt
+    requests and 3 more of their own. Prompts of 110 to 200 tokens keep
+    the 48-page pool the limit, not the 8 slots."""
+    import numpy as np
+
+    from mpit_tpu_torch.serve import Request
+
+    rng = np.random.RandomState(seed)
+    toks = lambda n: rng.randint(0, vocab, n).tolist()  # noqa: E731
+    sysp, pa, pb = toks(70), toks(37), toks(50)
+    own = lambda i: Request(rid=f"own{i}", prompt=toks(rng.randint(100, 201)), max_new_tokens=32)  # noqa: E731
+    sys_ = lambda i: Request(  # noqa: E731
+        rid=f"sys{i}", prompt=sysp + toks(rng.randint(40, 101)), max_new_tokens=32
+    )
+    first = [
+        Request(rid="a0", prompt=pa, max_new_tokens=32),
+        Request(rid="b0", prompt=pb, max_new_tokens=32),
+        sys_(0), own(0),
+    ]
+    later = [
+        Request(rid="a1", prompt=pa, max_new_tokens=24),
+        Request(rid="b1", prompt=pb, max_new_tokens=24),
+    ] + [sys_(i) for i in range(1, 8)] + [own(i) for i in range(1, 4)]
+    return first, later
+
+
+def run_stream(engine, first, later, wave_tick: int = 3):
+    from mpit_tpu_torch.serve import Server
+
+    server = Server(engine)
+    for req in first:
+        server.submit(req)
+    server.run(max_ticks=wave_tick)
+    for req in later:
+        server.submit(req)
+    return {c.rid: c for c in server.run()}, server
+
+
+def report_divergence(torch, model, prompt, got, want):
+    """First diverging token of one request and the reference logit
+    margin (top-1 minus top-2) at that position."""
+    i = next(j for j, (a, b) in enumerate(zip(got, want)) if a != b)
+    seq = torch.tensor([prompt + want[:i]], device="cuda")
+    with torch.no_grad():
+        logits = model(seq)[0, -1].float()
+    top = logits.topk(2).values
+    return {"token_index": i, "got": got[i], "want": want[i],
+            "logit_margin": (top[0] - top[1]).item()}
+
+
+def int8_divergence(torch, model, prompt, got, want):
+    """First diverging token of one int8 request, judged by the plain
+    int8 path teacher-forced on the reference's tokens (one cached
+    forward: quantize on write, dequantized plain attention): the gap
+    between the reference's and the kernel engine's token there, and
+    the top-1 minus top-2 margin."""
+    from mpit_tpu_torch.serve.kvcache import alloc_cache
+
+    i = next(j for j, (a, b) in enumerate(zip(got, want)) if a != b)
+    seq = prompt + want[:i]
+    c = alloc_cache(model.cfg, 1, len(seq), device="cuda", quantized=True)
+    with torch.no_grad():
+        logits, _ = model(torch.tensor([seq], device="cuda"), cache=(c.k, c.v, c.lengths))
+    row = logits[0, -1].float()
+    top = row.topk(2).values
+    return {"token_index": i, "got": got[i], "want": want[i],
+            "gap": (row[want[i]] - row[got[i]]).item(),
+            "logit_margin": (top[0] - top[1]).item()}
+
+
+def gemm_rows_stable(torch) -> dict:
+    """For each row count m: whether the rows of ``X[:m] @ W`` equal,
+    bit for bit, the same rows of ``X @ W`` (f32, 2048 x 768 @ 768 x
+    2304, GPT-2 small's QKV projection) — what keeps two prefill
+    schedules' K/V identical."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    w = torch.randn(768, 2304, generator=gen, device="cuda")
+    x = torch.randn(2048, 768, generator=gen, device="cuda")
+    full = x @ w
+    return {m: torch.equal(x[:m] @ w, full[:m]) for m in (64, 256, 1024)}
+
+
+def paged_parity_phase(torch, mcfg, state):
+    """Phase 5b: the shared-prefix stream, paged kernel engine vs dense
+    reference engine, f32 and int8 K/V."""
+    from mpit_tpu_torch import obs
+    from mpit_tpu_torch.models import GPT2
+    from mpit_tpu_torch.serve import Engine
+
+    geo = dict(slots=8, max_len=512, prefill_len=256, seed=0, device="cuda")
+    pool_geo = dict(kv_pages=48, kv_page_size=16, prefill_chunk=64)
+    model = GPT2(mcfg, device="cuda")
+    model.load_state_dict(state)
+    results = {}
+    for kv_dtype in (None, "int8"):
+        first, later = shared_prefix_stream(mcfg.vocab_size)
+        rec = obs.enable(obs.Recorder())
+        try:
+            engine = Engine(
+                mcfg, state, decode_attention="kernel", kv_dtype=kv_dtype,
+                **pool_geo, **geo,
+            )
+            paged, server = run_stream(engine, first, later)
+        finally:
+            obs.disable()
+        alloc = engine.allocator
+        waited = rec.summary().get("instants", {}).get("kv_pool_exhausted", 0)
+        pool = {
+            "prefix_hits": alloc.prefix_hits, "cow_copies": alloc.cow_copies,
+            "admissions_waited_on_pages": waited,
+            "shared_tokens": alloc.shared_tokens_total,
+            "concurrency_peak": server.stats()["concurrency_peak"],
+        }
+        del engine, server
+        ref_engine = Engine(
+            mcfg, state, decode_attention="reference", kv_dtype=kv_dtype, **geo
+        )
+        dense, _ = run_stream(ref_engine, *shared_prefix_stream(mcfg.vocab_size))
+        del ref_engine
+        torch.cuda.empty_cache()
+        tag = kv_dtype or "f32"
+        if len(paged) != 16 or len(dense) != 16:
+            fail(f"shared-prefix {tag}: {len(paged)} / {len(dense)} of 16 completed")
+        diff = [r for r in dense if paged[r].tokens != dense[r].tokens]
+        if kv_dtype is None and diff:
+            r = diff[0]
+            info = report_divergence(
+                torch, model, dense[r].prompt, paged[r].tokens, dense[r].tokens
+            )
+            fail(f"shared-prefix {tag}: paged kernel vs dense reference differ "
+                 f"for {diff}; first: {r} {info}")
+        if not (pool["prefix_hits"] >= 1 and pool["cow_copies"] >= 1 and waited >= 1):
+            fail(f"shared-prefix {tag}: the stream did not exercise the pool: {pool}")
+        tokens = "identical"
+        if kv_dtype == "int8":
+            ties = {
+                r: int8_divergence(torch, model, dense[r].prompt, paged[r].tokens,
+                                   dense[r].tokens)
+                for r in diff
+            }
+            wide = {r: d for r, d in ties.items() if not abs(d["gap"]) <= INT8_TIE}
+            if wide:
+                fail(f"shared-prefix int8: paged kernel vs dense reference part "
+                     f"beyond a near-tie (|gap| > {INT8_TIE}): {wide}")
+            # The plain version at the kernel engine's schedule, for the record.
+            plain_engine = Engine(
+                mcfg, state, decode_attention="reference", kv_dtype=kv_dtype,
+                **pool_geo, **geo,
+            )
+            plain, _ = run_stream(plain_engine, *shared_prefix_stream(mcfg.vocab_size))
+            del plain_engine
+            torch.cuda.empty_cache()
+            tokens = {
+                "identical_requests": 16 - len(diff),
+                "near_ties": ties,
+                "plain_paged_vs_plain_dense_differ": sorted(
+                    r for r in dense if plain[r].tokens != dense[r].tokens
+                ),
+                "gemm_rows_stable": gemm_rows_stable(torch),
+            }
+        results[tag] = {"tokens": tokens, **pool}
+    print(json.dumps({"parity_shared_prefix": results}), flush=True)
 
 
 def main() -> None:
@@ -269,30 +619,50 @@ def main() -> None:
     print(f"build: {len(logs)} source(s) in {build_s:.2f} s", flush=True)
 
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
-    cases = kernel_phase(torch, flush)
+    warm_up(torch)
+    cases = kernel_phase(torch, flush) + paged_kernel_phase(torch, flush)
     del flush
-    launches = serve_phase(torch, card)
-    parity_phase(torch)
+    (OUT / "chip_smoke_kernels.json").write_text(json.dumps({"card": card, "cases": cases}, indent=1))
+    launches = {
+        "flash_decode_attention": serve_phase(torch, card, [], FORMS[0]),
+        "flash_paged_decode_attention": serve_phase(torch, card, PAGED_ARGS, FORMS[2]),
+        "flash_paged_decode_attention_int8": serve_phase(
+            torch, card, PAGED_ARGS + ["--kv-dtype", "int8"], FORMS[3]
+        ),
+        "flash_decode_attention_int8": serve_phase(
+            torch, card, ["--kv-dtype", "int8"], FORMS[1]
+        ),
+    }
+    mcfg, state = parity_phase(torch)
+    paged_parity_phase(torch, mcfg, state)
 
-    head = next(c for c in cases if c["dtype"] == "bfloat16" and c["S"] == 512 and c["T"] == 1)
-    kernels = {"kernels": [{
-        "name": "flash_decode_attention",
-        "route": "cuda",
-        "source": "mpit_tpu_torch/csrc/decode_attention.cu",
-        "replaces": "mpit_tpu/ops/decode_attention.py:166",
-        "launches": launches,
-        "max_abs_err": head["max_abs_err"],
-        "tol": head["tol"],
-        "ms": head["ms"],
-        "kernel_ms": head["ms"],
-        "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"],
-        "shape": {k: head[k] for k in ("dtype", "B", "S", "T", "H", "Dh")},
-        "cases": cases,
-    }]}
-    print(json.dumps(kernels))
+    kernels = []
+    for form in FORMS:
+        head = next(
+            c for c in cases
+            if c["form"] == form and c["dtype"] == "bfloat16" and c["S"] == 512
+            and c["T"] == 1 and c.get("page_size") in (None, 16)
+        )
+        kernels.append({
+            "name": form,
+            "route": "cuda",
+            "source": "mpit_tpu_torch/csrc/decode_attention.cu",
+            "replaces": "mpit_tpu/ops/decode_attention.py:166",
+            "call_site": (
+                "mpit_tpu/ops/decode_attention.py:419" if "paged" in form
+                else "mpit_tpu/ops/decode_attention.py:369"
+            ),
+            "launches": launches[form],
+            "max_abs_err": head["max_abs_err"],
+            "tol": head["tol"],
+            "ms": head["ms"],
+            "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "shape": {k: head.get(k) for k in ("dtype", "kv", "page_size", "B", "S", "T", "H", "Dh")},
+        })
+    print(json.dumps({"kernels": kernels}))
     print(card)  # the nvidia-smi name and power limit, as it prints them
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

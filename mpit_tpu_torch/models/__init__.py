@@ -6,6 +6,9 @@ from mpit_tpu_torch.models.gpt2 import (
     cache_update,
     cached_attention,
     default_attention,
+    paged_cache_update,
+    paged_cached_attention,
+    paged_gather,
 )
 
 __all__ = [
@@ -14,4 +17,7 @@ __all__ = [
     "cache_update",
     "cached_attention",
     "default_attention",
+    "paged_cache_update",
+    "paged_cached_attention",
+    "paged_gather",
 ]

@@ -22,7 +22,11 @@ renaming, with no transposes.
 
 The cache path (``cache=(k, v, lengths)``) writes the new K/V rows into
 the caller's buffers IN PLACE and returns the same tensors: unlike
-JAX, PyTorch need not rebuild a cache to update it.
+JAX, PyTorch need not rebuild a cache to update it. The paged path
+(``paged_cache=(k_pools, v_pools, lengths, block_tables,
+write_valid)``) writes through each slot's block table into a shared
+page pool, in place too. A :class:`~mpit_tpu_torch.ops.kv_quant.QuantizedKV`
+cache or pool quantizes on write and dequantizes in the plain attention.
 """
 
 from __future__ import annotations
@@ -35,12 +39,18 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mpit_tpu_torch.ops.kv_quant import QuantizedKV, dequantize_kv, quantize_kv
+
 __all__ = [
     "GPT2",
     "GPT2Config",
     "cache_update",
     "cached_attention",
     "default_attention",
+    "paged_cache_update",
+    "paged_cached_attention",
+    "paged_gather",
+    "paged_write_index",
 ]
 
 
@@ -65,10 +75,87 @@ def cache_update(cache, new, lengths):
     ``lax.dynamic_update_slice`` clamps it in the JAX package."""
     b, t = new.shape[:2]
     start = lengths.long().clamp(0, cache.shape[1] - t)
-    rows = start[:, None] + torch.arange(t, device=cache.device)
-    slot = torch.arange(b, device=cache.device)[:, None]
-    cache[slot, rows] = new.to(cache.dtype)
+    rows = start[:, None] + torch.arange(t, device=new.device)
+    slot = torch.arange(b, device=new.device)[:, None]
+    if isinstance(cache, QuantizedKV):
+        cache[slot, rows] = quantize_kv(new)
+    else:
+        cache[slot, rows] = new.to(cache.dtype)
     return cache
+
+
+def paged_write_index(pool, lengths, block_table, t: int, valid=None):
+    """Flat rows ``[B * T]`` of ``pool`` ``[P + 1, page_size, H, Dh]``
+    where positions ``lengths .. lengths + T - 1`` of each slot are
+    written: ``bt[b, pos // ps] * ps + pos % ps``.
+
+    Dropped writes go to a trash page. A pool holds one page more than
+    the allocator hands out, its last (index P); no block table names
+    it and nothing reads it. Rows that must not land — ``valid`` ``[B,
+    T]`` False (prefill padding, positions below a shared-prefix floor,
+    inactive slots) and positions past the slot's virtual capacity — are
+    written there. JAX drops them in its scatter (``mode="drop"``);
+    PyTorch raises on an out-of-range index instead, and page 0, where a
+    zeroed table entry points, may belong to another slot. The index is
+    built once per forward and serves every layer, with no host sync."""
+    ps, trash = pool.shape[1], pool.shape[0] - 1
+    pos = lengths.long()[:, None] + torch.arange(t, device=lengths.device)
+    n_ps = block_table.shape[1]
+    page = block_table.gather(1, (pos // ps).clamp(0, n_ps - 1)).long()
+    drop = pos >= n_ps * ps
+    if valid is not None:
+        drop = drop | ~valid
+    return (torch.where(drop, trash, page) * ps + pos % ps).reshape(-1)
+
+
+def paged_scatter(pool, new, idx):
+    """Write ``new`` ``[B, T, H, Dh]`` into the flat pool rows ``idx``
+    (:func:`paged_write_index`), in place, quantizing first when the
+    pool is a :class:`~mpit_tpu_torch.ops.kv_quant.QuantizedKV`."""
+    rows = new.reshape(-1, *new.shape[2:])
+    if isinstance(pool, QuantizedKV):
+        qn = quantize_kv(rows)
+        pool.q.view(-1, *pool.q.shape[2:])[idx] = qn.q
+        pool.scale.view(-1, *pool.scale.shape[2:])[idx] = qn.scale
+    else:
+        pool.view(-1, *pool.shape[2:])[idx] = rows.to(pool.dtype)
+    return pool
+
+
+def paged_cache_update(pool, new, lengths, block_table, valid=None):
+    """Write ``new`` ``[B, T, H, Dh]`` into ``pool`` ``[P + 1, page_size,
+    H, Dh]`` at positions ``lengths .. lengths + T - 1`` through
+    ``block_table`` ``[B, pages_per_slot]``, in place; returns ``pool``.
+    Masked rows and rows past the virtual capacity go to the trash page
+    (:func:`paged_write_index`)."""
+    idx = paged_write_index(pool, lengths, block_table, new.shape[1], valid)
+    return paged_scatter(pool, new, idx)
+
+
+def paged_gather(pool, block_table):
+    """Each slot's dense view of the pool: ``[P + 1, ps, H, Dh]``
+    through ``[B, pages_per_slot]`` → ``[B, pages_per_slot · ps, H,
+    Dh]`` (q and scale together for a quantized pool). Rows past a
+    slot's fill are whatever the named pages hold; the attention mask
+    defines validity."""
+    if isinstance(pool, QuantizedKV):
+        return QuantizedKV(
+            q=paged_gather(pool.q, block_table),
+            scale=paged_gather(pool.scale, block_table),
+        )
+    g = pool[block_table.long()]
+    return g.reshape(g.shape[0], -1, *g.shape[3:])
+
+
+def paged_cached_attention(q, k_pool, v_pool, lengths, block_table):
+    """Plain paged attention: gather the dense per-slot view, then
+    :func:`cached_attention`. The paged kernel's plain version."""
+    return cached_attention(
+        q,
+        paged_gather(k_pool, block_table),
+        paged_gather(v_pool, block_table),
+        lengths,
+    )
 
 
 def cached_attention(q, k, v, lengths):
@@ -79,16 +166,26 @@ def cached_attention(q, k, v, lengths):
     buffers with the new rows already written. Key ``j`` is visible to
     query ``t`` iff ``j <= lengths + t``; masked keys score ``-inf`` and
     contribute exact zeros. The serving reference, and the plain version
-    of the flash-decode kernel."""
+    of the flash-decode kernel.
+
+    Quantized buffers are dequantized to f32 whole. Operands of unequal
+    dtypes (a bf16 model over an f32 or int8 cache) are promoted before
+    each product, as ``jnp.einsum`` promotes them; the probabilities are
+    cast to q's dtype first, so the output has the promoted dtype."""
+    if isinstance(k, QuantizedKV):
+        k, v = dequantize_kv(k), dequantize_kv(v)
     dh = q.shape[-1]
-    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / math.sqrt(dh)
+    dt = torch.promote_types(q.dtype, k.dtype)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.to(dt), k.to(dt)).float()
+    scores = scores / math.sqrt(dh)
     t_q, s_max = q.shape[1], k.shape[1]
     q_pos = lengths.long()[:, None] + torch.arange(t_q, device=q.device)
     key = torch.arange(s_max, device=q.device)
     valid = key[None, None, :] <= q_pos[:, :, None]  # [B, T, S]
     scores = scores.masked_fill(~valid[:, None], float("-inf"))
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    dt = torch.promote_types(q.dtype, v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(dt), v.to(dt))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,6 +204,10 @@ class GPT2Config:
     # None = :func:`cached_attention`; the serving engine plugs in the
     # flash-decode kernel wrapper here.
     cache_attention_fn: Any = None
+    # Attention on the paged path, ``(q, k_pool, v_pool, lengths,
+    # block_table)``. None = :func:`paged_cached_attention`; the paged
+    # engine plugs in the paged flash-decode kernel wrapper.
+    paged_attention_fn: Any = None
 
     @property
     def ln_out_dtype(self) -> torch.dtype:
@@ -195,13 +296,25 @@ class Block(nn.Module):
     def forward(self, x, layer_cache=None):
         """``layer_cache``: ``(k, v, lengths)`` with k/v ``[B, S, H, Dh]``
         and lengths ``[B]`` — the new K/V rows are written into k/v at
-        ``lengths`` (in place) and attention runs against the cache."""
+        ``lengths`` (in place) and attention runs against the cache. The
+        paged 5-tuple ``(k_pool, v_pool, lengths, block_table,
+        write_idx)`` writes the rows at ``write_idx``, the flat pool rows
+        :func:`GPT2.forward` built once for all layers (masked rows go
+        to the trash page), and runs ``cfg.paged_attention_fn``."""
         cfg = self.cfg
         h = self.ln1(x)
         q, k, v = self.qkv(h).split(cfg.d_model, dim=-1)
         split = lambda t: t.reshape(*t.shape[:-1], cfg.num_heads, cfg.head_dim)
         if layer_cache is None:
             attn = default_attention(split(q), split(k), split(v))
+        elif len(layer_cache) == 5:
+            k_pool, v_pool, lengths, block_table, write_idx = layer_cache
+            paged_scatter(k_pool, split(k), write_idx)
+            paged_scatter(v_pool, split(v), write_idx)
+            attn_fn = cfg.paged_attention_fn or paged_cached_attention
+            attn = attn_fn(
+                split(q).contiguous(), k_pool, v_pool, lengths, block_table
+            )
         else:
             k_cache, v_cache, lengths = layer_cache
             cache_update(k_cache, split(k), lengths)
@@ -256,7 +369,7 @@ class GPT2(nn.Module):
         """The LM-head weight ``[vocab, d_model]``: ``wte`` when tied."""
         return self.wte if self.head is None else self.head
 
-    def forward(self, tokens, cache=None, return_hidden=False):
+    def forward(self, tokens, cache=None, paged_cache=None, return_hidden=False):
         """``tokens`` ``[B, T]`` → logits ``[B, T, vocab]`` f32.
 
         ``cache``: ``(k, v, lengths)`` with k/v ``[num_layers, B, S, H,
@@ -264,33 +377,64 @@ class GPT2(nn.Module):
         slot. The T new tokens are written at ``lengths`` (in place) and
         attend causally against the cache from positions ``lengths +
         arange(T)``; the return becomes ``(out, (k, v))``.
-        ``return_hidden`` (requires ``cache``) skips the head and
-        returns the final post-``ln_f`` hiddens ``[B, T, d_model]``.
+
+        ``paged_cache``: ``(k_pools, v_pools, lengths, block_tables,
+        write_valid)`` with pools ``[num_layers, P + 1, page_size, H,
+        Dh]`` (the last page is the trash page), ``block_tables`` ``[B,
+        pages_per_slot]`` int32 and ``write_valid`` ``[B, T]`` bool: the
+        rows are written through the block tables (rows with
+        ``write_valid`` False are not), attention runs
+        ``cfg.paged_attention_fn``, and the return becomes ``(out,
+        (k_pools, v_pools))``. Positions are clipped to ``max_seq_len -
+        1``: padding rows of a chunk may run past the table, and their
+        embeddings are never kept.
+
+        ``return_hidden`` (requires a cache) skips the head and returns
+        the final post-``ln_f`` hiddens ``[B, T, d_model]``.
         """
         cfg = self.cfg
-        if return_hidden and cache is None:
-            raise ValueError("return_hidden is the serving path; it requires cache=")
+        if cache is not None and paged_cache is not None:
+            raise ValueError("cache and paged_cache are mutually exclusive")
+        if return_hidden and cache is None and paged_cache is None:
+            raise ValueError(
+                "return_hidden is the serving path; it requires cache= or "
+                "paged_cache="
+            )
         t = tokens.shape[-1]
-        if cache is None:
+        if cache is not None:
+            cache_k, cache_v, cache_lengths = cache
+        elif paged_cache is not None:
+            cache_k, cache_v, cache_lengths, block_tables, write_valid = paged_cache
+            write_idx = paged_write_index(
+                cache_k[0], cache_lengths, block_tables, t, write_valid
+            )
+        if cache is None and paged_cache is None:
             pe = self.wpe[:t]
         else:
-            cache_k, cache_v, cache_lengths = cache
             positions = cache_lengths.long()[:, None] + torch.arange(
                 t, device=tokens.device
             )
+            if paged_cache is not None:
+                positions = positions.clamp(max=cfg.max_seq_len - 1)
             pe = self.wpe[positions]
         x = self.wte[tokens].to(cfg.dtype) + pe.to(cfg.dtype)
         for i, block in enumerate(self.blocks):
-            if cache is None:
-                x = block(x)
-            else:
+            if cache is not None:
                 x = block(x, (cache_k[i], cache_v[i], cache_lengths))
+            elif paged_cache is not None:
+                x = block(
+                    x,
+                    (cache_k[i], cache_v[i], cache_lengths, block_tables,
+                     write_idx),
+                )
+            else:
+                x = block(x)
         x = self.ln_f(x)
         if return_hidden:
             return x, (cache_k, cache_v)
         hd = cfg.head_dtype
         head = self.head_weight()
         logits = x.to(hd).float() @ head.to(hd).float().T
-        if cache is not None:
+        if cache is not None or paged_cache is not None:
             return logits, (cache_k, cache_v)
         return logits

@@ -1,4 +1,4 @@
-"""Observability of the port: spans, counters and gauges
+"""Observability of the port: spans, instants, counters and gauges
 (:mod:`mpit_tpu_torch.obs.core`)."""
 
 from mpit_tpu_torch.obs.core import (
@@ -8,6 +8,7 @@ from mpit_tpu_torch.obs.core import (
     enable,
     enabled,
     gauge,
+    instant,
     span,
     span_at,
     summary,
@@ -20,6 +21,7 @@ __all__ = [
     "enable",
     "enabled",
     "gauge",
+    "instant",
     "span",
     "span_at",
     "summary",

@@ -5,8 +5,9 @@ serving scheduler uses. Every primitive is one module-global read when
 no recorder is installed: :func:`span` then returns a shared no-op
 context manager, so instrumentation costs nothing until :func:`enable`.
 
-- a *span* is ``(name, t0, dur, tid, attrs)``, a named wall-clock
+- a *span* is ``("X", name, t0, dur, tid, attrs)``, a named wall-clock
   interval on a thread (``t0`` in seconds since the recorder's epoch);
+  an *instant* is ``("i", name, t, 0.0, tid, attrs)``, a marker;
 - *counters* accumulate floats keyed by ``(name, attrs)``; *gauges*
   keep the last value.
 """
@@ -24,6 +25,7 @@ __all__ = [
     "enable",
     "enabled",
     "gauge",
+    "instant",
     "phase_stats",
     "span",
     "span_at",
@@ -64,20 +66,29 @@ class Recorder:
         self._epoch = time.perf_counter()
         self._max_events = max_events
         self.dropped = 0
-        # span tuples: (name, t0_s, dur_s, tid, attrs | None)
+        # (kind, name, t0_s, dur_s, tid, attrs | None); kind "X" = span,
+        # "i" = instant
         self.events: list[tuple] = []
         self.counters: dict[tuple[str, tuple], float] = {}
         self.gauges: dict[tuple[str, tuple], float] = {}
 
-    def add_span(
-        self, name: str, t0: float, t1: float, attrs: Mapping | None = None
-    ) -> None:
-        tid = threading.get_ident()
+    def _add_event(self, event: tuple) -> None:
         with self._lock:
             if len(self.events) >= self._max_events:
                 self.dropped += 1
                 return
-            self.events.append((name, t0 - self._epoch, t1 - t0, tid, attrs))
+            self.events.append(event)
+
+    def add_span(
+        self, name: str, t0: float, t1: float, attrs: Mapping | None = None
+    ) -> None:
+        self._add_event(
+            ("X", name, t0 - self._epoch, t1 - t0, threading.get_ident(), attrs)
+        )
+
+    def add_instant(self, name: str, attrs: Mapping | None = None) -> None:
+        t = time.perf_counter() - self._epoch
+        self._add_event(("i", name, t, 0.0, threading.get_ident(), attrs))
 
     def add_counter(
         self, name: str, value: float, attrs: Mapping | None = None
@@ -104,13 +115,18 @@ class Recorder:
 
     def summary(self) -> dict:
         """``{"phases": {name: {count, total_s, p50_s, p95_s[, labels]}},
-        "counters": {name: total}, "dropped_events": n}``. String span
-        attributes are mode labels (e.g. ``attention="kernel"``): their
-        distinct values roll up under the phase's ``labels``."""
+        "counters": {name: total}[, "instants": {name: count}],
+        "dropped_events": n}``. String span attributes are mode labels
+        (e.g. ``attention="kernel"``): their distinct values roll up under
+        the phase's ``labels``."""
         snap = self.snapshot()
         by_name: dict[str, list[float]] = {}
         labels: dict[str, dict[str, set]] = {}
-        for name, _t0, dur, _tid, attrs in snap["events"]:
+        instants: dict[str, int] = {}
+        for kind, name, _t0, dur, _tid, attrs in snap["events"]:
+            if kind == "i":
+                instants[name] = instants.get(name, 0) + 1
+                continue
             by_name.setdefault(name, []).append(dur)
             for k, v in (attrs or {}).items():
                 if isinstance(v, str):
@@ -121,11 +137,11 @@ class Recorder:
         counters: dict[str, float] = {}
         for (name, _akey), v in snap["counters"].items():
             counters[name] = counters.get(name, 0.0) + v
-        return {
-            "phases": phases,
-            "counters": counters,
-            "dropped_events": snap["dropped"],
-        }
+        out = {"phases": phases, "counters": counters}
+        if instants:
+            out["instants"] = dict(sorted(instants.items()))
+        out["dropped_events"] = snap["dropped"]
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -210,6 +226,13 @@ def span_at(name: str, t0: float, t1: float, **attrs) -> None:
     rec = _RECORDER
     if rec is not None:
         rec.add_span(name, t0, t1, attrs or None)
+
+
+def instant(name: str, **attrs) -> None:
+    """Record a zero-duration marker event."""
+    rec = _RECORDER
+    if rec is not None:
+        rec.add_instant(name, attrs or None)
 
 
 def counter(name: str, value: float = 1.0, **attrs) -> None:

@@ -1,18 +1,27 @@
-"""Flash-decode: length-aware attention against the padded KV cache.
+"""Flash-decode: length-aware attention against the KV cache, dense or paged.
 
 The serving engine's attention on the cache path. Queries ``[B, T, H,
 Dh]`` (the T newest positions of each slot, global position ``lengths +
-t``) attend to the padded ``[B, S, H, Dh]`` K/V buffers; key ``j`` is
-visible to query ``t`` iff ``j <= lengths + t``. A slot holding ``L``
-tokens needs only the first ``ceil((L + T) / block_k)`` tiles of its
-buffer, so on the card :func:`flash_decode_attention` launches the
-hand-written kernel in ``csrc/decode_attention.cu``, which never reads
-the tiles past that bound.
+t``) attend to the slot's cached keys; key ``j`` is visible to query
+``t`` iff ``j <= lengths + t``. A slot holding ``L`` tokens needs only
+the first ``ceil((L + T) / block_k)`` tiles of its cache, so on the card
+both wrappers launch the hand-written kernel in
+``csrc/decode_attention.cu``, which never reads past that bound:
 
-:func:`reference_decode_attention` is the plain version of the same
-function (the einsum attention with an f32 softmax over the whole padded
-buffer); the wrapper takes it only for tensors that lie on the CPU. A
-CUDA tensor goes to the kernel or raises — there is no fallback.
+- :func:`flash_decode_attention` — padded per-slot ``[B, S, H, Dh]``
+  K/V buffers;
+- :func:`flash_paged_decode_attention` — a ``[P, page_size, H, Dh]``
+  page pool, each slot's pages named by its block-table row.
+
+K/V may be f32, bf16, or :class:`~mpit_tpu_torch.ops.kv_quant.QuantizedKV`
+(int8 rows and per-(row, head) f32 scales, which the kernel dequantizes
+as it stages the rows it visits); q is f32 or bf16, independently of
+K/V. :func:`reference_decode_attention` and
+:func:`reference_paged_decode_attention` are the plain versions (the
+einsum attention with an f32 softmax over the whole gathered,
+dequantized cache); the wrappers take them only for tensors that lie on
+the CPU. A CUDA tensor goes to the kernel or raises — there is no
+fallback.
 """
 
 from __future__ import annotations
@@ -24,17 +33,35 @@ import math
 import torch
 
 from mpit_tpu_torch.ops.build import load
+from mpit_tpu_torch.ops.kv_quant import QuantizedKV
 
 __all__ = [
     "flash_decode_attention",
+    "flash_paged_decode_attention",
+    "launches",
     "num_kv_blocks",
     "pick_block_k",
     "reference_decode_attention",
+    "reference_paged_decode_attention",
 ]
 
 _KERNEL_SOURCE = "decode_attention.cu"
-_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+# Shared memory a Hopper block may use (with the opt-in the kernel sets
+# for a long block-table row), and what the kernel itself stages.
+_MAX_SMEM = 232448
+_KC, _ROWS = 32, 4
+
+# Launches of each form of the CUDA kernel since the counts were last set
+# to 0; a wrapper adds one where it launches, and nowhere else.
+launches = {
+    "flash_decode_attention": 0,
+    "flash_decode_attention_int8": 0,
+    "flash_paged_decode_attention": 0,
+    "flash_paged_decode_attention_int8": 0,
+}
 
 
 def reference_decode_attention(q, k, v, lengths):
@@ -45,6 +72,14 @@ def reference_decode_attention(q, k, v, lengths):
     from mpit_tpu_torch.models.gpt2 import cached_attention
 
     return cached_attention(q, k, v, lengths)
+
+
+def reference_paged_decode_attention(q, k_pool, v_pool, lengths, block_table):
+    """Paged attention through the gathered dense view:
+    :func:`mpit_tpu_torch.models.gpt2.paged_cached_attention`."""
+    from mpit_tpu_torch.models.gpt2 import paged_cached_attention
+
+    return paged_cached_attention(q, k_pool, v_pool, lengths, block_table)
 
 
 def pick_block_k(s: int, want: int | None = None) -> int:
@@ -71,85 +106,115 @@ def kernel_library() -> ctypes.CDLL:
     """The flash-decode kernel's library, built from its source at the
     first call (needs ``nvcc``) and loaded."""
     lib = load(_KERNEL_SOURCE)
-    lib.mpit_flash_decode.argtypes = [ctypes.c_void_p] * 6 + [
-        ctypes.c_int
-    ] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    lib.mpit_flash_decode.restype = ctypes.c_int
-    lib.mpit_cuda_error_string.argtypes = [ctypes.c_int]
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.mpit_flash_decode.argtypes = (
+        [ptr] * 8 + [i32] * 6 + [f32, i32, i32, ptr]
+    )
+    lib.mpit_flash_paged_decode.argtypes = (
+        [ptr] * 9 + [i32] * 7 + [f32, i32, i32, ptr]
+    )
+    lib.mpit_flash_decode.restype = i32
+    lib.mpit_flash_paged_decode.restype = i32
+    lib.mpit_cuda_error_string.argtypes = [i32]
     lib.mpit_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check_kernel_inputs(q, k, v, lengths):
-    for name, x in (("q", q), ("k", k), ("v", v), ("lengths", lengths)):
+def _kv_parts(k, v):
+    """``(k payload, v payload, k scales, v scales)`` — scales ``None``
+    for plain buffers — or ValueError for a mixed pair."""
+    if isinstance(k, QuantizedKV) != isinstance(v, QuantizedKV):
+        raise ValueError("k and v must share one dtype (both QuantizedKV or neither)")
+    if isinstance(k, QuantizedKV):
+        return k.q, v.q, k.scale, v.scale
+    return k, v, None, None
+
+
+def _check_kernel_inputs(q, k, v, lengths, block_table=None):
+    """Raise ValueError for anything the kernel does not take. Dense:
+    k, v ``[B, S, H, Dh]``; paged (``block_table`` ``[B,
+    pages_per_slot]`` int32): k, v ``[P, page_size, H, Dh]``."""
+    kq, vq, ks, vs = _kv_parts(k, v)
+    named = [("q", q), ("k", kq), ("v", vq), ("lengths", lengths)]
+    if ks is not None:
+        named += [("k scale", ks), ("v scale", vs)]
+    if block_table is not None:
+        named.append(("block_table", block_table))
+    for name, x in named:
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if q.dtype not in _KERNEL_DTYPES:
+    if q.dtype not in _Q_DTYPES:
         raise ValueError(f"kernel dtype must be float32 or bfloat16, got {q.dtype}")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
+    if kq.dtype != vq.dtype:
+        raise ValueError(f"k and v must share one dtype, got {kq.dtype}, {vq.dtype}")
+    if kq.dtype not in _KV_DTYPES or (kq.dtype == torch.int8) != (ks is not None):
         raise ValueError(
-            f"q, k, v must share one dtype, got {q.dtype}, {k.dtype}, {v.dtype}"
+            f"K/V must be float32, bfloat16 or QuantizedKV (int8), got {kq.dtype}"
         )
-    if lengths.dtype != torch.int32:
-        raise ValueError(f"lengths must be int32, got {lengths.dtype}")
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+    for name, x in (("lengths", lengths), ("block_table", block_table)):
+        if x is not None and x.dtype != torch.int32:
+            raise ValueError(f"{name} must be int32, got {x.dtype}")
+    if q.dim() != 4 or kq.dim() != 4 or kq.shape != vq.shape:
         raise ValueError(
-            f"expected q [B, T, H, Dh] and k = v [B, S, H, Dh], got "
-            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+            f"expected q [B, T, H, Dh] and k = v of rank 4, got "
+            f"{tuple(q.shape)}, {tuple(kq.shape)}, {tuple(vq.shape)}"
         )
     b, t, h, d = q.shape
-    if k.shape[0] != b or k.shape[2:] != (h, d) or lengths.shape != (b,):
+    rows_ok = block_table is not None or kq.shape[0] == b
+    bt_ok = block_table is None or (
+        block_table.dim() == 2 and block_table.shape[0] == b
+    )
+    if not rows_ok or not bt_ok or kq.shape[2:] != (h, d) or lengths.shape != (b,):
         raise ValueError(
-            f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+            f"shape mismatch: q {tuple(q.shape)}, k {tuple(kq.shape)}, "
             f"lengths {tuple(lengths.shape)}"
+            + ("" if block_table is None else f", block_table {tuple(block_table.shape)}")
         )
+    if ks is not None:
+        want = tuple(kq.shape[:-1]) + (1,)
+        if ks.dtype != torch.float32 or tuple(ks.shape) != want or vs.shape != ks.shape:
+            raise ValueError(f"int8 K/V scales must be float32 {want}")
     if d not in _KERNEL_HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {_KERNEL_HEAD_DIMS}")
-    if k.data_ptr() % 16 or v.data_ptr() % 16:
+    if kq.data_ptr() % 16 or vq.data_ptr() % 16:
         raise ValueError("k and v must start on a 16-byte boundary")
     if b < 1 or t < 1:
         raise ValueError(f"empty batch or query: B={b}, T={t}")
+    if block_table is not None:
+        smem = 4 * (_ROWS * d + _KC * (2 * d + 1)) + 4 * block_table.shape[1]
+        if smem > _MAX_SMEM:
+            raise ValueError(
+                f"a block-table row of {block_table.shape[1]} pages needs "
+                f"{smem} bytes of shared memory (> {_MAX_SMEM})"
+            )
 
 
-def flash_decode_attention(
-    q, k, v, lengths, *, block_k: int | None = None, return_visited=False
-):
-    """Length-aware cached attention: ``[B, T, H, Dh]`` queries against
-    padded ``[B, S, H, Dh]`` K/V buffers, ``lengths`` ``[B]`` int32.
-
-    ``block_k`` tiles the cache length (default :func:`pick_block_k`) and
-    must divide S. ``return_visited`` also returns the per-slot visited
-    tile count ``[B]`` int32 — written by the kernel itself on the card,
-    the :func:`num_kv_blocks` formula on the CPU.
-
-    CUDA tensors launch the kernel (``launches`` counts each launch);
-    CPU tensors run :func:`reference_decode_attention`.
-    """
-    s = k.shape[1]
-    bk = pick_block_k(s, block_k)
-    if s % bk:
-        raise ValueError(f"cache length {s} must be divisible by block_k={bk}")
-    if q.device.type == "cpu":
-        out = reference_decode_attention(q, k, v, lengths)
-        if return_visited:
-            return out, num_kv_blocks(lengths.int(), q.shape[1], s, bk)
-        return out
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash-decode kernel for device {q.device}")
-    _check_kernel_inputs(q, k, v, lengths)
+def _launch(q, k, v, lengths, block_table, s_len: int, bk: int):
+    """Launch the kernel on the current stream: ``s_len`` is S (dense) or
+    the page size (paged). Returns ``(out, visited)``."""
+    _check_kernel_inputs(q, k, v, lengths, block_table)
+    kq, vq, ks, vs = _kv_parts(k, v)
     b, t, h, d = q.shape
     out = torch.empty_like(q)
     visited = torch.empty((b,), dtype=torch.int32, device=q.device)
     lib = kernel_library()
+    scales = (None, None) if ks is None else (ks.data_ptr(), vs.data_ptr())
+    codes = (_Q_DTYPES[q.dtype], _KV_DTYPES[kq.dtype])
     with torch.cuda.device(q.device):
-        err = lib.mpit_flash_decode(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), visited.data_ptr(),
-            b, t, s, h, d, bk, 1.0 / math.sqrt(d), _KERNEL_DTYPES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        head = (q.data_ptr(), kq.data_ptr(), vq.data_ptr(), *scales)
+        tail = (lengths.data_ptr(), out.data_ptr(), visited.data_ptr(), b, t, s_len)
+        if block_table is None:
+            err = lib.mpit_flash_decode(
+                *head, *tail, h, d, bk, 1.0 / math.sqrt(d), *codes, stream
+            )
+        else:
+            err = lib.mpit_flash_paged_decode(
+                *head, block_table.data_ptr(), *tail, block_table.shape[1],
+                h, d, bk, 1.0 / math.sqrt(d), *codes, stream,
+            )
     if err:
         msg = (
             lib.mpit_cuda_error_string(err).decode()
@@ -157,9 +222,70 @@ def flash_decode_attention(
             else "unsupported dtype or head dim"
         )
         raise RuntimeError(f"flash-decode kernel launch failed ({err}): {msg}")
-    flash_decode_attention.launches += 1
+    form = "flash_decode_attention" if block_table is None else "flash_paged_decode_attention"
+    launches[form + ("" if ks is None else "_int8")] += 1
+    return out, visited
+
+
+def flash_decode_attention(
+    q, k, v, lengths, *, block_k: int | None = None, return_visited=False
+):
+    """Length-aware cached attention: ``[B, T, H, Dh]`` queries against
+    padded ``[B, S, H, Dh]`` K/V buffers (plain or
+    :class:`~mpit_tpu_torch.ops.kv_quant.QuantizedKV`), ``lengths``
+    ``[B]`` int32.
+
+    ``block_k`` tiles the cache length (default :func:`pick_block_k`) and
+    must divide S. ``return_visited`` also returns the per-slot visited
+    tile count ``[B]`` int32 — written by the kernel itself on the card,
+    the :func:`num_kv_blocks` formula on the CPU.
+
+    CUDA tensors launch the kernel (counted in :data:`launches`); CPU
+    tensors run :func:`reference_decode_attention`.
+    """
+    s = k.shape[1]
+    bk = pick_block_k(s, block_k)
+    if s % bk:
+        raise ValueError(f"cache length {s} must be divisible by block_k={bk}")
+    if q.device.type == "cpu":
+        out = reference_decode_attention(q, k, v, lengths)
+        visited = num_kv_blocks(lengths.int(), q.shape[1], s, bk)
+    elif q.device.type == "cuda":
+        out, visited = _launch(q, k, v, lengths, None, s, bk)
+    else:
+        raise ValueError(f"no flash-decode kernel for device {q.device}")
     return (out, visited) if return_visited else out
 
 
-# Launches of the CUDA kernel since the count was last set to 0.
-flash_decode_attention.launches = 0
+def flash_paged_decode_attention(
+    q, k_pool, v_pool, lengths, block_table, *, block_k: int | None = None,
+    return_visited=False,
+):
+    """Length-aware attention against a paged pool: ``[B, T, H, Dh]``
+    queries vs ``[P, page_size, H, Dh]`` pools (plain or
+    :class:`~mpit_tpu_torch.ops.kv_quant.QuantizedKV`), each slot's
+    pages named by ``block_table`` ``[B, pages_per_slot]`` int32, whose
+    entries must name pages of the pool.
+
+    The tile loop and its bound are :func:`flash_decode_attention`'s over
+    the slot's virtual ``pages_per_slot · page_size`` cache. ``block_k``
+    defaults to :func:`pick_block_k` of the page size and must divide it,
+    as in the JAX package (the kernel resolves the page per key row, so
+    nothing in it needs that). CUDA tensors launch the kernel; CPU
+    tensors run :func:`reference_paged_decode_attention`.
+    """
+    ps = k_pool.shape[1]
+    bk = pick_block_k(ps, block_k)
+    if ps % bk:
+        raise ValueError(f"page_size {ps} must be divisible by block_k={bk}")
+    if q.device.type == "cpu":
+        out = reference_paged_decode_attention(
+            q, k_pool, v_pool, lengths, block_table
+        )
+        s_virtual = block_table.shape[1] * ps
+        visited = num_kv_blocks(lengths.int(), q.shape[1], s_virtual, bk)
+    elif q.device.type == "cuda":
+        out, visited = _launch(q, k_pool, v_pool, lengths, block_table, ps, bk)
+    else:
+        raise ValueError(f"no flash-decode kernel for device {q.device}")
+    return (out, visited) if return_visited else out

@@ -1,14 +1,17 @@
 """mpit_tpu_torch.serve — continuous-batching GPT-2 inference on the GPU.
 
 - :mod:`~mpit_tpu_torch.serve.kvcache` — ``[layers, slots, max_len,
-  heads, head_dim]`` K/V buffers + per-slot lengths.
-- :mod:`~mpit_tpu_torch.serve.engine` — prefill and decode over the
-  whole slot batch, attention through the flash-decode CUDA kernel and
-  sampling through the blocked LM head (``decode_attention="kernel"``),
-  or the plain reference path (``"reference"``), the parity oracle.
+  heads, head_dim]`` K/V buffers + per-slot lengths, or a paged pool
+  with its host page allocator (prefix sharing, copy-on-write); f32,
+  bf16 or int8 with scales.
+- :mod:`~mpit_tpu_torch.serve.engine` — prefill (whole prompts, or
+  chunks on the pool) and decode over the slot batch, attention through
+  the flash-decode CUDA kernel and sampling through the blocked LM head
+  (``decode_attention="kernel"``), or the plain reference path
+  (``"reference"``), the parity oracle.
 - :mod:`~mpit_tpu_torch.serve.scheduler` — the FIFO continuous-batching
-  loop: queue → admit into freed slots between decode ticks → per-slot
-  retirement (EOS / max tokens / cache full), with obs spans.
+  loop: queue → admit into freed slots (and pages) between decode ticks
+  → per-slot retirement (EOS / max tokens / cache full), with obs spans.
 - :mod:`~mpit_tpu_torch.serve.weights` — the dense ``.npz`` reader and
   the JAX param tree → ``state_dict`` carry-over.
 
@@ -16,7 +19,15 @@
 """
 
 from mpit_tpu_torch.serve.engine import Engine, resolve_device, sample_tokens
-from mpit_tpu_torch.serve.kvcache import KVCache, alloc_cache
+from mpit_tpu_torch.serve.kvcache import (
+    AdmitPlan,
+    KVCache,
+    PageAllocator,
+    PagedKVCache,
+    alloc_cache,
+    alloc_paged_cache,
+    pages_needed,
+)
 from mpit_tpu_torch.serve.scheduler import Completed, Request, Server, warm_engine
 from mpit_tpu_torch.serve.weights import (
     expected_param_shapes,
@@ -28,16 +39,21 @@ from mpit_tpu_torch.serve.weights import (
 )
 
 __all__ = [
+    "AdmitPlan",
     "Completed",
     "Engine",
     "KVCache",
+    "PageAllocator",
+    "PagedKVCache",
     "Request",
     "Server",
     "alloc_cache",
+    "alloc_paged_cache",
     "expected_param_shapes",
     "infer_config",
     "load_dense",
     "load_gpt2_params",
+    "pages_needed",
     "params_from_jax",
     "resolve_device",
     "sample_tokens",

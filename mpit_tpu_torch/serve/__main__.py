@@ -48,12 +48,17 @@ class ServeConfig:
     sample_k_cap: int = 128  # blocked sampler's candidate buffer (bounds top_k)
     seed: int = 0
     device: str = "cuda"  # cpu only for testing
-    # Flags of later slices: non-default values are rejected.
+    # Paged KV pool: kv_pages > 0 selects it (pages of kv_page_size
+    # tokens shared by all slots, prefix sharing with copy-on-write);
+    # prefill_chunk > 0 prefills long prompts in slices interleaved
+    # with decode ticks.
     kv_pages: int = 0
     kv_page_size: int = 16
     prefill_chunk: int = 0
-    kv_host_pages: int = 0
+    # Cache storage: f32 | bf16 | int8 ("" = follow the model dtype).
     kv_dtype: str = ""
+    # Flags of later slices: non-default values are rejected.
+    kv_host_pages: int = 0
     weights_dtype: str = ""
     spec_k: int = 0
     draft_ckpt: str = ""
@@ -77,11 +82,7 @@ class ServeConfig:
 
 # Flag -> the later slice of the port that brings it (see ROADMAP.md).
 _LATER_SLICES = {
-    "kv_pages": "the paged-engine slice",
-    "kv_page_size": "the paged-engine slice",
-    "prefill_chunk": "the paged-engine slice",
-    "kv_host_pages": "the paged-engine slice (host KV tier)",
-    "kv_dtype": "the int8-KV slice",
+    "kv_host_pages": "the host-KV-tier slice",
     "weights_dtype": "the int8-weights slice",
     "spec_k": "the speculative-decoding slice",
     "draft_ckpt": "the speculative-decoding slice",
@@ -120,6 +121,18 @@ def _reject_later_slices(cfg: ServeConfig) -> None:
             f"--decode-attention {cfg.decode_attention!r}: expected kernel "
             "or reference (the Pallas interpreter has no counterpart here)"
         )
+    if cfg.kv_dtype and cfg.kv_dtype not in ("f32", "bf16", "int8"):
+        raise SystemExit(f"--kv-dtype {cfg.kv_dtype!r}: expected f32, bf16 or int8")
+    if cfg.kv_dtype == "int8" and cfg.decode_attention == "reference":
+        # The reference path dequantizes the whole cache every tick: it
+        # is the parity oracle, and serving int8 through it pays the
+        # quantization error for more bytes moved, not fewer.
+        raise SystemExit(
+            "--kv-dtype int8 with --decode-attention reference: the "
+            "reference path materializes the full dequantized cache per "
+            "tick (it is the parity oracle, not a serving path); use "
+            "--decode-attention kernel for the fused dequant"
+        )
 
 
 def _build_engine(cfg: ServeConfig):
@@ -149,6 +162,13 @@ def _build_engine(cfg: ServeConfig):
         device=device,
         decode_attention=cfg.decode_attention,
         sample_k_cap=max(cfg.sample_k_cap, cfg.top_k),
+        kv_pages=cfg.kv_pages or None,
+        kv_page_size=cfg.kv_page_size,
+        # Passed through unconditionally: --prefill-chunk without
+        # --kv-pages must surface the Engine's rejection, not silently
+        # run whole-prompt prefills.
+        prefill_chunk=cfg.prefill_chunk or None,
+        kv_dtype=cfg.kv_dtype or None,
     )
     return engine, mcfg
 

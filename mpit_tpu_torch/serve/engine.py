@@ -1,27 +1,41 @@
-"""Batched GPT-2 inference engine over a dense per-slot KV cache.
+"""Batched GPT-2 inference engine over a dense per-slot KV cache or a
+paged pool.
 
 The execution contract, as in :mod:`mpit_tpu.serve.engine`:
 
-- **Prefill** writes each admitted request's padded prompt into its
-  slot's cache from position 0 and samples the request's first output
-  token from the output at ``prompt_len - 1``.
+- **Prefill** (dense) writes each admitted request's padded prompt into
+  its slot's cache from position 0 and samples the request's first
+  output token from the output at ``prompt_len - 1``. The paged engine
+  prefills in chunks instead (:meth:`Engine.prefill_paged`): each call
+  feeds every prefilling slot one slice of its prompt, starting at the
+  tokens it already holds (a shared prefix included), and a slot whose
+  last prompt token rides the chunk samples its first token.
 - **Decode** appends one token per active slot at its current length
   and samples the next.
 - **Sampling** takes per-slot temperature / top-k arrays, so requests
   with different settings batch together.
 
 ``decode_attention="kernel"`` runs attention through the flash-decode
-kernel (:func:`mpit_tpu_torch.ops.flash_decode_attention`) and samples
-through the blocked LM head (:func:`mpit_tpu_torch.ops.lm_head_sample`,
-no ``[slots, vocab]`` logits); ``"reference"`` runs the plain
-:func:`~mpit_tpu_torch.models.gpt2.cached_attention` and samples from
-materialized logits (:func:`sample_tokens`), the parity oracle.
+kernel (:func:`mpit_tpu_torch.ops.flash_decode_attention`, or
+:func:`~mpit_tpu_torch.ops.flash_paged_decode_attention` on the paged
+pool) and samples through the blocked LM head
+(:func:`mpit_tpu_torch.ops.lm_head_sample`, no ``[slots, vocab]``
+logits); ``"reference"`` runs the plain attention (over the gathered,
+dequantized cache) and samples from materialized logits
+(:func:`sample_tokens`), the parity oracle.
 
-The cache is updated in place (JAX rebuilds it each step): prefill runs
-the forward on the admitted slots only, over a copy of their buffers
-that is written back; decode runs all slots and writes every slot's row
-at its length, free slots (length clamped to 0) included — their row 0
-is junk that the next admission's prefill overwrites.
+``kv_dtype`` picks the cache's storage: ``"f32"``, ``"bf16"``, or
+``"int8"`` (int8 rows and per-(row, head) f32 scales, quantized on
+write); ``None`` follows the model dtype. It may differ from the
+activation dtype.
+
+The cache is updated in place (JAX rebuilds it each step): dense prefill
+runs the forward on the admitted slots only, over a copy of their
+buffers that is written back; paged prefill runs the slots that take
+part in the chunk, writing straight into the shared pool; decode runs
+all slots. Free slots decode at length 0: on the dense cache their row 0
+is junk that the next admission's prefill overwrites, on the pool their
+writes go to the trash page.
 """
 
 from __future__ import annotations
@@ -34,11 +48,17 @@ import torch
 from mpit_tpu_torch.models.gpt2 import GPT2, GPT2Config
 from mpit_tpu_torch.ops.decode_attention import (
     flash_decode_attention,
+    flash_paged_decode_attention,
     kernel_library,
     pick_block_k,
 )
+from mpit_tpu_torch.ops.kv_quant import kv_tensors
 from mpit_tpu_torch.ops.lm_head import gumbel, lm_head_sample
-from mpit_tpu_torch.serve.kvcache import KVCache, alloc_cache
+from mpit_tpu_torch.serve.kvcache import (
+    PageAllocator,
+    alloc_cache,
+    alloc_paged_cache,
+)
 
 __all__ = ["Engine", "modified_logits", "resolve_device", "sample_tokens"]
 
@@ -47,6 +67,8 @@ __all__ = ["Engine", "modified_logits", "resolve_device", "sample_tokens"]
 # (the Pallas interpreter) has no counterpart here.
 _DECODE_MODES = ("kernel", "reference")
 _DTYPE_SHORT = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# Engine.kv_dtype values; None = follow the model dtype.
+_KV_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": None}
 
 
 def resolve_device(device) -> torch.device:
@@ -96,7 +118,14 @@ class Engine:
     ``active`` and the sampling arrays are passed per call by the
     scheduler. ``device`` defaults to ``"cuda"`` and raises without a
     GPU; the kernel is built at construction, so its compile is set-up
-    time and not the first prefill's."""
+    time and not the first prefill's.
+
+    ``kv_pages`` selects the paged engine: a pool of ``kv_pages`` pages
+    of ``kv_page_size`` tokens shared by all slots, mapped by the host
+    :class:`~mpit_tpu_torch.serve.kvcache.PageAllocator`; ``max_len``
+    becomes each slot's virtual capacity (``pages_per_slot ×
+    page_size``). ``prefill_chunk`` (paged only) is the prompt slice one
+    prefill call feeds per slot."""
 
     def __init__(
         self,
@@ -110,24 +139,63 @@ class Engine:
         device="cuda",
         decode_attention: str = "kernel",
         sample_k_cap: int = 128,
+        kv_pages: int | None = None,
+        kv_page_size: int = 16,
+        prefill_chunk: int | None = None,
+        kv_dtype: str | None = None,
     ):
         if decode_attention not in _DECODE_MODES:
             raise ValueError(
                 f"decode_attention must be one of {_DECODE_MODES}, got "
                 f"{decode_attention!r}"
             )
+        if kv_dtype is not None and kv_dtype not in _KV_DTYPES:
+            raise ValueError(
+                f"kv_dtype must be one of {sorted(_KV_DTYPES)} (or None = "
+                f"follow the model dtype), got {kv_dtype!r}"
+            )
         self.device = resolve_device(device)
         self.slots = slots
         self.max_len = min(max_len or cfg.max_seq_len, cfg.max_seq_len)
         self.prefill_len = min(prefill_len or self.max_len, self.max_len)
-        # The kernel's cache-length tile (its default for this max_len).
-        self.decode_block_k = pick_block_k(self.max_len)
+        self.kv_quantized = kv_dtype == "int8"
+        # The label spans and stats carry: what a cached row is stored
+        # as. Spans carry it only when it was chosen explicitly.
+        self.kv_dtype_explicit = kv_dtype is not None
+        self.kv_dtype = kv_dtype or _DTYPE_SHORT.get(cfg.dtype, str(cfg.dtype))
+
+        self.paged = kv_pages is not None
+        if self.paged:
+            if kv_pages < 1:
+                raise ValueError(f"kv_pages must be >= 1, got {kv_pages}")
+            if kv_page_size < 1 or self.max_len % kv_page_size:
+                raise ValueError(
+                    f"kv_page_size {kv_page_size} must divide "
+                    f"max_len={self.max_len} (pages_per_slot must be whole)"
+                )
+            self.page_size = kv_page_size
+            self.num_pages = kv_pages
+            self.pages_per_slot = self.max_len // kv_page_size
+        elif prefill_chunk is not None:
+            raise ValueError(
+                "prefill_chunk is the paged engine's chunked-prefill knob; "
+                "the dense cache prefills whole prompts (pass kv_pages=)"
+            )
+        if prefill_chunk is not None and prefill_chunk < 1:
+            raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
+        self.prefill_chunk = min(prefill_chunk or self.prefill_len, self.prefill_len)
+
+        # The kernel's cache-length tile (its default for this geometry):
+        # the page size on the pool, max_len on the dense cache.
+        self.decode_block_k = pick_block_k(
+            self.page_size if self.paged else self.max_len
+        )
         self.decode_attention = decode_attention
         self._blocked_head = decode_attention == "kernel"
         if self._blocked_head:
-            cfg = dataclasses.replace(
-                cfg, cache_attention_fn=flash_decode_attention
-            )
+            field = "paged_attention_fn" if self.paged else "cache_attention_fn"
+            fn = flash_paged_decode_attention if self.paged else flash_decode_attention
+            cfg = dataclasses.replace(cfg, **{field: fn})
             if self.device.type == "cuda":
                 kernel_library()
         self.cfg = cfg  # what the forward really runs, kernel included
@@ -135,14 +203,25 @@ class Engine:
         # The blocked sampler bounds top_k by its candidate buffer; the
         # scheduler validates at submit. None = dense path, no bound.
         self.sample_k_cap = sample_k_cap if self._blocked_head else None
-        self.kv_dtype = _DTYPE_SHORT.get(cfg.dtype, str(cfg.dtype))
         self.weights_dtype = "f32"
         self.model = GPT2(cfg, device=self.device)
         self.model.load_state_dict(params)
         self.model.requires_grad_(False)
-        self.cache: KVCache = alloc_cache(
-            cfg, slots, self.max_len, device=self.device
+        store = dict(
+            device=self.device,
+            dtype=None if kv_dtype is None else _KV_DTYPES[kv_dtype],
+            quantized=self.kv_quantized,
         )
+        if self.paged:
+            self.allocator = PageAllocator(
+                self.num_pages, self.page_size, self.pages_per_slot, slots
+            )
+            self.cache = alloc_paged_cache(
+                cfg, slots, self.num_pages, self.page_size, **store
+            )
+        else:
+            self.allocator = None
+            self.cache = alloc_cache(cfg, slots, self.max_len, **store)
         self.last_token = torch.zeros(
             (slots,), dtype=torch.int32, device=self.device
         )
@@ -150,6 +229,17 @@ class Engine:
 
     def _tensor(self, x, dtype) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
+
+    def _block_tables(self) -> torch.Tensor:
+        """The allocator's block tables, uploaded as int32. Every entry
+        must name a page of the pool: the kernel reads the pages its
+        table names without a bounds check."""
+        bt = self.allocator.block_tables
+        if bt.min() < 0 or bt.max() >= self.num_pages:
+            raise RuntimeError(
+                f"block table names pages outside [0, {self.num_pages})"
+            )
+        return torch.tensor(bt, dtype=torch.int32, device=self.device)
 
     def _sample_last(self, out, gather_idx, temp, topk):
         """Token per row from the forward's output at ``gather_idx``:
@@ -174,6 +264,11 @@ class Engine:
         ``prompt_lens``/``admit``/``temp``/``topk`` ``[slots]``. Returns
         the per-slot last token (the first OUTPUT token for admitted
         slots) as host numpy; the fetch is the step's completion fence."""
+        if self.paged:
+            raise ValueError(
+                "the paged engine prefills through prefill_paged (block-"
+                "table writes + chunking); the dense prefill has no pages"
+            )
         admit = np.asarray(admit, bool)
         if admit.any():
             idx = self._tensor(np.flatnonzero(admit), torch.long)
@@ -198,6 +293,60 @@ class Engine:
         return self.last_token.cpu().numpy()
 
     @torch.no_grad()
+    def prefill_paged(
+        self, tokens, base, chunk_lens, floor, sample_mask, temp, topk
+    ) -> np.ndarray:
+        """One prefill chunk (paged engine): ``tokens`` ``[slots,
+        prefill_chunk]`` holds each slot's prompt slice starting at
+        position ``base``, ``chunk_lens`` tokens of it (0 = the slot
+        takes no part). Rows below ``floor`` (shared pages are
+        immutable; their values would be identical anyway) and padding
+        rows are not written. Slots with ``sample_mask`` set sample
+        their first output token from the chunk's last row. Block tables
+        come from the allocator. Returns the per-slot last token as host
+        numpy."""
+        if not self.paged:
+            raise ValueError("prefill_paged requires Engine(kv_pages=...)")
+        chunk_lens = np.asarray(chunk_lens, np.int32)
+        part = np.flatnonzero(chunk_lens > 0)
+        if part.size:
+            base_p = np.asarray(base, np.int32)[part]
+            n_p = chunk_lens[part]
+            t_idx = np.arange(np.asarray(tokens).shape[1])[None, :]
+            write_valid = (t_idx < n_p[:, None]) & (
+                base_p[:, None] + t_idx >= np.asarray(floor)[part][:, None]
+            )
+            idx = self._tensor(part, torch.long)
+            lens = self._tensor(base_p, torch.int32)
+            c = self.cache
+            out, _ = self.model(
+                self._tensor(np.asarray(tokens)[part], torch.long),
+                paged_cache=(
+                    c.k, c.v, lens, self._block_tables()[idx],
+                    self._tensor(write_valid, torch.bool),
+                ),
+                return_hidden=self._blocked_head,
+            )
+            tok = self._sample_last(
+                out,
+                self._tensor(n_p - 1, torch.long),
+                self._tensor(np.asarray(temp)[part], torch.float32),
+                self._tensor(np.asarray(topk)[part], torch.int32),
+            )
+            c.lengths[idx] = lens + self._tensor(n_p, torch.int32)
+            keep = self._tensor(np.asarray(sample_mask, bool)[part], torch.bool)
+            self.last_token[idx[keep]] = tok[keep]
+        return self.last_token.cpu().numpy()
+
+    @torch.no_grad()
+    def copy_page(self, src: int, dst: int) -> None:
+        """Device half of a copy-on-write remap: copy pool page ``src``
+        to ``dst`` across all layers, K and V, and the page's scales on
+        an int8 pool."""
+        for buf in kv_tensors(self.cache.k) + kv_tensors(self.cache.v):
+            buf[:, dst] = buf[:, src]
+
+    @torch.no_grad()
     def decode(self, active, temp, topk) -> np.ndarray:
         """One decode tick over the slot batch; returns the per-slot
         next token (host numpy; stale for inactive slots)."""
@@ -207,10 +356,16 @@ class Engine:
         # so the kernel visits one tile for them, not a retired
         # request's whole context.
         lens = torch.where(active, c.lengths, 0)
+        if self.paged:
+            cache = dict(
+                paged_cache=(c.k, c.v, lens, self._block_tables(), active[:, None])
+            )
+        else:
+            cache = dict(cache=(c.k, c.v, lens))
         out, _ = self.model(
             self.last_token[:, None].long(),
-            cache=(c.k, c.v, lens),
             return_hidden=self._blocked_head,
+            **cache,
         )
         tok = self._sample_last(
             out,
@@ -226,9 +381,12 @@ class Engine:
         return self.cache.lengths.cpu().numpy()
 
     def reset(self, seed: int = 0) -> None:
-        """Clear all slots and re-seed the sampler."""
-        self.cache.k.zero_()
-        self.cache.v.zero_()
+        """Clear all slots (and the page bookkeeping) and re-seed the
+        sampler."""
+        for buf in kv_tensors(self.cache.k) + kv_tensors(self.cache.v):
+            buf.zero_()
         self.cache.lengths.zero_()
         self.last_token.zero_()
         self._gen.manual_seed(seed)
+        if self.paged:
+            self.allocator.reset()

@@ -1,12 +1,58 @@
-"""The dense per-slot KV cache of the serving engine."""
+"""The serving engine's KV cache: dense per-slot buffers, or a paged pool
+shared by all slots with its host-side page bookkeeping.
+
+- :class:`KVCache` — ``[layers, slots, max_len, heads, head_dim]`` K/V
+  buffers and per-slot fill counts.
+- :class:`PagedKVCache` — a ``[layers, num_pages + 1, page_size, heads,
+  head_dim]`` pool: ``num_pages`` pages the allocator hands out, and one
+  trash page past them, where writes that must not land go (see
+  :func:`mpit_tpu_torch.models.gpt2.paged_write_index`). Cache memory
+  scales with the tokens held, not with ``slots × max_len``, and a page
+  named by two block tables is a shared prefix.
+- :class:`PageAllocator` — pure host Python and numpy: the free list,
+  per-page refcounts, the rolling-hash prefix index and copy-on-write
+  reserves, as in :mod:`mpit_tpu.serve.kvcache` without the host tier
+  and the memory ledger (later slices). Validity comes from ``lengths``
+  and the attention mask, never from buffer contents, so freed pages are
+  handed out again without zeroing.
+
+``quantized=True`` puts a :class:`~mpit_tpu_torch.ops.kv_quant.QuantizedKV`
+(int8 rows and their per-(row, head) f32 scales) in each K/V seat of
+either cache; every page copy and block-table indirection applies to
+both tensors, so the allocator never learns about scales.
+"""
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
-__all__ = ["KVCache", "alloc_cache"]
+from mpit_tpu_torch.ops.kv_quant import QuantizedKV
+
+__all__ = [
+    "AdmitPlan",
+    "KVCache",
+    "PageAllocator",
+    "PagedKVCache",
+    "alloc_cache",
+    "alloc_paged_cache",
+    "pages_needed",
+]
+
+
+def _alloc_kv(shape, dtype, quantized: bool, device):
+    """One zeroed K (or V) buffer: a dense tensor, or int8 rows and
+    keepdims f32 scales (zero scales dequantize zero rows to zeros).
+    Zeroed, not empty: rows a kernel tile reads past a slot's fill are
+    masked to weight 0, and ``0 * NaN`` would still poison the sum."""
+    if not quantized:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    return QuantizedKV(
+        q=torch.zeros(shape, dtype=torch.int8, device=device),
+        scale=torch.zeros(shape[:-1] + (1,), dtype=torch.float32, device=device),
+    )
 
 
 @dataclasses.dataclass
@@ -17,19 +63,339 @@ class KVCache:
     ``lengths``: ``[slots]`` int32, tokens currently cached per slot.
     """
 
-    k: torch.Tensor
-    v: torch.Tensor
+    k: object
+    v: object
     lengths: torch.Tensor
 
 
-def alloc_cache(cfg, slots: int, max_len: int, *, device) -> KVCache:
-    """The zeroed cache for ``slots`` concurrent requests, in
-    ``cfg.dtype`` (the dtype the blocks' K/V arrive in) on ``device``. Zeroed, not empty: rows a kernel tile reads past a
-    slot's fill are masked to weight 0, and ``0 * NaN`` would still
-    poison the sum."""
+def alloc_cache(
+    cfg, slots: int, max_len: int, *, device, dtype=None, quantized: bool = False
+) -> KVCache:
+    """The zeroed cache for ``slots`` concurrent requests on ``device``,
+    in ``dtype`` (default ``cfg.dtype``, the dtype the blocks' K/V
+    arrive in), or int8 with scales when ``quantized``."""
     shape = (cfg.num_layers, slots, max_len, cfg.num_heads, cfg.head_dim)
+    dt = dtype or cfg.dtype
     return KVCache(
-        k=torch.zeros(shape, dtype=cfg.dtype, device=device),
-        v=torch.zeros(shape, dtype=cfg.dtype, device=device),
+        k=_alloc_kv(shape, dt, quantized, device),
+        v=_alloc_kv(shape, dt, quantized, device),
         lengths=torch.zeros((slots,), dtype=torch.int32, device=device),
     )
+
+
+@dataclasses.dataclass
+class PagedKVCache:
+    """Paged decode state: one shared page pool + per-slot fill counts.
+
+    ``k``/``v``: ``[num_layers, num_pages + 1, page_size, heads,
+    head_dim]`` (the last page is the trash page); ``lengths``:
+    ``[slots]`` int32. The block tables are not device state: they live
+    on the :class:`PageAllocator` and are uploaded with each step.
+    """
+
+    k: object
+    v: object
+    lengths: torch.Tensor
+
+    @property
+    def num_pages(self) -> int:
+        """Pages the allocator may hand out (the trash page excluded)."""
+        return self.k.shape[1] - 1
+
+    @property
+    def page_size(self) -> int:
+        return self.k.shape[2]
+
+
+def alloc_paged_cache(
+    cfg,
+    slots: int,
+    num_pages: int,
+    page_size: int,
+    *,
+    device,
+    dtype=None,
+    quantized: bool = False,
+) -> PagedKVCache:
+    """The zeroed page pool: ``num_pages`` pages of ``page_size`` rows,
+    plus the trash page, independent of ``slots`` and of any per-slot
+    length."""
+    shape = (cfg.num_layers, num_pages + 1, page_size, cfg.num_heads, cfg.head_dim)
+    dt = dtype or cfg.dtype
+    return PagedKVCache(
+        k=_alloc_kv(shape, dt, quantized, device),
+        v=_alloc_kv(shape, dt, quantized, device),
+        lengths=torch.zeros((slots,), dtype=torch.int32, device=device),
+    )
+
+
+def pages_needed(prompt_len: int, max_new_tokens: int, page_size: int) -> int:
+    """Pages a request can ever touch. Prefill writes positions ``0 ..
+    prompt_len - 1``; decode tick ``t`` appends one row at ``prompt_len
+    + t - 1``, and the slot retires once it has ``max_new_tokens``
+    tokens — so the fill watermark is ``prompt_len + max_new_tokens -
+    1``."""
+    return -(-(prompt_len + max_new_tokens - 1) // page_size)
+
+
+@dataclasses.dataclass(frozen=True)
+class AdmitPlan:
+    """What :meth:`PageAllocator.admit` decided for one admission:
+    ``shared_tokens`` prompt tokens whose K/V already sits in mapped
+    shared pages (0 = cold), which is also the slot's write floor, and
+    the slot's ``pages`` in position order."""
+
+    shared_tokens: int
+    pages: tuple
+
+
+def _prefix_hashes(tokens) -> list:
+    """Rolling polynomial hash of every prefix: ``out[i]`` covers
+    ``tokens[:i]``. The prefix index is keyed on ``(n, out[n])`` and
+    every hit is confirmed by a full token compare before a page is
+    mapped."""
+    h = 0
+    out = [0] * (len(tokens) + 1)
+    for i, t in enumerate(tokens):
+        h = (h * 1000003 + int(t) + 1) & 0x7FFFFFFFFFFFFFFF
+        out[i + 1] = h
+    return out
+
+
+@dataclasses.dataclass
+class _PrefixEntry:
+    tokens: tuple  # the exact prefix (full compare before mapping)
+    pages: tuple  # pages covering it, in position order
+
+
+class PageAllocator:
+    """Host-side page bookkeeping for one :class:`PagedKVCache`.
+
+    - **Free-list reuse**: freed pages go back to the pool and are
+      handed out again without zeroing.
+    - **Prefix sharing**: once a request's prompt is fully prefilled,
+      its page-aligned prefixes and the full prompt are registered in a
+      rolling-hash index; a later admit whose prompt extends one maps
+      those pages (refcount + 1) instead of recomputing them. Entries
+      die with their pages.
+    - **Copy-on-write**: a shared page (refcount > 1) is immutable; a
+      write into one first copies it to a private page
+      (:meth:`cow_before_write` returns the pair for the engine's device
+      copy). Only a shared prefix's partly filled last page can be
+      written while shared, and each mapper of one reserves a free page
+      at admit, so a copy can never fail mid-decode.
+    - **No partial allocation**: :meth:`admit` takes the whole
+      requirement (fresh pages + COW reserve) or nothing.
+    """
+
+    def __init__(self, num_pages: int, page_size: int, pages_per_slot: int, slots: int):
+        if num_pages < 1:
+            raise ValueError(f"num_pages must be >= 1, got {num_pages}")
+        self.num_pages = num_pages
+        self.page_size = page_size
+        self.pages_per_slot = pages_per_slot
+        self.slots = slots
+        self.block_tables = np.zeros((slots, pages_per_slot), np.int32)
+        self.reset()
+
+    def reset(self) -> None:
+        self.block_tables[:] = 0
+        self.refcount = np.zeros(self.num_pages, np.int64)
+        self.free: list[int] = list(range(self.num_pages))[::-1]  # pop() = 0 first
+        self.reserved = 0  # free pages promised to future COW copies
+        self._cow_reserve: dict[int, int] = {}  # page -> outstanding reserves
+        self._slot_pages: dict[int, list[int]] = {}
+        self._index: dict[tuple[int, int], _PrefixEntry] = {}
+        self._page_keys: dict[int, set] = {}  # page -> index keys citing it
+        self.cow_copies = 0
+        self.prefix_hits = 0
+        self.admissions = 0
+        self.shared_tokens_total = 0
+        self.prompt_tokens_total = 0
+
+    # -- capacity -----------------------------------------------------------
+    @property
+    def free_pages(self) -> int:
+        """Pages admittable right now (free minus the COW reserve)."""
+        return len(self.free) - self.reserved
+
+    @property
+    def pages_in_use(self) -> int:
+        return self.num_pages - len(self.free)
+
+    @property
+    def occupancy(self) -> float:
+        return self.pages_in_use / self.num_pages
+
+    @property
+    def pages_shared(self) -> int:
+        """Mappings beyond the first of every page: each is one page of
+        K/V the dense cache would have stored again."""
+        return int(np.maximum(self.refcount - 1, 0).sum())
+
+    @property
+    def hit_rate(self) -> float:
+        """Fraction of admitted prompt tokens served from shared pages."""
+        return (
+            self.shared_tokens_total / self.prompt_tokens_total
+            if self.prompt_tokens_total
+            else 0.0
+        )
+
+    def pages_for(self, prompt_len: int, max_new_tokens: int) -> int:
+        return pages_needed(prompt_len, max_new_tokens, self.page_size)
+
+    # -- admission ----------------------------------------------------------
+    def _find_shared_prefix(self, prompt: tuple):
+        """Longest registered prefix of ``prompt``, every length probed
+        from the longest down: ``(n_tokens, entry)`` or ``(0, None)``."""
+        hashes = _prefix_hashes(prompt)
+        for n in range(len(prompt), 0, -1):
+            entry = self._index.get((n, hashes[n]))
+            if entry is not None and entry.tokens == tuple(prompt[:n]):
+                return n, entry
+        return 0, None
+
+    def admit(self, slot: int, prompt, max_new_tokens: int):
+        """Map pages for one request into ``slot``'s block table.
+
+        Returns an :class:`AdmitPlan`, or ``None`` when the pool cannot
+        hold the request right now (nothing is taken; the caller keeps
+        it queued). Raises only for a request that could never fit."""
+        prompt = tuple(int(t) for t in prompt)
+        need_total = self.pages_for(len(prompt), max_new_tokens)
+        if need_total > self.pages_per_slot:
+            raise ValueError(
+                f"request needs {need_total} pages > pages_per_slot "
+                f"{self.pages_per_slot} (prompt + max_new_tokens exceeds "
+                f"the per-slot max_len)"
+            )
+        if need_total > self.num_pages:
+            raise ValueError(
+                f"request needs {need_total} pages but the pool holds "
+                f"only {self.num_pages} (page_size {self.page_size}); "
+                f"shrink prompt + max_new_tokens or grow num_pages"
+            )
+        shared_tokens, entry = self._find_shared_prefix(prompt)
+        shared_pages = list(entry.pages) if entry is not None else []
+        partial_shared = bool(shared_tokens % self.page_size)
+        own_needed = need_total - len(shared_pages)
+        # The whole requirement up front — fresh pages now, plus one
+        # reserved free page for a mapped partial page's future copy.
+        if self.free_pages < own_needed + (1 if partial_shared else 0):
+            return None
+        fresh = [self.free.pop() for _ in range(own_needed)]
+        for p in fresh:
+            self.refcount[p] = 1
+        for p in shared_pages:
+            self.refcount[p] += 1
+        if partial_shared:
+            last = shared_pages[-1]
+            self._cow_reserve[last] = self._cow_reserve.get(last, 0) + 1
+            self.reserved += 1
+        mapping = shared_pages + fresh
+        self._slot_pages[slot] = mapping
+        self.block_tables[slot] = 0  # no stale entries from the last tenant
+        self.block_tables[slot, : len(mapping)] = mapping
+        self.admissions += 1
+        if shared_tokens:
+            self.prefix_hits += 1
+        self.shared_tokens_total += shared_tokens
+        self.prompt_tokens_total += len(prompt)
+        return AdmitPlan(shared_tokens=shared_tokens, pages=tuple(mapping))
+
+    def register_prefix(self, slot: int, prompt) -> None:
+        """Index ``slot``'s fully prefilled prompt: one entry per
+        page-aligned prefix plus the full prompt (its partly filled last
+        page). Call only after the final prefill chunk ran — an entry
+        must never advertise K/V that is not on the device yet."""
+        prompt = tuple(int(t) for t in prompt)
+        mapping = self._slot_pages.get(slot)
+        if mapping is None:
+            return
+        hashes = _prefix_hashes(prompt)
+        ps = self.page_size
+        plen = len(prompt)
+        boundaries = [k * ps for k in range(1, plen // ps + 1)]
+        if plen % ps:
+            boundaries.append(plen)
+        for n in boundaries:
+            key = (n, hashes[n])
+            if key in self._index:
+                continue  # first registration wins; content identical
+            pages = tuple(mapping[: -(-n // ps)])
+            self._index[key] = _PrefixEntry(tokens=prompt[:n], pages=pages)
+            for p in pages:
+                self._page_keys.setdefault(p, set()).add(key)
+
+    def mapped_tokens(self) -> np.ndarray:
+        """Per-slot writable capacity (mapped pages × page_size), int32
+        ``[slots]``: a row past it would go through a zeroed table entry
+        to page 0, which another slot may own."""
+        out = np.zeros((self.slots,), np.int32)
+        for slot, pages in self._slot_pages.items():
+            out[slot] = len(pages) * self.page_size
+        return out
+
+    # -- write path ---------------------------------------------------------
+    def cow_before_write(self, slot: int, position: int):
+        """Make the page holding ``position`` privately writable by
+        ``slot``. Returns ``(src, dst)`` when a copy-on-write remap
+        happened (the caller copies page ``src`` to ``dst`` on the
+        device before the write), else ``None``."""
+        idx = position // self.page_size
+        page = int(self.block_tables[slot, idx])
+        if self.refcount[page] <= 1:
+            return None
+        # The admission reserve guarantees this pop: every mapper of a
+        # shared partial page reserved one free page.
+        if not self.free:
+            raise RuntimeError(
+                "COW with an empty free list — reservation accounting bug"
+            )
+        dst = self.free.pop()
+        if self._cow_reserve.get(page, 0) > 0:
+            self._cow_reserve[page] -= 1
+            self.reserved -= 1
+        self.refcount[page] -= 1
+        self.refcount[dst] = 1
+        self._trim_reserve(page)
+        self.block_tables[slot, idx] = dst
+        self._slot_pages[slot][idx] = dst
+        self.cow_copies += 1
+        return page, dst
+
+    def _trim_reserve(self, page: int) -> None:
+        """Release COW reserves a page can no longer need: with
+        ``refcount`` mappers it needs at most ``refcount - 1`` copies (the
+        last owner writes in place), including after a sharer retired
+        without ever writing."""
+        keep = max(int(self.refcount[page]) - 1, 0)
+        excess = self._cow_reserve.get(page, 0) - keep
+        if excess > 0:
+            self._cow_reserve[page] -= excess
+            self.reserved -= excess
+
+    # -- release ------------------------------------------------------------
+    def slot_page_stats(self, slot: int) -> tuple:
+        """``(owned, shared)`` pages mapped by ``slot``: ``owned`` would
+        return to the free list on :meth:`free_slot`, ``shared`` would
+        only drop a refcount."""
+        pages = self._slot_pages.get(slot, [])
+        owned = sum(1 for p in pages if self.refcount[p] == 1)
+        return owned, len(pages) - owned
+
+    def free_slot(self, slot: int) -> None:
+        """Unmap ``slot``'s pages: pages at refcount 0 return to the free
+        list, and the prefix entries citing them die."""
+        for p in self._slot_pages.pop(slot, []):
+            self.refcount[p] -= 1
+            self._trim_reserve(p)
+            if self.refcount[p] == 0:
+                for key in self._page_keys.pop(p, ()):
+                    entry = self._index.pop(key, None)
+                    if entry is not None:
+                        for q in entry.pages:
+                            if q != p and q in self._page_keys:
+                                self._page_keys[q].discard(key)
+                self.free.append(p)

@@ -6,18 +6,28 @@ others keep decoding); each slot retires on EOS, max-new-tokens or a
 full cache, and its slot goes to the next queued request at once.
 FIFO order, closed loop: :meth:`Server.run` drains everything submitted.
 
+On a paged engine admission also needs pages: the FIFO head is granted
+its whole page requirement (fresh pages, shared-prefix mappings and a
+copy-on-write reserve) or the queue waits for a retirement to free
+some. Admitted requests prefill one ``prefill_chunk`` slice per tick,
+interleaved with the decode ticks of the live slots; a write into a
+still-shared page copies it out first; a retiring slot unmaps its pages.
+
 Observability (:mod:`mpit_tpu_torch.obs`):
 
-- spans ``prefill`` (per admission batch) and ``decode`` (per tick),
-  each closed by the host fetch of the sampled tokens, labelled with
-  the attention mode and sampler actually running;
+- spans ``prefill`` (per admission batch or prefill chunk) and
+  ``decode`` (per tick), each closed by the host fetch of the sampled
+  tokens, labelled with the attention mode and sampler actually running
+  (and the cache's ``kv_dtype`` when it was chosen explicitly);
 - per-request spans from explicit timestamps: ``queue_wait`` (submit →
   admit), ``request_ttft`` (submit → first token), ``request_latency``
   (submit → retire);
-- gauges ``slot_occupancy`` and ``kv_tokens_cached``; counters
-  ``serve_tokens``, ``serve_requests`` and, in kernel
-  mode, ``decode_blocks_skipped`` (cache tiles the length-aware kernel
-  did not read this tick, from :func:`num_kv_blocks`).
+- gauges ``slot_occupancy``, ``kv_tokens_cached`` and, paged,
+  ``kv_pool_occupancy`` and ``prefix_pages_shared``; counters
+  ``serve_tokens``, ``serve_requests``, ``kv_cow_copies`` and, in
+  kernel mode, ``decode_blocks_skipped`` (cache tiles the length-aware
+  kernel did not read this tick, from :func:`num_kv_blocks`); the
+  ``kv_pool_exhausted`` instant when admission starts waiting on pages.
 """
 
 from __future__ import annotations
@@ -88,6 +98,16 @@ class _Live:
     submit_t: float
     first_token_t: float = 0.0
     tokens: list = dataclasses.field(default_factory=list)
+    # Paged prefill state: ``base`` = prompt tokens already cached
+    # (advanced per chunk), ``floor`` = the shared-prefix write floor
+    # granted at admission (positions below it live in immutable shared
+    # pages).
+    base: int = 0
+    floor: int = 0
+
+    def feed_tokens(self) -> list:
+        """What prefill feeds the device: the prompt."""
+        return self.req.prompt
 
     def cache_fill(self) -> int:
         """Host mirror of the slot's device cache fill. Prefill cached
@@ -109,11 +129,19 @@ class Server:
     def __init__(self, engine):
         self.engine = engine
         # Stamped on every prefill/decode span: the attention mode and
-        # the sampler this engine runs.
+        # the sampler this engine runs, and the cache dtype when it was
+        # chosen explicitly.
         self._attn_mode = engine.decode_attention
         self._sampler = engine.decode_sampler
+        self._kv_attrs = (
+            {"kv_dtype": engine.kv_dtype} if engine.kv_dtype_explicit else {}
+        )
+        self._paged = engine.paged
         self.queue: deque[_Live] = deque()
         self.live: dict[int, _Live] = {}  # slot -> in-flight request
+        # Paged: slots whose prompt is still being written, one chunk
+        # per tick.
+        self.prefilling: dict[int, _Live] = {}
         self.free: list[int] = list(range(engine.slots))[::-1]  # pop() = slot 0 first
         self.completed: list[Completed] = []
         self.tick = 0
@@ -121,6 +149,10 @@ class Server:
         self._occupancy_sum = 0.0
         self._concurrency_peak = 0
         self._truncated = False  # a run stopped with work still pending
+        self._pool_exhausted = False  # edge trigger of the obs instant
+        self._kv_occ_sum = 0.0
+        self._kv_occ_peak = 0.0
+        self._pages_shared_peak = 0
         # Per-slot sampling-control arrays (host; refreshed on admit/retire).
         s = engine.slots
         self._temp = np.zeros((s,), np.float32)
@@ -148,6 +180,19 @@ class Server:
                 f"({len(req.prompt)} + {req.max_new_tokens}) exceeds the "
                 f"engine's max_len {self.engine.max_len}"
             )
+        if self._paged:
+            # A request the pool could never hold is a caller error:
+            # raise now, not when admission finds it can never stop
+            # waiting.
+            alloc = self.engine.allocator
+            need = alloc.pages_for(len(req.prompt), req.max_new_tokens)
+            if need > alloc.num_pages:
+                raise ValueError(
+                    f"request {req.rid!r}: needs {need} pages of "
+                    f"{alloc.page_size} tokens but the pool holds only "
+                    f"{alloc.num_pages}; shrink prompt + max_new_tokens "
+                    f"or grow Engine(kv_pages=...)"
+                )
         k_cap = self.engine.sample_k_cap
         if k_cap is not None and req.top_k > k_cap:
             raise ValueError(
@@ -160,6 +205,117 @@ class Server:
 
     # -- the loop -----------------------------------------------------------
     def _admit(self) -> None:
+        """Move queued requests into free slots and start their prefill:
+        dense = one batched whole-prompt call; paged = map pages and
+        enter the per-tick chunk pipeline."""
+        if self._paged:
+            self._admit_paged()
+        else:
+            self._admit_dense()
+
+    def _admit_paged(self) -> None:
+        """Grant the FIFO head a free slot and its whole page requirement
+        (all or nothing, in the allocator), or stop: stopping at the
+        first request that does not fit keeps admission fair, so a
+        stream of small requests cannot starve a big one."""
+        alloc = self.engine.allocator
+        now = time.perf_counter()
+        while self.free and self.queue:
+            live = self.queue[0]
+            slot = self.free[-1]
+            feed = live.feed_tokens()
+            plan = alloc.admit(slot, feed, live.req.max_new_tokens)
+            if plan is None:
+                # The pool is full right now; nothing was taken. The
+                # instant marks only the transition into exhaustion, so
+                # a long overload writes one event, not one per tick.
+                if not self._pool_exhausted:
+                    self._pool_exhausted = True
+                    obs.instant(
+                        "kv_pool_exhausted", tick=self.tick,
+                        free_pages=alloc.free_pages, queued=len(self.queue),
+                    )
+                break
+            self.queue.popleft()
+            self.free.pop()
+            self._pool_exhausted = False
+            # The write floor is the shared-token count; the forward
+            # re-runs at least the last prompt token (its output seeds
+            # the first output token), so the feed base stops one below
+            # the end even on a full-prompt prefix hit.
+            live.floor = plan.shared_tokens
+            live.base = min(plan.shared_tokens, len(feed) - 1)
+            self._temp[slot] = live.req.temperature
+            self._topk[slot] = live.req.top_k
+            obs.span_at("queue_wait", live.submit_t, now, rid=live.req.rid)
+            self.prefilling[slot] = live
+            self.admissions += 1
+
+    def _prefill_chunk_tick(self) -> None:
+        """Advance every prefilling slot by one prompt chunk, in one
+        batched call. Slots whose last prompt token rides this chunk
+        sample their first output token, register their prompt in the
+        prefix index (only now: an entry must never advertise K/V not
+        yet on the device) and go live."""
+        if not self.prefilling:
+            return
+        eng = self.engine
+        alloc = eng.allocator
+        s, w = eng.slots, eng.prefill_chunk
+        tokens = np.zeros((s, w), np.int32)
+        base = np.zeros((s,), np.int32)
+        chunk_lens = np.zeros((s,), np.int32)
+        floor = np.zeros((s,), np.int32)
+        sample_mask = np.zeros((s,), bool)
+        finishing: list[tuple[int, _Live]] = []
+        for slot, live in self.prefilling.items():
+            p = live.feed_tokens()
+            n = min(w, len(p) - live.base)
+            # This chunk's first write: at the floor on a partial-page
+            # prefix hit, else at the base. A write landing in a
+            # still-shared page copies it out first; the admission
+            # reserve guarantees the free page.
+            first_write = max(live.base, live.floor)
+            if first_write < live.base + n:
+                pair = alloc.cow_before_write(slot, first_write)
+                if pair is not None:
+                    eng.copy_page(*pair)
+                    obs.counter("kv_cow_copies")
+            tokens[slot, :n] = p[live.base : live.base + n]
+            base[slot] = live.base
+            chunk_lens[slot] = n
+            floor[slot] = live.floor
+            if live.base + n == len(p):
+                sample_mask[slot] = True
+                finishing.append((slot, live))
+        with obs.span(
+            "prefill",
+            admitted=len(finishing),
+            chunks=int((chunk_lens > 0).sum()),
+            attention=self._attn_mode,
+            sampler=self._sampler,
+            rids=[live.req.rid for live in self.prefilling.values()],
+            **self._kv_attrs,
+        ):
+            first = eng.prefill_paged(
+                tokens, base, chunk_lens, floor, sample_mask,
+                self._temp, self._topk,
+            )
+        t_first = time.perf_counter()
+        for slot, live in self.prefilling.items():
+            live.base += int(chunk_lens[slot])
+        for slot, live in finishing:
+            del self.prefilling[slot]
+            alloc.register_prefix(slot, live.feed_tokens())
+            live.first_token_t = t_first
+            live.tokens = [int(first[slot])]
+            obs.span_at(
+                "request_ttft", live.submit_t, t_first, rid=live.req.rid
+            )
+            self.live[slot] = live
+            self._maybe_retire(slot, t_first)
+
+    def _admit_dense(self) -> None:
         """Move queued requests into free slots and prefill them, in one
         batched call however many were admitted this tick."""
         if not self.queue or not self.free:
@@ -185,6 +341,7 @@ class Server:
             "prefill", admitted=len(batch), attention=self._attn_mode,
             sampler=self._sampler,
             rids=[live.req.rid for _, live in batch],
+            **self._kv_attrs,
         ):
             first = self.engine.prefill(
                 tokens, lens, admit, self._temp, self._topk
@@ -216,6 +373,11 @@ class Server:
         if not done:
             return
         del self.live[slot]
+        if self._paged:
+            # Unmap the slot's pages: sole-owner pages return to the free
+            # list (handed out again without zeroing) and the prefix
+            # entries citing them die.
+            self.engine.allocator.free_slot(slot)
         self.free.append(slot)
         self._temp[slot] = 0.0
         self._topk[slot] = 0
@@ -240,10 +402,23 @@ class Server:
         active = np.zeros((self.engine.slots,), bool)
         for slot in self.live:
             active[slot] = True
+        if self._paged:
+            # This tick appends one row per live slot at its fill; a fill
+            # still in a shared page (full-prompt prefix reuse of a
+            # partial last page) copies the page out first. Later ticks
+            # find it private.
+            for slot, live in self.live.items():
+                pair = self.engine.allocator.cow_before_write(
+                    slot, live.cache_fill()
+                )
+                if pair is not None:
+                    self.engine.copy_page(*pair)
+                    obs.counter("kv_cow_copies")
         with obs.span(
             "decode", active=int(active.sum()), attention=self._attn_mode,
             sampler=self._sampler,
             rids=[live.req.rid for live in self.live.values()],
+            **self._kv_attrs,
         ):
             toks = self.engine.decode(active, self._temp, self._topk)
         now = time.perf_counter()
@@ -266,21 +441,42 @@ class Server:
             self._maybe_retire(slot, now)
 
     def _pending(self) -> bool:
-        """Work outstanding: queued or live."""
-        return bool(self.queue or self.live)
+        """Work outstanding: queued, mid-prefill (paged) or live."""
+        return bool(self.queue or self.prefilling or self.live)
+
+    def _kv_gauges(self) -> None:
+        """Cache-memory gauges: ``kv_tokens_cached`` (live fills plus
+        prefill progress) and, paged, pool occupancy and shared pages."""
+        obs.gauge(
+            "kv_tokens_cached",
+            float(
+                sum(live.cache_fill() for live in self.live.values())
+                + sum(live.base for live in self.prefilling.values())
+            ),
+        )
+        if not self._paged:
+            return
+        alloc = self.engine.allocator
+        occ = alloc.occupancy
+        shared = alloc.pages_shared
+        self._kv_occ_sum += occ
+        self._kv_occ_peak = max(self._kv_occ_peak, occ)
+        self._pages_shared_peak = max(self._pages_shared_peak, shared)
+        obs.gauge("kv_pool_occupancy", occ)
+        obs.gauge("prefix_pages_shared", float(shared))
 
     def _run_tick(self) -> None:
-        """One loop iteration: admit, gauges, decode."""
+        """One loop iteration: admit, prefill chunk (paged), gauges,
+        decode."""
         self._admit()
-        busy = len(self.live)
+        if self._paged:
+            self._prefill_chunk_tick()
+        busy = len(self.live) + len(self.prefilling)
         self._concurrency_peak = max(self._concurrency_peak, busy)
         occupancy = busy / self.engine.slots
         self._occupancy_sum += occupancy
         obs.gauge("slot_occupancy", occupancy)
-        obs.gauge(
-            "kv_tokens_cached",
-            float(sum(live.cache_fill() for live in self.live.values())),
-        )
+        self._kv_gauges()
         if self.live:
             self._decode_tick()
         self.tick += 1
@@ -318,6 +514,20 @@ class Server:
             "kv_dtype": self.engine.kv_dtype,
             "weights_dtype": self.engine.weights_dtype,
         }
+        if self._paged:
+            alloc = self.engine.allocator
+            out.update(
+                kv_page_size=alloc.page_size,
+                kv_pool_pages=alloc.num_pages,
+                kv_pool_occupancy_mean=round(
+                    self._kv_occ_sum / max(self.tick, 1), 4
+                ),
+                kv_pool_occupancy_peak=round(self._kv_occ_peak, 4),
+                prefix_hit_rate=round(alloc.hit_rate, 4),
+                prefix_hits=alloc.prefix_hits,
+                prefix_pages_shared_peak=self._pages_shared_peak,
+                kv_cow_copies=alloc.cow_copies,
+            )
         if done:
             lat = np.asarray([c.latency_s for c in done])
             ttft = np.asarray([c.ttft_s for c in done])

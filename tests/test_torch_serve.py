@@ -6,8 +6,10 @@
 - a staggered stream of greedy requests through the port's ``Engine`` +
   ``Server`` gives the very tokens ``mpit_tpu``'s ``Server`` gives on
   the same weights, in both attention modes;
-- the CLI: ``main`` returns the stats keys, rejects the flags of later
-  slices, and defaults to the GPU (it raises here, where there is none).
+- the CLI: ``main`` returns the stats keys, serves through the paged
+  pool (f32/bf16 and int8), rejects the flags of later slices and the
+  combinations the JAX CLI rejects, and defaults to the GPU (it raises
+  here, where there is none).
 """
 
 from __future__ import annotations
@@ -207,8 +209,10 @@ def test_main_returns_stats_keys():
 @pytest.mark.parametrize(
     "flags",
     [
-        ["--kv-pages", "8"],
-        ["--kv-dtype", "int8"],
+        ["--kv-host-pages", "8"],
+        # Not a later slice: the JAX CLI rejects it too (the reference
+        # path is the parity oracle, not an int8 serving path).
+        ["--kv-dtype", "int8", "--decode-attention", "reference"],
         ["--weights-dtype", "int8"],
         ["--spec-k", "2"],
         ["--mesh", "model=2"],
@@ -221,8 +225,30 @@ def test_main_returns_stats_keys():
     ],
 )
 def test_later_slice_flags_are_rejected(flags):
-    with pytest.raises(SystemExit, match="slice"):
+    match = "reference" if "reference" in flags else "slice"
+    with pytest.raises(SystemExit, match=match):
         main(["--device", "cpu", *flags])
+
+
+@pytest.mark.parametrize("kv_dtype", ["", "int8"])
+def test_main_paged_cpu_run(kv_dtype):
+    """The paged pool through the CLI on the CPU: every request completes,
+    and the pool block of the stats is there."""
+    flags = ["--kv-dtype", kv_dtype] if kv_dtype else []
+    out = main([
+        "--device", "cpu", "--model", "tiny", "--requests", "6",
+        "--max-new-tokens", "4", "--slots", "2", "--kv-pages", "32",
+        "--kv-page-size", "8", "--prefill-chunk", "4", *flags,
+    ])
+    assert out["requests_completed"] == 6 and out["generated_tokens"] == 24
+    assert not out["truncated"] and out["kv_pool_pages"] == 32
+    assert out["kv_page_size"] == 8 and out["kv_dtype"] == (kv_dtype or "bf16")
+    assert out["obs_summary"]["prefill"]["count"] >= 2
+
+
+def test_unknown_kv_dtype_is_rejected():
+    with pytest.raises(SystemExit, match="f32, bf16 or int8"):
+        main(["--device", "cpu", "--kv-dtype", "fp8"])
 
 
 def test_default_device_is_cuda():
