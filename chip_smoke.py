@@ -35,15 +35,30 @@ for an H100). Phases, each of which raises (exit code != 0) on failure:
    block_k. SDPA runs on the pre-gathered (and dequantized) dense view;
    the gather is not timed. Every case goes to
    ``chiprun_out/chip_smoke_kernels.json``;
+3c. kernel vs plain, int8 weights — the fused-dequant matmul against its
+   plain version (the blocked dequant-and-contract loop) at GPT-2
+   small's four dense-layer shapes (D, F) = (768, 2304), (768, 768),
+   (768, 3072), (3072, 768) for M = 8 (a decode tick of 8 slots), 512 (a
+   paged prefill chunk of 8 x 64) and 1024 (a dense prefill of 8 x 128),
+   x f32 and bf16, plus a ragged M 5, D 100, F 130: max |error| within
+   1e-4 x max(1, max |plain|) for both x dtypes (bf16 -> f32 is exact and
+   both sides sum f32 products of the same dequantized weights). Times
+   the kernel, the plain version and ``torch.matmul`` on the weight
+   dequantized ahead of time (the library yardstick, dequant untimed,
+   never called by the port) beside the bound;
 4. serve — ``python -m mpit_tpu_torch.serve``'s ``main`` in process:
    GPT-2 small at full width (12 layers, d_model 768, 12 heads, vocab
    50257, random weights from seed 0) in bf16, 8 slots, 16 greedy
-   requests of 32 new tokens, four times: the dense cache; the paged
+   requests of 32 new tokens, six times: the dense cache; the paged
    pool (256 pages of 16 tokens, prefill chunk 64); the paged pool with
-   ``--kv-dtype int8``; the dense cache with ``--kv-dtype int8``. Every
-   request completes with its tokens, and the launch count of the form
-   each run drives, set to 0 just before, reaches at least num_layers x
-   (prefill calls + decode ticks), while the other forms stay at 0;
+   ``--kv-dtype int8``; the dense cache with ``--kv-dtype int8``; the
+   dense cache with ``--weights-dtype int8``; the paged pool with
+   ``--weights-dtype int8 --kv-dtype int8``. Every request completes
+   with its tokens, and the launch count of the attention form each run
+   drives, set to 0 just before, reaches at least num_layers x (prefill
+   calls + decode ticks), while the other forms stay at 0; the matmul
+   kernel's count reaches 4 x num_layers x (prefill calls + decode
+   ticks) in the two int8-weight runs and stays 0 in the other four;
 5. parity — f32 on the card, TF32 off, same weights: PR 1's stream
    through the dense kernel engine and the reference engine; then a
    shared-prefix stream of 16 greedy requests (8 behind one 70-token
@@ -61,6 +76,11 @@ for an H100). Phases, each of which raises (exit code != 0) on failure:
    equal the dense reference, or part from it first where its two tokens'
    teacher-forced plain int8 logits lie within ``INT8_TIE`` of each
    other; every such divergence is printed with its gap and margin.
+   Then PR 1's stream with int8 weights on both sides: the dense kernel
+   engine (matmul and attention kernels) against the dense reference
+   engine (whole-weight dequant), identical greedy tokens in f32 (both
+   hold the same int8 bytes; only the summation order differs), and
+   with int8 K/V as well, held to the ``INT8_TIE`` rule.
 
 The last lines are the kernels JSON line, the card's name and power
 limit as ``nvidia-smi`` prints them, and ``{"ok": true, "device":
@@ -93,6 +113,14 @@ SERVE_ARGS = [
     "--max-new-tokens", "32", "--seed", "0",
 ]
 PAGED_ARGS = ["--kv-pages", "256", "--kv-page-size", "16", "--prefill-chunk", "64"]
+INT8W_ARGS = ["--weights-dtype", "int8"]
+# The dense layers' (D, F) at GPT-2 small's width (qkv, proj, fc, out),
+# the row counts the serve runs give them (decode tick, paged prefill
+# chunk, dense prefill), and one shape ragged in every dimension.
+QMM_SHAPES = [(768, 2304), (768, 768), (768, 3072), (3072, 768)]
+QMM_ROWS = (8, 512, 1024)
+QMM_RAGGED = (5, 100, 130)
+QMM_TOL = 1e-4  # times max(1, max |plain|)
 FORMS = (
     "flash_decode_attention",
     "flash_decode_attention_int8",
@@ -343,15 +371,70 @@ def paged_kernel_phase(torch, flush):
     return cases
 
 
+def qmm_bound(m: int, d: int, f: int, x) -> tuple[float, str]:
+    """The least time for ``x[M, D] @ (q[D, F] * s[D])``: x, the int8
+    weight, its f32 scales and the f32 output once each over the HBM
+    rate, against 2 M D F operations over x's peak rate."""
+    nbytes = m * d * x.element_size() + d * f + 4 * d + 4 * m * f
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * m * d * f / PEAK_OPS_PER_S[str(x.dtype).removeprefix("torch.")] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def qmm_kernel_phase(torch, flush):
+    """Phase 3c: the fused-dequant matmul kernel against its plain version."""
+    from mpit_tpu_torch.ops import quantized_matmul as qm
+
+    shapes = [(m, d, f) for d, f in QMM_SHAPES for m in QMM_ROWS] + [QMM_RAGGED]
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).removeprefix("torch.")
+        for m, d, f in shapes:
+            gen = torch.Generator(device="cuda").manual_seed(m + d + f)
+            x = torch.randn((m, d), generator=gen, device="cuda").to(dtype)
+            w = qm.quantize_tensor(
+                torch.randn((d, f), generator=gen, device="cuda") / math.sqrt(d)
+            )
+            label = f"quantized_matmul x={name} M={m} D={d} F={f}"
+            out = qm.quantized_matmul(x, w)
+            torch.cuda.synchronize()
+            plain = qm.quantized_matmul_plain(x, w)
+            err = (out - plain).abs().max().item()
+            tol = QMM_TOL * max(1.0, plain.abs().max().item())
+            if out.dtype != torch.float32 or not math.isfinite(err) or err > tol:
+                fail(f"kernel vs plain {label}: {err} > {tol} ({out.dtype})")
+            w_deq = qm.dequantize_tensor(w)  # the yardstick's, not timed
+            bound_ms, bound_by = qmm_bound(m, d, f, x)
+            cases.append({
+                "form": "quantized_matmul", "dtype": name, "M": m, "D": d, "F": f,
+                "max_abs_err": err, "tol": tol,
+                "ms": cold_time_ms(lambda: qm.quantized_matmul(x, w), torch, flush),
+                "plain_ms": cold_time_ms(
+                    lambda: qm.quantized_matmul_plain(x, w), torch, flush
+                ),
+                "library_ms": cold_time_ms(
+                    lambda: torch.matmul(x.float(), w_deq), torch, flush
+                ),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+            })
+            print(json.dumps({"kernel_case": cases[-1]}), flush=True)
+    return cases
+
+
 def serve_phase(torch, card, extra_args, form):
     """Phase 4: the port's serving main path at GPT-2 small's width,
-    through the kernel ``form`` (its launch count read around the run)."""
+    through the attention kernel ``form`` and, with ``--weights-dtype
+    int8``, the matmul kernel (every launch count read around the run).
+    Returns ``(attention launches, matmul launches)``."""
     from mpit_tpu_torch.ops import decode_attention as da
+    from mpit_tpu_torch.ops import quantized_matmul as qm
     from mpit_tpu_torch.serve.__main__ import main
 
     da.launches.update(dict.fromkeys(da.launches, 0))
+    qm.launches.update(dict.fromkeys(qm.launches, 0))
     out = main(SERVE_ARGS + extra_args)
     counts = dict(da.launches)
+    qmm_launches = qm.launches["quantized_matmul"]
     launches = counts[form]
     phases = out["obs_summary"]
     n_prefill = phases["prefill"]["count"]
@@ -366,13 +449,21 @@ def serve_phase(torch, card, extra_args, form):
         fail(f"serve {tag}: {launches} {form} launches < {need} (layers x calls)")
     if any(n for f, n in counts.items() if f != form):
         fail(f"serve {tag}: other kernel forms launched: {counts}")
+    int8w = "--weights-dtype" in extra_args
+    if int8w and qmm_launches < 4 * need:
+        fail(f"serve {tag}: {qmm_launches} quantized_matmul launches < {4 * need} "
+             "(4 dense layers x layers x calls)")
+    if not int8w and qmm_launches:
+        fail(f"serve {tag}: quantized_matmul launched {qmm_launches} times "
+             "without --weights-dtype int8")
     if out["decode_attention"] != "kernel" or out["device"] != "cuda":
         fail(f"serve ran {out['decode_attention']} on {out['device']}")
     keys = (
         "model", "device", "wall_s", "decode_tokens_per_sec",
         "requests_completed", "generated_tokens", "ticks", "admissions",
         "ttft_p50_s", "ttft_p95_s", "latency_p50_s", "latency_p95_s",
-        "kv_dtype", "kv_page_size", "kv_pool_pages", "kv_pool_occupancy_mean",
+        "kv_dtype", "weights_dtype", "kv_page_size", "kv_pool_pages",
+        "kv_pool_occupancy_mean",
         "kv_pool_occupancy_peak", "prefix_hit_rate", "prefix_hits",
         "prefix_pages_shared_peak", "kv_cow_copies", "concurrency_peak",
     )
@@ -388,8 +479,9 @@ def serve_phase(torch, card, extra_args, form):
         "decode_tick_ms_p95": phases["decode"]["p95_s"] * 1e3,
         "kernel_form": form,
         "kernel_launches": launches,
+        "quantized_matmul_launches": qmm_launches,
     }), flush=True)
-    return launches
+    return launches, qmm_launches
 
 
 def parity_phase(torch):
@@ -594,6 +686,67 @@ def paged_parity_phase(torch, mcfg, state):
     print(json.dumps({"parity_shared_prefix": results}), flush=True)
 
 
+def int8w_parity_phase(torch, mcfg, state):
+    """Phase 5c: PR 1's stream with int8 weights, dense kernel engine vs
+    dense reference engine: f32 K/V identical, int8 K/V to the
+    ``INT8_TIE`` rule. Divergences are judged by the plain int8-weight
+    model (whole-weight dequant)."""
+    import dataclasses
+
+    from mpit_tpu_torch.config import from_argv
+    from mpit_tpu_torch.models import GPT2
+    from mpit_tpu_torch.ops.quantized_matmul import quantized_matmul_reference
+    from mpit_tpu_torch.serve import Engine, Server, quantize_gpt2_params
+    from mpit_tpu_torch.serve.__main__ import ServeConfig, synthetic_requests
+
+    cfg = from_argv(ServeConfig, SERVE_ARGS)
+    judge = GPT2(
+        dataclasses.replace(mcfg, quant_matmul_fn=quantized_matmul_reference),
+        device="cuda", quantized=True,
+    )
+    judge.load_state_dict(quantize_gpt2_params(state))
+    results = {}
+    for kv_dtype in (None, "int8"):
+        runs = {}
+        for mode in ("kernel", "reference"):
+            engine = Engine(
+                mcfg, state, slots=cfg.slots, max_len=cfg.max_len,
+                prefill_len=cfg.prefill_len, seed=cfg.seed, device="cuda",
+                decode_attention=mode, weights_dtype="int8", kv_dtype=kv_dtype,
+            )
+            server = Server(engine)
+            for req in synthetic_requests(cfg, mcfg.vocab_size):
+                server.submit(req)
+            runs[mode] = {c.rid: c for c in server.run()}
+            del engine, server
+            torch.cuda.empty_cache()
+        ker, ref = runs["kernel"], runs["reference"]
+        tag = "int8_weights" + ("_int8_kv" if kv_dtype else "_f32_kv")
+        if len(ker) != 16 or len(ref) != 16:
+            fail(f"{tag}: {len(ker)} / {len(ref)} of 16 completed")
+        diff = [r for r in ref if ker[r].tokens != ref[r].tokens]
+        if kv_dtype is None:
+            if diff:
+                r = diff[0]
+                info = report_divergence(
+                    torch, judge, ref[r].prompt, ker[r].tokens, ref[r].tokens
+                )
+                fail(f"{tag}: f32 greedy tokens differ, kernel vs reference, for "
+                     f"{diff}; first: {r} {info}")
+            results[tag] = "identical"
+            continue
+        ties = {
+            r: int8_divergence(torch, judge, ref[r].prompt, ker[r].tokens, ref[r].tokens)
+            for r in diff
+        }
+        wide = {r: d for r, d in ties.items() if not abs(d["gap"]) <= INT8_TIE}
+        if wide:
+            fail(f"{tag}: kernel vs reference part beyond a near-tie "
+                 f"(|gap| > {INT8_TIE}): {wide}")
+        results[tag] = {"identical_requests": 16 - len(diff), "near_ties": ties}
+    print(json.dumps({"parity_int8_weights": results}), flush=True)
+
+
 def main() -> None:
     import torch
 
@@ -620,21 +773,33 @@ def main() -> None:
 
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     warm_up(torch)
-    cases = kernel_phase(torch, flush) + paged_kernel_phase(torch, flush)
+    cases = (
+        kernel_phase(torch, flush) + paged_kernel_phase(torch, flush)
+        + qmm_kernel_phase(torch, flush)
+    )
     del flush
     (OUT / "chip_smoke_kernels.json").write_text(json.dumps({"card": card, "cases": cases}, indent=1))
-    launches = {
-        "flash_decode_attention": serve_phase(torch, card, [], FORMS[0]),
-        "flash_paged_decode_attention": serve_phase(torch, card, PAGED_ARGS, FORMS[2]),
-        "flash_paged_decode_attention_int8": serve_phase(
-            torch, card, PAGED_ARGS + ["--kv-dtype", "int8"], FORMS[3]
-        ),
-        "flash_decode_attention_int8": serve_phase(
-            torch, card, ["--kv-dtype", "int8"], FORMS[1]
+    # Each run: (extra args, the attention form it drives).
+    runs = {
+        "dense": ([], FORMS[0]),
+        "paged": (PAGED_ARGS, FORMS[2]),
+        "paged_int8_kv": (PAGED_ARGS + ["--kv-dtype", "int8"], FORMS[3]),
+        "dense_int8_kv": (["--kv-dtype", "int8"], FORMS[1]),
+        "dense_int8_weights": (INT8W_ARGS, FORMS[0]),
+        "paged_int8_weights_int8_kv": (
+            PAGED_ARGS + INT8W_ARGS + ["--kv-dtype", "int8"], FORMS[3]
         ),
     }
+    counts = {name: serve_phase(torch, card, *run) for name, run in runs.items()}
+    # An attention form's launches: its run without int8 weights.
+    launches = {
+        form: counts[name][0] for name, (args, form) in runs.items()
+        if "--weights-dtype" not in args
+    }
+    qmm_launches = {name: c[1] for name, c in counts.items() if c[1]}
     mcfg, state = parity_phase(torch)
     paged_parity_phase(torch, mcfg, state)
+    int8w_parity_phase(torch, mcfg, state)
 
     kernels = []
     for form in FORMS:
@@ -662,6 +827,24 @@ def main() -> None:
             "library_ms": head["library_ms"],
             "shape": {k: head.get(k) for k in ("dtype", "kv", "page_size", "B", "S", "T", "H", "Dh")},
         })
+    # The decode tick's qkv projection at bf16 activations.
+    head = next(
+        c for c in cases
+        if c["form"] == "quantized_matmul" and c["dtype"] == "bfloat16"
+        and (c["M"], c["D"], c["F"]) == (8, 768, 2304)
+    )
+    kernels.append({
+        "name": "quantized_matmul",
+        "route": "cuda",
+        "source": "mpit_tpu_torch/csrc/quantized_matmul.cu",
+        "replaces": "mpit_tpu/ops/quantized_matmul.py:272",
+        "call_site": "mpit_tpu/ops/quantized_matmul.py:321",
+        "launches": sum(qmm_launches.values()),
+        "launches_by_run": qmm_launches,
+        **{k: head[k] for k in ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms")},
+        "shape": {k: head[k] for k in ("dtype", "M", "D", "F")},
+    })
     print(json.dumps({"kernels": kernels}))
     print(card)  # the nvidia-smi name and power limit, as it prints them
     print(json.dumps({"ok": True, "device": {

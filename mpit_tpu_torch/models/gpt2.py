@@ -27,11 +27,20 @@ JAX, PyTorch need not rebuild a cache to update it. The paged path
 write_valid)``) writes through each slot's block table into a shared
 page pool, in place too. A :class:`~mpit_tpu_torch.ops.kv_quant.QuantizedKV`
 cache or pool quantizes on write and dequantizes in the plain attention.
+
+A model built with ``quantized=True`` holds the int8 weight store: the
+``qkv``/``proj``/``fc``/``out`` kernels, ``wte`` and an untied ``head``
+sit in :class:`QuantizedWeight` seats (state keys ``<leaf>.q`` int8 and
+``<leaf>.scale`` f32, e.g. ``blocks.0.qkv.kernel.q``). Dense layers run
+``cfg.quant_matmul_fn`` on them and add the bias in f32; the embedding
+dequantizes only the rows it gathers; the LM head runs
+:func:`~mpit_tpu_torch.ops.quantized_matmul.quantized_matmul_t`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any
 
@@ -40,10 +49,17 @@ import torch.nn.functional as F
 from torch import nn
 
 from mpit_tpu_torch.ops.kv_quant import QuantizedKV, dequantize_kv, quantize_kv
+from mpit_tpu_torch.ops.quantized_matmul import (
+    QuantizedTensor,
+    dequantize_tensor,
+    quantized_matmul,
+    quantized_matmul_t,
+)
 
 __all__ = [
     "GPT2",
     "GPT2Config",
+    "QuantizedWeight",
     "cache_update",
     "cached_attention",
     "default_attention",
@@ -208,6 +224,14 @@ class GPT2Config:
     # block_table)``. None = :func:`paged_cached_attention`; the paged
     # engine plugs in the paged flash-decode kernel wrapper.
     paged_attention_fn: Any = None
+    # Matmul of a dense layer whose kernel is quantized, ``(x,
+    # QuantizedTensor) -> f32 [..., F]``. None = :func:`quantized_matmul`
+    # (the CUDA kernel on the card, its plain version on the CPU); the
+    # serving engine plugs in its choice. Never called for plain kernels.
+    quant_matmul_fn: Any = None
+    # Row-block of the quantized matmuls' plain versions; 0 = their
+    # default (256). Tests shrink it so tiny configs tile several blocks.
+    quant_block_rows: int = 0
 
     @property
     def ln_out_dtype(self) -> torch.dtype:
@@ -243,15 +267,50 @@ def _lecun_normal_(w: torch.Tensor, generator) -> None:
     nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
 
 
+class QuantizedWeight(nn.Module):
+    """The seat of one int8-stored weight ``[rows, cols]``: buffers ``q``
+    int8 and ``scale`` f32 ``[rows, 1]``, which ``state_dict`` carries
+    as ``<seat>.q`` and ``<seat>.scale``. Nothing dequantizes them at
+    load."""
+
+    def __init__(self, rows: int, cols: int, device=None):
+        super().__init__()
+        self.register_buffer(
+            "q", torch.zeros(rows, cols, dtype=torch.int8, device=device)
+        )
+        self.register_buffer("scale", torch.ones(rows, 1, device=device))
+
+    def tensor(self) -> QuantizedTensor:
+        return QuantizedTensor(q=self.q, scale=self.scale)
+
+
+def _seat(rows: int, cols: int, quantized: bool, device):
+    """A weight seat: an int8 :class:`QuantizedWeight`, or a parameter."""
+    if quantized:
+        return QuantizedWeight(rows, cols, device)
+    return nn.Parameter(torch.empty(rows, cols, device=device))
+
+
+def _weight(seat):
+    """What a seat holds: a :class:`QuantizedTensor` or the tensor."""
+    return seat.tensor() if isinstance(seat, QuantizedWeight) else seat
+
+
 class Dense(nn.Module):
     """``y = x @ kernel + bias`` with the kernel stored ``[in, out]``;
-    x, kernel and bias are cast to ``dtype`` first."""
+    x, kernel and bias are cast to ``dtype`` first. Given
+    ``quant_matmul_fn``, the kernel is an int8 seat instead: ``y =
+    quant_matmul_fn(x, kernel)``, the bias added in f32, then cast to
+    ``dtype``."""
 
-    def __init__(self, d_in: int, d_out: int, dtype, device=None):
+    def __init__(
+        self, d_in: int, d_out: int, dtype, device=None, *, quant_matmul_fn=None
+    ):
         super().__init__()
         self.dtype = dtype
-        self.kernel = nn.Parameter(torch.empty(d_in, d_out, device=device))
+        self.kernel = _seat(d_in, d_out, quant_matmul_fn is not None, device)
         self.bias = nn.Parameter(torch.zeros(d_out, device=device))
+        self.matmul_fn = quant_matmul_fn
 
     def reset_parameters(self, generator) -> None:
         _lecun_normal_(self.kernel.data, generator)
@@ -259,6 +318,9 @@ class Dense(nn.Module):
 
     def forward(self, x):
         dt = self.dtype
+        if isinstance(self.kernel, QuantizedWeight):
+            y = self.matmul_fn(x, self.kernel.tensor())
+            return (y + self.bias).to(dt)
         return x.to(dt) @ self.kernel.to(dt) + self.bias.to(dt)
 
 
@@ -282,16 +344,22 @@ class LayerNorm(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: GPT2Config, device=None):
+    def __init__(self, cfg: GPT2Config, device=None, quantized=False):
         super().__init__()
         self.cfg = cfg
         d, dt = cfg.d_model, cfg.dtype
+        qmm = None
+        if quantized:
+            qmm = cfg.quant_matmul_fn or functools.partial(
+                quantized_matmul, block_rows=cfg.quant_block_rows or None
+            )
+        dense = functools.partial(Dense, dtype=dt, device=device, quant_matmul_fn=qmm)
         self.ln1 = LayerNorm(d, cfg.ln_out_dtype, device)
-        self.qkv = Dense(d, 3 * d, dt, device)
-        self.proj = Dense(d, d, dt, device)
+        self.qkv = dense(d, 3 * d)
+        self.proj = dense(d, d)
         self.ln2 = LayerNorm(d, cfg.ln_out_dtype, device)
-        self.fc = Dense(d, cfg.ff_dim, dt, device)
-        self.out = Dense(cfg.ff_dim, d, dt, device)
+        self.fc = dense(d, cfg.ff_dim)
+        self.out = dense(cfg.ff_dim, d)
 
     def forward(self, x, layer_cache=None):
         """``layer_cache``: ``(k, v, lengths)`` with k/v ``[B, S, H, Dh]``
@@ -334,24 +402,29 @@ class GPT2(nn.Module):
     initialisation — ``wte ~ N(0, 0.02)``, ``wpe ~ N(0, 0.01)``,
     lecun-normal kernels, zero biases, unit LayerNorm scales — on the
     CPU and then moves it to ``device``; without one the parameters are
-    left for :meth:`load_state_dict`."""
+    left for :meth:`load_state_dict`. ``quantized=True`` seats the int8
+    weight store (a ``quantize_gpt2_params`` state), which is loaded,
+    never initialised."""
 
-    def __init__(self, cfg: GPT2Config, *, device=None, generator=None):
+    def __init__(
+        self, cfg: GPT2Config, *, device=None, generator=None, quantized=False
+    ):
         super().__init__()
+        if quantized and generator is not None:
+            raise ValueError(
+                "a quantized model is loaded (load_state_dict of a "
+                "quantize_gpt2_params state), not initialised"
+            )
         self.cfg = cfg
         v, d = cfg.vocab_size, cfg.d_model
         init_dev = "cpu" if generator is not None else device
-        self.wte = nn.Parameter(torch.empty(v, d, device=init_dev))
+        self.wte = _seat(v, d, quantized, init_dev)
         self.wpe = nn.Parameter(torch.empty(cfg.max_seq_len, d, device=init_dev))
         self.blocks = nn.ModuleList(
-            Block(cfg, init_dev) for _ in range(cfg.num_layers)
+            Block(cfg, init_dev, quantized) for _ in range(cfg.num_layers)
         )
         self.ln_f = LayerNorm(d, cfg.ln_out_dtype, init_dev)
-        self.head = (
-            None
-            if cfg.tie_head
-            else nn.Parameter(torch.empty(v, d, device=init_dev))
-        )
+        self.head = None if cfg.tie_head else _seat(v, d, quantized, init_dev)
         if generator is not None:
             self.reset_parameters(generator)
             self.to(device)
@@ -365,9 +438,10 @@ class GPT2(nn.Module):
         if self.head is not None:
             nn.init.normal_(self.head.data, 0.0, 0.02, generator=generator)
 
-    def head_weight(self) -> torch.Tensor:
-        """The LM-head weight ``[vocab, d_model]``: ``wte`` when tied."""
-        return self.wte if self.head is None else self.head
+    def head_weight(self):
+        """The LM-head weight ``[vocab, d_model]``: ``wte`` when tied; a
+        :class:`QuantizedTensor` in a quantized model."""
+        return _weight(self.wte if self.head is None else self.head)
 
     def forward(self, tokens, cache=None, paged_cache=None, return_hidden=False):
         """``tokens`` ``[B, T]`` → logits ``[B, T, vocab]`` f32.
@@ -417,7 +491,12 @@ class GPT2(nn.Module):
             if paged_cache is not None:
                 positions = positions.clamp(max=cfg.max_seq_len - 1)
             pe = self.wpe[positions]
-        x = self.wte[tokens].to(cfg.dtype) + pe.to(cfg.dtype)
+        emb = _weight(self.wte)[tokens]
+        if isinstance(emb, QuantizedTensor):
+            # The gathered int8 rows and their scales: activation-sized,
+            # never the [vocab, d_model] table.
+            emb = dequantize_tensor(emb)
+        x = emb.to(cfg.dtype) + pe.to(cfg.dtype)
         for i, block in enumerate(self.blocks):
             if cache is not None:
                 x = block(x, (cache_k[i], cache_v[i], cache_lengths))
@@ -434,7 +513,12 @@ class GPT2(nn.Module):
             return x, (cache_k, cache_v)
         hd = cfg.head_dtype
         head = self.head_weight()
-        logits = x.to(hd).float() @ head.to(hd).float().T
+        if isinstance(head, QuantizedTensor):
+            logits = quantized_matmul_t(
+                x.to(hd), head, block_rows=cfg.quant_block_rows or None
+            )
+        else:
+            logits = x.to(hd).float() @ head.to(hd).float().T
         if cache is not None or paged_cache is not None:
             return logits, (cache_k, cache_v)
         return logits

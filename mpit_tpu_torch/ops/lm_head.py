@@ -10,11 +10,16 @@ top-``k_cap`` (value, index, noised score) triples merged across blocks,
 from which the top-k draw is taken without a second pass.
 
 Plain PyTorch: a Python loop over vocabulary blocks with one matmul each.
+A quantized head (:class:`~mpit_tpu_torch.ops.quantized_matmul.QuantizedTensor`)
+dequantizes one vocabulary block at a time, so its only f32 view is a
+``[block, d_model]`` tile.
 """
 
 from __future__ import annotations
 
 import torch
+
+from mpit_tpu_torch.ops.quantized_matmul import QuantizedTensor, dequantize_tensor
 
 __all__ = ["gumbel", "lm_head_sample"]
 
@@ -36,7 +41,10 @@ def gumbel(shape, *, generator=None, device=None) -> torch.Tensor:
 def _block_logits(h, head_block, compute_dtype):
     """``[N, D] x [block, D] -> [N, block]`` f32 logits. Operands are
     rounded to ``compute_dtype`` and multiplied in f32, so the products
-    are exact and the sum f32 whatever the operand dtype."""
+    are exact and the sum f32 whatever the operand dtype. A quantized
+    head block is dequantized here, per block."""
+    if isinstance(head_block, QuantizedTensor):
+        head_block = dequantize_tensor(head_block)
     return torch.matmul(
         h.to(compute_dtype).float(), head_block.to(compute_dtype).float().T
     )
@@ -56,7 +64,8 @@ def lm_head_sample(
 ):
     """Sample one token per row from ``softmax(h @ headᵀ)`` blockwise.
 
-    ``h`` ``[N, d_model]`` hiddens, ``head`` ``[vocab, d_model]``;
+    ``h`` ``[N, d_model]`` hiddens, ``head`` ``[vocab, d_model]`` (plain
+    or :class:`~mpit_tpu_torch.ops.quantized_matmul.QuantizedTensor`);
     ``temperature`` ``[N]`` f32 (``<= 0`` = greedy for that row) and
     ``top_k`` ``[N]`` int (``0`` = full vocabulary, else ``<= k_cap``).
     The Gumbel noise of block ``i`` (columns ``i·block`` onwards) is

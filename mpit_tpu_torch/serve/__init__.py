@@ -8,12 +8,14 @@
   chunks on the pool) and decode over the slot batch, attention through
   the flash-decode CUDA kernel and sampling through the blocked LM head
   (``decode_attention="kernel"``), or the plain reference path
-  (``"reference"``), the parity oracle.
+  (``"reference"``), the parity oracle; ``weights_dtype="int8"`` serves
+  the int8 weight store through the fused-dequant matmul kernel.
 - :mod:`~mpit_tpu_torch.serve.scheduler` — the FIFO continuous-batching
   loop: queue → admit into freed slots (and pages) between decode ticks
   → per-slot retirement (EOS / max tokens / cache full), with obs spans.
-- :mod:`~mpit_tpu_torch.serve.weights` — the dense ``.npz`` reader and
-  the JAX param tree → ``state_dict`` carry-over.
+- :mod:`~mpit_tpu_torch.serve.weights` — the dense ``.npz`` reader, the
+  JAX param tree → ``state_dict`` carry-over and the int8 weight store
+  (``quantize_gpt2_params``, ``params_wire_bytes``).
 
 ``python -m mpit_tpu_torch.serve`` serves a synthetic stream.
 """
@@ -35,6 +37,8 @@ from mpit_tpu_torch.serve.weights import (
     load_dense,
     load_gpt2_params,
     params_from_jax,
+    params_wire_bytes,
+    quantize_gpt2_params,
     validate_params,
 )
 
@@ -55,6 +59,8 @@ __all__ = [
     "load_gpt2_params",
     "pages_needed",
     "params_from_jax",
+    "params_wire_bytes",
+    "quantize_gpt2_params",
     "resolve_device",
     "sample_tokens",
     "validate_params",

@@ -6,7 +6,8 @@ model from ``--seed`` (``--model tiny|small``), serves a closed-loop
 synthetic stream (``--requests N``, all submitted up front, run to
 drain) through the continuous-batching engine, and prints one JSON
 result: the serving stats (decode tokens/s, TTFT and latency
-percentiles, occupancy) plus the obs phase summary.
+percentiles, occupancy) plus the obs phase summary. A one-line summary
+goes to stderr.
 
 Runs on the GPU (``--device cuda``, the default; it raises without
 one); ``--device cpu`` is for testing. The flags of paths this port
@@ -57,9 +58,10 @@ class ServeConfig:
     prefill_chunk: int = 0
     # Cache storage: f32 | bf16 | int8 ("" = follow the model dtype).
     kv_dtype: str = ""
+    # Matmul weight storage: f32 | int8 ("" = the weights as loaded).
+    weights_dtype: str = ""
     # Flags of later slices: non-default values are rejected.
     kv_host_pages: int = 0
-    weights_dtype: str = ""
     spec_k: int = 0
     draft_ckpt: str = ""
     draft_config: str = ""
@@ -83,7 +85,6 @@ class ServeConfig:
 # Flag -> the later slice of the port that brings it (see ROADMAP.md).
 _LATER_SLICES = {
     "kv_host_pages": "the host-KV-tier slice",
-    "weights_dtype": "the int8-weights slice",
     "spec_k": "the speculative-decoding slice",
     "draft_ckpt": "the speculative-decoding slice",
     "draft_config": "the speculative-decoding slice",
@@ -109,8 +110,6 @@ def _reject_later_slices(cfg: ServeConfig) -> None:
     defaults = ServeConfig()
     for name, slice_name in _LATER_SLICES.items():
         val = getattr(cfg, name)
-        if name == "weights_dtype" and val == "f32":
-            continue  # the default store, spelled out
         if val != getattr(defaults, name):
             raise SystemExit(
                 f"--{name.replace('_', '-')} {val!r}: not in this port yet; "
@@ -132,6 +131,19 @@ def _reject_later_slices(cfg: ServeConfig) -> None:
             "reference path materializes the full dequantized cache per "
             "tick (it is the parity oracle, not a serving path); use "
             "--decode-attention kernel for the fused dequant"
+        )
+    if cfg.weights_dtype and cfg.weights_dtype not in ("f32", "int8"):
+        raise SystemExit(
+            f"--weights-dtype {cfg.weights_dtype!r}: expected f32 or int8"
+        )
+    if cfg.weights_dtype == "int8" and cfg.decode_attention == "reference":
+        # Same rule as --kv-dtype: the reference engine runs the
+        # whole-dequant matmul oracle.
+        raise SystemExit(
+            "--weights-dtype int8 with --decode-attention reference: "
+            "the reference path materializes whole dequantized weights "
+            "(it is the parity oracle, not a serving path); use "
+            "--decode-attention kernel for the fused-dequant matmuls"
         )
 
 
@@ -169,6 +181,7 @@ def _build_engine(cfg: ServeConfig):
         # run whole-prompt prefills.
         prefill_chunk=cfg.prefill_chunk or None,
         kv_dtype=cfg.kv_dtype or None,
+        weights_dtype=cfg.weights_dtype or None,
     )
     return engine, mcfg
 
@@ -188,6 +201,21 @@ def synthetic_requests(cfg: ServeConfig, vocab_size: int):
             temperature=cfg.temperature,
             top_k=cfg.top_k,
         )
+
+
+def summary_line(engine, stats: dict, wall_s: float, tok_s) -> str:
+    """One line for a person: completions, tokens, wall time and decode
+    rate, then the cache and weight dtypes where they were chosen."""
+    line = (
+        f"served {stats['requests_completed']} requests, "
+        f"{stats['generated_tokens']} tokens in {wall_s:.2f} s, "
+        f"decode tok/s={tok_s if tok_s is not None else '-'}"
+    )
+    if engine.kv_dtype_explicit:
+        line += f" kvd={engine.kv_dtype}"
+    if engine.weights_dtype_explicit:
+        line += f" wd={engine.weights_dtype}"
+    return line
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -212,6 +240,8 @@ def main(argv: list[str] | None = None) -> dict:
     decode_s = summ["phases"].get("decode", {}).get("total_s", 0.0)
     # First tokens come from prefill; decode throughput counts the rest.
     decode_tokens = stats["generated_tokens"] - stats["requests_completed"]
+    tok_s = round(decode_tokens / decode_s, 2) if decode_s else None
+    print(summary_line(engine, stats, wall, tok_s), file=sys.stderr, flush=True)
     return {
         "model": {
             "layers": mcfg.num_layers,
@@ -221,9 +251,7 @@ def main(argv: list[str] | None = None) -> dict:
         },
         "device": str(engine.device),
         "wall_s": round(wall, 4),
-        "decode_tokens_per_sec": (
-            round(decode_tokens / decode_s, 2) if decode_s else None
-        ),
+        "decode_tokens_per_sec": tok_s,
         "decode_attention": engine.decode_attention,
         "decode_sampler": engine.decode_sampler,
         **stats,

@@ -29,6 +29,13 @@ dequantized cache) and samples from materialized logits
 write); ``None`` follows the model dtype. It may differ from the
 activation dtype.
 
+``weights_dtype="int8"`` serves the int8 weight store: the state is
+quantized on the CPU (:func:`~mpit_tpu_torch.serve.weights.quantize_gpt2_params`)
+before it moves to the device, and the dense layers run the
+fused-dequant matmul (:func:`mpit_tpu_torch.ops.quantized_matmul.quantized_matmul`,
+the CUDA kernel on the card) — or, in a reference engine, the
+whole-dequant oracle. ``None`` and ``"f32"`` serve the state as loaded.
+
 The cache is updated in place (JAX rebuilds it each step): dense prefill
 runs the forward on the admitted slots only, over a copy of their
 buffers that is written back; paged prefill runs the slots that take
@@ -41,6 +48,7 @@ writes go to the trash page.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -54,11 +62,17 @@ from mpit_tpu_torch.ops.decode_attention import (
 )
 from mpit_tpu_torch.ops.kv_quant import kv_tensors
 from mpit_tpu_torch.ops.lm_head import gumbel, lm_head_sample
+from mpit_tpu_torch.ops.quantized_matmul import (
+    kernel_library as qmm_kernel_library,
+    quantized_matmul,
+    quantized_matmul_reference,
+)
 from mpit_tpu_torch.serve.kvcache import (
     PageAllocator,
     alloc_cache,
     alloc_paged_cache,
 )
+from mpit_tpu_torch.serve.weights import quantize_gpt2_params
 
 __all__ = ["Engine", "modified_logits", "resolve_device", "sample_tokens"]
 
@@ -69,6 +83,8 @@ _DECODE_MODES = ("kernel", "reference")
 _DTYPE_SHORT = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # Engine.kv_dtype values; None = follow the model dtype.
 _KV_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": None}
+# Engine.weights_dtype values; None = the state as loaded (f32).
+_WEIGHT_DTYPES = ("f32", "int8")
 
 
 def resolve_device(device) -> torch.device:
@@ -125,7 +141,9 @@ class Engine:
     :class:`~mpit_tpu_torch.serve.kvcache.PageAllocator`; ``max_len``
     becomes each slot's virtual capacity (``pages_per_slot ×
     page_size``). ``prefill_chunk`` (paged only) is the prompt slice one
-    prefill call feeds per slot."""
+    prefill call feeds per slot. ``weights_dtype="int8"`` quantizes the
+    matmul weights on the CPU and serves them through the fused-dequant
+    matmul (its kernel library, too, is built at construction)."""
 
     def __init__(
         self,
@@ -143,6 +161,7 @@ class Engine:
         kv_page_size: int = 16,
         prefill_chunk: int | None = None,
         kv_dtype: str | None = None,
+        weights_dtype: str | None = None,
     ):
         if decode_attention not in _DECODE_MODES:
             raise ValueError(
@@ -153,6 +172,11 @@ class Engine:
             raise ValueError(
                 f"kv_dtype must be one of {sorted(_KV_DTYPES)} (or None = "
                 f"follow the model dtype), got {kv_dtype!r}"
+            )
+        if weights_dtype is not None and weights_dtype not in _WEIGHT_DTYPES:
+            raise ValueError(
+                f"weights_dtype must be one of {list(_WEIGHT_DTYPES)} (or "
+                f"None = the state as loaded), got {weights_dtype!r}"
             )
         self.device = resolve_device(device)
         self.slots = slots
@@ -203,8 +227,30 @@ class Engine:
         # The blocked sampler bounds top_k by its candidate buffer; the
         # scheduler validates at submit. None = dense path, no bound.
         self.sample_k_cap = sample_k_cap if self._blocked_head else None
-        self.weights_dtype = "f32"
-        self.model = GPT2(cfg, device=self.device)
+        # What the matmul weights are stored as; spans carry it only
+        # when it was chosen explicitly.
+        self.weights_quantized = weights_dtype == "int8"
+        self.weights_dtype_explicit = weights_dtype is not None
+        self.weights_dtype = weights_dtype or "f32"
+        if self.weights_quantized:
+            # Reference engines run the whole-dequant oracle; kernel
+            # engines the fused-dequant matmul.
+            qmm = (
+                quantized_matmul_reference
+                if decode_attention == "reference"
+                else quantized_matmul
+            )
+            cfg = dataclasses.replace(
+                cfg,
+                quant_matmul_fn=functools.partial(
+                    qmm, block_rows=cfg.quant_block_rows or None
+                ),
+            )
+            self.cfg = cfg
+            params = quantize_gpt2_params(params)  # on the CPU
+            if self.device.type == "cuda" and qmm is quantized_matmul:
+                qmm_kernel_library()
+        self.model = GPT2(cfg, device=self.device, quantized=self.weights_quantized)
         self.model.load_state_dict(params)
         self.model.requires_grad_(False)
         store = dict(

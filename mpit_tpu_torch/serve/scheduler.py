@@ -129,13 +129,15 @@ class Server:
     def __init__(self, engine):
         self.engine = engine
         # Stamped on every prefill/decode span: the attention mode and
-        # the sampler this engine runs, and the cache dtype when it was
-        # chosen explicitly.
+        # the sampler this engine runs, and the cache and weight dtypes
+        # when they were chosen explicitly.
         self._attn_mode = engine.decode_attention
         self._sampler = engine.decode_sampler
         self._kv_attrs = (
             {"kv_dtype": engine.kv_dtype} if engine.kv_dtype_explicit else {}
         )
+        if engine.weights_dtype_explicit:
+            self._kv_attrs["weights_dtype"] = engine.weights_dtype
         self._paged = engine.paged
         self.queue: deque[_Live] = deque()
         self.live: dict[int, _Live] = {}  # slot -> in-flight request

@@ -9,8 +9,11 @@ tree, as the port's :class:`~mpit_tpu_torch.models.GPT2` state.
 - :func:`infer_config` / :func:`validate_params` — the geometry from the
   tree's shapes, and a precise diff when the tree deviates;
 - :func:`params_from_jax` — the param tree (nested or flat, any arrays
-  numpy can read) as a ``state_dict`` for the port's model;
-- :func:`load_gpt2_params` — the three together: ``(state, cfg)``.
+  numpy can read, int8 weight-store leaves included) as a ``state_dict``
+  for the port's model;
+- :func:`load_gpt2_params` — the three together: ``(state, cfg)``;
+- :func:`quantize_gpt2_params` / :func:`params_wire_bytes` — the int8
+  weight store over a ``state_dict``, and the bytes a state occupies.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import numpy as np
 import torch
 
 from mpit_tpu_torch.models.gpt2 import GPT2Config
+from mpit_tpu_torch.ops.quantized_matmul import quantize_tensor
 
 __all__ = [
     "expected_param_shapes",
@@ -28,8 +32,13 @@ __all__ = [
     "load_dense",
     "load_gpt2_params",
     "params_from_jax",
+    "params_wire_bytes",
+    "quantize_gpt2_params",
     "validate_params",
 ]
+
+# The dense layers of a block whose kernels the int8 store quantizes.
+_QUANT_BLOCK_MODULES = ("qkv", "proj", "fc", "out")
 
 
 def expected_param_shapes(cfg: GPT2Config) -> dict[str, tuple[int, ...]]:
@@ -144,22 +153,80 @@ def load_dense(path: str) -> tuple[dict, dict]:
     return params, meta
 
 
+def _cpu_tensor(path: str, leaf, dtype) -> torch.Tensor:
+    """``leaf`` as a CPU tensor of numpy ``dtype``; a leaf that is not a
+    numeric array raises with its path."""
+    arr = np.asarray(leaf)
+    if arr.dtype.kind in "OSU":  # None, strings, other objects
+        raise ValueError(
+            f"param leaf {path!r} is neither a numeric array nor a "
+            f"quantized (.q, .scale) pair: {type(leaf).__name__}"
+        )
+    return torch.from_numpy(np.array(arr, dtype=dtype))
+
+
 def params_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
     """The JAX GPT-2 param tree as the port's ``state_dict``.
 
-    ``params`` is the nested flax tree or its ``/``-joined flat form,
-    with leaves numpy can read. Names map one to one
-    (``block_<i>/qkv/kernel`` → ``blocks.<i>.qkv.kernel``) and layouts
-    are kept: the port stores dense kernels ``[in, out]`` as flax does.
-    Returns float32 CPU tensors."""
+    ``params`` is the nested flax tree or its ``/``-joined flat form.
+    Names map one to one (``block_<i>/qkv/kernel`` →
+    ``blocks.<i>.qkv.kernel``) and layouts are kept: the port stores
+    dense kernels ``[in, out]`` as flax does. Array leaves become
+    float32 CPU tensors. A quantized leaf (anything with ``.q`` and
+    ``.scale``, the JAX package's ``QuantizedTensor``) becomes
+    ``<name>.q`` int8 and ``<name>.scale`` f32, bit for bit. Any other
+    leaf raises with its path."""
     state = {}
     for path, leaf in _flatten(params).items():
         parts = path.split("/")
         if parts[0].startswith("block_"):
             parts = ["blocks", parts[0][len("block_"):], *parts[1:]]
-        arr = np.asarray(leaf, dtype=np.float32)
-        state[".".join(parts)] = torch.from_numpy(arr.copy())
+        name = ".".join(parts)
+        if hasattr(leaf, "q") and hasattr(leaf, "scale"):
+            state[f"{name}.q"] = _cpu_tensor(path + ".q", leaf.q, np.int8)
+            state[f"{name}.scale"] = _cpu_tensor(
+                path + ".scale", leaf.scale, np.float32
+            )
+        else:
+            state[name] = _cpu_tensor(path, leaf, np.float32)
     return state
+
+
+def _quantized_leaf(name: str) -> bool:
+    """Whether the int8 store quantizes state entry ``name``: the dense
+    kernels of every block, ``wte`` and an untied ``head``."""
+    parts = name.split(".")
+    if parts in (["wte"], ["head"]):
+        return True
+    return (
+        len(parts) == 4 and parts[0] == "blocks"
+        and parts[2] in _QUANT_BLOCK_MODULES and parts[3] == "kernel"
+    )
+
+
+def quantize_gpt2_params(state: Mapping) -> dict:
+    """The int8 weight store over a GPT-2 ``state_dict``: every matmul
+    weight — the ``qkv``/``proj``/``fc``/``out`` kernels, ``wte`` and an
+    untied ``head`` — becomes ``<name>.q`` int8 and ``<name>.scale`` f32
+    (one scale per row, the shared rounding contract), quantized on the
+    CPU. Biases, LayerNorms and ``wpe`` stay as they are. Idempotent:
+    entries already quantized pass through, as does everything else."""
+    out = {}
+    for name, val in state.items():
+        if _quantized_leaf(name):
+            qt = quantize_tensor(val.detach().cpu())
+            out[f"{name}.q"], out[f"{name}.scale"] = qt.q, qt.scale
+        else:
+            out[name] = val
+    return out
+
+
+def params_wire_bytes(state: Mapping) -> float:
+    """Device bytes a ``state_dict`` occupies. A quantized weight is
+    stored as its ``.q`` and ``.scale`` entries, so summing every
+    entry's bytes is the ``weight_wire_bytes`` rule: int8 plus one f32
+    scale per row for the int8 store, the dtype's size for the rest."""
+    return float(sum(t.numel() * t.element_size() for t in state.values()))
 
 
 def load_gpt2_params(path: str, *, num_heads: int = 0):

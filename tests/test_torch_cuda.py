@@ -1,6 +1,7 @@
-"""mpit_tpu_torch's CUDA kernel on the GPU, against its plain version.
+"""mpit_tpu_torch's CUDA kernels on the GPU, against their plain versions.
 
-All four forms: dense and paged, each with f32/bf16 or int8 K/V.
+The flash-decode kernel in all four forms (dense and paged, each with
+f32/bf16 or int8 K/V), and the int8 weight store's fused-dequant matmul.
 
 Every test here needs an NVIDIA GPU (the kernel has no CPU mode): each
 carries the ``cuda`` marker and skips, with its reason, where there is
@@ -14,7 +15,9 @@ bf16 within 5e-2, the JAX package's own bf16 kernel tolerance. int8 K/V
 take q's tolerance: both sides dequantize the same bytes to f32; with a
 bf16 q the kernel keeps p in f32 (V is f32 once dequantized, as on the
 TPU) where the plain version rounds the probabilities to bf16, a
-difference well inside 5e-2.
+difference well inside 5e-2. The matmul is held within 1e-4 x max(1,
+max |plain|) for f32 and bf16 x alike: bf16 -> f32 is exact, both sides
+dequantize to the same f32 weights and sum in f32, in other orders.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 
 from mpit_tpu_torch.models import GPT2, GPT2Config
 from mpit_tpu_torch.ops import decode_attention as tda
+from mpit_tpu_torch.ops import quantized_matmul as tqm
 from mpit_tpu_torch.ops.kv_quant import quantize_kv
 from mpit_tpu_torch.serve import Engine, Request, Server
 
@@ -179,4 +183,53 @@ def test_kernel_engine_matches_reference_engine(cuda):
         for i, p in enumerate(prompts):
             server.submit(Request(rid=i, prompt=p, max_new_tokens=6))
         tokens[mode] = {c.rid: c.tokens for c in server.run()}
+    assert tokens["kernel"] == tokens["reference"]
+
+
+@pytest.mark.parametrize(
+    "m,d,f,dtype",
+    [
+        (8, 768, 2304, torch.float32),
+        (8, 768, 2304, torch.bfloat16),
+        (5, 100, 130, torch.float32),  # every tail ragged, bytewise loads
+    ],
+)
+def test_quantized_matmul_kernel_matches_plain(cuda, m, d, f, dtype):
+    x = _randn((m, d), 0, dtype)
+    w = tqm.quantize_tensor(_randn((d, f), 1, torch.float32))
+    before = tqm.launches["quantized_matmul"]
+    out = tqm.quantized_matmul(x, w)
+    torch.cuda.synchronize()
+    assert tqm.launches["quantized_matmul"] == before + 1
+    assert out.dtype == torch.float32 and out.shape == (m, f)
+    ref = tqm.quantized_matmul_plain(x, w)
+    tol = 1e-4 * max(1.0, ref.abs().max().item())
+    assert (out - ref).abs().max().item() <= tol
+
+
+def test_int8_weight_kernel_engine_matches_reference_engine(cuda):
+    """Greedy tokens of the int8-weight kernel engine (matmul and
+    attention kernels) equal the whole-dequant reference engine's in
+    f32; the matmul kernel ran for every dense layer of every call."""
+    cfg = GPT2Config.tiny(
+        vocab_size=64, max_seq_len=64, num_layers=2, num_heads=2, d_model=32,
+        dtype=torch.float32,
+    )
+    state = GPT2(cfg, generator=torch.Generator().manual_seed(0)).state_dict()
+    prompts = [[5, 9, 3], [7], [1, 2, 3, 4, 5], [9, 9], [3, 1], [60, 2, 2, 1]]
+    tokens = {}
+    for mode in ("kernel", "reference"):
+        before = tqm.launches["quantized_matmul"]
+        server = Server(
+            Engine(cfg, state, slots=2, max_len=40, prefill_len=8,
+                   decode_attention=mode, weights_dtype="int8")
+        )
+        for i, p in enumerate(prompts):
+            server.submit(Request(rid=i, prompt=p, max_new_tokens=6))
+        tokens[mode] = {c.rid: c.tokens for c in server.run()}
+        launched = tqm.launches["quantized_matmul"] - before
+        if mode == "kernel":  # every tick runs at least one forward
+            assert launched >= 4 * cfg.num_layers * server.tick
+        else:
+            assert launched == 0
     assert tokens["kernel"] == tokens["reference"]

@@ -210,10 +210,10 @@ def test_main_returns_stats_keys():
     "flags",
     [
         ["--kv-host-pages", "8"],
-        # Not a later slice: the JAX CLI rejects it too (the reference
+        # Not later slices: the JAX CLI rejects them too (the reference
         # path is the parity oracle, not an int8 serving path).
         ["--kv-dtype", "int8", "--decode-attention", "reference"],
-        ["--weights-dtype", "int8"],
+        ["--weights-dtype", "int8", "--decode-attention", "reference"],
         ["--spec-k", "2"],
         ["--mesh", "model=2"],
         ["--loadgen", "rate=8"],
