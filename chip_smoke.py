@@ -1,4 +1,5 @@
-"""Chip smoke test of mpit_tpu_torch: the port's serving paths on one GPU.
+"""Chip smoke test of mpit_tpu_torch: the port's serving and training paths
+on one GPU.
 
     python3 chip_smoke.py
 
@@ -82,6 +83,43 @@ for an H100). Phases, each of which raises (exit code != 0) on failure:
    hold the same int8 bytes; only the summation order differs), and
    with int8 K/V as well, held to the ``INT8_TIE`` rule.
 
+3d. kernel vs plain, flash attention — the forward, dq and dk/dv kernels
+   against their plain versions at GPT-2 small's head geometry (B 8, H
+   12, D 64) for T 512 and 1024, bf16 and f32, the backward fed by the
+   plain chain's own delta; plus, at T 512 bf16, an offset case (q_offset
+   256: every query tile sees the key tiles up to its own and the
+   diagonal), a key block wholly in the future (k_offset 512: o exactly
+   0 and lse exactly -1e30), a non-zero lse cotangent folded into delta,
+   and q, k, v handed over as the model hands them, strided views of one
+   fused qkv tensor (rows 3 H D apart), read in place. Max |error| of o,
+   lse, dq, dk and dv within an absolute 1e-4 (f32) / 5e-2 (bf16, the
+   JAX package's own bf16 kernel tolerance: bf16 outputs are rounded
+   once, after sums taken in another order, and one bf16 step is 1.6e-2
+   to 3.1e-2 at their largest values, 2 to 8); each case records the
+   plain tensors' max |value| beside its errors. In f32 at T 512 the kernels' dq, dk,
+   dv are also held against torch autograd through the plain forward
+   (1e-4 likewise). Times each
+   kernel, its plain version and the library yardstick on a cold L2
+   beside the bound: ``scaled_dot_product_attention(is_causal=True)``
+   for the forward, its autograd backward (dq, dk and dv in one call,
+   the forward already run) for dq and dk/dv; neither gives an lse, and
+   the port never calls them. Every case goes to
+   ``chiprun_out/chip_smoke_flash.json``;
+4t. train — ``python -m mpit_tpu_torch.asyncsgd gpt2``'s ``main`` in
+   process with ``--flash true --steps 30 --log-every 1``: GPT-2 small at
+   full width (12 layers, d_model 768, 12 heads, vocab 50257), seq 512,
+   batch 8, bf16 activations, goo_adam at 3e-4, the fused LM-head loss
+   with bf16 products. All 30 per-step losses are finite and the mean of
+   steps 26-30 is below the mean of steps 1-5; the
+   fwd, dq and dkv launch counts, set to 0 just before, each reach 12 x
+   steps. Prints step time p50/p95 (device timeline), tokens/s and peak
+   device memory; times the LM head (``lm_head_xent`` forward and
+   backward at 4096 tokens) on its own, and profiles three more steps
+   (``torch.profiler``: device busy time by kernel family, idle share);
+5t. train parity — f32, TF32 off, the same seeded initial weights, three
+   goo_adam steps through the flash-kernel step and the plain-attention
+   step at full width and depth: per-step losses within 1e-4 relative.
+
 The last lines are the kernels JSON line, the card's name and power
 limit as ``nvidia-smi`` prints them, and ``{"ok": true, "device":
 {...}}``.
@@ -121,6 +159,9 @@ QMM_SHAPES = [(768, 2304), (768, 768), (768, 3072), (3072, 768)]
 QMM_ROWS = (8, 512, 1024)
 QMM_RAGGED = (5, 100, 130)
 QMM_TOL = 1e-4  # times max(1, max |plain|)
+FLASH_B, FLASH_T = 8, (512, 1024)  # GPT-2 small's training batch and lengths
+TRAIN_ARGS = ["--flash", "true", "--steps", "30", "--log-every", "1"]
+TRAIN_PARITY_TOL = 1e-4  # relative, per-step loss, f32
 FORMS = (
     "flash_decode_attention",
     "flash_decode_attention_int8",
@@ -747,6 +788,303 @@ def int8w_parity_phase(torch, mcfg, state):
     print(json.dumps({"parity_int8_weights": results}), flush=True)
 
 
+def visible_pairs(t: int, q_off: int, k_off: int) -> int:
+    """(query, key) pairs of one head that the causal mask lets through."""
+    import numpy as np
+
+    pos = np.arange(t)
+    return int(((q_off + pos)[:, None] >= (k_off + pos)[None, :]).sum())
+
+
+def flash_bound(kind: str, b, t, h, d, pairs, dtype) -> tuple[float, str]:
+    """The least time for one flash step: its [B, T, H, D] tensors (fwd:
+    q, k, v, o; dq: q, k, v, dO, dq; dkv: q, k, v, dO, dk, dv) and [B, H,
+    T] f32 rows (fwd: lse; backward: lse, delta) once each over the HBM
+    rate, against 4 (fwd), 6 (dq) or 8 (dkv) operations per visible pair
+    and head dimension over the peak rate of the inputs' type."""
+    n_big, n_rows, n_ops = {"fwd": (4, 1, 4), "dq": (5, 2, 6), "dkv": (6, 2, 8)}[kind]
+    item = 2 if dtype == "bfloat16" else 4
+    nbytes = n_big * b * t * h * d * item + n_rows * b * h * t * 4
+    nops = n_ops * d * pairs * b * h
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / PEAK_OPS_PER_S[dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def flash_kernel_phase(torch, flush):
+    """Phase 3d: the flash forward, dq and dk/dv kernels against their
+    plain versions."""
+    import importlib
+
+    import torch.nn.functional as F
+
+    fa = importlib.import_module("mpit_tpu_torch.ops.flash_attention")
+
+    cases = []
+    # (dtype, T, q_offset, k_offset, lse cotangent, q/k/v as views of one fused qkv)
+    runs = [(dt, t, 0, 0, False, False) for dt in ("bfloat16", "float32") for t in FLASH_T]
+    runs += [("bfloat16", 512, 256, 0, False, False), ("bfloat16", 512, 0, 512, False, False),
+             ("bfloat16", 512, 0, 0, True, False), ("bfloat16", 512, 0, 0, False, True)]
+    for name, t, q_off, k_off, with_g_lse, fused in runs:
+        dtype = getattr(torch, name)
+        gen = torch.Generator(device="cuda").manual_seed(
+            t + q_off + k_off + with_g_lse + 2 * fused
+        )
+        q, k, v, do = (
+            torch.randn((FLASH_B, t, H, DH), generator=gen, device="cuda").to(dtype)
+            for _ in range(4)
+        )
+        if fused:  # the model's layout: rows of the qkv projection, 3 H D apart
+            q, k, v = torch.cat((q, k, v), dim=2).split(H, dim=2)
+        g_lse = (
+            torch.randn((FLASH_B, H, t), generator=gen, device="cuda") if with_g_lse else None
+        )
+        geo = dict(q_offset=q_off, k_offset=k_off, causal=True)
+        o, lse = fa.flash_fwd(q, k, v, q_off, k_off, True)
+        delta = fa._delta(o, do, g_lse)
+        dq = fa.flash_dq(q, k, v, do, lse, delta, q_off, k_off, True)
+        dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, q_off, k_off, True)
+        torch.cuda.synchronize()
+        p_o, p_lse = fa.flash_fwd_plain(q, k, v, **geo)
+        p_delta = fa._delta(p_o, do, g_lse)
+        plain = {"o": p_o, "lse": p_lse,
+                 "dq": fa.flash_dq_plain(q, k, v, do, p_lse, p_delta, **geo)}
+        plain["dk"], plain["dv"] = fa.flash_dkv_plain(q, k, v, do, p_lse, p_delta, **geo)
+        got = {"o": o, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
+        label = (f"flash {name} T={t} q_off={q_off} k_off={k_off} g_lse={with_g_lse} "
+                 f"fused={fused}")
+        errs, scale = {}, {}
+        for key, ref in plain.items():
+            ref = ref.float()
+            err = (got[key].float() - ref).abs().max().item()
+            if not math.isfinite(err) or err > TOL[name]:
+                fail(f"kernel vs plain {label}: {key} {err} > {TOL[name]}")
+            errs[key] = err
+            kept = ref[ref > -1e29]  # past the -1e30 lse of rows that see no key
+            scale[key] = kept.abs().max().item() if kept.numel() else 0.0
+        if k_off >= q_off + t and not (bool((o == 0).all()) and bool((lse == -1e30).all())):
+            fail(f"{label}: a future key block must give o = 0 and lse = -1e30 exactly")
+        if name == "float32" and t == 512 and not q_off and not k_off:
+            qa, ka, va = (x.clone().requires_grad_() for x in (q, k, v))
+            ao, _ = fa.reference_attention_with_lse(qa, ka, va)
+            ref_grads = torch.autograd.grad(ao, (qa, ka, va), do)
+            for key, ref in zip(("dq", "dk", "dv"), ref_grads):
+                err = (got[key] - ref).abs().max().item()
+                if not err <= TOL[name]:
+                    fail(f"{label}: {key} vs autograd of the plain forward {err} > {TOL[name]}")
+                errs[key + "_vs_autograd"] = err
+        pairs = visible_pairs(t, q_off, k_off)
+        qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+        do_h = do.transpose(1, 2)
+        lib_fwd = lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)  # noqa: E731
+        lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
+            lib_out, (qh, kh, vh), do_h, retain_graph=True
+        )
+        library = {"fwd": cold_time_ms(lib_fwd, torch, flush),
+                   "bwd": cold_time_ms(lib_bwd, torch, flush)}
+        steps = {
+            "fwd": (lambda: fa.flash_fwd(q, k, v, q_off, k_off, True),
+                    lambda: fa.flash_fwd_plain(q, k, v, **geo), library["fwd"]),
+            "dq": (lambda: fa.flash_dq(q, k, v, do, lse, delta, q_off, k_off, True),
+                   lambda: fa.flash_dq_plain(q, k, v, do, lse, delta, **geo), library["bwd"]),
+            "dkv": (lambda: fa.flash_dkv(q, k, v, do, lse, delta, q_off, k_off, True),
+                    lambda: fa.flash_dkv_plain(q, k, v, do, lse, delta, **geo), library["bwd"]),
+        }
+        for kind, (kernel, plain_fn, lib_ms) in steps.items():
+            bound_ms, bound_by = flash_bound(kind, FLASH_B, t, H, DH, pairs, name)
+            cases.append({
+                "form": f"flash_{kind}", "dtype": name, "B": FLASH_B, "T": t, "H": H,
+                "Dh": DH, "q_offset": q_off, "k_offset": k_off, "g_lse": with_g_lse,
+                "fused_qkv_views": fused, "visible_pairs_per_head": pairs,
+                "max_abs_err": errs, "tol": TOL[name], "max_abs_plain": scale,
+                "ms": cold_time_ms(kernel, torch, flush),
+                "plain_ms": cold_time_ms(plain_fn, torch, flush),
+                "library_ms": lib_ms,
+                "library": "sdpa causal forward" if kind == "fwd"
+                else "sdpa causal backward (dq, dk, dv in one call)",
+                "bound_ms": bound_ms, "bound_by": bound_by,
+            })
+            print(json.dumps({"kernel_case": cases[-1]}), flush=True)
+        del lib_out, qh, kh, vh
+        torch.cuda.empty_cache()
+    return cases
+
+
+def train_phase(torch, card, flush):
+    """Phase 4t: GPT-2 small trains for 30 steps through the flash
+    kernels. Returns the launch counts of the run."""
+    import importlib
+
+    import numpy as np
+
+    from mpit_tpu_torch.asyncsgd.config import from_argv
+    from mpit_tpu_torch.asyncsgd.gpt2 import GPT2TrainConfig, main
+    from mpit_tpu_torch.ops.lm_head import lm_head_xent
+
+    fa = importlib.import_module("mpit_tpu_torch.ops.flash_attention")
+    cfg = from_argv(GPT2TrainConfig, TRAIN_ARGS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches.update(dict.fromkeys(fa.launches, 0))
+    out = main(TRAIN_ARGS)
+    launches = dict(fa.launches)
+    peak = torch.cuda.max_memory_allocated()
+    losses = out["losses"]
+    steps = out["steps"]
+    if steps != 30 or len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        fail(f"train: {steps} steps, losses {losses}")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not last < first:
+        fail(f"train: mean of the last five losses {last} >= the first five {first}")
+    need = cfg.num_layers * steps
+    if any(n < need for n in launches.values()):
+        fail(f"train: flash launches {launches} < {need} (layers x steps)")
+    # The LM head alone, forward and backward, at the step's 4096 tokens.
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n_tok = cfg.batch_size * cfg.seq_len
+    h = torch.randn((n_tok, cfg.d_model), generator=gen, device="cuda").bfloat16()
+    h.requires_grad_()
+    head = (0.02 * torch.randn((cfg.vocab_size, cfg.d_model), generator=gen, device="cuda"))
+    head.requires_grad_()
+    tgt = torch.randint(0, cfg.vocab_size, (n_tok,), generator=gen, device="cuda")
+
+    def head_step():
+        loss = lm_head_xent(h, head, tgt, compute_dtype=torch.bfloat16)
+        torch.autograd.grad(loss.mean(), (h, head))
+
+    head_ms = cold_time_ms(head_step, torch, flush, iters=5)
+    del h, head, tgt
+    profile = train_profile(torch)
+    step_ms = np.asarray(out["step_ms"][2:])  # past the first steps' set-up
+    print(json.dumps({
+        "card": card,
+        "train": {
+            "args": TRAIN_ARGS, "steps": steps, "losses": losses,
+            "first5_mean": first, "last5_mean": last,
+            "step_ms_p50": float(np.percentile(step_ms, 50)),
+            "step_ms_p95": float(np.percentile(step_ms, 95)),
+            "tokens_per_sec": out.get("items_per_sec"),
+            "tokens_per_sec_mean": out.get("items_per_sec_mean"),
+            "peak_memory_gib": peak / 2**30,
+            "launches": launches,
+            "lm_head_fwd_bwd_ms": head_ms,
+            "profiled_steps": profile,
+        },
+    }), flush=True)
+    return launches
+
+
+def train_profile(torch, steps: int = 3) -> dict:
+    """The phase-4t step under ``torch.profiler`` for ``steps`` steps
+    (after three warm-up steps): device busy time by kernel family and
+    the device's idle share of the window's wall time. Reports, gates
+    nothing; "not measured" when the profiler records no device
+    activity."""
+    import importlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from mpit_tpu_torch.asyncsgd.config import from_argv
+    from mpit_tpu_torch.asyncsgd.gpt2 import GPT2TrainConfig
+    from mpit_tpu_torch.data import SyntheticLM
+    from mpit_tpu_torch.models import GPT2
+    from mpit_tpu_torch.opt import goo_adam
+    from mpit_tpu_torch.train import make_train_step
+
+    fa = importlib.import_module("mpit_tpu_torch.ops.flash_attention")
+    cfg = from_argv(GPT2TrainConfig, TRAIN_ARGS)
+    model = GPT2(cfg.model_config(), device="cuda",
+                 generator=torch.Generator().manual_seed(cfg.seed))
+    init_fn, step_fn = make_train_step(
+        lambda p, b: (GPT2.fused_loss_fn(model, b["tokens"]), {}), goo_adam(cfg.lr)
+    )
+    state = init_fn(dict(model.named_parameters()))
+    batches = SyntheticLM(vocab_size=cfg.vocab_size, seed=cfg.seed).batches(
+        cfg.batch_size, cfg.seq_len
+    )
+    tokens = [torch.from_numpy(next(batches)["tokens"]).long().cuda() for _ in range(steps + 3)]
+    for t in tokens[:3]:
+        state, _ = step_fn(state, {"tokens": t})
+    torch.cuda.synchronize()
+    counts = dict(fa.launches)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for t in tokens[3:]:
+            state, _ = step_fn(state, {"tokens": t})
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    fa.launches.update(counts)  # profiled steps are not the main path's run
+    # cuBLAS names its Hopper GEMMs nvjet_* (CUDA 12.8) or *gemm*.
+    families = {"flash_attention": ("fwd_kernel", "dq_kernel", "dkv_kernel"),
+                "gemm": ("nvjet", "gemm", "xmma", "cutlass"),
+                "optimizer_foreach": ("foreach", "multi_tensor")}
+    busy, kernels = {}, {}
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).split(".")[-1] != "CUDA":
+            continue
+        name = e.key.lower()
+        fam = next((f for f, keys in families.items() if any(k in name for k in keys)),
+                   "other")
+        busy[fam] = busy.get(fam, 0.0) + e.self_device_time_total / 1e3
+        kernels[e.key[:80]] = kernels.get(e.key[:80], 0.0) + e.self_device_time_total / 1e3
+    if not busy:
+        return {"profile": "not measured (no device activity recorded)",
+                "wall_ms_per_step": wall_ms / steps}
+    total = sum(busy.values())
+    return {
+        "wall_ms_per_step": wall_ms / steps,
+        "device_busy_ms_per_step": total / steps,
+        "device_idle_share": max(0.0, 1.0 - total / wall_ms),
+        "busy_ms_per_step_by_family": {f: v / steps for f, v in sorted(busy.items())},
+        "top_kernels_ms_per_step": {
+            k: v / steps for k, v in sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+        },
+    }
+
+
+def train_parity_phase(torch):
+    """Phase 5t: f32, three goo_adam steps, flash-kernel step vs plain
+    step from the same weights."""
+    import dataclasses
+    import importlib
+
+    from mpit_tpu_torch.data import SyntheticLM
+    from mpit_tpu_torch.models import GPT2, GPT2Config, default_attention
+    from mpit_tpu_torch.opt import goo_adam
+    from mpit_tpu_torch.train import make_train_step
+
+    fa = importlib.import_module("mpit_tpu_torch.ops.flash_attention")
+    cfg = GPT2Config.small(dtype=torch.float32, max_seq_len=512)
+    init = GPT2(cfg, generator=torch.Generator().manual_seed(0)).state_dict()
+    losses = {}
+    for label, attn in (("flash", fa.flash_attention), ("plain", default_attention)):
+        model = GPT2(dataclasses.replace(cfg, attention_fn=attn), device="cuda")
+        model.load_state_dict(init)
+        init_fn, step_fn = make_train_step(
+            lambda p, b: (GPT2.fused_loss_fn(model, b["tokens"]), {}), goo_adam(3e-4)
+        )
+        state = init_fn(dict(model.named_parameters()))
+        batches = SyntheticLM(vocab_size=cfg.vocab_size, seed=0).batches(8, 512)
+        before = dict(fa.launches)
+        losses[label] = []
+        for _ in range(3):
+            tokens = torch.from_numpy(next(batches)["tokens"]).long().cuda()
+            state, metrics = step_fn(state, {"tokens": tokens})
+            losses[label].append(metrics["loss"].item())
+        ran = {n: fa.launches[n] - before[n] for n in before}
+        want = cfg.num_layers * 3 if label == "flash" else 0
+        if any(n != want for n in ran.values()):
+            fail(f"train parity {label}: flash launches {ran}, expected {want} each")
+        del model, state
+        torch.cuda.empty_cache()
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["flash"], losses["plain"])]
+    if not max(rel) <= TRAIN_PARITY_TOL:
+        fail(f"train parity f32: losses {losses} differ by {rel} > {TRAIN_PARITY_TOL}")
+    print(json.dumps({"train_parity_f32": {"losses": losses, "max_rel_diff": max(rel)}}),
+          flush=True)
+
+
 def main() -> None:
     import torch
 
@@ -777,8 +1115,11 @@ def main() -> None:
         kernel_phase(torch, flush) + paged_kernel_phase(torch, flush)
         + qmm_kernel_phase(torch, flush)
     )
-    del flush
+    flash_cases = flash_kernel_phase(torch, flush)
     (OUT / "chip_smoke_kernels.json").write_text(json.dumps({"card": card, "cases": cases}, indent=1))
+    (OUT / "chip_smoke_flash.json").write_text(
+        json.dumps({"card": card, "cases": flash_cases}, indent=1)
+    )
     # Each run: (extra args, the attention form it drives).
     runs = {
         "dense": ([], FORMS[0]),
@@ -800,6 +1141,9 @@ def main() -> None:
     mcfg, state = parity_phase(torch)
     paged_parity_phase(torch, mcfg, state)
     int8w_parity_phase(torch, mcfg, state)
+    flash_launches = train_phase(torch, card, flush)
+    del flush
+    train_parity_phase(torch)
 
     kernels = []
     for form in FORMS:
@@ -845,6 +1189,26 @@ def main() -> None:
                                 "bound_by", "library_ms")},
         "shape": {k: head[k] for k in ("dtype", "M", "D", "F")},
     })
+    flash_sources = {"fwd": (121, 362), "dq": (195, 408), "dkv": (237, 428)}
+    for kind, (body, call) in flash_sources.items():
+        head = next(
+            c for c in flash_cases
+            if c["form"] == f"flash_{kind}" and c["dtype"] == "bfloat16" and c["T"] == 512
+            and not c["q_offset"] and not c["k_offset"] and not c["g_lse"]
+            and c["fused_qkv_views"]
+        )
+        kernels.append({
+            "name": f"flash_{kind}",
+            "route": "cuda",
+            "source": "mpit_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"mpit_tpu/ops/flash_attention.py:{body}",
+            "call_site": f"mpit_tpu/ops/flash_attention.py:{call}",
+            "launches": flash_launches[kind],
+            "max_abs_err": max(v for k, v in head["max_abs_err"].items()),
+            **{k: head[k] for k in ("tol", "ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "library")},
+            "shape": {k: head[k] for k in ("dtype", "B", "T", "H", "Dh")},
+        })
     print(json.dumps({"kernels": kernels}))
     print(card)  # the nvidia-smi name and power limit, as it prints them
     print(json.dumps({"ok": True, "device": {

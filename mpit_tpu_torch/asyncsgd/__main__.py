@@ -1,0 +1,39 @@
+"""Workload launcher: ``python -m mpit_tpu_torch.asyncsgd <workload> [options]``.
+
+The port of :mod:`mpit_tpu.asyncsgd.__main__`. ``gpt2`` trains on one
+GPU (``--device cpu`` for the CPU); ``mnist``, ``imagenet`` and
+``resnet`` arrive with a later slice and raise ``SystemExit`` naming
+it. Prints the workload's result as one JSON line.
+"""
+
+from __future__ import annotations
+
+import importlib
+import json
+import sys
+
+from mpit_tpu_torch.asyncsgd import LATER_WORKLOADS, WORKLOADS
+
+
+def main(argv: list[str] | None = None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if not argv or argv[0] in ("-h", "--help"):
+        print(__doc__)
+        print(f"workloads: {', '.join(WORKLOADS)}")
+        return 0
+    name, rest = argv[0], argv[1:]
+    if name in LATER_WORKLOADS:
+        raise SystemExit(
+            f"workload {name!r}: not in this port yet; it arrives with "
+            f"{LATER_WORKLOADS[name]}"
+        )
+    if name not in WORKLOADS:
+        print(f"unknown workload {name!r}; choose from {WORKLOADS}", file=sys.stderr)
+        return 2
+    mod = importlib.import_module(f"mpit_tpu_torch.asyncsgd.{name}")
+    print(json.dumps(mod.main(rest)))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,61 @@
+"""Config and flags for the port's training workloads.
+
+The port of :mod:`mpit_tpu.asyncsgd.config`: each workload is a plain
+dataclass and its command line is generated from the fields
+(:func:`mpit_tpu_torch.config.from_argv`, with ``overrides``). The
+fields are those of the JAX package that this slice reads; every other
+flag of the JAX CLI still parses, and raises ``SystemExit`` naming the
+slice that brings it (``asyncsgd.runner.LATER_FLAGS``). ``device`` is
+the port's own: ``cuda`` (the default) or ``cpu``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+from mpit_tpu_torch.config import add_dataclass_args, from_argv
+
+__all__ = ["TrainConfig", "add_dataclass_args", "from_argv", "parse_mesh"]
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    """Options shared by every workload script (the Lua ``opt`` table
+    analogue). Only the one-rank ``spmd`` mode is ported."""
+
+    mode: str = "spmd"  # spmd | parity | elastic
+    steps: int = 200
+    batch_size: int = 64  # global batch
+    lr: float = 0.05
+    weight_decay: float = 0.0
+    # lr schedule (opt/schedules.py): "" = constant, "warmup",
+    # "warmup_cosine", "step".
+    schedule: str = ""
+    warmup_steps: int = 0
+    lr_end_scale: float = 0.0  # warmup_cosine: final lr as a fraction of lr
+    decay_every: int = 0  # step schedule: decay period
+    decay_factor: float = 0.1  # step schedule: decay multiplier
+    schedule_horizon: int = 0  # warmup_cosine horizon; 0 = --steps
+    zero1: bool = True  # on one rank the shard is the whole state
+    grad_sync: str = "psum"  # psum | ring | ring_q8
+    mesh: str = ""  # e.g. "data=1"; "" = one rank
+    log_every: int = 50
+    spike_factor: float = 0.0  # >0: treat loss > factor * EMA as divergence
+    fetch_lag: int = 2  # losses read back this many log points late
+    prefetch_depth: int = 2  # host batches staged ahead of the step
+    seed: int = 0
+    device: str = "cuda"  # cuda | cpu
+
+    def mesh_shape(self) -> dict[str, int] | None:
+        return parse_mesh(self.mesh)
+
+
+def parse_mesh(mesh: str) -> dict[str, int] | None:
+    """``"data=4,model=2"`` → ``{"data": 4, "model": 2}``; ``""`` → None."""
+    if not mesh:
+        return None
+    out: dict[str, int] = {}
+    for part in mesh.split(","):
+        k, _, v = part.partition("=")
+        out[k.strip()] = int(v)
+    return out

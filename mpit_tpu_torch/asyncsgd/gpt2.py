@@ -1,0 +1,131 @@
+"""GPT-2 small training — baseline config #5 of the JAX package, on one
+GPU.
+
+The port of :mod:`mpit_tpu.asyncsgd.gpt2` in its ``shard_map+zero1``
+tier on one rank: :class:`mpit_tpu_torch.models.GPT2` trained on the
+synthetic bigram stream (loss falls from ``log(vocab)`` toward
+``log(branching)``) with ``goo_adam``, the fused streaming LM-head loss
+and, by default, bf16 head products with f32 results. ``--flash true``
+plugs the flash-attention kernels in as the model's ``attention_fn``
+(:func:`mpit_tpu_torch.ops.flash_attention.flash_attention`); ``--flash
+false`` the plain :func:`~mpit_tpu_torch.models.gpt2.default_attention`.
+
+    python -m mpit_tpu_torch.asyncsgd gpt2 --flash true
+    python -m mpit_tpu_torch.asyncsgd gpt2 --device cpu --steps 3 \\
+        --vocab-size 128 --seq-len 32 --num-layers 2 --num-heads 2 --d-model 32
+
+Every other tier of the JAX workload (a mesh with a model, seq, pipe or
+expert axis, or more than one data rank) and every flag of a later
+slice raises ``SystemExit`` naming the slice that brings it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from mpit_tpu_torch.asyncsgd import runner
+from mpit_tpu_torch.asyncsgd.config import TrainConfig, from_argv
+from mpit_tpu_torch.data import SyntheticLM
+from mpit_tpu_torch.models import GPT2, GPT2Config, default_attention
+from mpit_tpu_torch.opt import goo_adam, schedules
+from mpit_tpu_torch.ops.flash_attention import flash_attention
+from mpit_tpu_torch.serve.engine import resolve_device
+
+__all__ = ["GPT2TrainConfig", "main"]
+
+# Flags of the JAX workload's other tiers -> the slice that brings them.
+_LATER_TIER_FLAGS = {
+    "ulysses": "the context-parallel tier, after slice 8 of the port",
+    **dict.fromkeys(
+        ("microbatches", "pp_schedule", "pp_chunks"),
+        "the pipeline-parallel tier, after slice 8 of the port",
+    ),
+    **dict.fromkeys(
+        ("moe_experts", "moe_k", "moe_capacity", "moe_every", "aux_weight"),
+        "the expert-parallel tier, after slice 8 of the port",
+    ),
+    "fsdp_axis": "the tensor-parallel training tier, after slice 8 of the port",
+}
+
+
+@dataclasses.dataclass
+class GPT2TrainConfig(TrainConfig):
+    vocab_size: int = 50257
+    seq_len: int = 512
+    num_layers: int = 12
+    num_heads: int = 12
+    d_model: int = 768
+    remat: bool = False
+    flash: bool = False  # the flash-attention CUDA kernels
+    lr: float = 3e-4
+    batch_size: int = 8
+    fused_loss: bool = True  # streaming LM-head xent (ops/lm_head.py)
+    bf16_head: bool = True  # bf16 head-product operands, f32 results
+
+    def model_config(self) -> GPT2Config:
+        return GPT2Config(
+            vocab_size=self.vocab_size,
+            max_seq_len=self.seq_len,
+            num_layers=self.num_layers,
+            num_heads=self.num_heads,
+            d_model=self.d_model,
+            remat=self.remat,
+            attention_fn=flash_attention if self.flash else default_attention,
+            head_dtype=torch.bfloat16 if self.bf16_head else torch.float32,
+        )
+
+
+def main(argv: list[str] | None = None, *, initial_params=None, **overrides) -> dict:
+    """Train GPT-2 as the flags say. ``initial_params`` (a ``state_dict``,
+    e.g. ``params_from_jax`` of the JAX package's ``model.init``) replaces
+    the seeded initialisation; ``overrides`` replace flag values."""
+    cfg = from_argv(
+        GPT2TrainConfig, argv, prog="asyncsgd.gpt2", overrides=overrides,
+        later={**runner.LATER_FLAGS, **_LATER_TIER_FLAGS},
+    )
+    if cfg.mode == "parity":
+        raise SystemExit(
+            "gpt2 is SPMD-only: it exists to exercise the parallel tiers, "
+            "not the legacy async protocol"
+        )
+    runner.reject_later_slices(cfg)
+    print(runner.describe(cfg, "gpt2"))
+    device = resolve_device(cfg.device)
+    dataset = SyntheticLM(vocab_size=cfg.vocab_size, seed=cfg.seed)
+    mcfg = cfg.model_config()
+    if initial_params is None:
+        model = GPT2(mcfg, device=device, generator=torch.Generator().manual_seed(cfg.seed))
+    else:
+        model = GPT2(mcfg, device=device)
+        model.load_state_dict(initial_params)
+
+    def loss_fn(params, batch):
+        del params  # the model's own parameters
+        tokens = batch["tokens"].long()
+        if cfg.fused_loss:
+            return GPT2.fused_loss_fn(model, tokens), {}
+        return GPT2.loss_fn(model(tokens[:, :-1]), tokens), {}
+
+    tx = goo_adam(schedules.from_config(cfg), weight_decay=cfg.weight_decay)
+    out = runner.run_spmd(
+        cfg,
+        runner.make_stream(cfg, dataset, cfg.seq_len),
+        loss_fn,
+        lambda: dict(model.named_parameters()),
+        tx=tx,
+        items_per_batch=cfg.batch_size * cfg.seq_len,
+        step_attrs={"attention": "flash" if cfg.flash else "plain"},
+    )
+    out.update(
+        tier="shard_map+zero1",
+        attention="flash" if cfg.flash else "plain",
+        uniform_loss=dataset.uniform_loss,
+        optimal_loss=dataset.optimal_loss,
+    )
+    return out
+
+
+if __name__ == "__main__":
+    print(main())

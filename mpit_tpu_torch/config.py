@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-from typing import Any, Type, TypeVar
+from typing import Any, Mapping, Type, TypeVar
 
 __all__ = ["add_dataclass_args", "from_argv"]
 
@@ -37,10 +37,32 @@ def add_dataclass_args(parser: argparse.ArgumentParser, cls: Type[Any]) -> None:
 
 
 def from_argv(
-    cls: Type[T], argv: list[str] | None = None, *, prog: str | None = None
+    cls: Type[T],
+    argv: list[str] | None = None,
+    *,
+    prog: str | None = None,
+    overrides: Mapping[str, Any] | None = None,
+    later: Mapping[str, str] | None = None,
 ) -> T:
-    """Build a config dataclass from CLI args."""
+    """Build a config dataclass from CLI args; ``overrides`` (field name
+    to value) replace what the args gave. ``later`` maps flags that are
+    not fields (as field names) to the slice of the port that brings
+    them: each parses, and giving it raises ``SystemExit`` naming that
+    slice."""
     parser = argparse.ArgumentParser(prog=prog, description=cls.__doc__)
     add_dataclass_args(parser, cls)
+    for name in later or {}:
+        parser.add_argument(
+            "--" + name.replace("_", "-"), default=argparse.SUPPRESS, help=argparse.SUPPRESS
+        )
     ns = parser.parse_args(argv)
-    return cls(**{f.name: getattr(ns, f.name) for f in dataclasses.fields(cls)})
+    for name, slice_name in (later or {}).items():
+        if hasattr(ns, name):
+            raise SystemExit(
+                f"--{name.replace('_', '-')} {getattr(ns, name)}: not in this port yet; "
+                f"it arrives with {slice_name}"
+            )
+    kw = {f.name: getattr(ns, f.name) for f in dataclasses.fields(cls)}
+    if overrides:
+        kw.update(overrides)
+    return cls(**kw)

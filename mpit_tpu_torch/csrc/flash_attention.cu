@@ -1,0 +1,637 @@
+// Flash attention for Hopper (sm_90a): the causal blockwise forward and the
+// two Flash-2 backward kernels, over the training layout [B, T, H, D].
+//
+// Replaces the TPU kernels of mpit_tpu/ops/flash_attention.py:
+//   - fwd_kernel  <- _fwd_kernel     (called from _fwd_packed, :362)
+//   - dq_kernel   <- _bwd_dq_kernel  (called from _bwd_packed, :408)
+//   - dkv_kernel  <- _bwd_dkv_kernel (called from _bwd_packed, :428)
+//
+// What they compute (one head of one sequence at a time; query i and key j
+// sit at global positions q_offset + i and k_offset + j; with causal set,
+// key j is visible to query i iff q_offset + i >= k_offset + j):
+//   s   = f32(q . k) * scale, masked to -1e30 where not visible
+//   fwd: o = softmax(s) v through an online softmax over key tiles, with
+//        p rounded to v's dtype before the PV product; lse = m + log(l).
+//        A row that sees no key gives o = 0 and lse = -1e30.
+//   dq:  p = exp(s - lse) (0 where lse <= -5e29), dp = f32(dO . v),
+//        ds = p (dp - delta); dq = scale * sum_k round_k(ds) k
+//   dkv: dv = sum_q round_dO(p)^T dO; dk = scale * sum_q round_q(ds)^T q
+// delta = rowsum(f32(dO) f32(O)) - g_lse comes from the wrapper.
+//
+// What bounds them on this card: at GPT-2 small's training shape (B 8,
+// H 12, T 512, D 64, bf16) each kernel moves 25-38 MB and does 3-6 GFLOP,
+// so the bound is the bytes (about 0.01 ms at 3.35 TB/s); the tensor cores
+// would do the arithmetic in a few microseconds. This first version does
+// the products with f32 FMAs on the CUDA cores (also the only way to keep
+// f32 inputs at f32 accuracy), so in practice it is bound by those FMAs and
+// the shared-memory reads that feed them. What the design does about it:
+// every operand tile is read from device memory once per block and staged
+// in shared memory as f32, the [T, T] scores never leave registers and
+// shared memory, and fully masked key tiles (forward, dq) or query tiles
+// (dkv) are never visited: each block computes its own trip count from the
+// offsets, as the TPU kernel does. Each thread holds a 4 x 4 piece of the
+// 64 x 64 score tile (rows ty + 16 i, columns tx + 16 j) so that every
+// shared-memory read in the inner loops is either a broadcast or 16
+// consecutive words. Tiles are staged transposed ([D][65]); the odd row
+// stride lets the backward's second products read the same tiles along
+// the other axis without bank conflicts, so no operand is loaded twice.
+//
+// Layout: q, k, v, o, dO, dq, dk, dv are [B, T, H, D], all of one dtype, f32
+// or bf16; lse and delta are [B, H, T] f32. o, dO, dq, dk and dv are
+// contiguous (a head's row is D elements at stride H * D). q, k and v are
+// read in place at one batch and row stride shared by the three, so the
+// model hands over the split thirds of its fused qkv projection (row
+// stride 3 H D) without a copy. Grid (ceil(T / 64), H, B), 256 threads.
+// The last tile of a T that is not a multiple of 64 is masked: its missing
+// rows load as zeros, their keys are masked and their rows are not stored.
+//
+// C interface for ctypes: mpit_flash_fwd, mpit_flash_dq and mpit_flash_dkv
+// return the cudaError_t of the launch (cudaGetLastError right after it),
+// or -1 for a dtype or head dimension this file was not instantiated for.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int BQ = 64;  // query rows per tile
+constexpr int BK = 64;  // key rows per tile
+constexpr int NT = 256;  // threads per block: 16 x 16
+constexpr int LD = 65;  // row stride of a transposed tile (BQ or BK + 1)
+constexpr float NEG_BIG = -1e30f;  // "-inf" that survives subtraction
+
+struct Geo {
+  int b, t, h;
+  int q_offset, k_offset, causal;
+  float scale;
+  long long in_bstride, in_tstride;  // q, k, v: elements between batches, rows
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);  // round to nearest even, as astype does
+}
+
+// x rounded to T and back: what x.astype(T) feeds a product.
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_f32(from_f32<T>(x));
+}
+
+// Reductions over the 16 threads (tx) that share a row of the score tile:
+// they are one half of a warp.
+__device__ __forceinline__ float row_max(float x) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// Element (b, t, head, 0) of a contiguous [B, T, H, D] tensor.
+__device__ __forceinline__ size_t row_index(const Geo& g, int b, int t,
+                                            int head, int d) {
+  return (((size_t)b * g.t + t) * g.h + head) * d;
+}
+
+// Stage the 64-row tile of one head starting at sequence row t0 into shared
+// memory as f32: row-major [64][D] or, with TRANS, transposed [D][LD]. With
+// IN, src is q, k or v (rows at the inputs' strides), else contiguous.
+// Rows past T load as zeros. 16-byte loads (the wrapper checks alignment).
+template <typename T, int D, bool TRANS, bool IN = true>
+__device__ __forceinline__ void stage(float* dst, const T* src, const Geo& g,
+                                      int b, int head, int t0) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int VPR = D / VEC;
+  static_assert(D % VEC == 0, "a head's row must be whole 16-byte vectors");
+  for (int i = threadIdx.x; i < 64 * VPR; i += NT) {
+    const int r = i / VPR;
+    const int c0 = (i % VPR) * VEC;
+    const int t = t0 + r;
+    float vals[VEC];
+    if (t < g.t) {
+      const size_t at =
+          IN ? (size_t)(b * g.in_bstride + t * g.in_tstride + head * D)
+             : row_index(g, b, t, head, D);
+      const uint4 raw = *reinterpret_cast<const uint4*>(src + at + c0);
+      const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) vals[j] = to_f32(e[j]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) vals[j] = 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      if (TRANS)
+        dst[(c0 + j) * LD + r] = vals[j];
+      else
+        dst[r * D + c0 + j] = vals[j];
+    }
+  }
+}
+
+// Key tiles a query tile must visit: the tiles holding a key visible to
+// some row of query tile qi, clip(ceil((qoff + qi*BQ + BQ - koff) / BK),
+// 0, nk). Clipped before dividing: C++ division truncates toward zero.
+__device__ __forceinline__ int key_tiles(const Geo& g, int qi) {
+  const int nk = (g.t + BK - 1) / BK;
+  if (!g.causal) return nk;
+  const long long limit =
+      (long long)g.q_offset + (long long)qi * BQ + BQ - g.k_offset;
+  if (limit <= 0) return 0;
+  const long long n = (limit + BK - 1) / BK;
+  return n < nk ? (int)n : nk;
+}
+
+// First query tile that can see key tile ki: clip(floor((koff + ki*BK -
+// qoff) / BQ), 0, nq). Clipped at 0 before dividing, for the same reason.
+__device__ __forceinline__ int first_query_tile(const Geo& g, int ki) {
+  const int nq = (g.t + BQ - 1) / BQ;
+  if (!g.causal) return 0;
+  const long long first =
+      (long long)g.k_offset + (long long)ki * BK - g.q_offset;
+  if (first <= 0) return 0;
+  const long long n = first / BQ;
+  return n < nq ? (int)n : nq;
+}
+
+// Scaled, masked score of (query row qrow, key row krow), both relative to
+// this block's sequence.
+__device__ __forceinline__ float mask_score(const Geo& g, float dot, int qrow,
+                                            int krow) {
+  const bool ok = qrow < g.t && krow < g.t &&
+                  (!g.causal || g.q_offset + qrow >= g.k_offset + krow);
+  return ok ? dot * g.scale : NEG_BIG;
+}
+
+// exp(s - lse), 0 for a row that saw no key (lse = -1e30 would overflow).
+__device__ __forceinline__ float p_from_lse(float s, float lse) {
+  return lse <= NEG_BIG / 2 ? 0.f : expf(s - lse);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NT)
+    fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, T* __restrict__ o,
+               float* __restrict__ lse, Geo g) {
+  constexpr int CPT = D / 16;  // output columns per thread
+  extern __shared__ float smem[];
+  float* qt = smem;            // [D][LD]  q tile, transposed
+  float* kt = qt + D * LD;     // [D][LD]  k tile, transposed
+  float* vs = kt + D * LD;     // [BK][D]  v tile
+  float* ps = vs + BK * D;     // [BQ][BK] p, rounded to v's dtype
+
+  const int qi = blockIdx.x, head = blockIdx.y, b = blockIdx.z;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int n_k = key_tiles(g, qi);
+
+  stage<T, D, true>(qt, q, g, b, head, qi * BQ);
+  float m[4], l[4], acc[4][CPT];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = NEG_BIG;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int kb = 0; kb < n_k; ++kb) {
+    __syncthreads();  // the previous tile's kt, vs and ps are consumed
+    stage<T, D, true>(kt, k, g, b, head, kb * BK);
+    stage<T, D, false>(vs, v, g, b, head, kb * BK);
+    __syncthreads();
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < D; ++d) {
+      float a[4], c[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = qt[d * LD + ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) c[j] = kt[d * LD + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], c[j], s[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qrow = qi * BQ + ty + 16 * i;
+      float mx = NEG_BIG;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = mask_score(g, s[i][j], qrow, kb * BK + tx + 16 * j);
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], row_max(mx));
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = expf(s[i][j] - m_new);
+        rs += p;
+        ps[(ty + 16 * i) * BK + tx + 16 * j] = round_to<T>(p);
+      }
+      const float alpha = expf(m[i] - m_new);
+      l[i] = alpha * l[i] + row_sum(rs);
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) acc[i][c] *= alpha;
+      m[i] = m_new;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int kk = 0; kk < BK; ++kk) {
+      float p[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) p[i] = ps[(ty + 16 * i) * BK + kk];
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) {
+        const float vv = vs[kk * D + tx + 16 * c];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(p[i], vv, acc[i][c]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = qi * BQ + ty + 16 * i;
+    if (row >= g.t) continue;
+    const bool empty = m[i] <= NEG_BIG / 2;
+    const float l_safe = l[i] == 0.f ? 1.f : l[i];
+    T* out = o + row_index(g, b, row, head, D);
+#pragma unroll
+    for (int c = 0; c < CPT; ++c)
+      out[tx + 16 * c] = from_f32<T>(empty ? 0.f : acc[i][c] / l_safe);
+    if (tx == 0)
+      lse[((size_t)b * g.h + head) * g.t + row] =
+          empty ? NEG_BIG : m[i] + logf(l_safe);
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NT)
+    dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const T* __restrict__ dout,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              T* __restrict__ dq, Geo g) {
+  constexpr int CPT = D / 16;
+  extern __shared__ float smem[];
+  float* qt = smem;             // [D][LD]  q tile, transposed
+  float* dot = qt + D * LD;     // [D][LD]  dO tile, transposed
+  float* kt = dot + D * LD;     // [D][LD]  k tile, transposed
+  float* vt = kt + D * LD;      // [D][LD]  v tile, transposed
+  float* dss = vt + D * LD;     // [BQ][BK] ds, rounded to k's dtype
+
+  const int qi = blockIdx.x, head = blockIdx.y, b = blockIdx.z;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int n_k = key_tiles(g, qi);
+
+  stage<T, D, true>(qt, q, g, b, head, qi * BQ);
+  stage<T, D, true, false>(dot, dout, g, b, head, qi * BQ);
+  float row_lse[4], row_delta[4], acc[4][CPT];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = qi * BQ + ty + 16 * i;
+    const size_t at = ((size_t)b * g.h + head) * g.t + row;
+    row_lse[i] = row < g.t ? lse[at] : NEG_BIG;
+    row_delta[i] = row < g.t ? delta[at] : 0.f;
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int kb = 0; kb < n_k; ++kb) {
+    __syncthreads();
+    stage<T, D, true>(kt, k, g, b, head, kb * BK);
+    stage<T, D, true>(vt, v, g, b, head, kb * BK);
+    __syncthreads();
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      float a[4], e[4], c[4], w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[i] = qt[d * LD + ty + 16 * i];
+        e[i] = dot[d * LD + ty + 16 * i];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        c[j] = kt[d * LD + tx + 16 * j];
+        w[j] = vt[d * LD + tx + 16 * j];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(a[i], c[j], s[i][j]);
+          dp[i][j] = fmaf(e[i], w[j], dp[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qrow = qi * BQ + ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float sc = mask_score(g, s[i][j], qrow, kb * BK + tx + 16 * j);
+        const float p = p_from_lse(sc, row_lse[i]);
+        dss[(ty + 16 * i) * BK + tx + 16 * j] =
+            round_to<T>(p * (dp[i][j] - row_delta[i]));
+      }
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int kk = 0; kk < BK; ++kk) {
+      float ds[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ds[i] = dss[(ty + 16 * i) * BK + kk];
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) {
+        const float kv = kt[(tx + 16 * c) * LD + kk];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(ds[i], kv, acc[i][c]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = qi * BQ + ty + 16 * i;
+    if (row >= g.t) continue;
+    T* out = dq + row_index(g, b, row, head, D);
+#pragma unroll
+    for (int c = 0; c < CPT; ++c)
+      out[tx + 16 * c] = from_f32<T>(acc[i][c] * g.scale);
+  }
+}
+
+// One block per (key tile, head, batch); rows of the score tile are keys
+// (ty + 16 i) and its columns queries (tx + 16 j).
+template <typename T, int D>
+__global__ void __launch_bounds__(NT)
+    dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, const T* __restrict__ dout,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               T* __restrict__ dk, T* __restrict__ dv, Geo g) {
+  constexpr int CPT = D / 16;
+  extern __shared__ float smem[];
+  float* kt = smem;             // [D][LD]  k tile, transposed (whole block)
+  float* vt = kt + D * LD;      // [D][LD]  v tile, transposed (whole block)
+  float* qt = vt + D * LD;      // [D][LD]  q tile, transposed
+  float* dot = qt + D * LD;     // [D][LD]  dO tile, transposed
+  float* pts = dot + D * LD;    // [BK][BQ] p^T, rounded to dO's dtype
+  float* dsts = pts + BK * BQ;  // [BK][BQ] ds^T, rounded to q's dtype
+  float* lse_s = dsts + BK * BQ;  // [BQ]
+  float* delta_s = lse_s + BQ;    // [BQ]
+
+  const int ki = blockIdx.x, head = blockIdx.y, b = blockIdx.z;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int nq = (g.t + BQ - 1) / BQ;
+  const int q_start = first_query_tile(g, ki);
+
+  stage<T, D, true>(kt, k, g, b, head, ki * BK);
+  stage<T, D, true>(vt, v, g, b, head, ki * BK);
+  float dk_acc[4][CPT], dv_acc[4][CPT];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
+
+  for (int qb = q_start; qb < nq; ++qb) {
+    __syncthreads();
+    stage<T, D, true>(qt, q, g, b, head, qb * BQ);
+    stage<T, D, true, false>(dot, dout, g, b, head, qb * BQ);
+    if (threadIdx.x < BQ) {
+      const int row = qb * BQ + threadIdx.x;
+      const size_t at = ((size_t)b * g.h + head) * g.t + row;
+      lse_s[threadIdx.x] = row < g.t ? lse[at] : NEG_BIG;
+      delta_s[threadIdx.x] = row < g.t ? delta[at] : 0.f;
+    }
+    __syncthreads();
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      float a[4], e[4], c[4], w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[i] = kt[d * LD + ty + 16 * i];
+        e[i] = vt[d * LD + ty + 16 * i];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        c[j] = qt[d * LD + tx + 16 * j];
+        w[j] = dot[d * LD + tx + 16 * j];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(a[i], c[j], s[i][j]);
+          dp[i][j] = fmaf(e[i], w[j], dp[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int krow = ki * BK + ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = tx + 16 * j;
+        const float sc = mask_score(g, s[i][j], qb * BQ + col, krow);
+        const float p = p_from_lse(sc, lse_s[col]);
+        pts[(ty + 16 * i) * BQ + col] = round_to<T>(p);
+        dsts[(ty + 16 * i) * BQ + col] =
+            round_to<T>(p * (dp[i][j] - delta_s[col]));
+      }
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int qq = 0; qq < BQ; ++qq) {
+      float p[4], ds[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        p[i] = pts[(ty + 16 * i) * BQ + qq];
+        ds[i] = dsts[(ty + 16 * i) * BQ + qq];
+      }
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) {
+        const float dov = dot[(tx + 16 * c) * LD + qq];
+        const float qv = qt[(tx + 16 * c) * LD + qq];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          dv_acc[i][c] = fmaf(p[i], dov, dv_acc[i][c]);
+          dk_acc[i][c] = fmaf(ds[i], qv, dk_acc[i][c]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = ki * BK + ty + 16 * i;
+    if (row >= g.t) continue;
+    const size_t at = row_index(g, b, row, head, D);
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) {
+      dk[at + tx + 16 * c] = from_f32<T>(dk_acc[i][c] * g.scale);
+      dv[at + tx + 16 * c] = from_f32<T>(dv_acc[i][c]);
+    }
+  }
+}
+
+// Dynamic shared memory of each kernel, in bytes.
+template <int D>
+constexpr size_t fwd_smem() {
+  return sizeof(float) * (2 * D * LD + BK * D + BQ * BK);
+}
+template <int D>
+constexpr size_t dq_smem() {
+  return sizeof(float) * (4 * D * LD + BQ * BK);
+}
+template <int D>
+constexpr size_t dkv_smem() {
+  return sizeof(float) * (4 * D * LD + 2 * BK * BQ + 2 * BQ);
+}
+static_assert(dkv_smem<128>() <= 232448, "dkv tile exceeds shared memory");
+
+dim3 grid_of(const Geo& g) { return dim3((g.t + 63) / 64, g.h, g.b); }
+
+// Kind 0: forward; 1: dq; 2: dk/dv.
+struct Ptrs {
+  const void *q, *k, *v, *dout, *lse_in, *delta;
+  void *o, *lse_out, *dq, *dk, *dv;
+};
+
+// Opt in to the kernel's dynamic shared memory (above the 48 KB default),
+// launch it on the stream, and return the launch's error.
+template <typename Kernel, typename... Args>
+int run(Kernel kernel, size_t smem, const Geo& g, cudaStream_t stream,
+        Args... args) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid_of(g), NT, smem, stream>>>(args..., g);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int launch(int kind, const Ptrs& p, const Geo& g, cudaStream_t stream) {
+  const T* q = static_cast<const T*>(p.q);
+  const T* k = static_cast<const T*>(p.k);
+  const T* v = static_cast<const T*>(p.v);
+  const T* dout = static_cast<const T*>(p.dout);
+  const float* lse = static_cast<const float*>(p.lse_in);
+  const float* delta = static_cast<const float*>(p.delta);
+  if (kind == 0) {
+    auto kernel = fwd_kernel<T, D>;
+    return run(kernel, fwd_smem<D>(), g, stream, q, k, v,
+               static_cast<T*>(p.o), static_cast<float*>(p.lse_out));
+  }
+  if (kind == 1) {
+    auto kernel = dq_kernel<T, D>;
+    return run(kernel, dq_smem<D>(), g, stream, q, k, v, dout, lse, delta,
+               static_cast<T*>(p.dq));
+  }
+  auto kernel = dkv_kernel<T, D>;
+  return run(kernel, dkv_smem<D>(), g, stream, q, k, v, dout, lse, delta,
+             static_cast<T*>(p.dk), static_cast<T*>(p.dv));
+}
+
+template <typename T>
+int launch_d(int kind, const Ptrs& p, const Geo& g, int d,
+             cudaStream_t stream) {
+  switch (d) {
+    case 16: return launch<T, 16>(kind, p, g, stream);
+    case 32: return launch<T, 32>(kind, p, g, stream);
+    case 64: return launch<T, 64>(kind, p, g, stream);
+    case 128: return launch<T, 128>(kind, p, g, stream);
+    default: return -1;
+  }
+}
+
+int dispatch(int kind, const Ptrs& p, const Geo& g, int d, int dtype,
+             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_d<float>(kind, p, g, d, s);
+  if (dtype == 1) return launch_d<__nv_bfloat16>(kind, p, g, d, s);
+  return -1;
+}
+
+}  // namespace
+
+extern "C" {
+
+// q, k, v, o [B, T, H, D] of dtype (0 f32, 1 bf16), q, k and v at the
+// given batch and row strides (elements); lse [B, H, T] f32.
+int mpit_flash_fwd(const void* q, const void* k, const void* v, void* o,
+                   void* lse, int b, int t, int h, int d, int q_offset,
+                   int k_offset, int causal, long long in_bstride,
+                   long long in_tstride, float scale, int dtype,
+                   void* stream) {
+  const Ptrs p{q, k, v, nullptr, nullptr, nullptr, o, lse, nullptr, nullptr,
+               nullptr};
+  const Geo g{b, t, h, q_offset, k_offset, causal, scale, in_bstride,
+              in_tstride};
+  return dispatch(0, p, g, d, dtype, stream);
+}
+
+// dq [B, T, H, D]; lse and delta [B, H, T] f32.
+int mpit_flash_dq(const void* q, const void* k, const void* v,
+                  const void* dout, const void* lse, const void* delta,
+                  void* dq, int b, int t, int h, int d, int q_offset,
+                  int k_offset, int causal, long long in_bstride,
+                  long long in_tstride, float scale, int dtype,
+                  void* stream) {
+  const Ptrs p{q, k, v, dout, lse, delta, nullptr, nullptr, dq, nullptr,
+               nullptr};
+  const Geo g{b, t, h, q_offset, k_offset, causal, scale, in_bstride,
+              in_tstride};
+  return dispatch(1, p, g, d, dtype, stream);
+}
+
+// dk, dv [B, T, H, D]; lse and delta [B, H, T] f32.
+int mpit_flash_dkv(const void* q, const void* k, const void* v,
+                   const void* dout, const void* lse, const void* delta,
+                   void* dk, void* dv, int b, int t, int h, int d,
+                   int q_offset, int k_offset, int causal,
+                   long long in_bstride, long long in_tstride, float scale,
+                   int dtype, void* stream) {
+  const Ptrs p{q, k, v, dout, lse, delta, nullptr, nullptr, nullptr, dk, dv};
+  const Geo g{b, t, h, q_offset, k_offset, causal, scale, in_bstride,
+              in_tstride};
+  return dispatch(2, p, g, d, dtype, stream);
+}
+
+const char* mpit_flash_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

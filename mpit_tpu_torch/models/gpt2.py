@@ -35,6 +35,12 @@ sit in :class:`QuantizedWeight` seats (state keys ``<leaf>.q`` int8 and
 ``cfg.quant_matmul_fn`` on them and add the bias in f32; the embedding
 dequantizes only the rows it gathers; the LM head runs
 :func:`~mpit_tpu_torch.ops.quantized_matmul.quantized_matmul_t`.
+
+The training path (no cache) runs ``cfg.attention_fn`` — the flash
+kernel's wrapper plugs in there — optionally recomputes each block in
+the backward (``cfg.remat``, :func:`torch.utils.checkpoint.checkpoint`),
+and with ``targets`` returns per-token losses through the blocked
+:func:`~mpit_tpu_torch.ops.lm_head.lm_head_xent` instead of logits.
 """
 
 from __future__ import annotations
@@ -47,8 +53,10 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from mpit_tpu_torch.ops.kv_quant import QuantizedKV, dequantize_kv, quantize_kv
+from mpit_tpu_torch.ops.lm_head import lm_head_xent
 from mpit_tpu_torch.ops.quantized_matmul import (
     QuantizedTensor,
     dequantize_tensor,
@@ -70,16 +78,19 @@ __all__ = [
 ]
 
 
-def default_attention(q, k, v):
-    """Plain causal attention, ``[B, T, H, Dh]`` throughout: softmax of
-    f32 scores, probabilities cast to q's dtype before the PV product."""
+def default_attention(q, k, v, *, causal: bool = True):
+    """Plain attention, ``[B, T, H, Dh]`` throughout: softmax of f32
+    scores, probabilities cast to q's dtype before the PV product. With
+    ``causal``, key ``j`` is visible to query ``i`` iff ``j <= i + Tk -
+    Tq``."""
     dh = q.shape[-1]
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / math.sqrt(dh)
-    t_q, t_k = scores.shape[-2], scores.shape[-1]
-    mask = torch.ones((t_q, t_k), dtype=torch.bool, device=q.device).tril(
-        t_k - t_q
-    )
-    scores = scores.masked_fill(~mask, float("-inf"))
+    if causal:
+        t_q, t_k = scores.shape[-2], scores.shape[-1]
+        mask = torch.ones((t_q, t_k), dtype=torch.bool, device=q.device).tril(
+            t_k - t_q
+        )
+        scores = scores.masked_fill(~mask, float("-inf"))
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
@@ -216,6 +227,12 @@ class GPT2Config:
     ln_dtype: torch.dtype | None = None  # LayerNorm output; None = dtype
     head_dtype: torch.dtype = torch.float32  # LM-head operand dtype
     tie_head: bool = True
+    # Attention on the training path, ``(q, k, v, *, causal=True)`` over
+    # ``[B, T, H, Dh]``; the flash kernel's wrapper plugs in here.
+    attention_fn: Any = default_attention
+    # Recompute each block in the backward instead of keeping its
+    # activations (torch.utils.checkpoint, non-reentrant).
+    remat: bool = False
     # Attention on the cache path, ``(q, k_cache, v_cache, lengths)``.
     # None = :func:`cached_attention`; the serving engine plugs in the
     # flash-decode kernel wrapper here.
@@ -374,7 +391,7 @@ class Block(nn.Module):
         q, k, v = self.qkv(h).split(cfg.d_model, dim=-1)
         split = lambda t: t.reshape(*t.shape[:-1], cfg.num_heads, cfg.head_dim)
         if layer_cache is None:
-            attn = default_attention(split(q), split(k), split(v))
+            attn = cfg.attention_fn(split(q), split(k), split(v), causal=True)
         elif len(layer_cache) == 5:
             k_pool, v_pool, lengths, block_table, write_idx = layer_cache
             paged_scatter(k_pool, split(k), write_idx)
@@ -443,8 +460,16 @@ class GPT2(nn.Module):
         :class:`QuantizedTensor` in a quantized model."""
         return _weight(self.wte if self.head is None else self.head)
 
-    def forward(self, tokens, cache=None, paged_cache=None, return_hidden=False):
+    def forward(
+        self, tokens, cache=None, paged_cache=None, return_hidden=False,
+        targets=None,
+    ):
         """``tokens`` ``[B, T]`` → logits ``[B, T, vocab]`` f32.
+
+        ``targets`` ``[B, T]`` (training; no cache) switches the head to
+        the fused blocked cross entropy and returns per-token losses
+        ``[B, T]`` f32 — the ``[B, T, vocab]`` logits never exist. Its
+        products take operands in ``cfg.head_dtype`` with f32 results.
 
         ``cache``: ``(k, v, lengths)`` with k/v ``[num_layers, B, S, H,
         Dh]`` and lengths ``[B]`` int32, the tokens already cached per
@@ -473,6 +498,11 @@ class GPT2(nn.Module):
             raise ValueError(
                 "return_hidden is the serving path; it requires cache= or "
                 "paged_cache="
+            )
+        if targets is not None and (cache is not None or paged_cache is not None):
+            raise ValueError(
+                "cache and targets are mutually exclusive: the fused xent "
+                "head never materializes the logits decode needs"
             )
         t = tokens.shape[-1]
         if cache is not None:
@@ -506,6 +536,8 @@ class GPT2(nn.Module):
                     (cache_k[i], cache_v[i], cache_lengths, block_tables,
                      write_idx),
                 )
+            elif cfg.remat and torch.is_grad_enabled():
+                x = checkpoint(block, x, use_reentrant=False)
             else:
                 x = block(x)
         x = self.ln_f(x)
@@ -513,6 +545,8 @@ class GPT2(nn.Module):
             return x, (cache_k, cache_v)
         hd = cfg.head_dtype
         head = self.head_weight()
+        if targets is not None:
+            return lm_head_xent(x, head, targets, compute_dtype=hd)
         if isinstance(head, QuantizedTensor):
             logits = quantized_matmul_t(
                 x.to(hd), head, block_rows=cfg.quant_block_rows or None
@@ -522,3 +556,19 @@ class GPT2(nn.Module):
         if cache is not None or paged_cache is not None:
             return logits, (cache_k, cache_v)
         return logits
+
+    @staticmethod
+    def loss_fn(logits, tokens):
+        """Next-token cross entropy: logits ``[B, T, V]`` vs tokens ``[B,
+        T + 1]``."""
+        targets = tokens[:, 1:]
+        logits = logits[:, : targets.shape[1]]
+        logp = torch.log_softmax(logits, dim=-1)
+        return -logp.gather(-1, targets[..., None].long())[..., 0].mean()
+
+    @staticmethod
+    def fused_loss_fn(model: "GPT2", tokens):
+        """Mean next-token cross entropy through the fused head: tokens
+        ``[B, T + 1]``. (JAX's takes the params as an argument; here they
+        live in ``model``.)"""
+        return model(tokens[:, :-1], targets=tokens[:, 1:]).mean()

@@ -1,4 +1,6 @@
-"""Blocked decode head: sample one token per row straight from hiddens.
+"""The LM head, blocked over the vocabulary: the decode head that samples
+one token per row straight from hiddens, and the training head's fused
+cross entropy (:func:`lm_head_xent`).
 
 Streams over vocabulary blocks so the live logits tile is ``[rows,
 block]`` and the ``[rows, vocab]`` logits never exist. Per block the
@@ -21,7 +23,7 @@ import torch
 
 from mpit_tpu_torch.ops.quantized_matmul import QuantizedTensor, dequantize_tensor
 
-__all__ = ["gumbel", "lm_head_sample"]
+__all__ = ["gumbel", "lm_head_sample", "lm_head_xent"]
 
 _NEG_BIG = -1e30  # "-inf" that survives subtraction without NaNs
 
@@ -121,3 +123,93 @@ def lm_head_sample(
     sampled = torch.where(top_k > 0, tk_tok, si)
     greedy = temperature.to(dev) <= 0.0
     return torch.where(greedy, gi, sampled).int()
+
+
+def _mm_f32(a, b, compute_dtype):
+    """``a @ b`` ``[N, K] x [K, M]`` with both operands rounded to
+    ``compute_dtype`` and an f32 result: JAX's ``preferred_element_type
+    = f32``, which keeps every product exact and sums in f32. A bf16 x
+    bf16 ``torch.matmul`` rounds its result to bf16, another function; so
+    on the card bf16 operands go through cuBLAS with an f32 output
+    (``out_dtype``), and elsewhere they are multiplied as f32, which is
+    exact for bf16 values."""
+    a, b = a.to(compute_dtype), b.to(compute_dtype)
+    if compute_dtype != torch.float32 and a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class _BlockedXent(torch.autograd.Function):
+    """Per-token ``logsumexp(h @ headᵀ) - (h @ headᵀ)[target]`` over
+    vocabulary blocks with an online logsumexp: the live logits tile is
+    ``[N, block]`` and the ``[N, vocab]`` logits never exist. The
+    backward recomputes each block's logits and feeds
+    ``g = (softmax - onehot) · ct`` (rounded to ``compute_dtype``) to the
+    two products ``dh += g @ head_blk`` and ``dhead_blk = gᵀ @ h``; the
+    per-token lse is the only saved activation."""
+
+    @staticmethod
+    def forward(ctx, h, head, targets, block, compute_dtype):
+        n = h.shape[0]
+        m = torch.full((n,), float("-inf"), device=h.device)
+        s = torch.zeros((n,), device=h.device)
+        tl = torch.zeros((n,), device=h.device)
+        for off in range(0, head.shape[0], block):
+            logits = _mm_f32(h, head[off : off + block].T, compute_dtype)
+            width = logits.shape[1]
+            m_new = torch.maximum(m, logits.amax(dim=-1))
+            s = s * torch.exp(m - m_new) + torch.exp(logits - m_new[:, None]).sum(-1)
+            m = m_new
+            lt = targets - off
+            in_blk = (lt >= 0) & (lt < width)
+            cand = logits.gather(1, lt.clamp(0, width - 1)[:, None])[:, 0]
+            tl = torch.where(in_blk, cand, tl)
+        lse = m + torch.log(s)
+        ctx.save_for_backward(h, head, targets, lse)
+        ctx.block, ctx.compute_dtype = block, compute_dtype
+        return lse - tl
+
+    @staticmethod
+    def backward(ctx, ct):
+        h, head, targets, lse = ctx.saved_tensors
+        block, cd = ctx.block, ctx.compute_dtype
+        rows = torch.arange(h.shape[0], device=h.device)
+        dh = torch.zeros(h.shape, dtype=torch.float32, device=h.device)
+        dhead = torch.empty(head.shape, dtype=torch.float32, device=head.device)
+        for off in range(0, head.shape[0], block):
+            head_b = head[off : off + block]
+            g = torch.exp(_mm_f32(h, head_b.T, cd) - lse[:, None])
+            width = g.shape[1]
+            lt = targets - off
+            in_blk = (lt >= 0) & (lt < width)
+            g[rows[in_blk], lt[in_blk]] -= 1.0
+            g = (g * ct[:, None]).to(cd)
+            dh += _mm_f32(g, head_b, cd)
+            dhead[off : off + block] = _mm_f32(g.T, h, cd)
+        return dh.to(h.dtype), dhead.to(head.dtype), None, None, None
+
+
+def lm_head_xent(h, head, targets, *, block_size: int = 8192, compute_dtype=torch.bfloat16):
+    """Per-token cross entropy ``-log p(target)`` straight from hiddens.
+
+    ``h`` ``[..., d_model]`` final hidden states (any float dtype),
+    ``head`` ``[vocab, d_model]`` (the LM-head or tied embedding weight),
+    ``targets`` ``[...]`` integer ids. ``block_size`` is the vocabulary
+    tile; ``compute_dtype`` the products' operand dtype (f32 results
+    regardless: ``bfloat16`` is the training default, ``float32`` gives
+    the materialized-logits numbers). Returns ``[...]`` f32 losses;
+    callers reduce. Plain PyTorch: the JAX package never wrote this head
+    in Pallas either. The last block is not padded: its missing columns
+    would carry ``exp(-1e30) = 0`` and match no target."""
+    if isinstance(head, QuantizedTensor):
+        raise ValueError(
+            "lm_head_xent is the training head; the int8 weight store is a "
+            "serving format with no gradient"
+        )
+    vocab, d = head.shape
+    block = min(block_size, _round_up(vocab, 128))
+    lead = targets.shape
+    loss = _BlockedXent.apply(
+        h.reshape(-1, d), head, targets.reshape(-1).long(), block, compute_dtype
+    )
+    return loss.reshape(lead)

@@ -1,0 +1,19 @@
+"""Training on one rank: the step, the drive loop, metrics, the
+divergence guard, and a JAX training state carried across."""
+
+from mpit_tpu_torch.train.convert import train_state_from_jax
+from mpit_tpu_torch.train.guard import Diverged, DivergenceGuard
+from mpit_tpu_torch.train.loop import hardened_loop
+from mpit_tpu_torch.train.metrics import MetricLogger, Throughput
+from mpit_tpu_torch.train.step import TrainState, make_train_step
+
+__all__ = [
+    "Diverged",
+    "DivergenceGuard",
+    "MetricLogger",
+    "Throughput",
+    "TrainState",
+    "hardened_loop",
+    "make_train_step",
+    "train_state_from_jax",
+]

@@ -1,7 +1,9 @@
 """mpit_tpu_torch's CUDA kernels on the GPU, against their plain versions.
 
 The flash-decode kernel in all four forms (dense and paged, each with
-f32/bf16 or int8 K/V), and the int8 weight store's fused-dequant matmul.
+f32/bf16 or int8 K/V), the int8 weight store's fused-dequant matmul, and
+the training flash attention's forward, dq and dk/dv kernels (alone, in
+autograd, and in three tiny training steps against plain attention).
 
 Every test here needs an NVIDIA GPU (the kernel has no CPU mode): each
 carries the ``cuda`` marker and skips, with its reason, where there is
@@ -233,3 +235,119 @@ def test_int8_weight_kernel_engine_matches_reference_engine(cuda):
         else:
             assert launched == 0
     assert tokens["kernel"] == tokens["reference"]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize(
+    "t,h,d,q_off,k_off",
+    [
+        (128, 2, 64, 0, 0),
+        (256, 3, 16, 0, 0),
+        (128, 2, 64, 100, 0),  # each query block sees two key blocks
+        (128, 2, 128, 0, 128),  # the key block wholly in the future
+    ],
+)
+def test_flash_kernels_match_plain(cuda, dtype, tol, t, h, d, q_off, k_off):
+    """Forward, dq and dk/dv kernels against their plain versions, with a
+    non-zero lse cotangent folded into delta; each launches once.
+    Absolute tolerance: bf16 outputs are rounded once at the end, in
+    sums taken in another order, one bf16 step at their magnitudes."""
+    from mpit_tpu_torch.ops import flash_attention as tfa
+
+    q, k, v, do = (_randn((2, t, h, d), s, dtype) for s in range(4))
+    g_lse = _randn((2, h, t), 4, torch.float32)
+    geo = dict(q_offset=q_off, k_offset=k_off, causal=True)
+    before = dict(tfa.launches)
+    o, lse = tfa.flash_fwd(q, k, v, q_off, k_off, True)
+    delta = tfa._delta(o, do, g_lse)
+    dq = tfa.flash_dq(q, k, v, do, lse, delta, q_off, k_off, True)
+    dk, dv = tfa.flash_dkv(q, k, v, do, lse, delta, q_off, k_off, True)
+    torch.cuda.synchronize()
+    assert {n: tfa.launches[n] - before[n] for n in before} == {"fwd": 1, "dq": 1, "dkv": 1}
+    want_o, want_lse = tfa.flash_fwd_plain(q, k, v, **geo)
+    want = {
+        "o": want_o, "lse": want_lse,
+        "dq": tfa.flash_dq_plain(q, k, v, do, want_lse, delta, **geo),
+        **dict(zip(("dk", "dv"), tfa.flash_dkv_plain(q, k, v, do, want_lse, delta, **geo))),
+    }
+    for name, got in {"o": o, "lse": lse, "dq": dq, "dk": dk, "dv": dv}.items():
+        ref = want[name].float()
+        err = (got.float() - ref).abs().max().item()
+        assert err <= tol, (name, err)
+    if k_off >= q_off + t:
+        assert bool((o == 0).all()) and bool((lse == -1e30).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_read_fused_qkv_views_in_place(cuda, dtype):
+    """q, k, v as strided views of one fused qkv tensor (the model's
+    layout) give bit for bit what their contiguous copies give."""
+    from mpit_tpu_torch.ops import flash_attention as tfa
+
+    q, k, v, do = (_randn((2, 128, 3, 64), s, dtype) for s in range(4))
+    views = torch.cat((q, k, v), dim=2).split(3, dim=2)
+    assert not views[1].is_contiguous()
+    out = {}
+    for label, (a, b, c) in (("views", views), ("copies", (q, k, v))):
+        o, lse = tfa.flash_fwd(a, b, c)
+        delta = tfa._delta(o, do, None)
+        out[label] = (o, lse, tfa.flash_dq(a, b, c, do, lse, delta),
+                      *tfa.flash_dkv(a, b, c, do, lse, delta))
+    for x, y in zip(out["views"], out["copies"]):
+        assert torch.equal(x, y)
+
+
+def test_flash_attention_autograd_through_kernels(cuda):
+    """``flash_attention_block``'s gradients on the card (kernels) equal
+    the CPU's (plain versions) in f32, the lse term included."""
+    from mpit_tpu_torch.ops import flash_attention as tfa
+
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        q, k, v = (_randn((1, 128, 2, 64), s, torch.float32).to(dev).requires_grad_() for s in range(3))
+        o, lse = tfa.flash_attention_block(q, k, v, q_offset=64, k_offset=0, block_q=64, block_k=64)
+        w = _randn((1, 128, 2, 64), 5, torch.float32).to(dev)
+        (o * w).sum().add((lse.sin()).sum()).backward()
+        grads[dev] = [x.grad.cpu() for x in (q, k, v)]
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError, match="divisible"):
+        tfa.flash_attention(*(_randn((1, 96, 2, 64), s, torch.float32) for s in range(3)), block_q=64)
+
+
+def test_tiny_training_through_flash_kernels_matches_plain(cuda):
+    """Three goo_adam steps of a tiny f32 GPT-2 (head dim 16) through
+    the flash kernels and through the plain attention, from the same
+    weights: per-step losses within 1e-4 relative; each kernel ran once
+    per layer and step."""
+    import dataclasses
+
+    from mpit_tpu_torch.data import SyntheticLM
+    from mpit_tpu_torch.models import default_attention
+    from mpit_tpu_torch.ops import flash_attention as tfa
+    from mpit_tpu_torch.opt import goo_adam
+    from mpit_tpu_torch.train import make_train_step
+
+    cfg = GPT2Config.tiny(
+        vocab_size=128, max_seq_len=64, num_layers=2, num_heads=2, d_model=32,
+        dtype=torch.float32,
+    )
+    init = GPT2(cfg, generator=torch.Generator().manual_seed(0)).state_dict()
+    losses = {}
+    for label, attn in (("flash", tfa.flash_attention), ("plain", default_attention)):
+        model = GPT2(dataclasses.replace(cfg, attention_fn=attn), device="cuda")
+        model.load_state_dict(init)
+        init_fn, step_fn = make_train_step(
+            lambda p, b: (GPT2.fused_loss_fn(model, b["tokens"]), {}), goo_adam(1e-3)
+        )
+        state = init_fn(dict(model.named_parameters()))
+        batches = SyntheticLM(vocab_size=128, seed=0).batches(4, 64)
+        before = dict(tfa.launches)
+        losses[label] = []
+        for _ in range(3):
+            tokens = torch.from_numpy(next(batches)["tokens"]).long().cuda()
+            state, metrics = step_fn(state, {"tokens": tokens})
+            losses[label].append(metrics["loss"].item())
+        ran = {n: tfa.launches[n] - before[n] for n in before}
+        assert ran == dict.fromkeys(ran, 6 if label == "flash" else 0)
+    np.testing.assert_allclose(losses["flash"], losses["plain"], rtol=1e-4)
