@@ -1,5 +1,5 @@
 """Chip smoke test of mpit_tpu_torch: the port's serving and training paths
-on one GPU.
+on one GPU, training on one rank and over four data-parallel ranks.
 
     python3 chip_smoke.py
 
@@ -119,6 +119,35 @@ for an H100). Phases, each of which raises (exit code != 0) on failure:
 5t. train parity — f32, TF32 off, the same seeded initial weights, three
    goo_adam steps through the flash-kernel step and the plain-attention
    step at full width and depth: per-step losses within 1e-4 relative.
+3e. kernel vs plain, ring collectives — the reduce-scatter and all-gather
+   kernels, sum and int8 wire, against their plain versions (the same
+   ring order hop by hop), BIT FOR BIT: p 2, 4 and 8 at 8192 rows a chunk
+   (GPT-2 small's 4 MiB f32 bucket), f32 and bf16 for the sum forms, f32
+   for the q8 forms; GPT-2 small's ragged tail bucket at p 4, read in
+   place from a wider buffer as the bucket loop reads it; an all-zero
+   chunk (scale 1.0) in both q8 forms; payloads the planner must pad
+   (the public collectives). Every gathered replica identical. Times
+   each kernel, its plain version and the library yardstick
+   (``xs.view(p, p, c).sum(0)`` for a reduce-scatter, an expand-and-copy
+   of the concatenated shards for an all-gather; the port's ``psum``
+   mode, never called by the ring modes) over 20 cold-L2 calls, beside
+   the bound and the bytes the ring schedule itself moves. Every case
+   goes to ``chiprun_out/chip_smoke_ring.json``;
+4d. data-parallel train — phase 4t's run with ``--mesh data=4 --zero1
+   true`` and ``--grad-sync ring``, then ``ring_q8``: four ranks on the
+   card, 2 sequences each, ZeRO-1 through the ring kernels, 30 steps.
+   30 finite losses, falling; the reduce-scatter and all-gather launch
+   counts (set to 0 just before) each equal buckets x 30 for the run's
+   form and 0 for the other; the flash counts 12 x 4 x 30 each; the four
+   parameter replicas bit-identical after the run. Prints step p50/p95,
+   tokens/s and peak memory; then profiles three ``ring`` steps (device
+   time by kernel family, idle share);
+5d. data-parallel parity — f32, three steps over four ranks from one set
+   of weights: ``ring`` losses within 1e-5 relative of ``psum``'s (the
+   ring sums the ranks in another order, so not bit-equal); bf16, the
+   30-step 4d configuration under ``psum``: 4d's ``ring_q8`` curve within
+   ``0.02 + 0.02·|loss|`` of it at every step (the JAX package's pin)
+   and not identical to it.
 
 The last lines are the kernels JSON line, the card's name and power
 limit as ``nvidia-smi`` prints them, and ``{"ok": true, "device":
@@ -127,6 +156,7 @@ limit as ``nvidia-smi`` prints them, and ``{"ok": true, "device":
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -162,6 +192,13 @@ QMM_TOL = 1e-4  # times max(1, max |plain|)
 FLASH_B, FLASH_T = 8, (512, 1024)  # GPT-2 small's training batch and lengths
 TRAIN_ARGS = ["--flash", "true", "--steps", "30", "--log-every", "1"]
 TRAIN_PARITY_TOL = 1e-4  # relative, per-step loss, f32
+# Phase 3e: rank counts, and a chunk of GPT-2 small's 4 MiB f32 bucket.
+RING_P = (2, 4, 8)
+RING_ROWS = 8192
+# Phases 4d and 5d: phase 4t's run over four ranks on the one card.
+DP_RANKS = 4
+DP_ARGS = TRAIN_ARGS + ["--mesh", f"data={DP_RANKS}", "--zero1", "true"]
+DP_PARITY_TOL = 1e-5  # relative, per-step loss, f32, ring vs psum
 FORMS = (
     "flash_decode_attention",
     "flash_decode_attention_int8",
@@ -983,8 +1020,6 @@ def train_profile(torch, steps: int = 3) -> dict:
     activity."""
     import importlib
 
-    from torch.profiler import ProfilerActivity, profile
-
     from mpit_tpu_torch.asyncsgd.config import from_argv
     from mpit_tpu_torch.asyncsgd.gpt2 import GPT2TrainConfig
     from mpit_tpu_torch.data import SyntheticLM
@@ -1008,23 +1043,50 @@ def train_profile(torch, steps: int = 3) -> dict:
         state, _ = step_fn(state, {"tokens": t})
     torch.cuda.synchronize()
     counts = dict(fa.launches)
+    holder = {"state": state}
+
+    def one_step(t):
+        holder["state"], _ = step_fn(holder["state"], {"tokens": t})
+
+    out = profile_window(torch, one_step, tokens[3:])
+    fa.launches.update(counts)  # profiled steps are not the main path's run
+    return out
+
+
+# Kernel families of the profiles, by substrings of the device kernel's
+# name. cuBLAS names its Hopper GEMMs nvjet_* (CUDA 12.8) or *gemm*; the
+# goo rules run as foreach (multi_tensor_apply) kernels; copies are the
+# gradients' ravel into the flat buffer (_foreach_copy_) and the dtype
+# casts (copy kernels).
+FAMILIES = {
+    "flash_attention": ("fwd_kernel", "dq_kernel", "dkv_kernel"),
+    "ring_collectives": ("rs_kernel", "ag_kernel"),
+    "gemm": ("nvjet", "gemm", "xmma", "cutlass"),
+    "copies": ("copy",),
+    "optimizer_foreach": ("foreach", "multi_tensor"),
+}
+
+
+def profile_window(torch, one_step, batches) -> dict:
+    """``one_step(batch)`` over ``batches`` under ``torch.profiler``:
+    device busy time by kernel family (:data:`FAMILIES`) and the device's
+    idle share of the window's wall time. Reports, gates nothing; "not
+    measured" when the profiler records no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for t in tokens[3:]:
-            state, _ = step_fn(state, {"tokens": t})
+        for b in batches:
+            one_step(b)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    fa.launches.update(counts)  # profiled steps are not the main path's run
-    # cuBLAS names its Hopper GEMMs nvjet_* (CUDA 12.8) or *gemm*.
-    families = {"flash_attention": ("fwd_kernel", "dq_kernel", "dkv_kernel"),
-                "gemm": ("nvjet", "gemm", "xmma", "cutlass"),
-                "optimizer_foreach": ("foreach", "multi_tensor")}
+    steps = len(batches)
     busy, kernels = {}, {}
     for e in prof.key_averages():
         if str(getattr(e, "device_type", "")).split(".")[-1] != "CUDA":
             continue
         name = e.key.lower()
-        fam = next((f for f, keys in families.items() if any(k in name for k in keys)),
+        fam = next((f for f, keys in FAMILIES.items() if any(k in name for k in keys)),
                    "other")
         busy[fam] = busy.get(fam, 0.0) + e.self_device_time_total / 1e3
         kernels[e.key[:80]] = kernels.get(e.key[:80], 0.0) + e.self_device_time_total / 1e3
@@ -1038,9 +1100,333 @@ def train_profile(torch, steps: int = 3) -> dict:
         "device_idle_share": max(0.0, 1.0 - total / wall_ms),
         "busy_ms_per_step_by_family": {f: v / steps for f, v in sorted(busy.items())},
         "top_kernels_ms_per_step": {
-            k: v / steps for k, v in sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+            k: v / steps for k, v in sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
         },
     }
+
+
+def ring_bound(kind: str, p: int, rows: int, in_item: int, out_item: int, q8: bool):
+    """The least time for one ring collective over ``p`` ranks of
+    ``rows x 128`` chunks: a reduce-scatter reads every rank's p chunks
+    and writes one chunk a rank, an all-gather reads one chunk a rank and
+    writes p; over the HBM rate, against its f32 operations (sum: one add
+    an element and hop; q8 reduce-scatter four: amax, divide, multiply,
+    add; q8 all-gather a divide a source element and a multiply an output
+    element) over the f32 non-tensor peak. Returns ``(bound_ms, by)``."""
+    c = rows * 128
+    if kind == "rs":
+        nbytes = p * p * c * in_item + p * c * out_item
+        nops = (4 if q8 else 1) * (p - 1) * p * c
+    else:
+        nbytes = p * c * in_item + p * p * c * out_item
+        nops = (p * c + p * p * c) if q8 else 0
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / PEAK_OPS_PER_S["float32"] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def ring_schedule_bytes(kind: str, p: int, rows: int, in_item: int, wire_item: int,
+                        out_item: int) -> int:
+    """Bytes the ring schedule itself moves on one card: per rank and
+    step, a reduce-scatter reads its outgoing chunk, writes and reads the
+    mailbox, reads its own chunk and writes the partial; an all-gather
+    copies its own chunk once, then per step reads a chunk, writes and
+    reads the mailbox and writes the arrived chunk."""
+    c = rows * 128
+    if kind == "rs":
+        return p * (p - 1) * c * (in_item + 2 * wire_item + in_item + out_item)
+    return p * c * (in_item + out_item) + p * (p - 1) * c * (out_item + 2 * wire_item + out_item)
+
+
+def ring_case(torch, flush, kind: str, xs, quantized: bool, label: str, **extra):
+    """Phase 3e, one case: the kernel (``reduce_scatter_chunks`` /
+    ``all_gather_chunks``) against its plain version, bit for bit, with
+    the kernel, plain and library times and the bound."""
+    from mpit_tpu_torch.ops import ring_collectives as rc
+
+    p, rows = xs.shape[0], xs.shape[-2]
+    if kind == "rs":
+        run = lambda: rc.reduce_scatter_chunks(xs, quantized=quantized)  # noqa: E731
+        plain = lambda: rc.reduce_scatter_plain(xs, quantized=quantized)  # noqa: E731
+        lib = lambda: xs.reshape(p, p, -1).sum(0)  # noqa: E731
+        out_item = 4 if quantized else xs.element_size()
+    else:
+        run = lambda: rc.all_gather_chunks(xs, quantized=quantized)  # noqa: E731
+        plain = lambda: rc.all_gather_plain(xs, quantized=quantized)  # noqa: E731
+        lib = lambda: xs.reshape(1, -1).expand(p, -1).clone()  # noqa: E731
+        out_item = xs.element_size()
+    got = run()
+    torch.cuda.synchronize()
+    want = plain()
+    if not torch.equal(got, want):
+        err = (got.float() - want.float()).abs().max().item()
+        fail(f"ring {label}: kernel != plain (max |error| {err}); {rc.device_error()}")
+    if kind == "ag" and not all(torch.equal(got[r], got[0]) for r in range(1, p)):
+        fail(f"ring {label}: the gathered replicas differ")
+    in_item = xs.element_size()
+    bound_ms, bound_by = ring_bound(kind, p, rows, in_item, out_item, quantized)
+    case = {
+        "form": f"ring_{kind}" + ("_q8" if quantized else ""), "label": label,
+        "dtype": str(xs.dtype).removeprefix("torch."), "p": p, "rows": rows, **extra,
+        "max_abs_err": 0.0, "bit_equal": True,
+        "ms": cold_time_ms(run, torch, flush),
+        "plain_ms": cold_time_ms(plain, torch, flush),
+        "library_ms": cold_time_ms(lib, torch, flush),
+        "library": "xs.view(p, p, c).sum(0)" if kind == "rs"
+        else "expand-and-copy of the concatenated shards",
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "ring_schedule_bytes": ring_schedule_bytes(
+            kind, p, rows, in_item, 1 if quantized else in_item, out_item
+        ),
+    }
+    print(json.dumps({"kernel_case": case}), flush=True)
+    return case
+
+
+def ring_kernel_phase(torch, flush, tail_rows: int):
+    """Phase 3e: the four ring kernels against their plain versions."""
+    from mpit_tpu_torch.ops import ring_collectives as rc
+
+    def randn(shape, seed, dtype=torch.float32):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    cases = []
+    forms = [(torch.float32, False), (torch.bfloat16, False), (torch.float32, True)]
+    for p in RING_P:
+        for dtype, q8 in forms:
+            name = str(dtype).removeprefix("torch.")
+            tag = f"p={p} {name}{' q8' if q8 else ''} rows={RING_ROWS}"
+            cases.append(ring_case(torch, flush, "rs", randn((p, p, RING_ROWS, 128), p, dtype),
+                                   q8, f"rs {tag}"))
+            cases.append(ring_case(torch, flush, "ag", randn((p, RING_ROWS, 128), p + 1, dtype),
+                                   q8, f"ag {tag}"))
+        torch.cuda.empty_cache()
+    # GPT-2 small's ragged tail bucket, read in place from a wider buffer.
+    for q8 in (False, True):
+        wide = randn((DP_RANKS, DP_RANKS, RING_ROWS + tail_rows, 128), 5)
+        cases.append(ring_case(torch, flush, "rs", wide[:, :, RING_ROWS:], q8,
+                               f"rs tail bucket q8={q8}", strided=True))
+        shards = randn((DP_RANKS, RING_ROWS + tail_rows, 128), 6)
+        cases.append(ring_case(torch, flush, "ag", shards[:, RING_ROWS:], q8,
+                               f"ag tail bucket q8={q8}", strided=True))
+    # An all-zero chunk (scale 1.0) in the q8 forms.
+    xs = randn((DP_RANKS, DP_RANKS, 256, 128), 7)
+    xs[:, 2] = 0
+    cases.append(ring_case(torch, flush, "rs", xs, True, "rs q8 zero chunk", zero_chunk=2))
+    shards = randn((DP_RANKS, 256, 128), 8)
+    shards[1] = 0
+    cases.append(ring_case(torch, flush, "ag", shards, True, "ag q8 zero chunk", zero_chunk=1))
+    # Payloads the planner must pad (p 4, not a multiple of 4 x 128).
+    for q8 in (False, True):
+        n = 1_000_003
+        x = randn((DP_RANKS, n), 9)
+        wire = torch.int8 if q8 else torch.float32
+        plan = rc.plan_ring(n, DP_RANKS, wire)
+        got = rc.ring_reduce_scatter(x, op="qsum" if q8 else "sum")
+        x4 = plan.to_wire(x).reshape(DP_RANKS, DP_RANKS, plan.padded_rows, 128)
+        want = plan.shard_from_wire(rc.reduce_scatter_plain(x4, quantized=q8))
+        splan = rc.plan_shards(n // 4, DP_RANKS, wire)
+        sh = x[:, : n // 4]
+        got_ag = rc.ring_all_gather(sh, quantized=q8)
+        want_ag = splan.gathered_from_wire(
+            rc.all_gather_plain(splan.shard_to_wire(sh), quantized=q8).reshape(
+                DP_RANKS, DP_RANKS * splan.padded_rows, 128), n // 4,
+        )
+        if not (torch.equal(got, want) and torch.equal(got_ag, want_ag)):
+            fail(f"ring planner-padded payload q8={q8}: kernel != plain")
+        cases.append({"form": "ring_public_padded", "q8": q8, "payload": n, "p": DP_RANKS,
+                      "chunk_rows": plan.chunk_rows, "padded_rows": plan.padded_rows,
+                      "bit_equal": True})
+        print(json.dumps({"kernel_case": cases[-1]}), flush=True)
+    err = rc.device_error()
+    if err:
+        fail(err)
+    torch.cuda.empty_cache()
+    return cases
+
+
+def dp_bucket_plan(torch):
+    """GPT-2 small's flat length over DP_RANKS ranks and its buckets."""
+    from mpit_tpu_torch import comm
+    from mpit_tpu_torch.asyncsgd.config import from_argv
+    from mpit_tpu_torch.asyncsgd.gpt2 import GPT2TrainConfig
+    from mpit_tpu_torch.models import GPT2
+    from mpit_tpu_torch.opt.sharded import FlatLayout, padded_len
+    from mpit_tpu_torch.train.grad_sync import GradSync
+
+    cfg = from_argv(GPT2TrainConfig, DP_ARGS)
+    layout = FlatLayout(dict(GPT2(cfg.model_config(), device="meta").named_parameters()))
+    rows = padded_len(layout.total, DP_RANKS) // (DP_RANKS * 128)
+    world = comm.init({"data": DP_RANKS}, devices=["cuda"])
+    buckets = GradSync(world, "ring", bucket_mb=cfg.grad_bucket_mb).bucket_rows(rows)
+    return {"flat_len": layout.total, "shard_rows": rows, "buckets": len(buckets),
+            "tail_rows": buckets[-1][1] - buckets[-1][0]}
+
+
+def dp_train_phase(torch, card, mode: str, plan: dict):
+    """Phase 4d: GPT-2 small over DP_RANKS ranks on the card, ZeRO-1, the
+    gradient sync ``mode``, 30 steps. Returns the ring and flash launch
+    counts of the run and its losses."""
+    import importlib
+
+    import numpy as np
+
+    from mpit_tpu_torch.asyncsgd.gpt2 import main
+    from mpit_tpu_torch.ops import ring_collectives as rc
+
+    fa = importlib.import_module("mpit_tpu_torch.ops.flash_attention")
+    args = DP_ARGS + ["--grad-sync", mode]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches.update(dict.fromkeys(fa.launches, 0))
+    rc.launches.update(dict.fromkeys(rc.launches, 0))
+    out = main(args)
+    flash, ring = dict(fa.launches), dict(rc.launches)
+    peak = torch.cuda.max_memory_allocated()
+    losses, steps = out["losses"], out["steps"]
+    if steps != 30 or len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        fail(f"dp {mode}: {steps} steps, losses {losses}")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not last < first:
+        fail(f"dp {mode}: mean of the last five losses {last} >= the first five {first}")
+    need_flash = 12 * DP_RANKS * steps
+    if any(n != need_flash for n in flash.values()):
+        fail(f"dp {mode}: flash launches {flash}, expected {need_flash} each")
+    need_ring = plan["buckets"] * steps
+    q = "_q8" if mode == "ring_q8" else ""
+    want = {k: need_ring if k in (f"ring_rs{q}", f"ring_ag{q}") else 0 for k in ring}
+    if ring != want:
+        fail(f"dp {mode}: ring launches {ring}, expected {want}")
+    if not out["replicas_identical"]:
+        fail(f"dp {mode}: the {DP_RANKS} parameter replicas differ after the run")
+    if out["grad_sync"] != mode:
+        fail(f"dp {mode}: the step ran {out['grad_sync']}")
+    step_ms = np.asarray(out["step_ms"][2:])
+    print(json.dumps({
+        "card": card,
+        "train_dp": {
+            "args": args, "ranks": out["ranks"], "grad_sync": out["grad_sync"],
+            "steps": steps, "losses": losses, "first5_mean": first, "last5_mean": last,
+            "step_ms_p50": float(np.percentile(step_ms, 50)),
+            "step_ms_p95": float(np.percentile(step_ms, 95)),
+            "tokens_per_sec": out.get("items_per_sec"),
+            "tokens_per_sec_mean": out.get("items_per_sec_mean"),
+            "peak_memory_gib": peak / 2**30,
+            "replicas_identical": True,
+            "bucket_plan": plan, "ring_launches": ring, "flash_launches": flash,
+        },
+    }), flush=True)
+    return ring, losses
+
+
+def dp_models(torch, cfg, init, attention):
+    from mpit_tpu_torch.models import GPT2
+
+    models = []
+    for _ in range(DP_RANKS):
+        m = GPT2(dataclasses.replace(cfg, attention_fn=attention), device="cuda")
+        m.load_state_dict(init)
+        models.append(m)
+    return models
+
+
+def dp_step(torch, models, mode: str, cfg_lr: float):
+    from mpit_tpu_torch import comm
+    from mpit_tpu_torch.models import GPT2
+    from mpit_tpu_torch.opt import goo_adam
+    from mpit_tpu_torch.train import make_train_step
+
+    world = comm.init({"data": DP_RANKS}, devices=["cuda"])
+    init_fn, step_fn = make_train_step(
+        [lambda p, b, m=m: (GPT2.fused_loss_fn(m, b["tokens"].long()), {}) for m in models],
+        goo_adam(cfg_lr), world, grad_sync=mode,
+    )
+    return world, init_fn([dict(m.named_parameters()) for m in models]), step_fn
+
+
+def dp_parity_phase(torch, q8_losses):
+    """Phase 5d: f32 ring vs psum over 3 steps from one set of weights;
+    bf16 ring_q8 (phase 4d's curve) vs psum over 30 steps."""
+    import importlib
+
+    from mpit_tpu_torch.asyncsgd.gpt2 import main
+    from mpit_tpu_torch.data import SyntheticLM, shard_batch
+    from mpit_tpu_torch.models import GPT2, GPT2Config
+
+    fa = importlib.import_module("mpit_tpu_torch.ops.flash_attention")
+    cfg = GPT2Config.small(dtype=torch.float32, max_seq_len=512)
+    init = GPT2(cfg, generator=torch.Generator().manual_seed(0)).state_dict()
+    losses = {}
+    for mode in ("psum", "ring"):
+        models = dp_models(torch, cfg, init, fa.flash_attention)
+        world, state, step_fn = dp_step(torch, models, mode, 3e-4)
+        batches = SyntheticLM(vocab_size=cfg.vocab_size, seed=0).batches(8, 512)
+        losses[mode] = []
+        for _ in range(3):
+            state, metrics = step_fn(state, shard_batch(world, next(batches)))
+            losses[mode].append(metrics["loss"].item())
+        if not state.replicas_equal():
+            fail(f"dp parity f32 {mode}: replicas differ")
+        del models, state, step_fn
+        torch.cuda.empty_cache()
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["ring"], losses["psum"])]
+    if not max(rel) <= DP_PARITY_TOL:
+        fail(f"dp parity f32: ring {losses['ring']} vs psum {losses['psum']}: {rel}")
+    out = main(DP_ARGS + ["--grad-sync", "psum"])
+    psum = out["losses"]
+    if len(psum) != 30 or not out["replicas_identical"]:
+        fail(f"dp parity bf16: psum run {len(psum)} losses, replicas {out['replicas_identical']}")
+    gaps = [abs(a - b) for a, b in zip(psum, q8_losses)]
+    wide = [i for i, (a, g) in enumerate(zip(psum, gaps)) if not g <= 0.02 + 0.02 * abs(a)]
+    if wide:
+        fail(f"dp parity bf16: ring_q8 leaves 0.02 + 0.02|loss| of psum at steps {wide}: "
+             f"{psum} vs {q8_losses}")
+    if psum == q8_losses:
+        fail("dp parity bf16: the ring_q8 curve equals psum's: the int8 wire did not run")
+    print(json.dumps({"dp_parity": {
+        "f32_3_steps": {"losses": losses, "max_rel_diff": max(rel),
+                        "bit_equal": losses["ring"] == losses["psum"]},
+        "bf16_30_steps": {"psum": psum, "ring_q8": q8_losses, "max_abs_gap": max(gaps)},
+    }}), flush=True)
+
+
+def dp_profile(torch, steps: int = 3) -> dict:
+    """Three DP steps (DP_RANKS ranks, ``ring``, the phase-4d model) under
+    ``torch.profiler`` after three warm-up steps."""
+    import importlib
+
+    from mpit_tpu_torch.asyncsgd.config import from_argv
+    from mpit_tpu_torch.asyncsgd.gpt2 import GPT2TrainConfig
+    from mpit_tpu_torch.data import SyntheticLM, shard_batch
+    from mpit_tpu_torch.models import GPT2
+    from mpit_tpu_torch.ops import ring_collectives as rc
+
+    fa = importlib.import_module("mpit_tpu_torch.ops.flash_attention")
+    cfg = from_argv(GPT2TrainConfig, DP_ARGS)
+    mcfg = cfg.model_config()
+    init = GPT2(mcfg, generator=torch.Generator().manual_seed(cfg.seed)).state_dict()
+    models = dp_models(torch, mcfg, init, mcfg.attention_fn)
+    world, state, step_fn = dp_step(torch, models, "ring", cfg.lr)
+    batches = SyntheticLM(vocab_size=cfg.vocab_size, seed=cfg.seed).batches(
+        cfg.batch_size, cfg.seq_len
+    )
+    tokens = [shard_batch(world, next(batches)) for _ in range(steps + 3)]
+    counts = (dict(fa.launches), dict(rc.launches))
+    holder = {"state": state}
+
+    def one_step(b):
+        holder["state"], _ = step_fn(holder["state"], b)
+
+    for b in tokens[:3]:
+        one_step(b)
+    torch.cuda.synchronize()
+    out = profile_window(torch, one_step, tokens[3:])
+    fa.launches.update(counts[0])  # profiled steps are not the main path's run
+    rc.launches.update(counts[1])
+    del models, holder, state
+    torch.cuda.empty_cache()
+    return out
 
 
 def train_parity_phase(torch):
@@ -1116,6 +1502,11 @@ def main() -> None:
         + qmm_kernel_phase(torch, flush)
     )
     flash_cases = flash_kernel_phase(torch, flush)
+    plan = dp_bucket_plan(torch)
+    ring_cases = ring_kernel_phase(torch, flush, plan["tail_rows"])
+    (OUT / "chip_smoke_ring.json").write_text(
+        json.dumps({"card": card, "bucket_plan": plan, "cases": ring_cases}, indent=1)
+    )
     (OUT / "chip_smoke_kernels.json").write_text(json.dumps({"card": card, "cases": cases}, indent=1))
     (OUT / "chip_smoke_flash.json").write_text(
         json.dumps({"card": card, "cases": flash_cases}, indent=1)
@@ -1144,6 +1535,13 @@ def main() -> None:
     flash_launches = train_phase(torch, card, flush)
     del flush
     train_parity_phase(torch)
+    ring_launches = {}
+    dp_losses = {}
+    for mode in ("ring", "ring_q8"):
+        counts, dp_losses[mode] = dp_train_phase(torch, card, mode, plan)
+        ring_launches.update({k: n for k, n in counts.items() if n})
+    print(json.dumps({"card": card, "train_dp_profile": dp_profile(torch)}), flush=True)
+    dp_parity_phase(torch, dp_losses["ring_q8"])
 
     kernels = []
     for form in FORMS:
@@ -1208,6 +1606,24 @@ def main() -> None:
             **{k: head[k] for k in ("tol", "ms", "plain_ms", "bound_ms", "bound_by",
                                     "library_ms", "library")},
             "shape": {k: head[k] for k in ("dtype", "B", "T", "H", "Dh")},
+        })
+    ring_bodies = {"ring_rs": 350, "ring_rs_q8": 387, "ring_ag": 429, "ring_ag_q8": 457}
+    for name, body in ring_bodies.items():
+        head = next(
+            c for c in ring_cases
+            if c["form"] == name and c["p"] == DP_RANKS and c["rows"] == RING_ROWS
+            and c["dtype"] == "float32"
+        )
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "mpit_tpu_torch/csrc/ring_collectives.cu",
+            "replaces": f"mpit_tpu/ops/ring_collectives.py:{body}",
+            "call_site": "mpit_tpu/ops/ring_collectives.py:550",
+            "launches": ring_launches[name],
+            **{k: head[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "library", "ring_schedule_bytes")},
+            "shape": {k: head[k] for k in ("dtype", "p", "rows")},
         })
     print(json.dumps({"kernels": kernels}))
     print(card)  # the nvidia-smi name and power limit, as it prints them

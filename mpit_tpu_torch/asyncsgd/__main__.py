@@ -1,7 +1,8 @@
 """Workload launcher: ``python -m mpit_tpu_torch.asyncsgd <workload> [options]``.
 
-The port of :mod:`mpit_tpu.asyncsgd.__main__`. ``gpt2`` trains on one
-GPU (``--device cpu`` for the CPU); ``mnist``, ``imagenet`` and
+The port of :mod:`mpit_tpu.asyncsgd.__main__`. ``gpt2`` trains on the
+GPU, on one rank or over ``--mesh data=N`` ranks (``--device cpu`` for
+the CPU); ``mnist``, ``imagenet`` and
 ``resnet`` arrive with a later slice and raise ``SystemExit`` naming
 it. Prints the workload's result as one JSON line.
 """

@@ -21,7 +21,8 @@ __all__ = ["TrainConfig", "add_dataclass_args", "from_argv", "parse_mesh"]
 @dataclasses.dataclass
 class TrainConfig:
     """Options shared by every workload script (the Lua ``opt`` table
-    analogue). Only the one-rank ``spmd`` mode is ported."""
+    analogue). Only the ``spmd`` mode is ported: one rank, or ``--mesh
+    data=N`` ranks driven from this process."""
 
     mode: str = "spmd"  # spmd | parity | elastic
     steps: int = 200
@@ -36,9 +37,13 @@ class TrainConfig:
     decay_every: int = 0  # step schedule: decay period
     decay_factor: float = 0.1  # step schedule: decay multiplier
     schedule_horizon: int = 0  # warmup_cosine horizon; 0 = --steps
-    zero1: bool = True  # on one rank the shard is the whole state
+    zero1: bool = True  # shard the goo state across the data ranks
+    # Gradient-sync wire (train/grad_sync.py): "psum" = the plain
+    # collectives; "ring" = the ring reduce-scatter/all-gather kernels,
+    # per grad bucket; "ring_q8" = the ring with the int8 wire (lossy).
     grad_sync: str = "psum"  # psum | ring | ring_q8
-    mesh: str = ""  # e.g. "data=1"; "" = one rank
+    grad_bucket_mb: float = 4.0  # ring tiers: bucket size (MB of f32)
+    mesh: str = ""  # e.g. "data=4"; "" = one rank
     log_every: int = 50
     spike_factor: float = 0.0  # >0: treat loss > factor * EMA as divergence
     fetch_lag: int = 2  # losses read back this many log points late

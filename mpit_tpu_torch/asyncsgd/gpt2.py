@@ -1,9 +1,11 @@
-"""GPT-2 small training — baseline config #5 of the JAX package, on one
+"""GPT-2 small training — baseline config #5 of the JAX package, on the
 GPU.
 
 The port of :mod:`mpit_tpu.asyncsgd.gpt2` in its ``shard_map+zero1``
-tier on one rank: :class:`mpit_tpu_torch.models.GPT2` trained on the
-synthetic bigram stream (loss falls from ``log(vocab)`` toward
+tier, on one rank or with ``--mesh data=N`` over ``N`` ranks (one model
+per rank, the global batch split over them, ZeRO-1, the gradient sync
+of ``--grad-sync psum|ring|ring_q8``): :class:`mpit_tpu_torch.models.GPT2`
+trained on the synthetic bigram stream (loss falls from ``log(vocab)`` toward
 ``log(branching)``) with ``goo_adam``, the fused streaming LM-head loss
 and, by default, bf16 head products with f32 results. ``--flash true``
 plugs the flash-attention kernels in as the model's ``attention_fn``
@@ -13,10 +15,12 @@ false`` the plain :func:`~mpit_tpu_torch.models.gpt2.default_attention`.
     python -m mpit_tpu_torch.asyncsgd gpt2 --flash true
     python -m mpit_tpu_torch.asyncsgd gpt2 --device cpu --steps 3 \\
         --vocab-size 128 --seq-len 32 --num-layers 2 --num-heads 2 --d-model 32
+    python -m mpit_tpu_torch.asyncsgd gpt2 --flash true --mesh data=4 \\
+        --zero1 true --grad-sync ring
 
 Every other tier of the JAX workload (a mesh with a model, seq, pipe or
-expert axis, or more than one data rank) and every flag of a later
-slice raises ``SystemExit`` naming the slice that brings it.
+expert axis) and every flag of a later slice raises ``SystemExit``
+naming the slice that brings it.
 """
 
 from __future__ import annotations
@@ -37,16 +41,16 @@ __all__ = ["GPT2TrainConfig", "main"]
 
 # Flags of the JAX workload's other tiers -> the slice that brings them.
 _LATER_TIER_FLAGS = {
-    "ulysses": "the context-parallel tier, after slice 8 of the port",
+    "ulysses": "the context-parallel tier, after the ring-collectives slice",
     **dict.fromkeys(
         ("microbatches", "pp_schedule", "pp_chunks"),
-        "the pipeline-parallel tier, after slice 8 of the port",
+        "the pipeline-parallel tier, after the ring-collectives slice",
     ),
     **dict.fromkeys(
         ("moe_experts", "moe_k", "moe_capacity", "moe_every", "aux_weight"),
-        "the expert-parallel tier, after slice 8 of the port",
+        "the expert-parallel tier, after the ring-collectives slice",
     ),
-    "fsdp_axis": "the tensor-parallel training tier, after slice 8 of the port",
+    "fsdp_axis": "the tensor-parallel training tier (slice 6 of the port)",
 }
 
 
@@ -93,30 +97,45 @@ def main(argv: list[str] | None = None, *, initial_params=None, **overrides) -> 
     runner.reject_later_slices(cfg)
     print(runner.describe(cfg, "gpt2"))
     device = resolve_device(cfg.device)
+    world = runner.make_world(cfg, device)
+    ranks = 1 if world is None else world.num_devices
     dataset = SyntheticLM(vocab_size=cfg.vocab_size, seed=cfg.seed)
     mcfg = cfg.model_config()
+    # One model per rank, each on its rank's device, all from one set of
+    # weights (JAX's replicated params).
     if initial_params is None:
-        model = GPT2(mcfg, device=device, generator=torch.Generator().manual_seed(cfg.seed))
+        first = GPT2(mcfg, device=device, generator=torch.Generator().manual_seed(cfg.seed))
+        initial_params = first.state_dict()
+        models = [first]
     else:
-        model = GPT2(mcfg, device=device)
+        models = []
+    for r in range(len(models), ranks):
+        model = GPT2(mcfg, device=device if world is None else world.rank_device(r))
         model.load_state_dict(initial_params)
+        models.append(model)
 
-    def loss_fn(params, batch):
-        del params  # the model's own parameters
-        tokens = batch["tokens"].long()
-        if cfg.fused_loss:
-            return GPT2.fused_loss_fn(model, tokens), {}
-        return GPT2.loss_fn(model(tokens[:, :-1]), tokens), {}
+    def loss_for(model):
+        def loss_fn(params, batch):
+            del params  # the model's own parameters
+            tokens = batch["tokens"].long()
+            if cfg.fused_loss:
+                return GPT2.fused_loss_fn(model, tokens), {}
+            return GPT2.loss_fn(model(tokens[:, :-1]), tokens), {}
+
+        return loss_fn
 
     tx = goo_adam(schedules.from_config(cfg), weight_decay=cfg.weight_decay)
+    loss_fns = [loss_for(m) for m in models]
+    params = [dict(m.named_parameters()) for m in models]
     out = runner.run_spmd(
         cfg,
         runner.make_stream(cfg, dataset, cfg.seq_len),
-        loss_fn,
-        lambda: dict(model.named_parameters()),
+        loss_fns[0] if world is None else loss_fns,
+        lambda: params[0] if world is None else params,
         tx=tx,
         items_per_batch=cfg.batch_size * cfg.seq_len,
         step_attrs={"attention": "flash" if cfg.flash else "plain"},
+        world=world,
     )
     out.update(
         tier="shard_map+zero1",

@@ -1,15 +1,18 @@
-"""Shared run harness of the port's training workloads: the one-rank
-subset of :mod:`mpit_tpu.asyncsgd.runner`.
+"""Shared run harness of the port's training workloads: the SPMD subset
+of :mod:`mpit_tpu.asyncsgd.runner`.
 
-:func:`run_spmd` drives the train step (value and grad, goo update) for
-``cfg.steps`` steps through :func:`mpit_tpu_torch.train.hardened_loop`
-on one device. Everything of the JAX harness that needs more than one
-rank, a checkpoint directory or a later slice's machinery is refused
-with ``SystemExit`` naming the slice that brings it: the flags of
-:data:`LATER_FLAGS` (not fields of the port's config, so nothing can
-read them by mistake) as the command line is parsed, and the values of
-``--mode``, ``--grad-sync`` and ``--mesh`` that this slice does not run
-by :func:`reject_later_slices`.
+:func:`run_spmd` drives the train step (value and grad, gradient sync,
+goo update) for ``cfg.steps`` steps through
+:func:`mpit_tpu_torch.train.hardened_loop`: on one rank, or with
+``--mesh data=N`` over a :class:`~mpit_tpu_torch.comm.World` of ``N``
+ranks (ZeRO-1 with ``--zero1``, the sync by ``--grad-sync`` in
+``--grad-bucket-mb`` buckets), the global batch split over them.
+Everything of the JAX harness that needs a checkpoint directory or a
+later slice's machinery is refused with ``SystemExit`` naming the slice
+that brings it: the flags of :data:`LATER_FLAGS` (not fields of the
+port's config, so nothing can read them by mistake) as the command line
+is parsed, and the values of ``--mode`` and ``--mesh`` that this slice
+does not run by :func:`reject_later_slices`.
 """
 
 from __future__ import annotations
@@ -17,14 +20,18 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
+import torch
+
 from mpit_tpu_torch.asyncsgd.config import TrainConfig
+from mpit_tpu_torch.comm import init as init_world
 from mpit_tpu_torch.serve.engine import resolve_device
 from mpit_tpu_torch.train import MetricLogger, hardened_loop, make_train_step
 
-__all__ = ["LATER_FLAGS", "describe", "make_stream", "reject_later_slices", "run_spmd"]
+__all__ = [
+    "LATER_FLAGS", "describe", "make_stream", "make_world", "reject_later_slices", "run_spmd",
+]
 
-_COLLECTIVES = "the ring-collectives slice (slice 8 of the port)"
-_WORKLOADS = "the MNIST/ImageNet/ResNet workloads (slice 8 of the port)"
+_WORKLOADS = "the convnet-training slice (MNIST, ImageNet, ResNet)"
 _CHECKPOINT = "the checkpoint slice of the port"
 _OBSERVABILITY = "the observability slice of the port"
 _DATA = "the data-pipeline slice of the port"
@@ -34,7 +41,6 @@ _EASGD = "the elastic-averaging slice of the port"
 # slice that brings them. Giving one raises SystemExit naming it.
 LATER_FLAGS = {
     "momentum": _WORKLOADS,  # the goo SGD workloads; gpt2 trains with goo_adam
-    "grad_bucket_mb": _COLLECTIVES,
     **dict.fromkeys(
         ("easgd", "easgd_alpha", "easgd_beta", "sync_every", "nranks", "lease_s",
          "heartbeat_s", "staleness_bound"),
@@ -56,25 +62,32 @@ LATER_FLAGS = {
 
 def reject_later_slices(cfg: TrainConfig) -> None:
     """``SystemExit`` for the values of the config's fields that this
-    slice does not run: a mode other than ``spmd``, the ring
-    gradient-sync tiers, and a mesh beyond one data rank."""
+    slice does not run: a mode other than ``spmd`` and a mesh axis other
+    than ``data``."""
     if cfg.mode != "spmd":
         raise SystemExit(
             f"--mode {cfg.mode}: the parity and elastic tiers arrive with {_EASGD}"
         )
-    if cfg.grad_sync != "psum":
-        raise SystemExit(f"--grad-sync {cfg.grad_sync}: arrives with {_COLLECTIVES}")
     mesh = cfg.mesh_shape() or {}
     if set(mesh) - {"data"}:
         raise SystemExit(
             f"--mesh {cfg.mesh}: the model/seq/pipe/expert tiers arrive with "
-            f"{_COLLECTIVES} and the parallel slices after it"
+            "the tensor-parallel slice and the parallel tiers after it"
         )
-    if mesh.get("data", 1) != 1:
-        raise SystemExit(
-            f"--mesh {cfg.mesh}: data parallelism over more than one rank "
-            f"arrives with {_COLLECTIVES}"
-        )
+
+
+def make_world(cfg: TrainConfig, device):
+    """The World of ``--mesh data=N`` ranks on ``device`` (every CUDA
+    device for a bare ``cuda``; ranks over more than one raise), or None
+    for one rank."""
+    p = (cfg.mesh_shape() or {}).get("data", 1)
+    if p == 1:
+        return None
+    device = torch.device(device)
+    devices = None if device.type == "cuda" and device.index is None else [device]
+    world = init_world({"data": p}, devices=devices)
+    world.device  # noqa: B018 -- raises for ranks over several devices
+    return world
 
 
 def make_stream(cfg: TrainConfig, dataset, *args, skip: int = 0):
@@ -92,25 +105,30 @@ def describe(cfg: TrainConfig, workload: str) -> str:
 def run_spmd(
     cfg: TrainConfig,
     batches,
-    loss_fn: Callable,
+    loss_fn,
     init_params: Callable,
     *,
     tx,
     items_per_batch: int | None = None,
     step_attrs: dict | None = None,
+    world=None,
 ) -> dict:
-    """Drive the train step for ``cfg.steps`` steps on one device.
+    """Drive the train step for ``cfg.steps`` steps on one rank, or over
+    ``world``'s ranks (:func:`make_world`).
 
-    ``init_params() -> {name: tensor}`` gives the initial parameters,
-    already bound to the model ``loss_fn(params, batch) -> (loss, aux)``
-    reads them through (the seam a caller uses to start from other
-    weights, e.g. the JAX package's). ``tx`` is the goo rule;
-    ``items_per_batch`` the throughput unit (tokens per batch for LM
-    workloads); ``step_attrs`` label the loop's ``step`` spans."""
+    ``init_params()`` gives the initial parameters, already bound to the
+    model ``loss_fn(params, batch) -> (loss, aux)`` reads them through
+    (the seam a caller uses to start from other weights, e.g. the JAX
+    package's): one mapping, or with a ``world`` a list of one per rank
+    beside a list of ``loss_fn``s. ``tx`` is the goo rule;
+    ``items_per_batch`` the throughput unit (tokens per global batch for
+    LM workloads); ``step_attrs`` label the loop's ``step`` spans, with
+    ``grad_sync=`` the executed sync mode added."""
     reject_later_slices(cfg)
     device = resolve_device(cfg.device)
     init_fn, step_fn = make_train_step(
-        loss_fn, tx, world_size=1, zero1=cfg.zero1, grad_sync=cfg.grad_sync
+        loss_fn, tx, world, zero1=cfg.zero1, grad_sync=cfg.grad_sync,
+        grad_bucket_mb=cfg.grad_bucket_mb,
     )
     state = init_fn(init_params())
     result = hardened_loop(
@@ -118,19 +136,24 @@ def run_spmd(
         step_fn,
         batches,
         steps=cfg.steps,
-        device=device,
+        device=device if world is None else world.device,
         items_per_batch=items_per_batch or cfg.batch_size,
         log_every=cfg.log_every,
         logger=MetricLogger(),
         spike_factor=cfg.spike_factor,
         fetch_lag=cfg.fetch_lag,
         prefetch_depth=cfg.prefetch_depth,
-        step_attrs=step_attrs,
+        step_attrs={**(step_attrs or {}), "grad_sync": step_fn.grad_sync_mode},
+        world=world,
     )
+    ranks = 1 if world is None else world.num_devices
     out = {
         "mode": "spmd",
-        "world": f"1 rank ({device})",
+        "world": f"{ranks} rank{'s' if ranks > 1 else ''} ({device})",
         "device": str(device),
+        "ranks": ranks,
+        "zero1": cfg.zero1,
+        "grad_sync": step_fn.grad_sync_mode,
         "steps": result["steps"],
         "losses": result["losses"],
         "final_loss": result["final_loss"],
@@ -138,6 +161,8 @@ def run_spmd(
         "preempted": result["preempted"],
         "step_ms": result["step_ms"],
     }
+    if world is not None:
+        out["replicas_identical"] = result["state"].replicas_equal()
     for k in ("items_per_sec", "items_per_sec_last", "items_per_sec_mean"):
         if k in result:
             out[k] = result[k]

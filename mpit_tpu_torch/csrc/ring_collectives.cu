@@ -1,0 +1,511 @@
+// Ring reduce-scatter and all-gather for Hopper (sm_90a), sum and int8 wire,
+// over p ranks whose buffers are named by a per-rank pointer table.
+//
+// Replaces the TPU kernels of mpit_tpu/ops/ring_collectives.py, all four
+// reached through _call_ring (:546, pl.pallas_call at :550):
+//   - rs_kernel<T, false> <- _rs_kernel    (:350)  sum, in x's dtype
+//   - rs_kernel<T, true>  <- _rs_q8_kernel (:387)  int8 wire, f32 result
+//   - ag_kernel<T, false> <- _ag_kernel    (:429)
+//   - ag_kernel<T, true>  <- _ag_q8_kernel (:457)  int8 wire
+//
+// What they compute, per rank i of p, on [rows, 128] chunks:
+//   reduce-scatter: rank i's input holds p chunks; at step s (0..p-2) it
+//     sends chunk (i-1-s) mod p (s = 0) or its running partial (s >= 1) to
+//     rank i+1 and folds the partial arriving from rank i-1 into its own
+//     chunk (i-2-s) mod p. After p-1 steps its output holds chunk i summed
+//     over every rank. The q8 form quantizes each outgoing partial to int8
+//     with ONE scale over the whole chunk (amax / 127, 1 for an all-zero
+//     chunk, round half to even, clip to +-127) and the receiver computes
+//     f32(q) * scale + f32(x) with two roundings (no FMA), as the plain
+//     version and the JAX package do.
+//   all-gather: rank i contributes chunk i; chunks travel the ring in the
+//     same order; every rank ends with all p. The q8 form quantizes each
+//     rank's own chunk once; the int8 payload and its scale travel
+//     verbatim, and every rank, the owner included, writes the dequantized
+//     value, so every replica holds the same bits.
+//
+// Launch: ONE cooperative launch carries all p ranks, grid (B, p):
+// blockIdx.y is the rank, and block b of every rank owns rows
+// [b*rows/B, (b+1)*rows/B) of every chunk, running its own sub-ring with
+// block b of ranks i-1 and i+1 through its own flags. The sum forms need no
+// synchronisation between the blocks of one rank. The q8 forms need the
+// chunk-wide amax at every quantization: each block publishes its partial
+// amax, and every block of the rank waits for all B partials and takes
+// their max (exact, so order does not matter). p*B <= the SM count and the
+// launch is cooperative, so every block is resident and no spin-wait can
+// wait on a block that is not running.
+//
+// The mailbox discipline of the TPU kernels' _Ring (:263-345), with device
+// memory in place of remote DMA:
+//   - a sender writes only into its right neighbour's double-buffered
+//     mailbox, slot s % 2, then raises that neighbour's FULL flag for the
+//     slot to this step's token;
+//   - a receiver waits for its own FULL flag, reads its mailbox, and raises
+//     its LEFT neighbour's CAP flag for the slot: the left may write that
+//     slot again (step s + 2) only once CAP shows step s was consumed;
+//   - the q8 all-gather forwards the payload that arrived at step s - 1
+//     straight from its mailbox at step s, before it releases that slot.
+// Flags are never cleared: a token is epoch * 256 + step + 1, the epoch a
+// per-device call counter from the wrapper, so every token is larger than
+// any left over from an earlier call or bucket. Launches on one stream
+// finish in order, so the neighbour barrier of _Ring.barrier reduces to
+// that ordering on one device; the per-step flags are kept all the same.
+//
+// Memory order: a writer stores its payload, __threadfence(), then
+// __syncthreads(); one thread then stores the flag with st.release.gpu. A
+// reader's one thread spins with ld.acquire.gpu, __syncthreads(), and the
+// block reads the mailbox through L2 (ld.global.cg): L1 is not coherent
+// across SMs. In the form across cards (one launch per device, the pointer
+// table naming peer buffers over NVLink) the flag stores and loads become
+// .sys scope, and __threadfence() before a flag store becomes
+// __threadfence_system().
+//
+// Every spin has a budget of clock64 cycles; when it runs out the kernel
+// writes an error word into mapped host memory (readable after the context
+// is lost) and traps, so a hung ring ends the launch instead of hanging it.
+//
+// What bounds them on this card: the function's least traffic. A
+// reduce-scatter reads p chunks of every rank and writes one chunk per rank
+// (p*p*c in, p*c out); an all-gather reads p*c and writes p*p*c. At
+// GPT-2 small's bucket (p 4, 8192 rows of 128 f32 per chunk, 4 MiB) that
+// is 80 MiB, about 0.025 ms at 3.35 TB/s. The ring schedule itself moves
+// more on one HBM: every step reads and writes a chunk per rank again
+// through a mailbox (for the sum reduce-scatter about 4(p-1) + p chunk
+// passes per rank), since it is built for links between cards, not one
+// memory. The design keeps the payload in registers between its loads and
+// stores (16-byte loads where the type allows, 4 elements a thread per
+// iteration) and uses every SM: p*B blocks of 512 threads.
+//
+// C interface for ctypes: mpit_ring_launch returns the cudaError_t of the
+// launch (cudaGetLastError right after it) or -1 for arguments this file
+// does not take; mpit_ring_error reads the error word, 0 if none.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
+
+namespace {
+
+constexpr int NT = 512;            // threads per block
+constexpr int MAX_RANKS = 16;      // pointer-table entries
+constexpr int MAXB = 256;          // blocks per rank, at most
+constexpr int LANE = 128;
+// Workspace of one rank, in 64-bit words (zeroed once by the wrapper):
+constexpr int WS_FULL = 0;               // [2][MAXB] FULL flags
+constexpr int WS_CAP = 2 * MAXB;         // [2][MAXB] CAP flags
+constexpr int WS_ARRIVE = 4 * MAXB;      // [MAXB] amax-barrier flags
+constexpr int WS_PART = 5 * MAXB;        // [2][MAXB] f32 partial amax
+constexpr int WS_SCALE = 6 * MAXB;       // [2][MAXB] f32 scale mailbox
+constexpr long long SPIN_BUDGET = 1LL << 32;  // clock64 cycles, ~2 s
+
+typedef unsigned long long u64;
+
+struct RingArgs {
+  const void* in[MAX_RANKS];
+  void* out[MAX_RANKS];
+  void* mbox[MAX_RANKS];  // [2][rows][128] of the wire type
+  u64* ws[MAX_RANKS];
+  long long in_cs, out_cs;  // elements between chunks of the p-chunk side
+  int p, rows, nblk;
+  u64 epoch;
+  volatile unsigned int* err;  // mapped host memory
+};
+
+__device__ __forceinline__ u64 ld_acquire(const u64* p) {
+  u64 v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(u64* p, u64 v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+
+__device__ __forceinline__ u64 token(const RingArgs& a, int i) {
+  return a.epoch * 256ull + static_cast<u64>(i) + 1ull;
+}
+
+// Error word: kind (1 FULL, 2 CAP, 3 amax barrier) | rank << 8 | block << 16
+// | step << 24, then a trap.
+__device__ __noinline__ void fail(const RingArgs& a, int kind, int step) {
+  *a.err = static_cast<unsigned int>(kind) | (blockIdx.y << 8) |
+           (blockIdx.x << 16) | (static_cast<unsigned int>(step) << 24);
+  __threadfence_system();
+  __trap();
+}
+
+// One thread waits until *f >= want, within the budget.
+__device__ __forceinline__ void spin(const RingArgs& a, const u64* f, u64 want,
+                                     int kind, int step) {
+  const long long t0 = clock64();
+  while (ld_acquire(f) < want) {
+    if (clock64() - t0 > SPIN_BUDGET) fail(a, kind, step);
+    __nanosleep(32);
+  }
+}
+
+// The whole block waits for its thread 0's spin.
+__device__ __forceinline__ void block_wait(const RingArgs& a, const u64* f,
+                                           u64 want, int kind, int step) {
+  if (threadIdx.x == 0) {
+    spin(a, f, want, kind, step);
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// ---- four elements at a time, as float -------------------------------------
+
+__device__ __forceinline__ void load4(const float* p, float v[4]) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+}
+__device__ __forceinline__ void load4_cg(const float* p, float v[4]) {
+  const float4 x = __ldcg(reinterpret_cast<const float4*>(p));
+  v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+}
+__device__ __forceinline__ void store4(float* p, const float v[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void unpack_bf16(uint2 x, float v[4]) {
+  const __nv_bfloat162 lo = *reinterpret_cast<__nv_bfloat162*>(&x.x);
+  const __nv_bfloat162 hi = *reinterpret_cast<__nv_bfloat162*>(&x.y);
+  v[0] = __low2float(lo); v[1] = __high2float(lo);
+  v[2] = __low2float(hi); v[3] = __high2float(hi);
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
+  unpack_bf16(*reinterpret_cast<const uint2*>(p), v);
+}
+__device__ __forceinline__ void load4_cg(const __nv_bfloat16* p, float v[4]) {
+  unpack_bf16(__ldcg(reinterpret_cast<const uint2*>(p)), v);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float v[4]) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 x;
+  x.x = *reinterpret_cast<unsigned int*>(&lo);
+  x.y = *reinterpret_cast<unsigned int*>(&hi);
+  *reinterpret_cast<uint2*>(p) = x;
+}
+
+// int8 wire: four bytes.
+__device__ __forceinline__ void load4_cg(const int8_t* p, float v[4]) {
+  const char4 x = __ldcg(reinterpret_cast<const char4*>(p));
+  v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+}
+__device__ __forceinline__ void copy4_cg(const int8_t* src, int8_t* dst) {
+  *reinterpret_cast<char4*>(dst) = __ldcg(reinterpret_cast<const char4*>(src));
+}
+
+// round(x / scale) half to even, clipped to +-127.
+__device__ __forceinline__ void quant_store4(int8_t* p, const float v[4], float scale) {
+  float r[4];
+  #pragma unroll
+  for (int j = 0; j < 4; ++j) r[j] = fminf(fmaxf(rintf(__fdiv_rn(v[j], scale)), -127.f), 127.f);
+  *reinterpret_cast<char4*>(p) =
+      make_char4(static_cast<signed char>(r[0]), static_cast<signed char>(r[1]),
+                 static_cast<signed char>(r[2]), static_cast<signed char>(r[3]));
+}
+
+__device__ __forceinline__ float q8_scale(float amax) {
+  return amax > 0.f ? __fdiv_rn(amax, 127.f) : 1.f;
+}
+
+__device__ __forceinline__ float block_max(float v, float* red) {
+  #pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  __syncthreads();  // red may still be read from an earlier call
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    v = lane < NT / 32 ? red[lane] : 0.f;
+    #pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+    if (lane == 0) red[0] = v;
+  }
+  __syncthreads();
+  return red[0];
+}
+
+// The chunk-wide amax of one rank: this block's partial, published, then
+// the max over the partials of every block of the rank (barrier k).
+__device__ float rank_amax(const RingArgs& a, float mine, int k, float* red) {
+  const int r = blockIdx.y, b = blockIdx.x;
+  u64* ws = a.ws[r];
+  float* part = reinterpret_cast<float*>(ws + WS_PART);
+  const float bmax = block_max(mine, red);
+  const u64 tok = token(a, k);
+  if (threadIdx.x == 0) {
+    part[(k & 1) * MAXB + b] = bmax;
+    __threadfence();
+    st_release(ws + WS_ARRIVE + b, tok);
+  }
+  float v = 0.f;
+  if (threadIdx.x < a.nblk) {
+    spin(a, ws + WS_ARRIVE + threadIdx.x, tok, 3, k);
+    v = __ldcg(part + (k & 1) * MAXB + threadIdx.x);
+  }
+  return block_max(v, red);
+}
+
+struct Rows {
+  long long r0, n4;  // first row's element offset, groups of 4 elements
+};
+
+__device__ __forceinline__ Rows my_rows(const RingArgs& a) {
+  const long long lo = static_cast<long long>(blockIdx.x) * a.rows / a.nblk;
+  const long long hi = static_cast<long long>(blockIdx.x + 1) * a.rows / a.nblk;
+  return Rows{lo * LANE, (hi - lo) * (LANE / 4)};
+}
+
+// ---- reduce-scatter ---------------------------------------------------------
+
+template <typename T, bool Q8>
+__global__ void __launch_bounds__(NT) rs_kernel(RingArgs a) {
+  using Out = typename std::conditional<Q8, float, T>::type;
+  using Wire = typename std::conditional<Q8, int8_t, T>::type;
+  __shared__ float red[NT / 32];
+  const int p = a.p, r = blockIdx.y, b = blockIdx.x;
+  const int right = (r + 1) % p, left = (r + p - 1) % p;
+  const Rows rw = my_rows(a);
+  const long long slot_elems = static_cast<long long>(a.rows) * LANE;
+  const T* x = static_cast<const T*>(a.in[r]) + rw.r0;
+  Out* o = static_cast<Out*>(a.out[r]) + rw.r0;
+  Wire* mb_right = static_cast<Wire*>(a.mbox[right]) + rw.r0;
+  const Wire* mb_me = static_cast<const Wire*>(a.mbox[r]) + rw.r0;
+  u64* ws_me = a.ws[r];
+  float* scale_right = reinterpret_cast<float*>(a.ws[right] + WS_SCALE);
+  const float* scale_me = reinterpret_cast<const float*>(ws_me + WS_SCALE);
+
+  for (int s = 0; s < p - 1; ++s) {
+    const int send_c = (r - 1 - s + 2 * p) % p;
+    const int recv_c = (r - 2 - s + 2 * p) % p;
+    const int slot = s & 1;
+    const T* xs = x + send_c * a.in_cs;  // step 0's outgoing chunk
+    float scale = 1.f;
+    if constexpr (Q8) {
+      float m = 0.f;
+      for (long long g = threadIdx.x; g < rw.n4; g += NT) {
+        float v[4];
+        if (s == 0) load4(xs + 4 * g, v); else load4(o + 4 * g, v);
+        m = fmaxf(m, fmaxf(fmaxf(fabsf(v[0]), fabsf(v[1])), fmaxf(fabsf(v[2]), fabsf(v[3]))));
+      }
+      scale = q8_scale(rank_amax(a, m, s, red));
+    }
+    if (s >= 2) block_wait(a, ws_me + WS_CAP + slot * MAXB + b, token(a, s - 2), 2, s);
+    Wire* dst = mb_right + slot * slot_elems;
+    #pragma unroll 4
+    for (long long g = threadIdx.x; g < rw.n4; g += NT) {
+      float v[4];
+      if (s == 0) load4(xs + 4 * g, v); else load4(o + 4 * g, v);
+      if constexpr (Q8) quant_store4(dst + 4 * g, v, scale);
+      else store4(dst + 4 * g, v);
+    }
+    if (Q8 && threadIdx.x == 0) scale_right[slot * MAXB + b] = scale;
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) st_release(a.ws[right] + WS_FULL + slot * MAXB + b, token(a, s));
+    block_wait(a, ws_me + WS_FULL + slot * MAXB + b, token(a, s), 1, s);
+    const float in_scale = Q8 ? __ldcg(scale_me + slot * MAXB + b) : 1.f;
+    const Wire* src = mb_me + slot * slot_elems;
+    const T* xr = x + recv_c * a.in_cs;
+    #pragma unroll 4
+    for (long long g = threadIdx.x; g < rw.n4; g += NT) {
+      float w[4], v[4];
+      load4_cg(src + 4 * g, w);
+      load4(xr + 4 * g, v);
+      #pragma unroll
+      for (int j = 0; j < 4; ++j)
+        v[j] = Q8 ? __fadd_rn(__fmul_rn(w[j], in_scale), v[j]) : __fadd_rn(w[j], v[j]);
+      store4(o + 4 * g, v);
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) st_release(a.ws[left] + WS_CAP + slot * MAXB + b, token(a, s));
+  }
+}
+
+// ---- all-gather -------------------------------------------------------------
+
+template <typename T, bool Q8>
+__global__ void __launch_bounds__(NT) ag_kernel(RingArgs a) {
+  using Wire = typename std::conditional<Q8, int8_t, T>::type;
+  __shared__ float red[NT / 32];
+  const int p = a.p, r = blockIdx.y, b = blockIdx.x;
+  const int right = (r + 1) % p, left = (r + p - 1) % p;
+  const Rows rw = my_rows(a);
+  const long long slot_elems = static_cast<long long>(a.rows) * LANE;
+  const T* x = static_cast<const T*>(a.in[r]) + rw.r0;
+  T* o = static_cast<T*>(a.out[r]) + rw.r0;
+  Wire* mb_right = static_cast<Wire*>(a.mbox[right]) + rw.r0;
+  const Wire* mb_me = static_cast<const Wire*>(a.mbox[r]) + rw.r0;
+  u64* ws_me = a.ws[r];
+  float* scale_right = reinterpret_cast<float*>(a.ws[right] + WS_SCALE);
+  const float* scale_me = reinterpret_cast<const float*>(ws_me + WS_SCALE);
+
+  // The own chunk (dequantized in the q8 form, as every receiver sees it).
+  float scale_own = 1.f;
+  if (Q8) {
+    float m = 0.f;
+    for (long long g = threadIdx.x; g < rw.n4; g += NT) {
+      float v[4];
+      load4(x + 4 * g, v);
+      m = fmaxf(m, fmaxf(fmaxf(fabsf(v[0]), fabsf(v[1])), fmaxf(fabsf(v[2]), fabsf(v[3]))));
+    }
+    scale_own = q8_scale(rank_amax(a, m, 0, red));
+  }
+  T* own = o + r * a.out_cs;
+  for (long long g = threadIdx.x; g < rw.n4; g += NT) {
+    float v[4];
+    load4(x + 4 * g, v);
+    if (Q8) {
+      #pragma unroll
+      for (int j = 0; j < 4; ++j)
+        v[j] = __fmul_rn(fminf(fmaxf(rintf(__fdiv_rn(v[j], scale_own)), -127.f), 127.f), scale_own);
+    }
+    store4(own + 4 * g, v);
+  }
+  for (int s = 0; s < p - 1; ++s) {
+    const int send_c = (r - s + 2 * p) % p;
+    const int recv_c = (r - 1 - s + 2 * p) % p;
+    const int slot = s & 1;
+    if (s >= 2) block_wait(a, ws_me + WS_CAP + slot * MAXB + b, token(a, s - 2), 2, s);
+    Wire* dst = mb_right + slot * slot_elems;
+    if constexpr (Q8) {
+      if (s == 0) {
+        for (long long g = threadIdx.x; g < rw.n4; g += NT) {
+          float v[4];
+          load4(x + 4 * g, v);
+          quant_store4(dst + 4 * g, v, scale_own);
+        }
+        if (threadIdx.x == 0) scale_right[slot * MAXB + b] = scale_own;
+      } else {  // forward what arrived at step s - 1, verbatim
+        const Wire* prev = mb_me + (slot ^ 1) * slot_elems;
+        #pragma unroll 4
+        for (long long g = threadIdx.x; g < rw.n4; g += NT) copy4_cg(prev + 4 * g, dst + 4 * g);
+        if (threadIdx.x == 0)
+          scale_right[slot * MAXB + b] = __ldcg(scale_me + (slot ^ 1) * MAXB + b);
+      }
+    } else {
+      const T* src = o + send_c * a.out_cs;
+      #pragma unroll 4
+      for (long long g = threadIdx.x; g < rw.n4; g += NT) {
+        float v[4];
+        load4(src + 4 * g, v);
+        store4(dst + 4 * g, v);
+      }
+    }
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      st_release(a.ws[right] + WS_FULL + slot * MAXB + b, token(a, s));
+      // q8: the slot of step s - 1 has been forwarded; the left may reuse it.
+      if (Q8 && s >= 1) st_release(a.ws[left] + WS_CAP + (slot ^ 1) * MAXB + b, token(a, s - 1));
+    }
+    block_wait(a, ws_me + WS_FULL + slot * MAXB + b, token(a, s), 1, s);
+    const float in_scale = Q8 ? __ldcg(scale_me + slot * MAXB + b) : 1.f;
+    const Wire* src = mb_me + slot * slot_elems;
+    T* dst_o = o + recv_c * a.out_cs;
+    #pragma unroll 4
+    for (long long g = threadIdx.x; g < rw.n4; g += NT) {
+      float w[4];
+      load4_cg(src + 4 * g, w);
+      if (Q8) {
+        #pragma unroll
+        for (int j = 0; j < 4; ++j) w[j] = __fmul_rn(w[j], in_scale);
+      }
+      store4(dst_o + 4 * g, w);
+    }
+    if (!Q8 || s == p - 2) {
+      __syncthreads();
+      if (threadIdx.x == 0) st_release(a.ws[left] + WS_CAP + slot * MAXB + b, token(a, s));
+    }
+  }
+}
+
+unsigned int* g_err_host = nullptr;
+unsigned int* g_err_dev = nullptr;
+
+template <typename T>
+void* kernel_for(int kind) {
+  switch (kind) {
+    case 0: return reinterpret_cast<void*>(&rs_kernel<T, false>);
+    case 1: return reinterpret_cast<void*>(&rs_kernel<T, true>);
+    case 2: return reinterpret_cast<void*>(&ag_kernel<T, false>);
+    case 3: return reinterpret_cast<void*>(&ag_kernel<T, true>);
+    default: return nullptr;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// kind: 0 reduce-scatter, 1 q8 reduce-scatter, 2 all-gather, 3 q8
+// all-gather; dtype of the input (and of every output but the q8
+// reduce-scatter's f32): 0 f32, 1 bf16. Per rank r: in_ptrs[r], out_ptrs[r]
+// ([rows, 128] rows contiguous; the p-chunk side's chunks in_cs / out_cs
+// elements apart), mbox_ptrs[r] ([2][rows][128] of the wire type: the input
+// type, or int8 for q8) and ws_ptrs[r] (the rank's zeroed workspace).
+// epoch: larger than every earlier call's on these workspaces.
+int mpit_ring_launch(int kind, int dtype, int p, int rows,
+                     const unsigned long long* in_ptrs,
+                     const unsigned long long* out_ptrs,
+                     const unsigned long long* mbox_ptrs,
+                     const unsigned long long* ws_ptrs, long long in_cs,
+                     long long out_cs, unsigned long long epoch, void* stream) {
+  if (p < 2 || p > MAX_RANKS || rows < 1 || kind < 0 || kind > 3 || dtype < 0 ||
+      dtype > 1)
+    return -1;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (g_err_host == nullptr) {
+    e = cudaHostAlloc(reinterpret_cast<void**>(&g_err_host), 64,
+                      cudaHostAllocMapped | cudaHostAllocPortable);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    *g_err_host = 0;
+    e = cudaHostGetDevicePointer(reinterpret_cast<void**>(&g_err_dev), g_err_host, 0);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  int nblk = sms / p;
+  if (nblk > MAXB) nblk = MAXB;
+  if (nblk > rows) nblk = rows;
+  if (nblk < 1) return -1;
+  RingArgs a{};
+  for (int r = 0; r < p; ++r) {
+    a.in[r] = reinterpret_cast<const void*>(in_ptrs[r]);
+    a.out[r] = reinterpret_cast<void*>(out_ptrs[r]);
+    a.mbox[r] = reinterpret_cast<void*>(mbox_ptrs[r]);
+    a.ws[r] = reinterpret_cast<u64*>(ws_ptrs[r]);
+  }
+  a.in_cs = in_cs;
+  a.out_cs = out_cs;
+  a.p = p;
+  a.rows = rows;
+  a.nblk = nblk;
+  a.epoch = epoch;
+  a.err = g_err_dev;
+  void* fn = dtype == 0 ? kernel_for<float>(kind) : kernel_for<__nv_bfloat16>(kind);
+  void* args[] = {&a};
+  e = cudaLaunchCooperativeKernel(fn, dim3(nblk, p), dim3(NT), args, 0,
+                                  static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return static_cast<int>(e);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The error word a timed-out spin left (0: none); readable after the trap.
+int mpit_ring_error(void) {
+  return g_err_host == nullptr ? 0 : static_cast<int>(*g_err_host);
+}
+
+const char* mpit_ring_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
+
+}  // extern "C"

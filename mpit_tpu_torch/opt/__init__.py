@@ -1,4 +1,7 @@
-"""Optimizers of the port: the goo update rules and their lr schedules."""
+"""Optimizers of the port: the goo update rules and their lr schedules.
+Their ZeRO-1 sharding over a World's ranks is
+``mpit_tpu_torch.opt.sharded`` (not re-exported: its function ``sharded``
+would hide the module)."""
 
 from mpit_tpu_torch.opt import schedules
 from mpit_tpu_torch.opt.goo import AdamState, GooState, goo, goo_adam

@@ -2,14 +2,17 @@
 state.
 
 The port of :mod:`mpit_tpu.opt.goo`, whose rules are optax gradient
-transformations. Here a rule is an object with ``init(params) -> state``
-and ``step(params, grads, state)``. ``params`` is a mapping of name to
+transformations. Here a rule is an object with ``init(params) -> state``,
+``step(params, grads, state)`` and optax's ``update(grads, state,
+params) -> updates``. ``params`` is a mapping of name to
 tensor (or a list); ``grads`` a mapping with the same names or a list
 in ``params``' order; the state's moment buffers are mappings keyed by
 the same names (lists for list params), so they map one to one onto
 optax's state leaves. The step updates ``params`` and ``state``
 IN PLACE under ``torch.no_grad()``: JAX rebuilds both every step,
-PyTorch need not. The arithmetic is optax's, element for element:
+PyTorch need not. ``update`` advances the state in place and returns
+the updates ``u`` for the caller to add (``p + u``, optax's
+``apply_updates``): the ZeRO-1 step gathers updates, not parameters. The arithmetic is optax's, element for element:
 
 - :func:`goo` — ``g ← g + wd·p``; ``b ← μ·b + (1 − damp)·g`` (b starts
   at zero); ``g ← g + μ·b`` with Nesterov, else ``b``; ``p ← p − lr·g``.
@@ -23,7 +26,7 @@ PyTorch need not. The arithmetic is optax's, element for element:
 A learning rate is a constant or a schedule ``count -> lr``
 (:mod:`mpit_tpu_torch.opt.schedules`), called with the count before the
 step increments it. Counts are host integers: a schedule never waits on
-the device. ``elastic_average`` comes with the collectives slice.
+the device. ``elastic_average`` comes with the elastic-averaging slice.
 """
 
 from __future__ import annotations
@@ -79,6 +82,11 @@ def _names(params):
     return list(params) if isinstance(params, Mapping) else None
 
 
+def _restructure(tensors, names):
+    """``tensors`` as a mapping under ``names``, or the list (names None)."""
+    return dict(zip(names, tensors)) if names is not None else list(tensors)
+
+
 class _Goo:
     def __init__(self, lr, momentum, nesterov, weight_decay, dampening):
         if nesterov and (momentum == 0.0 or dampening != 0.0):
@@ -95,27 +103,43 @@ class _Goo:
             return GooState(momentum=None, count=count)
         return GooState(momentum=_zeros_like(params), count=count)
 
+    def _direction(self, params, grads, state: GooState, names):
+        """The step before the learning rate: ``g (+ wd·p)`` through the
+        momentum buffers (advanced in place)."""
+        grads = _tensors(grads, names)
+        if self.weight_decay != 0.0:
+            grads = torch._foreach_add(grads, _tensors(params, names), alpha=self.weight_decay)
+        if self.momentum == 0.0:
+            return grads
+        buf = _tensors(state.momentum, names)
+        torch._foreach_mul_(buf, self.momentum)
+        torch._foreach_add_(buf, grads, alpha=1.0 - self.dampening)
+        return torch._foreach_add(grads, buf, alpha=self.momentum) if self.nesterov else buf
+
     @torch.no_grad()
     def step(self, params, grads, state: GooState) -> GooState:
         lr_t = _lr_at(self.lr, state.count)
         names = _names(params)
-        params, grads = _tensors(params, names), _tensors(grads, names)
-        if self.weight_decay != 0.0:
-            grads = torch._foreach_add(grads, params, alpha=self.weight_decay)
-        if self.momentum == 0.0:
-            step = grads
-        else:
-            buf = _tensors(state.momentum, names)
-            torch._foreach_mul_(buf, self.momentum)
-            torch._foreach_add_(buf, grads, alpha=1.0 - self.dampening)
-            step = (
-                torch._foreach_add(grads, buf, alpha=self.momentum)
-                if self.nesterov else buf
-            )
-        torch._foreach_add_(params, step, alpha=-lr_t)
+        step = self._direction(params, grads, state, names)
+        torch._foreach_add_(_tensors(params, names), step, alpha=-lr_t)
         if state.count is not None:
             state.count += 1
         return state
+
+    @torch.no_grad()
+    def update(self, grads, state: GooState, params=None):
+        """optax's form: the updates ``-lr · step`` (new tensors, in
+        ``grads``' structure), the state advanced in place; the caller
+        adds them to the parameters (``p + u``, as ``apply_updates``)."""
+        lr_t = _lr_at(self.lr, state.count)
+        names = _names(grads)
+        if self.weight_decay != 0.0 and params is None:
+            raise ValueError("goo with weight decay requires params")
+        step = self._direction(params, grads, state, names)
+        updates = torch._foreach_mul(step, -lr_t)
+        if state.count is not None:
+            state.count += 1
+        return _restructure(updates, names)
 
 
 class _GooAdam:
@@ -126,11 +150,11 @@ class _GooAdam:
     def init(self, params) -> AdamState:
         return AdamState(count=0, mu=_zeros_like(params), nu=_zeros_like(params))
 
-    @torch.no_grad()
-    def step(self, params, grads, state: AdamState) -> AdamState:
+    def _direction(self, params, grads, state: AdamState, names):
+        """``m̂ / (sqrt(v̂) + eps)`` (``+ wd·p``), the moments advanced in
+        place; returns ``(direction, lr, new count)``."""
         lr_t = _lr_at(self.lr, state.count)
-        names = _names(params)
-        params, grads = _tensors(params, names), _tensors(grads, names)
+        grads = _tensors(grads, names)
         mu, nu = _tensors(state.mu, names), _tensors(state.nu, names)
         b1, b2 = self.b1, self.b2
         torch._foreach_mul_(mu, b1)
@@ -147,10 +171,29 @@ class _GooAdam:
         torch._foreach_add_(denom, self.eps)
         torch._foreach_div_(update, denom)
         if self.weight_decay:
-            torch._foreach_add_(update, params, alpha=self.weight_decay)
-        torch._foreach_add_(params, update, alpha=-lr_t)
+            torch._foreach_add_(update, _tensors(params, names), alpha=self.weight_decay)
+        return update, lr_t, count
+
+    @torch.no_grad()
+    def step(self, params, grads, state: AdamState) -> AdamState:
+        names = _names(params)
+        update, lr_t, count = self._direction(params, grads, state, names)
+        torch._foreach_add_(_tensors(params, names), update, alpha=-lr_t)
         state.count = count
         return state
+
+    @torch.no_grad()
+    def update(self, grads, state: AdamState, params=None):
+        """optax's form: the updates ``-lr · direction`` (new tensors, in
+        ``grads``' structure), the state advanced in place; the caller
+        adds them to the parameters (``p + u``, as ``apply_updates``)."""
+        if self.weight_decay and params is None:
+            raise ValueError("goo_adam with weight decay requires params")
+        names = _names(grads)
+        update, lr_t, count = self._direction(params, grads, state, names)
+        torch._foreach_mul_(update, -lr_t)
+        state.count = count
+        return _restructure(update, names)
 
 
 def goo(

@@ -1,5 +1,6 @@
-"""Training on one rank: the step, the drive loop, metrics, the
-divergence guard, and a JAX training state carried across."""
+"""Training on one rank or over a World's ranks: the step, the gradient
+sync, the drive loop, metrics, the divergence guard, and a JAX training
+state carried across."""
 
 from mpit_tpu_torch.train.convert import train_state_from_jax
 from mpit_tpu_torch.train.guard import Diverged, DivergenceGuard

@@ -10,8 +10,16 @@ mu, nu)`` becomes :class:`~mpit_tpu_torch.opt.goo.AdamState` and goo's
 ``GooState(momentum, count)`` :class:`~mpit_tpu_torch.opt.goo.GooState`,
 moment for moment under the parameters' names. A moment may be a tree
 like the params (replicated state) or the flat vector of the JAX
-package's ZeRO-1 layout on one rank (each leaf raveled in the tree's
-sorted-key order and zero-padded to a multiple of 128).
+package's ZeRO-1 layout (each leaf raveled in the tree's sorted-key
+order and zero-padded to a multiple of 128).
+
+With a ``world`` of ``p`` ranks the state is the data-parallel step's:
+the params once per rank, and every moment rank-stacked in the flat
+layout. A ZeRO-1 moment, JAX's global ``[p·S]`` vector, is cut into its
+``p`` contiguous shards (``[p, S]``, rank ``r`` holding ``[r·S,
+(r+1)·S)``, :func:`mpit_tpu_torch.opt.sharded.shard_of`'s layout); a
+replicated moment tree becomes ``[p, N]``, its flat vector on every
+rank.
 """
 
 from __future__ import annotations
@@ -19,8 +27,10 @@ from __future__ import annotations
 from typing import Any, Mapping
 
 import numpy as np
+import torch
 
 from mpit_tpu_torch.opt.goo import AdamState, GooState
+from mpit_tpu_torch.opt.sharded import FlatLayout, padded_len
 from mpit_tpu_torch.serve.weights import params_from_jax
 from mpit_tpu_torch.train.step import TrainState
 
@@ -68,6 +78,24 @@ def _moment(tree, params: Mapping) -> dict:
     return params_from_jax(tree)
 
 
+def _stacked_moment(tree, state: Mapping, p: int):
+    """A moment as the p-rank step's rank-stacked buffer: a flat ZeRO-1
+    vector → its ``[p, S]`` shards, a replicated tree → ``[p, N]``."""
+    layout = FlatLayout(state)
+    n = padded_len(layout.total, p)
+    if isinstance(tree, Mapping):
+        flat = torch.zeros(n)
+        layout.ravel(params_from_jax(tree), out=flat)
+        return flat.expand(p, n).clone()
+    flat = torch.from_numpy(np.array(np.asarray(tree).reshape(-1), dtype=np.float32))
+    if flat.shape[0] != n:
+        raise ValueError(
+            f"a ZeRO-1 moment of {flat.shape[0]} elements; {p} ranks of this "
+            f"model hold {n} (flat length {layout.total} padded to {p}·128)"
+        )
+    return flat.view(p, n // p)
+
+
 def _find(state, fields: tuple[str, ...]):
     """The first node of an optax state (nested tuples / named tuples)
     that has all of ``fields``."""
@@ -81,22 +109,27 @@ def _find(state, fields: tuple[str, ...]):
     return None
 
 
-def train_state_from_jax(params: Mapping, opt_state: Any, step) -> TrainState:
+def train_state_from_jax(params: Mapping, opt_state: Any, step, *, world=None) -> TrainState:
     """The port's :class:`TrainState` from JAX's params, optax state and
     step. ``opt_state`` holds an Adam state (``count``, ``mu``, ``nu``:
     ``goo_adam``) or a goo SGD state (``momentum``, ``count``); an SGD
     state without momentum (``()``) or without a schedule count maps to
     ``None`` there. The returned params are CPU tensors:
-    :meth:`TrainState.bind` loads them into a model."""
+    :meth:`TrainState.bind` loads them into a model (a list of models,
+    one per rank, with a ``world``)."""
     state = params_from_jax(params)
+    p = None if world is None else world.num_devices
+
+    def moment(tree):
+        if p is not None:
+            return [_stacked_moment(tree, state, p)]
+        buf = _moment(tree, params)
+        return {n: buf[n] for n in state}
+
     adam = _find(opt_state, ("count", "mu", "nu"))
     if adam is not None:
-        mu, nu = _moment(adam.mu, params), _moment(adam.nu, params)
-        opt = AdamState(
-            count=int(np.asarray(adam.count)),
-            mu={n: mu[n] for n in state},
-            nu={n: nu[n] for n in state},
-        )
+        opt = AdamState(count=int(np.asarray(adam.count)), mu=moment(adam.mu),
+                        nu=moment(adam.nu))
     else:
         sgd = _find(opt_state, ("momentum", "count"))
         if sgd is None:
@@ -106,11 +139,11 @@ def train_state_from_jax(params: Mapping, opt_state: Any, step) -> TrainState:
             )
         momentum = None
         if not (isinstance(sgd.momentum, tuple) and not sgd.momentum):
-            buf = _moment(sgd.momentum, params)
-            momentum = {n: buf[n] for n in state}
+            momentum = moment(sgd.momentum)
         count = sgd.count
         opt = GooState(
             momentum=momentum,
             count=None if isinstance(count, tuple) else int(np.asarray(count)),
         )
-    return TrainState(step=int(np.asarray(step)), params=state, opt_state=opt)
+    ranks_params = state if p is None else [dict(state) for _ in range(p)]
+    return TrainState(step=int(np.asarray(step)), params=ranks_params, opt_state=opt)

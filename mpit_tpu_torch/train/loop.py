@@ -10,7 +10,8 @@ sentinel and the eval hook: those arrive with later slices of the port.
   step into a queue of ``prefetch_depth``, as torch tensors in pinned
   host memory when the step runs on CUDA; the loop copies each to the
   device with ``non_blocking=True``, so the copy overlaps the queued
-  work.
+  work. With a ``world`` the global batch is then split over its ranks
+  (:func:`mpit_tpu_torch.data.shard_batch`) and the step takes the list.
 - **Lagged read-back.** At each log point the loop keeps the step's
   loss as a device scalar and reads it back only once more than
   ``fetch_lag`` log points are waiting, so no step waits on the host.
@@ -44,6 +45,7 @@ import numpy as np
 import torch
 
 from mpit_tpu_torch import obs
+from mpit_tpu_torch.data.loader import shard_batch
 from mpit_tpu_torch.train.guard import DivergenceGuard
 from mpit_tpu_torch.train.metrics import MetricLogger
 
@@ -122,12 +124,14 @@ def hardened_loop(
     fetch_lag: int = 2,
     prefetch_depth: int = 2,
     step_attrs: dict | None = None,
+    world=None,
 ) -> dict:
     """Drive ``step_fn(state, batch) -> (state, metrics)`` from
     ``state.step`` to ``steps``; ``metrics["loss"]`` is a device scalar.
 
     ``batches`` is the host iterator, already past the batches
     ``state.step`` consumed. ``step_attrs`` label every ``step`` span.
+    ``world``: split each batch over its ranks for the step.
     Returns ``{"state", "steps", "losses", "final_loss", "restores",
     "preempted", "step_ms"}`` (``step_ms``: one per step, the first
     holding the run's set-up) plus ``items_per_sec`` (best window),
@@ -201,6 +205,8 @@ def hardened_loop(
                     batch = next(stream)
                 except StopIteration:
                     break
+                if world is not None:
+                    batch = shard_batch(world, batch)
             with obs.span("step", **step_attrs):
                 state, metrics = step_fn(state, batch)
             marks.append(mark())

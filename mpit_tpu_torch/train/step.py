@@ -1,77 +1,175 @@
-"""The training step on one rank: value and grad, then the optimizer
-update.
+"""The training step: value and grad on every rank, the gradient sync,
+then the optimizer update. The port of :mod:`mpit_tpu.train.step`.
 
-The port of :mod:`mpit_tpu.train.step` for a single rank. JAX's step is
-one jitted SPMD function over the mesh that rebuilds the state; here
-the step runs eagerly and updates the parameters and optimizer state IN
-PLACE under ``torch.no_grad()``. On one rank the JAX step's collectives
-are identities (``pmean`` over one device) and its ZeRO-1 shard is the
-whole state, so ``zero1`` changes nothing here. More than one rank, and
-the ring gradient-sync tiers, arrive with the collectives slice.
+JAX's step is one jitted SPMD function over the mesh that rebuilds the
+state; here the step runs eagerly and updates parameters and optimizer
+state IN PLACE under ``torch.no_grad()``.
+
+- **One rank** (``world`` None): the JAX step's collectives are
+  identities (``pmean`` over one device) and its ZeRO-1 shard is the
+  whole state, so the goo rule steps the model's parameters directly.
+- **A World of p ranks**: the single controller runs every rank's
+  forward and backward in turn (rank ``r`` on its model, on its slice of
+  the batch), then syncs the gradients and updates every replica:
+
+  - each rank's parameters are views into row ``r`` of one ``[p, N]``
+    flat buffer in the JAX package's flat layout
+    (:class:`~mpit_tpu_torch.opt.sharded.FlatLayout`), so the flat
+    parameters cost nothing and one add applies every rank's update;
+  - each rank's gradients are copied into row ``r`` of a ``[p, N]``
+    buffer (the pads stay zero);
+  - ZeRO-1 (``zero1``): reduce-scatter, the goo rule on the ``[p, S]``
+    shards, all-gather of the updates (not the parameters: an int8
+    gather of quantized parameters would be another result), through
+    :class:`~mpit_tpu_torch.train.grad_sync.GradSync`; plain DP: the
+    mean allreduce, then the rule on ``[p, N]`` replicated state;
+  - every rank adds the same gathered updates to the same parameters, so
+    the replicas stay bit-identical (:meth:`TrainState.replicas_equal`).
+
+  Metrics are the mean over the ranks, summed in rank order.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Mapping, Sequence
 
 import torch
 
-__all__ = ["TrainState", "make_train_step"]
+from mpit_tpu_torch.opt.sharded import FlatLayout, padded_len, sharded
+from mpit_tpu_torch.train.grad_sync import GRAD_SYNC_MODES, GradSync
 
-_COLLECTIVES_SLICE = "the ring-collectives slice (slice 8 of the port, 4 chips)"
+__all__ = ["FlatReplicas", "TrainState", "make_train_step"]
+
+
+class FlatReplicas:
+    """The ranks' parameters as views into rows of one ``[p, N]`` buffer
+    (``params``) and their gradients' ``[p, N]`` buffer (``grads``), ``N``
+    the flat length padded to a multiple of ``p·128``. Building it
+    rebinds every given parameter's ``.data`` to its view; the values
+    are copied over first."""
+
+    def __init__(self, params_list: Sequence[Mapping[str, torch.Tensor]]):
+        p = len(params_list)
+        self.layout = FlatLayout(params_list[0])
+        first = params_list[0][self.layout.names[0]]
+        n = padded_len(self.layout.total, p)
+        self.params = torch.zeros((p, n), dtype=first.dtype, device=first.device)
+        self.grads = torch.zeros_like(self.params)
+        self.leaves, self.grad_views = [], []
+        for r, params in enumerate(params_list):
+            if set(params) != set(self.layout.names):
+                raise ValueError(f"rank {r}'s parameters are not rank 0's")
+            views = self.layout.views(self.params[r])
+            with torch.no_grad():
+                for name in self.layout.names:
+                    t = params[name]
+                    if t.dtype != first.dtype or t.device != first.device:
+                        raise ValueError(
+                            f"rank {r}'s {name} is {t.dtype} on {t.device}; every "
+                            f"parameter must be {first.dtype} on {first.device}"
+                        )
+                    views[name].copy_(t)
+                    t.data = views[name]
+            self.leaves.append([params[n] for n in self.layout.names])
+            gviews = self.layout.views(self.grads[r])
+            self.grad_views.append([gviews[n] for n in self.layout.names])
 
 
 @dataclasses.dataclass
 class TrainState:
     """Parameters, optimizer state and step counter.
 
-    ``params`` maps names (the model's ``state_dict`` names) to tensors;
-    once bound (:meth:`bind`) they are the model's own parameters, so
-    the in-place update is the model's update. ``step`` is a host int.
-    (JAX's ``extra``, non-gradient model state such as BatchNorm
-    statistics, comes with the convnet slice.)"""
+    One rank: ``params`` maps names (the model's ``state_dict`` names) to
+    tensors; once bound (:meth:`bind`) they are the model's own
+    parameters, so the in-place update is the model's update. A World of
+    ``p`` ranks: ``params`` is the list of the ranks' mappings, ``flat``
+    their :class:`FlatReplicas`, and the optimizer state's buffers are
+    rank-stacked ``[p, S]`` shards (ZeRO-1) or ``[p, N]`` replicas.
+    ``step`` is a host int. (JAX's ``extra``, non-gradient model state
+    such as BatchNorm statistics, comes with the convnet slice.)"""
 
     step: int
-    params: dict
+    params: Any
     opt_state: Any
+    flat: FlatReplicas | None = None
 
-    def bind(self, model: torch.nn.Module) -> "TrainState":
-        """Load ``params`` into ``model`` and return the state holding the
-        model's own parameter tensors (same names, same optimizer state)."""
-        model.load_state_dict(self.params, strict=True)
-        return dataclasses.replace(self, params=dict(model.named_parameters()))
+    def bind(self, model) -> "TrainState":
+        """Load ``params`` into ``model`` (a list of models, one per rank,
+        for a p-rank state) and return the state holding the models' own
+        parameter tensors, the optimizer state on their device."""
+        if isinstance(self.params, Mapping):
+            model.load_state_dict(self.params, strict=True)
+            return dataclasses.replace(self, params=dict(model.named_parameters()))
+        if len(model) != len(self.params):
+            raise ValueError(f"{len(model)} models for a {len(self.params)}-rank state")
+        for m, params in zip(model, self.params):
+            m.load_state_dict(params, strict=True)
+        params = [dict(m.named_parameters()) for m in model]
+        flat = FlatReplicas(params)
+        device = flat.params.device
+        opt = _map_tensors(self.opt_state, lambda t: t.to(device))
+        return dataclasses.replace(self, params=params, opt_state=opt, flat=flat)
+
+    def replicas_equal(self) -> bool:
+        """Whether every rank's parameters equal rank 0's bit for bit."""
+        if self.flat is None:
+            return True
+        rows = self.flat.params
+        return all(torch.equal(rows[0], rows[r]) for r in range(1, rows.shape[0]))
+
+
+def _map_tensors(state, fn):
+    """``state`` (a goo state dataclass) with ``fn`` applied to every
+    tensor of its buffer lists."""
+    if not dataclasses.is_dataclass(state):
+        return state
+    out = {}
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if isinstance(v, list):
+            v = [fn(t) for t in v]
+        elif isinstance(v, torch.Tensor):
+            v = fn(v)
+        out[f.name] = v
+    return dataclasses.replace(state, **out)
 
 
 def make_train_step(
-    loss_fn: Callable,
+    loss_fn,
     tx,
+    world=None,
     *,
-    world_size: int = 1,
     zero1: bool = True,
     grad_sync: str = "psum",
+    grad_bucket_mb: float = 4.0,
 ):
-    """Build ``(init_fn, step_fn)`` for training on one rank.
+    """Build ``(init_fn, step_fn)`` for training on one rank (``world``
+    None) or over a :class:`~mpit_tpu_torch.comm.World`'s ranks.
 
-    ``loss_fn(params, batch) -> (loss, aux)``: ``params`` is the state's
-    name → tensor mapping; a model-backed loss reads them through the
-    model they are bound to. ``tx`` is a goo rule
-    (:mod:`mpit_tpu_torch.opt.goo`).
+    ``loss_fn(params, batch) -> (loss, aux)``, or a list of one per rank:
+    ``params`` is a rank's name → tensor mapping; a model-backed loss
+    reads them through the model they are bound to. ``tx`` is a goo rule
+    (:mod:`mpit_tpu_torch.opt.goo`). ``grad_sync``: ``psum`` | ``ring``
+    | ``ring_q8``, in ``grad_bucket_mb`` buckets (a World of one rank
+    syncs nothing).
 
-    ``init_fn(params) -> TrainState`` (step 0, ``tx.init``);
-    ``step_fn(state, batch) -> (state, metrics)`` with ``metrics["loss"]``
-    a detached device scalar: the step never waits on the device."""
-    if world_size != 1:
-        raise SystemExit(
-            f"{world_size} ranks: data parallelism and ZeRO-1 over more than "
-            f"one rank arrive with {_COLLECTIVES_SLICE}"
-        )
-    if grad_sync != "psum":
-        raise SystemExit(
-            f"--grad-sync {grad_sync}: the ring tiers arrive with {_COLLECTIVES_SLICE}"
-        )
-    del zero1  # one rank: the shard is the whole state
+    ``init_fn(params) -> TrainState``: one mapping (one rank) or a list
+    of one per rank, the ranks' parameters rebound into one flat buffer.
+    ``step_fn(state, batch) -> (state, metrics)``: ``batch`` one mapping
+    (one rank) or a list of one per rank
+    (:func:`mpit_tpu_torch.data.shard_batch`); ``metrics["loss"]`` a
+    detached device scalar: the step never waits on the device.
+    ``step_fn.grad_sync_mode`` names what the sync runs
+    (:attr:`GradSync.exec_mode`; ``none`` on one rank)."""
+    if grad_sync not in GRAD_SYNC_MODES:
+        raise ValueError(f"grad_sync must be one of {GRAD_SYNC_MODES}, got {grad_sync!r}")
+    if world is None:
+        return _one_rank(loss_fn, tx)
+    return _ranks(loss_fn, tx, world, zero1, GradSync(world, grad_sync, bucket_mb=grad_bucket_mb))
 
+
+def _one_rank(loss_fn, tx):
     def init_fn(params) -> TrainState:
         return TrainState(step=0, params=dict(params), opt_state=tx.init(dict(params)))
 
@@ -83,4 +181,50 @@ def make_train_step(
         state.step += 1
         return state, {"loss": loss.detach(), **aux}
 
+    step_fn.grad_sync_mode = "none"
+    return init_fn, step_fn
+
+
+def _ranks(loss_fn, tx, world, zero1: bool, gs: GradSync):
+    p = world.num_devices
+    loss_fns = list(loss_fn) if isinstance(loss_fn, (list, tuple)) else [loss_fn] * p
+    if len(loss_fns) != p:
+        raise ValueError(f"{len(loss_fns)} loss functions for {p} ranks")
+    stx = sharded(tx, world, comm=gs) if zero1 else None
+
+    def init_fn(params_list) -> TrainState:
+        if len(params_list) != p:
+            raise ValueError(f"{len(params_list)} parameter sets for {p} ranks")
+        flat = FlatReplicas(params_list)
+        if flat.params.device != world.device:
+            raise ValueError(f"parameters on {flat.params.device}, the World on {world.device}")
+        opt = stx.init(flat.params) if zero1 else tx.init([torch.zeros_like(flat.params)])
+        return TrainState(step=0, params=list(params_list), opt_state=opt, flat=flat)
+
+    def step_fn(state: TrainState, batches: Sequence):
+        if len(batches) != p:
+            raise ValueError(f"{len(batches)} batches for {p} ranks")
+        flat = state.flat
+        losses, auxes = [], []
+        for r in range(p):
+            loss, aux = loss_fns[r](state.params[r], batches[r])
+            grads = torch.autograd.grad(loss, flat.leaves[r], materialize_grads=True)
+            torch._foreach_copy_(flat.grad_views[r], grads)
+            losses.append(loss.detach())
+            auxes.append(aux)
+        with torch.no_grad():
+            if zero1:
+                updates = stx.update(flat.grads, state.opt_state, flat.params)
+            else:
+                (updates,) = tx.update([gs.allreduce_grads(flat.grads)], state.opt_state,
+                                       [flat.params])
+            flat.params[:, : updates.shape[1]].add_(updates)
+        state.step += 1
+        metrics = {"loss": sum(losses) / p}
+        for key in auxes[0]:
+            metrics[key] = sum(a[key] for a in auxes) / p
+        return state, metrics
+
+    step_fn.grad_sync_mode = gs.exec_mode
+    step_fn.grad_sync = gs
     return init_fn, step_fn

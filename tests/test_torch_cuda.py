@@ -1,9 +1,12 @@
 """mpit_tpu_torch's CUDA kernels on the GPU, against their plain versions.
 
 The flash-decode kernel in all four forms (dense and paged, each with
-f32/bf16 or int8 K/V), the int8 weight store's fused-dequant matmul, and
+f32/bf16 or int8 K/V), the int8 weight store's fused-dequant matmul,
 the training flash attention's forward, dq and dk/dv kernels (alone, in
-autograd, and in three tiny training steps against plain attention).
+autograd, and in three tiny training steps against plain attention),
+and the ring reduce-scatter and all-gather kernels, sum and int8 wire
+(bit-equal to their plain versions, and in tiny training steps over
+four ranks against the plain collectives).
 
 Every test here needs an NVIDIA GPU (the kernel has no CPU mode): each
 carries the ``cuda`` marker and skips, with its reason, where there is
@@ -351,3 +354,134 @@ def test_tiny_training_through_flash_kernels_matches_plain(cuda):
         ran = {n: tfa.launches[n] - before[n] for n in before}
         assert ran == dict.fromkeys(ran, 6 if label == "flash" else 0)
     np.testing.assert_allclose(losses["flash"], losses["plain"], rtol=1e-4)
+
+
+# ---- the ring collectives (kernel B1) ---------------------------------------
+
+
+def _ring_input(shape, dtype, seed, kind="normal"):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(shape, generator=gen, device="cuda")
+    if kind == "int":
+        x = torch.round(x * 4)
+    elif kind == "zeros":
+        x.zero_()
+    return x.to(dtype)
+
+
+@pytest.mark.parametrize("p", [2, 3, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quantized", [False, True], ids=["sum", "q8"])
+@pytest.mark.parametrize("rows", [1, 37, 256])
+def test_ring_kernels_equal_plain_bitwise(cuda, p, dtype, quantized, rows):
+    """Every form, bit-equal to its plain version (the same ring order,
+    the same roundings); the launch counted once per call."""
+    from mpit_tpu_torch.ops import ring_collectives as rc
+
+    xs = _ring_input((p, p, rows, 128), dtype, p * rows + quantized)
+    kind = "ring_rs_q8" if quantized else "ring_rs"
+    before = rc.launches[kind]
+    got = rc.reduce_scatter_chunks(xs, quantized=quantized)
+    torch.cuda.synchronize()
+    assert rc.launches[kind] == before + 1
+    assert torch.equal(got, rc.reduce_scatter_plain(xs, quantized=quantized))
+    shards = _ring_input((p, rows, 128), dtype, 7 + p + rows)
+    full = rc.all_gather_chunks(shards, quantized=quantized)
+    torch.cuda.synchronize()
+    assert torch.equal(full, rc.all_gather_plain(shards, quantized=quantized))
+    for r in range(1, p):
+        assert torch.equal(full[r], full[0])
+
+
+def test_ring_kernels_take_strided_buckets_and_zero_chunks(cuda):
+    """Row ranges of flat buffers read and written in place (the bucket
+    loop), an all-zero chunk (scale 1), many calls on one workspace."""
+    from mpit_tpu_torch.ops import ring_collectives as rc
+
+    p, rows = 4, 96
+    xs = _ring_input((p, p, rows, 128), torch.float32, 3)
+    xs[:, 1] = 0  # chunk 1 is zero on every rank: its q8 sum too
+    for quantized in (False, True):
+        out = torch.zeros(p, rows, 128, device="cuda")
+        for r0, r1 in ((0, 32), (32, 64), (64, 96)):
+            rc.reduce_scatter_chunks(xs[:, :, r0:r1], quantized=quantized, out=out[:, r0:r1])
+        want = torch.cat([rc.reduce_scatter_plain(xs[:, :, a:b], quantized=quantized)
+                          for a, b in ((0, 32), (32, 64), (64, 96))], dim=1)
+        assert torch.equal(out, want)
+        assert not out[1].any()
+        full = torch.zeros(p, p, rows, 128, device="cuda")
+        for r0, r1 in ((0, 32), (32, 96)):
+            rc.all_gather_chunks(out[:, r0:r1], quantized=quantized, out=full[:, :, r0:r1])
+        want = torch.cat([rc.all_gather_plain(out[:, a:b], quantized=quantized)
+                          for a, b in ((0, 32), (32, 96))], dim=2)
+        assert torch.equal(full, want)
+    assert rc.device_error() is None
+
+
+def test_ring_public_collectives_and_refusals(cuda):
+    from mpit_tpu_torch.ops import ring_collectives as rc
+    from mpit_tpu_torch.ops.ring_allreduce import ring_allreduce
+
+    x = _ring_input((4, 3000), torch.float32, 11, kind="int")
+    np.testing.assert_array_equal(
+        rc.ring_reduce_scatter(x).cpu().numpy(),
+        rc.ring_reduce_scatter(x.cpu()).numpy(),
+    )
+    full = ring_allreduce(x)
+    assert torch.equal(full.cpu(), ring_allreduce(x.cpu()))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        rc.reduce_scatter_chunks(torch.zeros(2, 2, 8, 128, device="cuda", dtype=torch.float16))
+    with pytest.raises(ValueError, match="2 to 16 ranks"):
+        rc.all_gather_chunks(torch.zeros(17, 8, 128, device="cuda"))
+    with pytest.raises(ValueError, match="dense"):
+        rc.all_gather_chunks(torch.zeros(2, 8, 256, device="cuda")[..., :128])
+
+
+@pytest.mark.parametrize("mode", ["ring", "ring_q8"])
+def test_tiny_data_parallel_training_through_ring_kernels(cuda, mode):
+    """Four ranks on the card, three goo_adam steps of a tiny f32 GPT-2:
+    ``ring`` within 1e-5 relative of ``psum`` (the sums are taken in
+    another order), ``ring_q8`` within 0.02 + 0.02·|loss|; replicas
+    bit-identical; one reduce-scatter and one all-gather launch a bucket
+    and step."""
+    from mpit_tpu_torch import comm
+    from mpit_tpu_torch.data import SyntheticLM, shard_batch
+    from mpit_tpu_torch.ops import ring_collectives as rc
+    from mpit_tpu_torch.opt import goo_adam
+    from mpit_tpu_torch.train import make_train_step
+
+    world = comm.init({"data": 4}, devices=["cuda"])
+    cfg = GPT2Config.tiny(vocab_size=128, max_seq_len=32, num_layers=2, num_heads=2,
+                          d_model=32, dtype=torch.float32)
+    init = GPT2(cfg, generator=torch.Generator().manual_seed(0)).state_dict()
+    losses = {}
+    for label in ("psum", mode):
+        models = [GPT2(cfg, device="cuda") for _ in range(4)]
+        for m in models:
+            m.load_state_dict(init)
+        init_fn, step_fn = make_train_step(
+            [lambda p, b, m=m: (GPT2.fused_loss_fn(m, b["tokens"].long()), {}) for m in models],
+            goo_adam(1e-3), world, grad_sync=label, grad_bucket_mb=0.01,
+        )
+        state = init_fn([dict(m.named_parameters()) for m in models])
+        batches = SyntheticLM(vocab_size=128, seed=0).batches(8, 32)
+        before = dict(rc.launches)
+        losses[label] = []
+        for _ in range(3):
+            state, metrics = step_fn(state, shard_batch(world, next(batches)))
+            losses[label].append(metrics["loss"].item())
+        assert state.replicas_equal()
+        ran = {k: rc.launches[k] - before[k] for k in before}
+        if label != "psum":
+            gs = step_fn.grad_sync
+            n_buckets = len(gs.bucket_rows(state.flat.params.shape[1] // (4 * 128)))
+            q = "_q8" if label == "ring_q8" else ""
+            assert ran[f"ring_rs{q}"] == ran[f"ring_ag{q}"] == 3 * n_buckets > 3
+            assert step_fn.grad_sync_mode == label
+        else:
+            assert not any(ran.values())
+    if mode == "ring":
+        np.testing.assert_allclose(losses["ring"], losses["psum"], rtol=1e-5)
+    else:
+        for a, b in zip(losses["psum"], losses[mode]):
+            assert abs(a - b) <= 0.02 + 0.02 * abs(a)

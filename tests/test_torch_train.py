@@ -329,10 +329,9 @@ def test_cli_trains_tiny_on_the_cpu(capsys):
     "argv",
     [
         ["mnist"], ["imagenet"], ["resnet"],
-        ["gpt2", "--mesh", "data=2"], ["gpt2", "--mesh", "data=1,model=2"],
+        ["gpt2", "--mesh", "data=1,model=2"],
         ["gpt2", "--mesh", "seq=2"], ["gpt2", "--mesh", "data=1,pipe=2"],
-        ["gpt2", "--mesh", "data=1,expert=2"], ["gpt2", "--grad-sync", "ring"],
-        ["gpt2", "--grad-sync", "ring_q8"], ["gpt2", "--data-dir", "/d"],
+        ["gpt2", "--mesh", "data=1,expert=2"], ["gpt2", "--data-dir", "/d"],
         ["gpt2", "--ckpt-dir", "/c"], ["gpt2", "--save-dense", "/s.npz"],
         ["gpt2", "--resume-dense", "/s.npz"], ["gpt2", "--profile-dir", "/p"],
         ["gpt2", "--sentinel", "true"], ["gpt2", "--native", "true"],
@@ -343,7 +342,6 @@ def test_cli_trains_tiny_on_the_cpu(capsys):
         ["gpt2", "--fsdp-axis", "data"], ["gpt2", "--eval-every", "10"],
         ["gpt2", "--max-restores", "3"], ["gpt2", "--ckpt-every", "5"],
         ["gpt2", "--momentum", "0.5"], ["gpt2", "--nranks", "4"],
-        ["gpt2", "--grad-bucket-mb", "8"],
     ],
     ids=lambda a: "_".join(a).replace("-", ""),
 )
