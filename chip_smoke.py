@@ -1,5 +1,6 @@
-"""Chip smoke test of mpit_tpu_torch: the port's serving and training paths
-on one GPU, training on one rank and over four data-parallel ranks.
+"""Chip smoke test of mpit_tpu_torch: the port's serving paths (one server,
+and the disaggregated fleet with its KV shipments) and training paths on
+one GPU, training on one rank and over four data-parallel ranks.
 
     python3 chip_smoke.py
 
@@ -60,6 +61,7 @@ for an H100). Phases, each of which raises (exit code != 0) on failure:
    calls + decode ticks), while the other forms stay at 0; the matmul
    kernel's count reaches 4 x num_layers x (prefill calls + decode
    ticks) in the two int8-weight runs and stays 0 in the other four;
+   every run's record goes to ``chiprun_out/chip_smoke_serve.json``;
 5. parity — f32 on the card, TF32 off, same weights: PR 1's stream
    through the dense kernel engine and the reference engine; then a
    shared-prefix stream of 16 greedy requests (8 behind one 70-token
@@ -148,6 +150,39 @@ for an H100). Phases, each of which raises (exit code != 0) on failure:
    30-step 4d configuration under ``psum``: 4d's ``ring_q8`` curve within
    ``0.02 + 0.02·|loss|`` of it at every step (the JAX package's pin)
    and not identical to it.
+3f. kernel vs plain, KV shipment — the copy kernel that carries every
+   fleet shipment on the card against its plain version (``copy_`` on
+   byte views), BIT FOR BIT: a 128-row shipment's leaves at GPT-2 small's
+   width (k/v bf16 [12, 128, 12, 64], k.q/v.q int8, k.scale/v.scale f32
+   [12, 128, 12, 1]), both packed payloads (bf16 4,718,592 bytes, int8
+   2,506,752), ragged byte counts 1, 15, 17 and 4711, the bf16 payload
+   with src and dst views at byte offsets misaligned against each other
+   (1/3, 3/1, 1/0), and a 256 MiB buffer. Times the kernel, its plain
+   version and ``dst.copy_(src)`` (the library yardstick, a device to
+   device ``cudaMemcpyAsync``, never called by the port on this path) on
+   a cold L2 beside the bound (read and write every byte once). Every
+   case goes to ``chiprun_out/chip_smoke_ship.json``;
+4f. fleet — ``python -m mpit_tpu_torch.serve --fleet``'s ``main`` in
+   process at phase 4's configuration (GPT-2 small at full width, bf16,
+   8 slots, 16 greedy requests of 32 new tokens), the JAX package's test
+   liveness (heartbeat 0.05 s, lease 5 s): the dense cache with one
+   prefill and one decode worker, then the paged pool with int8 K/V and
+   two decode workers. Every request completes; the copy kernel's
+   launches (set to 0 just before) reach 2 a shipment (the send snapshot
+   and the delivery); the attention form's launches reach num_layers x
+   (shipments + decode ticks) and no other form or the matmul kernel
+   runs; each request's tokens equal the single Server's at the same
+   configuration (phase 4's run, rebuilt in process) or part first at a
+   near-tie (``INT8_TIE``, judged by the plain path teacher-forced on the
+   Server's tokens: bf16 cuBLAS GEMMs are not row-invariant in the
+   prefill's row count, should a schedule change it). Prints wall time,
+   requests/s, bytes shipped and the kernel's time a shipment; each
+   run's record goes to ``chiprun_out/chip_smoke_fleet.json``;
+5f. fleet parity — f32, ``run_fleet`` at full width with one prefill and
+   two decode workers, 4 greedy requests: tokens identical to the single
+   Server's; then the same with decode rank 2 killed entering its tick 5
+   (``FaultPlan``, lease 0.75 s): at least one re-queue, tokens identical;
+   the results go to ``chiprun_out/chip_smoke_fleet.json``.
 
 The last lines are the kernels JSON line, the card's name and power
 limit as ``nvidia-smi`` prints them, and ``{"ok": true, "device":
@@ -199,6 +234,15 @@ RING_ROWS = 8192
 DP_RANKS = 4
 DP_ARGS = TRAIN_ARGS + ["--mesh", f"data={DP_RANKS}", "--zero1", "true"]
 DP_PARITY_TOL = 1e-5  # relative, per-step loss, f32, ring vs psum
+# Phase 3f: GPT-2 small's layers and a 128-row shipment's payloads
+# (bf16 k and v; int8 k.q, k.scale, v.q, v.scale).
+L_SMALL, SHIP_ROWS = 12, 128
+SHIP_PAYLOADS = {
+    "payload bf16": 2 * L_SMALL * SHIP_ROWS * H * DH * 2,
+    "payload int8": 2 * (L_SMALL * SHIP_ROWS * H * DH + L_SMALL * SHIP_ROWS * H * 4),
+}
+# Phase 4f: the JAX package's test liveness (no spurious evictions).
+FLEET_LIVENESS = "heartbeat_s=0.05,lease_s=5.0"
 FORMS = (
     "flash_decode_attention",
     "flash_decode_attention_int8",
@@ -499,11 +543,12 @@ def qmm_kernel_phase(torch, flush):
     return cases
 
 
-def serve_phase(torch, card, extra_args, form):
+def serve_phase(torch, card, extra_args, form, records):
     """Phase 4: the port's serving main path at GPT-2 small's width,
     through the attention kernel ``form`` and, with ``--weights-dtype
     int8``, the matmul kernel (every launch count read around the run).
-    Returns ``(attention launches, matmul launches)``."""
+    Appends the run's record to ``records``; returns ``(attention
+    launches, matmul launches)``."""
     from mpit_tpu_torch.ops import decode_attention as da
     from mpit_tpu_torch.ops import quantized_matmul as qm
     from mpit_tpu_torch.serve.__main__ import main
@@ -545,7 +590,7 @@ def serve_phase(torch, card, extra_args, form):
         "kv_pool_occupancy_peak", "prefix_hit_rate", "prefix_hits",
         "prefix_pages_shared_peak", "kv_cow_copies", "concurrency_peak",
     )
-    print(json.dumps({
+    records.append({
         "card": card,
         "serve": {k: out[k] for k in keys if k in out},
         "args": extra_args,
@@ -558,7 +603,8 @@ def serve_phase(torch, card, extra_args, form):
         "kernel_form": form,
         "kernel_launches": launches,
         "quantized_matmul_launches": qmm_launches,
-    }), flush=True)
+    })
+    print(json.dumps(records[-1]), flush=True)
     return launches, qmm_launches
 
 
@@ -1471,8 +1517,235 @@ def train_parity_phase(torch):
           flush=True)
 
 
+def ship_case(torch, flush, label: str, src, dst):
+    """Phase 3f, one case: the copy kernel against its plain version, bit
+    for bit (byte views), with the kernel, plain and library times and
+    the bound."""
+    from mpit_tpu_torch.ops import kv_ship
+
+    kv_ship.ship_bytes(src, dst)
+    torch.cuda.synchronize()
+    want = torch.zeros_like(dst)
+    kv_ship.ship_bytes_plain(src, want)
+    got_b, want_b = kv_ship.byte_view(dst), kv_ship.byte_view(want)
+    if not torch.equal(got_b, want_b) or not torch.equal(got_b, kv_ship.byte_view(src)):
+        err = (got_b.int() - want_b.int()).abs().max().item()
+        fail(f"kv_ship {label}: kernel != plain (max |byte error| {err})")
+    n = kv_ship.tensor_nbytes(src)
+    case = {
+        "form": "kv_ship", "label": label, "dtype": str(src.dtype).removeprefix("torch."),
+        "shape": list(src.shape), "bytes": n,
+        "src_offset": src.data_ptr() % 16, "dst_offset": dst.data_ptr() % 16,
+        "max_abs_err": 0.0, "bit_equal": True,
+        "ms": cold_time_ms(lambda: kv_ship.ship_bytes(src, dst), torch, flush),
+        "plain_ms": cold_time_ms(lambda: kv_ship.ship_bytes_plain(src, dst), torch, flush),
+        "library_ms": cold_time_ms(lambda: dst.copy_(src), torch, flush),
+        "library": "dst.copy_(src) (cudaMemcpyAsync device to device)",
+        # Read n bytes once, write n bytes once; no arithmetic.
+        "bound_ms": 2 * n / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+    }
+    print(json.dumps({"kernel_case": case}), flush=True)
+    return case
+
+
+def ship_kernel_phase(torch, flush):
+    """Phase 3f: the KV shipment's copy kernel against its plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rnd(shape, dtype):
+        if dtype == torch.int8:
+            return torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=dtype)
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def bytes_at(n, offset):
+        """``n`` random bytes starting ``offset`` bytes into a fresh buffer."""
+        return torch.randint(0, 256, (n + 16,), generator=gen, device="cuda",
+                             dtype=torch.uint8)[offset:offset + n]
+
+    leaf = (L_SMALL, SHIP_ROWS, H, DH)
+    cases = []
+    for label, dtype, shape in (
+        ("leaf k/v bf16", torch.bfloat16, leaf),
+        ("leaf k.q/v.q int8", torch.int8, leaf),
+        ("leaf k.scale/v.scale f32", torch.float32, leaf[:-1] + (1,)),
+    ):
+        src = rnd(shape, dtype)
+        cases.append(ship_case(torch, flush, label, src, torch.empty_like(src)))
+    for label, n in SHIP_PAYLOADS.items():
+        src = bytes_at(n, 0)
+        cases.append(ship_case(torch, flush, label, src, torch.empty_like(src)))
+    for n in (1, 15, 17, 4711):
+        cases.append(ship_case(torch, flush, f"ragged {n} B", bytes_at(n, 0), bytes_at(n, 0)))
+    n = SHIP_PAYLOADS["payload bf16"]
+    for so, do in ((1, 3), (3, 1), (1, 0)):
+        cases.append(ship_case(torch, flush, f"bf16 payload, src +{so} B, dst +{do} B",
+                               bytes_at(n, so), bytes_at(n, do)))
+    src = bytes_at(256 * 2**20, 0)
+    cases.append(ship_case(torch, flush, "256 MiB", src, torch.empty_like(src)))
+    return cases
+
+
+def fleet_divergences(torch, model, prompts, got, want, quantized: bool):
+    """Each request whose fleet tokens part from the single Server's: its
+    first diverging token judged by the plain path teacher-forced on the
+    Server's tokens (int8 cache when ``quantized``). Fails when a gap
+    exceeds ``INT8_TIE``."""
+    ties = {}
+    for r in want:
+        if got.get(r) == want[r]:
+            continue
+        if len(got.get(r, ())) != len(want[r]):
+            fail(f"fleet: request {r} has {len(got.get(r, ()))} tokens, the Server's {len(want[r])}")
+        if quantized:
+            ties[r] = int8_divergence(torch, model, prompts[r], got[r], want[r])
+        else:
+            i = next(j for j, (a, b) in enumerate(zip(got[r], want[r])) if a != b)
+            with torch.no_grad():
+                row = model(torch.tensor([prompts[r] + want[r][:i]], device="cuda"))[0, -1].float()
+            ties[r] = {"token_index": i, "got": got[r][i], "want": want[r][i],
+                       "gap": (row[want[r][i]] - row[got[r][i]]).item()}
+    wide = {r: d for r, d in ties.items() if not abs(d["gap"]) <= INT8_TIE}
+    if wide:
+        fail(f"fleet tokens part from the Server's beyond a near-tie (|gap| > {INT8_TIE}): {wide}")
+    return ties
+
+
+def server_tokens(torch, args):
+    """The single Server's greedy tokens for the CLI configuration
+    ``args`` (phase 4's run, rebuilt in process: greedy decode on the
+    same engine is deterministic) and the requests' prompts."""
+    from mpit_tpu_torch.config import from_argv
+    from mpit_tpu_torch.serve import Server
+    from mpit_tpu_torch.serve.__main__ import ServeConfig, _build_engine, synthetic_requests
+
+    cfg = from_argv(ServeConfig, args)
+    engine, mcfg = _build_engine(cfg)
+    server = Server(engine)
+    reqs = list(synthetic_requests(cfg, mcfg.vocab_size))
+    for req in reqs:
+        server.submit(req)
+    tokens = {str(c.rid): list(c.tokens) for c in server.run()}
+    del engine, server
+    torch.cuda.empty_cache()
+    return tokens, {str(r.rid): list(r.prompt) for r in reqs}
+
+
+def fleet_phase(torch, card, ship_cases):
+    """Phase 4f: ``python -m mpit_tpu_torch.serve --fleet``'s ``main`` in
+    process at phase 4's configuration: dense with one prefill and one
+    decode worker, then the paged pool with int8 K/V and two decode
+    workers. Returns the copy kernel's launches in each run and the
+    runs' records."""
+    from mpit_tpu_torch.models import GPT2, GPT2Config
+    from mpit_tpu_torch.ops import decode_attention as da
+    from mpit_tpu_torch.ops import kv_ship
+    from mpit_tpu_torch.ops import quantized_matmul as qm
+    from mpit_tpu_torch.serve.__main__ import main
+
+    judge = GPT2(GPT2Config.small(), device="cuda")
+    judge.load_state_dict(
+        GPT2(GPT2Config.small(), generator=torch.Generator().manual_seed(0)).state_dict()
+    )
+    per_ship = {c["label"]: 2 * c["ms"] for c in ship_cases if c["label"].startswith("payload")}
+    launches, records = {}, []
+    for name, args, form, spec in (
+        ("dense", [], FORMS[0], "prefill=1,decode=1"),
+        ("paged_int8_kv", PAGED_ARGS + ["--kv-dtype", "int8"], FORMS[3], "prefill=1,decode=2"),
+    ):
+        want, prompts = server_tokens(torch, SERVE_ARGS + args)
+        da.launches.update(dict.fromkeys(da.launches, 0))
+        qm.launches.update(dict.fromkeys(qm.launches, 0))
+        kv_ship.launches.update(dict.fromkeys(kv_ship.launches, 0))
+        t0 = time.perf_counter()
+        out = main(SERVE_ARGS + args + ["--fleet", f"{spec},{FLEET_LIVENESS}"])
+        run_s = time.perf_counter() - t0
+        counts = dict(da.launches)
+        ships = kv_ship.launches["kv_ship"]
+        shipments = sum(w.get("processed", 0) for w in out["workers"])
+        ticks = sum(w.get("ticks", 0) for w in out["workers"])
+        tag = f"fleet {name} ({spec})"
+        if out["requests_completed"] != 16 or out["generated_tokens"] != 16 * 32:
+            fail(f"{tag}: {out['requests_completed']} of 16 requests, "
+                 f"{out['generated_tokens']} tokens")
+        if shipments < 16 or ships < 2 * shipments:
+            fail(f"{tag}: {ships} kv_ship launches for {shipments} shipments (need 2 each)")
+        need = out["model"]["layers"] * (shipments + ticks)
+        if counts[form] < need or any(n for f, n in counts.items() if f != form):
+            fail(f"{tag}: attention launches {counts}, need {form} >= {need} and no other form")
+        if qm.launches["quantized_matmul"]:
+            fail(f"{tag}: quantized_matmul launched without --weights-dtype int8")
+        if out["device"] != "cuda":
+            fail(f"{tag} ran on {out['device']}")
+        ties = fleet_divergences(torch, judge, prompts, out["completed"], want,
+                                 quantized="--kv-dtype" in args)
+        shipped = sum(w.get("ship_bytes", 0) for w in out["workers"])
+        payload = "payload int8" if "--kv-dtype" in args else "payload bf16"
+        launches[name] = ships
+        records.append({
+            "card": card, "fleet": name, "spec": spec, "args": args,
+            "wall_s": out["wall_s"], "fleet_req_per_s": out["fleet_req_per_s"],
+            "main_s": run_s, "requests_completed": out["requests_completed"],
+            "generated_tokens": out["generated_tokens"], "shipments": shipments,
+            "bytes_shipped": shipped, "kv_ship_launches": ships,
+            f"kv_ship_ms_a_shipment_at_the_128_row_{payload.split()[1]}_payload": per_ship[payload],
+            "attention_launches": counts[form], "decode_ticks": ticks,
+            "router": {k: out["router"][k] for k in ("evictions", "requeues")},
+            "tokens_vs_server": {"identical_requests": 16 - len(ties), "near_ties": ties},
+        })
+        print(json.dumps(records[-1]), flush=True)
+    del judge
+    torch.cuda.empty_cache()
+    return launches, records
+
+
+def fleet_parity_phase(torch):
+    """Phase 5f: ``run_fleet`` in f32 at full width (one prefill and two
+    decode workers, 4 greedy requests) against the single Server: the
+    same tokens; then a decode worker killed at its tick 5 (at least one
+    re-queue), the same tokens again. Returns the two runs' results."""
+    from mpit_tpu_torch.compat import FaultPlan
+    from mpit_tpu_torch.config import from_argv
+    from mpit_tpu_torch.models import GPT2, GPT2Config
+    from mpit_tpu_torch.serve import Engine, Server, run_fleet
+    from mpit_tpu_torch.serve.__main__ import ServeConfig, synthetic_requests
+
+    cfg = from_argv(ServeConfig, SERVE_ARGS + ["--requests", "4"])
+    mcfg = GPT2Config.small(dtype=torch.float32)
+    state = GPT2(mcfg, generator=torch.Generator().manual_seed(cfg.seed)).state_dict()
+    geo = dict(slots=cfg.slots, max_len=cfg.max_len, prefill_len=cfg.prefill_len,
+               seed=cfg.seed, device="cuda")
+    server = Server(Engine(mcfg, state, **geo))
+    for req in synthetic_requests(cfg, mcfg.vocab_size):
+        server.submit(req)
+    want = {str(c.rid): list(c.tokens) for c in server.run()}
+    del server
+    results = {}
+    for name, plan, lease in (("no fault", None, 5.0),
+                              ("decode rank 2 killed at tick 5",
+                               FaultPlan(seed=0, kill_at={2: 5}), 0.75)):
+        out = run_fleet(
+            lambda role, rank: Engine(mcfg, state, **geo),
+            list(synthetic_requests(cfg, mcfg.vocab_size)), prefill=1, decode=2,
+            heartbeat_s=0.05, lease_s=lease, fault_plan=plan, job_timeout_s=300.0,
+        )
+        torch.cuda.empty_cache()
+        diff = sorted(r for r in want if out["completed"].get(r) != want[r])
+        if len(out["completed"]) != 4 or diff:
+            fail(f"fleet parity f32, {name}: tokens differ from the Server's for {diff}")
+        router = out["router"]
+        if plan is not None and (router["requeues"] < 1 or out["fault_events"] != (("kill", 2, 5),)):
+            fail(f"fleet parity f32, {name}: requeues {router['requeues']}, "
+                 f"fault events {out.get('fault_events')}")
+        results[name] = {"tokens": "identical", "evictions": router["evictions"],
+                         "requeues": router["requeues"]}
+    print(json.dumps({"parity_fleet_f32": results}), flush=True)
+    return results
+
+
 def main() -> None:
     import torch
+
+    t_start = time.perf_counter()
 
     if not torch.cuda.is_available():
         fail("CUDA is not available")
@@ -1504,6 +1777,12 @@ def main() -> None:
     flash_cases = flash_kernel_phase(torch, flush)
     plan = dp_bucket_plan(torch)
     ring_cases = ring_kernel_phase(torch, flush, plan["tail_rows"])
+    t0 = time.perf_counter()
+    ship_cases = ship_kernel_phase(torch, flush)
+    print(f"phase 3f: {time.perf_counter() - t0:.1f} s", flush=True)
+    (OUT / "chip_smoke_ship.json").write_text(
+        json.dumps({"card": card, "cases": ship_cases}, indent=1)
+    )
     (OUT / "chip_smoke_ring.json").write_text(
         json.dumps({"card": card, "bucket_plan": plan, "cases": ring_cases}, indent=1)
     )
@@ -1522,16 +1801,27 @@ def main() -> None:
             PAGED_ARGS + INT8W_ARGS + ["--kv-dtype", "int8"], FORMS[3]
         ),
     }
-    counts = {name: serve_phase(torch, card, *run) for name, run in runs.items()}
+    serve_records = []
+    counts = {name: serve_phase(torch, card, *run, serve_records) for name, run in runs.items()}
+    (OUT / "chip_smoke_serve.json").write_text(json.dumps(serve_records, indent=1))
     # An attention form's launches: its run without int8 weights.
     launches = {
         form: counts[name][0] for name, (args, form) in runs.items()
         if "--weights-dtype" not in args
     }
     qmm_launches = {name: c[1] for name, c in counts.items() if c[1]}
+    t0 = time.perf_counter()
+    ship_launches, fleet_records = fleet_phase(torch, card, ship_cases)
+    print(f"phase 4f: {time.perf_counter() - t0:.1f} s", flush=True)
     mcfg, state = parity_phase(torch)
     paged_parity_phase(torch, mcfg, state)
     int8w_parity_phase(torch, mcfg, state)
+    t0 = time.perf_counter()
+    fleet_parity = fleet_parity_phase(torch)
+    print(f"phase 5f: {time.perf_counter() - t0:.1f} s", flush=True)
+    (OUT / "chip_smoke_fleet.json").write_text(json.dumps(
+        {"card": card, "fleet_runs": fleet_records, "parity_fleet_f32": fleet_parity}, indent=1
+    ))
     flash_launches = train_phase(torch, card, flush)
     del flush
     train_parity_phase(torch)
@@ -1625,6 +1915,20 @@ def main() -> None:
                                     "library_ms", "library", "ring_schedule_bytes")},
             "shape": {k: head[k] for k in ("dtype", "p", "rows")},
         })
+    head = next(c for c in ship_cases if c["label"] == "payload bf16")
+    kernels.append({
+        "name": "kv_ship",
+        "route": "cuda",
+        "source": "mpit_tpu_torch/csrc/kv_ship.cu",
+        "replaces": "mpit_tpu/serve/shipment.py:301",
+        "call_site": "mpit_tpu/serve/shipment.py:313",
+        "launches": sum(ship_launches.values()),
+        "launches_by_run": ship_launches,
+        **{k: head[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "library")},
+        "shape": {"bytes": head["bytes"], "dtype": head["dtype"]},
+    })
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)  # the nvidia-smi name and power limit, as it prints them
     print(json.dumps({"ok": True, "device": {

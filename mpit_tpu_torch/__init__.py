@@ -10,7 +10,10 @@ mpit_tpu_torch.asyncsgd gpt2``) on one rank or data-parallel over a
 World of ranks with ZeRO-1, with the flash attention's forward and
 backward in three more kernels (``csrc/flash_attention.cu``) and the
 gradient sync's ring reduce-scatter and all-gather in four
-(``csrc/ring_collectives.cu``). The package
+(``csrc/ring_collectives.cu``). The mpiT facade (``compat``) runs
+rank-role programs over threads; the serving fleet (``--fleet``) stands
+on it, its KV shipments moving card to card through a copy kernel
+(``csrc/kv_ship.cu``). The package
 imports torch, numpy and the standard library only; it never imports
 JAX or :mod:`mpit_tpu`.
 """

@@ -1,19 +1,27 @@
-"""Event core: spans, counters, gauges and the process-global Recorder.
+"""Event core: spans, counters, gauges, the process-global Recorder and
+per-thread recorders.
 
 A standard-library copy of the part of :mod:`mpit_tpu.obs.core` the
-serving scheduler uses. Every primitive is one module-global read when
-no recorder is installed: :func:`span` then returns a shared no-op
-context manager, so instrumentation costs nothing until :func:`enable`.
+serving scheduler, the compat simulator and the fleet use. Every
+primitive is two module-global reads when no recorder is installed:
+:func:`span` then returns a shared no-op context manager, so
+instrumentation costs nothing until :func:`enable` or
+:func:`local_recorder`.
 
 - a *span* is ``("X", name, t0, dur, tid, attrs)``, a named wall-clock
   interval on a thread (``t0`` in seconds since the recorder's epoch);
   an *instant* is ``("i", name, t, 0.0, tid, attrs)``, a marker;
 - *counters* accumulate floats keyed by ``(name, attrs)``; *gauges*
-  keep the last value.
+  keep the last value;
+- a *thread-local* recorder (:func:`local_recorder`) takes the place of
+  the global one on its thread: each rank thread of a compat job keeps
+  its own event stream, which :mod:`mpit_tpu_torch.obs.aggregate`
+  drains and merges.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from typing import Any, Mapping
@@ -25,7 +33,10 @@ __all__ = [
     "enable",
     "enabled",
     "gauge",
+    "get_global_recorder",
+    "get_recorder",
     "instant",
+    "local_recorder",
     "phase_stats",
     "span",
     "span_at",
@@ -71,12 +82,15 @@ class Recorder:
         self.events: list[tuple] = []
         self.counters: dict[tuple[str, tuple], float] = {}
         self.gauges: dict[tuple[str, tuple], float] = {}
+        self._thread_names: dict[int, str] = {}
 
     def _add_event(self, event: tuple) -> None:
+        th = threading.current_thread()
         with self._lock:
             if len(self.events) >= self._max_events:
                 self.dropped += 1
                 return
+            self._thread_names.setdefault(th.ident, th.name)
             self.events.append(event)
 
     def add_span(
@@ -110,8 +124,26 @@ class Recorder:
                 "events": list(self.events),
                 "counters": dict(self.counters),
                 "gauges": dict(self.gauges),
+                "thread_names": dict(self._thread_names),
                 "dropped": self.dropped,
             }
+
+    def drain(self) -> dict:
+        """Snapshot AND clear: a flight-recorder gather ships each
+        interval's events once."""
+        with self._lock:
+            out = {
+                "events": self.events,
+                "counters": self.counters,
+                "gauges": self.gauges,
+                "thread_names": dict(self._thread_names),
+                "dropped": self.dropped,
+            }
+            self.events = []
+            self.counters = {}
+            self.gauges = {}
+            self.dropped = 0
+        return out
 
     def summary(self) -> dict:
         """``{"phases": {name: {count, total_s, p50_s, p95_s[, labels]}},
@@ -150,6 +182,20 @@ class Recorder:
 
 _RECORDER: Recorder | None = None
 _LOCK = threading.Lock()
+# Thread-local overrides (local_recorder); _TLS_ACTIVE counts the
+# installed ones, so the disabled fast path stays two global reads.
+_TLS = threading.local()
+_TLS_ACTIVE = 0
+
+
+def _current() -> Recorder | None:
+    """The recorder the calling thread records into: its thread-local
+    override when one is installed, else the global one."""
+    if _TLS_ACTIVE:
+        rec = getattr(_TLS, "recorder", None)
+        if rec is not None:
+            return rec
+    return _RECORDER
 
 
 class _NoopSpan:
@@ -182,7 +228,7 @@ class _Span:
         return self
 
     def __exit__(self, *exc):
-        rec = _RECORDER
+        rec = _current()
         if rec is not None:
             rec.add_span(self.name, self.t0, time.perf_counter(), self.attrs)
         return False
@@ -209,12 +255,44 @@ def disable() -> None:
 
 
 def enabled() -> bool:
-    return _RECORDER is not None
+    return _current() is not None
+
+
+def get_recorder() -> Recorder | None:
+    """The calling thread's recorder (its thread-local override first)."""
+    return _current()
+
+
+def get_global_recorder() -> Recorder | None:
+    """The process-global recorder only, whatever the calling thread's
+    override: for code that records on behalf of another thread (the
+    compat simulator delivers a receive on the sender's thread)."""
+    return _RECORDER
+
+
+@contextlib.contextmanager
+def local_recorder(recorder: Recorder | None = None):
+    """Install a thread-local recorder for the enclosed block: every
+    primitive called on this thread records into it instead of the
+    global recorder; other threads are untouched. Nests (the previous
+    override is restored on exit) and yields the recorder."""
+    global _TLS_ACTIVE
+    rec = recorder if recorder is not None else Recorder()
+    prev = getattr(_TLS, "recorder", None)
+    with _LOCK:
+        _TLS_ACTIVE += 1
+    _TLS.recorder = rec
+    try:
+        yield rec
+    finally:
+        _TLS.recorder = prev
+        with _LOCK:
+            _TLS_ACTIVE -= 1
 
 
 def span(name: str, **attrs):
     """Context manager timing a named phase."""
-    if _RECORDER is None:
+    if _current() is None:
         return _NOOP
     return _Span(name, attrs or None)
 
@@ -223,33 +301,33 @@ def span_at(name: str, t0: float, t1: float, **attrs) -> None:
     """Record a completed span from explicit ``time.perf_counter``
     timestamps: the per-request ``queue_wait`` / ``request_ttft`` /
     ``request_latency`` intervals span many loop ticks."""
-    rec = _RECORDER
+    rec = _current()
     if rec is not None:
         rec.add_span(name, t0, t1, attrs or None)
 
 
 def instant(name: str, **attrs) -> None:
     """Record a zero-duration marker event."""
-    rec = _RECORDER
+    rec = _current()
     if rec is not None:
         rec.add_instant(name, attrs or None)
 
 
 def counter(name: str, value: float = 1.0, **attrs) -> None:
     """Accumulate ``value`` onto the counter keyed by name + attrs."""
-    rec = _RECORDER
+    rec = _current()
     if rec is not None:
         rec.add_counter(name, value, attrs or None)
 
 
 def gauge(name: str, value: float, **attrs) -> None:
     """Set the last-value gauge keyed by name + attrs."""
-    rec = _RECORDER
+    rec = _current()
     if rec is not None:
         rec.add_gauge(name, value, attrs or None)
 
 
 def summary() -> dict:
-    """Summary of the installed recorder (``{}`` when disabled)."""
-    rec = _RECORDER
+    """Summary of the calling thread's recorder (``{}`` when disabled)."""
+    rec = _current()
     return {} if rec is None else rec.summary()

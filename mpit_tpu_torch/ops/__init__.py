@@ -1,9 +1,10 @@
 """Operators of the port: the flash-decode kernel wrappers, the int8 KV
 contract, the int8 weight store with its fused-dequant matmul, the
 blocked LM head (decode sampler and training cross entropy), the
-training flash attention, and the ring reduce-scatter / all-gather of
+training flash attention, the ring reduce-scatter / all-gather of
 the gradient sync (``mpit_tpu_torch.ops.ring_collectives``,
-``mpit_tpu_torch.ops.ring_allreduce``).
+``mpit_tpu_torch.ops.ring_allreduce``), and the byte copy that carries
+the fleet's KV shipments on the card (``mpit_tpu_torch.ops.kv_ship``).
 
 The serving matmul and the training attention are imported from their
 modules, ``mpit_tpu_torch.ops.quantized_matmul.quantized_matmul`` and

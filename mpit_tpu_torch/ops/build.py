@@ -26,6 +26,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
 # Every kernel source of the port; chip_smoke.py builds them all at once.
 KERNEL_SOURCES = (
     "decode_attention.cu", "quantized_matmul.cu", "flash_attention.cu", "ring_collectives.cu",
+    "kv_ship.cu",
 )
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",

@@ -16,11 +16,20 @@
 - :mod:`~mpit_tpu_torch.serve.weights` — the dense ``.npz`` reader, the
   JAX param tree → ``state_dict`` carry-over and the int8 weight store
   (``quantize_gpt2_params``, ``params_wire_bytes``).
+- :mod:`~mpit_tpu_torch.serve.shipment` — a prefill's KV rows as three
+  wire messages (the JAX package's bytes); on the card the payload moves
+  through the CUDA copy kernel (``ship_kv_remote``).
+- :mod:`~mpit_tpu_torch.serve.fleet` — the disaggregated fleet over the
+  compat layer: router, prefill and decode workers (``run_fleet``).
+- :mod:`~mpit_tpu_torch.serve.policy` — ``TTFTProjector``, the router's
+  admission estimate.
 
-``python -m mpit_tpu_torch.serve`` serves a synthetic stream.
+``python -m mpit_tpu_torch.serve`` serves a synthetic stream (``--fleet``:
+through the fleet).
 """
 
 from mpit_tpu_torch.serve.engine import Engine, resolve_device, sample_tokens
+from mpit_tpu_torch.serve.fleet import FleetConfig, parse_fleet_spec, run_fleet
 from mpit_tpu_torch.serve.kvcache import (
     AdmitPlan,
     KVCache,
@@ -30,7 +39,17 @@ from mpit_tpu_torch.serve.kvcache import (
     alloc_paged_cache,
     pages_needed,
 )
+from mpit_tpu_torch.serve.policy import TTFTProjector
 from mpit_tpu_torch.serve.scheduler import Completed, Request, Server, warm_engine
+from mpit_tpu_torch.serve.shipment import (
+    KVShipment,
+    inject_shipment,
+    pack_shipment,
+    recv_shipment,
+    send_shipment,
+    ship_kv_remote,
+    unpack_shipment,
+)
 from mpit_tpu_torch.serve.weights import (
     expected_param_shapes,
     infer_config,
@@ -46,23 +65,34 @@ __all__ = [
     "AdmitPlan",
     "Completed",
     "Engine",
+    "FleetConfig",
     "KVCache",
+    "KVShipment",
     "PageAllocator",
     "PagedKVCache",
     "Request",
     "Server",
+    "TTFTProjector",
     "alloc_cache",
     "alloc_paged_cache",
     "expected_param_shapes",
     "infer_config",
+    "inject_shipment",
     "load_dense",
     "load_gpt2_params",
+    "pack_shipment",
     "pages_needed",
     "params_from_jax",
     "params_wire_bytes",
+    "parse_fleet_spec",
     "quantize_gpt2_params",
+    "recv_shipment",
     "resolve_device",
+    "run_fleet",
     "sample_tokens",
+    "send_shipment",
+    "ship_kv_remote",
+    "unpack_shipment",
     "validate_params",
     "warm_engine",
 ]

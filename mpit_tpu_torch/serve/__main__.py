@@ -7,7 +7,10 @@ synthetic stream (``--requests N``, all submitted up front, run to
 drain) through the continuous-batching engine, and prints one JSON
 result: the serving stats (decode tokens/s, TTFT and latency
 percentiles, occupancy) plus the obs phase summary. A one-line summary
-goes to stderr.
+goes to stderr. ``--fleet prefill=P,decode=D[,lease_s=...]`` serves the
+same stream through the disaggregated fleet instead
+(:mod:`mpit_tpu_torch.serve.fleet`: a router, P prefill and D decode
+workers, each with its own engine, KV shipped between them).
 
 Runs on the GPU (``--device cuda``, the default; it raises without
 one); ``--device cpu`` is for testing. The flags of paths this port
@@ -79,6 +82,8 @@ class ServeConfig:
     slo_latency_p95: float = 0.0
     slo_shed_rate: float = 0.0
     policy: str = ""
+    # Disaggregated fleet: "" = one Server; else a serve.fleet spec
+    # ("prefill=1,decode=2[,lease_s=5.0,heartbeat_s=0.05,...]").
     fleet: str = ""
 
 
@@ -97,7 +102,6 @@ _LATER_SLICES = {
     "stats_interval": "the open-loop load-harness slice",
     "max_queue": "the open-loop load-harness slice",
     "policy": "the scheduling-policy slice",
-    "fleet": "the KV-shipment (fleet) slice",
     "slo_ttft_p95": "the SLO/sentinel observability slice",
     "slo_latency_p95": "the SLO/sentinel observability slice",
     "slo_shed_rate": "the SLO/sentinel observability slice",
@@ -218,9 +222,83 @@ def summary_line(engine, stats: dict, wall_s: float, tok_s) -> str:
     return line
 
 
+def _run_fleet_cli(cfg: ServeConfig) -> dict:
+    """``--fleet prefill=P,decode=D``: the disaggregated serving fleet
+    over the closed-loop synthetic stream. One JSON result: completion
+    counts and tokens, per-worker roll-ups, fleet req/s, and the flight
+    block's P2P matrix (KV shipment bytes visible per (src, dst)); one
+    stderr line with the copy kernel's launches and the bytes shipped."""
+    from mpit_tpu_torch.ops import kv_ship
+    from mpit_tpu_torch.serve.fleet import parse_fleet_spec, run_fleet
+
+    fcfg = parse_fleet_spec(cfg.fleet)
+    engine0, mcfg = _build_engine(cfg)
+    seed_engines = [engine0]
+
+    def factory(role, rank):
+        # Same config + same seed → identical weights on every worker;
+        # the engine built for the vocab lookup serves the first worker.
+        if seed_engines:
+            return seed_engines.pop()
+        engine, _ = _build_engine(cfg)
+        return engine
+
+    requests = list(synthetic_requests(cfg, mcfg.vocab_size))
+    launches0 = kv_ship.launches["kv_ship"]
+    t0 = time.perf_counter()
+    out = run_fleet(
+        factory,
+        requests,
+        prefill=fcfg.prefill,
+        decode=fcfg.decode,
+        heartbeat_s=fcfg.heartbeat_s,
+        lease_s=fcfg.lease_s,
+        admission_ttft_s=fcfg.admission_ttft_s,
+        job_timeout_s=fcfg.job_timeout_s,
+    )
+    wall = time.perf_counter() - t0
+    launches = kv_ship.launches["kv_ship"] - launches0
+    completed = out["completed"]
+    shipped = sum(w.get("ship_bytes", 0) for w in out["workers"])
+    result = {
+        "model": {
+            "layers": mcfg.num_layers,
+            "d_model": mcfg.d_model,
+            "vocab": mcfg.vocab_size,
+            "source": cfg.ckpt or f"random-init {cfg.model}",
+        },
+        "device": str(engine0.device),
+        "fleet": {"prefill": fcfg.prefill, "decode": fcfg.decode},
+        "wall_s": round(wall, 4),
+        "requests_completed": len(completed),
+        "requests_shed": len(out["shed"]),
+        "fleet_req_per_s": round(len(completed) / wall, 2) if wall else None,
+        "generated_tokens": sum(len(t) for t in completed.values()),
+        "completed": completed,
+        "router": {
+            k: v
+            for k, v in out["router"].items()
+            if k not in ("completed", "role")
+        },
+        "workers": out["workers"],
+    }
+    flight = out.get("flight")
+    if flight is not None:
+        result["p2p_bytes"] = np.asarray(flight["p2p_bytes"]).tolist()
+    print(
+        f"fleet prefill={fcfg.prefill} decode={fcfg.decode}: served "
+        f"{len(completed)} requests, {result['generated_tokens']} tokens in "
+        f"{wall:.2f} s, kv_ship launches={launches}, shipped {shipped} bytes",
+        file=sys.stderr, flush=True,
+    )
+    return result
+
+
 def main(argv: list[str] | None = None) -> dict:
     cfg = from_argv(ServeConfig, argv, prog="python -m mpit_tpu_torch.serve")
     _reject_later_slices(cfg)
+    if cfg.fleet:
+        return _run_fleet_cli(cfg)
     from mpit_tpu_torch import obs
     from mpit_tpu_torch.serve import Server
 

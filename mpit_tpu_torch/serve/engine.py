@@ -36,13 +36,18 @@ fused-dequant matmul (:func:`mpit_tpu_torch.ops.quantized_matmul.quantized_matmu
 the CUDA kernel on the card) — or, in a reference engine, the
 whole-dequant oracle. ``None`` and ``"f32"`` serve the state as loaded.
 
-The cache is updated in place (JAX rebuilds it each step): dense prefill
-runs the forward on the admitted slots only, over a copy of their
-buffers that is written back; paged prefill runs the slots that take
-part in the chunk, writing straight into the shared pool; decode runs
-all slots. Free slots decode at length 0: on the dense cache their row 0
-is junk that the next admission's prefill overwrites, on the pool their
-writes go to the trash page.
+The cache is updated in place (JAX rebuilds it each step). Every call
+runs the forward over all slots, as the JAX package's fixed shapes do:
+the matmuls' row count is then the same whichever requests share a
+prefill (cuBLAS is not row-invariant in the row count), so a request's
+K/V rows and tokens do not depend on its neighbours — what lets a fleet
+worker that prefills one request at a time reproduce the single
+engine's rows. Dense prefill runs over a copy of every slot's buffers
+and writes back the admitted slots only; paged prefill writes straight
+into the shared pool, the rows of slots that take no part masked to the
+trash page; decode runs all slots. Free slots decode at length 0: on
+the dense cache their row 0 is junk that the next admission's prefill
+overwrites, on the pool their writes go to the trash page.
 """
 
 from __future__ import annotations
@@ -60,7 +65,7 @@ from mpit_tpu_torch.ops.decode_attention import (
     kernel_library,
     pick_block_k,
 )
-from mpit_tpu_torch.ops.kv_quant import kv_tensors
+from mpit_tpu_torch.ops.kv_quant import QuantizedKV, kv_tensors
 from mpit_tpu_torch.ops.lm_head import gumbel, lm_head_sample
 from mpit_tpu_torch.ops.quantized_matmul import (
     kernel_library as qmm_kernel_library,
@@ -318,24 +323,25 @@ class Engine:
         admit = np.asarray(admit, bool)
         if admit.any():
             idx = self._tensor(np.flatnonzero(admit), torch.long)
-            toks = self._tensor(np.asarray(tokens)[admit], torch.long)
-            plen = self._tensor(np.asarray(prompt_lens)[admit], torch.int32)
+            every = torch.arange(self.slots, device=self.device)
+            plen = self._tensor(prompt_lens, torch.int32)
             c = self.cache
-            k, v = c.k[:, idx], c.v[:, idx]  # copies, written back below
+            k, v = c.k[:, every], c.v[:, every]  # copies; admitted written back
             fresh = torch.zeros_like(plen)
             out, _ = self.model(
-                toks, cache=(k, v, fresh), return_hidden=self._blocked_head
+                self._tensor(tokens, torch.long), cache=(k, v, fresh),
+                return_hidden=self._blocked_head,
             )
             tok = self._sample_last(
                 out,
                 (plen.long() - 1).clamp_min(0),
-                self._tensor(np.asarray(temp)[admit], torch.float32),
-                self._tensor(np.asarray(topk)[admit], torch.int32),
+                self._tensor(temp, torch.float32),
+                self._tensor(topk, torch.int32),
             )
-            c.k[:, idx] = k
-            c.v[:, idx] = v
-            c.lengths[idx] = plen
-            self.last_token[idx] = tok
+            c.k[:, idx] = k[:, idx]
+            c.v[:, idx] = v[:, idx]
+            c.lengths[idx] = plen[idx]
+            self.last_token[idx] = tok[idx]
         return self.last_token.cpu().numpy()
 
     @torch.no_grad()
@@ -356,32 +362,34 @@ class Engine:
         chunk_lens = np.asarray(chunk_lens, np.int32)
         part = np.flatnonzero(chunk_lens > 0)
         if part.size:
-            base_p = np.asarray(base, np.int32)[part]
-            n_p = chunk_lens[part]
+            base = np.asarray(base, np.int32)
             t_idx = np.arange(np.asarray(tokens).shape[1])[None, :]
-            write_valid = (t_idx < n_p[:, None]) & (
-                base_p[:, None] + t_idx >= np.asarray(floor)[part][:, None]
+            # A slot that takes no part has chunk length 0: none of its
+            # rows is written.
+            write_valid = (t_idx < chunk_lens[:, None]) & (
+                base[:, None] + t_idx >= np.asarray(floor)[:, None]
             )
             idx = self._tensor(part, torch.long)
-            lens = self._tensor(base_p, torch.int32)
+            lens = self._tensor(base, torch.int32)
             c = self.cache
             out, _ = self.model(
-                self._tensor(np.asarray(tokens)[part], torch.long),
+                self._tensor(tokens, torch.long),
                 paged_cache=(
-                    c.k, c.v, lens, self._block_tables()[idx],
+                    c.k, c.v, lens, self._block_tables(),
                     self._tensor(write_valid, torch.bool),
                 ),
                 return_hidden=self._blocked_head,
             )
             tok = self._sample_last(
                 out,
-                self._tensor(n_p - 1, torch.long),
-                self._tensor(np.asarray(temp)[part], torch.float32),
-                self._tensor(np.asarray(topk)[part], torch.int32),
+                self._tensor(np.maximum(chunk_lens - 1, 0), torch.long),
+                self._tensor(temp, torch.float32),
+                self._tensor(topk, torch.int32),
             )
-            c.lengths[idx] = lens + self._tensor(n_p, torch.int32)
-            keep = self._tensor(np.asarray(sample_mask, bool)[part], torch.bool)
-            self.last_token[idx[keep]] = tok[keep]
+            c.lengths[idx] = lens[idx] + self._tensor(chunk_lens[part], torch.int32)
+            keep = np.flatnonzero(np.asarray(sample_mask, bool) & (chunk_lens > 0))
+            keep = self._tensor(keep, torch.long)
+            self.last_token[keep] = tok[keep]
         return self.last_token.cpu().numpy()
 
     @torch.no_grad()
@@ -425,6 +433,77 @@ class Engine:
 
     def lengths(self) -> np.ndarray:
         return self.cache.lengths.cpu().numpy()
+
+    @torch.no_grad()
+    def export_kv_rows(self, slot: int, length: int):
+        """``slot``'s first ``length`` cached KV rows in the canonical dense
+        row layout ``[L, length, H, Dh]`` (an int8 cache gives a
+        :class:`~mpit_tpu_torch.ops.kv_quant.QuantizedKV` of int8 rows and
+        ``[L, length, H, 1]`` scales), as new contiguous tensors on the
+        engine's device. Dense and paged engines give identical rows for
+        identical fills — a paged export gathers the slot's block-table
+        pages and trims the tail — so a fleet shipment packed from either
+        injects into either. Returns ``(k_rows, v_rows)``."""
+        if length <= 0:
+            raise ValueError(f"export_kv_rows needs length > 0, got {length}")
+        if self.paged:
+            npages = -(-length // self.page_size)
+            pages = self._tensor(self.allocator.block_tables[slot, :npages], torch.long)
+
+            def rows(buf):
+                arr = buf[:, pages]  # [L, npages, page_size, H, last]
+                nl, n, p, h, last = arr.shape
+                return arr.reshape(nl, n * p, h, last)[:, :length].contiguous()
+
+        else:
+
+            def rows(buf):
+                return buf[:, slot, :length].contiguous()
+
+        return tuple(
+            QuantizedKV(q=rows(buf.q), scale=rows(buf.scale))
+            if isinstance(buf, QuantizedKV) else rows(buf)
+            for buf in (self.cache.k, self.cache.v)
+        )
+
+    @torch.no_grad()
+    def inject_kv_rows(
+        self, slot: int, k_rows, v_rows, length: int, first_token: int
+    ) -> None:
+        """Inverse of :meth:`export_kv_rows`: install ``length`` rows of
+        shipped KV state into ``slot`` and arm it for decode —
+        ``lengths[slot] = length``, ``last_token[slot] = first_token``
+        (the token the shipping side sampled at prefill end). On a paged
+        engine the caller has already run ``allocator.admit`` for the
+        slot (all-or-nothing, no ``register_prefix`` — injected pages are
+        private, never prefix-shared); rows scatter into the slot's
+        mapped pages. ``k_rows``/``v_rows`` match the export layout —
+        tensors, or objects with ``.q``/``.scale`` for an int8 cache —
+        and are cast to the cache's device and dtype."""
+        if self.paged:
+            ps = self.page_size
+            npages = -(-length // ps)
+            pages = [int(p) for p in self.allocator.block_tables[slot, :npages]]
+
+            def put(buf, rows):
+                for i, page in enumerate(pages):
+                    n = min(ps, length - i * ps)
+                    buf[:, page, :n] = rows[:, i * ps : i * ps + n]
+
+        else:
+
+            def put(buf, rows):
+                buf[:, slot, :length] = rows
+
+        for buf, rows in ((self.cache.k, k_rows), (self.cache.v, v_rows)):
+            pairs = (
+                ((buf.q, rows.q), (buf.scale, rows.scale))
+                if isinstance(buf, QuantizedKV) else ((buf, rows),)
+            )
+            for dst, src in pairs:
+                put(dst, src.to(device=dst.device, dtype=dst.dtype))
+        self.cache.lengths[slot] = int(length)
+        self.last_token[slot] = int(first_token)
 
     def reset(self, seed: int = 0) -> None:
         """Clear all slots (and the page bookkeeping) and re-seed the

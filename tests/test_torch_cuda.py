@@ -4,9 +4,11 @@ The flash-decode kernel in all four forms (dense and paged, each with
 f32/bf16 or int8 K/V), the int8 weight store's fused-dequant matmul,
 the training flash attention's forward, dq and dk/dv kernels (alone, in
 autograd, and in three tiny training steps against plain attention),
-and the ring reduce-scatter and all-gather kernels, sum and int8 wire
+the ring reduce-scatter and all-gather kernels, sum and int8 wire
 (bit-equal to their plain versions, and in tiny training steps over
-four ranks against the plain collectives).
+four ranks against the plain collectives), and the KV shipment's copy
+kernel (bit-exact at every alignment, behind the compat simulator's
+CUDA messages and a tiny fleet's shipments).
 
 Every test here needs an NVIDIA GPU (the kernel has no CPU mode): each
 carries the ``cuda`` marker and skips, with its reason, where there is
@@ -485,3 +487,111 @@ def test_tiny_data_parallel_training_through_ring_kernels(cuda, mode):
     else:
         for a, b in zip(losses["psum"], losses[mode]):
             assert abs(a - b) <= 0.02 + 0.02 * abs(a)
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 4711, 2 * 12 * 128 * 12 * 64])
+@pytest.mark.parametrize("src_off,dst_off", [(0, 0), (1, 1), (1, 3), (3, 1), (8, 0), (0, 4), (6, 2)])
+def test_kv_ship_kernel_copies_bit_exact(cuda, n, src_off, dst_off):
+    """The KV shipment's copy kernel: every byte, at every mutual
+    alignment (16-byte vectors, the narrower words, bytes), nothing
+    written outside dst; one launch a call."""
+    from mpit_tpu_torch.ops import kv_ship
+
+    gen = torch.Generator(device="cuda").manual_seed(n + src_off)
+    src = torch.randint(0, 256, (n + 16,), dtype=torch.uint8, device="cuda", generator=gen)
+    dst = torch.zeros(n + 16, dtype=torch.uint8, device="cuda")
+    before = kv_ship.launches["kv_ship"]
+    kv_ship.ship_bytes(src[src_off:src_off + n], dst[dst_off:dst_off + n])
+    torch.cuda.synchronize()
+    assert kv_ship.launches["kv_ship"] == before + 1
+    assert torch.equal(dst[dst_off:dst_off + n], src[src_off:src_off + n])
+    assert not dst[:dst_off].any() and not dst[dst_off + n:].any()
+
+
+def test_kv_ship_dtypes_refusals_and_remote(cuda):
+    from mpit_tpu_torch.ops import kv_ship
+    from mpit_tpu_torch.serve.shipment import ship_kv_remote
+
+    x = torch.randn(3, 5, 7, device="cuda").to(torch.bfloat16)
+    out = ship_kv_remote(x, 0)
+    assert out.dtype == x.dtype and out.shape == x.shape
+    assert torch.equal(out.view(torch.int16), x.view(torch.int16))
+    assert torch.equal(ship_kv_remote(x, "cuda"), x)
+    with pytest.raises(ValueError, match="contiguous"):
+        kv_ship.ship_bytes(x.transpose(0, 1), torch.empty_like(x))
+    with pytest.raises(ValueError, match="one device"):
+        kv_ship.ship_bytes(x, torch.empty_like(x, device="cpu"))
+    with pytest.raises(ValueError, match="bytes"):
+        kv_ship.ship_bytes(x, torch.empty(3, 5, 7, device="cuda"))
+    with pytest.raises(ValueError, match="overlap"):
+        kv_ship.ship_bytes(x.view(-1)[:10], x.view(-1)[5:15])
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(NotImplementedError, match="§A 14"):
+            ship_kv_remote(x, 1)
+
+
+def test_compat_moves_cuda_messages_through_the_kernel(cuda):
+    """A CUDA Send and its delivery into a CUDA buffer: two kernel
+    launches; a CUDA message never lands in a CPU buffer."""
+    from mpit_tpu_torch import compat as mpiT
+    from mpit_tpu_torch.ops import kv_ship
+
+    payload = torch.arange(4711, dtype=torch.int32, device="cuda")
+
+    def main():
+        mpiT.Init()
+        if mpiT.Comm_rank() == 0:
+            mpiT.Send(payload, dest=1, tag=1)
+            mpiT.Send(payload, dest=1, tag=2)
+            mpiT.Barrier()  # both queued before rank 1 receives
+            return None
+        mpiT.Barrier()
+        buf = torch.zeros_like(payload)
+        st = mpiT.Recv(buf, src=0, tag=1)
+        try:
+            mpiT.Recv(torch.zeros(4711, dtype=torch.int32), src=0, tag=2)
+        except TypeError as e:
+            return st.count, buf.cpu(), str(e)
+        return None
+
+    before = kv_ship.launches["kv_ship"]
+    out = mpiT.run(main, 2, timeout=60)
+    count, got, err = out[1]
+    assert count == 4711 and torch.equal(got, payload.cpu())
+    assert "device" in err
+    assert kv_ship.launches["kv_ship"] == before + 3  # two snapshots, one delivery
+
+
+@pytest.mark.parametrize("geo", [
+    dict(slots=2, max_len=32, prefill_len=8),
+    dict(slots=2, max_len=40, prefill_len=8, kv_pages=24, kv_page_size=4,
+         prefill_chunk=4, kv_dtype="int8"),
+], ids=["dense", "paged-int8"])
+def test_tiny_fleet_on_the_card_equals_server(cuda, geo):
+    """A tiny f32 fleet (router, one prefill and two decode workers) on
+    the card: the single Server's greedy tokens, and two copy-kernel
+    launches a shipment (the send snapshot and the delivery)."""
+    from mpit_tpu_torch.ops import kv_ship
+    from mpit_tpu_torch.serve import run_fleet
+
+    cfg = GPT2Config.tiny(vocab_size=64, max_seq_len=64, num_layers=2, num_heads=2,
+                          d_model=32, dtype=torch.float32)
+    state = GPT2(cfg, generator=torch.Generator().manual_seed(0)).state_dict()
+    prompts = [[5, 9, 3], [7], [1, 2, 3, 4, 5], [9, 9], [3, 1], [60, 2, 2, 1]]
+
+    def requests():
+        return [Request(rid=f"r{i}", prompt=p, max_new_tokens=n)
+                for i, (p, n) in enumerate(zip(prompts, [6, 4, 8, 3, 5, 7]))]
+
+    server = Server(Engine(cfg, state, device="cuda", **geo))
+    for r in requests():
+        server.submit(r)
+    want = {str(c.rid): list(c.tokens) for c in server.run()}
+    before = kv_ship.launches["kv_ship"]
+    out = run_fleet(lambda role, rank: Engine(cfg, state, device="cuda", **geo),
+                    requests(), prefill=1, decode=2, heartbeat_s=0.05, lease_s=5.0,
+                    job_timeout_s=60.0)
+    assert out["completed"] == want
+    shipments = sum(w.get("processed", 0) for w in out["workers"])
+    assert shipments == len(prompts)
+    assert kv_ship.launches["kv_ship"] - before == 2 * shipments

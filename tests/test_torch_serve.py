@@ -218,7 +218,9 @@ def test_main_returns_stats_keys():
         ["--mesh", "model=2"],
         ["--loadgen", "rate=8"],
         ["--policy", "on"],
-        ["--fleet", "prefill=1,decode=1"],
+        # The fleet is served now; with a later slice's flag it still
+        # refuses, before any worker starts.
+        ["--fleet", "prefill=1,decode=1", "--policy", "on"],
         ["--slo-ttft-p95", "0.5"],
         ["--sentinel", "true"],
         ["--max-queue", "4"],
