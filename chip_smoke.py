@@ -22,11 +22,15 @@ for an H100). Phases, each of which raises (exit code != 0) on failure:
    (the library yardstick, never called by the port) with CUDA events on
    a cold L2, after a second of matmuls that lifts the clocks from idle,
    beside the bound the card's HBM rate and peak arithmetic
-   rate set for the same work;
+   rate set for the same work, and beside the earlier design's time at the same shape
+   (``BEFORE_DECODE_MS``). Each case names the kernel body it ran
+   (``path``: ``split`` at T = 1, ``mma`` for bf16 at T > 1, ``rows``
+   otherwise) and fails unless exactly that body's launch count moved;
 3b. kernel vs plain, paged and int8 — the three other forms at the same
    head geometry: paged pools of page size 16 and 64 for virtual lengths
    512 and 1024, T = 1 and 64 (a prefill chunk), q bf16/f32 over K/V of
-   the same dtype and over int8 K/V; dense int8 at S 512/1024, T 1/64.
+   the same dtype and over int8 K/V; dense int8 at S 512/1024, T 1/64/128
+   (128: the dense serving runs' prefill width).
    Block tables name a seeded random permutation of the pool's pages,
    two slots sharing their first pages. Tolerances are q's: both sides
    dequantize the same int8 bytes to f32, and with a bf16 q the kernel
@@ -34,8 +38,9 @@ for an H100). Phases, each of which raises (exit code != 0) on failure:
    plain version rounds the probabilities to bf16 — well inside 5e-2.
    The paged kernel over the pre-gathered dense view, mapped page by
    page in order, must equal the dense kernel bit for bit at the same
-   block_k. SDPA runs on the pre-gathered (and dequantized) dense view;
-   the gather is not timed. Every case goes to
+   block_k, on each body (split, mma and rows alike). SDPA runs on the
+   pre-gathered (and dequantized) dense view; the gather is not timed.
+   Every case goes to
    ``chiprun_out/chip_smoke_kernels.json``;
 3c. kernel vs plain, int8 weights — the fused-dequant matmul against its
    plain version (the blocked dequant-and-contract loop) at GPT-2
@@ -58,7 +63,10 @@ for an H100). Phases, each of which raises (exit code != 0) on failure:
    ``--weights-dtype int8 --kv-dtype int8``. Every request completes
    with its tokens, and the launch count of the attention form each run
    drives, set to 0 just before, reaches at least num_layers x (prefill
-   calls + decode ticks), while the other forms stay at 0; the matmul
+   calls + decode ticks), while the other forms stay at 0; by body
+   (``path_launches``), exactly num_layers x prefill calls on ``mma``
+   (bf16 K/V) or ``rows`` (int8 K/V) and num_layers x decode ticks on
+   ``split``, nothing else; the matmul
    kernel's count reaches 4 x num_layers x (prefill calls + decode
    ticks) in the two int8-weight runs and stays 0 in the other four;
    every run's record goes to ``chiprun_out/chip_smoke_serve.json``;
@@ -93,8 +101,10 @@ for an H100). Phases, each of which raises (exit code != 0) on failure:
    diagonal), a key block wholly in the future (k_offset 512: o exactly
    0 and lse exactly -1e30), a non-zero lse cotangent folded into delta,
    and q, k, v handed over as the model hands them, strided views of one
-   fused qkv tensor (rows 3 H D apart), read in place. Max |error| of o,
-   lse, dq, dk and dv within an absolute 1e-4 (f32) / 5e-2 (bf16, the
+   fused qkv tensor (rows 3 H D apart), read in place. The f32 lse within
+   an absolute 1e-4 in both dtypes (``LSE_TOL``: l summed from bf16-rounded
+   p would move it by about 1e-3). Max |error| of o,
+   dq, dk and dv within an absolute 1e-4 (f32) / 5e-2 (bf16, the
    JAX package's own bf16 kernel tolerance: bf16 outputs are rounded
    once, after sums taken in another order, and one bf16 step is 1.6e-2
    to 3.1e-2 at their largest values, 2 to 8); each case records the
@@ -105,8 +115,10 @@ for an H100). Phases, each of which raises (exit code != 0) on failure:
    beside the bound: ``scaled_dot_product_attention(is_causal=True)``
    for the forward, its autograd backward (dq, dk and dv in one call,
    the forward already run) for dq and dk/dv; neither gives an lse, and
-   the port never calls them. Every case goes to
-   ``chiprun_out/chip_smoke_flash.json``;
+   the port never calls them; beside the earlier design's time at the same case
+   (``BEFORE_FLASH_MS``) and the body (``path``: ``mma`` for the bf16
+   forward on the tensor cores, ``fma`` for the f32 forward and the
+   backward). Every case goes to ``chiprun_out/chip_smoke_flash.json``;
 4t. train — ``python -m mpit_tpu_torch.asyncsgd gpt2``'s ``main`` in
    process with ``--flash true --steps 30 --log-every 1``: GPT-2 small at
    full width (12 layers, d_model 768, 12 heads, vocab 50257), seq 512,
@@ -184,8 +196,10 @@ for an H100). Phases, each of which raises (exit code != 0) on failure:
    (``FaultPlan``, lease 0.75 s): at least one re-queue, tokens identical;
    the results go to ``chiprun_out/chip_smoke_fleet.json``.
 
-The last lines are the kernels JSON line, the card's name and power
-limit as ``nvidia-smi`` prints them, and ``{"ok": true, "device":
+The last lines are the kernels JSON line (each decode form twice: at
+T 1, its ``split`` body, and at its prefill width as ``<form>_prefill``,
+each with the main path's launches of that body), the card's name and
+power limit as ``nvidia-smi`` prints them, and ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -205,6 +219,7 @@ OUT = HERE / "chiprun_out"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 / f32 non-tensor
 TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+LSE_TOL = 1e-4  # the flash forward's f32 lse, in both dtypes
 # Logits: the widest gap at which int8 greedy tokens may part from the
 # dense reference (observed on an H100 at seed 0: 0.00014 and 0.0014;
 # a wrong page or scale moves logits by tenths).
@@ -249,6 +264,52 @@ FORMS = (
     "flash_paged_decode_attention",
     "flash_paged_decode_attention_int8",
 )
+# The same cases' kernel times (ms) under the earlier design, before the
+# decode kernel's split and mma bodies and the tensor-core flash forward:
+# this script on the tree of commit 34f96eb, on an NVIDIA H100 80GB HBM3 at
+# 700 W (its chiprun_out/chip_smoke_kernels.json and chip_smoke_flash.json),
+# so that every case's record holds the earlier design's time beside its
+# own. T w is the case's prefill width: 128 in phase 3, 64 in phase 3b.
+BEFORE_DECODE_MS = {  # (form, q dtype, page size): S 512 T 1, S 512 T w, S 1024 T 1, S 1024 T w
+    ("flash_decode_attention", "bfloat16", None): (0.0428, 0.2605, 0.0683, 0.4628),
+    ("flash_decode_attention", "float32", None): (0.0306, 0.2251, 0.0539, 0.3946),
+    ("flash_paged_decode_attention", "bfloat16", 16): (0.0362, 0.1114, 0.0655, 0.2130),
+    ("flash_paged_decode_attention", "bfloat16", 64): (0.0362, 0.1117, 0.0657, 0.2119),
+    ("flash_paged_decode_attention", "float32", 16): (0.0420, 0.1073, 0.0663, 0.2042),
+    ("flash_paged_decode_attention", "float32", 64): (0.0364, 0.1066, 0.0647, 0.2041),
+    ("flash_decode_attention_int8", "bfloat16", None): (0.0444, 0.1536, 0.0554, 0.2987),
+    ("flash_decode_attention_int8", "float32", None): (0.0312, 0.1532, 0.0556, 0.2991),
+    ("flash_paged_decode_attention_int8", "bfloat16", 16): (0.0384, 0.1686, 0.0688, 0.3252),
+    ("flash_paged_decode_attention_int8", "bfloat16", 64): (0.0378, 0.1690, 0.0686, 0.3255),
+    ("flash_paged_decode_attention_int8", "float32", 16): (0.0376, 0.1684, 0.0684, 0.3261),
+    ("flash_paged_decode_attention_int8", "float32", 64): (0.0376, 0.1686, 0.0684, 0.3256),
+}
+BEFORE_FLASH_MS = {  # (dtype, T, q_offset, k_offset, g_lse, fused): fwd, dq, dkv
+    ("bfloat16", 512, 0, 0, False, False): (0.2038, 0.2726, 0.3410),
+    ("bfloat16", 1024, 0, 0, False, False): (0.6182, 0.8732, 1.1078),
+    ("float32", 512, 0, 0, False, False): (0.2041, 0.2722, 0.3492),
+    ("float32", 1024, 0, 0, False, False): (0.6377, 0.8769, 1.1458),
+    ("bfloat16", 512, 256, 0, False, False): (0.2646, 0.3749, 0.4688),
+    ("bfloat16", 512, 0, 512, False, False): (0.0121, 0.0187, 0.0190),
+    ("bfloat16", 512, 0, 0, True, False): (0.2062, 0.2749, 0.3393),
+    ("bfloat16", 512, 0, 0, False, True): (0.2009, 0.2729, 0.3414),
+}
+
+
+def before_decode_ms(form: str, dtype: str, ps, s: int, t: int) -> float:
+    return BEFORE_DECODE_MS[(form, dtype, ps)][2 * (s == 1024) + (t > 1)]
+
+
+def decode_call(torch, da, form: str, path: str, fn):
+    """``fn()`` once, checking that it launched ``form`` on the body
+    ``path`` and nothing else; returns its result."""
+    before = dict(da.path_launches)
+    out = fn()
+    torch.cuda.synchronize()
+    ran = {k: n - before[k] for k, n in da.path_launches.items() if n != before[k]}
+    if ran != {f"{form}/{path}": 1}:
+        fail(f"{form}: expected one launch on the {path} body, got {ran}")
+    return out
 
 
 def fail(msg: str) -> None:
@@ -351,10 +412,11 @@ def kernel_phase(torch, flush):
                 )
                 lens = torch.linspace(0, s - t, B, device="cuda").int()
                 bk = da.pick_block_k(s)
-                out, visited = da.flash_decode_attention(
-                    q, k, v, lens, return_visited=True
+                path = da._decode_path(dtype, dtype, t)
+                out, visited = decode_call(
+                    torch, da, "flash_decode_attention", path,
+                    lambda: da.flash_decode_attention(q, k, v, lens, return_visited=True),
                 )
-                torch.cuda.synchronize()
                 ref = da.reference_decode_attention(q, k, v, lens)
                 err = (out.float() - ref.float()).abs().max().item()
                 name = str(dtype).removeprefix("torch.")
@@ -365,10 +427,11 @@ def kernel_phase(torch, flush):
                     fail(f"visited {visited.tolist()} != num_kv_blocks {want.tolist()}")
                 bound_ms, bound_by = bound(torch, lens, t, s, H * DH * q.element_size(), q)
                 cases.append({
-                    "form": "flash_decode_attention",
+                    "form": "flash_decode_attention", "path": path,
                     "dtype": name, "kv": name, "B": B, "S": s, "T": t, "H": H,
                     "Dh": DH, "block_k": bk, "lengths": lens.tolist(),
                     "max_abs_err": err, "tol": TOL[name],
+                    "before_ms": before_decode_ms("flash_decode_attention", name, None, s, t),
                     "ms": cold_time_ms(
                         lambda: da.flash_decode_attention(q, k, v, lens),
                         torch, flush,
@@ -410,7 +473,8 @@ def paged_kernel_phase(torch, flush):
                 if layout == "dense" and not int8:
                     continue  # phase 3
                 for s in (512, 1024):
-                    for t in (1, 64):
+                    # Dense int8 also at T 128, the dense serving runs' prefill.
+                    for t in (1, 64) if layout == "paged" else (1, 64, 128):
                         seed = s + t + (ps or 0) + 7 * int8
                         gen = torch.Generator(device="cuda").manual_seed(seed)
                         q = torch.randn((B, t, H, DH), generator=gen, device="cuda").to(dtype)
@@ -455,8 +519,8 @@ def paged_kernel_phase(torch, flush):
                             form, extra = "flash_decode_attention", 0
                         form += "_int8" if int8 else ""
                         label = f"{form} q={name} ps={ps} S={s} T={t}"
-                        out, visited = run()
-                        torch.cuda.synchronize()
+                        path = da._decode_path(dtype, torch.int8 if int8 else dtype, t)
+                        out, visited = decode_call(torch, da, form, path, run)
                         err = (out.float() - plain().float()).abs().max().item()
                         if not math.isfinite(err) or err > TOL[name]:
                             fail(f"kernel vs plain {label}: {err} > {TOL[name]}")
@@ -470,18 +534,22 @@ def paged_kernel_phase(torch, flush):
                                 q, as_pool(kd, ps), as_pool(vd, ps), lens,
                                 ident.reshape(B, n_ps),
                             )
-                            dense = da.flash_decode_attention(q, kd, vd, lens, block_k=bk)
+                            dense = decode_call(
+                                torch, da, form.replace("_paged", ""), path,
+                                lambda: da.flash_decode_attention(q, kd, vd, lens, block_k=bk),
+                            )
                             if not torch.equal(paged_id, dense):
-                                fail(f"{label}: identity-mapped paged != dense kernel")
+                                fail(f"{label}: identity-mapped paged != dense kernel ({path})")
                         if int8:
                             kd, vd = dequantize_kv(kd).to(dtype), dequantize_kv(vd).to(dtype)
                         row = kv_wire_bytes_per_row(H, DH, torch.int8 if int8 else dtype)
                         bound_ms, bound_by = bound(torch, lens, t, s, row, q, extra)
                         cases.append({
-                            "form": form, "dtype": name,
+                            "form": form, "path": path, "dtype": name,
                             "kv": "int8" if int8 else name, "page_size": ps,
                             "B": B, "S": s, "T": t, "H": H, "Dh": DH,
                             "block_k": bk, "max_abs_err": err, "tol": TOL[name],
+                            "before_ms": before_decode_ms(form, name, ps, s, t) if t < 128 else None,
                             "ms": cold_time_ms(run, torch, flush),
                             "plain_ms": cold_time_ms(plain, torch, flush),
                             "library_ms": cold_time_ms(
@@ -548,15 +616,17 @@ def serve_phase(torch, card, extra_args, form, records):
     through the attention kernel ``form`` and, with ``--weights-dtype
     int8``, the matmul kernel (every launch count read around the run).
     Appends the run's record to ``records``; returns ``(attention
-    launches, matmul launches)``."""
+    launches, matmul launches, attention launches by body)``."""
     from mpit_tpu_torch.ops import decode_attention as da
     from mpit_tpu_torch.ops import quantized_matmul as qm
     from mpit_tpu_torch.serve.__main__ import main
 
     da.launches.update(dict.fromkeys(da.launches, 0))
+    da.path_launches.update(dict.fromkeys(da.path_launches, 0))
     qm.launches.update(dict.fromkeys(qm.launches, 0))
     out = main(SERVE_ARGS + extra_args)
     counts = dict(da.launches)
+    paths = {k: n for k, n in da.path_launches.items() if n}
     qmm_launches = qm.launches["quantized_matmul"]
     launches = counts[form]
     phases = out["obs_summary"]
@@ -572,6 +642,13 @@ def serve_phase(torch, card, extra_args, form, records):
         fail(f"serve {tag}: {launches} {form} launches < {need} (layers x calls)")
     if any(n for f, n in counts.items() if f != form):
         fail(f"serve {tag}: other kernel forms launched: {counts}")
+    # Every prefill (T > 1) on the tensor-core body for bf16 K/V, on the
+    # rows body for int8 K/V; every decode tick (T = 1) on the split body.
+    layers = out["model"]["layers"]
+    prefill_path = "rows" if form.endswith("_int8") else "mma"
+    want_paths = {f"{form}/{prefill_path}": layers * n_prefill, f"{form}/split": layers * n_decode}
+    if paths != want_paths:
+        fail(f"serve {tag}: launches by body {paths}, expected {want_paths}")
     int8w = "--weights-dtype" in extra_args
     if int8w and qmm_launches < 4 * need:
         fail(f"serve {tag}: {qmm_launches} quantized_matmul launches < {4 * need} "
@@ -602,10 +679,11 @@ def serve_phase(torch, card, extra_args, form, records):
         "decode_tick_ms_p95": phases["decode"]["p95_s"] * 1e3,
         "kernel_form": form,
         "kernel_launches": launches,
+        "kernel_launches_by_body": paths,
         "quantized_matmul_launches": qmm_launches,
     })
     print(json.dumps(records[-1]), flush=True)
-    return launches, qmm_launches
+    return launches, qmm_launches, paths
 
 
 def parity_phase(torch):
@@ -940,8 +1018,9 @@ def flash_kernel_phase(torch, flush):
         for key, ref in plain.items():
             ref = ref.float()
             err = (got[key].float() - ref).abs().max().item()
-            if not math.isfinite(err) or err > TOL[name]:
-                fail(f"kernel vs plain {label}: {key} {err} > {TOL[name]}")
+            tol = LSE_TOL if key == "lse" else TOL[name]
+            if not math.isfinite(err) or err > tol:
+                fail(f"kernel vs plain {label}: {key} {err} > {tol}")
             errs[key] = err
             kept = ref[ref > -1e29]  # past the -1e30 lse of rows that see no key
             scale[key] = kept.abs().max().item() if kept.numel() else 0.0
@@ -974,13 +1053,19 @@ def flash_kernel_phase(torch, flush):
             "dkv": (lambda: fa.flash_dkv(q, k, v, do, lse, delta, q_off, k_off, True),
                     lambda: fa.flash_dkv_plain(q, k, v, do, lse, delta, **geo), library["bwd"]),
         }
-        for kind, (kernel, plain_fn, lib_ms) in steps.items():
+        earlier = BEFORE_FLASH_MS[(name, t, q_off, k_off, with_g_lse, fused)]
+        for i, (kind, (kernel, plain_fn, lib_ms)) in enumerate(steps.items()):
             bound_ms, bound_by = flash_bound(kind, FLASH_B, t, H, DH, pairs, name)
             cases.append({
-                "form": f"flash_{kind}", "dtype": name, "B": FLASH_B, "T": t, "H": H,
+                "form": f"flash_{kind}",
+                # the tensor-core body, or f32 FMAs on the CUDA cores
+                "path": "mma" if (kind, name) == ("fwd", "bfloat16") else "fma",
+                "before_ms": earlier[i],
+                "dtype": name, "B": FLASH_B, "T": t, "H": H,
                 "Dh": DH, "q_offset": q_off, "k_offset": k_off, "g_lse": with_g_lse,
                 "fused_qkv_views": fused, "visible_pairs_per_head": pairs,
-                "max_abs_err": errs, "tol": TOL[name], "max_abs_plain": scale,
+                "max_abs_err": errs, "tol": TOL[name], "lse_tol": LSE_TOL,
+                "max_abs_plain": scale,
                 "ms": cold_time_ms(kernel, torch, flush),
                 "plain_ms": cold_time_ms(plain_fn, torch, flush),
                 "library_ms": lib_ms,
@@ -1654,6 +1739,7 @@ def fleet_phase(torch, card, ship_cases):
     ):
         want, prompts = server_tokens(torch, SERVE_ARGS + args)
         da.launches.update(dict.fromkeys(da.launches, 0))
+        da.path_launches.update(dict.fromkeys(da.path_launches, 0))
         qm.launches.update(dict.fromkeys(qm.launches, 0))
         kv_ship.launches.update(dict.fromkeys(kv_ship.launches, 0))
         t0 = time.perf_counter()
@@ -1689,6 +1775,7 @@ def fleet_phase(torch, card, ship_cases):
             "bytes_shipped": shipped, "kv_ship_launches": ships,
             f"kv_ship_ms_a_shipment_at_the_128_row_{payload.split()[1]}_payload": per_ship[payload],
             "attention_launches": counts[form], "decode_ticks": ticks,
+            "attention_launches_by_body": {k: n for k, n in da.path_launches.items() if n},
             "router": {k: out["router"][k] for k in ("evictions", "requeues")},
             "tokens_vs_server": {"identical_requests": 16 - len(ties), "near_ties": ties},
         })
@@ -1804,11 +1891,11 @@ def main() -> None:
     serve_records = []
     counts = {name: serve_phase(torch, card, *run, serve_records) for name, run in runs.items()}
     (OUT / "chip_smoke_serve.json").write_text(json.dumps(serve_records, indent=1))
-    # An attention form's launches: its run without int8 weights.
-    launches = {
-        form: counts[name][0] for name, (args, form) in runs.items()
-        if "--weights-dtype" not in args
-    }
+    # An attention form's launches by body: its run without int8 weights.
+    body_launches = {}
+    for name, (args, form) in runs.items():
+        if "--weights-dtype" not in args:
+            body_launches.update(counts[name][2])
     qmm_launches = {name: c[1] for name, c in counts.items() if c[1]}
     t0 = time.perf_counter()
     ship_launches, fleet_records = fleet_phase(torch, card, ship_cases)
@@ -1834,31 +1921,34 @@ def main() -> None:
     dp_parity_phase(torch, dp_losses["ring_q8"])
 
     kernels = []
+    # Each decode form twice: at T 1 (the tick, split body) and at its
+    # prefill width (T 128 dense, T 64 paged: the serving runs' prefill
+    # and prefill chunk), with the main path's launches of the body that
+    # case ran.
     for form in FORMS:
-        head = next(
-            c for c in cases
-            if c["form"] == form and c["dtype"] == "bfloat16" and c["S"] == 512
-            and c["T"] == 1 and c.get("page_size") in (None, 16)
-        )
-        kernels.append({
-            "name": form,
-            "route": "cuda",
-            "source": "mpit_tpu_torch/csrc/decode_attention.cu",
-            "replaces": "mpit_tpu/ops/decode_attention.py:166",
-            "call_site": (
-                "mpit_tpu/ops/decode_attention.py:419" if "paged" in form
-                else "mpit_tpu/ops/decode_attention.py:369"
-            ),
-            "launches": launches[form],
-            "max_abs_err": head["max_abs_err"],
-            "tol": head["tol"],
-            "ms": head["ms"],
-            "plain_ms": head["plain_ms"],
-            "bound_ms": head["bound_ms"],
-            "bound_by": head["bound_by"],
-            "library_ms": head["library_ms"],
-            "shape": {k: head.get(k) for k in ("dtype", "kv", "page_size", "B", "S", "T", "H", "Dh")},
-        })
+        width = 64 if "paged" in form else 128
+        for t, suffix in ((1, ""), (width, "_prefill")):
+            head = next(
+                c for c in cases
+                if c["form"] == form and c["dtype"] == "bfloat16" and c["S"] == 512
+                and c["T"] == t and c.get("page_size") in (None, 16)
+            )
+            kernels.append({
+                "name": form + suffix,
+                "route": "cuda",
+                "path": head["path"],
+                "source": "mpit_tpu_torch/csrc/decode_attention.cu",
+                "replaces": "mpit_tpu/ops/decode_attention.py:166",
+                "call_site": (
+                    "mpit_tpu/ops/decode_attention.py:419" if "paged" in form
+                    else "mpit_tpu/ops/decode_attention.py:369"
+                ),
+                "launches": body_launches.get(f"{form}/{head['path']}", 0),
+                **{k: head[k] for k in ("max_abs_err", "tol", "ms", "plain_ms",
+                                        "bound_ms", "bound_by", "library_ms")},
+                "shape": {k: head.get(k) for k in ("dtype", "kv", "page_size", "B", "S", "T",
+                                                   "H", "Dh")},
+            })
     # The decode tick's qkv projection at bf16 activations.
     head = next(
         c for c in cases
@@ -1888,6 +1978,7 @@ def main() -> None:
         kernels.append({
             "name": f"flash_{kind}",
             "route": "cuda",
+            "path": head["path"],
             "source": "mpit_tpu_torch/csrc/flash_attention.cu",
             "replaces": f"mpit_tpu/ops/flash_attention.py:{body}",
             "call_site": f"mpit_tpu/ops/flash_attention.py:{call}",

@@ -26,14 +26,15 @@
 // operations per visited key and head, far below the card's
 // operations-per-byte balance. What the design does about it: every block
 // reads lengths[b] itself and stops at key n_k * block_k, so rows past a
-// slot's fill are never read. K/V rows are staged through shared memory
-// in chunks of KC keys as f32 (int8 rows dequantized on the way), with
-// 16-byte loads that all issue at once, and the next chunk's loads are in
-// flight (held in registers) while the current chunk is computed.
+// slot's fill are never read; K/V rows move as 16-byte loads that all
+// issue at once, and the next chunk's loads are in flight while the
+// current chunk is computed (through cp.async in the split and mma
+// bodies; held in registers in the rows body, which stages its chunks of
+// KC keys as f32, int8 rows dequantized on the way).
 //
 // Paged addressing: the slot's block-table row is staged in shared memory
-// once per block, and the page is resolved per key row. A chunk of KC
-// keys may straddle pages (page_size 16 is below KC), so unlike the TPU
+// once per block, and the page is resolved per key row. A chunk of keys
+// may straddle pages (page_size 16 is below KC), so unlike the TPU
 // kernel, whose tiles never straddle a page, nothing here assumes that
 // page_size is a multiple of the chunk or of block_k. Keys past the fill
 // but inside n_k * block_k resolve through whatever the table holds there
@@ -41,20 +42,55 @@
 // checks on its host table); they are masked to weight 0 and only their
 // finiteness matters.
 //
-// Layout: grid (B, H, ceil(T / ROWS)), ROWS warps per block, one query row
-// per warp. Lane j scores key j of the staged chunk; the PV product splits
-// the head dimension over the lanes. Numerics follow the TPU kernel: q is
-// taken to f32; products are summed in f32 and scaled by 1/sqrt(D);
-// masked scores are -1e30; the running max, denominator and accumulator
-// are f32; p is taken to V's storage dtype before the PV product, as
-// p.astype(v.dtype): rounded for bf16 V, unrounded for f32 V and for int8
-// V (dequantized to f32); o = acc / l with l == 0 -> 1, cast to q's
-// dtype. K/V must start on a 16-byte boundary (the wrapper checks).
+// Three bodies. Which one runs is a function of the dtypes and the query
+// width alone: path_of below, exported as mpit_decode_path. The wrapper
+// counts each launch by its answer and refuses a call where it parts from
+// ops/decode_attention.py::_decode_path, the same rule on the host. All
+// three share the per-slot bound, the visibility rule and the addressing
+// (RowOf), so a paged call over an identity-mapped pool gives bit for bit
+// what the dense call gives, body for body.
+//
+// - split (T = 1, every form: the decode tick). Grid (B, H), W = 4 warps.
+//   The warps share the slot's visited keys: warp w takes the 32-key
+//   chunks w, w + W, w + 2W, ..., each staged by cp.async into the warp's
+//   own region of shared memory in its storage dtype (int8 rows with their
+//   scales, dequantized as they are read), double-buffered where it fits,
+//   synchronised with __syncwarp() alone. Each warp keeps its own (m, l,
+//   acc); one merge through shared memory at the end gives m* = max m_w,
+//   l = sum e^(m_w - m*) l_w, acc = sum e^(m_w - m*) acc_w (a warp that saw
+//   no key, m_w = -1e30 and l_w = 0, adds exactly 0). W = 4 and not 8: at
+//   f32 K/V and head dim 128 a warp's staged chunk is 33 KB, so eight warps
+//   would not fit 227 KB even single-buffered; four warps keep every form
+//   on one body (single-buffered only there) and already hold 4 x 2 chunks
+//   in flight a slot.
+// - mma (T > 1, q and K/V bf16: the prefills of the bf16 serving runs).
+//   Grid (B, H, ceil(T / 64)), 4 warps: the tensor-core tile of
+//   attn_mma.cuh over 64-key chunks, double-buffered through cp.async, so a
+//   slot's K/V is read ceil(T / 64) times. Rows at or past the slot's
+//   bound are zero-filled and masked.
+// - rows (T > 1 with int8 K/V or any f32 operand). Grid (B, H, ceil(T /
+//   ROWS)), ROWS warps per block, one query row per warp. The JAX kernel
+//   keeps p in f32 against dequantized int8 V, and f32 operands need f32
+//   products, so this body stays on f32 FMAs.
+//
+// Numerics follow the TPU kernel: q is taken to f32 (split, rows) or kept
+// bf16 against bf16 K (mma); products are summed in f32 and scaled by
+// 1/sqrt(D); masked scores are -1e30; the running max, denominator and
+// accumulator are f32; p is taken to V's storage dtype before the PV
+// product, as p.astype(v.dtype): rounded for bf16 V, unrounded for f32 V
+// and for int8 V (dequantized to f32); o = acc / l with l == 0 -> 1, cast
+// to q's dtype. In the split and rows bodies lane j scores key j of the
+// chunk (products summed in d order) and the PV product splits the head
+// dimension over the lanes; the split body differs from the rows body only
+// in the order of the sum over chunks. K/V must start on a 16-byte
+// boundary (the wrapper checks).
 //
 // C interface for ctypes: mpit_flash_decode (dense) and
 // mpit_flash_paged_decode return the cudaError_t of the launch
 // (cudaGetLastError right after it), or -1 for a dtype or head dimension
-// this file was not instantiated for.
+// this file was not instantiated for. mpit_decode_path and
+// mpit_decode_smem_bytes answer which body a call runs and the shared
+// memory a block of it takes, launching nothing.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,7 +99,11 @@
 #include <cstring>
 #include <type_traits>
 
+#include "attn_mma.cuh"
+
 namespace {
+
+namespace am = attn_mma;
 
 constexpr int KC = 32;    // keys staged per chunk: one per lane
 constexpr int ROWS = 4;   // query rows per block: one per warp
@@ -202,6 +242,35 @@ struct Chunk {
   }
 };
 
+// The slot's bound, shared by the three bodies: every block reads
+// lengths[b] and stops at key k_end = n_k * block_k.
+struct Bound {
+  int length, n_k, k_end;
+};
+__device__ __forceinline__ Bound slot_bound(const int* lengths, int b,
+                                            int t_q, int s_max, int block_k) {
+  const int length = lengths[b];
+  const int n_k =
+      min(max((length + t_q + block_k - 1) / block_k, 1), s_max / block_k);
+  return {length, n_k, n_k * block_k};
+}
+
+// Stage the pages of the slot's block-table row that hold keys below k_end.
+template <bool PAGED>
+__device__ __forceinline__ RowOf<PAGED> stage_row_of(const int* block_table,
+                                                     int* bt_s, int b,
+                                                     int s_len, int n_ps,
+                                                     int k_end) {
+  if constexpr (PAGED) {
+    const int pages = (k_end + s_len - 1) / s_len;  // <= n_ps
+    for (int i = threadIdx.x; i < pages; i += blockDim.x)
+      bt_s[i] = block_table[(size_t)b * n_ps + i];
+    return RowOf<true>{bt_s, s_len};
+  } else {
+    return RowOf<false>{(size_t)b * s_len};
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *k_scale, *v_scale, *block_table, *lengths;
   void *o, *visited;
@@ -209,7 +278,8 @@ struct Args {
   float scale;
 };
 
-// s_len is the buffer length S (dense) or the page size (paged).
+// The rows body. s_len is the buffer length S (dense) or the page size
+// (paged), in every body.
 template <typename Q, typename KV, int D, bool PAGED>
 __global__ void __launch_bounds__(NTHREADS)
 flash_decode_kernel(const Q* __restrict__ q, const KV* __restrict__ k,
@@ -233,13 +303,11 @@ flash_decode_kernel(const Q* __restrict__ q, const KV* __restrict__ k,
   const int t = blockIdx.z * ROWS + warp;
   const bool row_ok = t < t_q;
 
-  const int s_max = PAGED ? n_ps * s_len : s_len;  // the slot's length
-  const int length = lengths[b];
-  const int n_k =
-      min(max((length + t_q + block_k - 1) / block_k, 1), s_max / block_k);
-  if (h == 0 && blockIdx.z == 0 && threadIdx.x == 0) visited[b] = n_k;
-  const int k_end = n_k * block_k;
-  const int q_pos = length + t;  // key j is visible iff j <= q_pos
+  const Bound bd =
+      slot_bound(lengths, b, t_q, PAGED ? n_ps * s_len : s_len, block_k);
+  if (h == 0 && blockIdx.z == 0 && threadIdx.x == 0) visited[b] = bd.n_k;
+  const int k_end = bd.k_end;
+  const int q_pos = bd.length + t;  // key j is visible iff j <= q_pos
 
   const size_t row = (size_t)n_heads * D;  // one cache row, all heads
   const KV* k_h = k + (size_t)h * D;
@@ -253,15 +321,8 @@ flash_decode_kernel(const Q* __restrict__ q, const KV* __restrict__ k,
                     ? to_f32(q[(((size_t)b * t_q + tr) * n_heads + h) * D + d])
                     : 0.f;
   }
-  RowOf<PAGED> row_of;
-  if constexpr (PAGED) {
-    const int pages = (k_end + s_len - 1) / s_len;  // <= n_ps
-    for (int i = threadIdx.x; i < pages; i += blockDim.x)
-      bt_s[i] = block_table[(size_t)b * n_ps + i];
-    row_of = RowOf<true>{bt_s, s_len};
-  } else {
-    row_of = RowOf<false>{(size_t)b * s_len};
-  }
+  const RowOf<PAGED> row_of =
+      stage_row_of<PAGED>(block_table, bt_s, b, s_len, n_ps, k_end);
   __syncthreads();  // q_s and the block-table row are staged
 
   float m = NEG_BIG, l = 0.f, acc[NACC];
@@ -316,40 +377,359 @@ flash_decode_kernel(const Q* __restrict__ q, const KV* __restrict__ k,
   }
 }
 
+// The mma body: q, K, V bf16, T > 1. Dynamic shared memory: the Q tile,
+// two stages of K tiles, two of V tiles (attn_mma.cuh), then the slot's
+// block-table row (paged).
+template <int D, bool PAGED>
+__global__ void __launch_bounds__(am::THREADS, am::min_blocks<D>())
+mma_decode_kernel(const __nv_bfloat16* __restrict__ q,
+                  const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v,
+                  const int* __restrict__ block_table,
+                  const int* __restrict__ lengths,
+                  __nv_bfloat16* __restrict__ o, int* __restrict__ visited,
+                  int t_q, int s_len, int n_ps, int n_heads, int block_k,
+                  float scale) {
+  constexpr int TILE = am::TILE_KEYS * am::ld<D>();
+  extern __shared__ uint4 mma_smem[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(mma_smem);
+  __nv_bfloat16* ks = qs + TILE;      // [2] K tiles
+  __nv_bfloat16* vs = ks + 2 * TILE;  // [2] V tiles
+  int* bt_s = reinterpret_cast<int*>(vs + 2 * TILE);
+
+  const int b = blockIdx.x, h = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t0 = blockIdx.z * am::TILE_ROWS + warp * 16;  // the warp's slab
+  const Bound bd =
+      slot_bound(lengths, b, t_q, PAGED ? n_ps * s_len : s_len, block_k);
+  if (h == 0 && blockIdx.z == 0 && threadIdx.x == 0) visited[b] = bd.n_k;
+
+  const size_t row = (size_t)n_heads * D;  // one cache row, all heads
+  const __nv_bfloat16* k_h = k + (size_t)h * D;
+  const __nv_bfloat16* v_h = v + (size_t)h * D;
+  const __nv_bfloat16* q_h = q + ((size_t)b * t_q * n_heads + h) * D;
+  const RowOf<PAGED> row_of =
+      stage_row_of<PAGED>(block_table, bt_s, b, s_len, n_ps, bd.k_end);
+  __syncthreads();  // the block-table row is staged
+
+  const int qr0 = blockIdx.z * am::TILE_ROWS;
+  am::stage_rows<D>(qs, q_h, [&](int r) -> const __nv_bfloat16* {
+    return qr0 + r < t_q ? q_h + (size_t)(qr0 + r) * row : nullptr;
+  });
+  auto stage_kv = [&](int c0, int slot) {
+    auto key_row = [&](const __nv_bfloat16* base) {
+      return [=](int r) -> const __nv_bfloat16* {
+        return c0 + r < bd.k_end ? base + row_of(c0 + r) * row : nullptr;
+      };
+    };
+    am::stage_rows<D>(ks + slot * TILE, k_h, key_row(k_h));
+    am::stage_rows<D>(vs + slot * TILE, v_h, key_row(v_h));
+  };
+  stage_kv(0, 0);
+  am::cp_async_commit();
+
+  am::Rows16<D> tile;
+  tile.init();
+  const int n_chunks = (bd.k_end + am::TILE_KEYS - 1) / am::TILE_KEYS;
+  for (int kc = 0; kc < n_chunks; ++kc) {
+    const int slot = kc & 1;
+    if (kc + 1 < n_chunks) stage_kv((kc + 1) * am::TILE_KEYS, slot ^ 1);
+    am::cp_async_commit();
+    am::cp_async_wait<1>();  // chunk kc (and, at kc 0, the Q tile) landed
+    __syncthreads();
+    if (kc == 0) tile.load_q(qs + warp * 16 * am::ld<D>());
+    const int c0 = kc * am::TILE_KEYS;
+    // Key j is visible to query t iff j <= length + t (and j < k_end).
+    const bool masked = c0 + am::TILE_KEYS > bd.k_end ||
+                        c0 + am::TILE_KEYS - 1 > bd.length + t0;
+    tile.step(ks + slot * TILE, vs + slot * TILE, scale, masked,
+              [&](int r, int c) {
+                const int key = c0 + c;
+                return key < bd.k_end && key <= bd.length + t0 + r;
+              });
+    __syncthreads();  // every warp is done with this stage before its reuse
+  }
+  am::cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = t0 + (lane >> 2) + 8 * i;
+    if (t >= t_q) continue;
+    // Key 0 is visible to every query, so l > 0; the guard only keeps a
+    // malformed call finite, as in the TPU kernel.
+    const float l_safe = tile.l[i] == 0.f ? 1.f : tile.l[i];
+    __nv_bfloat16* o_row = o + (((size_t)b * t_q + t) * n_heads + h) * D;
+#pragma unroll
+    for (int n = 0; n < am::Rows16<D>::ND; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(o_row + n * 8 + ((lane & 3) << 1)) =
+          __floats2bfloat162_rn(tile.acc[n][2 * i] / l_safe,
+                                tile.acc[n][2 * i + 1] / l_safe);
+  }
+}
+
+constexpr int SPLIT_WARPS = 4;  // W of the split body (see the note above)
+constexpr int SPLIT_THREADS = SPLIT_WARPS * 32;
+constexpr int SPLIT_DOUBLE_MAX = 192 * 1024;  // double-buffer below this
+
+// One warp's staged chunk of KC keys in the split body: K rows, V rows
+// (storage dtype, each row padded by 16 bytes so that lane j's 16-byte
+// reads of row j fall in distinct banks), then for int8 the K and V scales.
+template <typename KV, int D>
+struct SplitStage {
+  static constexpr bool QUANT = std::is_same<KV, int8_t>::value;
+  static constexpr int VEC = 16 / sizeof(KV);  // elements a 16-byte vector
+  static constexpr int VPR = D / VEC;           // vectors a row
+  static constexpr int ROW = D * (int)sizeof(KV) + 16;  // bytes a row
+  static constexpr int BYTES = 2 * KC * ROW + (QUANT ? 2 * KC * 4 : 0);
+  static constexpr int STAGES =
+      SPLIT_WARPS * 2 * BYTES <= SPLIT_DOUBLE_MAX ? 2 : 1;
+  static constexpr int SMEM = SPLIT_WARPS * STAGES * BYTES;  // dynamic
+  static_assert(D % VEC == 0, "a row must be whole 16-byte vectors");
+};
+
+// The split body: T = 1, every form. Dynamic shared memory: each warp's
+// stages, then the slot's block-table row (paged).
 template <typename Q, typename KV, int D, bool PAGED>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
-  constexpr size_t static_smem =
-      sizeof(float) * (ROWS * D + KC * (D + 1) + KC * D);
-  const size_t dyn = PAGED ? sizeof(int) * (size_t)a.n_ps : 0;
-  auto kernel = flash_decode_kernel<Q, KV, D, PAGED>;
+__global__ void __launch_bounds__(SPLIT_THREADS)
+split_decode_kernel(const Q* __restrict__ q, const KV* __restrict__ k,
+                    const KV* __restrict__ v,
+                    const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale,
+                    const int* __restrict__ block_table,
+                    const int* __restrict__ lengths, Q* __restrict__ o,
+                    int* __restrict__ visited, int s_len, int n_ps,
+                    int n_heads, int block_k, float scale) {
+  using St = SplitStage<KV, D>;
+  constexpr int NACC = (D + 31) / 32;  // head-dim entries per lane
+  extern __shared__ uint4 split_smem[];
+  __shared__ float q_s[D];
+  __shared__ float acc_s[SPLIT_WARPS][D];
+  __shared__ float m_s[SPLIT_WARPS], l_s[SPLIT_WARPS];
+  unsigned char* mine = reinterpret_cast<unsigned char*>(split_smem) +
+                        (threadIdx.x >> 5) * St::STAGES * St::BYTES;
+  int* bt_s = reinterpret_cast<int*>(
+      reinterpret_cast<unsigned char*>(split_smem) + St::SMEM);
+
+  const int b = blockIdx.x, h = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const Bound bd =
+      slot_bound(lengths, b, 1, PAGED ? n_ps * s_len : s_len, block_k);
+  if (h == 0 && threadIdx.x == 0) visited[b] = bd.n_k;
+
+  const size_t row = (size_t)n_heads * D;  // one cache row, all heads
+  const KV* k_h = k + (size_t)h * D;
+  const KV* v_h = v + (size_t)h * D;
+  const float* ks_h = St::QUANT ? k_scale + h : nullptr;
+  const float* vs_h = St::QUANT ? v_scale + h : nullptr;
+  for (int d = threadIdx.x; d < D; d += SPLIT_THREADS)
+    q_s[d] = to_f32(q[((size_t)b * n_heads + h) * D + d]);
+  const RowOf<PAGED> row_of =
+      stage_row_of<PAGED>(block_table, bt_s, b, s_len, n_ps, bd.k_end);
+  __syncthreads();  // q_s and the block-table row are staged
+
+  // This warp's copies of keys c0 .. c0 + KC - 1 into stage st (keys at or
+  // past k_end zero-filled).
+  auto issue = [&](unsigned char* st, int c0) {
+#pragma unroll
+    for (int it = 0; it < St::VPR; ++it) {
+      const int i = it * 32 + lane;
+      const int r = i / St::VPR, c = i % St::VPR;
+      const bool ok = c0 + r < bd.k_end;
+      const size_t off = ok ? row_of(c0 + r) * row + (size_t)c * St::VEC : 0;
+      am::cp_async16(st + r * St::ROW + c * 16, k_h + off, ok);
+      am::cp_async16(st + (KC + r) * St::ROW + c * 16, v_h + off, ok);
+    }
+    if constexpr (St::QUANT) {
+      const bool ok = c0 + lane < bd.k_end;
+      const size_t r = ok ? row_of(c0 + lane) : 0;
+      float* sc = reinterpret_cast<float*>(st + 2 * KC * St::ROW);
+      am::cp_async4(sc + lane, ks_h + r * n_heads, ok);
+      am::cp_async4(sc + KC + lane, vs_h + r * n_heads, ok);
+    }
+  };
+
+  float m = NEG_BIG, l = 0.f, acc[NACC];
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
+
+  const int n_chunks = (bd.k_end + KC - 1) / KC;
+  int c = warp;
+  if (c < n_chunks) issue(mine, c * KC);
+  am::cp_async_commit();
+  for (int it = 0; c < n_chunks; ++it, c += SPLIT_WARPS) {
+    const unsigned char* st = mine + (St::STAGES == 2 ? (it & 1) : 0) * St::BYTES;
+    if constexpr (St::STAGES == 2) {
+      // The warp's next chunk is in flight while this one is computed.
+      if (c + SPLIT_WARPS < n_chunks)
+        issue(mine + ((it + 1) & 1) * St::BYTES, (c + SPLIT_WARPS) * KC);
+      am::cp_async_commit();
+      am::cp_async_wait<1>();
+    } else {
+      am::cp_async_wait<0>();
+    }
+    __syncwarp();  // every lane's copies of this chunk are visible
+
+    const int key = c * KC + lane;
+    const KV* k_row = reinterpret_cast<const KV*>(st + lane * St::ROW);
+    const float* sc = reinterpret_cast<const float*>(st + 2 * KC * St::ROW);
+    float s = 0.f;
+#pragma unroll
+    for (int vi = 0; vi < St::VPR; ++vi) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(k_row + vi * St::VEC);
+      KV x[St::VEC];
+      memcpy(x, &raw, sizeof(x));
+#pragma unroll
+      for (int e = 0; e < St::VEC; ++e) {
+        float kd = to_f32(x[e]);
+        if constexpr (St::QUANT) kd = kd * sc[lane];
+        s = fmaf(q_s[vi * St::VEC + e], kd, s);
+      }
+    }
+    const bool ok = key < bd.k_end && key <= bd.length;  // q_pos = length
+    s = ok ? s * scale : NEG_BIG;
+    const float m_new = fmaxf(m, warp_max(s));
+    // Masked keys weigh exactly 0, also in a warp that has seen no key.
+    const float p = ok ? expf(s - m_new) : 0.f;
+    const float alpha = expf(m - m_new);
+    l = alpha * l + warp_sum(p);
+    const float p_v = p_in_v<KV>(p);
+#pragma unroll
+    for (int i = 0; i < NACC; ++i) acc[i] *= alpha;
+    const unsigned char* v_rows = st + KC * St::ROW;
+#pragma unroll 8
+    for (int j = 0; j < KC; ++j) {
+      const float pj = __shfl_sync(0xffffffffu, p_v, j);
+      const KV* v_row = reinterpret_cast<const KV*>(v_rows + j * St::ROW);
+#pragma unroll
+      for (int i = 0; i < NACC; ++i) {
+        const int d = lane + 32 * i;
+        if (d < D) {
+          float vd = to_f32(v_row[d]);
+          if constexpr (St::QUANT) vd = vd * sc[KC + j];
+          acc[i] = fmaf(pj, vd, acc[i]);
+        }
+      }
+    }
+    m = m_new;
+    __syncwarp();  // the chunk is consumed before its stage is refilled
+    if constexpr (St::STAGES == 1) {
+      if (c + SPLIT_WARPS < n_chunks) issue(mine, (c + SPLIT_WARPS) * KC);
+      am::cp_async_commit();
+    }
+  }
+  am::cp_async_wait<0>();
+
+  // Merge the warps' partial results.
+  if (lane == 0) {
+    m_s[warp] = m;
+    l_s[warp] = l;
+  }
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) {
+    const int d = lane + 32 * i;
+    if (d < D) acc_s[warp][d] = acc[i];
+  }
+  __syncthreads();
+  for (int d = threadIdx.x; d < D; d += SPLIT_THREADS) {
+    float m_all = m_s[0];
+#pragma unroll
+    for (int w = 1; w < SPLIT_WARPS; ++w) m_all = fmaxf(m_all, m_s[w]);
+    float l_all = 0.f, a = 0.f;
+#pragma unroll
+    for (int w = 0; w < SPLIT_WARPS; ++w) {
+      const float e = expf(m_s[w] - m_all);
+      l_all += e * l_s[w];
+      a += e * acc_s[w][d];
+    }
+    // Key 0 is visible, so l > 0; the guard keeps a malformed call finite.
+    const float l_safe = l_all == 0.f ? 1.f : l_all;
+    o[((size_t)b * n_heads + h) * D + d] = from_f32<Q>(a / l_safe);
+  }
+}
+
+enum Path { PATH_ROWS, PATH_MMA, PATH_SPLIT };
+
+// Which body a call runs: the same rule as ops/decode_attention.py::
+// _decode_path. q_dtype / kv_dtype codes as in dispatch below.
+Path path_of(int q_dtype, int kv_dtype, int t) {
+  if (t == 1) return PATH_SPLIT;
+  if (q_dtype == 1 && kv_dtype == 1) return PATH_MMA;
+  return PATH_ROWS;
+}
+
+// Launch with `dyn` bytes of dynamic shared memory, opting in above the
+// default when static + dynamic exceed it. With smem_out set, launch
+// nothing and store the shared memory a block takes instead: the compiled
+// kernel's static allocation plus `dyn`.
+template <typename Kernel, typename... KArgs>
+cudaError_t start(Kernel kernel, size_t static_smem, size_t dyn, dim3 grid,
+                  int threads, cudaStream_t stream, size_t* smem_out,
+                  KArgs... args) {
+  if (smem_out) {
+    cudaFuncAttributes attr;
+    const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    *smem_out = attr.sharedSizeBytes + dyn;
+    return err;
+  }
   if (static_smem + dyn > DEFAULT_SMEM) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid(a.b, a.h, (a.t + ROWS - 1) / ROWS);
-  kernel<<<grid, NTHREADS, dyn, stream>>>(
-      static_cast<const Q*>(a.q), static_cast<const KV*>(a.k),
-      static_cast<const KV*>(a.v), static_cast<const float*>(a.k_scale),
-      static_cast<const float*>(a.v_scale),
-      static_cast<const int*>(a.block_table),
-      static_cast<const int*>(a.lengths), static_cast<Q*>(a.o),
-      static_cast<int*>(a.visited), a.t, a.s_len, a.n_ps, a.h, a.block_k,
-      a.scale);
+  kernel<<<grid, threads, dyn, stream>>>(args...);
   return cudaGetLastError();
 }
 
+template <typename Q, typename KV, int D, bool PAGED>
+cudaError_t launch(const Args& a, Path path, cudaStream_t stream,
+                   size_t* smem_out) {
+  const size_t bt = PAGED ? sizeof(int) * (size_t)a.n_ps : 0;
+  const Q* q = static_cast<const Q*>(a.q);
+  const KV* k = static_cast<const KV*>(a.k);
+  const KV* v = static_cast<const KV*>(a.v);
+  const float* ks = static_cast<const float*>(a.k_scale);
+  const float* vs = static_cast<const float*>(a.v_scale);
+  const int* table = static_cast<const int*>(a.block_table);
+  const int* lengths = static_cast<const int*>(a.lengths);
+  Q* o = static_cast<Q*>(a.o);
+  int* visited = static_cast<int*>(a.visited);
+  if (path == PATH_SPLIT) {
+    using St = SplitStage<KV, D>;
+    constexpr size_t static_smem =
+        sizeof(float) * (D + SPLIT_WARPS * D + 2 * SPLIT_WARPS);
+    return start(split_decode_kernel<Q, KV, D, PAGED>, static_smem,
+                 St::SMEM + bt, dim3(a.b, a.h, 1), SPLIT_THREADS, stream,
+                 smem_out, q, k, v, ks, vs, table, lengths, o, visited,
+                 a.s_len, a.n_ps, a.h, a.block_k, a.scale);
+  }
+  if constexpr (std::is_same<Q, __nv_bfloat16>::value &&
+                std::is_same<KV, __nv_bfloat16>::value) {
+    if (path == PATH_MMA)
+      return start(mma_decode_kernel<D, PAGED>, 0, am::tiles_bytes<D>() + bt,
+                   dim3(a.b, a.h, (a.t + am::TILE_ROWS - 1) / am::TILE_ROWS),
+                   am::THREADS, stream, smem_out, q, k, v, table, lengths, o,
+                   visited, a.t, a.s_len, a.n_ps, a.h, a.block_k, a.scale);
+  }
+  constexpr size_t static_smem =
+      sizeof(float) * (ROWS * D + KC * (D + 1) + KC * D);
+  return start(flash_decode_kernel<Q, KV, D, PAGED>, static_smem, bt,
+               dim3(a.b, a.h, (a.t + ROWS - 1) / ROWS), NTHREADS, stream,
+               smem_out, q, k, v, ks, vs, table, lengths, o, visited, a.t,
+               a.s_len, a.n_ps, a.h, a.block_k, a.scale);
+}
+
 template <typename Q, typename KV, bool PAGED>
-int launch_d(const Args& a, cudaStream_t stream) {
+int launch_d(const Args& a, Path path, cudaStream_t stream,
+             size_t* smem_out) {
   switch (a.d) {
     case 16:
-      return launch<Q, KV, 16, PAGED>(a, stream);
+      return launch<Q, KV, 16, PAGED>(a, path, stream, smem_out);
     case 32:
-      return launch<Q, KV, 32, PAGED>(a, stream);
+      return launch<Q, KV, 32, PAGED>(a, path, stream, smem_out);
     case 64:
-      return launch<Q, KV, 64, PAGED>(a, stream);
+      return launch<Q, KV, 64, PAGED>(a, path, stream, smem_out);
     case 128:
-      return launch<Q, KV, 128, PAGED>(a, stream);
+      return launch<Q, KV, 128, PAGED>(a, path, stream, smem_out);
     default:
       return -1;
   }
@@ -358,16 +738,23 @@ int launch_d(const Args& a, cudaStream_t stream) {
 // q_dtype: 0 = float32, 1 = bfloat16 (o shares it);
 // kv_dtype: 0 = float32, 1 = bfloat16, 2 = int8 with f32 scales.
 template <bool PAGED>
-int dispatch(const Args& a, int q_dtype, int kv_dtype, cudaStream_t stream) {
+int dispatch(const Args& a, int q_dtype, int kv_dtype, cudaStream_t stream,
+             size_t* smem_out = nullptr) {
+  const Path p = path_of(q_dtype, kv_dtype, a.t);
+  cudaStream_t s = stream;
+  size_t* out = smem_out;
   if (q_dtype == 0) {
-    if (kv_dtype == 0) return launch_d<float, float, PAGED>(a, stream);
-    if (kv_dtype == 1) return launch_d<float, __nv_bfloat16, PAGED>(a, stream);
-    if (kv_dtype == 2) return launch_d<float, int8_t, PAGED>(a, stream);
-  } else if (q_dtype == 1) {
-    if (kv_dtype == 0) return launch_d<__nv_bfloat16, float, PAGED>(a, stream);
+    if (kv_dtype == 0) return launch_d<float, float, PAGED>(a, p, s, out);
     if (kv_dtype == 1)
-      return launch_d<__nv_bfloat16, __nv_bfloat16, PAGED>(a, stream);
-    if (kv_dtype == 2) return launch_d<__nv_bfloat16, int8_t, PAGED>(a, stream);
+      return launch_d<float, __nv_bfloat16, PAGED>(a, p, s, out);
+    if (kv_dtype == 2) return launch_d<float, int8_t, PAGED>(a, p, s, out);
+  } else if (q_dtype == 1) {
+    if (kv_dtype == 0)
+      return launch_d<__nv_bfloat16, float, PAGED>(a, p, s, out);
+    if (kv_dtype == 1)
+      return launch_d<__nv_bfloat16, __nv_bfloat16, PAGED>(a, p, s, out);
+    if (kv_dtype == 2)
+      return launch_d<__nv_bfloat16, int8_t, PAGED>(a, p, s, out);
   }
   return -1;
 }
@@ -403,6 +790,27 @@ int mpit_flash_paged_decode(const void* q, const void* k, const void* v,
                h,       d,         block_k, scale};
   return dispatch<true>(a, q_dtype, kv_dtype,
                         static_cast<cudaStream_t>(stream));
+}
+
+// The body a call with these dtype codes and query width runs: 0 rows,
+// 1 mma, 2 split. The wrapper counts its launches by this answer.
+int mpit_decode_path(int q_dtype, int kv_dtype, int t) {
+  return path_of(q_dtype, kv_dtype, t);
+}
+
+// Shared memory, static and dynamic, that a block of that body takes at
+// head dim d with a block-table row of pages_per_slot pages (0: dense), from
+// the compiled kernel's attributes; -1 for what this file does not take.
+int mpit_decode_smem_bytes(int q_dtype, int kv_dtype, int t, int d,
+                           int pages_per_slot) {
+  const Args a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+               nullptr, nullptr, nullptr, 1, t, 1, pages_per_slot, 1, d,
+               1, 1.f};
+  size_t bytes = 0;
+  const int err =
+      pages_per_slot ? dispatch<true>(a, q_dtype, kv_dtype, nullptr, &bytes)
+                     : dispatch<false>(a, q_dtype, kv_dtype, nullptr, &bytes);
+  return err ? -1 : static_cast<int>(bytes);
 }
 
 const char* mpit_cuda_error_string(int code) {

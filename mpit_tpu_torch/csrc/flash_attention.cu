@@ -2,7 +2,8 @@
 // two Flash-2 backward kernels, over the training layout [B, T, H, D].
 //
 // Replaces the TPU kernels of mpit_tpu/ops/flash_attention.py:
-//   - fwd_kernel  <- _fwd_kernel     (called from _fwd_packed, :362)
+//   - mma_fwd_kernel (bf16) and fwd_kernel (f32)
+//                 <- _fwd_kernel     (called from _fwd_packed, :362)
 //   - dq_kernel   <- _bwd_dq_kernel  (called from _bwd_packed, :408)
 //   - dkv_kernel  <- _bwd_dkv_kernel (called from _bwd_packed, :428)
 //
@@ -21,10 +22,21 @@
 // What bounds them on this card: at GPT-2 small's training shape (B 8,
 // H 12, T 512, D 64, bf16) each kernel moves 25-38 MB and does 3-6 GFLOP,
 // so the bound is the bytes (about 0.01 ms at 3.35 TB/s); the tensor cores
-// would do the arithmetic in a few microseconds. This first version does
-// the products with f32 FMAs on the CUDA cores (also the only way to keep
-// f32 inputs at f32 accuracy), so in practice it is bound by those FMAs and
-// the shared-memory reads that feed them. What the design does about it:
+// would do the arithmetic in a few microseconds.
+//
+// The bf16 forward, mma_fwd_kernel, runs on the tensor cores through the
+// shared tile of attn_mma.cuh: 4 warps a block, 16 query rows a warp, the
+// Q fragments held in registers for the whole key loop, K and V tiles of
+// 64 keys double-buffered through cp.async (tile kb + 1 in flight while
+// tile kb is computed, read in place at the inputs' strides), P repacked in
+// registers from the score fragments, and the causal mask applied only on
+// the tiles that hold a masked key. Rows past T load as zeros and are not
+// stored.
+//
+// The f32 forward and both backward kernels do their products with f32
+// FMAs on the CUDA cores (for f32 inputs the only way to keep f32
+// accuracy), so in practice they are bound by those FMAs and the
+// shared-memory reads that feed them. What their design does about it:
 // every operand tile is read from device memory once per block and staged
 // in shared memory as f32, the [T, T] scores never leave registers and
 // shared memory, and fully masked key tiles (forward, dq) or query tiles
@@ -41,7 +53,8 @@
 // contiguous (a head's row is D elements at stride H * D). q, k and v are
 // read in place at one batch and row stride shared by the three, so the
 // model hands over the split thirds of its fused qkv projection (row
-// stride 3 H D) without a copy. Grid (ceil(T / 64), H, B), 256 threads.
+// stride 3 H D) without a copy. Grid (ceil(T / 64), H, B); 128 threads for
+// mma_fwd_kernel, 256 for the others.
 // The last tile of a T that is not a multiple of 64 is masked: its missing
 // rows load as zeros, their keys are masked and their rows are not stored.
 //
@@ -53,8 +66,13 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
+
+#include "attn_mma.cuh"
 
 namespace {
+
+namespace am = attn_mma;
 
 constexpr int BQ = 64;  // query rows per tile
 constexpr int BK = 64;  // key rows per tile
@@ -288,6 +306,87 @@ __global__ void __launch_bounds__(NT)
     if (tx == 0)
       lse[((size_t)b * g.h + head) * g.t + row] =
           empty ? NEG_BIG : m[i] + logf(l_safe);
+  }
+}
+
+// The bf16 forward on the tensor cores (attn_mma.cuh). Dynamic shared
+// memory: the Q tile, then two stages of K tiles, then two of V tiles, all
+// [64][D + 8] bf16.
+template <int D>
+__global__ void __launch_bounds__(am::THREADS, am::min_blocks<D>())
+    mma_fwd_kernel(const __nv_bfloat16* __restrict__ q,
+                   const __nv_bfloat16* __restrict__ k,
+                   const __nv_bfloat16* __restrict__ v,
+                   __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                   Geo g) {
+  constexpr int TILE = am::TILE_KEYS * am::ld<D>();  // elements of a tile
+  extern __shared__ uint4 mma_smem[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(mma_smem);
+  __nv_bfloat16* ks = qs + TILE;      // [2] K tiles
+  __nv_bfloat16* vs = ks + 2 * TILE;  // [2] V tiles
+
+  const int qi = blockIdx.x, head = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n_k = key_tiles(g, qi);
+  const int q0 = qi * BQ + warp * 16;  // first query row of the warp's slab
+  const size_t head_at = (size_t)(b * g.in_bstride + head * D);
+  const __nv_bfloat16 *q_h = q + head_at, *k_h = k + head_at,
+                      *v_h = v + head_at;
+  // Row t0 + r of one head of q, k or v at the inputs' strides; nullptr
+  // past T.
+  auto rows = [&](const __nv_bfloat16* base, int t0) {
+    return [=](int r) -> const __nv_bfloat16* {
+      return t0 + r < g.t ? base + (size_t)((t0 + r) * g.in_tstride) : nullptr;
+    };
+  };
+  auto stage_kv = [&](int kb, int slot) {
+    am::stage_rows<D>(ks + slot * TILE, k_h, rows(k_h, kb * BK));
+    am::stage_rows<D>(vs + slot * TILE, v_h, rows(v_h, kb * BK));
+  };
+
+  am::stage_rows<D>(qs, q_h, rows(q_h, qi * BQ));
+  if (n_k > 0) stage_kv(0, 0);
+  am::cp_async_commit();
+  am::Rows16<D> tile;
+  tile.init();
+  for (int kb = 0; kb < n_k; ++kb) {
+    const int slot = kb & 1;
+    if (kb + 1 < n_k) stage_kv(kb + 1, slot ^ 1);
+    am::cp_async_commit();
+    am::cp_async_wait<1>();  // tile kb (and, at kb 0, the Q tile) landed
+    __syncthreads();
+    if (kb == 0) tile.load_q(qs + warp * 16 * am::ld<D>());
+    const int k0 = kb * BK;
+    const bool masked =
+        k0 + BK > g.t ||
+        (g.causal && (long long)g.k_offset + k0 + BK - 1 > (long long)g.q_offset + q0);
+    tile.step(ks + slot * TILE, vs + slot * TILE, g.scale, masked,
+              [&](int r, int c) {
+                const int krow = k0 + c;
+                return krow < g.t &&
+                       (!g.causal || g.q_offset + q0 + r >= g.k_offset + krow);
+              });
+    __syncthreads();  // every warp is done with this stage before its reuse
+  }
+  am::cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + (lane >> 2) + 8 * i;
+    if (row >= g.t) continue;
+    const bool empty = tile.m[i] <= NEG_BIG / 2;
+    const float l_safe = tile.l[i] == 0.f ? 1.f : tile.l[i];
+    __nv_bfloat16* out = o + row_index(g, b, row, head, D);
+#pragma unroll
+    for (int n = 0; n < am::Rows16<D>::ND; ++n) {
+      const float x0 = empty ? 0.f : tile.acc[n][2 * i] / l_safe;
+      const float x1 = empty ? 0.f : tile.acc[n][2 * i + 1] / l_safe;
+      *reinterpret_cast<__nv_bfloat162*>(out + n * 8 + ((lane & 3) << 1)) =
+          __floats2bfloat162_rn(x0, x1);
+    }
+    if ((lane & 3) == 0)
+      lse[((size_t)b * g.h + head) * g.t + row] =
+          empty ? NEG_BIG : tile.m[i] + logf(l_safe);
   }
 }
 
@@ -533,12 +632,12 @@ struct Ptrs {
 // Opt in to the kernel's dynamic shared memory (above the 48 KB default),
 // launch it on the stream, and return the launch's error.
 template <typename Kernel, typename... Args>
-int run(Kernel kernel, size_t smem, const Geo& g, cudaStream_t stream,
-        Args... args) {
+int run(Kernel kernel, int threads, size_t smem, const Geo& g,
+        cudaStream_t stream, Args... args) {
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid_of(g), NT, smem, stream>>>(args..., g);
+  kernel<<<grid_of(g), threads, smem, stream>>>(args..., g);
   return (int)cudaGetLastError();
 }
 
@@ -551,17 +650,23 @@ int launch(int kind, const Ptrs& p, const Geo& g, cudaStream_t stream) {
   const float* lse = static_cast<const float*>(p.lse_in);
   const float* delta = static_cast<const float*>(p.delta);
   if (kind == 0) {
-    auto kernel = fwd_kernel<T, D>;
-    return run(kernel, fwd_smem<D>(), g, stream, q, k, v,
-               static_cast<T*>(p.o), static_cast<float*>(p.lse_out));
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      auto kernel = mma_fwd_kernel<D>;
+      return run(kernel, am::THREADS, am::tiles_bytes<D>(), g, stream, q, k,
+                 v, static_cast<T*>(p.o), static_cast<float*>(p.lse_out));
+    } else {
+      auto kernel = fwd_kernel<T, D>;
+      return run(kernel, NT, fwd_smem<D>(), g, stream, q, k, v,
+                 static_cast<T*>(p.o), static_cast<float*>(p.lse_out));
+    }
   }
   if (kind == 1) {
     auto kernel = dq_kernel<T, D>;
-    return run(kernel, dq_smem<D>(), g, stream, q, k, v, dout, lse, delta,
-               static_cast<T*>(p.dq));
+    return run(kernel, NT, dq_smem<D>(), g, stream, q, k, v, dout, lse,
+               delta, static_cast<T*>(p.dq));
   }
   auto kernel = dkv_kernel<T, D>;
-  return run(kernel, dkv_smem<D>(), g, stream, q, k, v, dout, lse, delta,
+  return run(kernel, NT, dkv_smem<D>(), g, stream, q, k, v, dout, lse, delta,
              static_cast<T*>(p.dk), static_cast<T*>(p.dv));
 }
 

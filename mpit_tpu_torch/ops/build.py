@@ -4,8 +4,9 @@ Each ``.cu`` file has a plain C interface and is compiled by ``nvcc``
 into its own shared library, loaded with :mod:`ctypes` — no PyTorch
 headers, so a build takes seconds. Libraries land in ``build/torch_ext/``
 at the root of the checkout (listed in ``.gitignore``) under a name that
-carries a hash of the source and the flags, so an edited source is
-rebuilt and an unchanged one is reused. Nothing here runs at import:
+carries a hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source or header is rebuilt and an unchanged one is
+reused. Nothing here runs at import:
 this module is imported on machines that have no ``nvcc``.
 """
 
@@ -56,10 +57,14 @@ def _nvcc() -> str:
 
 
 def _lib_path(source: str) -> Path:
-    digest = hashlib.sha256(
-        (CSRC / source).read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:12]
-    return BUILD_DIR / f"lib{Path(source).stem}_{digest}.so"
+    """Where ``source``'s library lives: named by a hash of the source,
+    of every header in ``CSRC`` (sorted by name; a source may include
+    any of them) and of the flags, so an edit to any of them rebuilds."""
+    digest = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{Path(source).stem}_{digest.hexdigest()[:12]}.so"
 
 
 def build(sources=KERNEL_SOURCES, *, force: bool = False) -> dict[str, str]:

@@ -15,8 +15,12 @@ both wrappers launch the hand-written kernel in
 
 K/V may be f32, bf16, or :class:`~mpit_tpu_torch.ops.kv_quant.QuantizedKV`
 (int8 rows and per-(row, head) f32 scales, which the kernel dequantizes
-as it stages the rows it visits); q is f32 or bf16, independently of
-K/V. :func:`reference_decode_attention` and
+as it reads the rows it visits); q is f32 or bf16, independently of
+K/V. The kernel has three bodies, picked by :func:`_decode_path` from
+the dtypes and the query width alone: ``split`` for T = 1 (the decode
+tick: the block's warps share the slot's keys and merge at the end),
+``mma`` for bf16 q and K/V at T > 1 (the bf16 prefills, on the tensor
+cores) and ``rows`` for the rest (int8 K/V or an f32 operand at T > 1). :func:`reference_decode_attention` and
 :func:`reference_paged_decode_attention` are the plain versions (the
 einsum attention with an f32 softmax over the whole gathered,
 dequantized cache); the wrappers take them only for tensors that lie on
@@ -39,6 +43,7 @@ __all__ = [
     "flash_decode_attention",
     "flash_paged_decode_attention",
     "launches",
+    "path_launches",
     "num_kv_blocks",
     "pick_block_k",
     "reference_decode_attention",
@@ -50,18 +55,26 @@ _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 # Shared memory a Hopper block may use (with the opt-in the kernel sets
-# for a long block-table row), and what the kernel itself stages.
+# for a long block-table row), and the geometry each body stages with (as
+# in csrc/decode_attention.cu and csrc/attn_mma.cuh).
 _MAX_SMEM = 232448
-_KC, _ROWS = 32, 4
+_KC, _ROWS = 32, 4  # rows body: keys a chunk, query rows a block
+_SPLIT_WARPS = 4  # split body: warps sharing a slot's chunks
+_SPLIT_DOUBLE_MAX = 192 * 1024  # split body: double-buffered below this
+_MMA_TILE = 64  # mma body: query rows and keys of a tile
 
-# Launches of each form of the CUDA kernel since the counts were last set
-# to 0; a wrapper adds one where it launches, and nowhere else.
-launches = {
-    "flash_decode_attention": 0,
-    "flash_decode_attention_int8": 0,
-    "flash_paged_decode_attention": 0,
-    "flash_paged_decode_attention_int8": 0,
+_PATHS = {
+    "flash_decode_attention": ("split", "mma", "rows"),
+    "flash_decode_attention_int8": ("split", "rows"),
+    "flash_paged_decode_attention": ("split", "mma", "rows"),
+    "flash_paged_decode_attention_int8": ("split", "rows"),
 }
+_C_PATHS = ("rows", "mma", "split")  # mpit_decode_path's answers, in order
+# Launches of each form of the CUDA kernel since the counts were last set
+# to 0, and of each "<form>/<body>"; a wrapper adds one to both where it
+# launches, and nowhere else.
+launches = dict.fromkeys(_PATHS, 0)
+path_launches = {f"{form}/{path}": 0 for form, paths in _PATHS.items() for path in paths}
 
 
 def reference_decode_attention(q, k, v, lengths):
@@ -101,6 +114,41 @@ def num_kv_blocks(lengths, t_q: int, s: int, block_k: int):
     return n.clip(1, s // block_k)
 
 
+def _decode_path(q_dtype, kv_dtype, t: int) -> str:
+    """The body a kernel call runs (``kv_dtype`` is the payload's:
+    ``torch.int8`` for QuantizedKV): ``"split"`` at T = 1, ``"mma"`` for
+    bf16 q and K/V at T > 1, else ``"rows"``. The C entry points apply
+    the same rule (``path_of`` in ``csrc/decode_attention.cu``); the
+wrapper counts a launch by the C answer and refuses a call where the
+two part. The
+    int8 prefill stays on ``rows``: the JAX kernel keeps p in f32 against
+    dequantized V, which a bf16 tensor-core product would round."""
+    if t == 1:
+        return "split"
+    if q_dtype == torch.bfloat16 and kv_dtype == torch.bfloat16:
+        return "mma"
+    return "rows"
+
+
+def _smem_bytes(path: str, d: int, pages_per_slot: int, kv_dtype) -> int:
+    """Shared memory, static and dynamic, that a block of ``path`` takes
+    at head dim ``d`` with a block-table row of ``pages_per_slot`` pages
+    (0 for the dense form) and K/V payload dtype ``kv_dtype``: what each
+    body of ``csrc/decode_attention.cu`` allocates, as its
+    ``mpit_decode_smem_bytes`` reads it from the compiled kernels."""
+    table = 4 * pages_per_slot
+    if path == "rows":
+        return 4 * (_ROWS * d + _KC * (d + 1) + _KC * d) + table
+    if path == "mma":  # the Q tile and two stages of K and V, [64][d + 8] bf16
+        return 5 * _MMA_TILE * (d + 8) * 2 + table
+    if path == "split":
+        stage = 2 * _KC * (d * kv_dtype.itemsize + 16) + (2 * _KC * 4 if kv_dtype == torch.int8 else 0)
+        stages = 2 if _SPLIT_WARPS * 2 * stage <= _SPLIT_DOUBLE_MAX else 1
+        static = 4 * (d + _SPLIT_WARPS * d + 2 * _SPLIT_WARPS)
+        return static + _SPLIT_WARPS * stages * stage + table
+    raise ValueError(f"unknown decode path {path!r}")
+
+
 @functools.cache
 def kernel_library() -> ctypes.CDLL:
     """The flash-decode kernel's library, built from its source at the
@@ -115,6 +163,10 @@ def kernel_library() -> ctypes.CDLL:
     )
     lib.mpit_flash_decode.restype = i32
     lib.mpit_flash_paged_decode.restype = i32
+    lib.mpit_decode_path.argtypes = [i32] * 3
+    lib.mpit_decode_path.restype = i32
+    lib.mpit_decode_smem_bytes.argtypes = [i32] * 5
+    lib.mpit_decode_smem_bytes.restype = i32
     lib.mpit_cuda_error_string.argtypes = [i32]
     lib.mpit_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -183,11 +235,12 @@ def _check_kernel_inputs(q, k, v, lengths, block_table=None):
     if b < 1 or t < 1:
         raise ValueError(f"empty batch or query: B={b}, T={t}")
     if block_table is not None:
-        smem = 4 * (_ROWS * d + _KC * (2 * d + 1)) + 4 * block_table.shape[1]
+        path = _decode_path(q.dtype, kq.dtype, t)
+        smem = _smem_bytes(path, d, block_table.shape[1], kq.dtype)
         if smem > _MAX_SMEM:
             raise ValueError(
                 f"a block-table row of {block_table.shape[1]} pages needs "
-                f"{smem} bytes of shared memory (> {_MAX_SMEM})"
+                f"{smem} bytes of shared memory on the {path} body (> {_MAX_SMEM})"
             )
 
 
@@ -202,6 +255,12 @@ def _launch(q, k, v, lengths, block_table, s_len: int, bk: int):
     lib = kernel_library()
     scales = (None, None) if ks is None else (ks.data_ptr(), vs.data_ptr())
     codes = (_Q_DTYPES[q.dtype], _KV_DTYPES[kq.dtype])
+    path = _C_PATHS[lib.mpit_decode_path(*codes, t)]
+    if path != _decode_path(q.dtype, kq.dtype, t):
+        raise RuntimeError(
+            f"the kernel would run the {path} body where _decode_path says "
+            f"{_decode_path(q.dtype, kq.dtype, t)}"
+        )
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         head = (q.data_ptr(), kq.data_ptr(), vq.data_ptr(), *scales)
@@ -223,7 +282,9 @@ def _launch(q, k, v, lengths, block_table, s_len: int, bk: int):
         )
         raise RuntimeError(f"flash-decode kernel launch failed ({err}): {msg}")
     form = "flash_decode_attention" if block_table is None else "flash_paged_decode_attention"
-    launches[form + ("" if ks is None else "_int8")] += 1
+    form += "" if ks is None else "_int8"
+    launches[form] += 1
+    path_launches[f"{form}/{path}"] += 1
     return out, visited
 
 

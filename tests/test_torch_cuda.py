@@ -1,8 +1,10 @@
 """mpit_tpu_torch's CUDA kernels on the GPU, against their plain versions.
 
 The flash-decode kernel in all four forms (dense and paged, each with
-f32/bf16 or int8 K/V), the int8 weight store's fused-dequant matmul,
-the training flash attention's forward, dq and dk/dv kernels (alone, in
+f32/bf16 or int8 K/V) and on each of its three bodies (split, mma,
+rows, checked through ``path_launches``; the body rule and the shared
+memory each body takes, against the kernel library), the int8 weight
+store's fused-dequant matmul, the training flash attention's forward, dq and dk/dv kernels (alone, in
 autograd, and in three tiny training steps against plain attention),
 the ring reduce-scatter and all-gather kernels, sum and int8 wire
 (bit-equal to their plain versions, and in tiny training steps over
@@ -123,12 +125,59 @@ def test_dense_int8_kernel_matches_plain(cuda, dtype):
     assert (out.float() - ref.float()).abs().max().item() <= tol
 
 
+def _path_delta(before):
+    return {k: n - before[k] for k, n in tda.path_launches.items() if n != before[k]}
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("ps", [None, 16, 64], ids=["dense", "ps16", "ps64"])
+@pytest.mark.parametrize("t", [1, 64, 65, 128])
+def test_decode_bodies_match_plain(cuda, kv, ps, t):
+    """Each body at the query widths around its tiles (T 1: split; bf16
+    T 64, 65, 128: mma, with a ragged 64-row tile at 65; int8 T > 1:
+    rows), dense and paged (pages scrambled), lengths 0, 5, 100 and
+    S - T; bf16 within 5e-2, visited exact, and the launch counted on
+    the body that ran."""
+    b, h, d, s = 4, 3, 64, 256
+    q = _randn((b, t, h, d), t, torch.bfloat16)
+    lens = torch.tensor([0, 5, 100, s - t], dtype=torch.int32, device="cuda")
+    if ps is None:
+        k, v = (_randn((b, s, h, d), seed, torch.bfloat16) for seed in (1, 2))
+    else:
+        p = b * (s // ps) + 3
+        k, v = (_randn((p, ps, h, d), seed, torch.bfloat16) for seed in (1, 2))
+        bt = torch.randperm(p, generator=torch.Generator().manual_seed(t))[: b * (s // ps)]
+        bt = bt.reshape(b, s // ps).int().cuda()
+    if kv == "int8":
+        k, v = quantize_kv(k), quantize_kv(v)
+    form = ("flash_decode_attention" if ps is None else "flash_paged_decode_attention")
+    form += "_int8" if kv == "int8" else ""
+    path = tda._decode_path(torch.bfloat16, torch.int8 if kv == "int8" else torch.bfloat16, t)
+    assert path == ("split" if t == 1 else "rows" if kv == "int8" else "mma")
+    before = dict(tda.path_launches)
+    if ps is None:
+        out, vis = tda.flash_decode_attention(q, k, v, lens, return_visited=True)
+        ref = tda.reference_decode_attention(q, k, v, lens)
+        want = tda.num_kv_blocks(lens.cpu(), t, s, tda.pick_block_k(s))
+    else:
+        out, vis = tda.flash_paged_decode_attention(q, k, v, lens, bt, return_visited=True)
+        ref = tda.reference_paged_decode_attention(q, k, v, lens, bt)
+        want = tda.num_kv_blocks(lens.cpu(), t, s, tda.pick_block_k(ps))
+    torch.cuda.synchronize()
+    assert _path_delta(before) == {f"{form}/{path}": 1}
+    assert (out.float() - ref.float()).abs().max().item() <= 5e-2
+    assert torch.equal(vis.cpu(), want)
+
+
+@pytest.mark.parametrize("t", [1, 3, 64], ids=["split", "mma3", "mma64"])
 @pytest.mark.parametrize("int8", [False, True], ids=["plain", "int8"])
-def test_identity_paged_equals_dense_bitwise(cuda, int8):
+def test_identity_paged_equals_dense_bitwise(cuda, int8, t):
     """The paged kernel over a pool whose block table maps slot b's
     pages in order onto its own dense rows reads the very values the
-    dense kernel reads, in the same order: equal bit for bit."""
-    b, t, h, d, s, ps = 4, 3, 12, 64, 256, 16
+    dense kernel reads, in the same order: equal bit for bit, on the
+    split body (T 1) and on the mma body (bf16, T > 1; int8 takes the
+    rows body there)."""
+    b, h, d, s, ps = 4, 12, 64, 256, 16
     q = _randn((b, t, h, d), 0, torch.bfloat16)
     k, v = (_randn((b, s, h, d), seed, torch.bfloat16) for seed in (1, 2))
     if int8:
@@ -139,9 +188,38 @@ def test_identity_paged_equals_dense_bitwise(cuda, int8):
     bt = torch.arange(b * (s // ps), dtype=torch.int32, device="cuda").reshape(b, -1)
     lens = torch.tensor([0, 9, 100, s - t], dtype=torch.int32, device="cuda")
     bk = tda.pick_block_k(ps)
+    before = dict(tda.path_launches)
     dense = tda.flash_decode_attention(q, k, v, lens, block_k=bk)
     paged = tda.flash_paged_decode_attention(q, kp, vp, lens, bt, block_k=bk)
+    path = "split" if t == 1 else "rows" if int8 else "mma"
+    suffix = "_int8" if int8 else ""
+    assert _path_delta(before) == {
+        f"flash_decode_attention{suffix}/{path}": 1,
+        f"flash_paged_decode_attention{suffix}/{path}": 1,
+    }
     assert torch.equal(dense, paged)
+
+
+@pytest.mark.parametrize("t", [1, 2, 64, 65, 128])
+def test_decode_body_rule_and_smem_match_the_kernel_library(cuda, t):
+    """The host's rule (``_decode_path``) and the C entry points'
+    (``mpit_decode_path``, by whose answer a launch is counted) pick the
+    same body for every q and K/V dtype at this query width; and
+    ``_smem_bytes``, which the wrapper's refusal of a long block-table
+    row reads, states what a block of that body takes on the card: the
+    compiled kernel's static shared memory plus the dynamic bytes its
+    launch asks for, at every head dim, dense and at 32 and 512 pages a
+    slot."""
+    lib = tda.kernel_library()
+    for q_dtype, qc in tda._Q_DTYPES.items():
+        for kv_dtype, kc in tda._KV_DTYPES.items():
+            path = tda._decode_path(q_dtype, kv_dtype, t)
+            assert tda._C_PATHS[lib.mpit_decode_path(qc, kc, t)] == path
+            for d in tda._KERNEL_HEAD_DIMS:
+                for n_ps in (0, 32, 512):
+                    got = lib.mpit_decode_smem_bytes(qc, kc, t, d, n_ps)
+                    want = tda._smem_bytes(path, d, n_ps, kv_dtype)
+                    assert got == want, (q_dtype, kv_dtype, path, d, n_ps, got, want)
 
 
 @pytest.mark.parametrize("kv_dtype", [None, "int8"])
@@ -279,6 +357,35 @@ def test_flash_kernels_match_plain(cuda, dtype, tol, t, h, d, q_off, k_off):
         ref = want[name].float()
         err = (got.float() - ref).abs().max().item()
         assert err <= tol, (name, err)
+    if k_off >= q_off + t:
+        assert bool((o == 0).all()) and bool((lse == -1e30).all())
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["copies", "fused_qkv"])
+@pytest.mark.parametrize(
+    "t,q_off,k_off",
+    [(100, 0, 0), (128, 0, 0), (512, 0, 0), (128, 100, 0), (100, 0, 100), (128, 0, 128)],
+)
+def test_flash_forward_mma_matches_plain(cuda, t, q_off, k_off, fused):
+    """The bf16 forward (the tensor-core body) at ragged and whole tile
+    counts, with offsets (partly visible tiles; a key block wholly in
+    the future) and q, k, v as views of one fused qkv tensor: o within
+    5e-2 of the plain forward, and the f32 lse within 1e-4, tight enough
+    to see l summed from rounded p (about 1e-3); a future block gives
+    o = 0 and lse = -1e30 exactly."""
+    from mpit_tpu_torch.ops import flash_attention as tfa
+
+    h, d = 3, 64
+    q, k, v = (_randn((2, t, h, d), s, torch.bfloat16) for s in range(3))
+    if fused:
+        q, k, v = torch.cat((q, k, v), dim=2).split(h, dim=2)
+    before = tfa.launches["fwd"]
+    o, lse = tfa.flash_fwd(q, k, v, q_off, k_off, True)
+    torch.cuda.synchronize()
+    assert tfa.launches["fwd"] == before + 1
+    want_o, want_lse = tfa.flash_fwd_plain(q, k, v, q_offset=q_off, k_offset=k_off)
+    assert (o.float() - want_o.float()).abs().max().item() <= 5e-2
+    assert (lse - want_lse).abs().max().item() <= 1e-4
     if k_off >= q_off + t:
         assert bool((o == 0).all()) and bool((lse == -1e30).all())
 

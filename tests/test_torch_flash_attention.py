@@ -163,3 +163,24 @@ def test_kernels_take_the_fused_qkv_split_in_place():
         tfa._check_kernel_inputs([("q", heads_first)], [])
     with pytest.raises(ValueError, match="dO must be contiguous"):
         tfa._check_kernel_inputs([("q", q), ("dO", q)], [])
+
+
+def test_bf16_forward_ragged_tile_matches_jax():
+    """A boundary of the tensor-core forward: bf16 inputs, T = 65 (one
+    whole 64-row tile and one of a single row), causal, so the second
+    tile's one row sees every key. JAX's
+    reference (its CPU tests' path) and the port's plain forward agree
+    within 2e-2 for o (one bf16 step, 1/64 for outputs in [2, 4), where
+    sums in another order land on either side of a rounding boundary)
+    and 1e-5 for the f32 lse."""
+    q, k, v = _arrays((2, 65, 3, 16), 3, 11)
+    bf = lambda x: jnp.asarray(x, jnp.bfloat16)  # noqa: E731
+    want_o, want_lse = jax.jit(
+        lambda q, k, v: jfa.reference_attention_with_lse(q, k, v)
+    )(bf(q), bf(k), bf(v))
+    o, lse = tfa.flash_fwd_plain(*(torch.from_numpy(x).bfloat16() for x in (q, k, v)))
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    np.testing.assert_allclose(
+        o.float().numpy(), np.asarray(want_o.astype(jnp.float32)), rtol=0, atol=2e-2
+    )
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), rtol=1e-5, atol=1e-5)
