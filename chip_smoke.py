@@ -24,8 +24,9 @@ for an H100). Phases, each of which raises (exit code != 0) on failure:
    beside the bound the card's HBM rate and peak arithmetic
    rate set for the same work, and beside the earlier design's time at the same shape
    (``BEFORE_DECODE_MS``). Each case names the kernel body it ran
-   (``path``: ``split`` at T = 1, ``mma`` for bf16 at T > 1, ``rows``
-   otherwise) and fails unless exactly that body's launch count moved;
+   (``path``: ``split`` at T = 1, ``mma`` for bf16 q and K/V at T > 1,
+   ``q8mma`` for bf16 q over int8 K/V at T > 1, ``rows`` otherwise) and
+   fails unless exactly that body's launch count moved;
 3b. kernel vs plain, paged and int8 — the three other forms at the same
    head geometry: paged pools of page size 16 and 64 for virtual lengths
    512 and 1024, T = 1 and 64 (a prefill chunk), q bf16/f32 over K/V of
@@ -34,11 +35,13 @@ for an H100). Phases, each of which raises (exit code != 0) on failure:
    Block tables name a seeded random permutation of the pool's pages,
    two slots sharing their first pages. Tolerances are q's: both sides
    dequantize the same int8 bytes to f32, and with a bf16 q the kernel
-   keeps p in f32 (as on the TPU, V is f32 once dequantized) where the
-   plain version rounds the probabilities to bf16 — well inside 5e-2.
+   keeps p in f32 (as on the TPU, V is f32 once dequantized; the q8mma
+   body carries p times the V scale as three bf16 pieces that sum to it
+   within 2^-27) where the plain version rounds the probabilities to
+   bf16 — well inside 5e-2.
    The paged kernel over the pre-gathered dense view, mapped page by
    page in order, must equal the dense kernel bit for bit at the same
-   block_k, on each body (split, mma and rows alike). SDPA runs on the
+   block_k, on each body (split, mma, q8mma and rows alike). SDPA runs on the
    pre-gathered (and dequantized) dense view; the gather is not timed.
    Every case goes to
    ``chiprun_out/chip_smoke_kernels.json``;
@@ -65,7 +68,7 @@ for an H100). Phases, each of which raises (exit code != 0) on failure:
    drives, set to 0 just before, reaches at least num_layers x (prefill
    calls + decode ticks), while the other forms stay at 0; by body
    (``path_launches``), exactly num_layers x prefill calls on ``mma``
-   (bf16 K/V) or ``rows`` (int8 K/V) and num_layers x decode ticks on
+   (bf16 K/V) or ``q8mma`` (int8 K/V) and num_layers x decode ticks on
    ``split``, nothing else; the matmul
    kernel's count reaches 4 x num_layers x (prefill calls + decode
    ticks) in the two int8-weight runs and stays 0 in the other four;
@@ -117,8 +120,8 @@ for an H100). Phases, each of which raises (exit code != 0) on failure:
    the forward already run) for dq and dk/dv; neither gives an lse, and
    the port never calls them; beside the earlier design's time at the same case
    (``BEFORE_FLASH_MS``) and the body (``path``: ``mma`` for the bf16
-   forward on the tensor cores, ``fma`` for the f32 forward and the
-   backward). Every case goes to ``chiprun_out/chip_smoke_flash.json``;
+   forward and dk/dv on the tensor cores, ``fma`` for dq and the f32
+   kernels). Every case goes to ``chiprun_out/chip_smoke_flash.json``;
 4t. train — ``python -m mpit_tpu_torch.asyncsgd gpt2``'s ``main`` in
    process with ``--flash true --steps 30 --log-every 1``: GPT-2 small at
    full width (12 layers, d_model 768, 12 heads, vocab 50257), seq 512,
@@ -198,8 +201,10 @@ for an H100). Phases, each of which raises (exit code != 0) on failure:
 
 The last lines are the kernels JSON line (each decode form twice: at
 T 1, its ``split`` body, and at its prefill width as ``<form>_prefill``,
-each with the main path's launches of that body), the card's name and
-power limit as ``nvidia-smi`` prints them, and ``{"ok": true, "device":
+each with the main path's launches of that body; every number in it
+but ``bound_ms`` measured in this run, so the earlier design's times,
+``before_ms``, stay in the per-case records), the card's name and power
+limit as ``nvidia-smi`` prints them, and ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -264,26 +269,31 @@ FORMS = (
     "flash_paged_decode_attention",
     "flash_paged_decode_attention_int8",
 )
-# The same cases' kernel times (ms) under the earlier design, before the
-# decode kernel's split and mma bodies and the tensor-core flash forward:
-# this script on the tree of commit 34f96eb, on an NVIDIA H100 80GB HBM3 at
-# 700 W (its chiprun_out/chip_smoke_kernels.json and chip_smoke_flash.json),
-# so that every case's record holds the earlier design's time beside its
-# own. T w is the case's prefill width: 128 in phase 3, 64 in phase 3b.
-BEFORE_DECODE_MS = {  # (form, q dtype, page size): S 512 T 1, S 512 T w, S 1024 T 1, S 1024 T w
-    ("flash_decode_attention", "bfloat16", None): (0.0428, 0.2605, 0.0683, 0.4628),
-    ("flash_decode_attention", "float32", None): (0.0306, 0.2251, 0.0539, 0.3946),
-    ("flash_paged_decode_attention", "bfloat16", 16): (0.0362, 0.1114, 0.0655, 0.2130),
-    ("flash_paged_decode_attention", "bfloat16", 64): (0.0362, 0.1117, 0.0657, 0.2119),
-    ("flash_paged_decode_attention", "float32", 16): (0.0420, 0.1073, 0.0663, 0.2042),
-    ("flash_paged_decode_attention", "float32", 64): (0.0364, 0.1066, 0.0647, 0.2041),
-    ("flash_decode_attention_int8", "bfloat16", None): (0.0444, 0.1536, 0.0554, 0.2987),
-    ("flash_decode_attention_int8", "float32", None): (0.0312, 0.1532, 0.0556, 0.2991),
-    ("flash_paged_decode_attention_int8", "bfloat16", 16): (0.0384, 0.1686, 0.0688, 0.3252),
-    ("flash_paged_decode_attention_int8", "bfloat16", 64): (0.0378, 0.1690, 0.0686, 0.3255),
-    ("flash_paged_decode_attention_int8", "float32", 16): (0.0376, 0.1684, 0.0684, 0.3261),
-    ("flash_paged_decode_attention_int8", "float32", 64): (0.0376, 0.1686, 0.0684, 0.3256),
+# The same cases' kernel times (ms) under the earlier design, so that every
+# case's record holds it beside its own: this script on an NVIDIA H100 80GB
+# HBM3 at 700 W (its chiprun_out/chip_smoke_kernels.json). For the bf16 and
+# f32 K/V forms, the tree of commit 34f96eb, before the decode kernel's
+# split and mma bodies; for the int8 forms, the tree of commit 5552d17,
+# before the q8mma body (its T > 1 cases ran the rows body, its T = 1 cases
+# the split body they run now). Keyed by T, then (S 512, S 1024).
+BEFORE_DECODE_MS = {  # (form, q dtype, page size): {T: (S 512, S 1024)}
+    ("flash_decode_attention", "bfloat16", None): {1: (0.0428, 0.0683), 128: (0.2605, 0.4628)},
+    ("flash_decode_attention", "float32", None): {1: (0.0306, 0.0539), 128: (0.2251, 0.3946)},
+    ("flash_paged_decode_attention", "bfloat16", 16): {1: (0.0362, 0.0655), 64: (0.1114, 0.2130)},
+    ("flash_paged_decode_attention", "bfloat16", 64): {1: (0.0362, 0.0657), 64: (0.1117, 0.2119)},
+    ("flash_paged_decode_attention", "float32", 16): {1: (0.0420, 0.0663), 64: (0.1073, 0.2042)},
+    ("flash_paged_decode_attention", "float32", 64): {1: (0.0364, 0.0647), 64: (0.1066, 0.2041)},
+    ("flash_decode_attention_int8", "bfloat16", None): {
+        1: (0.0135, 0.0189), 64: (0.1534, 0.2989), 128: (0.3248, 0.5712)},
+    ("flash_decode_attention_int8", "float32", None): {
+        1: (0.0134, 0.0224), 64: (0.1537, 0.2995), 128: (0.3254, 0.5742)},
+    ("flash_paged_decode_attention_int8", "bfloat16", 16): {1: (0.0157, 0.0225), 64: (0.1682, 0.3242)},
+    ("flash_paged_decode_attention_int8", "bfloat16", 64): {1: (0.0160, 0.0225), 64: (0.1680, 0.3249)},
+    ("flash_paged_decode_attention_int8", "float32", 16): {1: (0.0184, 0.0234), 64: (0.1692, 0.3253)},
+    ("flash_paged_decode_attention_int8", "float32", 64): {1: (0.0155, 0.0228), 64: (0.1694, 0.3248)},
 }
+# The flash kernels' cases on the tree of commit 34f96eb, before the
+# tensor-core forward and dk/dv (dq and the f32 kernels are unchanged since).
 BEFORE_FLASH_MS = {  # (dtype, T, q_offset, k_offset, g_lse, fused): fwd, dq, dkv
     ("bfloat16", 512, 0, 0, False, False): (0.2038, 0.2726, 0.3410),
     ("bfloat16", 1024, 0, 0, False, False): (0.6182, 0.8732, 1.1078),
@@ -297,7 +307,7 @@ BEFORE_FLASH_MS = {  # (dtype, T, q_offset, k_offset, g_lse, fused): fwd, dq, dk
 
 
 def before_decode_ms(form: str, dtype: str, ps, s: int, t: int) -> float:
-    return BEFORE_DECODE_MS[(form, dtype, ps)][2 * (s == 1024) + (t > 1)]
+    return BEFORE_DECODE_MS[(form, dtype, ps)][t][s == 1024]
 
 
 def decode_call(torch, da, form: str, path: str, fn):
@@ -549,7 +559,7 @@ def paged_kernel_phase(torch, flush):
                             "kv": "int8" if int8 else name, "page_size": ps,
                             "B": B, "S": s, "T": t, "H": H, "Dh": DH,
                             "block_k": bk, "max_abs_err": err, "tol": TOL[name],
-                            "before_ms": before_decode_ms(form, name, ps, s, t) if t < 128 else None,
+                            "before_ms": before_decode_ms(form, name, ps, s, t),
                             "ms": cold_time_ms(run, torch, flush),
                             "plain_ms": cold_time_ms(plain, torch, flush),
                             "library_ms": cold_time_ms(
@@ -642,10 +652,10 @@ def serve_phase(torch, card, extra_args, form, records):
         fail(f"serve {tag}: {launches} {form} launches < {need} (layers x calls)")
     if any(n for f, n in counts.items() if f != form):
         fail(f"serve {tag}: other kernel forms launched: {counts}")
-    # Every prefill (T > 1) on the tensor-core body for bf16 K/V, on the
-    # rows body for int8 K/V; every decode tick (T = 1) on the split body.
+    # Every prefill (T > 1, bf16 q) on a tensor-core body, mma for bf16 K/V
+    # and q8mma for int8 K/V; every decode tick (T = 1) on the split body.
     layers = out["model"]["layers"]
-    prefill_path = "rows" if form.endswith("_int8") else "mma"
+    prefill_path = "q8mma" if form.endswith("_int8") else "mma"
     want_paths = {f"{form}/{prefill_path}": layers * n_prefill, f"{form}/split": layers * n_decode}
     if paths != want_paths:
         fail(f"serve {tag}: launches by body {paths}, expected {want_paths}")
@@ -1059,7 +1069,7 @@ def flash_kernel_phase(torch, flush):
             cases.append({
                 "form": f"flash_{kind}",
                 # the tensor-core body, or f32 FMAs on the CUDA cores
-                "path": "mma" if (kind, name) == ("fwd", "bfloat16") else "fma",
+                "path": "mma" if kind in ("fwd", "dkv") and name == "bfloat16" else "fma",
                 "before_ms": earlier[i],
                 "dtype": name, "B": FLASH_B, "T": t, "H": H,
                 "Dh": DH, "q_offset": q_off, "k_offset": k_off, "g_lse": with_g_lse,
@@ -1944,8 +1954,8 @@ def main() -> None:
                     else "mpit_tpu/ops/decode_attention.py:369"
                 ),
                 "launches": body_launches.get(f"{form}/{head['path']}", 0),
-                **{k: head[k] for k in ("max_abs_err", "tol", "ms", "plain_ms",
-                                        "bound_ms", "bound_by", "library_ms")},
+                **{k: head[k] for k in ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")},
                 "shape": {k: head.get(k) for k in ("dtype", "kv", "page_size", "B", "S", "T",
                                                    "H", "Dh")},
             })

@@ -1,8 +1,11 @@
-// Tensor-core attention tile for Hopper (sm_90a), shared by the bf16 flash
-// forward (flash_attention.cu, mma_fwd_kernel) and the bf16 body of the
-// flash-decode kernel (decode_attention.cu, mma_decode_kernel).
+// Tensor-core attention tiles for Hopper (sm_90a), shared by the bf16 flash
+// forward (flash_attention.cu, mma_fwd_kernel), the bf16 flash dk/dv
+// backward (flash_attention.cu, mma_dkv_kernel, which uses the fragment
+// helpers below) and the two tensor-core bodies of the flash-decode kernel
+// (decode_attention.cu: mma_decode_kernel, over bf16 K/V as the mma body and
+// over int8 K/V as the q8mma body).
 //
-// What it computes. One warp owns a slab of 16 query rows, whose bf16 Q
+// What Rows16 computes. One warp owns a slab of 16 query rows, whose bf16 Q
 // fragments it holds in registers for the whole key loop. For each tile of
 // 64 keys staged in shared memory (K and V rows, bf16) it does the flash
 // step of the TPU kernels (mpit_tpu/ops/flash_attention.py::_fwd_kernel and
@@ -21,6 +24,21 @@
 // multiplies the f32 score, l sums the unrounded p, and the PV product sees
 // p rounded once to bf16. Only the order of the f32 sums differs (the mma's
 // own order, then the quad reductions below).
+//
+// The int8 form (step<true>) runs the same step over int8 K and V rows that
+// the caller has converted to bf16 (exact: |x| <= 128 needs 8 bits), with
+// each key's f32 scales ks_j and vs_j. The reference dequantizes K and V
+// to f32 and keeps p in f32 against the f32 V, so:
+//   - s_j = (q . k_int,j) * ks_j * scale: the dot is one bf16 product with
+//     exact products and f32 sums, the scale applied to the f32 score
+//     (the reference's q . (k_int,j ks_j) differs in the last bit only);
+//   - w_j = p_j * vs_j in f32, split into three bf16 pieces hi = bf16(w),
+//     mid = bf16(w - hi), lo = bf16(w - hi - mid) (each subtraction exact;
+//     hi + mid + lo is w to within 2^-27 |w|), and three PV products of the
+//     pieces against the exact bf16 V_int run into one f32 accumulator: f32
+//     products, as the reference's f32 p against f32 V. l sums the
+//     unrounded p, as above. A masked key has p = 0, so all three pieces are
+//     0.
 //
 // Fragments (PTX ISA, mma.m16n8k16 with .bf16 operands; lane = 4 g + t,
 // g = lane / 4, t = lane % 4):
@@ -147,6 +165,21 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// Two f32 as three packed bf16 pairs whose sum is each value to within
+// 2^-27 of it: hi = bf16(w), mid = bf16(w - hi), lo = bf16(w - hi - mid),
+// each rounded to nearest even (the subtractions are exact in f32).
+__device__ __forceinline__ void split3(float w0, float w1, uint32_t& hi,
+                                       uint32_t& mid, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(w0, w1);
+  const float r0 = w0 - __low2float(h), r1 = w1 - __high2float(h);
+  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
+  const __nv_bfloat162 l =
+      __floats2bfloat162_rn(r0 - __low2float(m), r1 - __high2float(m));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  mid = *reinterpret_cast<const uint32_t*>(&m);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
 // Row (0..15) of a slab, and column (0..7) of an 8-column block, of element
 // e (0..3) of the C fragment that lane holds.
 __device__ __forceinline__ int frag_row(int lane, int e) {
@@ -216,10 +249,15 @@ struct Rows16 {
 
   // One staged tile of 64 keys. visible(r, c) says whether key c of the
   // tile is visible to slab row r; it is asked only when masked is set.
-  template <typename Visible>
+  // With Q8, the tile's keys are int8 rows converted to bf16 in k_s and
+  // v_s, and k_scale[c], v_scale[c] are key c's scales (the header's int8
+  // form).
+  template <bool Q8 = false, typename Visible>
   __device__ __forceinline__ void step(const __nv_bfloat16* k_s,
                                        const __nv_bfloat16* v_s, float scale,
-                                       bool masked, Visible visible) {
+                                       bool masked, Visible visible,
+                                       const float* k_scale = nullptr,
+                                       const float* v_scale = nullptr) {
     const int lane = threadIdx.x & 31;
     float s[NK][4];
 #pragma unroll
@@ -245,7 +283,9 @@ struct Rows16 {
     for (int n = 0; n < NK; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = s[n][e] * scale;
+        float x = s[n][e];
+        if constexpr (Q8) x *= k_scale[n * 8 + frag_col(lane, e)];
+        x *= scale;
         if (masked && !visible(frag_row(lane, e), n * 8 + frag_col(lane, e)))
           x = NEG_BIG;
         s[n][e] = x;
@@ -277,12 +317,20 @@ struct Rows16 {
     // keys 8-15 d 0-7, keys 0-7 d 8-15, keys 8-15 d 8-15).
 #pragma unroll
     for (int kk = 0; kk < NK / 2; ++kk) {
-      const uint32_t a[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]),
-      };
+      // The A fragment of keys 16 kk .. 16 kk + 15: reg 2 j + i holds
+      // elements 2 i, 2 i + 1 of the C fragment of 8-key block 2 kk + j.
+      uint32_t a[4], mid[4], lo[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int n = 2 * kk + (r >> 1), e = 2 * (r & 1);
+        if constexpr (Q8) {
+          const int c = n * 8 + frag_col(lane, e);
+          split3(s[n][e] * v_scale[c], s[n][e + 1] * v_scale[c + 1], a[r],
+                 mid[r], lo[r]);
+        } else {
+          a[r] = pack_bf16(s[n][e], s[n][e + 1]);
+        }
+      }
 #pragma unroll
       for (int np = 0; np < ND / 2; ++np) {
         uint32_t b[4];
@@ -291,6 +339,12 @@ struct Rows16 {
                    np * 16 + (lane >> 4) * 8);
         mma_bf16(acc[2 * np], a, b[0], b[1]);
         mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+        if constexpr (Q8) {
+          mma_bf16(acc[2 * np], mid, b[0], b[1]);
+          mma_bf16(acc[2 * np + 1], mid, b[2], b[3]);
+          mma_bf16(acc[2 * np], lo, b[0], b[1]);
+          mma_bf16(acc[2 * np + 1], lo, b[2], b[3]);
+        }
       }
     }
   }

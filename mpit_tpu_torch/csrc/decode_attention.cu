@@ -28,7 +28,7 @@
 // reads lengths[b] itself and stops at key n_k * block_k, so rows past a
 // slot's fill are never read; K/V rows move as 16-byte loads that all
 // issue at once, and the next chunk's loads are in flight while the
-// current chunk is computed (through cp.async in the split and mma
+// current chunk is computed (through cp.async in the split, mma and q8mma
 // bodies; held in registers in the rows body, which stages its chunks of
 // KC keys as f32, int8 rows dequantized on the way).
 //
@@ -42,11 +42,11 @@
 // checks on its host table); they are masked to weight 0 and only their
 // finiteness matters.
 //
-// Three bodies. Which one runs is a function of the dtypes and the query
+// Four bodies. Which one runs is a function of the dtypes and the query
 // width alone: path_of below, exported as mpit_decode_path. The wrapper
 // counts each launch by its answer and refuses a call where it parts from
 // ops/decode_attention.py::_decode_path, the same rule on the host. All
-// three share the per-slot bound, the visibility rule and the addressing
+// four share the per-slot bound, the visibility rule and the addressing
 // (RowOf), so a paged call over an identity-mapped pool gives bit for bit
 // what the dense call gives, body for body.
 //
@@ -68,19 +68,28 @@
 //   attn_mma.cuh over 64-key chunks, double-buffered through cp.async, so a
 //   slot's K/V is read ceil(T / 64) times. Rows at or past the slot's
 //   bound are zero-filled and masked.
-// - rows (T > 1 with int8 K/V or any f32 operand). Grid (B, H, ceil(T /
-//   ROWS)), ROWS warps per block, one query row per warp. The JAX kernel
-//   keeps p in f32 against dequantized int8 V, and f32 operands need f32
-//   products, so this body stays on f32 FMAs.
+// - q8mma (T > 1, bf16 q over int8 K/V: the prefills of the int8-K/V
+//   serving runs). The mma body's kernel, grid and tile (one template over
+//   the K/V type, mma_decode_kernel) over chunks of 64 int8 rows and their
+//   scales, double-buffered through cp.async at a quarter of f32's bytes;
+//   after each chunk lands the block converts its K and V rows to bf16
+//   tiles (exact) and runs attn_mma.cuh's int8 step: the K scale on the f32
+//   score, p times the V scale split into three bf16 pieces, so the PV
+//   product sees p in f32, as the reference's f32 (dequantized) V does.
+// - rows (T > 1 with an f32 operand: f32 q over any K/V, or f32 K/V).
+//   Grid (B, H, ceil(T / ROWS)), ROWS warps per block, one query row per
+//   warp; f32 operands need f32 products, so this body stays on f32 FMAs.
 //
 // Numerics follow the TPU kernel: q is taken to f32 (split, rows) or kept
-// bf16 against bf16 K (mma); products are summed in f32 and scaled by
-// 1/sqrt(D); masked scores are -1e30; the running max, denominator and
+// bf16 against bf16 K and exact bf16 copies of int8 K (mma, q8mma);
+// products are summed in f32 and scaled by 1/sqrt(D) (after the K scale
+// for int8); masked scores are -1e30; the running max, denominator and
 // accumulator are f32; p is taken to V's storage dtype before the PV
 // product, as p.astype(v.dtype): rounded for bf16 V, unrounded for f32 V
-// and for int8 V (dequantized to f32); o = acc / l with l == 0 -> 1, cast
-// to q's dtype. In the split and rows bodies lane j scores key j of the
-// chunk (products summed in d order) and the PV product splits the head
+// and for int8 V (dequantized to f32; q8mma's three-piece split carries p
+// times the V scale to within 2^-27 of itself); o = acc / l with l == 0 ->
+// 1, cast to q's dtype. In the split and rows bodies lane j scores key j of
+// the chunk (products summed in d order) and the PV product splits the head
 // dimension over the lanes; the split body differs from the rows body only
 // in the order of the sum over chunks. K/V must start on a 16-byte
 // boundary (the wrapper checks).
@@ -242,7 +251,7 @@ struct Chunk {
   }
 };
 
-// The slot's bound, shared by the three bodies: every block reads
+// The slot's bound, shared by every body: every block reads
 // lengths[b] and stops at key k_end = n_k * block_k.
 struct Bound {
   int length, n_k, k_end;
@@ -377,25 +386,77 @@ flash_decode_kernel(const Q* __restrict__ q, const KV* __restrict__ k,
   }
 }
 
-// The mma body: q, K, V bf16, T > 1. Dynamic shared memory: the Q tile,
-// two stages of K tiles, two of V tiles (attn_mma.cuh), then the slot's
-// block-table row (paged).
-template <int D, bool PAGED>
+// Shared memory of the tensor-core bodies after the Q tile, block-table row
+// aside, and how a chunk of 64 keys moves through it. mma (bf16 K/V): two
+// stages, each a K and a V tile ([64][D + 8] bf16) that the step reads
+// where the copies left them. q8mma (int8 K/V): the K and V tiles the step
+// reads, then two stages, each the chunk's int8 K rows and V rows ([64][D]
+// bytes, unpadded: the 16-byte copies and reads of consecutive threads fall
+// on consecutive addresses) and their K and V scales (f32 [64] each); the
+// block converts a stage into the tiles once it lands.
+template <typename KV, int D>
+struct MmaChunk {
+  static constexpr bool Q8 = std::is_same<KV, int8_t>::value;
+  static constexpr int TILE = am::TILE_KEYS * am::ld<D>();  // elements
+  static constexpr int ROWS_BYTES = am::TILE_KEYS * D;       // int8 rows
+  static constexpr int STAGE =
+      Q8 ? 2 * ROWS_BYTES + 2 * am::TILE_KEYS * 4 : 2 * TILE * 2;
+  // Dynamic bytes: the Q tile, q8mma's converted tiles, two stages.
+  static constexpr int BYTES = (Q8 ? 3 : 1) * TILE * 2 + 2 * STAGE;
+  static_assert(D % 16 == 0, "an int8 row must be whole 16-byte vectors");
+};
+
+// A q8mma stage's int8 K and V rows as the bf16 tiles kb and vb (exact),
+// 16 values a thread and pass.
+template <int D>
+__device__ __forceinline__ void convert_q8(const unsigned char* st,
+                                           __nv_bfloat16* kb,
+                                           __nv_bfloat16* vb) {
+  constexpr int VPR = D / 16;  // 16-byte vectors of an int8 row
+  constexpr int ROWS_BYTES = MmaChunk<int8_t, D>::ROWS_BYTES;
+  for (int i = threadIdx.x; i < 2 * am::TILE_KEYS * VPR; i += am::THREADS) {
+    const int m = i / (am::TILE_KEYS * VPR), j = i % (am::TILE_KEYS * VPR);
+    const int r = j / VPR, c = (j % VPR) * 16;
+    const uint4 raw =
+        *reinterpret_cast<const uint4*>(st + m * ROWS_BYTES + r * D + c);
+    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+    uint32_t out[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {  // values 2 e, 2 e + 1 of the 16
+      const uint32_t pair = w[e >> 1] >> ((e & 1) * 16);
+      out[e] = am::pack_bf16(static_cast<float>(static_cast<int8_t>(pair)),
+                             static_cast<float>(static_cast<int8_t>(pair >> 8)));
+    }
+    uint4* dst = reinterpret_cast<uint4*>((m ? vb : kb) + r * am::ld<D>() + c);
+    dst[0] = make_uint4(out[0], out[1], out[2], out[3]);
+    dst[1] = make_uint4(out[4], out[5], out[6], out[7]);
+  }
+}
+
+// The tensor-core bodies, bf16 q at T > 1: mma over bf16 K/V (KV =
+// __nv_bfloat16; k_scale, v_scale unused) and q8mma over int8 K/V with f32
+// scales (KV = int8_t). Dynamic shared memory: MmaChunk<KV, D>::BYTES, then
+// the slot's block-table row (paged).
+template <typename KV, int D, bool PAGED>
 __global__ void __launch_bounds__(am::THREADS, am::min_blocks<D>())
 mma_decode_kernel(const __nv_bfloat16* __restrict__ q,
-                  const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v,
+                  const KV* __restrict__ k, const KV* __restrict__ v,
+                  const float* __restrict__ k_scale,
+                  const float* __restrict__ v_scale,
                   const int* __restrict__ block_table,
                   const int* __restrict__ lengths,
                   __nv_bfloat16* __restrict__ o, int* __restrict__ visited,
                   int t_q, int s_len, int n_ps, int n_heads, int block_k,
                   float scale) {
-  constexpr int TILE = am::TILE_KEYS * am::ld<D>();
+  using Ch = MmaChunk<KV, D>;
+  constexpr bool Q8 = Ch::Q8;
   extern __shared__ uint4 mma_smem[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(mma_smem);
-  __nv_bfloat16* ks = qs + TILE;      // [2] K tiles
-  __nv_bfloat16* vs = ks + 2 * TILE;  // [2] V tiles
-  int* bt_s = reinterpret_cast<int*>(vs + 2 * TILE);
+  unsigned char* smem = reinterpret_cast<unsigned char*>(mma_smem);
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* kb = qs + Ch::TILE;  // q8mma: the chunk's K, as bf16
+  __nv_bfloat16* vb = kb + Ch::TILE;  // and its V
+  unsigned char* stages = smem + (Q8 ? 3 : 1) * Ch::TILE * 2;
+  int* bt_s = reinterpret_cast<int*>(smem + Ch::BYTES);
 
   const int b = blockIdx.x, h = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -405,8 +466,8 @@ mma_decode_kernel(const __nv_bfloat16* __restrict__ q,
   if (h == 0 && blockIdx.z == 0 && threadIdx.x == 0) visited[b] = bd.n_k;
 
   const size_t row = (size_t)n_heads * D;  // one cache row, all heads
-  const __nv_bfloat16* k_h = k + (size_t)h * D;
-  const __nv_bfloat16* v_h = v + (size_t)h * D;
+  const KV* k_h = k + (size_t)h * D;
+  const KV* v_h = v + (size_t)h * D;
   const __nv_bfloat16* q_h = q + ((size_t)b * t_q * n_heads + h) * D;
   const RowOf<PAGED> row_of =
       stage_row_of<PAGED>(block_table, bt_s, b, s_len, n_ps, bd.k_end);
@@ -416,38 +477,74 @@ mma_decode_kernel(const __nv_bfloat16* __restrict__ q,
   am::stage_rows<D>(qs, q_h, [&](int r) -> const __nv_bfloat16* {
     return qr0 + r < t_q ? q_h + (size_t)(qr0 + r) * row : nullptr;
   });
-  auto stage_kv = [&](int c0, int slot) {
-    auto key_row = [&](const __nv_bfloat16* base) {
-      return [=](int r) -> const __nv_bfloat16* {
-        return c0 + r < bd.k_end ? base + row_of(c0 + r) * row : nullptr;
+  // Keys c0 .. c0 + 63 into stage st; keys at or past k_end (and their
+  // scales) are zero-filled.
+  auto stage_kv = [&](int c0, unsigned char* st) {
+    if constexpr (Q8) {
+      constexpr int VPR = D / 16;
+      for (int i = threadIdx.x; i < am::TILE_KEYS * VPR; i += am::THREADS) {
+        const int r = i / VPR, c = (i % VPR) * 16;
+        const bool ok = c0 + r < bd.k_end;
+        const size_t off = ok ? row_of(c0 + r) * row + c : 0;
+        am::cp_async16(st + r * D + c, k_h + off, ok);
+        am::cp_async16(st + Ch::ROWS_BYTES + r * D + c, v_h + off, ok);
+      }
+      static_assert(am::THREADS == 2 * am::TILE_KEYS, "one scale a thread");
+      const int r = threadIdx.x % am::TILE_KEYS;
+      const bool ok = c0 + r < bd.k_end;
+      const size_t at = ok ? row_of(c0 + r) * n_heads + h : 0;
+      float* sc = reinterpret_cast<float*>(st + 2 * Ch::ROWS_BYTES);
+      if (threadIdx.x < am::TILE_KEYS)
+        am::cp_async4(sc + r, k_scale + at, ok);
+      else
+        am::cp_async4(sc + am::TILE_KEYS + r, v_scale + at, ok);
+    } else {
+      auto key_row = [&](const __nv_bfloat16* base) {
+        return [=](int r) -> const __nv_bfloat16* {
+          return c0 + r < bd.k_end ? base + row_of(c0 + r) * row : nullptr;
+        };
       };
-    };
-    am::stage_rows<D>(ks + slot * TILE, k_h, key_row(k_h));
-    am::stage_rows<D>(vs + slot * TILE, v_h, key_row(v_h));
+      __nv_bfloat16* kt = reinterpret_cast<__nv_bfloat16*>(st);
+      am::stage_rows<D>(kt, k_h, key_row(k_h));
+      am::stage_rows<D>(kt + Ch::TILE, v_h, key_row(v_h));
+    }
   };
-  stage_kv(0, 0);
+  stage_kv(0, stages);
   am::cp_async_commit();
 
   am::Rows16<D> tile;
   tile.init();
   const int n_chunks = (bd.k_end + am::TILE_KEYS - 1) / am::TILE_KEYS;
   for (int kc = 0; kc < n_chunks; ++kc) {
-    const int slot = kc & 1;
-    if (kc + 1 < n_chunks) stage_kv((kc + 1) * am::TILE_KEYS, slot ^ 1);
-    am::cp_async_commit();
-    am::cp_async_wait<1>();  // chunk kc (and, at kc 0, the Q tile) landed
+    unsigned char* st = stages + (kc & 1) * Ch::STAGE;
+    am::cp_async_wait<0>();  // chunk kc (and, at kc 0, the Q tile) landed
+    // ... and every warp is done with chunk kc - 1: its stage, the one the
+    // next copies fill, and q8mma's bf16 tiles.
     __syncthreads();
+    if (kc + 1 < n_chunks)
+      stage_kv((kc + 1) * am::TILE_KEYS, stages + ((kc + 1) & 1) * Ch::STAGE);
+    am::cp_async_commit();
+    const __nv_bfloat16* k_t = reinterpret_cast<const __nv_bfloat16*>(st);
+    const __nv_bfloat16* v_t = k_t + Ch::TILE;
+    const float* sc = reinterpret_cast<const float*>(st + 2 * Ch::ROWS_BYTES);
+    if constexpr (Q8) {
+      convert_q8<D>(st, kb, vb);
+      k_t = kb;
+      v_t = vb;
+      __syncthreads();
+    }
     if (kc == 0) tile.load_q(qs + warp * 16 * am::ld<D>());
     const int c0 = kc * am::TILE_KEYS;
     // Key j is visible to query t iff j <= length + t (and j < k_end).
     const bool masked = c0 + am::TILE_KEYS > bd.k_end ||
                         c0 + am::TILE_KEYS - 1 > bd.length + t0;
-    tile.step(ks + slot * TILE, vs + slot * TILE, scale, masked,
-              [&](int r, int c) {
-                const int key = c0 + c;
-                return key < bd.k_end && key <= bd.length + t0 + r;
-              });
-    __syncthreads();  // every warp is done with this stage before its reuse
+    tile.template step<Q8>(
+        k_t, v_t, scale, masked,
+        [&](int r, int c) {
+          const int key = c0 + c;
+          return key < bd.k_end && key <= bd.length + t0 + r;
+        },
+        sc, sc + am::TILE_KEYS);
   }
   am::cp_async_wait<0>();
 
@@ -647,13 +744,14 @@ split_decode_kernel(const Q* __restrict__ q, const KV* __restrict__ k,
   }
 }
 
-enum Path { PATH_ROWS, PATH_MMA, PATH_SPLIT };
+enum Path { PATH_ROWS, PATH_MMA, PATH_SPLIT, PATH_Q8MMA };
 
 // Which body a call runs: the same rule as ops/decode_attention.py::
 // _decode_path. q_dtype / kv_dtype codes as in dispatch below.
 Path path_of(int q_dtype, int kv_dtype, int t) {
   if (t == 1) return PATH_SPLIT;
   if (q_dtype == 1 && kv_dtype == 1) return PATH_MMA;
+  if (q_dtype == 1 && kv_dtype == 2) return PATH_Q8MMA;
   return PATH_ROWS;
 }
 
@@ -702,20 +800,24 @@ cudaError_t launch(const Args& a, Path path, cudaStream_t stream,
                  smem_out, q, k, v, ks, vs, table, lengths, o, visited,
                  a.s_len, a.n_ps, a.h, a.block_k, a.scale);
   }
-  if constexpr (std::is_same<Q, __nv_bfloat16>::value &&
-                std::is_same<KV, __nv_bfloat16>::value) {
-    if (path == PATH_MMA)
-      return start(mma_decode_kernel<D, PAGED>, 0, am::tiles_bytes<D>() + bt,
-                   dim3(a.b, a.h, (a.t + am::TILE_ROWS - 1) / am::TILE_ROWS),
-                   am::THREADS, stream, smem_out, q, k, v, table, lengths, o,
-                   visited, a.t, a.s_len, a.n_ps, a.h, a.block_k, a.scale);
+  // At T > 1 the dtypes alone pick the body (path_of), so each pair of
+  // dtypes compiles only its own.
+  constexpr bool BF16_Q = std::is_same<Q, __nv_bfloat16>::value;
+  if constexpr (BF16_Q && !std::is_same<KV, float>::value) {  // mma, q8mma
+    return start(mma_decode_kernel<KV, D, PAGED>, 0,
+                 MmaChunk<KV, D>::BYTES + bt,
+                 dim3(a.b, a.h, (a.t + am::TILE_ROWS - 1) / am::TILE_ROWS),
+                 am::THREADS, stream, smem_out, q, k, v, ks, vs, table,
+                 lengths, o, visited, a.t, a.s_len, a.n_ps, a.h, a.block_k,
+                 a.scale);
+  } else {
+    constexpr size_t static_smem =
+        sizeof(float) * (ROWS * D + KC * (D + 1) + KC * D);
+    return start(flash_decode_kernel<Q, KV, D, PAGED>, static_smem, bt,
+                 dim3(a.b, a.h, (a.t + ROWS - 1) / ROWS), NTHREADS, stream,
+                 smem_out, q, k, v, ks, vs, table, lengths, o, visited, a.t,
+                 a.s_len, a.n_ps, a.h, a.block_k, a.scale);
   }
-  constexpr size_t static_smem =
-      sizeof(float) * (ROWS * D + KC * (D + 1) + KC * D);
-  return start(flash_decode_kernel<Q, KV, D, PAGED>, static_smem, bt,
-               dim3(a.b, a.h, (a.t + ROWS - 1) / ROWS), NTHREADS, stream,
-               smem_out, q, k, v, ks, vs, table, lengths, o, visited, a.t,
-               a.s_len, a.n_ps, a.h, a.block_k, a.scale);
 }
 
 template <typename Q, typename KV, bool PAGED>
@@ -793,7 +895,7 @@ int mpit_flash_paged_decode(const void* q, const void* k, const void* v,
 }
 
 // The body a call with these dtype codes and query width runs: 0 rows,
-// 1 mma, 2 split. The wrapper counts its launches by this answer.
+// 1 mma, 2 split, 3 q8mma. The wrapper counts its launches by this answer.
 int mpit_decode_path(int q_dtype, int kv_dtype, int t) {
   return path_of(q_dtype, kv_dtype, t);
 }

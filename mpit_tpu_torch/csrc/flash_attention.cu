@@ -5,7 +5,8 @@
 //   - mma_fwd_kernel (bf16) and fwd_kernel (f32)
 //                 <- _fwd_kernel     (called from _fwd_packed, :362)
 //   - dq_kernel   <- _bwd_dq_kernel  (called from _bwd_packed, :408)
-//   - dkv_kernel  <- _bwd_dkv_kernel (called from _bwd_packed, :428)
+//   - mma_dkv_kernel (bf16) and dkv_kernel (f32)
+//                 <- _bwd_dkv_kernel (called from _bwd_packed, :428)
 //
 // What they compute (one head of one sequence at a time; query i and key j
 // sit at global positions q_offset + i and k_offset + j; with causal set,
@@ -33,20 +34,38 @@
 // the tiles that hold a masked key. Rows past T load as zeros and are not
 // stored.
 //
-// The f32 forward and both backward kernels do their products with f32
-// FMAs on the CUDA cores (for f32 inputs the only way to keep f32
-// accuracy), so in practice they are bound by those FMAs and the
-// shared-memory reads that feed them. What their design does about it:
-// every operand tile is read from device memory once per block and staged
-// in shared memory as f32, the [T, T] scores never leave registers and
-// shared memory, and fully masked key tiles (forward, dq) or query tiles
-// (dkv) are never visited: each block computes its own trip count from the
-// offsets, as the TPU kernel does. Each thread holds a 4 x 4 piece of the
-// 64 x 64 score tile (rows ty + 16 i, columns tx + 16 j) so that every
-// shared-memory read in the inner loops is either a broadcast or 16
-// consecutive words. Tiles are staged transposed ([D][65]); the odd row
-// stride lets the backward's second products read the same tiles along
-// the other axis without bank conflicts, so no operand is loaded twice.
+// The bf16 dk/dv backward, mma_dkv_kernel, runs on the tensor cores with
+// the same fragments, turned the other way: 4 warps a block, 16 KEY rows a
+// warp, whose K and V A-fragments it holds in registers for the whole query
+// loop; tiles of 64 queries (Q, dO, and their lse and delta rows)
+// double-buffered through cp.async, each taken by a warp in two halves of
+// 32 queries. Per half: S^T = K Q^T and dP^T = V dO^T (B-fragments from Q
+// and dO by ldmatrix), p = exp(S^T scale - lse) from the f32 score,
+// ds = p (dp - delta) from the unrounded p, then dV += round(p) dO and
+// dK += round(ds) Q with the rounded p and ds repacked in registers from
+// the C-fragments as A-fragments (P and dS never touch shared memory) and
+// the B-fragments from dO and Q by ldmatrix.trans. Every operand of the
+// four products is bf16 in the reference too (p.astype(do.dtype),
+// ds.astype(q.dtype)), so these are its rounding points one for one. A
+// half whose every pair is masked is skipped, the causal mask is applied
+// only where a pair is masked, and rows past T load as zeros and are
+// masked.
+//
+// The f32 forward and both f32 backward kernels, and the bf16 dq kernel, do
+// their products with f32 FMAs on the CUDA cores (for f32 inputs the only
+// way to keep f32 accuracy), so in practice they are bound by those FMAs
+// and the shared-memory reads that feed them. What their design does about
+// it: every operand tile is read from device memory once per block and
+// staged in shared memory as f32, the [T, T] scores never leave registers
+// and shared memory, and fully masked key tiles (forward, dq) or query
+// tiles (dkv) are never visited: each block computes its own trip count
+// from the offsets, as the TPU kernel does. Each thread holds a 4 x 4
+// piece of the 64 x 64 score tile (rows ty + 16 i, columns tx + 16 j) so
+// that every shared-memory read in the inner loops is either a broadcast
+// or 16 consecutive words. Tiles are staged transposed ([D][65]); the odd
+// row stride lets the backward's second products read the same tiles
+// along the other axis without bank conflicts, so no operand is loaded
+// twice.
 //
 // Layout: q, k, v, o, dO, dq, dk, dv are [B, T, H, D], all of one dtype, f32
 // or bf16; lse and delta are [B, H, T] f32. o, dO, dq, dk and dv are
@@ -54,7 +73,7 @@
 // read in place at one batch and row stride shared by the three, so the
 // model hands over the split thirds of its fused qkv projection (row
 // stride 3 H D) without a copy. Grid (ceil(T / 64), H, B); 128 threads for
-// mma_fwd_kernel, 256 for the others.
+// mma_fwd_kernel and mma_dkv_kernel, 256 for the others.
 // The last tile of a T that is not a multiple of 64 is masked: its missing
 // rows load as zeros, their keys are masked and their rows are not stored.
 //
@@ -606,6 +625,209 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
+// The bf16 dk/dv backward on the tensor cores (see the note at the top).
+// Dynamic shared memory: the block's K and V tiles, two stages of Q tiles,
+// two of dO tiles (all [64][D + 8] bf16), then two stages of the query
+// tile's lse and delta rows (f32 [64] each). At most two blocks an SM: the
+// K/V fragments, both accumulators and the half's S^T and dP^T take about
+// 4 D + 64 registers a thread (160 at D 64).
+template <int D>
+constexpr int mma_dkv_smem() {
+  return 6 * am::TILE_KEYS * am::ld<D>() * 2 + 2 * 2 * BQ * 4;
+}
+
+template <int D>
+__global__ void __launch_bounds__(am::THREADS, 2)
+    mma_dkv_kernel(const __nv_bfloat16* __restrict__ q,
+                   const __nv_bfloat16* __restrict__ k,
+                   const __nv_bfloat16* __restrict__ v,
+                   const __nv_bfloat16* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta,
+                   __nv_bfloat16* __restrict__ dk,
+                   __nv_bfloat16* __restrict__ dv, Geo g) {
+  constexpr int TILE = am::TILE_KEYS * am::ld<D>();  // elements of a tile
+  constexpr int KD = D / 16;  // k-steps of K Q^T and V dO^T
+  constexpr int ND = D / 8;   // 8-column blocks of dK and dV
+  constexpr int HALF = 32;    // queries a warp takes at once
+  static_assert(am::THREADS == 2 * BQ, "one lse or delta row a thread");
+  extern __shared__ uint4 mma_smem[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(mma_smem);
+  __nv_bfloat16* vs = ks + TILE;
+  __nv_bfloat16* qs = vs + TILE;        // [2] Q tiles
+  __nv_bfloat16* dos = qs + 2 * TILE;   // [2] dO tiles
+  float* rows_s = reinterpret_cast<float*>(dos + 2 * TILE);  // [2][lse, delta]
+
+  const int ki = blockIdx.x, head = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nq = (g.t + BQ - 1) / BQ;
+  const int q_start = first_query_tile(g, ki);
+  const int k0 = ki * BK + warp * 16;  // the warp's first key row
+  const size_t head_at = (size_t)(b * g.in_bstride + head * D);
+  const __nv_bfloat16 *q_h = q + head_at, *k_h = k + head_at,
+                      *v_h = v + head_at;
+  // Row t0 + r of one head of q, k or v at the inputs' strides; nullptr
+  // past T.
+  auto rows = [&](const __nv_bfloat16* base, int t0) {
+    return [=](int r) -> const __nv_bfloat16* {
+      return t0 + r < g.t ? base + (size_t)((t0 + r) * g.in_tstride) : nullptr;
+    };
+  };
+  // Query tile qb's Q and dO rows, lse and delta (0 past T: those rows are
+  // masked) into stage slot.
+  auto stage_q = [&](int qb, int slot) {
+    const int t0 = qb * BQ;
+    am::stage_rows<D>(qs + slot * TILE, q_h, rows(q_h, t0));
+    am::stage_rows<D>(dos + slot * TILE, dout,
+                      [&](int r) -> const __nv_bfloat16* {
+                        return t0 + r < g.t
+                                   ? dout + row_index(g, b, t0 + r, head, D)
+                                   : nullptr;
+                      });
+    const int r = threadIdx.x % BQ;
+    const bool ok = t0 + r < g.t;
+    const size_t at = ((size_t)b * g.h + head) * g.t + (ok ? t0 + r : 0);
+    if (threadIdx.x < BQ)
+      am::cp_async4(rows_s + slot * 2 * BQ + r, lse + at, ok);
+    else
+      am::cp_async4(rows_s + slot * 2 * BQ + BQ + r, delta + at, ok);
+  };
+
+  if (q_start < nq) {
+    am::stage_rows<D>(ks, k_h, rows(k_h, ki * BK));
+    am::stage_rows<D>(vs, v_h, rows(v_h, ki * BK));
+    stage_q(q_start, 0);
+  }
+  am::cp_async_commit();
+
+  uint32_t kf[KD][4], vf[KD][4];
+  float dk_acc[ND][4], dv_acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
+  for (int qb = q_start; qb < nq; ++qb) {
+    const int slot = (qb - q_start) & 1;
+    am::cp_async_wait<0>();  // tile qb (and, first, the K and V tiles) landed
+    // ... and every warp is done with tile qb - 1, whose stage the next
+    // copies fill.
+    __syncthreads();
+    if (qb + 1 < nq) stage_q(qb + 1, slot ^ 1);
+    am::cp_async_commit();
+    if (qb == q_start) {
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        const int at = (warp * 16 + (lane & 15)) * am::ld<D>() + kk * 16 +
+                       (lane >> 4) * 8;
+        am::ldsm_x4(kf[kk], ks + at);
+        am::ldsm_x4(vf[kk], vs + at);
+      }
+    }
+    const __nv_bfloat16* q_s = qs + slot * TILE;
+    const __nv_bfloat16* do_s = dos + slot * TILE;
+    const float* lse_s = rows_s + slot * 2 * BQ;
+    const float* delta_s = lse_s + BQ;
+#pragma unroll 1
+    for (int c0 = 0; c0 < BQ; c0 += HALF) {
+      const int q0 = qb * BQ + c0;  // the half's first query row
+      // Every pair of the half masked: nothing to add.
+      if (q0 >= g.t ||
+          (g.causal && (long long)g.q_offset + q0 + HALF - 1 <
+                           (long long)g.k_offset + k0))
+        continue;
+      const bool masked =
+          q0 + HALF > g.t || k0 + 16 > g.t ||
+          (g.causal &&
+           (long long)g.q_offset + q0 < (long long)g.k_offset + k0 + 15);
+      // S^T and dP^T of the warp's 16 keys x the half's 32 queries: one
+      // ldmatrix.x4 gives the B fragments of two 8-query blocks for one
+      // k-step (as K's in attn_mma.cuh's Rows16::step).
+      float st[HALF / 8][4], dpt[HALF / 8][4];
+#pragma unroll
+      for (int n = 0; n < HALF / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
+#pragma unroll
+      for (int np = 0; np < HALF / 16; ++np) {
+#pragma unroll
+        for (int kk = 0; kk < KD; ++kk) {
+          const int at =
+              (c0 + np * 16 + (lane & 7) + ((lane >> 4) << 3)) * am::ld<D>() +
+              kk * 16 + ((lane >> 3) & 1) * 8;
+          uint32_t bm[4];
+          am::ldsm_x4(bm, q_s + at);
+          am::mma_bf16(st[2 * np], kf[kk], bm[0], bm[1]);
+          am::mma_bf16(st[2 * np + 1], kf[kk], bm[2], bm[3]);
+          am::ldsm_x4(bm, do_s + at);
+          am::mma_bf16(dpt[2 * np], vf[kk], bm[0], bm[1]);
+          am::mma_bf16(dpt[2 * np + 1], vf[kk], bm[2], bm[3]);
+        }
+      }
+      // p from the f32 score, ds from the unrounded p.
+#pragma unroll
+      for (int n = 0; n < HALF / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = n * 8 + am::frag_col(lane, e);  // query of the half
+          float x = st[n][e] * g.scale;
+          if (masked) {
+            const int qrow = q0 + c, krow = k0 + am::frag_row(lane, e);
+            const bool ok = qrow < g.t && krow < g.t &&
+                            (!g.causal || g.q_offset + qrow >= g.k_offset + krow);
+            if (!ok) x = NEG_BIG;
+          }
+          const float p = p_from_lse(x, lse_s[c0 + c]);
+          st[n][e] = p;
+          dpt[n][e] = p * (dpt[n][e] - delta_s[c0 + c]);
+        }
+      // dV += round(P^T) dO and dK += round(dS^T) Q, 16 queries a k-step:
+      // the C fragments of two neighbouring 8-query blocks are the A
+      // fragment; ldmatrix.trans of [query][d] rows gives the B fragments
+      // of two 8-column blocks (as V's in Rows16::step).
+#pragma unroll
+      for (int kk = 0; kk < HALF / 16; ++kk) {
+        uint32_t ap[4], ads[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int n = 2 * kk + (r >> 1), e = 2 * (r & 1);
+          ap[r] = am::pack_bf16(st[n][e], st[n][e + 1]);
+          ads[r] = am::pack_bf16(dpt[n][e], dpt[n][e + 1]);
+        }
+#pragma unroll
+        for (int np = 0; np < ND / 2; ++np) {
+          const int at =
+              (c0 + kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * am::ld<D>() +
+              np * 16 + (lane >> 4) * 8;
+          uint32_t bm[4];
+          am::ldsm_x4_trans(bm, do_s + at);
+          am::mma_bf16(dv_acc[2 * np], ap, bm[0], bm[1]);
+          am::mma_bf16(dv_acc[2 * np + 1], ap, bm[2], bm[3]);
+          am::ldsm_x4_trans(bm, q_s + at);
+          am::mma_bf16(dk_acc[2 * np], ads, bm[0], bm[1]);
+          am::mma_bf16(dk_acc[2 * np + 1], ads, bm[2], bm[3]);
+        }
+      }
+    }
+  }
+  am::cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = k0 + (lane >> 2) + 8 * i;
+    if (row >= g.t) continue;
+    const size_t at = row_index(g, b, row, head, D) + ((lane & 3) << 1);
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + at + n * 8) =
+          __floats2bfloat162_rn(dk_acc[n][2 * i] * g.scale,
+                                dk_acc[n][2 * i + 1] * g.scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + at + n * 8) =
+          __floats2bfloat162_rn(dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
+    }
+  }
+}
+
 // Dynamic shared memory of each kernel, in bytes.
 template <int D>
 constexpr size_t fwd_smem() {
@@ -620,6 +842,9 @@ constexpr size_t dkv_smem() {
   return sizeof(float) * (4 * D * LD + 2 * BK * BQ + 2 * BQ);
 }
 static_assert(dkv_smem<128>() <= 232448, "dkv tile exceeds shared memory");
+// Two blocks an SM fit its 228 KB of shared memory (1 KB of it reserved a
+// block) at every head dim.
+static_assert(2 * (mma_dkv_smem<128>() + 1024) <= 233472, "mma dkv tiles");
 
 dim3 grid_of(const Geo& g) { return dim3((g.t + 63) / 64, g.h, g.b); }
 
@@ -665,9 +890,15 @@ int launch(int kind, const Ptrs& p, const Geo& g, cudaStream_t stream) {
     return run(kernel, NT, dq_smem<D>(), g, stream, q, k, v, dout, lse,
                delta, static_cast<T*>(p.dq));
   }
-  auto kernel = dkv_kernel<T, D>;
-  return run(kernel, NT, dkv_smem<D>(), g, stream, q, k, v, dout, lse, delta,
-             static_cast<T*>(p.dk), static_cast<T*>(p.dv));
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    auto kernel = mma_dkv_kernel<D>;
+    return run(kernel, am::THREADS, mma_dkv_smem<D>(), g, stream, q, k, v,
+               dout, lse, delta, static_cast<T*>(p.dk), static_cast<T*>(p.dv));
+  } else {
+    auto kernel = dkv_kernel<T, D>;
+    return run(kernel, NT, dkv_smem<D>(), g, stream, q, k, v, dout, lse,
+               delta, static_cast<T*>(p.dk), static_cast<T*>(p.dv));
+  }
 }
 
 template <typename T>

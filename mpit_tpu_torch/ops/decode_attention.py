@@ -16,11 +16,15 @@ both wrappers launch the hand-written kernel in
 K/V may be f32, bf16, or :class:`~mpit_tpu_torch.ops.kv_quant.QuantizedKV`
 (int8 rows and per-(row, head) f32 scales, which the kernel dequantizes
 as it reads the rows it visits); q is f32 or bf16, independently of
-K/V. The kernel has three bodies, picked by :func:`_decode_path` from
+K/V. The kernel has four bodies, picked by :func:`_decode_path` from
 the dtypes and the query width alone: ``split`` for T = 1 (the decode
 tick: the block's warps share the slot's keys and merge at the end),
 ``mma`` for bf16 q and K/V at T > 1 (the bf16 prefills, on the tensor
-cores) and ``rows`` for the rest (int8 K/V or an f32 operand at T > 1). :func:`reference_decode_attention` and
+cores), ``q8mma`` for bf16 q over int8 K/V at T > 1 (the int8-K/V
+prefills, on the tensor cores: the int8 rows are exact in bf16, and p
+times the V scale enters the PV product as three bf16 pieces, so it
+keeps f32 precision as the JAX kernel's f32 p does) and ``rows`` for
+the rest (an f32 operand at T > 1). :func:`reference_decode_attention` and
 :func:`reference_paged_decode_attention` are the plain versions (the
 einsum attention with an f32 softmax over the whole gathered,
 dequantized cache); the wrappers take them only for tensors that lie on
@@ -61,15 +65,15 @@ _MAX_SMEM = 232448
 _KC, _ROWS = 32, 4  # rows body: keys a chunk, query rows a block
 _SPLIT_WARPS = 4  # split body: warps sharing a slot's chunks
 _SPLIT_DOUBLE_MAX = 192 * 1024  # split body: double-buffered below this
-_MMA_TILE = 64  # mma body: query rows and keys of a tile
+_MMA_TILE = 64  # mma and q8mma bodies: query rows and keys of a tile
 
 _PATHS = {
     "flash_decode_attention": ("split", "mma", "rows"),
-    "flash_decode_attention_int8": ("split", "rows"),
+    "flash_decode_attention_int8": ("split", "q8mma", "rows"),
     "flash_paged_decode_attention": ("split", "mma", "rows"),
-    "flash_paged_decode_attention_int8": ("split", "rows"),
+    "flash_paged_decode_attention_int8": ("split", "q8mma", "rows"),
 }
-_C_PATHS = ("rows", "mma", "split")  # mpit_decode_path's answers, in order
+_C_PATHS = ("rows", "mma", "split", "q8mma")  # mpit_decode_path's answers, in order
 # Launches of each form of the CUDA kernel since the counts were last set
 # to 0, and of each "<form>/<body>"; a wrapper adds one to both where it
 # launches, and nowhere else.
@@ -117,16 +121,17 @@ def num_kv_blocks(lengths, t_q: int, s: int, block_k: int):
 def _decode_path(q_dtype, kv_dtype, t: int) -> str:
     """The body a kernel call runs (``kv_dtype`` is the payload's:
     ``torch.int8`` for QuantizedKV): ``"split"`` at T = 1, ``"mma"`` for
-    bf16 q and K/V at T > 1, else ``"rows"``. The C entry points apply
-    the same rule (``path_of`` in ``csrc/decode_attention.cu``); the
-wrapper counts a launch by the C answer and refuses a call where the
-two part. The
-    int8 prefill stays on ``rows``: the JAX kernel keeps p in f32 against
-    dequantized V, which a bf16 tensor-core product would round."""
+    bf16 q and K/V at T > 1, ``"q8mma"`` for bf16 q over int8 K/V at
+    T > 1, else ``"rows"``. The C entry points apply the same rule
+    (``path_of`` in ``csrc/decode_attention.cu``); the wrapper counts a
+    launch by the C answer and refuses a call where the two part. An f32
+    operand keeps T > 1 on ``rows``: f32 products need f32 FMAs."""
     if t == 1:
         return "split"
     if q_dtype == torch.bfloat16 and kv_dtype == torch.bfloat16:
         return "mma"
+    if q_dtype == torch.bfloat16 and kv_dtype == torch.int8:
+        return "q8mma"
     return "rows"
 
 
@@ -141,6 +146,8 @@ def _smem_bytes(path: str, d: int, pages_per_slot: int, kv_dtype) -> int:
         return 4 * (_ROWS * d + _KC * (d + 1) + _KC * d) + table
     if path == "mma":  # the Q tile and two stages of K and V, [64][d + 8] bf16
         return 5 * _MMA_TILE * (d + 8) * 2 + table
+    if path == "q8mma":  # Q, K and V tiles as bf16; two stages of int8 K, V rows and scales
+        return 3 * _MMA_TILE * (d + 8) * 2 + 2 * (2 * _MMA_TILE * d + 2 * _MMA_TILE * 4) + table
     if path == "split":
         stage = 2 * _KC * (d * kv_dtype.itemsize + 16) + (2 * _KC * 4 if kv_dtype == torch.int8 else 0)
         stages = 2 if _SPLIT_WARPS * 2 * stage <= _SPLIT_DOUBLE_MAX else 1

@@ -21,8 +21,8 @@ backward recomputes the scores blockwise in two kernels (dq; dk/dv) from
 into delta, since ``d lse / d s = p``.
 
 On the card the three steps launch the hand-written kernels of
-``csrc/flash_attention.cu`` (the bf16 forward on the tensor cores, the
-f32 forward and the backward on f32 FMAs); on the CPU they run their
+``csrc/flash_attention.cu`` (the bf16 forward and dk/dv on the tensor
+cores, dq and every f32 kernel on f32 FMAs); on the CPU they run their
 plain versions
 (:func:`flash_fwd_plain` = :func:`reference_attention_with_lse`,
 :func:`flash_dq_plain`, :func:`flash_dkv_plain`), which compute the same

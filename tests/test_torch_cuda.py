@@ -1,11 +1,13 @@
 """mpit_tpu_torch's CUDA kernels on the GPU, against their plain versions.
 
 The flash-decode kernel in all four forms (dense and paged, each with
-f32/bf16 or int8 K/V) and on each of its three bodies (split, mma,
-rows, checked through ``path_launches``; the body rule and the shared
-memory each body takes, against the kernel library), the int8 weight
-store's fused-dequant matmul, the training flash attention's forward, dq and dk/dv kernels (alone, in
-autograd, and in three tiny training steps against plain attention),
+f32/bf16 or int8 K/V) and on each of its four bodies (split, mma,
+q8mma, rows, checked through ``path_launches``; the body rule and the
+shared memory each body takes, against the kernel library), the int8
+weight store's fused-dequant matmul, the training flash attention's
+forward, dq and dk/dv kernels (alone, the bf16 dk/dv on the tensor
+cores at every head dim, in autograd, and in three tiny training steps
+against plain attention),
 the ring reduce-scatter and all-gather kernels, sum and int8 wire
 (bit-equal to their plain versions, and in tiny training steps over
 four ranks against the plain collectives), and the KV shipment's copy
@@ -23,8 +25,9 @@ Tolerances: f32 within 1e-4 (different summation order, TF32 off);
 bf16 within 5e-2, the JAX package's own bf16 kernel tolerance. int8 K/V
 take q's tolerance: both sides dequantize the same bytes to f32; with a
 bf16 q the kernel keeps p in f32 (V is f32 once dequantized, as on the
-TPU) where the plain version rounds the probabilities to bf16, a
-difference well inside 5e-2. The matmul is held within 1e-4 x max(1,
+TPU; on the q8mma body p times the V scale enters the PV product as
+three bf16 pieces that sum to it within 2^-27) where the plain version
+rounds the probabilities to bf16, a difference well inside 5e-2. The matmul is held within 1e-4 x max(1,
 max |plain|) for f32 and bf16 x alike: bf16 -> f32 is exact, both sides
 dequantize to the same f32 weights and sum in f32, in other orders.
 """
@@ -135,9 +138,9 @@ def _path_delta(before):
 def test_decode_bodies_match_plain(cuda, kv, ps, t):
     """Each body at the query widths around its tiles (T 1: split; bf16
     T 64, 65, 128: mma, with a ragged 64-row tile at 65; int8 T > 1:
-    rows), dense and paged (pages scrambled), lengths 0, 5, 100 and
-    S - T; bf16 within 5e-2, visited exact, and the launch counted on
-    the body that ran."""
+    q8mma, likewise), dense and paged (pages scrambled), lengths 0, 5,
+    100 and S - T; bf16 within 5e-2, visited exact, and the launch
+    counted on the body that ran."""
     b, h, d, s = 4, 3, 64, 256
     q = _randn((b, t, h, d), t, torch.bfloat16)
     lens = torch.tensor([0, 5, 100, s - t], dtype=torch.int32, device="cuda")
@@ -153,7 +156,7 @@ def test_decode_bodies_match_plain(cuda, kv, ps, t):
     form = ("flash_decode_attention" if ps is None else "flash_paged_decode_attention")
     form += "_int8" if kv == "int8" else ""
     path = tda._decode_path(torch.bfloat16, torch.int8 if kv == "int8" else torch.bfloat16, t)
-    assert path == ("split" if t == 1 else "rows" if kv == "int8" else "mma")
+    assert path == ("split" if t == 1 else "q8mma" if kv == "int8" else "mma")
     before = dict(tda.path_launches)
     if ps is None:
         out, vis = tda.flash_decode_attention(q, k, v, lens, return_visited=True)
@@ -169,14 +172,14 @@ def test_decode_bodies_match_plain(cuda, kv, ps, t):
     assert torch.equal(vis.cpu(), want)
 
 
-@pytest.mark.parametrize("t", [1, 3, 64], ids=["split", "mma3", "mma64"])
+@pytest.mark.parametrize("t", [1, 3, 64, 65], ids=["split", "mma3", "mma64", "mma65"])
 @pytest.mark.parametrize("int8", [False, True], ids=["plain", "int8"])
 def test_identity_paged_equals_dense_bitwise(cuda, int8, t):
     """The paged kernel over a pool whose block table maps slot b's
     pages in order onto its own dense rows reads the very values the
     dense kernel reads, in the same order: equal bit for bit, on the
-    split body (T 1) and on the mma body (bf16, T > 1; int8 takes the
-    rows body there)."""
+    split body (T 1) and on the tensor-core bodies at T > 1 (mma for
+    bf16 K/V, q8mma for int8)."""
     b, h, d, s, ps = 4, 12, 64, 256, 16
     q = _randn((b, t, h, d), 0, torch.bfloat16)
     k, v = (_randn((b, s, h, d), seed, torch.bfloat16) for seed in (1, 2))
@@ -191,13 +194,67 @@ def test_identity_paged_equals_dense_bitwise(cuda, int8, t):
     before = dict(tda.path_launches)
     dense = tda.flash_decode_attention(q, k, v, lens, block_k=bk)
     paged = tda.flash_paged_decode_attention(q, kp, vp, lens, bt, block_k=bk)
-    path = "split" if t == 1 else "rows" if int8 else "mma"
+    path = "split" if t == 1 else "q8mma" if int8 else "mma"
     suffix = "_int8" if int8 else ""
     assert _path_delta(before) == {
         f"flash_decode_attention{suffix}/{path}": 1,
         f"flash_paged_decode_attention{suffix}/{path}": 1,
     }
     assert torch.equal(dense, paged)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("ps", [None, 16, 64], ids=["dense", "ps16", "ps64"])
+@pytest.mark.parametrize("t", [2, 65, 128])
+def test_q8mma_body_matches_plain(cuda, d, ps, t):
+    """The int8 tensor-core body (bf16 q over int8 K/V) at every head
+    dim, dense and paged (pages scrambled, two slots sharing pages),
+    T 2, a ragged 65 and 128, slot lengths spread from 0 to S - T:
+    within 5e-2 of the plain version, visited exact, one launch on
+    q8mma; and an f32 q over the same K/V still runs rows (1e-4).
+
+    q8mma keeps p in f32, as the reference's f32 p against the f32
+    dequantized V does, through its hi/mid/lo split of p * v_scale; the
+    plain version with the bf16 q rounds p to bf16 instead, so 5e-2 alone
+    cannot see the split. So its output is also held to the plain
+    version with q taken to f32 (every operand f32), rounded once to
+    bf16: within one bf16 step at the largest output, 2^-8 max |ref|,
+    and equal in at least 99% of the elements (f32 sums in another order
+    flip a rounding only next to a tie). The body with hi alone leaves
+    that limit: its model matches in fewer than 70% of the elements
+    (test_torch_decode_attention.py::test_q8mma_split_is_what_keeps_p_in_f32)."""
+    b, h, s = 6, 3, 256
+    lens = torch.linspace(0, s - t, b).int().cuda()
+    q = _randn((b, t, h, d), t + d, torch.bfloat16)
+    if ps is None:
+        k, v = (quantize_kv(_randn((b, s, h, d), seed, torch.bfloat16)) for seed in (1, 2))
+        run = lambda x: tda.flash_decode_attention(x, k, v, lens, return_visited=True)  # noqa: E731
+        plain = lambda x: tda.reference_decode_attention(x, k, v, lens)  # noqa: E731
+        form, bk = "flash_decode_attention_int8", tda.pick_block_k(s)
+    else:
+        p = b * (s // ps) + 3
+        k, v = (quantize_kv(_randn((p, ps, h, d), seed, torch.bfloat16)) for seed in (1, 2))
+        bt = torch.randperm(p, generator=torch.Generator().manual_seed(t + d))[: b * (s // ps)]
+        bt = bt.reshape(b, s // ps).int()
+        bt[1, :2] = bt[0, :2]
+        bt = bt.cuda()
+        run = lambda x: tda.flash_paged_decode_attention(x, k, v, lens, bt, return_visited=True)  # noqa: E731
+        plain = lambda x: tda.reference_paged_decode_attention(x, k, v, lens, bt)  # noqa: E731
+        form, bk = "flash_paged_decode_attention_int8", tda.pick_block_k(ps)
+    ref32 = plain(q.float()).float()
+    for x, path, tol in ((q, "q8mma", 5e-2), (q.float(), "rows", 1e-4)):
+        before = dict(tda.path_launches)
+        out, vis = run(x)
+        torch.cuda.synchronize()
+        assert _path_delta(before) == {f"{form}/{path}": 1}
+        assert out.dtype == x.dtype and bool(torch.isfinite(out).all())
+        assert (out.float() - plain(x).float()).abs().max().item() <= tol
+        assert torch.equal(vis.cpu(), tda.num_kv_blocks(lens.cpu(), t, s, bk))
+        if path == "q8mma":
+            step = 2.0**-8 * ref32.abs().max().item()
+            assert (out.float() - ref32).abs().max().item() <= step
+            share = (out.float() == ref32.bfloat16().float()).float().mean().item()
+            assert share >= 0.99, share
 
 
 @pytest.mark.parametrize("t", [1, 2, 64, 65, 128])
@@ -388,6 +445,45 @@ def test_flash_forward_mma_matches_plain(cuda, t, q_off, k_off, fused):
     assert (lse - want_lse).abs().max().item() <= 1e-4
     if k_off >= q_off + t:
         assert bool((o == 0).all()) and bool((lse == -1e30).all())
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize(
+    "t,q_off,k_off,fused",
+    [
+        (65, 0, 0, False),  # a ragged key tile of one row
+        (512, 0, 0, True),  # the model's fused qkv views, read in place
+        (1024, 0, 0, False),
+        (512, 256, 0, False),  # every key tile sees the query tiles from its own
+        (512, 0, 512, False),  # keys wholly in the queries' future
+    ],
+)
+def test_flash_dkv_mma_matches_plain(cuda, d, t, q_off, k_off, fused):
+    """The bf16 dk/dv kernel (the tensor-core body) against its plain
+    version, fed by the plain forward's lse and delta with a non-zero
+    lse cotangent: dk and dv within 5e-2 (bf16 outputs rounded once,
+    after sums taken in another order), one dkv launch; keys wholly in
+    the future give exactly 0."""
+    from mpit_tpu_torch.ops import flash_attention as tfa
+
+    b, h = 2, 3
+    q, k, v, do = (_randn((b, t, h, d), s + d, torch.bfloat16) for s in range(4))
+    if fused:
+        q, k, v = torch.cat((q, k, v), dim=2).split(h, dim=2)
+    geo = dict(q_offset=q_off, k_offset=k_off, causal=True)
+    o, lse = tfa.flash_fwd_plain(q, k, v, **geo)
+    delta = tfa._delta(o, do, _randn((b, h, t), 9, torch.float32))
+    before = tfa.launches["dkv"]
+    dk, dv = tfa.flash_dkv(q, k, v, do, lse, delta, q_off, k_off, True)
+    torch.cuda.synchronize()
+    assert tfa.launches["dkv"] == before + 1
+    want = tfa.flash_dkv_plain(q, k, v, do, lse, delta, **geo)
+    for got, ref in zip((dk, dv), want):
+        assert got.dtype == torch.bfloat16
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= 5e-2, err
+    if k_off >= q_off + t:
+        assert not dk.any() and not dv.any()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

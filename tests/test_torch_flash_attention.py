@@ -184,3 +184,29 @@ def test_bf16_forward_ragged_tile_matches_jax():
         o.float().numpy(), np.asarray(want_o.astype(jnp.float32)), rtol=0, atol=2e-2
     )
     np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), rtol=1e-5, atol=1e-5)
+
+
+def test_bf16_dkv_ragged_tile_matches_jax():
+    """A boundary of the tensor-core dk/dv kernel: bf16 inputs, T = 65
+    (one whole 64-key tile and a tile of a single key, which every query
+    of the second query tile sees), causal. dk and dv of the kernel's
+    plain version, fed by the plain forward's lse and delta, against
+    ``jax.vjp`` of JAX's reference forward (its CPU tests' path) in
+    bf16, within 2e-2: both round their outputs to bf16 and feed their
+    last products bf16 operands, but autodiff reaches ds through the
+    normalized softmax where the kernels take exp(s - lse) and delta, so
+    sums in another order may land on either side of a rounding
+    boundary: one bf16 step at the largest values here (1/64 in
+    [2, 4))."""
+    q, k, v, do = _arrays((2, 65, 3, 16), 4, 12)
+    bf = lambda x: jnp.asarray(x, jnp.bfloat16)  # noqa: E731
+    _, vjp = jax.vjp(lambda k, v: jfa.reference_attention_with_lse(bf(q), k, v)[0], bf(k), bf(v))
+    want_dk, want_dv = vjp(bf(do))
+    tq, tk, tv, tdo = (torch.from_numpy(x).bfloat16() for x in (q, k, v, do))
+    o, lse = tfa.flash_fwd_plain(tq, tk, tv)
+    dk, dv = tfa.flash_dkv_plain(tq, tk, tv, tdo, lse, tfa._delta(o, tdo, None))
+    assert dk.dtype == dv.dtype == torch.bfloat16
+    for got, want in ((dk, want_dk), (dv, want_dv)):
+        ref = np.asarray(want.astype(jnp.float32))
+        assert np.abs(ref).max() < 4
+        np.testing.assert_allclose(got.float().numpy(), ref, rtol=0, atol=2e-2)
