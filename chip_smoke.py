@@ -119,9 +119,11 @@ for an H100). Phases, each of which raises (exit code != 0) on failure:
    for the forward, its autograd backward (dq, dk and dv in one call,
    the forward already run) for dq and dk/dv; neither gives an lse, and
    the port never calls them; beside the earlier design's time at the same case
-   (``BEFORE_FLASH_MS``) and the body (``path``: ``mma`` for the bf16
-   forward and dk/dv on the tensor cores, ``fma`` for dq and the f32
-   kernels). Every case goes to ``chiprun_out/chip_smoke_flash.json``;
+   (``BEFORE_FLASH_MS``) and the body (``path``: ``mma`` for every bf16
+   kernel on the tensor cores, ``fma`` for the f32 kernels, as the C
+   library named it for each launch, counted in ``path_launches``; one
+   launch of each kernel on that body, or the phase fails). Every case goes to
+   ``chiprun_out/chip_smoke_flash.json``;
 4t. train — ``python -m mpit_tpu_torch.asyncsgd gpt2``'s ``main`` in
    process with ``--flash true --steps 30 --log-every 1``: GPT-2 small at
    full width (12 layers, d_model 768, 12 heads, vocab 50257), seq 512,
@@ -129,7 +131,7 @@ for an H100). Phases, each of which raises (exit code != 0) on failure:
    with bf16 products. All 30 per-step losses are finite and the mean of
    steps 26-30 is below the mean of steps 1-5; the
    fwd, dq and dkv launch counts, set to 0 just before, each reach 12 x
-   steps. Prints step time p50/p95 (device timeline), tokens/s and peak
+   steps, and every dq launch ran the ``mma`` body. Prints step time p50/p95 (device timeline), tokens/s and peak
    device memory; times the LM head (``lm_head_xent`` forward and
    backward at 4096 tokens) on its own, and profiles three more steps
    (``torch.profiler``: device busy time by kernel family, idle share);
@@ -138,7 +140,11 @@ for an H100). Phases, each of which raises (exit code != 0) on failure:
    step at full width and depth: per-step losses within 1e-4 relative.
 3e. kernel vs plain, ring collectives — the reduce-scatter and all-gather
    kernels, sum and int8 wire, against their plain versions (the same
-   ring order hop by hop), BIT FOR BIT: p 2, 4 and 8 at 8192 rows a chunk
+   ring order hop by hop), BIT FOR BIT; the sum reduce-scatter runs as
+   the one-card fold (``schedule`` ``fold``), the others on the ring's
+   hop schedule (``hops``), and the sum on the hop schedule is held too
+   in one case (p 4, 8192 rows, f32, through its private entry, the
+   form across cards): p 2, 4 and 8 at 8192 rows a chunk
    (GPT-2 small's 4 MiB f32 bucket), f32 and bf16 for the sum forms, f32
    for the q8 forms; GPT-2 small's ragged tail bucket at p 4, read in
    place from a wider buffer as the bucket loop reads it; an all-zero
@@ -148,8 +154,11 @@ for an H100). Phases, each of which raises (exit code != 0) on failure:
    (``xs.view(p, p, c).sum(0)`` for a reduce-scatter, an expand-and-copy
    of the concatenated shards for an all-gather; the port's ``psum``
    mode, never called by the ring modes) over 20 cold-L2 calls, beside
-   the bound and the bytes the ring schedule itself moves. Every case
-   goes to ``chiprun_out/chip_smoke_ring.json``;
+   the bound and the bytes the schedule itself moves (the fold's are the
+   bound's); then, apart from those times, the kernel's and the
+   library's device time with the host time before the launch left out
+   (``device_ms``, ``library_device_ms``) and the wrapper's host time a
+   call (``host_ms``). Every case goes to ``chiprun_out/chip_smoke_ring.json``;
 4d. data-parallel train — phase 4t's run with ``--mesh data=4 --zero1
    true`` and ``--grad-sync ring``, then ``ring_q8``: four ranks on the
    card, 2 sequences each, ZeRO-1 through the ring kernels, 30 steps.
@@ -293,7 +302,7 @@ BEFORE_DECODE_MS = {  # (form, q dtype, page size): {T: (S 512, S 1024)}
     ("flash_paged_decode_attention_int8", "float32", 64): {1: (0.0155, 0.0228), 64: (0.1694, 0.3248)},
 }
 # The flash kernels' cases on the tree of commit 34f96eb, before the
-# tensor-core forward and dk/dv (dq and the f32 kernels are unchanged since).
+# tensor-core forward, dk/dv and dq (the f32 kernels are unchanged since).
 BEFORE_FLASH_MS = {  # (dtype, T, q_offset, k_offset, g_lse, fused): fwd, dq, dkv
     ("bfloat16", 512, 0, 0, False, False): (0.2038, 0.2726, 0.3410),
     ("bfloat16", 1024, 0, 0, False, False): (0.6182, 0.8732, 1.1078),
@@ -346,22 +355,47 @@ def import_port():
         fail(f"mpit_tpu_torch imported from {mpit_tpu_torch.__file__}, not {HERE}")
 
 
-def cold_time_ms(fn, torch, flush, iters: int = 20) -> float:
+def cold_time_ms(fn, torch, flush, iters: int = 20, lead_cycles: int = 0) -> float:
     """Mean device time of ``fn`` over ``iters`` calls, each on a cold L2
     (a 256 MB buffer is rewritten before every timed call). For a call
     of several launches the time between its events includes any wait
-    for the host between them."""
+    for the host between them. With ``lead_cycles`` the device spins that
+    many cycles (``torch.cuda._sleep``) between the flush and the start
+    event, so the host has queued the call's first launch before the event
+    fires: the wrapper's host time before its launch is then left out."""
     for _ in range(3):
         fn()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     for s, e in zip(starts, ends):
         flush.zero_()
+        if lead_cycles:
+            torch.cuda._sleep(lead_cycles)
         s.record()
         fn()
         e.record()
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
+
+
+# Device cycles of the spin before a ``device_ms`` start event (about
+# 0.1 ms at the H100's 1.98 GHz).
+HOST_LEAD_CYCLES = 200_000
+
+
+def host_time_ms(fn, torch, iters: int = 20) -> float:
+    """Mean host time of one call of ``fn`` (its wrapper's checks,
+    allocations, pointer tables and launch), the calls queued back to back
+    without a wait for the card."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host_s * 1e3 / iters
 
 
 def warm_up(torch, seconds: float = 1.0) -> None:
@@ -1011,11 +1045,18 @@ def flash_kernel_phase(torch, flush):
             torch.randn((FLASH_B, H, t), generator=gen, device="cuda") if with_g_lse else None
         )
         geo = dict(q_offset=q_off, k_offset=k_off, causal=True)
+        before = dict(fa.path_launches)
         o, lse = fa.flash_fwd(q, k, v, q_off, k_off, True)
         delta = fa._delta(o, do, g_lse)
         dq = fa.flash_dq(q, k, v, do, lse, delta, q_off, k_off, True)
         dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, q_off, k_off, True)
         torch.cuda.synchronize()
+        # The body of each launch, as the C library named it.
+        ran = {n: c - before[n] for n, c in fa.path_launches.items() if c != before[n]}
+        body = {n.split("/")[0]: n.split("/")[1] for n in ran}
+        want = "mma" if name == "bfloat16" else "fma"
+        if ran != {f"{kind}/{want}": 1 for kind in ("fwd", "dq", "dkv")}:
+            fail(f"flash {name} T={t}: launches by body {ran}, expected one of each on {want}")
         p_o, p_lse = fa.flash_fwd_plain(q, k, v, **geo)
         p_delta = fa._delta(p_o, do, g_lse)
         plain = {"o": p_o, "lse": p_lse,
@@ -1069,7 +1110,7 @@ def flash_kernel_phase(torch, flush):
             cases.append({
                 "form": f"flash_{kind}",
                 # the tensor-core body, or f32 FMAs on the CUDA cores
-                "path": "mma" if kind in ("fwd", "dkv") and name == "bfloat16" else "fma",
+                "path": body[kind],
                 "before_ms": earlier[i],
                 "dtype": name, "B": FLASH_B, "T": t, "H": H,
                 "Dh": DH, "q_offset": q_off, "k_offset": k_off, "g_lse": with_g_lse,
@@ -1105,8 +1146,10 @@ def train_phase(torch, card, flush):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     fa.launches.update(dict.fromkeys(fa.launches, 0))
+    fa.path_launches.update(dict.fromkeys(fa.path_launches, 0))
     out = main(TRAIN_ARGS)
     launches = dict(fa.launches)
+    bodies = {k: n for k, n in fa.path_launches.items() if n}
     peak = torch.cuda.max_memory_allocated()
     losses = out["losses"]
     steps = out["steps"]
@@ -1118,6 +1161,8 @@ def train_phase(torch, card, flush):
     need = cfg.num_layers * steps
     if any(n < need for n in launches.values()):
         fail(f"train: flash launches {launches} < {need} (layers x steps)")
+    if not launches["dq"] == bodies.get("dq/mma") == need:
+        fail(f"train: dq launches {launches['dq']}, by body {bodies}: expected {need} on mma")
     # The LM head alone, forward and backward, at the step's 4096 tokens.
     gen = torch.Generator(device="cuda").manual_seed(0)
     n_tok = cfg.batch_size * cfg.seq_len
@@ -1146,6 +1191,7 @@ def train_phase(torch, card, flush):
             "tokens_per_sec_mean": out.get("items_per_sec_mean"),
             "peak_memory_gib": peak / 2**30,
             "launches": launches,
+            "launches_by_body": bodies,
             "lm_head_fwd_bwd_ms": head_ms,
             "profiled_steps": profile,
         },
@@ -1183,14 +1229,15 @@ def train_profile(torch, steps: int = 3) -> dict:
     for t in tokens[:3]:
         state, _ = step_fn(state, {"tokens": t})
     torch.cuda.synchronize()
-    counts = dict(fa.launches)
+    counts = (dict(fa.launches), dict(fa.path_launches))
     holder = {"state": state}
 
     def one_step(t):
         holder["state"], _ = step_fn(holder["state"], {"tokens": t})
 
     out = profile_window(torch, one_step, tokens[3:])
-    fa.launches.update(counts)  # profiled steps are not the main path's run
+    fa.launches.update(counts[0])  # profiled steps are not the main path's run
+    fa.path_launches.update(counts[1])
     return out
 
 
@@ -1201,7 +1248,7 @@ def train_profile(torch, steps: int = 3) -> dict:
 # casts (copy kernels).
 FAMILIES = {
     "flash_attention": ("fwd_kernel", "dq_kernel", "dkv_kernel"),
-    "ring_collectives": ("rs_kernel", "ag_kernel"),
+    "ring_collectives": ("rs_kernel", "rs_fold_kernel", "ag_kernel"),
     "gemm": ("nvjet", "gemm", "xmma", "cutlass"),
     "copies": ("copy",),
     "optimizer_foreach": ("foreach", "multi_tensor"),
@@ -1266,28 +1313,39 @@ def ring_bound(kind: str, p: int, rows: int, in_item: int, out_item: int, q8: bo
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def ring_schedule_bytes(kind: str, p: int, rows: int, in_item: int, wire_item: int,
-                        out_item: int) -> int:
-    """Bytes the ring schedule itself moves on one card: per rank and
-    step, a reduce-scatter reads its outgoing chunk, writes and reads the
-    mailbox, reads its own chunk and writes the partial; an all-gather
-    copies its own chunk once, then per step reads a chunk, writes and
-    reads the mailbox and writes the arrived chunk."""
+def ring_schedule_bytes(kind: str, schedule: str, p: int, rows: int, in_item: int,
+                        wire_item: int, out_item: int) -> int:
+    """Bytes the schedule itself moves on one card. The fold reads every
+    rank's p chunks once and writes one chunk a rank: the bound's bytes.
+    On the hop schedule, per rank and step, a reduce-scatter reads its
+    outgoing chunk, writes and reads the mailbox, reads its own chunk and
+    writes the partial; an all-gather copies its own chunk once, then per
+    step reads a chunk, writes and reads the mailbox and writes the
+    arrived chunk."""
     c = rows * 128
+    if schedule == "fold":
+        return p * p * c * in_item + p * c * out_item
     if kind == "rs":
         return p * (p - 1) * c * (in_item + 2 * wire_item + in_item + out_item)
     return p * c * (in_item + out_item) + p * (p - 1) * c * (out_item + 2 * wire_item + out_item)
 
 
-def ring_case(torch, flush, kind: str, xs, quantized: bool, label: str, **extra):
+def ring_case(torch, flush, kind: str, xs, quantized: bool, label: str, hops: bool = False,
+              **extra):
     """Phase 3e, one case: the kernel (``reduce_scatter_chunks`` /
-    ``all_gather_chunks``) against its plain version, bit for bit, with
-    the kernel, plain and library times and the bound."""
+    ``all_gather_chunks``; with ``hops``, the sum reduce-scatter on the
+    hop schedule) against its plain version, bit for bit, with the
+    kernel, plain and library times, the bound and the schedule's
+    bytes, and apart from those the device times without the host's lead
+    and the wrapper's host time."""
     from mpit_tpu_torch.ops import ring_collectives as rc
 
     p, rows = xs.shape[0], xs.shape[-2]
     if kind == "rs":
-        run = lambda: rc.reduce_scatter_chunks(xs, quantized=quantized)  # noqa: E731
+        if hops:
+            run = lambda: rc._reduce_scatter_hops(xs)  # noqa: E731
+        else:
+            run = lambda: rc.reduce_scatter_chunks(xs, quantized=quantized)  # noqa: E731
         plain = lambda: rc.reduce_scatter_plain(xs, quantized=quantized)  # noqa: E731
         lib = lambda: xs.reshape(p, p, -1).sum(0)  # noqa: E731
         out_item = 4 if quantized else xs.element_size()
@@ -1306,18 +1364,25 @@ def ring_case(torch, flush, kind: str, xs, quantized: bool, label: str, **extra)
         fail(f"ring {label}: the gathered replicas differ")
     in_item = xs.element_size()
     bound_ms, bound_by = ring_bound(kind, p, rows, in_item, out_item, quantized)
+    schedule = "fold" if kind == "rs" and not (quantized or hops) else "hops"
     case = {
-        "form": f"ring_{kind}" + ("_q8" if quantized else ""), "label": label,
+        "form": f"ring_{kind}" + ("_q8" if quantized else "") + ("_hops" if hops else ""),
+        "label": label, "schedule": schedule,
         "dtype": str(xs.dtype).removeprefix("torch."), "p": p, "rows": rows, **extra,
         "max_abs_err": 0.0, "bit_equal": True,
         "ms": cold_time_ms(run, torch, flush),
         "plain_ms": cold_time_ms(plain, torch, flush),
         "library_ms": cold_time_ms(lib, torch, flush),
+        # The same two calls with their host time before the launch left
+        # out, and the wrapper's host time a call.
+        "device_ms": cold_time_ms(run, torch, flush, lead_cycles=HOST_LEAD_CYCLES),
+        "library_device_ms": cold_time_ms(lib, torch, flush, lead_cycles=HOST_LEAD_CYCLES),
+        "host_ms": host_time_ms(run, torch),
         "library": "xs.view(p, p, c).sum(0)" if kind == "rs"
         else "expand-and-copy of the concatenated shards",
         "bound_ms": bound_ms, "bound_by": bound_by,
         "ring_schedule_bytes": ring_schedule_bytes(
-            kind, p, rows, in_item, 1 if quantized else in_item, out_item
+            kind, schedule, p, rows, in_item, 1 if quantized else in_item, out_item
         ),
     }
     print(json.dumps({"kernel_case": case}), flush=True)
@@ -1332,7 +1397,10 @@ def ring_kernel_phase(torch, flush, tail_rows: int):
         gen = torch.Generator(device="cuda").manual_seed(seed)
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
-    cases = []
+    # The sum on the hop schedule (the form across cards), once, at GPT-2
+    # small's bucket.
+    cases = [ring_case(torch, flush, "rs", randn((DP_RANKS, DP_RANKS, RING_ROWS, 128), 4),
+                       False, f"rs hops p={DP_RANKS} float32 rows={RING_ROWS}", hops=True)]
     forms = [(torch.float32, False), (torch.bfloat16, False), (torch.float32, True)]
     for p in RING_P:
         for dtype, q8 in forms:
@@ -2012,8 +2080,8 @@ def main() -> None:
             "replaces": f"mpit_tpu/ops/ring_collectives.py:{body}",
             "call_site": "mpit_tpu/ops/ring_collectives.py:550",
             "launches": ring_launches[name],
-            **{k: head[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                    "library_ms", "library", "ring_schedule_bytes")},
+            **{k: head[k] for k in ("schedule", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms", "library", "ring_schedule_bytes")},
             "shape": {k: head[k] for k in ("dtype", "p", "rows")},
         })
     head = next(c for c in ship_cases if c["label"] == "payload bf16")

@@ -1,7 +1,7 @@
 // Tensor-core attention tiles for Hopper (sm_90a), shared by the bf16 flash
-// forward (flash_attention.cu, mma_fwd_kernel), the bf16 flash dk/dv
-// backward (flash_attention.cu, mma_dkv_kernel, which uses the fragment
-// helpers below) and the two tensor-core bodies of the flash-decode kernel
+// forward (flash_attention.cu, mma_fwd_kernel), the bf16 flash dk/dv and
+// dq backward (flash_attention.cu, mma_dkv_kernel and mma_dq_kernel, which
+// use the fragment helpers below) and the two tensor-core bodies of the flash-decode kernel
 // (decode_attention.cu: mma_decode_kernel, over bf16 K/V as the mma body and
 // over int8 K/V as the q8mma body).
 //

@@ -4,7 +4,8 @@
 // Replaces the TPU kernels of mpit_tpu/ops/flash_attention.py:
 //   - mma_fwd_kernel (bf16) and fwd_kernel (f32)
 //                 <- _fwd_kernel     (called from _fwd_packed, :362)
-//   - dq_kernel   <- _bwd_dq_kernel  (called from _bwd_packed, :408)
+//   - mma_dq_kernel (bf16) and dq_kernel (f32)
+//                 <- _bwd_dq_kernel  (called from _bwd_packed, :408)
 //   - mma_dkv_kernel (bf16) and dkv_kernel (f32)
 //                 <- _bwd_dkv_kernel (called from _bwd_packed, :428)
 //
@@ -51,9 +52,28 @@
 // only where a pair is masked, and rows past T load as zeros and are
 // masked.
 //
-// The f32 forward and both f32 backward kernels, and the bf16 dq kernel, do
-// their products with f32 FMAs on the CUDA cores (for f32 inputs the only
-// way to keep f32 accuracy), so in practice they are bound by those FMAs
+// The bf16 dq backward, mma_dq_kernel, is the dk/dv design turned back the
+// forward's way: 4 warps a block, 16 QUERY rows a warp, whose Q and dO
+// A-fragments (ldmatrix, as Rows16::load_q) and two rows' lse and delta it
+// holds in registers for the whole key loop; K and V tiles of 64 keys
+// double-buffered through cp.async as in the forward, read in place from
+// the fused qkv views, each taken by a warp in two halves of 32 keys. Per
+// half: S = Q K^T and dP = dO V^T (B-fragments from K and V by ldmatrix, as
+// K's in Rows16::step), p = exp(S scale - lse) from the f32 score,
+// ds = p (dp - delta) from the unrounded p, then dQ += round(ds) K with ds
+// rounded once to k's dtype in the register repack of the C-fragments into
+// A-fragments (dS never touches shared memory) and the B-fragments from K
+// by ldmatrix.trans (as V's in the forward's PV step). These are the
+// reference's rounding points (ds.astype(k.dtype), f32 accumulation, dq *
+// scale rounded once at the end); only the order of the f32 sums differs.
+// dq stays its own kernel, as the TPU kernel is, and recomputes S and dP:
+// fusing it into dk/dv with atomic adds would make its sums depend on the
+// order of the blocks. A query tile that sees no key (each block computes
+// its trip count from the offsets) stores dq = 0 exactly.
+//
+// The f32 forward and both f32 backward kernels do their products with f32
+// FMAs on the CUDA cores (for f32 inputs the only way to keep f32
+// accuracy), so in practice they are bound by those FMAs
 // and the shared-memory reads that feed them. What their design does about
 // it: every operand tile is read from device memory once per block and
 // staged in shared memory as f32, the [T, T] scores never leave registers
@@ -73,13 +93,14 @@
 // read in place at one batch and row stride shared by the three, so the
 // model hands over the split thirds of its fused qkv projection (row
 // stride 3 H D) without a copy. Grid (ceil(T / 64), H, B); 128 threads for
-// mma_fwd_kernel and mma_dkv_kernel, 256 for the others.
+// the three tensor-core kernels (mma_*), 256 for the f32 ones.
 // The last tile of a T that is not a multiple of 64 is masked: its missing
 // rows load as zeros, their keys are masked and their rows are not stored.
 //
 // C interface for ctypes: mpit_flash_fwd, mpit_flash_dq and mpit_flash_dkv
 // return the cudaError_t of the launch (cudaGetLastError right after it),
 // or -1 for a dtype or head dimension this file was not instantiated for.
+// mpit_flash_path names the body (body_of) a launch runs for a dtype.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -828,6 +849,194 @@ __global__ void __launch_bounds__(am::THREADS, 2)
   }
 }
 
+// The bf16 dq backward on the tensor cores (see the note at the top).
+// Dynamic shared memory: the block's Q and dO tiles, then two stages of K
+// tiles and two of V tiles, all [64][D + 8] bf16. At most two blocks an SM
+// are asked for: the Q and dO fragments, the dQ accumulator, the half's S
+// and dP and the two rows' lse and delta take about D + 36 registers a
+// thread before addresses (100 at D 64, 164 at D 128).
+template <int D>
+constexpr int mma_dq_smem() {
+  return 6 * am::TILE_KEYS * am::ld<D>() * 2;
+}
+
+template <int D>
+__global__ void __launch_bounds__(am::THREADS, 2)
+    mma_dq_kernel(const __nv_bfloat16* __restrict__ q,
+                  const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v,
+                  const __nv_bfloat16* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta,
+                  __nv_bfloat16* __restrict__ dq, Geo g) {
+  constexpr int TILE = am::TILE_KEYS * am::ld<D>();  // elements of a tile
+  constexpr int KD = D / 16;  // k-steps of Q K^T and dO V^T
+  constexpr int ND = D / 8;   // 8-column blocks of dQ
+  constexpr int HALF = 32;    // keys a warp takes at once
+  extern __shared__ uint4 mma_smem[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(mma_smem);
+  __nv_bfloat16* dos = qs + TILE;
+  __nv_bfloat16* ks = dos + TILE;     // [2] K tiles
+  __nv_bfloat16* vs = ks + 2 * TILE;  // [2] V tiles
+
+  const int qi = blockIdx.x, head = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n_k = key_tiles(g, qi);
+  const int q0 = qi * BQ + warp * 16;  // first query row of the warp's slab
+  const size_t head_at = (size_t)(b * g.in_bstride + head * D);
+  const __nv_bfloat16 *q_h = q + head_at, *k_h = k + head_at,
+                      *v_h = v + head_at;
+  // Row t0 + r of one head of q, k or v at the inputs' strides; nullptr
+  // past T.
+  auto rows = [&](const __nv_bfloat16* base, int t0) {
+    return [=](int r) -> const __nv_bfloat16* {
+      return t0 + r < g.t ? base + (size_t)((t0 + r) * g.in_tstride) : nullptr;
+    };
+  };
+  auto stage_kv = [&](int kb, int slot) {
+    am::stage_rows<D>(ks + slot * TILE, k_h, rows(k_h, kb * BK));
+    am::stage_rows<D>(vs + slot * TILE, v_h, rows(v_h, kb * BK));
+  };
+
+  const int t0 = qi * BQ;
+  if (n_k > 0) {  // a tile that sees no key reads nothing and stores 0
+    am::stage_rows<D>(qs, q_h, rows(q_h, t0));
+    am::stage_rows<D>(dos, dout, [&](int r) -> const __nv_bfloat16* {
+      return t0 + r < g.t ? dout + row_index(g, b, t0 + r, head, D) : nullptr;
+    });
+    stage_kv(0, 0);
+  }
+  am::cp_async_commit();
+
+  // The thread's two query rows (slab rows g and g + 8): lse and delta. A
+  // row past T takes lse = -1e30, so its p, ds and dq are 0.
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + (lane >> 2) + 8 * i;
+    const size_t at = ((size_t)b * g.h + head) * g.t + row;
+    row_lse[i] = row < g.t ? lse[at] : NEG_BIG;
+    row_delta[i] = row < g.t ? delta[at] : 0.f;
+  }
+  uint32_t qf[KD][4], dof[KD][4];
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int kb = 0; kb < n_k; ++kb) {
+    const int slot = kb & 1;
+    if (kb + 1 < n_k) stage_kv(kb + 1, slot ^ 1);
+    am::cp_async_commit();
+    am::cp_async_wait<1>();  // tile kb (and, at kb 0, the Q and dO tiles) landed
+    __syncthreads();
+    if (kb == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        const int at = (warp * 16 + (lane & 15)) * am::ld<D>() + kk * 16 +
+                       (lane >> 4) * 8;
+        am::ldsm_x4(qf[kk], qs + at);
+        am::ldsm_x4(dof[kk], dos + at);
+      }
+    }
+    const __nv_bfloat16* k_s = ks + slot * TILE;
+    const __nv_bfloat16* v_s = vs + slot * TILE;
+#pragma unroll 1
+    for (int c0 = 0; c0 < BK; c0 += HALF) {
+      const int k0 = kb * BK + c0;  // the half's first key row
+      // Every pair of the half masked (or the warp's rows all past T):
+      // nothing to add.
+      if (q0 >= g.t || k0 >= g.t ||
+          (g.causal &&
+           (long long)g.q_offset + q0 + 15 < (long long)g.k_offset + k0))
+        continue;
+      const bool masked =
+          k0 + HALF > g.t ||
+          (g.causal && (long long)g.k_offset + k0 + HALF - 1 >
+                           (long long)g.q_offset + q0);
+      // S and dP of the warp's 16 queries x the half's 32 keys: one
+      // ldmatrix.x4 gives the B fragments of two 8-key blocks for one
+      // k-step (as K's in attn_mma.cuh's Rows16::step).
+      float s[HALF / 8][4], dp[HALF / 8][4];
+#pragma unroll
+      for (int n = 0; n < HALF / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int np = 0; np < HALF / 16; ++np) {
+#pragma unroll
+        for (int kk = 0; kk < KD; ++kk) {
+          const int at =
+              (c0 + np * 16 + (lane & 7) + ((lane >> 4) << 3)) * am::ld<D>() +
+              kk * 16 + ((lane >> 3) & 1) * 8;
+          uint32_t bm[4];
+          am::ldsm_x4(bm, k_s + at);
+          am::mma_bf16(s[2 * np], qf[kk], bm[0], bm[1]);
+          am::mma_bf16(s[2 * np + 1], qf[kk], bm[2], bm[3]);
+          am::ldsm_x4(bm, v_s + at);
+          am::mma_bf16(dp[2 * np], dof[kk], bm[0], bm[1]);
+          am::mma_bf16(dp[2 * np + 1], dof[kk], bm[2], bm[3]);
+        }
+      }
+      // p from the f32 score, ds from the unrounded p.
+#pragma unroll
+      for (int n = 0; n < HALF / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;  // which of the thread's two rows
+          float x = s[n][e] * g.scale;
+          if (masked) {
+            const int qrow = q0 + am::frag_row(lane, e);
+            const int krow = k0 + n * 8 + am::frag_col(lane, e);
+            const bool ok = krow < g.t &&
+                            (!g.causal || g.q_offset + qrow >= g.k_offset + krow);
+            if (!ok) x = NEG_BIG;
+          }
+          const float p = p_from_lse(x, row_lse[i]);
+          dp[n][e] = p * (dp[n][e] - row_delta[i]);
+        }
+      // dQ += round(dS) K, 16 keys a k-step: the C fragments of two
+      // neighbouring 8-key blocks are the A fragment; ldmatrix.trans of
+      // [key][d] rows gives the B fragments of two 8-column blocks (as V's
+      // in Rows16::step).
+#pragma unroll
+      for (int kk = 0; kk < HALF / 16; ++kk) {
+        uint32_t ads[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int n = 2 * kk + (r >> 1), e = 2 * (r & 1);
+          ads[r] = am::pack_bf16(dp[n][e], dp[n][e + 1]);
+        }
+#pragma unroll
+        for (int np = 0; np < ND / 2; ++np) {
+          uint32_t bm[4];
+          am::ldsm_x4_trans(
+              bm, k_s + (c0 + kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                            am::ld<D>() +
+                      np * 16 + (lane >> 4) * 8);
+          am::mma_bf16(acc[2 * np], ads, bm[0], bm[1]);
+          am::mma_bf16(acc[2 * np + 1], ads, bm[2], bm[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before its reuse
+  }
+  am::cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + (lane >> 2) + 8 * i;
+    if (row >= g.t) continue;
+    __nv_bfloat16* out =
+        dq + row_index(g, b, row, head, D) + ((lane & 3) << 1);
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(out + n * 8) = __floats2bfloat162_rn(
+          acc[n][2 * i] * g.scale, acc[n][2 * i + 1] * g.scale);
+  }
+}
+
 // Dynamic shared memory of each kernel, in bytes.
 template <int D>
 constexpr size_t fwd_smem() {
@@ -845,6 +1054,7 @@ static_assert(dkv_smem<128>() <= 232448, "dkv tile exceeds shared memory");
 // Two blocks an SM fit its 228 KB of shared memory (1 KB of it reserved a
 // block) at every head dim.
 static_assert(2 * (mma_dkv_smem<128>() + 1024) <= 233472, "mma dkv tiles");
+static_assert(2 * (mma_dq_smem<128>() + 1024) <= 233472, "mma dq tiles");
 
 dim3 grid_of(const Geo& g) { return dim3((g.t + 63) / 64, g.h, g.b); }
 
@@ -866,49 +1076,72 @@ int run(Kernel kernel, int threads, size_t smem, const Geo& g,
   return (int)cudaGetLastError();
 }
 
+// The body a launch of `kind` (0 forward, 1 dq, 2 dk/dv) runs for inputs
+// of `dtype` (0 f32, 1 bf16): the tensor cores for bf16, f32 FMAs for f32.
+// launch below takes the body from here; exported as mpit_flash_path, by
+// whose answer the wrapper counts its launches.
+enum Body { BODY_FMA, BODY_MMA };
+Body body_of(int kind, int dtype) {
+  (void)kind;  // one rule for the three kernels
+  return dtype == 1 ? BODY_MMA : BODY_FMA;
+}
+
+// Launch `body`'s kernel of `kind`; -1 where that body is not compiled for
+// T (the tensor-core kernels take bf16, the FMA kernels here f32).
 template <typename T, int D>
-int launch(int kind, const Ptrs& p, const Geo& g, cudaStream_t stream) {
+int launch(int kind, Body body, const Ptrs& p, const Geo& g,
+           cudaStream_t stream) {
   const T* q = static_cast<const T*>(p.q);
   const T* k = static_cast<const T*>(p.k);
   const T* v = static_cast<const T*>(p.v);
   const T* dout = static_cast<const T*>(p.dout);
   const float* lse = static_cast<const float*>(p.lse_in);
   const float* delta = static_cast<const float*>(p.delta);
-  if (kind == 0) {
+  if (body == BODY_MMA) {
     if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-      auto kernel = mma_fwd_kernel<D>;
-      return run(kernel, am::THREADS, am::tiles_bytes<D>(), g, stream, q, k,
-                 v, static_cast<T*>(p.o), static_cast<float*>(p.lse_out));
-    } else {
+      if (kind == 0) {
+        auto kernel = mma_fwd_kernel<D>;
+        return run(kernel, am::THREADS, am::tiles_bytes<D>(), g, stream, q,
+                   k, v, static_cast<T*>(p.o), static_cast<float*>(p.lse_out));
+      }
+      if (kind == 1) {
+        auto kernel = mma_dq_kernel<D>;
+        return run(kernel, am::THREADS, mma_dq_smem<D>(), g, stream, q, k, v,
+                   dout, lse, delta, static_cast<T*>(p.dq));
+      }
+      auto kernel = mma_dkv_kernel<D>;
+      return run(kernel, am::THREADS, mma_dkv_smem<D>(), g, stream, q, k, v,
+                 dout, lse, delta, static_cast<T*>(p.dk),
+                 static_cast<T*>(p.dv));
+    }
+    return -1;
+  }
+  if constexpr (std::is_same<T, float>::value) {
+    if (kind == 0) {
       auto kernel = fwd_kernel<T, D>;
       return run(kernel, NT, fwd_smem<D>(), g, stream, q, k, v,
                  static_cast<T*>(p.o), static_cast<float*>(p.lse_out));
     }
-  }
-  if (kind == 1) {
-    auto kernel = dq_kernel<T, D>;
-    return run(kernel, NT, dq_smem<D>(), g, stream, q, k, v, dout, lse,
-               delta, static_cast<T*>(p.dq));
-  }
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    auto kernel = mma_dkv_kernel<D>;
-    return run(kernel, am::THREADS, mma_dkv_smem<D>(), g, stream, q, k, v,
-               dout, lse, delta, static_cast<T*>(p.dk), static_cast<T*>(p.dv));
-  } else {
+    if (kind == 1) {
+      auto kernel = dq_kernel<T, D>;
+      return run(kernel, NT, dq_smem<D>(), g, stream, q, k, v, dout, lse,
+                 delta, static_cast<T*>(p.dq));
+    }
     auto kernel = dkv_kernel<T, D>;
     return run(kernel, NT, dkv_smem<D>(), g, stream, q, k, v, dout, lse,
                delta, static_cast<T*>(p.dk), static_cast<T*>(p.dv));
   }
+  return -1;
 }
 
 template <typename T>
-int launch_d(int kind, const Ptrs& p, const Geo& g, int d,
+int launch_d(int kind, Body body, const Ptrs& p, const Geo& g, int d,
              cudaStream_t stream) {
   switch (d) {
-    case 16: return launch<T, 16>(kind, p, g, stream);
-    case 32: return launch<T, 32>(kind, p, g, stream);
-    case 64: return launch<T, 64>(kind, p, g, stream);
-    case 128: return launch<T, 128>(kind, p, g, stream);
+    case 16: return launch<T, 16>(kind, body, p, g, stream);
+    case 32: return launch<T, 32>(kind, body, p, g, stream);
+    case 64: return launch<T, 64>(kind, body, p, g, stream);
+    case 128: return launch<T, 128>(kind, body, p, g, stream);
     default: return -1;
   }
 }
@@ -916,8 +1149,9 @@ int launch_d(int kind, const Ptrs& p, const Geo& g, int d,
 int dispatch(int kind, const Ptrs& p, const Geo& g, int d, int dtype,
              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_d<float>(kind, p, g, d, s);
-  if (dtype == 1) return launch_d<__nv_bfloat16>(kind, p, g, d, s);
+  const Body body = body_of(kind, dtype);
+  if (dtype == 0) return launch_d<float>(kind, body, p, g, d, s);
+  if (dtype == 1) return launch_d<__nv_bfloat16>(kind, body, p, g, d, s);
   return -1;
 }
 
@@ -965,6 +1199,10 @@ int mpit_flash_dkv(const void* q, const void* k, const void* v,
               in_tstride};
   return dispatch(2, p, g, d, dtype, stream);
 }
+
+// The body a launch of `kind` (0 forward, 1 dq, 2 dk/dv) runs for inputs
+// of `dtype`: 0 fma, 1 mma.
+int mpit_flash_path(int kind, int dtype) { return body_of(kind, dtype); }
 
 const char* mpit_flash_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -3,7 +3,11 @@
 //
 // Replaces the TPU kernels of mpit_tpu/ops/ring_collectives.py, all four
 // reached through _call_ring (:546, pl.pallas_call at :550):
-//   - rs_kernel<T, false> <- _rs_kernel    (:350)  sum, in x's dtype
+//   - rs_fold_kernel<T>   <- _rs_kernel    (:350)  sum, in x's dtype, ranks
+//                                                  on one card (below)
+//   - rs_kernel<T, false>   the same sum as the hop schedule, for the launch
+//                           across cards; launched here only to hold it
+//                           bit-equal and timed (C kind 4)
 //   - rs_kernel<T, true>  <- _rs_q8_kernel (:387)  int8 wire, f32 result
 //   - ag_kernel<T, false> <- _ag_kernel    (:429)
 //   - ag_kernel<T, true>  <- _ag_q8_kernel (:457)  int8 wire
@@ -76,9 +80,31 @@
 // stores (16-byte loads where the type allows, 4 elements a thread per
 // iteration) and uses every SM: p*B blocks of 512 threads.
 //
+// The sum reduce-scatter with every rank on this one card: rs_fold_kernel,
+// one pass. All p ranks share one HBM, so nothing needs to travel: for
+// rank r and each element of chunk r it loads the p ranks' copies and adds
+// them in the ring's own order, with the ring's own roundings:
+//   acc = x[r+1][r];  for j = 2..p: acc = round_T(acc + x[r+j][r])
+// (rank indices mod p; chunk r leaves rank r + 1 at step 0 and each later
+// rank adds its own copy, the last being rank r's). Each add is __fadd_rn
+// in f32 and is rounded to T, as the hop kernel's partial is stored in T in
+// the mailbox and in the output, so the result is bit-equal to the hop
+// schedule and to the plain version (reduce_scatter_plain) in f32 and bf16.
+// It moves the function's least traffic, the bound itself: p*p*c read once,
+// p*c written once (80 MiB at GPT-2 small's f32 bucket, p 4), against about
+// 4(p-1) + p chunk passes a rank for the hops. Its design is a bandwidth
+// kernel's: a plain launch (no cooperative residency needed: no block waits
+// on another) of blocks that fill every SM, grid (ceil(groups / 256), p)
+// with blockIdx.y the rank, each thread taking one 16-byte group (4 f32 or
+// 8 bf16), all p loads of the group started before the first add so p * 16
+// bytes a thread are in flight, streaming loads and stores (__ldcs /
+// __stcs: every byte is touched once), the group's registers sized to p
+// (MAXP 4, 8 or 16). No mailbox, no flags, no epoch, no spin.
+//
 // C interface for ctypes: mpit_ring_launch returns the cudaError_t of the
 // launch (cudaGetLastError right after it) or -1 for arguments this file
-// does not take; mpit_ring_error reads the error word, 0 if none.
+// does not take; mpit_ring_error reads the error word, 0 if none. Kind 0 is
+// the fold; kinds 1-3 and 4 (the hop sum form) the ring schedule.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -328,6 +354,81 @@ __global__ void __launch_bounds__(NT) rs_kernel(RingArgs a) {
   }
 }
 
+// ---- the one-card sum reduce-scatter: one pass ------------------------------
+
+constexpr int FOLD_NT = 256;  // threads per block of the fold
+
+struct FoldArgs {
+  const void* in[MAX_RANKS];
+  void* out[MAX_RANKS];
+  long long in_cs;  // elements between chunks of a rank's input
+  long long n16;    // 16-byte groups of a chunk
+  int p;
+};
+
+// The 16 bytes of a group as floats, and back, rounding to T.
+__device__ __forceinline__ void unpack16(const uint4& raw, float (&v)[4]) {
+  v[0] = __uint_as_float(raw.x); v[1] = __uint_as_float(raw.y);
+  v[2] = __uint_as_float(raw.z); v[3] = __uint_as_float(raw.w);
+}
+__device__ __forceinline__ uint4 pack16(const float (&v)[4]) {
+  return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                    __float_as_uint(v[2]), __float_as_uint(v[3]));
+}
+__device__ __forceinline__ void unpack16(const uint4& raw, float (&v)[8]) {
+  const unsigned int w[4] = {raw.x, raw.y, raw.z, raw.w};
+  #pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&w[i]);
+    v[2 * i] = __low2float(h);
+    v[2 * i + 1] = __high2float(h);
+  }
+}
+__device__ __forceinline__ uint4 pack16(const float (&v)[8]) {
+  unsigned int w[4];
+  #pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    w[i] = *reinterpret_cast<const unsigned int*>(&h);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// MAXP: the ranks this instantiation takes at most (4, 8 or MAX_RANKS), so
+// that the group's registers are sized to p, not to the table.
+template <typename T, int MAXP>
+__global__ void __launch_bounds__(FOLD_NT) rs_fold_kernel(FoldArgs a) {
+  constexpr int VEC = 16 / sizeof(T);  // elements of a 16-byte group
+  const int p = a.p, r = blockIdx.y;
+  const long long g = static_cast<long long>(blockIdx.x) * FOLD_NT + threadIdx.x;
+  if (g >= a.n16) return;
+  const long long chunk = static_cast<long long>(r) * a.in_cs;
+  // Every rank's copy of this group of chunk r, in ring order: raw[j] is
+  // rank r + 1 + j's. All p loads start before the first add.
+  uint4 raw[MAXP];
+  #pragma unroll
+  for (int j = 0; j < MAXP; ++j) {
+    if (j < p) {
+      const int src = (r + 1 + j) % p;
+      raw[j] = __ldcs(reinterpret_cast<const uint4*>(
+                          static_cast<const T*>(a.in[src]) + chunk) + g);
+    }
+  }
+  float acc[VEC];
+  unpack16(raw[0], acc);
+  #pragma unroll
+  for (int j = 1; j < MAXP; ++j) {
+    if (j < p) {
+      float x[VEC];
+      unpack16(raw[j], x);
+      #pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[e] = __fadd_rn(acc[e], x[e]);
+      if constexpr (VEC == 8) unpack16(pack16(acc), acc);  // round to bf16
+    }
+  }
+  __stcs(static_cast<uint4*>(a.out[r]) + g, pack16(acc));
+}
+
 // ---- all-gather -------------------------------------------------------------
 
 template <typename T, bool Q8>
@@ -432,24 +533,55 @@ unsigned int* g_err_dev = nullptr;
 template <typename T>
 void* kernel_for(int kind) {
   switch (kind) {
-    case 0: return reinterpret_cast<void*>(&rs_kernel<T, false>);
     case 1: return reinterpret_cast<void*>(&rs_kernel<T, true>);
     case 2: return reinterpret_cast<void*>(&ag_kernel<T, false>);
     case 3: return reinterpret_cast<void*>(&ag_kernel<T, true>);
+    case 4: return reinterpret_cast<void*>(&rs_kernel<T, false>);
     default: return nullptr;
   }
+}
+
+// The fold over p ranks' [rows, 128] chunks: one 16-byte group a thread,
+// so every SM holds as many blocks as it can take and the hardware refills
+// them as they finish (a grid sized to the occupancy, striding over the
+// groups, was no faster on this card).
+template <typename T, int MAXP>
+int launch_fold(const FoldArgs& a, cudaStream_t stream) {
+  const long long nblk = (a.n16 + FOLD_NT - 1) / FOLD_NT;
+  rs_fold_kernel<T, MAXP>
+      <<<dim3(static_cast<unsigned int>(nblk), a.p), FOLD_NT, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int fold(int p, int rows, const unsigned long long* in_ptrs,
+         const unsigned long long* out_ptrs, long long in_cs,
+         cudaStream_t stream) {
+  FoldArgs a{};
+  for (int r = 0; r < p; ++r) {
+    a.in[r] = reinterpret_cast<const void*>(in_ptrs[r]);
+    a.out[r] = reinterpret_cast<void*>(out_ptrs[r]);
+  }
+  a.in_cs = in_cs;
+  a.n16 = static_cast<long long>(rows) * LANE * sizeof(T) / 16;
+  a.p = p;
+  if (p <= 4) return launch_fold<T, 4>(a, stream);
+  if (p <= 8) return launch_fold<T, 8>(a, stream);
+  return launch_fold<T, MAX_RANKS>(a, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// kind: 0 reduce-scatter, 1 q8 reduce-scatter, 2 all-gather, 3 q8
-// all-gather; dtype of the input (and of every output but the q8
-// reduce-scatter's f32): 0 f32, 1 bf16. Per rank r: in_ptrs[r], out_ptrs[r]
-// ([rows, 128] rows contiguous; the p-chunk side's chunks in_cs / out_cs
-// elements apart), mbox_ptrs[r] ([2][rows][128] of the wire type: the input
-// type, or int8 for q8) and ws_ptrs[r] (the rank's zeroed workspace).
+// kind: 0 reduce-scatter (the one-pass fold), 1 q8 reduce-scatter, 2
+// all-gather, 3 q8 all-gather, 4 reduce-scatter on the hop schedule; dtype
+// of the input (and of every output but the q8 reduce-scatter's f32): 0
+// f32, 1 bf16. Per rank r: in_ptrs[r], out_ptrs[r] ([rows, 128] rows
+// contiguous, 16-byte aligned; the p-chunk side's chunks in_cs / out_cs
+// elements apart), and for kinds 1-4 mbox_ptrs[r] ([2][rows][128] of the
+// wire type: the input type, or int8 for q8) and ws_ptrs[r] (the rank's
+// zeroed workspace), which the fold never reads (they may be null).
 // epoch: larger than every earlier call's on these workspaces.
 int mpit_ring_launch(int kind, int dtype, int p, int rows,
                      const unsigned long long* in_ptrs,
@@ -457,9 +589,14 @@ int mpit_ring_launch(int kind, int dtype, int p, int rows,
                      const unsigned long long* mbox_ptrs,
                      const unsigned long long* ws_ptrs, long long in_cs,
                      long long out_cs, unsigned long long epoch, void* stream) {
-  if (p < 2 || p > MAX_RANKS || rows < 1 || kind < 0 || kind > 3 || dtype < 0 ||
+  if (p < 2 || p > MAX_RANKS || rows < 1 || kind < 0 || kind > 4 || dtype < 0 ||
       dtype > 1)
     return -1;
+  if (kind == 0) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    return dtype == 0 ? fold<float>(p, rows, in_ptrs, out_ptrs, in_cs, s)
+                      : fold<__nv_bfloat16>(p, rows, in_ptrs, out_ptrs, in_cs, s);
+  }
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);

@@ -21,9 +21,9 @@ backward recomputes the scores blockwise in two kernels (dq; dk/dv) from
 into delta, since ``d lse / d s = p``.
 
 On the card the three steps launch the hand-written kernels of
-``csrc/flash_attention.cu`` (the bf16 forward and dk/dv on the tensor
-cores, dq and every f32 kernel on f32 FMAs); on the CPU they run their
-plain versions
+``csrc/flash_attention.cu`` (every bf16 kernel on the tensor cores, the
+``mma`` body; every f32 kernel on f32 FMAs, the ``fma`` body); on the
+CPU they run their plain versions
 (:func:`flash_fwd_plain` = :func:`reference_attention_with_lse`,
 :func:`flash_dq_plain`, :func:`flash_dkv_plain`), which compute the same
 function densely with the same rounding points. A CUDA tensor goes to
@@ -60,6 +60,7 @@ __all__ = [
     "flash_fwd_plain",
     "launches",
     "merge_attention",
+    "path_launches",
     "reference_attention",
     "reference_attention_with_lse",
 ]
@@ -72,6 +73,19 @@ _KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 # Launches of each CUDA kernel since the counts were last set to 0; a
 # wrapper adds one where it launches, and nowhere else.
 launches = {"fwd": 0, "dq": 0, "dkv": 0}
+_C_KINDS = ("fwd", "dq", "dkv")  # the C library's kind codes, in order
+_C_PATHS = ("fma", "mma")  # mpit_flash_path's answers, in order
+# The same launches by body, keyed "<kind>/<body>": counted by the body the
+# C library names for the launch (``mpit_flash_path``).
+path_launches = {f"{kind}/{body}": 0 for kind in launches for body in _C_PATHS}
+
+
+def _path(dtype) -> str:
+    """The body a kernel launches for inputs of ``dtype``: ``mma`` (the
+    tensor cores) for bf16, ``fma`` (f32 FMAs) for f32, for the forward,
+    dq and dk/dv alike; the host's statement of the C library's rule,
+    checked against ``mpit_flash_path`` at every launch."""
+    return "mma" if dtype == torch.bfloat16 else "fma"
 
 
 # ---------------------------------------------------------------------------
@@ -187,6 +201,8 @@ def kernel_library() -> ctypes.CDLL:
     lib.mpit_flash_dkv.argtypes = [ptr] * 8 + geo
     for fn in (lib.mpit_flash_fwd, lib.mpit_flash_dq, lib.mpit_flash_dkv):
         fn.restype = i32
+    lib.mpit_flash_path.argtypes = [i32, i32]
+    lib.mpit_flash_path.restype = i32
     lib.mpit_flash_error_string.argtypes = [i32]
     lib.mpit_flash_error_string.restype = ctypes.c_char_p
     return lib
@@ -248,6 +264,11 @@ def _check_kernel_inputs(tensors, rows):
 def _run(kind: str, fn, ptrs, q, q_offset, k_offset, causal):
     b, t, h, d = q.shape
     lib = kernel_library()
+    path = _C_PATHS[lib.mpit_flash_path(_C_KINDS.index(kind), _DTYPES[q.dtype])]
+    if path != _path(q.dtype):
+        raise RuntimeError(
+            f"the {kind} kernel would run the {path} body where _path says {_path(q.dtype)}"
+        )
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
@@ -262,6 +283,7 @@ def _run(kind: str, fn, ptrs, q, q_offset, k_offset, causal):
         )
         raise RuntimeError(f"flash-attention {kind} kernel launch failed ({err}): {msg}")
     launches[kind] += 1
+    path_launches[f"{kind}/{path}"] += 1
 
 
 def _fwd_kernel(q, k, v, q_offset, k_offset, causal):

@@ -26,6 +26,13 @@ kernel row ranges of its flat buffers in place.
 - :func:`reduce_scatter_chunks` / :func:`all_gather_chunks` — the
   wrappers: a CPU tensor takes the plain version, a CUDA tensor the
   kernel of ``csrc/ring_collectives.cu`` or an error, never a fallback.
+  Every rank of a World lies on one card, so the sum reduce-scatter runs
+  there as one pass over HBM (the fold: each rank's copies of a chunk
+  added in the ring's order, with its roundings, so bit-equal to the
+  plain version); the q8 reduce-scatter and both all-gathers run the
+  ring's hop schedule. :func:`_reduce_scatter_hops` launches the sum on
+  the hop schedule, the form the launch across cards builds on; only
+  its checks call it.
 - :func:`ring_reduce_scatter` / :func:`ring_all_gather` — the public
   collectives on rank-stacked payloads, through the planner; ``p = 1``
   is a no-op (nothing crosses a wire, nothing is quantized).
@@ -86,7 +93,9 @@ SCALE_ROWS = 8
 SCALE_BLOCK_BYTES = SCALE_ROWS * _LANE * 4
 MAX_RANKS = 16  # the kernels' pointer table
 _KERNEL_SOURCE = "ring_collectives.cu"
-_KINDS = {"ring_rs": 0, "ring_rs_q8": 1, "ring_ag": 2, "ring_ag_q8": 3}
+# The C library's kinds: ring_rs is the one-pass fold, ring_rs_hops the
+# same sum on the hop schedule.
+_KINDS = {"ring_rs": 0, "ring_rs_q8": 1, "ring_ag": 2, "ring_ag_q8": 3, "ring_rs_hops": 4}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _WS_WORDS = 7 * 256  # one rank's workspace in the kernels (64-bit words)
 
@@ -377,11 +386,14 @@ def device_error() -> str | None:
 def _dense_rows(x, name: str):
     if x.stride(-1) != 1 or x.stride(-2) != _LANE:
         raise ValueError(f"{name} must have dense [rows, 128] chunks, strides {x.stride()}")
-    if x.data_ptr() % 16 or any(st % 4 for st in x.stride()[:-1]):
-        raise ValueError(f"{name} must be 16-byte aligned with strides of whole vectors")
+    if x.data_ptr() % 16 or any(st * x.element_size() % 16 for st in x.stride()[:-1]):
+        raise ValueError(f"{name} must be 16-byte aligned with strides of whole 16-byte vectors")
 
 
 def _launch(kind: str, xs, out, mbox_dtype, in_cs: int, out_cs: int):
+    """Launch ``kind`` over the ranks of ``xs``. The fold (``ring_rs``)
+    takes no mailbox and no workspace; the hop schedule takes both
+    (``mbox_dtype``: its wire type)."""
     p, rows = xs.shape[0], xs.shape[-2]
     if not 2 <= p <= MAX_RANKS:
         raise ValueError(f"the ring kernels take 2 to {MAX_RANKS} ranks, got {p}")
@@ -390,15 +402,24 @@ def _launch(kind: str, xs, out, mbox_dtype, in_cs: int, out_cs: int):
     if out.device != xs.device:
         raise ValueError(f"out is on {out.device}, the input on {xs.device}")
     lib = kernel_library()
-    ws = _workspace(xs.device)
-    mbox = torch.empty((p, 2, rows, _LANE), dtype=mbox_dtype, device=xs.device)
-    table = lambda t: (ctypes.c_uint64 * p)(*(t[r].data_ptr() for r in range(p)))  # noqa: E731
-    ws.epoch += 1
+
+    def table(t):  # rank r's address, without making p views (host time)
+        step = t.stride(0) * t.element_size()
+        return (ctypes.c_uint64 * p)(*(t.data_ptr() + r * step for r in range(p)))
+
+    mbox = mbox_table = flags = None
+    epoch = 0
+    if kind != "ring_rs":
+        ws = _workspace(xs.device)
+        mbox = torch.empty((p, 2, rows, _LANE), dtype=mbox_dtype, device=xs.device)
+        mbox_table, flags = table(mbox), table(ws.flags)
+        ws.epoch += 1
+        epoch = ws.epoch
     with torch.cuda.device(xs.device):
         stream = torch.cuda.current_stream(xs.device).cuda_stream
         err = lib.mpit_ring_launch(
-            _KINDS[kind], _DTYPES[xs.dtype], p, rows, table(xs), table(out), table(mbox),
-            table(ws.flags), in_cs, out_cs, ws.epoch, stream,
+            _KINDS[kind], _DTYPES[xs.dtype], p, rows, table(xs), table(out), mbox_table,
+            flags, in_cs, out_cs, epoch, stream,
         )
     if err:
         msg = lib.mpit_ring_error_string(err).decode() if err > 0 else "arguments refused"
@@ -412,25 +433,46 @@ def _device_kind(x) -> str:
     return x.device.type
 
 
-def reduce_scatter_chunks(xs, *, quantized: bool = False, out=None):
-    """Reduce-scatter rank-stacked chunks ``xs [p, p, rows, 128]`` into
-    ``out [p, rows, 128]`` (new if None; xs' dtype, f32 if
-    ``quantized``): the kernel for CUDA tensors, the plain version for
-    CPU ones."""
+def _rs_out(xs, quantized: bool, out):
     _check_stacked(xs, "rs")
     p, rows = xs.shape[0], xs.shape[2]
     dtype = torch.float32 if quantized else xs.dtype
     if out is None:
-        out = torch.empty((p, rows, _LANE), dtype=dtype, device=xs.device)
-    elif tuple(out.shape) != (p, rows, _LANE) or out.dtype != dtype:
+        return torch.empty((p, rows, _LANE), dtype=dtype, device=xs.device)
+    if tuple(out.shape) != (p, rows, _LANE) or out.dtype != dtype:
         raise ValueError(f"out must be {dtype} {(p, rows, _LANE)}, got {out.dtype} {tuple(out.shape)}")
-    if _device_kind(xs) == "cpu" or p == 1:
+    return out
+
+
+def reduce_scatter_chunks(xs, *, quantized: bool = False, out=None):
+    """Reduce-scatter rank-stacked chunks ``xs [p, p, rows, 128]`` into
+    ``out [p, rows, 128]`` (new if None; xs' dtype, f32 if
+    ``quantized``): the kernel for CUDA tensors (the sum as the one-pass
+    fold, the q8 form on the hop schedule), the plain version for CPU
+    ones."""
+    out = _rs_out(xs, quantized, out)
+    if _device_kind(xs) == "cpu" or xs.shape[0] == 1:
         out.copy_(reduce_scatter_plain(xs, quantized=quantized))
         return out
     _dense_rows(xs, "xs")
     _dense_rows(out, "out")
     _launch("ring_rs_q8" if quantized else "ring_rs", xs, out,
             torch.int8 if quantized else xs.dtype, xs.stride(1), 0)
+    return out
+
+
+def _reduce_scatter_hops(xs, *, out=None):
+    """The sum reduce-scatter of CUDA tensors on the ring's hop schedule
+    (``rs_kernel<T, false>``, mailboxes and flags), the form the launch
+    across cards builds on. The main path never calls it; ``chip_smoke.py``
+    and the CUDA tests hold it bit-equal to :func:`reduce_scatter_plain`
+    and time it."""
+    out = _rs_out(xs, False, out)
+    if _device_kind(xs) != "cuda" or xs.shape[0] < 2:
+        raise ValueError("the hop schedule runs on CUDA tensors of 2 or more ranks")
+    _dense_rows(xs, "xs")
+    _dense_rows(out, "out")
+    _launch("ring_rs_hops", xs, out, xs.dtype, xs.stride(1), 0)
     return out
 
 
@@ -471,7 +513,10 @@ def executed_mode(op: str, device) -> str:
 
 def record_wire(name: str, plan: RingPlan, wire_dtype, *, scales: bool, mode: str) -> None:
     """Charge one collective's wire bytes (the plan's, at the quantized
-    size) to the obs counter ``ring_wire_bytes`` when obs is on."""
+    size) to the obs counter ``ring_wire_bytes`` when obs is on: what the
+    JAX package charges, the ring's size on links between devices. With
+    every rank on one card no wire bytes move (the sum reduce-scatter is
+    one pass over HBM); the counter still prices the ring."""
     obs.counter("ring_wire_bytes", plan.wire_payload_bytes(wire_dtype, scales=scales),
                 collective=name, mode=mode)
 

@@ -250,12 +250,13 @@ def send_shipment(ship: KVShipment, dest: int, comm, *, ledger=None) -> int:
 
 
 def recv_shipment(
-    src: int, comm, *, timeout: float | None = None, ledger=None, device="cpu"
+    src: int, comm, *, device, timeout: float | None = None, ledger=None
 ) -> KVShipment:
     """Receive one shipment from ``src``: header first (sizes the
     buffers), then meta and payload. The payload buffer is allocated on
-    ``device``, which must be the device the sender packed on (compat
-    refuses a message that would change device). ``timeout`` applies to
+    ``device``, a required keyword: it must be the device the sender
+    packed on (compat refuses a message that would change device), and
+    the port's entry points run on the card. ``timeout`` applies to
     the header wait only — the remaining frames are already FIFO-queued
     behind it (compat Send is buffered)."""
     header = torch.empty((2,), dtype=torch.int64)

@@ -5,11 +5,12 @@ f32/bf16 or int8 K/V) and on each of its four bodies (split, mma,
 q8mma, rows, checked through ``path_launches``; the body rule and the
 shared memory each body takes, against the kernel library), the int8
 weight store's fused-dequant matmul, the training flash attention's
-forward, dq and dk/dv kernels (alone, the bf16 dk/dv on the tensor
-cores at every head dim, in autograd, and in three tiny training steps
-against plain attention),
+forward, dq and dk/dv kernels (alone, the bf16 dq and dk/dv on the
+tensor cores at every head dim, in autograd, and in three tiny training
+steps against plain attention),
 the ring reduce-scatter and all-gather kernels, sum and int8 wire
-(bit-equal to their plain versions, and in tiny training steps over
+(bit-equal to their plain versions: the sum reduce-scatter as the
+one-card fold and on the hop schedule; and in tiny training steps over
 four ranks against the plain collectives), and the KV shipment's copy
 kernel (bit-exact at every alignment, behind the compat simulator's
 CUDA messages and a tiny fleet's shipments).
@@ -486,6 +487,59 @@ def test_flash_dkv_mma_matches_plain(cuda, d, t, q_off, k_off, fused):
         assert not dk.any() and not dv.any()
 
 
+def test_flash_body_rule_matches_the_kernel_library(cuda):
+    """The host's rule (``_path``) and the C library's
+    (``mpit_flash_path``: the body each launch takes, and by whose answer
+    it is counted) name the same body for the forward, dq and dk/dv at
+    each dtype: ``mma`` for bf16, ``fma`` for f32."""
+    from mpit_tpu_torch.ops import flash_attention as tfa
+
+    lib = tfa.kernel_library()
+    for code, kind in enumerate(tfa._C_KINDS):
+        for dtype, dc in tfa._DTYPES.items():
+            want = "mma" if dtype == torch.bfloat16 else "fma"
+            assert tfa._C_PATHS[lib.mpit_flash_path(code, dc)] == tfa._path(dtype) == want, kind
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize(
+    "t,q_off,k_off,fused",
+    [
+        (65, 0, 0, False),  # a ragged query tile of one row
+        (512, 0, 0, True),  # the model's fused qkv views, read in place
+        (1024, 0, 0, False),
+        (512, 256, 0, False),  # every query tile sees the key tiles up to its own
+        (512, 0, 512, False),  # keys wholly in the queries' future
+    ],
+)
+def test_flash_dq_mma_matches_plain(cuda, d, t, q_off, k_off, fused):
+    """The bf16 dq kernel (the tensor-core body) against its plain
+    version, fed by the plain forward's lse and delta with a non-zero
+    lse cotangent: dq within 5e-2 (a bf16 output rounded once, after
+    sums taken in another order), one dq launch on the ``mma`` body;
+    keys wholly in the future give exactly 0."""
+    from mpit_tpu_torch.ops import flash_attention as tfa
+
+    b, h = 2, 3
+    q, k, v, do = (_randn((b, t, h, d), s + 2 * d, torch.bfloat16) for s in range(4))
+    if fused:
+        q, k, v = torch.cat((q, k, v), dim=2).split(h, dim=2)
+    geo = dict(q_offset=q_off, k_offset=k_off, causal=True)
+    o, lse = tfa.flash_fwd_plain(q, k, v, **geo)
+    delta = tfa._delta(o, do, _randn((b, h, t), 10, torch.float32))
+    before = dict(tfa.path_launches)
+    dq = tfa.flash_dq(q, k, v, do, lse, delta, q_off, k_off, True)
+    torch.cuda.synchronize()
+    ran = {n: tfa.path_launches[n] - before[n] for n in before if tfa.path_launches[n] != before[n]}
+    assert ran == {"dq/mma": 1}
+    assert dq.dtype == torch.bfloat16
+    want = tfa.flash_dq_plain(q, k, v, do, lse, delta, **geo)
+    err = (dq.float() - want.float()).abs().max().item()
+    assert err <= 5e-2, err
+    if k_off >= q_off + t:
+        assert not dq.any()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernels_read_fused_qkv_views_in_place(cuda, dtype):
     """q, k, v as strided views of one fused qkv tensor (the model's
@@ -576,19 +630,26 @@ def _ring_input(shape, dtype, seed, kind="normal"):
 
 @pytest.mark.parametrize("p", [2, 3, 4, 8])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("quantized", [False, True], ids=["sum", "q8"])
+@pytest.mark.parametrize("form", ["sum", "q8", "hops"])
 @pytest.mark.parametrize("rows", [1, 37, 256])
-def test_ring_kernels_equal_plain_bitwise(cuda, p, dtype, quantized, rows):
+def test_ring_kernels_equal_plain_bitwise(cuda, p, dtype, form, rows):
     """Every form, bit-equal to its plain version (the same ring order,
-    the same roundings); the launch counted once per call."""
+    the same roundings); the launch counted once per call. ``sum``: the
+    one-card fold; ``q8``: the int8-wire hop schedule; ``hops``: the sum
+    on the hop schedule through its private entry (the form across
+    cards), whose all-gather is the sum form's."""
     from mpit_tpu_torch.ops import ring_collectives as rc
 
+    quantized = form == "q8"
     xs = _ring_input((p, p, rows, 128), dtype, p * rows + quantized)
-    kind = "ring_rs_q8" if quantized else "ring_rs"
-    before = rc.launches[kind]
-    got = rc.reduce_scatter_chunks(xs, quantized=quantized)
+    kind = {"sum": "ring_rs", "q8": "ring_rs_q8", "hops": "ring_rs_hops"}[form]
+    before = dict(rc.launches)
+    if form == "hops":
+        got = rc._reduce_scatter_hops(xs)
+    else:
+        got = rc.reduce_scatter_chunks(xs, quantized=quantized)
     torch.cuda.synchronize()
-    assert rc.launches[kind] == before + 1
+    assert {k: n - before[k] for k, n in rc.launches.items() if n != before[k]} == {kind: 1}
     assert torch.equal(got, rc.reduce_scatter_plain(xs, quantized=quantized))
     shards = _ring_input((p, rows, 128), dtype, 7 + p + rows)
     full = rc.all_gather_chunks(shards, quantized=quantized)

@@ -210,3 +210,32 @@ def test_bf16_dkv_ragged_tile_matches_jax():
         ref = np.asarray(want.astype(jnp.float32))
         assert np.abs(ref).max() < 4
         np.testing.assert_allclose(got.float().numpy(), ref, rtol=0, atol=2e-2)
+
+
+@pytest.mark.parametrize("q_off", [0, 32])
+def test_bf16_dq_ragged_tile_matches_jax(q_off):
+    """A boundary of the tensor-core dq kernel: bf16 inputs, T = 65 (one
+    whole 64-query tile and a tile of a single query, which sees every
+    key tile), causal, and once with q_offset 32 (every query sees 32
+    more keys). dq of the kernel's plain version, fed by the plain
+    forward's lse and delta, against ``jax.vjp`` of JAX's reference
+    forward (its CPU tests' path) in bf16, within 2e-2: both round dq to
+    bf16 and feed the last product bf16 operands (ds rounded to k's
+    dtype), but autodiff reaches ds through the normalized softmax where
+    the kernels take exp(s - lse) and delta, so sums in another order may
+    land on either side of a rounding boundary: one bf16 step at the
+    largest values, at most 1/64 below 4 (the largest |dq| here is about
+    1.6, where a step is 1/128)."""
+    q, k, v, do = _arrays((2, 65, 3, 16), 4, 13 + q_off)
+    bf = lambda x: jnp.asarray(x, jnp.bfloat16)  # noqa: E731
+    _, vjp = jax.vjp(
+        lambda q: jfa.reference_attention_with_lse(q, bf(k), bf(v), q_offset=q_off)[0], bf(q)
+    )
+    want_dq, = vjp(bf(do))
+    tq, tk, tv, tdo = (torch.from_numpy(x).bfloat16() for x in (q, k, v, do))
+    o, lse = tfa.flash_fwd_plain(tq, tk, tv, q_offset=q_off)
+    dq = tfa.flash_dq_plain(tq, tk, tv, tdo, lse, tfa._delta(o, tdo, None), q_offset=q_off)
+    assert dq.dtype == torch.bfloat16
+    ref = np.asarray(want_dq.astype(jnp.float32))
+    assert np.abs(ref).max() < 4
+    np.testing.assert_allclose(dq.float().numpy(), ref, rtol=0, atol=2e-2)

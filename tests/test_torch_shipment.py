@@ -212,3 +212,12 @@ def test_ship_kv_remote_on_the_cpu():
     assert torch.equal(tship.ship_kv_remote(buf.t(), "cpu"), buf.t())
     with pytest.raises(NotImplementedError, match="§A 14"):
         tship.ship_kv_remote(buf, "meta")
+
+
+def test_recv_shipment_needs_its_device():
+    """``recv_shipment``'s ``device`` is a required keyword: the payload
+    lands where the sender packed it, and nothing defaults to the CPU."""
+    from mpit_tpu_torch.serve.shipment import recv_shipment
+
+    with pytest.raises(TypeError, match="device"):
+        recv_shipment(0, None)
