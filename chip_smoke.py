@@ -50,12 +50,20 @@ for an H100). Phases, each of which raises (exit code != 0) on failure:
    small's four dense-layer shapes (D, F) = (768, 2304), (768, 768),
    (768, 3072), (3072, 768) for M = 8 (a decode tick of 8 slots), 512 (a
    paged prefill chunk of 8 x 64) and 1024 (a dense prefill of 8 x 128),
-   x f32 and bf16, plus a ragged M 5, D 100, F 130: max |error| within
-   1e-4 x max(1, max |plain|) for both x dtypes (bf16 -> f32 is exact and
-   both sides sum f32 products of the same dequantized weights). Times
-   the kernel, the plain version and ``torch.matmul`` on the weight
-   dequantized ahead of time (the library yardstick, dequant untimed,
-   never called by the port) beside the bound;
+   x f32 and bf16, plus a ragged M 5, D 100, F 130, and in bf16 the
+   plan's edges M 1, 9 and 64: max |error| within 1e-4 x max(1, max
+   |plain|) for both x dtypes (both sides sum f32 products of the same
+   dequantized weights: bf16 -> f32 is exact, and the ``mma`` body's three
+   bf16 pieces of a weight sum to it exactly). Each case runs one launch
+   on the body the C library's plan names (``mpit_qmm_plan``: ``mma`` for
+   bf16 x, ``fma`` for f32; counted in ``path_launches``) and records the
+   plan's tile, split and blocks and the earlier design's time
+   (``BEFORE_QMM_MS``). Times the kernel, the plain version and
+   ``torch.matmul`` on the weight dequantized ahead of time (the library
+   yardstick, dequant untimed, never called by the port) beside the
+   bound; then, as in 3e, the kernel's and the library's device times
+   without the host's lead (``device_ms``, ``library_device_ms``) and the
+   wrapper's host time (``host_ms``);
 4. serve — ``python -m mpit_tpu_torch.serve``'s ``main`` in process:
    GPT-2 small at full width (12 layers, d_model 768, 12 heads, vocab
    50257, random weights from seed 0) in bf16, 8 slots, 16 greedy
@@ -71,8 +79,17 @@ for an H100). Phases, each of which raises (exit code != 0) on failure:
    (bf16 K/V) or ``q8mma`` (int8 K/V) and num_layers x decode ticks on
    ``split``, nothing else; the matmul
    kernel's count reaches 4 x num_layers x (prefill calls + decode
-   ticks) in the two int8-weight runs and stays 0 in the other four;
+   ticks) in the two int8-weight runs, every launch on the ``mma`` body,
+   and stays 0 in the other four;
    every run's record goes to ``chiprun_out/chip_smoke_serve.json``;
+4q. int8-weight serving profile — phase 4's dense ``--weights-dtype int8``
+   engine, rebuilt in process, under ``torch.profiler``: one prefill call
+   (every slot's 128-token prompt, the matmul at M 1024) and then 8
+   decode ticks (M 8), after one untimed prefill and tick: device busy
+   time by kernel family (the matmul kernel's named), per prefill call
+   and per tick, and the device's idle share of each window. Reports,
+   gates nothing; "not measured" where the profiler records no device
+   activity;
 5. parity — f32 on the card, TF32 off, same weights: PR 1's stream
    through the dense kernel engine and the reference engine; then a
    shared-prefix stream of 16 greedy requests (8 behind one 70-token
@@ -141,10 +158,9 @@ for an H100). Phases, each of which raises (exit code != 0) on failure:
 3e. kernel vs plain, ring collectives — the reduce-scatter and all-gather
    kernels, sum and int8 wire, against their plain versions (the same
    ring order hop by hop), BIT FOR BIT; the sum reduce-scatter runs as
-   the one-card fold (``schedule`` ``fold``), the others on the ring's
-   hop schedule (``hops``), and the sum on the hop schedule is held too
-   in one case (p 4, 8192 rows, f32, through its private entry, the
-   form across cards): p 2, 4 and 8 at 8192 rows a chunk
+   the one-card fold (``schedule`` ``fold``), the sum all-gather as the
+   one-card copy (``copy``), the q8 forms on the ring's hop schedule
+   (``hops``): p 2, 4 and 8 at 8192 rows a chunk
    (GPT-2 small's 4 MiB f32 bucket), f32 and bf16 for the sum forms, f32
    for the q8 forms; GPT-2 small's ragged tail bucket at p 4, read in
    place from a wider buffer as the bucket loop reads it; an all-zero
@@ -154,8 +170,8 @@ for an H100). Phases, each of which raises (exit code != 0) on failure:
    (``xs.view(p, p, c).sum(0)`` for a reduce-scatter, an expand-and-copy
    of the concatenated shards for an all-gather; the port's ``psum``
    mode, never called by the ring modes) over 20 cold-L2 calls, beside
-   the bound and the bytes the schedule itself moves (the fold's are the
-   bound's); then, apart from those times, the kernel's and the
+   the bound and the bytes the schedule itself moves (the fold's and the
+   copy's are the bound's); then, apart from those times, the kernel's and the
    library's device time with the host time before the launch left out
    (``device_ms``, ``library_device_ms``) and the wrapper's host time a
    call (``host_ms``). Every case goes to ``chiprun_out/chip_smoke_ring.json``;
@@ -164,7 +180,8 @@ for an H100). Phases, each of which raises (exit code != 0) on failure:
    card, 2 sequences each, ZeRO-1 through the ring kernels, 30 steps.
    30 finite losses, falling; the reduce-scatter and all-gather launch
    counts (set to 0 just before) each equal buckets x 30 for the run's
-   form and 0 for the other; the flash counts 12 x 4 x 30 each; the four
+   form and 0 for the other (``ring``: the one-pass fold and copy, the
+   only kernels of those kinds; ``ring_q8``: the hop schedule); the flash counts 12 x 4 x 30 each; the four
    parameter replicas bit-identical after the run. Prints step p50/p95,
    tokens/s and peak memory; then profiles three ``ring`` steps (device
    time by kernel family, idle share);
@@ -220,6 +237,7 @@ limit as ``nvidia-smi`` prints them, and ``{"ok": true, "device":
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -251,8 +269,26 @@ INT8W_ARGS = ["--weights-dtype", "int8"]
 # chunk, dense prefill), and one shape ragged in every dimension.
 QMM_SHAPES = [(768, 2304), (768, 768), (768, 3072), (3072, 768)]
 QMM_ROWS = (8, 512, 1024)
+# The plan's edges, bf16 only: one row, the decode tile's last row count
+# and the first past it, a 64-row block.
+QMM_EDGE_ROWS = (1, 9, 64)
 QMM_RAGGED = (5, 100, 130)
 QMM_TOL = 1e-4  # times max(1, max |plain|)
+# The same cases' times (ms) under the earlier design (qmm_kernel<X> on f32
+# FMAs, 8 rows of x a block, no split): this script on an NVIDIA H100 80GB
+# HBM3 at 700 W, the tree of commit 5ab586c (its last call). Keyed by (x
+# dtype, M, D, F); the ragged row is M 5 alone.
+BEFORE_QMM_MS = {
+    **{("bfloat16", m, d, f): ms for (d, f), row in {
+        (768, 2304): (0.0229, 0.1319, 0.2513), (768, 768): (0.0201, 0.0494, 0.0919),
+        (768, 3072): (0.0192, 0.1728, 0.3330), (3072, 768): (0.0563, 0.1580, 0.3102),
+    }.items() for m, ms in zip(QMM_ROWS, row)},
+    **{("float32", m, d, f): ms for (d, f), row in {
+        (768, 2304): (0.0193, 0.1322, 0.2523), (768, 768): (0.0195, 0.0499, 0.0927),
+        (768, 3072): (0.0193, 0.1722, 0.3344), (3072, 768): (0.0555, 0.1591, 0.3113),
+    }.items() for m, ms in zip(QMM_ROWS, row)},
+    ("bfloat16", *QMM_RAGGED): 0.0118, ("float32", *QMM_RAGGED): 0.0130,
+}
 FLASH_B, FLASH_T = 8, (512, 1024)  # GPT-2 small's training batch and lengths
 TRAIN_ARGS = ["--flash", "true", "--steps", "30", "--log-every", "1"]
 TRAIN_PARITY_TOL = 1e-4  # relative, per-step loss, f32
@@ -400,8 +436,11 @@ def host_time_ms(fn, torch, iters: int = 20) -> float:
 
 def warm_up(torch, seconds: float = 1.0) -> None:
     """Keep the card busy for about ``seconds`` before the first timed
-    case, so that no case is timed while the clocks ramp up from idle."""
+    case, so that no case is timed while the clocks ramp up from idle;
+    and run the device spin of ``cold_time_ms``'s ``lead_cycles`` once,
+    so that its first call's one-off cost falls outside any timing."""
     a = torch.randn(4096, 4096, device="cuda")
+    torch.cuda._sleep(HOST_LEAD_CYCLES)
     t0 = time.perf_counter()
     while time.perf_counter() - t0 < seconds:
         torch.mm(a, a)
@@ -620,35 +659,56 @@ def qmm_kernel_phase(torch, flush):
     from mpit_tpu_torch.ops import quantized_matmul as qm
 
     shapes = [(m, d, f) for d, f in QMM_SHAPES for m in QMM_ROWS] + [QMM_RAGGED]
+    edges = [(m, d, f) for d, f in QMM_SHAPES for m in QMM_EDGE_ROWS]
     cases = []
+    # As before phase 3: no case is timed while the clocks ramp up or a
+    # collection of phase 3b's garbage runs (without this the first case
+    # read slow in this script's runs).
+    gc.collect()
+    warm_up(torch, 0.5)
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).removeprefix("torch.")
-        for m, d, f in shapes:
+        for m, d, f in shapes + (edges if dtype == torch.bfloat16 else []):
             gen = torch.Generator(device="cuda").manual_seed(m + d + f)
             x = torch.randn((m, d), generator=gen, device="cuda").to(dtype)
             w = qm.quantize_tensor(
                 torch.randn((d, f), generator=gen, device="cuda") / math.sqrt(d)
             )
             label = f"quantized_matmul x={name} M={m} D={d} F={f}"
+            plan = qm.kernel_plan(m, d, f, dtype, x.device)
+            paths = dict(qm.path_launches)
             out = qm.quantized_matmul(x, w)
             torch.cuda.synchronize()
+            ran = {k: n - paths[k] for k, n in qm.path_launches.items() if n != paths[k]}
+            if ran != {plan["path"]: 1}:
+                fail(f"{label}: launches by body {ran}, expected one on {plan['path']}")
             plain = qm.quantized_matmul_plain(x, w)
             err = (out - plain).abs().max().item()
             tol = QMM_TOL * max(1.0, plain.abs().max().item())
             if out.dtype != torch.float32 or not math.isfinite(err) or err > tol:
                 fail(f"kernel vs plain {label}: {err} > {tol} ({out.dtype})")
             w_deq = qm.dequantize_tensor(w)  # the yardstick's, not timed
+            run = lambda: qm.quantized_matmul(x, w)  # noqa: E731
+            lib = lambda: torch.matmul(x.float(), w_deq)  # noqa: E731
             bound_ms, bound_by = qmm_bound(m, d, f, x)
             cases.append({
                 "form": "quantized_matmul", "dtype": name, "M": m, "D": d, "F": f,
+                "path": plan["path"], "tile": list(plan["tile"]), "splits": plan["splits"],
+                "blocks": plan["blocks"],
                 "max_abs_err": err, "tol": tol,
-                "ms": cold_time_ms(lambda: qm.quantized_matmul(x, w), torch, flush),
+                "before_ms": BEFORE_QMM_MS.get((name, m, d, f)),
+                "ms": cold_time_ms(run, torch, flush),
                 "plain_ms": cold_time_ms(
                     lambda: qm.quantized_matmul_plain(x, w), torch, flush
                 ),
-                "library_ms": cold_time_ms(
-                    lambda: torch.matmul(x.float(), w_deq), torch, flush
-                ),
+                "library_ms": cold_time_ms(lib, torch, flush),
+                # As for the ring cases: the same two calls with their host
+                # time before the launch left out, and the wrapper's host
+                # time a call.
+                "device_ms": cold_time_ms(run, torch, flush, lead_cycles=HOST_LEAD_CYCLES),
+                "library_device_ms": cold_time_ms(lib, torch, flush,
+                                                  lead_cycles=HOST_LEAD_CYCLES),
+                "host_ms": host_time_ms(run, torch),
                 "bound_ms": bound_ms, "bound_by": bound_by,
             })
             print(json.dumps({"kernel_case": cases[-1]}), flush=True)
@@ -660,7 +720,8 @@ def serve_phase(torch, card, extra_args, form, records):
     through the attention kernel ``form`` and, with ``--weights-dtype
     int8``, the matmul kernel (every launch count read around the run).
     Appends the run's record to ``records``; returns ``(attention
-    launches, matmul launches, attention launches by body)``."""
+    launches, matmul launches, attention launches by body, matmul
+    launches by body)``."""
     from mpit_tpu_torch.ops import decode_attention as da
     from mpit_tpu_torch.ops import quantized_matmul as qm
     from mpit_tpu_torch.serve.__main__ import main
@@ -668,10 +729,12 @@ def serve_phase(torch, card, extra_args, form, records):
     da.launches.update(dict.fromkeys(da.launches, 0))
     da.path_launches.update(dict.fromkeys(da.path_launches, 0))
     qm.launches.update(dict.fromkeys(qm.launches, 0))
+    qm.path_launches.update(dict.fromkeys(qm.path_launches, 0))
     out = main(SERVE_ARGS + extra_args)
     counts = dict(da.launches)
     paths = {k: n for k, n in da.path_launches.items() if n}
     qmm_launches = qm.launches["quantized_matmul"]
+    qmm_paths = {k: n for k, n in qm.path_launches.items() if n}
     launches = counts[form]
     phases = out["obs_summary"]
     n_prefill = phases["prefill"]["count"]
@@ -697,6 +760,10 @@ def serve_phase(torch, card, extra_args, form, records):
     if int8w and qmm_launches < 4 * need:
         fail(f"serve {tag}: {qmm_launches} quantized_matmul launches < {4 * need} "
              "(4 dense layers x layers x calls)")
+    # bf16 activations: every matmul launch on the tensor-core body.
+    if int8w and qmm_paths != {"mma": qmm_launches}:
+        fail(f"serve {tag}: quantized_matmul launches by body {qmm_paths}, "
+             f"expected all {qmm_launches} on mma")
     if not int8w and qmm_launches:
         fail(f"serve {tag}: quantized_matmul launched {qmm_launches} times "
              "without --weights-dtype int8")
@@ -725,9 +792,44 @@ def serve_phase(torch, card, extra_args, form, records):
         "kernel_launches": launches,
         "kernel_launches_by_body": paths,
         "quantized_matmul_launches": qmm_launches,
+        "quantized_matmul_launches_by_body": qmm_paths,
     })
     print(json.dumps(records[-1]), flush=True)
-    return launches, qmm_launches, paths
+    return launches, qmm_launches, paths, qmm_paths
+
+
+def int8w_serve_profile(torch, ticks: int = 8) -> dict:
+    """Phase 4q: one prefill call and ``ticks`` decode ticks of phase 4's
+    dense int8-weight engine under ``torch.profiler`` (see
+    :func:`profile_window`), each window apart."""
+    import numpy as np
+
+    from mpit_tpu_torch.config import from_argv
+    from mpit_tpu_torch.serve.__main__ import ServeConfig, _build_engine
+
+    cfg = from_argv(ServeConfig, SERVE_ARGS + INT8W_ARGS)
+    engine, mcfg = _build_engine(cfg)
+    slots = cfg.slots
+    tokens = np.random.default_rng(cfg.seed).integers(
+        0, mcfg.vocab_size, (slots, cfg.prefill_len))
+    lens = np.full(slots, cfg.prefill_len, np.int32)
+    every = np.ones(slots, bool)
+    temp, topk = np.zeros(slots, np.float32), np.zeros(slots, np.int32)
+
+    def prefill(_):
+        engine.prefill(tokens, lens, every, temp, topk)
+
+    def tick(_):
+        engine.decode(every, temp, topk)
+
+    prefill(None)  # the first launches' one-off costs, outside the windows
+    tick(None)
+    engine.reset()
+    out = {"prefill_call": profile_window(torch, prefill, [None]),
+           "decode_tick": profile_window(torch, tick, list(range(ticks)))}
+    del engine
+    torch.cuda.empty_cache()
+    return out
 
 
 def parity_phase(torch):
@@ -1247,8 +1349,10 @@ def train_profile(torch, steps: int = 3) -> dict:
 # gradients' ravel into the flat buffer (_foreach_copy_) and the dtype
 # casts (copy kernels).
 FAMILIES = {
+    "quantized_matmul": ("qmm_mma_kernel", "qmm_fma_kernel"),
+    "decode_attention": ("decode_kernel",),
     "flash_attention": ("fwd_kernel", "dq_kernel", "dkv_kernel"),
-    "ring_collectives": ("rs_kernel", "rs_fold_kernel", "ag_kernel"),
+    "ring_collectives": ("rs_fold_kernel", "rs_q8_kernel", "ag_copy_kernel", "ag_q8_kernel"),
     "gemm": ("nvjet", "gemm", "xmma", "cutlass"),
     "copies": ("copy",),
     "optimizer_foreach": ("foreach", "multi_tensor"),
@@ -1316,36 +1420,34 @@ def ring_bound(kind: str, p: int, rows: int, in_item: int, out_item: int, q8: bo
 def ring_schedule_bytes(kind: str, schedule: str, p: int, rows: int, in_item: int,
                         wire_item: int, out_item: int) -> int:
     """Bytes the schedule itself moves on one card. The fold reads every
-    rank's p chunks once and writes one chunk a rank: the bound's bytes.
-    On the hop schedule, per rank and step, a reduce-scatter reads its
-    outgoing chunk, writes and reads the mailbox, reads its own chunk and
-    writes the partial; an all-gather copies its own chunk once, then per
-    step reads a chunk, writes and reads the mailbox and writes the
-    arrived chunk."""
+    rank's p chunks once and writes one chunk a rank, the copy reads one
+    chunk a rank once and writes it p times: the bound's bytes. On the
+    hop schedule, per rank and step, a reduce-scatter reads its outgoing
+    chunk, writes and reads the mailbox, reads its own chunk and writes
+    the partial; an all-gather copies its own chunk once, then per step
+    reads a chunk, writes and reads the mailbox and writes the arrived
+    chunk."""
     c = rows * 128
     if schedule == "fold":
         return p * p * c * in_item + p * c * out_item
+    if schedule == "copy":
+        return p * c * in_item + p * p * c * out_item
     if kind == "rs":
         return p * (p - 1) * c * (in_item + 2 * wire_item + in_item + out_item)
     return p * c * (in_item + out_item) + p * (p - 1) * c * (out_item + 2 * wire_item + out_item)
 
 
-def ring_case(torch, flush, kind: str, xs, quantized: bool, label: str, hops: bool = False,
-              **extra):
+def ring_case(torch, flush, kind: str, xs, quantized: bool, label: str, **extra):
     """Phase 3e, one case: the kernel (``reduce_scatter_chunks`` /
-    ``all_gather_chunks``; with ``hops``, the sum reduce-scatter on the
-    hop schedule) against its plain version, bit for bit, with the
-    kernel, plain and library times, the bound and the schedule's
+    ``all_gather_chunks``) against its plain version, bit for bit, with
+    the kernel, plain and library times, the bound and the schedule's
     bytes, and apart from those the device times without the host's lead
     and the wrapper's host time."""
     from mpit_tpu_torch.ops import ring_collectives as rc
 
     p, rows = xs.shape[0], xs.shape[-2]
     if kind == "rs":
-        if hops:
-            run = lambda: rc._reduce_scatter_hops(xs)  # noqa: E731
-        else:
-            run = lambda: rc.reduce_scatter_chunks(xs, quantized=quantized)  # noqa: E731
+        run = lambda: rc.reduce_scatter_chunks(xs, quantized=quantized)  # noqa: E731
         plain = lambda: rc.reduce_scatter_plain(xs, quantized=quantized)  # noqa: E731
         lib = lambda: xs.reshape(p, p, -1).sum(0)  # noqa: E731
         out_item = 4 if quantized else xs.element_size()
@@ -1364,9 +1466,9 @@ def ring_case(torch, flush, kind: str, xs, quantized: bool, label: str, hops: bo
         fail(f"ring {label}: the gathered replicas differ")
     in_item = xs.element_size()
     bound_ms, bound_by = ring_bound(kind, p, rows, in_item, out_item, quantized)
-    schedule = "fold" if kind == "rs" and not (quantized or hops) else "hops"
+    schedule = "hops" if quantized else {"rs": "fold", "ag": "copy"}[kind]
     case = {
-        "form": f"ring_{kind}" + ("_q8" if quantized else "") + ("_hops" if hops else ""),
+        "form": f"ring_{kind}" + ("_q8" if quantized else ""),
         "label": label, "schedule": schedule,
         "dtype": str(xs.dtype).removeprefix("torch."), "p": p, "rows": rows, **extra,
         "max_abs_err": 0.0, "bit_equal": True,
@@ -1397,10 +1499,7 @@ def ring_kernel_phase(torch, flush, tail_rows: int):
         gen = torch.Generator(device="cuda").manual_seed(seed)
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
-    # The sum on the hop schedule (the form across cards), once, at GPT-2
-    # small's bucket.
-    cases = [ring_case(torch, flush, "rs", randn((DP_RANKS, DP_RANKS, RING_ROWS, 128), 4),
-                       False, f"rs hops p={DP_RANKS} float32 rows={RING_ROWS}", hops=True)]
+    cases = []
     forms = [(torch.float32, False), (torch.bfloat16, False), (torch.float32, True)]
     for p in RING_P:
         for dtype, q8 in forms:
@@ -1968,6 +2067,10 @@ def main() -> None:
     }
     serve_records = []
     counts = {name: serve_phase(torch, card, *run, serve_records) for name, run in runs.items()}
+    t0 = time.perf_counter()
+    serve_records.append({"card": card, "int8w_serve_profile": int8w_serve_profile(torch)})
+    print(json.dumps(serve_records[-1]), flush=True)
+    print(f"phase 4q: {time.perf_counter() - t0:.1f} s", flush=True)
     (OUT / "chip_smoke_serve.json").write_text(json.dumps(serve_records, indent=1))
     # An attention form's launches by body: its run without int8 weights.
     body_launches = {}
@@ -1975,6 +2078,10 @@ def main() -> None:
         if "--weights-dtype" not in args:
             body_launches.update(counts[name][2])
     qmm_launches = {name: c[1] for name, c in counts.items() if c[1]}
+    qmm_bodies = {}
+    for c in counts.values():
+        for body, n in c[3].items():
+            qmm_bodies[body] = qmm_bodies.get(body, 0) + n
     t0 = time.perf_counter()
     ship_launches, fleet_records = fleet_phase(torch, card, ship_cases)
     print(f"phase 4f: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2039,10 +2146,12 @@ def main() -> None:
         "source": "mpit_tpu_torch/csrc/quantized_matmul.cu",
         "replaces": "mpit_tpu/ops/quantized_matmul.py:272",
         "call_site": "mpit_tpu/ops/quantized_matmul.py:321",
+        "path": head["path"],
         "launches": sum(qmm_launches.values()),
         "launches_by_run": qmm_launches,
+        "launches_by_body": qmm_bodies,
         **{k: head[k] for k in ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms",
-                                "bound_by", "library_ms")},
+                                "bound_by", "library_ms", "splits", "blocks")},
         "shape": {k: head[k] for k in ("dtype", "M", "D", "F")},
     })
     flash_sources = {"fwd": (121, 362), "dq": (195, 408), "dkv": (237, 428)}

@@ -5,12 +5,13 @@
 // reached through _call_ring (:546, pl.pallas_call at :550):
 //   - rs_fold_kernel<T>   <- _rs_kernel    (:350)  sum, in x's dtype, ranks
 //                                                  on one card (below)
-//   - rs_kernel<T, false>   the same sum as the hop schedule, for the launch
-//                           across cards; launched here only to hold it
-//                           bit-equal and timed (C kind 4)
-//   - rs_kernel<T, true>  <- _rs_q8_kernel (:387)  int8 wire, f32 result
-//   - ag_kernel<T, false> <- _ag_kernel    (:429)
-//   - ag_kernel<T, true>  <- _ag_q8_kernel (:457)  int8 wire
+//   - rs_q8_kernel<T>     <- _rs_q8_kernel (:387)  int8 wire, f32 result
+//   - ag_copy_kernel<T>   <- _ag_kernel    (:429)  ranks on one card (below)
+//   - ag_q8_kernel<T>     <- _ag_q8_kernel (:457)  int8 wire
+// The two q8 kernels run the ring's hop schedule; the sum forms, with every
+// rank's buffer in this card's HBM, run as one pass each. The hop schedule
+// of the sum forms, for the launch across cards, is rebuilt with the
+// hardware that needs it.
 //
 // What they compute, per rank i of p, on [rows, 128] chunks:
 //   reduce-scatter: rank i's input holds p chunks; at step s (0..p-2) it
@@ -28,11 +29,11 @@
 //     verbatim, and every rank, the owner included, writes the dequantized
 //     value, so every replica holds the same bits.
 //
-// Launch: ONE cooperative launch carries all p ranks, grid (B, p):
+// Launch of the hop schedule (the q8 forms): ONE cooperative launch carries
+// all p ranks, grid (B, p):
 // blockIdx.y is the rank, and block b of every rank owns rows
 // [b*rows/B, (b+1)*rows/B) of every chunk, running its own sub-ring with
-// block b of ranks i-1 and i+1 through its own flags. The sum forms need no
-// synchronisation between the blocks of one rank. The q8 forms need the
+// block b of ranks i-1 and i+1 through its own flags. The q8 forms need the
 // chunk-wide amax at every quantization: each block publishes its partial
 // amax, and every block of the rank waits for all B partials and takes
 // their max (exact, so order does not matter). p*B <= the SM count and the
@@ -47,7 +48,7 @@
 //   - a receiver waits for its own FULL flag, reads its mailbox, and raises
 //     its LEFT neighbour's CAP flag for the slot: the left may write that
 //     slot again (step s + 2) only once CAP shows step s was consumed;
-//   - the q8 all-gather forwards the payload that arrived at step s - 1
+//   - the all-gather forwards the payload that arrived at step s - 1
 //     straight from its mailbox at step s, before it releases that slot.
 // Flags are never cleared: a token is epoch * 256 + step + 1, the epoch a
 // per-device call counter from the wrapper, so every token is larger than
@@ -74,8 +75,7 @@
 // GPT-2 small's bucket (p 4, 8192 rows of 128 f32 per chunk, 4 MiB) that
 // is 80 MiB, about 0.025 ms at 3.35 TB/s. The ring schedule itself moves
 // more on one HBM: every step reads and writes a chunk per rank again
-// through a mailbox (for the sum reduce-scatter about 4(p-1) + p chunk
-// passes per rank), since it is built for links between cards, not one
+// through a mailbox, since it is built for links between cards, not one
 // memory. The design keeps the payload in registers between its loads and
 // stores (16-byte loads where the type allows, 4 elements a thread per
 // iteration) and uses every SM: p*B blocks of 512 threads.
@@ -87,12 +87,12 @@
 //   acc = x[r+1][r];  for j = 2..p: acc = round_T(acc + x[r+j][r])
 // (rank indices mod p; chunk r leaves rank r + 1 at step 0 and each later
 // rank adds its own copy, the last being rank r's). Each add is __fadd_rn
-// in f32 and is rounded to T, as the hop kernel's partial is stored in T in
-// the mailbox and in the output, so the result is bit-equal to the hop
-// schedule and to the plain version (reduce_scatter_plain) in f32 and bf16.
-// It moves the function's least traffic, the bound itself: p*p*c read once,
-// p*c written once (80 MiB at GPT-2 small's f32 bucket, p 4), against about
-// 4(p-1) + p chunk passes a rank for the hops. Its design is a bandwidth
+// in f32 and is rounded to T, as a hop's partial is stored in T, so the
+// result is bit-equal to the ring schedule and to the plain version
+// (reduce_scatter_plain) in f32 and bf16. It moves the function's least
+// traffic, the bound itself: p*p*c read once, p*c written once (80 MiB at
+// GPT-2 small's f32 bucket, p 4), against about 4(p-1) + p chunk passes a
+// rank for the hops. Its design is a bandwidth
 // kernel's: a plain launch (no cooperative residency needed: no block waits
 // on another) of blocks that fill every SM, grid (ceil(groups / 256), p)
 // with blockIdx.y the rank, each thread taking one 16-byte group (4 f32 or
@@ -101,16 +101,26 @@
 // __stcs: every byte is touched once), the group's registers sized to p
 // (MAXP 4, 8 or 16). No mailbox, no flags, no epoch, no spin.
 //
+// The sum all-gather with every rank on this one card: ag_copy_kernel, one
+// pass, of the fold's design. An all-gather is a copy: chunk c of every
+// rank's output is rank c's shard. So each thread loads one 16-byte group of
+// rank c's shard once (__ldcs) and stores it into chunk c of all p ranks'
+// outputs, the p stores issued back to back (__stcs): p*c read, p*p*c
+// written, the bound's bytes (80 MiB at p 4 f32, against the hop
+// schedule's 224 MiB), in a plain launch of grid (ceil(groups / 256), p)
+// with blockIdx.y the source rank c. Bit-equal to the plain version, and
+// every replica holds the same bits.
+//
 // C interface for ctypes: mpit_ring_launch returns the cudaError_t of the
 // launch (cudaGetLastError right after it) or -1 for arguments this file
-// does not take; mpit_ring_error reads the error word, 0 if none. Kind 0 is
-// the fold; kinds 1-3 and 4 (the hop sum form) the ring schedule.
+// does not take; mpit_ring_error reads the error word, 0 if none. Kinds 0
+// and 2 are the one-pass fold and copy; kinds 1 and 3 the q8 ring
+// schedule.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <type_traits>
 
 namespace {
 
@@ -188,10 +198,6 @@ __device__ __forceinline__ void load4(const float* p, float v[4]) {
   const float4 x = *reinterpret_cast<const float4*>(p);
   v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
 }
-__device__ __forceinline__ void load4_cg(const float* p, float v[4]) {
-  const float4 x = __ldcg(reinterpret_cast<const float4*>(p));
-  v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
-}
 __device__ __forceinline__ void store4(float* p, const float v[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
@@ -204,9 +210,6 @@ __device__ __forceinline__ void unpack_bf16(uint2 x, float v[4]) {
 }
 __device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
   unpack_bf16(*reinterpret_cast<const uint2*>(p), v);
-}
-__device__ __forceinline__ void load4_cg(const __nv_bfloat16* p, float v[4]) {
-  unpack_bf16(__ldcg(reinterpret_cast<const uint2*>(p)), v);
 }
 __device__ __forceinline__ void store4(__nv_bfloat16* p, const float v[4]) {
   __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
@@ -288,21 +291,19 @@ __device__ __forceinline__ Rows my_rows(const RingArgs& a) {
   return Rows{lo * LANE, (hi - lo) * (LANE / 4)};
 }
 
-// ---- reduce-scatter ---------------------------------------------------------
+// ---- q8 reduce-scatter --------------------------------------------------------
 
-template <typename T, bool Q8>
-__global__ void __launch_bounds__(NT) rs_kernel(RingArgs a) {
-  using Out = typename std::conditional<Q8, float, T>::type;
-  using Wire = typename std::conditional<Q8, int8_t, T>::type;
+template <typename T>
+__global__ void __launch_bounds__(NT) rs_q8_kernel(RingArgs a) {
   __shared__ float red[NT / 32];
   const int p = a.p, r = blockIdx.y, b = blockIdx.x;
   const int right = (r + 1) % p, left = (r + p - 1) % p;
   const Rows rw = my_rows(a);
   const long long slot_elems = static_cast<long long>(a.rows) * LANE;
   const T* x = static_cast<const T*>(a.in[r]) + rw.r0;
-  Out* o = static_cast<Out*>(a.out[r]) + rw.r0;
-  Wire* mb_right = static_cast<Wire*>(a.mbox[right]) + rw.r0;
-  const Wire* mb_me = static_cast<const Wire*>(a.mbox[r]) + rw.r0;
+  float* o = static_cast<float*>(a.out[r]) + rw.r0;
+  int8_t* mb_right = static_cast<int8_t*>(a.mbox[right]) + rw.r0;
+  const int8_t* mb_me = static_cast<const int8_t*>(a.mbox[r]) + rw.r0;
   u64* ws_me = a.ws[r];
   float* scale_right = reinterpret_cast<float*>(a.ws[right] + WS_SCALE);
   const float* scale_me = reinterpret_cast<const float*>(ws_me + WS_SCALE);
@@ -312,32 +313,28 @@ __global__ void __launch_bounds__(NT) rs_kernel(RingArgs a) {
     const int recv_c = (r - 2 - s + 2 * p) % p;
     const int slot = s & 1;
     const T* xs = x + send_c * a.in_cs;  // step 0's outgoing chunk
-    float scale = 1.f;
-    if constexpr (Q8) {
-      float m = 0.f;
-      for (long long g = threadIdx.x; g < rw.n4; g += NT) {
-        float v[4];
-        if (s == 0) load4(xs + 4 * g, v); else load4(o + 4 * g, v);
-        m = fmaxf(m, fmaxf(fmaxf(fabsf(v[0]), fabsf(v[1])), fmaxf(fabsf(v[2]), fabsf(v[3]))));
-      }
-      scale = q8_scale(rank_amax(a, m, s, red));
+    float m = 0.f;
+    for (long long g = threadIdx.x; g < rw.n4; g += NT) {
+      float v[4];
+      if (s == 0) load4(xs + 4 * g, v); else load4(o + 4 * g, v);
+      m = fmaxf(m, fmaxf(fmaxf(fabsf(v[0]), fabsf(v[1])), fmaxf(fabsf(v[2]), fabsf(v[3]))));
     }
+    const float scale = q8_scale(rank_amax(a, m, s, red));
     if (s >= 2) block_wait(a, ws_me + WS_CAP + slot * MAXB + b, token(a, s - 2), 2, s);
-    Wire* dst = mb_right + slot * slot_elems;
+    int8_t* dst = mb_right + slot * slot_elems;
     #pragma unroll 4
     for (long long g = threadIdx.x; g < rw.n4; g += NT) {
       float v[4];
       if (s == 0) load4(xs + 4 * g, v); else load4(o + 4 * g, v);
-      if constexpr (Q8) quant_store4(dst + 4 * g, v, scale);
-      else store4(dst + 4 * g, v);
+      quant_store4(dst + 4 * g, v, scale);
     }
-    if (Q8 && threadIdx.x == 0) scale_right[slot * MAXB + b] = scale;
+    if (threadIdx.x == 0) scale_right[slot * MAXB + b] = scale;
     __threadfence();
     __syncthreads();
     if (threadIdx.x == 0) st_release(a.ws[right] + WS_FULL + slot * MAXB + b, token(a, s));
     block_wait(a, ws_me + WS_FULL + slot * MAXB + b, token(a, s), 1, s);
-    const float in_scale = Q8 ? __ldcg(scale_me + slot * MAXB + b) : 1.f;
-    const Wire* src = mb_me + slot * slot_elems;
+    const float in_scale = __ldcg(scale_me + slot * MAXB + b);
+    const int8_t* src = mb_me + slot * slot_elems;
     const T* xr = x + recv_c * a.in_cs;
     #pragma unroll 4
     for (long long g = threadIdx.x; g < rw.n4; g += NT) {
@@ -345,8 +342,7 @@ __global__ void __launch_bounds__(NT) rs_kernel(RingArgs a) {
       load4_cg(src + 4 * g, w);
       load4(xr + 4 * g, v);
       #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        v[j] = Q8 ? __fadd_rn(__fmul_rn(w[j], in_scale), v[j]) : __fadd_rn(w[j], v[j]);
+      for (int j = 0; j < 4; ++j) v[j] = __fadd_rn(__fmul_rn(w[j], in_scale), v[j]);
       store4(o + 4 * g, v);
     }
     __syncthreads();
@@ -356,13 +352,15 @@ __global__ void __launch_bounds__(NT) rs_kernel(RingArgs a) {
 
 // ---- the one-card sum reduce-scatter: one pass ------------------------------
 
-constexpr int FOLD_NT = 256;  // threads per block of the fold
+constexpr int PASS_NT = 256;  // threads per block of the one-pass kernels
 
-struct FoldArgs {
+// The one-pass kernels' arguments (the fold's and the copy's).
+struct PassArgs {
   const void* in[MAX_RANKS];
   void* out[MAX_RANKS];
-  long long in_cs;  // elements between chunks of a rank's input
-  long long n16;    // 16-byte groups of a chunk
+  long long cs;   // elements between chunks of the p-chunk side (the fold's
+                  // input, the copy's output)
+  long long n16;  // 16-byte groups of a chunk
   int p;
 };
 
@@ -397,12 +395,12 @@ __device__ __forceinline__ uint4 pack16(const float (&v)[8]) {
 // MAXP: the ranks this instantiation takes at most (4, 8 or MAX_RANKS), so
 // that the group's registers are sized to p, not to the table.
 template <typename T, int MAXP>
-__global__ void __launch_bounds__(FOLD_NT) rs_fold_kernel(FoldArgs a) {
+__global__ void __launch_bounds__(PASS_NT) rs_fold_kernel(PassArgs a) {
   constexpr int VEC = 16 / sizeof(T);  // elements of a 16-byte group
   const int p = a.p, r = blockIdx.y;
-  const long long g = static_cast<long long>(blockIdx.x) * FOLD_NT + threadIdx.x;
+  const long long g = static_cast<long long>(blockIdx.x) * PASS_NT + threadIdx.x;
   if (g >= a.n16) return;
-  const long long chunk = static_cast<long long>(r) * a.in_cs;
+  const long long chunk = static_cast<long long>(r) * a.cs;
   // Every rank's copy of this group of chunk r, in ring order: raw[j] is
   // rank r + 1 + j's. All p loads start before the first add.
   uint4 raw[MAXP];
@@ -429,11 +427,24 @@ __global__ void __launch_bounds__(FOLD_NT) rs_fold_kernel(FoldArgs a) {
   __stcs(static_cast<uint4*>(a.out[r]) + g, pack16(acc));
 }
 
-// ---- all-gather -------------------------------------------------------------
+// ---- the one-card sum all-gather: one pass ----------------------------------
 
-template <typename T, bool Q8>
-__global__ void __launch_bounds__(NT) ag_kernel(RingArgs a) {
-  using Wire = typename std::conditional<Q8, int8_t, T>::type;
+template <typename T>
+__global__ void __launch_bounds__(PASS_NT) ag_copy_kernel(PassArgs a) {
+  const int c = blockIdx.y;  // the source rank, and the chunk it fills
+  const long long g = static_cast<long long>(blockIdx.x) * PASS_NT + threadIdx.x;
+  if (g >= a.n16) return;
+  const uint4 v = __ldcs(reinterpret_cast<const uint4*>(a.in[c]) + g);
+  const long long chunk = static_cast<long long>(c) * a.cs;
+  #pragma unroll 4
+  for (int r = 0; r < a.p; ++r)
+    __stcs(reinterpret_cast<uint4*>(static_cast<T*>(a.out[r]) + chunk) + g, v);
+}
+
+// ---- q8 all-gather ------------------------------------------------------------
+
+template <typename T>
+__global__ void __launch_bounds__(NT) ag_q8_kernel(RingArgs a) {
   __shared__ float red[NT / 32];
   const int p = a.p, r = blockIdx.y, b = blockIdx.x;
   const int right = (r + 1) % p, left = (r + p - 1) % p;
@@ -441,86 +452,68 @@ __global__ void __launch_bounds__(NT) ag_kernel(RingArgs a) {
   const long long slot_elems = static_cast<long long>(a.rows) * LANE;
   const T* x = static_cast<const T*>(a.in[r]) + rw.r0;
   T* o = static_cast<T*>(a.out[r]) + rw.r0;
-  Wire* mb_right = static_cast<Wire*>(a.mbox[right]) + rw.r0;
-  const Wire* mb_me = static_cast<const Wire*>(a.mbox[r]) + rw.r0;
+  int8_t* mb_right = static_cast<int8_t*>(a.mbox[right]) + rw.r0;
+  const int8_t* mb_me = static_cast<const int8_t*>(a.mbox[r]) + rw.r0;
   u64* ws_me = a.ws[r];
   float* scale_right = reinterpret_cast<float*>(a.ws[right] + WS_SCALE);
   const float* scale_me = reinterpret_cast<const float*>(ws_me + WS_SCALE);
 
-  // The own chunk (dequantized in the q8 form, as every receiver sees it).
-  float scale_own = 1.f;
-  if (Q8) {
-    float m = 0.f;
-    for (long long g = threadIdx.x; g < rw.n4; g += NT) {
-      float v[4];
-      load4(x + 4 * g, v);
-      m = fmaxf(m, fmaxf(fmaxf(fabsf(v[0]), fabsf(v[1])), fmaxf(fabsf(v[2]), fabsf(v[3]))));
-    }
-    scale_own = q8_scale(rank_amax(a, m, 0, red));
+  // The own chunk, dequantized as every receiver sees it.
+  float m = 0.f;
+  for (long long g = threadIdx.x; g < rw.n4; g += NT) {
+    float v[4];
+    load4(x + 4 * g, v);
+    m = fmaxf(m, fmaxf(fmaxf(fabsf(v[0]), fabsf(v[1])), fmaxf(fabsf(v[2]), fabsf(v[3]))));
   }
+  const float scale_own = q8_scale(rank_amax(a, m, 0, red));
   T* own = o + r * a.out_cs;
   for (long long g = threadIdx.x; g < rw.n4; g += NT) {
     float v[4];
     load4(x + 4 * g, v);
-    if (Q8) {
-      #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        v[j] = __fmul_rn(fminf(fmaxf(rintf(__fdiv_rn(v[j], scale_own)), -127.f), 127.f), scale_own);
-    }
+    #pragma unroll
+    for (int j = 0; j < 4; ++j)
+      v[j] = __fmul_rn(fminf(fmaxf(rintf(__fdiv_rn(v[j], scale_own)), -127.f), 127.f), scale_own);
     store4(own + 4 * g, v);
   }
   for (int s = 0; s < p - 1; ++s) {
-    const int send_c = (r - s + 2 * p) % p;
     const int recv_c = (r - 1 - s + 2 * p) % p;
     const int slot = s & 1;
     if (s >= 2) block_wait(a, ws_me + WS_CAP + slot * MAXB + b, token(a, s - 2), 2, s);
-    Wire* dst = mb_right + slot * slot_elems;
-    if constexpr (Q8) {
-      if (s == 0) {
-        for (long long g = threadIdx.x; g < rw.n4; g += NT) {
-          float v[4];
-          load4(x + 4 * g, v);
-          quant_store4(dst + 4 * g, v, scale_own);
-        }
-        if (threadIdx.x == 0) scale_right[slot * MAXB + b] = scale_own;
-      } else {  // forward what arrived at step s - 1, verbatim
-        const Wire* prev = mb_me + (slot ^ 1) * slot_elems;
-        #pragma unroll 4
-        for (long long g = threadIdx.x; g < rw.n4; g += NT) copy4_cg(prev + 4 * g, dst + 4 * g);
-        if (threadIdx.x == 0)
-          scale_right[slot * MAXB + b] = __ldcg(scale_me + (slot ^ 1) * MAXB + b);
-      }
-    } else {
-      const T* src = o + send_c * a.out_cs;
-      #pragma unroll 4
+    int8_t* dst = mb_right + slot * slot_elems;
+    if (s == 0) {
       for (long long g = threadIdx.x; g < rw.n4; g += NT) {
         float v[4];
-        load4(src + 4 * g, v);
-        store4(dst + 4 * g, v);
+        load4(x + 4 * g, v);
+        quant_store4(dst + 4 * g, v, scale_own);
       }
+      if (threadIdx.x == 0) scale_right[slot * MAXB + b] = scale_own;
+    } else {  // forward what arrived at step s - 1, verbatim
+      const int8_t* prev = mb_me + (slot ^ 1) * slot_elems;
+      #pragma unroll 4
+      for (long long g = threadIdx.x; g < rw.n4; g += NT) copy4_cg(prev + 4 * g, dst + 4 * g);
+      if (threadIdx.x == 0)
+        scale_right[slot * MAXB + b] = __ldcg(scale_me + (slot ^ 1) * MAXB + b);
     }
     __threadfence();
     __syncthreads();
     if (threadIdx.x == 0) {
       st_release(a.ws[right] + WS_FULL + slot * MAXB + b, token(a, s));
-      // q8: the slot of step s - 1 has been forwarded; the left may reuse it.
-      if (Q8 && s >= 1) st_release(a.ws[left] + WS_CAP + (slot ^ 1) * MAXB + b, token(a, s - 1));
+      // The slot of step s - 1 has been forwarded; the left may reuse it.
+      if (s >= 1) st_release(a.ws[left] + WS_CAP + (slot ^ 1) * MAXB + b, token(a, s - 1));
     }
     block_wait(a, ws_me + WS_FULL + slot * MAXB + b, token(a, s), 1, s);
-    const float in_scale = Q8 ? __ldcg(scale_me + slot * MAXB + b) : 1.f;
-    const Wire* src = mb_me + slot * slot_elems;
+    const float in_scale = __ldcg(scale_me + slot * MAXB + b);
+    const int8_t* src = mb_me + slot * slot_elems;
     T* dst_o = o + recv_c * a.out_cs;
     #pragma unroll 4
     for (long long g = threadIdx.x; g < rw.n4; g += NT) {
       float w[4];
       load4_cg(src + 4 * g, w);
-      if (Q8) {
-        #pragma unroll
-        for (int j = 0; j < 4; ++j) w[j] = __fmul_rn(w[j], in_scale);
-      }
+      #pragma unroll
+      for (int j = 0; j < 4; ++j) w[j] = __fmul_rn(w[j], in_scale);
       store4(dst_o + 4 * g, w);
     }
-    if (!Q8 || s == p - 2) {
+    if (s == p - 2) {
       __syncthreads();
       if (threadIdx.x == 0) st_release(a.ws[left] + WS_CAP + slot * MAXB + b, token(a, s));
     }
@@ -532,42 +525,41 @@ unsigned int* g_err_dev = nullptr;
 
 template <typename T>
 void* kernel_for(int kind) {
-  switch (kind) {
-    case 1: return reinterpret_cast<void*>(&rs_kernel<T, true>);
-    case 2: return reinterpret_cast<void*>(&ag_kernel<T, false>);
-    case 3: return reinterpret_cast<void*>(&ag_kernel<T, true>);
-    case 4: return reinterpret_cast<void*>(&rs_kernel<T, false>);
-    default: return nullptr;
-  }
+  return kind == 1 ? reinterpret_cast<void*>(&rs_q8_kernel<T>)
+                   : reinterpret_cast<void*>(&ag_q8_kernel<T>);
 }
 
-// The fold over p ranks' [rows, 128] chunks: one 16-byte group a thread,
-// so every SM holds as many blocks as it can take and the hardware refills
-// them as they finish (a grid sized to the occupancy, striding over the
-// groups, was no faster on this card).
-template <typename T, int MAXP>
-int launch_fold(const FoldArgs& a, cudaStream_t stream) {
-  const long long nblk = (a.n16 + FOLD_NT - 1) / FOLD_NT;
-  rs_fold_kernel<T, MAXP>
-      <<<dim3(static_cast<unsigned int>(nblk), a.p), FOLD_NT, 0, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
+// The one-pass kernels' arguments for p ranks' [rows, 128] chunks of T.
 template <typename T>
-int fold(int p, int rows, const unsigned long long* in_ptrs,
-         const unsigned long long* out_ptrs, long long in_cs,
-         cudaStream_t stream) {
-  FoldArgs a{};
+PassArgs pass_args(int p, int rows, const unsigned long long* in_ptrs,
+                   const unsigned long long* out_ptrs, long long cs) {
+  PassArgs a{};
   for (int r = 0; r < p; ++r) {
     a.in[r] = reinterpret_cast<const void*>(in_ptrs[r]);
     a.out[r] = reinterpret_cast<void*>(out_ptrs[r]);
   }
-  a.in_cs = in_cs;
+  a.cs = cs;
   a.n16 = static_cast<long long>(rows) * LANE * sizeof(T) / 16;
   a.p = p;
-  if (p <= 4) return launch_fold<T, 4>(a, stream);
-  if (p <= 8) return launch_fold<T, 8>(a, stream);
-  return launch_fold<T, MAX_RANKS>(a, stream);
+  return a;
+}
+
+// A one-pass kernel: one 16-byte group a thread, grid (ceil(groups /
+// PASS_NT), p), so every SM holds as many blocks as it can take and the
+// hardware refills them as they finish (a grid sized to the occupancy,
+// striding over the groups, was no faster on this card).
+template <typename K>
+int launch_pass(K kernel, const PassArgs& a, cudaStream_t stream) {
+  const long long nblk = (a.n16 + PASS_NT - 1) / PASS_NT;
+  kernel<<<dim3(static_cast<unsigned int>(nblk), a.p), PASS_NT, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int fold(const PassArgs& a, cudaStream_t stream) {
+  if (a.p <= 4) return launch_pass(rs_fold_kernel<T, 4>, a, stream);
+  if (a.p <= 8) return launch_pass(rs_fold_kernel<T, 8>, a, stream);
+  return launch_pass(rs_fold_kernel<T, MAX_RANKS>, a, stream);
 }
 
 }  // namespace
@@ -575,13 +567,12 @@ int fold(int p, int rows, const unsigned long long* in_ptrs,
 extern "C" {
 
 // kind: 0 reduce-scatter (the one-pass fold), 1 q8 reduce-scatter, 2
-// all-gather, 3 q8 all-gather, 4 reduce-scatter on the hop schedule; dtype
-// of the input (and of every output but the q8 reduce-scatter's f32): 0
-// f32, 1 bf16. Per rank r: in_ptrs[r], out_ptrs[r] ([rows, 128] rows
-// contiguous, 16-byte aligned; the p-chunk side's chunks in_cs / out_cs
-// elements apart), and for kinds 1-4 mbox_ptrs[r] ([2][rows][128] of the
-// wire type: the input type, or int8 for q8) and ws_ptrs[r] (the rank's
-// zeroed workspace), which the fold never reads (they may be null).
+// all-gather (the one-pass copy), 3 q8 all-gather; dtype of the input (and
+// of every output but the q8 reduce-scatter's f32): 0 f32, 1 bf16. Per rank
+// r: in_ptrs[r], out_ptrs[r] ([rows, 128] rows contiguous, 16-byte aligned;
+// the p-chunk side's chunks in_cs / out_cs elements apart), and for kinds 1
+// and 3 mbox_ptrs[r] ([2][rows][128] int8) and ws_ptrs[r] (the rank's
+// zeroed workspace), which kinds 0 and 2 never read (they may be null).
 // epoch: larger than every earlier call's on these workspaces.
 int mpit_ring_launch(int kind, int dtype, int p, int rows,
                      const unsigned long long* in_ptrs,
@@ -589,13 +580,22 @@ int mpit_ring_launch(int kind, int dtype, int p, int rows,
                      const unsigned long long* mbox_ptrs,
                      const unsigned long long* ws_ptrs, long long in_cs,
                      long long out_cs, unsigned long long epoch, void* stream) {
-  if (p < 2 || p > MAX_RANKS || rows < 1 || kind < 0 || kind > 4 || dtype < 0 ||
+  if (p < 2 || p > MAX_RANKS || rows < 1 || kind < 0 || kind > 3 || dtype < 0 ||
       dtype > 1)
     return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (kind == 0) {
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return dtype == 0 ? fold<float>(p, rows, in_ptrs, out_ptrs, in_cs, s)
-                      : fold<__nv_bfloat16>(p, rows, in_ptrs, out_ptrs, in_cs, s);
+    return dtype == 0
+               ? fold<float>(pass_args<float>(p, rows, in_ptrs, out_ptrs, in_cs), st)
+               : fold<__nv_bfloat16>(
+                     pass_args<__nv_bfloat16>(p, rows, in_ptrs, out_ptrs, in_cs), st);
+  }
+  if (kind == 2) {
+    return dtype == 0
+               ? launch_pass(ag_copy_kernel<float>,
+                             pass_args<float>(p, rows, in_ptrs, out_ptrs, out_cs), st)
+               : launch_pass(ag_copy_kernel<__nv_bfloat16>,
+                             pass_args<__nv_bfloat16>(p, rows, in_ptrs, out_ptrs, out_cs), st);
   }
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -629,8 +629,7 @@ int mpit_ring_launch(int kind, int dtype, int p, int rows,
   a.err = g_err_dev;
   void* fn = dtype == 0 ? kernel_for<float>(kind) : kernel_for<__nv_bfloat16>(kind);
   void* args[] = {&a};
-  e = cudaLaunchCooperativeKernel(fn, dim3(nblk, p), dim3(NT), args, 0,
-                                  static_cast<cudaStream_t>(stream));
+  e = cudaLaunchCooperativeKernel(fn, dim3(nblk, p), dim3(NT), args, 0, st);
   if (e != cudaSuccess) {
     cudaGetLastError();
     return static_cast<int>(e);

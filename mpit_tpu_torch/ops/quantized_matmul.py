@@ -14,8 +14,13 @@ f32 product ``f32(q) * scale``, and every sum is f32:
 - :func:`quantized_matmul` — ``x @ W`` for ``W`` ``[D, F]``, the serving
   matmul. A CUDA tensor launches the hand-written kernel in
   ``csrc/quantized_matmul.cu`` at every shape (it masks every tail; a
-  full dequantized weight never exists); a CPU tensor runs
-  :func:`quantized_matmul_plain`, its plain version. Nothing else.
+  full dequantized weight never exists): bf16 x on the tensor cores
+  (the ``mma`` body: each dequantized weight as three exact bf16
+  pieces), f32 x on f32 FMAs (``fma``), the contraction split across
+  blocks where the output tiles alone would not fill the card; the C
+  library's plan (``mpit_qmm_plan``) names the body, the tile and the
+  split. A CPU tensor runs :func:`quantized_matmul_plain`, its plain
+  version. Nothing else.
 - :func:`quantized_matmul_t` — ``x @ W.T`` for ``W`` ``[V, D]``, the
   in-model LM head, blocked over the output rows.
 - :func:`quantized_matmul_reference` — whole-tensor dequant, then one
@@ -38,7 +43,9 @@ __all__ = [
     "SCALE_BYTES",
     "QuantizedTensor",
     "dequantize_tensor",
+    "kernel_plan",
     "launches",
+    "path_launches",
     "quantize_tensor",
     "quantized_matmul",
     "quantized_matmul_plain",
@@ -54,12 +61,18 @@ DEFAULT_BLOCK_ROWS = 256
 
 _KERNEL_SOURCE = "quantized_matmul.cu"
 _X_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# Rows of x one kernel block covers (the grid's second axis).
-_BLOCK_M = 8
+_C_PATHS = ("fma", "mma")  # mpit_qmm_plan's bodies, in order
+_WANT_PATH = {torch.float32: "fma", torch.bfloat16: "mma"}
+# Zeroed 32-bit tile counters of the split contraction, one buffer per
+# device: a split runs only where the output tiles are fewer than about
+# two an SM, so this many cover any card.
+_COUNTER_WORDS = 4096
 
-# Launches of the CUDA kernel since the count was last set to 0; the
-# wrapper adds one where it launches, and nowhere else.
+# Launches of the CUDA kernel since the count was last set to 0, and the
+# same launches by the body the C library's plan names; the wrapper adds
+# one where it launches, and nowhere else.
 launches = {"quantized_matmul": 0}
+path_launches = dict.fromkeys(_C_PATHS, 0)
 
 
 @dataclasses.dataclass
@@ -169,7 +182,9 @@ def kernel_library() -> ctypes.CDLL:
     call (needs ``nvcc``) and loaded."""
     lib = load(_KERNEL_SOURCE)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.mpit_quantized_matmul.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
+    lib.mpit_qmm_plan.argtypes = [i32] * 4 + [ctypes.POINTER(i32)]
+    lib.mpit_qmm_plan.restype = i32
+    lib.mpit_quantized_matmul.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
     lib.mpit_quantized_matmul.restype = i32
     lib.mpit_qmm_error_string.argtypes = [i32]
     lib.mpit_qmm_error_string.restype = ctypes.c_char_p
@@ -202,8 +217,57 @@ def _check_kernel_inputs(x2, w: QuantizedTensor) -> None:
         raise ValueError(f"x has {d} features, the weight {w.q.shape[0]} rows")
     if m < 1 or w.q.shape[1] < 1:
         raise ValueError(f"empty matmul: M={m}, F={w.q.shape[1]}")
-    if (m + _BLOCK_M - 1) // _BLOCK_M > 65535:
-        raise ValueError(f"M={m} needs more than 65535 row blocks")
+
+
+def _error(lib, err: int, what: str) -> RuntimeError:
+    msg = lib.mpit_qmm_error_string(err).decode() if err > 0 else "arguments refused"
+    return RuntimeError(f"quantized-matmul {what} failed ({err}): {msg}")
+
+
+@functools.lru_cache(maxsize=1024)
+def kernel_plan(m: int, d: int, f: int, dtype, device) -> dict:
+    """The C library's plan for x ``[m, d]`` of ``dtype`` against an int8
+    ``[d, f]`` weight on CUDA ``device`` (``mpit_qmm_plan``): the body
+    (``mma`` or ``fma``), the tile's rows and columns, the split ``S`` of
+    the contraction and the grid's blocks."""
+    lib = kernel_library()
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        err = lib.mpit_qmm_plan(m, d, f, _X_DTYPES[dtype], out)
+    if err:
+        raise _error(lib, err, "plan")
+    return {"path": _C_PATHS[out[0]], "tile": (out[1], out[2]), "splits": out[3],
+            "blocks": out[4]}
+
+
+class _SplitScratch:
+    """One device's scratch for the split contraction: the tile counters
+    (zeroed once; the last block of a tile sets its counter back to 0)
+    and the f32 workspace of the slices' partial sums (``torch.empty``,
+    grown when a call needs more). Kept rather than allocated a call, to
+    keep the wrapper's host time short beside the decode tick's short
+    launches. Calls on one device share both, so they run in one stream's
+    order, as the port's do."""
+
+    def __init__(self, device):
+        self.counters = torch.zeros(_COUNTER_WORDS, dtype=torch.int32, device=device)
+        self.workspace = torch.empty(0, dtype=torch.float32, device=device)
+
+    def take(self, elems: int) -> torch.Tensor:
+        if self.workspace.numel() < elems:
+            self.workspace = torch.empty(elems, dtype=torch.float32,
+                                         device=self.counters.device)
+        return self.workspace
+
+
+_SCRATCH: dict = {}
+
+
+def _scratch(device) -> _SplitScratch:
+    s = _SCRATCH.get(device)
+    if s is None:
+        s = _SCRATCH[device] = _SplitScratch(device)
+    return s
 
 
 def _launch(x2, w: QuantizedTensor) -> torch.Tensor:
@@ -211,18 +275,29 @@ def _launch(x2, w: QuantizedTensor) -> torch.Tensor:
     _check_kernel_inputs(x2, w)
     m, d = x2.shape
     f = w.q.shape[1]
+    p = kernel_plan(m, d, f, x2.dtype, x2.device)
+    if p["path"] != _WANT_PATH[x2.dtype]:
+        raise RuntimeError(
+            f"the C library plans the {p['path']} body for {x2.dtype} x, "
+            f"not {_WANT_PATH[x2.dtype]}"
+        )
     out = torch.empty((m, f), dtype=torch.float32, device=x2.device)
+    ws = ctr = None
+    if p["splits"] > 1:  # a workspace [S, M, F] and the tile counters
+        scratch = _scratch(x2.device)
+        ws = scratch.take(p["splits"] * m * f).data_ptr()
+        ctr = scratch.counters.data_ptr()
     lib = kernel_library()
     with torch.cuda.device(x2.device):
-        stream = torch.cuda.current_stream(x2.device).cuda_stream
+        stream = torch._C._cuda_getCurrentRawStream(x2.device.index)
         err = lib.mpit_quantized_matmul(
-            x2.data_ptr(), w.q.data_ptr(), w.scale.data_ptr(), out.data_ptr(),
-            m, d, f, _X_DTYPES[x2.dtype], stream,
+            x2.data_ptr(), w.q.data_ptr(), w.scale.data_ptr(), out.data_ptr(), ws, ctr,
+            _COUNTER_WORDS, m, d, f, _X_DTYPES[x2.dtype], stream,
         )
     if err:
-        msg = lib.mpit_qmm_error_string(err).decode() if err > 0 else "unsupported dtype"
-        raise RuntimeError(f"quantized-matmul kernel launch failed ({err}): {msg}")
+        raise _error(lib, err, "kernel launch")
     launches["quantized_matmul"] += 1
+    path_launches[p["path"]] += 1
     return out
 
 
@@ -231,9 +306,10 @@ def quantized_matmul(x, w: QuantizedTensor, *, block_rows=None):
     D]`` f32 or bf16, returns f32 ``[..., F]``.
 
     A CUDA tensor launches the kernel at every shape (counted in
-    :data:`launches`; ``block_rows`` is the plain version's and does not
-    change the kernel); a CPU tensor runs :func:`quantized_matmul_plain`.
-    Any other device raises."""
+    :data:`launches` and, by the body the C library's plan names, in
+    :data:`path_launches`; ``block_rows`` is the plain version's and does
+    not change the kernel); a CPU tensor runs
+    :func:`quantized_matmul_plain`. Any other device raises."""
     f = w.q.shape[1]
     if x.device.type == "cpu":
         return quantized_matmul_plain(x, w, block_rows=block_rows)

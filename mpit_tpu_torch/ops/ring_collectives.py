@@ -26,13 +26,12 @@ kernel row ranges of its flat buffers in place.
 - :func:`reduce_scatter_chunks` / :func:`all_gather_chunks` — the
   wrappers: a CPU tensor takes the plain version, a CUDA tensor the
   kernel of ``csrc/ring_collectives.cu`` or an error, never a fallback.
-  Every rank of a World lies on one card, so the sum reduce-scatter runs
-  there as one pass over HBM (the fold: each rank's copies of a chunk
-  added in the ring's order, with its roundings, so bit-equal to the
-  plain version); the q8 reduce-scatter and both all-gathers run the
-  ring's hop schedule. :func:`_reduce_scatter_hops` launches the sum on
-  the hop schedule, the form the launch across cards builds on; only
-  its checks call it.
+  Every rank of a World lies on one card, so the sum forms run there as
+  one pass over HBM each: the reduce-scatter as the fold (each rank's
+  copies of a chunk added in the ring's order, with its roundings, so
+  bit-equal to the plain version), the all-gather as a copy (each
+  shard read once and written into every rank's output). The q8 forms
+  run the ring's hop schedule.
 - :func:`ring_reduce_scatter` / :func:`ring_all_gather` — the public
   collectives on rank-stacked payloads, through the planner; ``p = 1``
   is a no-op (nothing crosses a wire, nothing is quantized).
@@ -93,9 +92,10 @@ SCALE_ROWS = 8
 SCALE_BLOCK_BYTES = SCALE_ROWS * _LANE * 4
 MAX_RANKS = 16  # the kernels' pointer table
 _KERNEL_SOURCE = "ring_collectives.cu"
-# The C library's kinds: ring_rs is the one-pass fold, ring_rs_hops the
-# same sum on the hop schedule.
-_KINDS = {"ring_rs": 0, "ring_rs_q8": 1, "ring_ag": 2, "ring_ag_q8": 3, "ring_rs_hops": 4}
+# The C library's kinds: ring_rs is the one-pass fold, ring_ag the
+# one-pass copy, the q8 forms the hop schedule.
+_KINDS = {"ring_rs": 0, "ring_rs_q8": 1, "ring_ag": 2, "ring_ag_q8": 3}
+_ONE_PASS = ("ring_rs", "ring_ag")  # no mailbox, no workspace
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _WS_WORDS = 7 * 256  # one rank's workspace in the kernels (64-bit words)
 
@@ -390,10 +390,10 @@ def _dense_rows(x, name: str):
         raise ValueError(f"{name} must be 16-byte aligned with strides of whole 16-byte vectors")
 
 
-def _launch(kind: str, xs, out, mbox_dtype, in_cs: int, out_cs: int):
-    """Launch ``kind`` over the ranks of ``xs``. The fold (``ring_rs``)
-    takes no mailbox and no workspace; the hop schedule takes both
-    (``mbox_dtype``: its wire type)."""
+def _launch(kind: str, xs, out, in_cs: int, out_cs: int):
+    """Launch ``kind`` over the ranks of ``xs``. The one-pass forms (the
+    fold and the copy) take no mailbox and no workspace; the q8 hop
+    schedule takes both (an int8 mailbox)."""
     p, rows = xs.shape[0], xs.shape[-2]
     if not 2 <= p <= MAX_RANKS:
         raise ValueError(f"the ring kernels take 2 to {MAX_RANKS} ranks, got {p}")
@@ -409,9 +409,9 @@ def _launch(kind: str, xs, out, mbox_dtype, in_cs: int, out_cs: int):
 
     mbox = mbox_table = flags = None
     epoch = 0
-    if kind != "ring_rs":
+    if kind not in _ONE_PASS:
         ws = _workspace(xs.device)
-        mbox = torch.empty((p, 2, rows, _LANE), dtype=mbox_dtype, device=xs.device)
+        mbox = torch.empty((p, 2, rows, _LANE), dtype=torch.int8, device=xs.device)
         mbox_table, flags = table(mbox), table(ws.flags)
         ws.epoch += 1
         epoch = ws.epoch
@@ -456,30 +456,15 @@ def reduce_scatter_chunks(xs, *, quantized: bool = False, out=None):
         return out
     _dense_rows(xs, "xs")
     _dense_rows(out, "out")
-    _launch("ring_rs_q8" if quantized else "ring_rs", xs, out,
-            torch.int8 if quantized else xs.dtype, xs.stride(1), 0)
-    return out
-
-
-def _reduce_scatter_hops(xs, *, out=None):
-    """The sum reduce-scatter of CUDA tensors on the ring's hop schedule
-    (``rs_kernel<T, false>``, mailboxes and flags), the form the launch
-    across cards builds on. The main path never calls it; ``chip_smoke.py``
-    and the CUDA tests hold it bit-equal to :func:`reduce_scatter_plain`
-    and time it."""
-    out = _rs_out(xs, False, out)
-    if _device_kind(xs) != "cuda" or xs.shape[0] < 2:
-        raise ValueError("the hop schedule runs on CUDA tensors of 2 or more ranks")
-    _dense_rows(xs, "xs")
-    _dense_rows(out, "out")
-    _launch("ring_rs_hops", xs, out, xs.dtype, xs.stride(1), 0)
+    _launch("ring_rs_q8" if quantized else "ring_rs", xs, out, xs.stride(1), 0)
     return out
 
 
 def all_gather_chunks(xs, *, quantized: bool = False, out=None):
     """All-gather rank-stacked chunks ``xs [p, rows, 128]`` into ``out [p,
     p, rows, 128]`` (new if None, xs' dtype): the kernel for CUDA
-    tensors, the plain version for CPU ones."""
+    tensors (the sum as the one-pass copy, the q8 form on the hop
+    schedule), the plain version for CPU ones."""
     _check_stacked(xs, "ag")
     p, rows = xs.shape[0], xs.shape[1]
     if out is None:
@@ -492,8 +477,7 @@ def all_gather_chunks(xs, *, quantized: bool = False, out=None):
         return out
     _dense_rows(xs, "xs")
     _dense_rows(out, "out")
-    _launch("ring_ag_q8" if quantized else "ring_ag", xs, out,
-            torch.int8 if quantized else xs.dtype, 0, out.stride(1))
+    _launch("ring_ag_q8" if quantized else "ring_ag", xs, out, 0, out.stride(1))
     return out
 
 
@@ -515,8 +499,8 @@ def record_wire(name: str, plan: RingPlan, wire_dtype, *, scales: bool, mode: st
     """Charge one collective's wire bytes (the plan's, at the quantized
     size) to the obs counter ``ring_wire_bytes`` when obs is on: what the
     JAX package charges, the ring's size on links between devices. With
-    every rank on one card no wire bytes move (the sum reduce-scatter is
-    one pass over HBM); the counter still prices the ring."""
+    every rank on one card no wire bytes move (the sum forms are one pass
+    over HBM each); the counter still prices the ring."""
     obs.counter("ring_wire_bytes", plan.wire_payload_bytes(wire_dtype, scales=scales),
                 collective=name, mode=mode)
 

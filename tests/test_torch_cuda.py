@@ -4,14 +4,17 @@ The flash-decode kernel in all four forms (dense and paged, each with
 f32/bf16 or int8 K/V) and on each of its four bodies (split, mma,
 q8mma, rows, checked through ``path_launches``; the body rule and the
 shared memory each body takes, against the kernel library), the int8
-weight store's fused-dequant matmul, the training flash attention's
+weight store's fused-dequant matmul (its ``mma`` and ``fma`` bodies, as
+the C library's plan names them, at GPT-2 small's shapes and the plan's
+edges; the plan fills the card and its split contraction gives the same
+bits every call), the training flash attention's
 forward, dq and dk/dv kernels (alone, the bf16 dq and dk/dv on the
 tensor cores at every head dim, in autograd, and in three tiny training
 steps against plain attention),
 the ring reduce-scatter and all-gather kernels, sum and int8 wire
-(bit-equal to their plain versions: the sum reduce-scatter as the
-one-card fold and on the hop schedule; and in tiny training steps over
-four ranks against the plain collectives), and the KV shipment's copy
+(bit-equal to their plain versions: the sum forms as the one-card fold
+and copy, the q8 forms on the hop schedule; and in tiny training steps
+over four ranks against the plain collectives), and the KV shipment's copy
 kernel (bit-exact at every alignment, behind the compat simulator's
 CUDA messages and a tiny fleet's shipments).
 
@@ -329,25 +332,53 @@ def test_kernel_engine_matches_reference_engine(cuda):
     assert tokens["kernel"] == tokens["reference"]
 
 
+_QMM_SHAPES = [(768, 2304), (768, 768), (768, 3072), (3072, 768)]  # GPT-2 small
+
+
 @pytest.mark.parametrize(
-    "m,d,f,dtype",
-    [
-        (8, 768, 2304, torch.float32),
-        (8, 768, 2304, torch.bfloat16),
-        (5, 100, 130, torch.float32),  # every tail ragged, bytewise loads
+    "m,d,f",
+    [(m, d, f) for d, f in _QMM_SHAPES for m in (1, 8, 9, 64, 512, 1024)]
+    + [
+        (5, 100, 130),  # every tail ragged: element loads for x and q
+        (9, 64, 72),  # F not a multiple of 16: element loads for q
     ],
 )
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_quantized_matmul_kernel_matches_plain(cuda, m, d, f, dtype):
+    """One launch, on the body the C library's plan names (``mma`` for
+    bf16 x, ``fma`` for f32), within 1e-4 x max(1, max |plain|)."""
     x = _randn((m, d), 0, dtype)
     w = tqm.quantize_tensor(_randn((d, f), 1, torch.float32))
-    before = tqm.launches["quantized_matmul"]
+    plan = tqm.kernel_plan(m, d, f, dtype, x.device)
+    assert plan["path"] == ("mma" if dtype == torch.bfloat16 else "fma")
+    before, paths = tqm.launches["quantized_matmul"], dict(tqm.path_launches)
     out = tqm.quantized_matmul(x, w)
     torch.cuda.synchronize()
     assert tqm.launches["quantized_matmul"] == before + 1
+    ran = {k: n - paths[k] for k, n in tqm.path_launches.items() if n != paths[k]}
+    assert ran == {plan["path"]: 1}
     assert out.dtype == torch.float32 and out.shape == (m, f)
     ref = tqm.quantized_matmul_plain(x, w)
     tol = 1e-4 * max(1.0, ref.abs().max().item())
     assert (out - ref).abs().max().item() <= tol
+
+
+def test_quantized_matmul_plan_fills_the_card_and_split_is_deterministic(cuda):
+    """At every main-path shape (bf16 x, GPT-2 small's four layers at M 8,
+    512 and 1024) the plan's grid holds at least a block an SM, and the
+    split contraction (slices summed in order by the tile's last block)
+    gives the same bits on every call."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for d, f in _QMM_SHAPES:
+        w = tqm.quantize_tensor(_randn((d, f), 2, torch.float32))
+        for m in (8, 512, 1024):
+            plan = tqm.kernel_plan(m, d, f, torch.bfloat16, torch.device("cuda", 0))
+            assert plan["path"] == "mma" and plan["blocks"] >= sms, (m, d, f, plan)
+            x = _randn((m, d), 3, torch.bfloat16)
+            first = tqm.quantized_matmul(x, w)
+            for _ in range(3):
+                assert torch.equal(tqm.quantized_matmul(x, w), first), (m, d, f, plan)
+    assert tqm.kernel_plan(8, 3072, 768, torch.bfloat16, torch.device("cuda", 0))["splits"] > 1
 
 
 def test_int8_weight_kernel_engine_matches_reference_engine(cuda):
@@ -628,35 +659,41 @@ def _ring_input(shape, dtype, seed, kind="normal"):
     return x.to(dtype)
 
 
-@pytest.mark.parametrize("p", [2, 3, 4, 8])
+@pytest.mark.parametrize("p", [2, 3, 4, 8, 16])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("form", ["sum", "q8", "hops"])
+@pytest.mark.parametrize("form", ["sum", "q8"])
 @pytest.mark.parametrize("rows", [1, 37, 256])
 def test_ring_kernels_equal_plain_bitwise(cuda, p, dtype, form, rows):
     """Every form, bit-equal to its plain version (the same ring order,
-    the same roundings); the launch counted once per call. ``sum``: the
-    one-card fold; ``q8``: the int8-wire hop schedule; ``hops``: the sum
-    on the hop schedule through its private entry (the form across
-    cards), whose all-gather is the sum form's."""
+    the same roundings); each launch counted once per call. ``sum``: the
+    one-card fold and copy; ``q8``: the int8-wire hop schedule. The
+    all-gather also writes into an ``out=`` slice of a wider buffer and
+    leaves the rest of it as it was."""
     from mpit_tpu_torch.ops import ring_collectives as rc
 
     quantized = form == "q8"
+    q = "_q8" if quantized else ""
     xs = _ring_input((p, p, rows, 128), dtype, p * rows + quantized)
-    kind = {"sum": "ring_rs", "q8": "ring_rs_q8", "hops": "ring_rs_hops"}[form]
     before = dict(rc.launches)
-    if form == "hops":
-        got = rc._reduce_scatter_hops(xs)
-    else:
-        got = rc.reduce_scatter_chunks(xs, quantized=quantized)
+    got = rc.reduce_scatter_chunks(xs, quantized=quantized)
     torch.cuda.synchronize()
-    assert {k: n - before[k] for k, n in rc.launches.items() if n != before[k]} == {kind: 1}
+    assert {k: n - before[k] for k, n in rc.launches.items() if n != before[k]} == {
+        f"ring_rs{q}": 1}
     assert torch.equal(got, rc.reduce_scatter_plain(xs, quantized=quantized))
     shards = _ring_input((p, rows, 128), dtype, 7 + p + rows)
+    before = dict(rc.launches)
     full = rc.all_gather_chunks(shards, quantized=quantized)
     torch.cuda.synchronize()
+    assert {k: n - before[k] for k, n in rc.launches.items() if n != before[k]} == {
+        f"ring_ag{q}": 1}
     assert torch.equal(full, rc.all_gather_plain(shards, quantized=quantized))
     for r in range(1, p):
         assert torch.equal(full[r], full[0])
+    wide = torch.full((p, p, rows + 5, 128), 7.0, dtype=dtype, device="cuda")
+    rc.all_gather_chunks(shards, quantized=quantized, out=wide[:, :, 2 : 2 + rows])
+    torch.cuda.synchronize()
+    assert torch.equal(wide[:, :, 2 : 2 + rows], full)
+    assert (wide[:, :, :2] == 7).all() and (wide[:, :, 2 + rows :] == 7).all()
 
 
 def test_ring_kernels_take_strided_buckets_and_zero_chunks(cuda):

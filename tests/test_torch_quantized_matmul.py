@@ -11,6 +11,11 @@ Inputs are made by numpy from a seed and handed to both packages.
   whole-dequant oracle within 1e-5 of JAX's. Both sides sum the same f32
   products in their own orders, so they are held to a tolerance, not to
   bit equality.
+- The CUDA kernel's ``mma`` body, modelled in PyTorch: the three bf16
+  pieces of every dequantized weight (JAX's own int8 bytes and scales)
+  sum to it exactly, and the three-piece split contraction (per-slice
+  f32 partials summed in slice order) is held to JAX's
+  ``quantized_matmul_lax``.
 - ``weight_wire_bytes`` equals JAX's; the dispatcher runs the plain
   version on the CPU and raises for any device that is neither CPU nor
   CUDA, and the kernel wrapper's checks reject what the kernel does not
@@ -150,3 +155,98 @@ def test_kernel_checks_reject_what_the_kernel_does_not_take():
         tqm._check_kernel_inputs(x, tqm.QuantizedTensor(tw.q.float(), tw.scale))
     with pytest.raises(ValueError, match="empty"):
         tqm._check_kernel_inputs(torch.zeros(0, 8), tw)
+
+
+def _split3(w):
+    """A PyTorch model of the kernel's ``attn_mma::split3`` on f32 ``w``:
+    ``hi = bf16(w)``, ``mid = bf16(w - hi)``, ``lo = bf16(w - hi - mid)``;
+    ``.to(torch.bfloat16)`` rounds to nearest even, as
+    ``__floats2bfloat162_rn`` does. Returns the pieces as f32."""
+    hi = w.to(torch.bfloat16).float()
+    r = w - hi
+    mid = r.to(torch.bfloat16).float()
+    lo = (r - mid).to(torch.bfloat16).float()
+    return hi, mid, lo
+
+
+def _dequantized_by_jax(w_np):
+    """JAX's int8 bytes and scales, dequantized as the kernel does: the
+    one f32 product ``f32(q) * s``."""
+    jw = jqm.quantize_tensor(jnp.asarray(w_np))
+    q = torch.from_numpy(np.asarray(jw.q))
+    scale = torch.from_numpy(np.asarray(jw.scale))
+    return jw, q, scale, q.float() * scale
+
+
+def test_split3_of_dequantized_weights_is_exact():
+    """Each dequantized weight has at most 24 significant bits; the three
+    round-to-nearest bf16 pieces take 8 each and both subtractions are
+    exact in f32, so ``hi + mid + lo == w`` with no rounding at all, for
+    rows whose scales run from 1e-30 to 1e30 and for an all-zero row."""
+    rows = 61
+    mags = 10.0 ** np.linspace(-30, 30, rows)
+    w_np = (_rand((rows, 96), 13) * mags[:, None]).astype(np.float32)
+    w_np[17] = 0.0
+    jw, _, scale, w = _dequantized_by_jax(w_np)
+    np.testing.assert_array_equal(w.numpy(), np.asarray(jqm.dequantize_tensor(jw)))
+    assert scale.min().item() < 1e-31 and scale.max().item() > 1e28
+    hi, mid, lo = _split3(w)
+    total = hi.double() + mid.double() + lo.double()
+    assert torch.equal(total, w.double())
+    assert not (hi[17].any() or mid[17].any() or lo[17].any())
+    # Every piece is a bf16 value, and mid and lo carry real bits.
+    for piece in (hi, mid, lo):
+        assert torch.equal(piece.to(torch.bfloat16).float(), piece)
+    assert mid.abs().sum() > 0 and lo.abs().sum() > 0
+
+
+def _mma_model(x, q, scale, splits: int, bk: int = 32):
+    """The ``mma`` body's arithmetic: bf16 x against the three pieces of
+    each dequantized weight, 16 contraction rows a step into one f32
+    accumulator, the contraction's BK-row tiles cut into ``splits``
+    slices whose f32 partials are summed in slice order."""
+    w = q.float() * scale
+    pieces = _split3(w)
+    d = w.shape[0]
+    xf = x.float()
+    tiles = np.array_split(np.arange(-(-d // bk)), splits)
+    out = None
+    for part in tiles:
+        acc = torch.zeros((x.shape[0], w.shape[1]))
+        for k0 in range(part[0] * bk, min(d, (part[-1] + 1) * bk), 16):
+            sl = slice(k0, min(d, k0 + 16))
+            for piece in pieces:
+                acc = acc + xf[:, sl] @ piece[sl]
+        out = acc if out is None else out + acc
+    return out
+
+
+@pytest.mark.parametrize("splits", [1, 3])
+@pytest.mark.parametrize("d,f", [(96, 130), (100, 256)])
+@pytest.mark.parametrize("m", [1, 8, 37])
+def test_three_piece_split_contraction_matches_jax(m, d, f, splits):
+    """The model of the ``mma`` body against JAX's ``quantized_matmul_lax``
+    on the same bf16 x and int8 weight, within 1e-4 x max(1, max |jax|):
+    the dequantized weights are equal bit for bit and every x * piece
+    product is exact in f32, so the two differ only in the order of
+    their f32 sums (a few ulps over D terms)."""
+    jw, q, scale, _ = _dequantized_by_jax(_rand((d, f), 14))
+    x = _rand((m, d), 15).astype(ml_dtypes.bfloat16)
+    want = np.asarray(jqm.quantized_matmul_lax(jnp.asarray(x), jw))
+    got = _mma_model(torch.from_numpy(x.astype(np.float32)).bfloat16(), q, scale, splits)
+    assert got.shape == (m, f)
+    tol = 1e-4 * max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=tol)
+
+
+def test_split_scratch_counters_zeroed_and_workspace_grows():
+    """The split contraction's per-device scratch: counters zeroed once,
+    the workspace kept between calls and grown only when a call needs
+    more (a CPU device stands in; the kernel reads both on the card)."""
+    s = tqm._SplitScratch(torch.device("cpu"))
+    assert s.counters.dtype == torch.int32 and not s.counters.any()
+    first = s.take(100)
+    assert first.numel() >= 100 and first.dtype == torch.float32
+    assert s.take(60) is first
+    grown = s.take(1000)
+    assert grown.numel() >= 1000 and s.take(1000) is grown

@@ -223,6 +223,33 @@ def test_fold_order_equals_ring_hops(worlds, p, dtype, kind):
         )
 
 
+def _copy_model(shards):
+    """The one-card sum all-gather kernel's work (``ag_copy_kernel`` in
+    ``csrc/ring_collectives.cu``): shard ``c`` read once and stored, as
+    it is, into chunk ``c`` of every rank's output."""
+    p = shards.shape[0]
+    out = shards.new_empty((p, *shards.shape))
+    for c in range(p):
+        for r in range(p):
+            out[r, c] = shards[c]
+    return out
+
+
+@pytest.mark.parametrize("p", [2, 3, 4, 8, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_copy_equals_ring_all_gather(p, dtype):
+    """The copy's result is the ring's: its model equals
+    :func:`all_gather_plain` (the ring, hop by hop) and the wrapper's CPU
+    path bit for bit, at rows 1 and 37, every replica the same."""
+    for rows in (1, 37):
+        shards = torch.from_numpy(_data(90 + p + rows, (p, rows * 128), "normal"))
+        shards = shards.to(dtype).reshape(p, rows, 128)
+        got = _copy_model(shards)
+        assert torch.equal(got, trc.all_gather_plain(shards))
+        assert torch.equal(got, trc.all_gather_chunks(shards))
+        assert all(torch.equal(got[r], got[0]) for r in range(p))
+
+
 @pytest.mark.parametrize("p", [2, 4])
 def test_q8_reduce_scatter_and_all_gather_match_jax(worlds, p):
     x = _data(20 + p, (p, 2000), "normal") * np.linspace(0.1, 4.0, p)[:, None].astype(np.float32)
