@@ -3,6 +3,7 @@ and the disaggregated fleet with its KV shipments) and training paths on
 one GPU, training on one rank and over four data-parallel ranks.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py dp_profile ring_q8   # phase 4d's profile of one mode alone
 
 Run from the root of a checkout on a machine with an NVIDIA GPU (written
 for an H100). Phases, each of which raises (exit code != 0) on failure:
@@ -159,10 +160,13 @@ for an H100). Phases, each of which raises (exit code != 0) on failure:
    kernels, sum and int8 wire, against their plain versions (the same
    ring order hop by hop), BIT FOR BIT; the sum reduce-scatter runs as
    the one-card fold (``schedule`` ``fold``), the sum all-gather as the
-   one-card copy (``copy``), the q8 forms on the ring's hop schedule
-   (``hops``): p 2, 4 and 8 at 8192 rows a chunk
+   one-card copy (``copy``), the q8 reduce-scatter as the q8 fold on the
+   form the C library's plan names (``q8fold_resident``, the partials in
+   shared memory, or ``q8fold_stream``, one pass a hop; the case fails
+   unless that form's launch count moved), the q8 all-gather on the
+   ring's hop schedule (``hops``): p 2, 4 and 8 at 8192 rows a chunk
    (GPT-2 small's 4 MiB f32 bucket), f32 and bf16 for the sum forms, f32
-   for the q8 forms; GPT-2 small's ragged tail bucket at p 4, read in
+   for the q8 forms and bf16 too at p 4; GPT-2 small's ragged tail bucket at p 4, read in
    place from a wider buffer as the bucket loop reads it; an all-zero
    chunk (scale 1.0) in both q8 forms; payloads the planner must pad
    (the public collectives). Every gathered replica identical. Times
@@ -170,8 +174,8 @@ for an H100). Phases, each of which raises (exit code != 0) on failure:
    (``xs.view(p, p, c).sum(0)`` for a reduce-scatter, an expand-and-copy
    of the concatenated shards for an all-gather; the port's ``psum``
    mode, never called by the ring modes) over 20 cold-L2 calls, beside
-   the bound and the bytes the schedule itself moves (the fold's and the
-   copy's are the bound's); then, apart from those times, the kernel's and the
+   the bound and the bytes the schedule itself moves (the fold's, the
+   resident q8 fold's and the copy's are the bound's); then, apart from those times, the kernel's and the
    library's device time with the host time before the launch left out
    (``device_ms``, ``library_device_ms``) and the wrapper's host time a
    call (``host_ms``). Every case goes to ``chiprun_out/chip_smoke_ring.json``;
@@ -181,10 +185,13 @@ for an H100). Phases, each of which raises (exit code != 0) on failure:
    30 finite losses, falling; the reduce-scatter and all-gather launch
    counts (set to 0 just before) each equal buckets x 30 for the run's
    form and 0 for the other (``ring``: the one-pass fold and copy, the
-   only kernels of those kinds; ``ring_q8``: the hop schedule); the flash counts 12 x 4 x 30 each; the four
+   only kernels of those kinds; ``ring_q8``: the q8 fold and the
+   all-gather's hop schedule, every q8 fold launch on the form the plan
+   names for its bucket, counted in ``path_launches``); the flash counts 12 x 4 x 30 each; the four
    parameter replicas bit-identical after the run. Prints step p50/p95,
-   tokens/s and peak memory; then profiles three ``ring`` steps (device
-   time by kernel family, idle share);
+   tokens/s and peak memory; then profiles three ``ring`` steps and three
+   ``ring_q8`` steps (device time by kernel family, the ring family by
+   kernel, idle share);
 5d. data-parallel parity — f32, three steps over four ranks from one set
    of weights: ``ring`` losses within 1e-5 relative of ``psum``'s (the
    ring sums the ranks in another order, so not bit-equal); bf16, the
@@ -198,25 +205,36 @@ for an H100). Phases, each of which raises (exit code != 0) on failure:
    [12, 128, 12, 1]), both packed payloads (bf16 4,718,592 bytes, int8
    2,506,752), ragged byte counts 1, 15, 17 and 4711, the bf16 payload
    with src and dst views at byte offsets misaligned against each other
-   (1/3, 3/1, 1/0), and a 256 MiB buffer. Times the kernel, its plain
+   (1/3, 3/1, 1/0) and at one odd offset shared by both (3/3), and a 256
+   MiB buffer. Each case names the body the C library's plan picked
+   (``wave`` below 32 MiB, ``stream`` from there, counted in
+   ``path_launches``) and holds both bodies bit-exact. Times the kernel, its plain
    version and ``dst.copy_(src)`` (the library yardstick, a device to
    device ``cudaMemcpyAsync``, never called by the port on this path) on
-   a cold L2 beside the bound (read and write every byte once). Every
-   case goes to ``chiprun_out/chip_smoke_ship.json``;
+   a cold L2 beside the bound (read and write every byte once); then, as
+   in 3e, the kernel's and the library's device times without the host's
+   lead (``device_ms``, ``library_device_ms``) and the wrapper's host time
+   (``host_ms``); at both payloads, 32 MiB and 256 MiB each body also on
+   its own (``bodies``). Every case goes to ``chiprun_out/chip_smoke_ship.json``;
 4f. fleet — ``python -m mpit_tpu_torch.serve --fleet``'s ``main`` in
    process at phase 4's configuration (GPT-2 small at full width, bf16,
    8 slots, 16 greedy requests of 32 new tokens), the JAX package's test
    liveness (heartbeat 0.05 s, lease 5 s): the dense cache with one
-   prefill and one decode worker, then the paged pool with int8 K/V and
-   two decode workers. Every request completes; the copy kernel's
+   prefill and one decode worker, the paged pool with int8 K/V and
+   two decode workers, and the dense cache with ``--weights-dtype int8``
+   and two decode workers (every worker's engine launches the matmul
+   kernel from its own thread). Every request completes; the copy kernel's
    launches (set to 0 just before) reach 2 a shipment (the send snapshot
    and the delivery); the attention form's launches reach num_layers x
-   (shipments + decode ticks) and no other form or the matmul kernel
-   runs; each request's tokens equal the single Server's at the same
+   (shipments + decode ticks) and no other form runs; the matmul kernel
+   runs in the int8-weight fleet alone, at least 4 x num_layers x
+   (shipments + decode ticks) times, all on ``mma``; each request's tokens equal the single Server's at the same
    configuration (phase 4's run, rebuilt in process) or part first at a
    near-tie (``INT8_TIE``, judged by the plain path teacher-forced on the
-   Server's tokens: bf16 cuBLAS GEMMs are not row-invariant in the
-   prefill's row count, should a schedule change it). Prints wall time,
+   Server's tokens, the int8-weight model for the int8-weight fleet: bf16
+   cuBLAS GEMMs are not row-invariant in the prefill's row count, and the
+   matmul's split contraction sums in another order at another row
+   count, should a schedule change it). Prints wall time,
    requests/s, bytes shipped and the kernel's time a shipment; each
    run's record goes to ``chiprun_out/chip_smoke_fleet.json``;
 5f. fleet parity — f32, ``run_fleet`` at full width with one prefill and
@@ -1352,7 +1370,10 @@ FAMILIES = {
     "quantized_matmul": ("qmm_mma_kernel", "qmm_fma_kernel"),
     "decode_attention": ("decode_kernel",),
     "flash_attention": ("fwd_kernel", "dq_kernel", "dkv_kernel"),
-    "ring_collectives": ("rs_fold_kernel", "rs_q8_kernel", "ag_copy_kernel", "ag_q8_kernel"),
+    # rs_q8_kernel: the q8 reduce-scatter's hop form in trees before the q8
+    # fold, for a `dp_profile` run of such a tree.
+    "ring_collectives": ("rs_fold_kernel", "rs_q8_fold_kernel", "rs_q8_kernel",
+                         "ag_copy_kernel", "ag_q8_kernel"),
     "gemm": ("nvjet", "gemm", "xmma", "cutlass"),
     "copies": ("copy",),
     "optimizer_foreach": ("foreach", "multi_tensor"),
@@ -1373,7 +1394,7 @@ def profile_window(torch, one_step, batches) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     steps = len(batches)
-    busy, kernels = {}, {}
+    busy, kernels, ring = {}, {}, {}
     for e in prof.key_averages():
         if str(getattr(e, "device_type", "")).split(".")[-1] != "CUDA":
             continue
@@ -1382,6 +1403,9 @@ def profile_window(torch, one_step, batches) -> dict:
                    "other")
         busy[fam] = busy.get(fam, 0.0) + e.self_device_time_total / 1e3
         kernels[e.key[:80]] = kernels.get(e.key[:80], 0.0) + e.self_device_time_total / 1e3
+        if fam == "ring_collectives":
+            kind = next(k for k in FAMILIES[fam] if k in name)
+            ring[kind] = ring.get(kind, 0.0) + e.self_device_time_total / 1e3
     if not busy:
         return {"profile": "not measured (no device activity recorded)",
                 "wall_ms_per_step": wall_ms / steps}
@@ -1391,6 +1415,7 @@ def profile_window(torch, one_step, batches) -> dict:
         "device_busy_ms_per_step": total / steps,
         "device_idle_share": max(0.0, 1.0 - total / wall_ms),
         "busy_ms_per_step_by_family": {f: v / steps for f, v in sorted(busy.items())},
+        "ring_collectives_ms_per_step_by_kernel": {k: v / steps for k, v in sorted(ring.items())},
         "top_kernels_ms_per_step": {
             k: v / steps for k, v in sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
         },
@@ -1419,21 +1444,22 @@ def ring_bound(kind: str, p: int, rows: int, in_item: int, out_item: int, q8: bo
 
 def ring_schedule_bytes(kind: str, schedule: str, p: int, rows: int, in_item: int,
                         wire_item: int, out_item: int) -> int:
-    """Bytes the schedule itself moves on one card. The fold reads every
-    rank's p chunks once and writes one chunk a rank, the copy reads one
-    chunk a rank once and writes it p times: the bound's bytes. On the
-    hop schedule, per rank and step, a reduce-scatter reads its outgoing
-    chunk, writes and reads the mailbox, reads its own chunk and writes
-    the partial; an all-gather copies its own chunk once, then per step
-    reads a chunk, writes and reads the mailbox and writes the arrived
-    chunk."""
+    """Bytes the schedule itself moves on one card. The fold and the
+    resident q8 fold read every rank's p chunks once and write one chunk
+    a rank, the copy reads one chunk a rank once and writes it p times:
+    the bound's bytes. The streaming q8 fold, per rank: hop 0 reads the
+    first copy (its amax), hop 1 reads it again with the second and
+    writes the f32 partial, each later hop reads the partial and a copy
+    and rewrites the partial. On the hop schedule (the q8 all-gather) a
+    rank copies its own chunk once, then per step reads a chunk, writes
+    and reads the mailbox and writes the arrived chunk."""
     c = rows * 128
-    if schedule == "fold":
+    if schedule in ("fold", "q8fold_resident"):
         return p * p * c * in_item + p * c * out_item
     if schedule == "copy":
         return p * c * in_item + p * p * c * out_item
-    if kind == "rs":
-        return p * (p - 1) * c * (in_item + 2 * wire_item + in_item + out_item)
+    if schedule == "q8fold_stream":
+        return p * (c * in_item * (p + 1) + c * out_item * (2 * p - 3))
     return p * c * (in_item + out_item) + p * (p - 1) * c * (out_item + 2 * wire_item + out_item)
 
 
@@ -1442,7 +1468,9 @@ def ring_case(torch, flush, kind: str, xs, quantized: bool, label: str, **extra)
     ``all_gather_chunks``) against its plain version, bit for bit, with
     the kernel, plain and library times, the bound and the schedule's
     bytes, and apart from those the device times without the host's lead
-    and the wrapper's host time."""
+    and the wrapper's host time. The q8 reduce-scatter's case names the
+    q8 fold's form (the C library's plan) and fails unless that form's
+    launch count moved."""
     from mpit_tpu_torch.ops import ring_collectives as rc
 
     p, rows = xs.shape[0], xs.shape[-2]
@@ -1456,8 +1484,16 @@ def ring_case(torch, flush, kind: str, xs, quantized: bool, label: str, **extra)
         plain = lambda: rc.all_gather_plain(xs, quantized=quantized)  # noqa: E731
         lib = lambda: xs.reshape(1, -1).expand(p, -1).clone()  # noqa: E731
         out_item = xs.element_size()
+    if kind == "rs" and quantized:
+        schedule = rc.q8fold_plan(p, rows, xs.device)["form"]
+    else:
+        schedule = "hops" if quantized else {"rs": "fold", "ag": "copy"}[kind]
+    before = dict(rc.path_launches)
     got = run()
     torch.cuda.synchronize()
+    moved = {k: n - before[k] for k, n in rc.path_launches.items() if n != before[k]}
+    if moved != ({schedule: 1} if schedule in rc.path_launches else {}):
+        fail(f"ring {label}: q8 fold launches by form {moved}, the plan names {schedule}")
     want = plain()
     if not torch.equal(got, want):
         err = (got.float() - want.float()).abs().max().item()
@@ -1466,7 +1502,6 @@ def ring_case(torch, flush, kind: str, xs, quantized: bool, label: str, **extra)
         fail(f"ring {label}: the gathered replicas differ")
     in_item = xs.element_size()
     bound_ms, bound_by = ring_bound(kind, p, rows, in_item, out_item, quantized)
-    schedule = "hops" if quantized else {"rs": "fold", "ag": "copy"}[kind]
     case = {
         "form": f"ring_{kind}" + ("_q8" if quantized else ""),
         "label": label, "schedule": schedule,
@@ -1502,7 +1537,8 @@ def ring_kernel_phase(torch, flush, tail_rows: int):
     cases = []
     forms = [(torch.float32, False), (torch.bfloat16, False), (torch.float32, True)]
     for p in RING_P:
-        for dtype, q8 in forms:
+        # bf16 input to the q8 forms at the training runs' rank count.
+        for dtype, q8 in forms + ([(torch.bfloat16, True)] if p == DP_RANKS else []):
             name = str(dtype).removeprefix("torch.")
             tag = f"p={p} {name}{' q8' if q8 else ''} rows={RING_ROWS}"
             cases.append(ring_case(torch, flush, "rs", randn((p, p, RING_ROWS, 128), p, dtype),
@@ -1589,8 +1625,9 @@ def dp_train_phase(torch, card, mode: str, plan: dict):
     torch.cuda.reset_peak_memory_stats()
     fa.launches.update(dict.fromkeys(fa.launches, 0))
     rc.launches.update(dict.fromkeys(rc.launches, 0))
+    rc.path_launches.update(dict.fromkeys(rc.path_launches, 0))
     out = main(args)
-    flash, ring = dict(fa.launches), dict(rc.launches)
+    flash, ring, forms = dict(fa.launches), dict(rc.launches), dict(rc.path_launches)
     peak = torch.cuda.max_memory_allocated()
     losses, steps = out["losses"], out["steps"]
     if steps != 30 or len(losses) != steps or not all(math.isfinite(x) for x in losses):
@@ -1606,6 +1643,15 @@ def dp_train_phase(torch, card, mode: str, plan: dict):
     want = {k: need_ring if k in (f"ring_rs{q}", f"ring_ag{q}") else 0 for k in ring}
     if ring != want:
         fail(f"dp {mode}: ring launches {ring}, expected {want}")
+    # ring_q8: every reduce-scatter on the q8 fold's form the plan names
+    # for its bucket's rows (resident at p 4, 8192 rows and the tail).
+    want_forms = dict.fromkeys(forms, 0)
+    if q:
+        for rows in [RING_ROWS] * (plan["buckets"] - 1) + [plan["tail_rows"]]:
+            form = rc.q8fold_plan(DP_RANKS, rows, torch.device("cuda", 0))["form"]
+            want_forms[form] += steps
+    if forms != want_forms:
+        fail(f"dp {mode}: q8 fold launches by form {forms}, expected {want_forms}")
     if not out["replicas_identical"]:
         fail(f"dp {mode}: the {DP_RANKS} parameter replicas differ after the run")
     if out["grad_sync"] != mode:
@@ -1622,7 +1668,8 @@ def dp_train_phase(torch, card, mode: str, plan: dict):
             "tokens_per_sec_mean": out.get("items_per_sec_mean"),
             "peak_memory_gib": peak / 2**30,
             "replicas_identical": True,
-            "bucket_plan": plan, "ring_launches": ring, "flash_launches": flash,
+            "bucket_plan": plan, "ring_launches": ring, "q8fold_launches_by_form": forms,
+            "flash_launches": flash,
         },
     }), flush=True)
     return ring, losses
@@ -1699,9 +1746,9 @@ def dp_parity_phase(torch, q8_losses):
     }}), flush=True)
 
 
-def dp_profile(torch, steps: int = 3) -> dict:
-    """Three DP steps (DP_RANKS ranks, ``ring``, the phase-4d model) under
-    ``torch.profiler`` after three warm-up steps."""
+def dp_profile(torch, mode: str, steps: int = 3) -> dict:
+    """Three DP steps (DP_RANKS ranks, the gradient sync ``mode``, the
+    phase-4d model) under ``torch.profiler`` after three warm-up steps."""
     import importlib
 
     from mpit_tpu_torch.asyncsgd.config import from_argv
@@ -1715,7 +1762,7 @@ def dp_profile(torch, steps: int = 3) -> dict:
     mcfg = cfg.model_config()
     init = GPT2(mcfg, generator=torch.Generator().manual_seed(cfg.seed)).state_dict()
     models = dp_models(torch, mcfg, init, mcfg.attention_fn)
-    world, state, step_fn = dp_step(torch, models, "ring", cfg.lr)
+    world, state, step_fn = dp_step(torch, models, mode, cfg.lr)
     batches = SyntheticLM(vocab_size=cfg.vocab_size, seed=cfg.seed).batches(
         cfg.batch_size, cfg.seq_len
     )
@@ -1729,7 +1776,7 @@ def dp_profile(torch, steps: int = 3) -> dict:
     for b in tokens[:3]:
         one_step(b)
     torch.cuda.synchronize()
-    out = profile_window(torch, one_step, tokens[3:])
+    out = {"grad_sync": mode, **profile_window(torch, one_step, tokens[3:])}
     fa.launches.update(counts[0])  # profiled steps are not the main path's run
     rc.launches.update(counts[1])
     del models, holder, state
@@ -1779,33 +1826,67 @@ def train_parity_phase(torch):
           flush=True)
 
 
+# Phase 3f's sizes at which each body of the copy kernel is timed apart.
+SHIP_BODY_SIZES = ("payload bf16", "payload int8", "32 MiB", "256 MiB")
+
+
 def ship_case(torch, flush, label: str, src, dst):
     """Phase 3f, one case: the copy kernel against its plain version, bit
-    for bit (byte views), with the kernel, plain and library times and
-    the bound."""
+    for bit (byte views), on the body the C library's plan names (each
+    body must copy bit for bit too), with the kernel, plain and library
+    times and the bound; then, as in 3e, the kernel's
+    and the library's device times without the host's lead and the
+    wrapper's host time. At :data:`SHIP_BODY_SIZES` each body is also
+    timed on its own (``bodies``)."""
     from mpit_tpu_torch.ops import kv_ship
 
+    plan = kv_ship.kernel_plan(src, dst)
+    before = dict(kv_ship.path_launches)
     kv_ship.ship_bytes(src, dst)
     torch.cuda.synchronize()
+    ran = {k: n - before[k] for k, n in kv_ship.path_launches.items() if n != before[k]}
+    if ran != {plan["body"]: 1}:
+        fail(f"kv_ship {label}: launches by body {ran}, the plan names {plan['body']}")
     want = torch.zeros_like(dst)
     kv_ship.ship_bytes_plain(src, want)
     got_b, want_b = kv_ship.byte_view(dst), kv_ship.byte_view(want)
     if not torch.equal(got_b, want_b) or not torch.equal(got_b, kv_ship.byte_view(src)):
         err = (got_b.int() - want_b.int()).abs().max().item()
         fail(f"kv_ship {label}: kernel != plain (max |byte error| {err})")
+    for body in kv_ship.BODIES:
+        dst.zero_()
+        kv_ship.ship_bytes(src, dst, body=body)
+        torch.cuda.synchronize()
+        if not torch.equal(kv_ship.byte_view(dst), want_b):
+            fail(f"kv_ship {label}: the {body} body != plain")
     n = kv_ship.tensor_nbytes(src)
+    run = lambda: kv_ship.ship_bytes(src, dst)  # noqa: E731
+    lib = lambda: dst.copy_(src)  # noqa: E731
     case = {
         "form": "kv_ship", "label": label, "dtype": str(src.dtype).removeprefix("torch."),
         "shape": list(src.shape), "bytes": n,
         "src_offset": src.data_ptr() % 16, "dst_offset": dst.data_ptr() % 16,
-        "max_abs_err": 0.0, "bit_equal": True,
-        "ms": cold_time_ms(lambda: kv_ship.ship_bytes(src, dst), torch, flush),
+        "body": plan["body"], "word_bytes": plan["word"], "blocks": plan["blocks"],
+        "max_abs_err": 0.0, "bit_equal": True, "bit_equal_bodies": list(kv_ship.BODIES),
+        "ms": cold_time_ms(run, torch, flush),
         "plain_ms": cold_time_ms(lambda: kv_ship.ship_bytes_plain(src, dst), torch, flush),
-        "library_ms": cold_time_ms(lambda: dst.copy_(src), torch, flush),
+        "library_ms": cold_time_ms(lib, torch, flush),
         "library": "dst.copy_(src) (cudaMemcpyAsync device to device)",
+        "device_ms": cold_time_ms(run, torch, flush, lead_cycles=HOST_LEAD_CYCLES),
+        "library_device_ms": cold_time_ms(lib, torch, flush, lead_cycles=HOST_LEAD_CYCLES),
+        "host_ms": host_time_ms(run, torch),
         # Read n bytes once, write n bytes once; no arithmetic.
         "bound_ms": 2 * n / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
     }
+    if label in SHIP_BODY_SIZES:
+        case["bodies"] = {}
+        for body in kv_ship.BODIES:
+            one = lambda b=body: kv_ship.ship_bytes(src, dst, body=b)  # noqa: E731
+            case["bodies"][body] = {
+                "ms": cold_time_ms(one, torch, flush),
+                "device_ms": cold_time_ms(one, torch, flush, lead_cycles=HOST_LEAD_CYCLES),
+                "blocks": kv_ship.kernel_plan(src, dst, body)["blocks"],
+            }
     print(json.dumps({"kernel_case": case}), flush=True)
     return case
 
@@ -1839,11 +1920,12 @@ def ship_kernel_phase(torch, flush):
     for n in (1, 15, 17, 4711):
         cases.append(ship_case(torch, flush, f"ragged {n} B", bytes_at(n, 0), bytes_at(n, 0)))
     n = SHIP_PAYLOADS["payload bf16"]
-    for so, do in ((1, 3), (3, 1), (1, 0)):
+    for so, do in ((1, 3), (3, 1), (1, 0), (3, 3)):
         cases.append(ship_case(torch, flush, f"bf16 payload, src +{so} B, dst +{do} B",
                                bytes_at(n, so), bytes_at(n, do)))
-    src = bytes_at(256 * 2**20, 0)
-    cases.append(ship_case(torch, flush, "256 MiB", src, torch.empty_like(src)))
+    for mib in (32, 256):
+        src = bytes_at(mib * 2**20, 0)
+        cases.append(ship_case(torch, flush, f"{mib} MiB", src, torch.empty_like(src)))
     return cases
 
 
@@ -1895,29 +1977,44 @@ def server_tokens(torch, args):
 def fleet_phase(torch, card, ship_cases):
     """Phase 4f: ``python -m mpit_tpu_torch.serve --fleet``'s ``main`` in
     process at phase 4's configuration: dense with one prefill and one
-    decode worker, then the paged pool with int8 K/V and two decode
-    workers. Returns the copy kernel's launches in each run and the
-    runs' records."""
+    decode worker, the paged pool with int8 K/V and two decode workers,
+    then dense int8 weights with two decode workers (every worker's
+    engine launches the matmul from its own thread, so the split
+    contraction's shared workspace is used from several threads).
+    Returns the copy kernel's launches in each run and the runs'
+    records."""
+    import dataclasses
+
     from mpit_tpu_torch.models import GPT2, GPT2Config
     from mpit_tpu_torch.ops import decode_attention as da
     from mpit_tpu_torch.ops import kv_ship
     from mpit_tpu_torch.ops import quantized_matmul as qm
+    from mpit_tpu_torch.serve import quantize_gpt2_params
     from mpit_tpu_torch.serve.__main__ import main
 
+    state = GPT2(GPT2Config.small(), generator=torch.Generator().manual_seed(0)).state_dict()
     judge = GPT2(GPT2Config.small(), device="cuda")
-    judge.load_state_dict(
-        GPT2(GPT2Config.small(), generator=torch.Generator().manual_seed(0)).state_dict()
+    judge.load_state_dict(state)
+    # The int8-weight model, teacher-forced to judge that run's partings.
+    judge_int8w = GPT2(
+        dataclasses.replace(GPT2Config.small(), quant_matmul_fn=qm.quantized_matmul_reference),
+        device="cuda", quantized=True,
     )
+    judge_int8w.load_state_dict(quantize_gpt2_params(state))
+    del state
     per_ship = {c["label"]: 2 * c["ms"] for c in ship_cases if c["label"].startswith("payload")}
     launches, records = {}, []
     for name, args, form, spec in (
         ("dense", [], FORMS[0], "prefill=1,decode=1"),
         ("paged_int8_kv", PAGED_ARGS + ["--kv-dtype", "int8"], FORMS[3], "prefill=1,decode=2"),
+        ("dense_int8_weights", INT8W_ARGS, FORMS[0], "prefill=1,decode=2"),
     ):
+        int8w = "--weights-dtype" in args
         want, prompts = server_tokens(torch, SERVE_ARGS + args)
         da.launches.update(dict.fromkeys(da.launches, 0))
         da.path_launches.update(dict.fromkeys(da.path_launches, 0))
         qm.launches.update(dict.fromkeys(qm.launches, 0))
+        qm.path_launches.update(dict.fromkeys(qm.path_launches, 0))
         kv_ship.launches.update(dict.fromkeys(kv_ship.launches, 0))
         t0 = time.perf_counter()
         out = main(SERVE_ARGS + args + ["--fleet", f"{spec},{FLEET_LIVENESS}"])
@@ -1935,12 +2032,17 @@ def fleet_phase(torch, card, ship_cases):
         need = out["model"]["layers"] * (shipments + ticks)
         if counts[form] < need or any(n for f, n in counts.items() if f != form):
             fail(f"{tag}: attention launches {counts}, need {form} >= {need} and no other form")
-        if qm.launches["quantized_matmul"]:
+        matmuls = qm.launches["quantized_matmul"]
+        need_mm = 4 * out["model"]["layers"] * (shipments + ticks) if int8w else 0
+        if not int8w and matmuls:
             fail(f"{tag}: quantized_matmul launched without --weights-dtype int8")
+        if int8w and (matmuls < need_mm or qm.path_launches != {"fma": 0, "mma": matmuls}):
+            fail(f"{tag}: matmul launches {matmuls} by body {qm.path_launches}, "
+                 f"need >= {need_mm}, all on mma")
         if out["device"] != "cuda":
             fail(f"{tag} ran on {out['device']}")
-        ties = fleet_divergences(torch, judge, prompts, out["completed"], want,
-                                 quantized="--kv-dtype" in args)
+        ties = fleet_divergences(torch, judge_int8w if int8w else judge, prompts,
+                                 out["completed"], want, quantized="--kv-dtype" in args)
         shipped = sum(w.get("ship_bytes", 0) for w in out["workers"])
         payload = "payload int8" if "--kv-dtype" in args else "payload bf16"
         launches[name] = ships
@@ -1952,12 +2054,13 @@ def fleet_phase(torch, card, ship_cases):
             "bytes_shipped": shipped, "kv_ship_launches": ships,
             f"kv_ship_ms_a_shipment_at_the_128_row_{payload.split()[1]}_payload": per_ship[payload],
             "attention_launches": counts[form], "decode_ticks": ticks,
+            "matmul_launches": matmuls,
             "attention_launches_by_body": {k: n for k, n in da.path_launches.items() if n},
             "router": {k: out["router"][k] for k in ("evictions", "requeues")},
             "tokens_vs_server": {"identical_requests": 16 - len(ties), "near_ties": ties},
         })
         print(json.dumps(records[-1]), flush=True)
-    del judge
+    del judge, judge_int8w
     torch.cuda.empty_cache()
     return launches, records
 
@@ -2023,6 +2126,10 @@ def main() -> None:
 
     from mpit_tpu_torch.ops import build
 
+    if sys.argv[1:2] == ["dp_profile"]:  # the phase-4d profile of one mode alone
+        build.build(build.KERNEL_SOURCES)
+        print(json.dumps({"card": card, "train_dp_profile": dp_profile(torch, sys.argv[2])}))
+        return
     t0 = time.perf_counter()
     logs = build.build(build.KERNEL_SOURCES, force=True)
     build_s = time.perf_counter() - t0
@@ -2102,7 +2209,9 @@ def main() -> None:
     for mode in ("ring", "ring_q8"):
         counts, dp_losses[mode] = dp_train_phase(torch, card, mode, plan)
         ring_launches.update({k: n for k, n in counts.items() if n})
-    print(json.dumps({"card": card, "train_dp_profile": dp_profile(torch)}), flush=True)
+    for mode in ("ring", "ring_q8"):
+        print(json.dumps({"card": card, "train_dp_profile": dp_profile(torch, mode)}),
+              flush=True)
     dp_parity_phase(torch, dp_losses["ring_q8"])
 
     kernels = []
@@ -2190,9 +2299,13 @@ def main() -> None:
             "call_site": "mpit_tpu/ops/ring_collectives.py:550",
             "launches": ring_launches[name],
             **{k: head[k] for k in ("schedule", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                                    "bound_by", "library_ms", "library", "ring_schedule_bytes")},
+                                    "bound_by", "library_ms", "library", "ring_schedule_bytes",
+                                    "device_ms")},
             "shape": {k: head[k] for k in ("dtype", "p", "rows")},
         })
+        if name.endswith("_q8"):  # no PyTorch call computes the q8 wire
+            kernels[-1].update(library_ms=None, library="none computes the q8 wire",
+                               sum_library_ms=head["library_ms"])
     head = next(c for c in ship_cases if c["label"] == "payload bf16")
     kernels.append({
         "name": "kv_ship",
@@ -2200,10 +2313,11 @@ def main() -> None:
         "source": "mpit_tpu_torch/csrc/kv_ship.cu",
         "replaces": "mpit_tpu/serve/shipment.py:301",
         "call_site": "mpit_tpu/serve/shipment.py:313",
+        "path": head["body"],
         "launches": sum(ship_launches.values()),
         "launches_by_run": ship_launches,
         **{k: head[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                "library_ms", "library")},
+                                "library_ms", "library", "device_ms", "library_device_ms")},
         "shape": {"bytes": head["bytes"], "dtype": head["dtype"]},
     })
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)

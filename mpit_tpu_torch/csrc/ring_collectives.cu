@@ -5,13 +5,17 @@
 // reached through _call_ring (:546, pl.pallas_call at :550):
 //   - rs_fold_kernel<T>   <- _rs_kernel    (:350)  sum, in x's dtype, ranks
 //                                                  on one card (below)
-//   - rs_q8_kernel<T>     <- _rs_q8_kernel (:387)  int8 wire, f32 result
+//   - rs_q8_fold_kernel<T, RESIDENT> <- _rs_q8_kernel (:387)  int8 wire, f32
+//                                                  result, ranks on one card
+//                                                  (the q8 fold, below)
 //   - ag_copy_kernel<T>   <- _ag_kernel    (:429)  ranks on one card (below)
 //   - ag_q8_kernel<T>     <- _ag_q8_kernel (:457)  int8 wire
-// The two q8 kernels run the ring's hop schedule; the sum forms, with every
-// rank's buffer in this card's HBM, run as one pass each. The hop schedule
-// of the sum forms, for the launch across cards, is rebuilt with the
-// hardware that needs it.
+// The q8 all-gather runs the ring's hop schedule; the other three, with
+// every rank's buffer in this card's HBM, run as one pass over HBM each
+// (the q8 fold one pass a hop where its partials outgrow shared memory).
+// The hop schedules of the sum forms and of the q8 reduce-scatter, for the
+// launch across cards, are rebuilt with the hardware that needs it (the
+// one-card hop form of the q8 reduce-scatter was removed with the fold).
 //
 // What they compute, per rank i of p, on [rows, 128] chunks:
 //   reduce-scatter: rank i's input holds p chunks; at step s (0..p-2) it
@@ -29,16 +33,17 @@
 //     verbatim, and every rank, the owner included, writes the dequantized
 //     value, so every replica holds the same bits.
 //
-// Launch of the hop schedule (the q8 forms): ONE cooperative launch carries
+// Launch of the hop schedule (the q8 all-gather): ONE cooperative launch carries
 // all p ranks, grid (B, p):
 // blockIdx.y is the rank, and block b of every rank owns rows
 // [b*rows/B, (b+1)*rows/B) of every chunk, running its own sub-ring with
 // block b of ranks i-1 and i+1 through its own flags. The q8 forms need the
 // chunk-wide amax at every quantization: each block publishes its partial
 // amax, and every block of the rank waits for all B partials and takes
-// their max (exact, so order does not matter). p*B <= the SM count and the
-// launch is cooperative, so every block is resident and no spin-wait can
-// wait on a block that is not running.
+// their max (exact, so order does not matter): rank_amax, the amax
+// barrier, which the q8 fold shares. p*B <= the SM count and the launch is
+// cooperative, so every block is resident and no spin-wait can wait on a
+// block that is not running.
 //
 // The mailbox discipline of the TPU kernels' _Ring (:263-345), with device
 // memory in place of remote DMA:
@@ -76,9 +81,9 @@
 // is 80 MiB, about 0.025 ms at 3.35 TB/s. The ring schedule itself moves
 // more on one HBM: every step reads and writes a chunk per rank again
 // through a mailbox, since it is built for links between cards, not one
-// memory. The design keeps the payload in registers between its loads and
-// stores (16-byte loads where the type allows, 4 elements a thread per
-// iteration) and uses every SM: p*B blocks of 512 threads.
+// memory. The q8 all-gather's design keeps the payload in registers
+// between its loads and stores (4 elements a thread per iteration) and
+// uses every SM: p*B blocks of 512 threads.
 //
 // The sum reduce-scatter with every rank on this one card: rs_fold_kernel,
 // one pass. All p ranks share one HBM, so nothing needs to travel: for
@@ -111,11 +116,44 @@
 // with blockIdx.y the source rank c. Bit-equal to the plain version, and
 // every replica holds the same bits.
 //
+// The q8 reduce-scatter with every rank on this one card: the q8 fold,
+// rs_q8_fold_kernel. For rank r it computes the hop chain of chunk r
+// directly, with the ring's roundings:
+//   P_0 = f32(x[r+1][r]);  s_j = amax(P_j) / 127 over the WHOLE chunk (1 if
+//   all zero);  P_j = f32(clip(rint(P_{j-1} / s_{j-1}), +-127)) * s_{j-1}
+//   + f32(x[r+1+j][r]) for j = 1 .. p-1, each step rounded once (no FMA);
+//   out = P_{p-1}.
+// No byte needs to travel on one card: the int8 value lives only in a
+// register (only dequant(quant(P)) reaches the result), so there is no
+// mailbox and no FULL/CAP flag. The chunk-wide amax is the one dependency
+// across blocks: a hop computes its block's amax of the new partial in the
+// same pass that makes it, and the rank's blocks meet at rank_amax (its
+// epoch tokens and spin budget) before the next hop. One cooperative
+// launch, grid (B, p), 512 threads a block, one block an SM. Two forms,
+// chosen by mpit_q8fold_plan:
+//   - resident, whenever a block's rows of the f32 partial fit in the
+//     shared memory a block may take (GPT-2 small's bucket at p 4: 249
+//     rows, 127 KB a block): P stays in shared memory across the hops, so
+//     HBM moves the bound's bytes, p*p*c*in read once and 4*p*c written
+//     once;
+//   - streaming, when they do not (p 8 at 8192 rows): P lives in out; hop 0
+//     reads x[r+1][r] for its amax, hop 1 reads it again with x[r+2][r] and
+//     writes out, each later hop reads out and x and rewrites out, all in
+//     one pass a hop (the hop schedule took three).
+// Each thread takes the same 16-byte groups of x at every hop, and the next
+// trip's groups are in flight while a trip is computed, across the amax
+// barrier too. The divide by a hop's scale is a product with its
+// correctly rounded reciprocal corrected once (q8_quot), bit-equal to
+// __fdiv_rn. Bit-equal to reduce_scatter_plain(quantized=True) in f32 and
+// bf16 input. What holds it above the bound (PERF.md): at each of the p - 1
+// barriers every block of the rank waits for the slowest, and at bf16 the
+// hops' compute and the barriers outweigh the bytes.
+//
 // C interface for ctypes: mpit_ring_launch returns the cudaError_t of the
 // launch (cudaGetLastError right after it) or -1 for arguments this file
-// does not take; mpit_ring_error reads the error word, 0 if none. Kinds 0
-// and 2 are the one-pass fold and copy; kinds 1 and 3 the q8 ring
-// schedule.
+// does not take; mpit_ring_error reads the error word, 0 if none;
+// mpit_q8fold_plan names the q8 fold's form. Kinds 0, 1 and 2 are the
+// one-card fold, q8 fold and copy; kind 3 the q8 ring schedule.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -260,8 +298,9 @@ __device__ __forceinline__ float block_max(float v, float* red) {
   return red[0];
 }
 
-// The chunk-wide amax of one rank: this block's partial, published, then
-// the max over the partials of every block of the rank (barrier k).
+// The chunk-wide amax of one rank: this block's partial, published (the
+// release store orders it before the flag), then the max over the partials
+// of every block of the rank (barrier k).
 __device__ float rank_amax(const RingArgs& a, float mine, int k, float* red) {
   const int r = blockIdx.y, b = blockIdx.x;
   u64* ws = a.ws[r];
@@ -270,7 +309,6 @@ __device__ float rank_amax(const RingArgs& a, float mine, int k, float* red) {
   const u64 tok = token(a, k);
   if (threadIdx.x == 0) {
     part[(k & 1) * MAXB + b] = bmax;
-    __threadfence();
     st_release(ws + WS_ARRIVE + b, tok);
   }
   float v = 0.f;
@@ -289,65 +327,6 @@ __device__ __forceinline__ Rows my_rows(const RingArgs& a) {
   const long long lo = static_cast<long long>(blockIdx.x) * a.rows / a.nblk;
   const long long hi = static_cast<long long>(blockIdx.x + 1) * a.rows / a.nblk;
   return Rows{lo * LANE, (hi - lo) * (LANE / 4)};
-}
-
-// ---- q8 reduce-scatter --------------------------------------------------------
-
-template <typename T>
-__global__ void __launch_bounds__(NT) rs_q8_kernel(RingArgs a) {
-  __shared__ float red[NT / 32];
-  const int p = a.p, r = blockIdx.y, b = blockIdx.x;
-  const int right = (r + 1) % p, left = (r + p - 1) % p;
-  const Rows rw = my_rows(a);
-  const long long slot_elems = static_cast<long long>(a.rows) * LANE;
-  const T* x = static_cast<const T*>(a.in[r]) + rw.r0;
-  float* o = static_cast<float*>(a.out[r]) + rw.r0;
-  int8_t* mb_right = static_cast<int8_t*>(a.mbox[right]) + rw.r0;
-  const int8_t* mb_me = static_cast<const int8_t*>(a.mbox[r]) + rw.r0;
-  u64* ws_me = a.ws[r];
-  float* scale_right = reinterpret_cast<float*>(a.ws[right] + WS_SCALE);
-  const float* scale_me = reinterpret_cast<const float*>(ws_me + WS_SCALE);
-
-  for (int s = 0; s < p - 1; ++s) {
-    const int send_c = (r - 1 - s + 2 * p) % p;
-    const int recv_c = (r - 2 - s + 2 * p) % p;
-    const int slot = s & 1;
-    const T* xs = x + send_c * a.in_cs;  // step 0's outgoing chunk
-    float m = 0.f;
-    for (long long g = threadIdx.x; g < rw.n4; g += NT) {
-      float v[4];
-      if (s == 0) load4(xs + 4 * g, v); else load4(o + 4 * g, v);
-      m = fmaxf(m, fmaxf(fmaxf(fabsf(v[0]), fabsf(v[1])), fmaxf(fabsf(v[2]), fabsf(v[3]))));
-    }
-    const float scale = q8_scale(rank_amax(a, m, s, red));
-    if (s >= 2) block_wait(a, ws_me + WS_CAP + slot * MAXB + b, token(a, s - 2), 2, s);
-    int8_t* dst = mb_right + slot * slot_elems;
-    #pragma unroll 4
-    for (long long g = threadIdx.x; g < rw.n4; g += NT) {
-      float v[4];
-      if (s == 0) load4(xs + 4 * g, v); else load4(o + 4 * g, v);
-      quant_store4(dst + 4 * g, v, scale);
-    }
-    if (threadIdx.x == 0) scale_right[slot * MAXB + b] = scale;
-    __threadfence();
-    __syncthreads();
-    if (threadIdx.x == 0) st_release(a.ws[right] + WS_FULL + slot * MAXB + b, token(a, s));
-    block_wait(a, ws_me + WS_FULL + slot * MAXB + b, token(a, s), 1, s);
-    const float in_scale = __ldcg(scale_me + slot * MAXB + b);
-    const int8_t* src = mb_me + slot * slot_elems;
-    const T* xr = x + recv_c * a.in_cs;
-    #pragma unroll 4
-    for (long long g = threadIdx.x; g < rw.n4; g += NT) {
-      float w[4], v[4];
-      load4_cg(src + 4 * g, w);
-      load4(xr + 4 * g, v);
-      #pragma unroll
-      for (int j = 0; j < 4; ++j) v[j] = __fadd_rn(__fmul_rn(w[j], in_scale), v[j]);
-      store4(o + 4 * g, v);
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) st_release(a.ws[left] + WS_CAP + slot * MAXB + b, token(a, s));
-  }
 }
 
 // ---- the one-card sum reduce-scatter: one pass ------------------------------
@@ -441,6 +420,166 @@ __global__ void __launch_bounds__(PASS_NT) ag_copy_kernel(PassArgs a) {
     __stcs(reinterpret_cast<uint4*>(static_cast<T*>(a.out[r]) + chunk) + g, v);
 }
 
+// ---- the one-card q8 reduce-scatter: the q8 fold ----------------------------
+
+// The quotient p / s rounded once to f32, as __fdiv_rn gives it. With
+// `fast` (s and its reciprocal r = __frcp_rn(s) both far from overflow and
+// underflow, which the caller checks once a hop: s is the hop's one scale)
+// it is p * r corrected once by its exact fma residual (Markstein's
+// correction: from the correctly rounded reciprocal, one residual step
+// rounds the quotient correctly), three instructions in place of
+// __fdiv_rn's. Where the product underflows, |p / s| < 2^-26 and both
+// round to a zero of p's sign after rint. mpit_q8_quot_mismatches holds
+// the two forms against each other on the card.
+__device__ __forceinline__ float q8_quot(float p, float s, float r, bool fast) {
+  if (!fast) return __fdiv_rn(p, s);
+  const float q0 = __fmul_rn(p, r);
+  return __fmaf_rn(__fmaf_rn(-q0, s, p), r, q0);
+}
+
+// dequant(quant(P)) + x for one element: round(P / s) half to even, clipped
+// to +-127, times s, plus x; every step rounded once, as the plain version.
+__device__ __forceinline__ float q8_hop(float p, float s, float r, bool fast, float x) {
+  const float q = fminf(fmaxf(rintf(q8_quot(p, s, r, fast)), -127.f), 127.f);
+  return __fadd_rn(__fmul_rn(q, s), x);
+}
+
+// For the tests: counts the i < n where q8_quot(p[i], s[i]) differs in any
+// bit from __fdiv_rn(p[i], s[i]), for each s[i] in the fast range.
+__global__ void q8_quot_check_kernel(const float* p, const float* s, long long n,
+                                     unsigned long long* mismatches) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float si = s[i];
+  if (!(si >= 0x1p-100f && si <= 0x1p100f)) return;
+  const float fast = q8_quot(p[i], si, __frcp_rn(si), true);
+  if (__float_as_uint(fast) != __float_as_uint(__fdiv_rn(p[i], si))) atomicAdd(mismatches, 1ull);
+}
+
+template <bool B>
+struct Flag {
+  static constexpr bool value = B;
+};
+
+// A trip's UNROLL 16-byte groups of x for this thread, g0 + u * NT (u <
+// UNROLL; those at or past ng are not read).
+template <int UNROLL>
+__device__ __forceinline__ void load_trip(const uint4* x, long long g0, long long ng,
+                                          uint4 (&raw)[UNROLL]) {
+#pragma unroll
+  for (int u = 0; u < UNROLL; ++u)
+    if (g0 + u * NT < ng) raw[u] = __ldcs(x + g0 + u * NT);
+}
+
+// Rank r's (blockIdx.y) chunk r, rows of block b (blockIdx.x): P0 = f32 of
+// rank r + 1's copy, then P_j = q8_hop(P_{j-1}, s_{j-1}, rank r + 1 + j's
+// copy) for j = 1 .. p - 1, s_j the scale of P_j's amax over the WHOLE chunk
+// (rank_amax: this block's max, then the max over the rank's blocks).
+// RESIDENT: the block's rows of P stay in shared memory from hop to hop and
+// reach out once, at the end; else P lives in out (read, rewritten a hop).
+// Each thread takes the same 16-byte groups of x at every hop, so its P
+// values are its own: no barrier inside the block but the amax's. The loads
+// are software-pipelined: a trip's UNROLL groups of x are issued while the
+// trip before is computed, and a hop's last trip issues the next hop's
+// first, so loads are in flight across the amax barrier (x does not depend
+// on the scale; resident at GPT-2 small's bf16 bucket that trip is a
+// thread's whole next hop).
+template <typename T, bool RESIDENT>
+__global__ void __launch_bounds__(NT) rs_q8_fold_kernel(RingArgs a) {
+  constexpr int VEC = 16 / sizeof(T);  // elements of a 16-byte group
+  // Groups of x in flight a thread: resident, 8 (the partial is read from
+  // shared memory at its use, so the registers hold x alone); streaming, 4
+  // (the partial's groups are loaded from out beside x).
+  constexpr int UNROLL = RESIDENT ? 8 : 4;
+  constexpr int STEP = UNROLL * NT;
+  extern __shared__ float4 resident[];  // [VEC / 4][the block's groups]
+  __shared__ float red[NT / 32];
+  const int p = a.p, r = blockIdx.y;
+  const long long lo = static_cast<long long>(blockIdx.x) * a.rows / a.nblk;
+  const long long hi = static_cast<long long>(blockIdx.x + 1) * a.rows / a.nblk;
+  const long long ng = (hi - lo) * LANE / VEC;  // the block's groups
+  const long long x0 = static_cast<long long>(r) * a.in_cs + lo * LANE;
+  float4* o = reinterpret_cast<float4*>(static_cast<float*>(a.out[r]) + lo * LANE);
+  // Hop j's copy: rank r + 1 + j's chunk r, this block's rows.
+  auto copy = [&](int j) {
+    return reinterpret_cast<const uint4*>(static_cast<const T*>(a.in[(r + 1 + j) % p]) + x0);
+  };
+  uint4 next[UNROLL];
+  load_trip(copy(0), threadIdx.x, ng, next);
+  float m = 0.f, s = 1.f, rs = 1.f;
+  bool fast = true;
+  // One hop's trips, FAST a constant so that no element branches on it.
+  auto trips = [&](int j, auto fast_c) {
+    constexpr bool FAST = decltype(fast_c)::value;
+    const bool last = j == p - 1;
+    const uint4* x = copy(j);
+    for (long long g0 = threadIdx.x; g0 < ng; g0 += STEP) {
+      uint4 raw[UNROLL];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) raw[u] = next[u];
+      if (g0 + STEP < ng) load_trip(x, g0 + STEP, ng, next);
+      else if (!last) load_trip(copy(j + 1), threadIdx.x, ng, next);
+      float4 prev[RESIDENT ? 1 : UNROLL][VEC / 4];  // streaming: P_{j-1} from out
+      if constexpr (!RESIDENT) {
+        if (j > 0) {
+#pragma unroll
+          for (int u = 0; u < UNROLL; ++u) {
+            const long long g = g0 + u * NT;
+            if (g >= ng) continue;
+            if (j == 1) {  // P0 is still rank r + 1's copy
+              float v[VEC];
+              unpack16(__ldcs(copy(0) + g), v);
+#pragma unroll
+              for (int k = 0; k < VEC / 4; ++k)
+                prev[u][k] = make_float4(v[4 * k], v[4 * k + 1], v[4 * k + 2], v[4 * k + 3]);
+            } else {
+#pragma unroll
+              for (int k = 0; k < VEC / 4; ++k) prev[u][k] = __ldcg(o + g * (VEC / 4) + k);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const long long g = g0 + u * NT;
+        if (g >= ng) continue;
+        float v[VEC];
+        unpack16(raw[u], v);
+#pragma unroll
+        for (int k = 0; k < VEC / 4; ++k) {
+          if (j > 0) {
+            const float4 t = RESIDENT ? resident[k * ng + g] : prev[RESIDENT ? 0 : u][k];
+            v[4 * k] = q8_hop(t.x, s, rs, FAST, v[4 * k]);
+            v[4 * k + 1] = q8_hop(t.y, s, rs, FAST, v[4 * k + 1]);
+            v[4 * k + 2] = q8_hop(t.z, s, rs, FAST, v[4 * k + 2]);
+            v[4 * k + 3] = q8_hop(t.w, s, rs, FAST, v[4 * k + 3]);
+          }
+#pragma unroll
+          for (int e = 4 * k; e < 4 * k + 4; ++e) m = fmaxf(m, fabsf(v[e]));
+        }
+        if (j == 0 && !RESIDENT) continue;  // streaming: P0 is not stored
+#pragma unroll
+        for (int k = 0; k < VEC / 4; ++k) {
+          const float4 t = make_float4(v[4 * k], v[4 * k + 1], v[4 * k + 2], v[4 * k + 3]);
+          if (last) __stcs(o + g * (VEC / 4) + k, t);
+          else if (RESIDENT) resident[k * ng + g] = t;
+          else __stcg(o + g * (VEC / 4) + k, t);
+        }
+      }
+    }
+  };
+  for (int j = 0; j < p; ++j) {
+    if (fast) trips(j, Flag<true>{});
+    else trips(j, Flag<false>{});
+    if (j < p - 1) {
+      s = q8_scale(rank_amax(a, m, j, red));  // P_j's scale
+      rs = __frcp_rn(s);
+      fast = s >= 0x1p-100f && s <= 0x1p100f;
+      m = 0.f;
+    }
+  }
+}
+
 // ---- q8 all-gather ------------------------------------------------------------
 
 template <typename T>
@@ -523,12 +662,6 @@ __global__ void __launch_bounds__(NT) ag_q8_kernel(RingArgs a) {
 unsigned int* g_err_host = nullptr;
 unsigned int* g_err_dev = nullptr;
 
-template <typename T>
-void* kernel_for(int kind) {
-  return kind == 1 ? reinterpret_cast<void*>(&rs_q8_kernel<T>)
-                   : reinterpret_cast<void*>(&ag_q8_kernel<T>);
-}
-
 // The one-pass kernels' arguments for p ranks' [rows, 128] chunks of T.
 template <typename T>
 PassArgs pass_args(int p, int rows, const unsigned long long* in_ptrs,
@@ -562,17 +695,87 @@ int fold(const PassArgs& a, cudaStream_t stream) {
   return launch_pass(rs_fold_kernel<T, MAX_RANKS>, a, stream);
 }
 
+constexpr int MAX_DEVICES = 64;
+// Shared memory the resident fold leaves for its static arrays and the
+// per-block reserve.
+constexpr int STATIC_SMEM_RESERVE = 1024;
+
+struct Device {
+  int sms = 0;
+  int smem_optin = 0;     // shared memory a block may opt in to
+  bool resident_ready = false;  // the resident fold's opt-in is set
+};
+Device g_dev[MAX_DEVICES];
+
+Device* current_device(cudaError_t* e) {
+  int dev = 0;
+  *e = cudaGetDevice(&dev);
+  if (*e != cudaSuccess || dev < 0 || dev >= MAX_DEVICES) return nullptr;
+  Device& g = g_dev[dev];
+  if (g.sms == 0) {
+    int sms = 0, optin = 0;
+    *e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (*e == cudaSuccess)
+      *e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (*e != cudaSuccess) return nullptr;
+    g.sms = sms;
+    g.smem_optin = optin;
+  }
+  return &g;
+}
+
+// Blocks a rank for a cooperative ring launch: one block an SM, p ranks.
+int ring_blocks(int sms, int p, int rows) {
+  int nblk = sms / p;
+  if (nblk > MAXB) nblk = MAXB;
+  if (nblk > rows) nblk = rows;
+  return nblk;
+}
+
+// The q8 fold's plan: out = {form (0 resident, 1 streaming), blocks a rank,
+// dynamic shared memory bytes}. Resident whenever a block's rows of the f32
+// partial fit in the shared memory a block may take.
+int q8fold_plan(const Device& g, int p, int rows, int out[3]) {
+  const int nblk = ring_blocks(g.sms, p, rows);
+  if (nblk < 1) return -1;
+  const long long most_rows = (static_cast<long long>(rows) + nblk - 1) / nblk;
+  const long long smem = most_rows * LANE * static_cast<long long>(sizeof(float));
+  const bool resident = smem <= g.smem_optin - STATIC_SMEM_RESERVE;
+  out[0] = resident ? 0 : 1;
+  out[1] = nblk;
+  out[2] = resident ? static_cast<int>(smem) : 0;
+  return 0;
+}
+
+template <typename T>
+void* q8fold_kernel(bool resident) {
+  return resident ? reinterpret_cast<void*>(&rs_q8_fold_kernel<T, true>)
+                  : reinterpret_cast<void*>(&rs_q8_fold_kernel<T, false>);
+}
+
 }  // namespace
 
 extern "C" {
 
-// kind: 0 reduce-scatter (the one-pass fold), 1 q8 reduce-scatter, 2
-// all-gather (the one-pass copy), 3 q8 all-gather; dtype of the input (and
-// of every output but the q8 reduce-scatter's f32): 0 f32, 1 bf16. Per rank
-// r: in_ptrs[r], out_ptrs[r] ([rows, 128] rows contiguous, 16-byte aligned;
-// the p-chunk side's chunks in_cs / out_cs elements apart), and for kinds 1
-// and 3 mbox_ptrs[r] ([2][rows][128] int8) and ws_ptrs[r] (the rank's
-// zeroed workspace), which kinds 0 and 2 never read (they may be null).
+// The q8 fold's plan for p ranks' [rows, 128] chunks on the current device:
+// out = {form (0 resident, 1 streaming), blocks a rank, dynamic shared
+// memory bytes}; -1 for arguments it refuses.
+int mpit_q8fold_plan(int p, int rows, int* out) {
+  if (p < 2 || p > MAX_RANKS || rows < 1) return -1;
+  cudaError_t e;
+  Device* g = current_device(&e);
+  if (g == nullptr) return e != cudaSuccess ? static_cast<int>(e) : -1;
+  return q8fold_plan(*g, p, rows, out);
+}
+
+// kind: 0 reduce-scatter (the one-pass fold), 1 q8 reduce-scatter (the q8
+// fold), 2 all-gather (the one-pass copy), 3 q8 all-gather (the hop
+// schedule); dtype of the input (and of every output but the q8
+// reduce-scatter's f32): 0 f32, 1 bf16. Per rank r: in_ptrs[r], out_ptrs[r]
+// ([rows, 128] rows contiguous, 16-byte aligned; the p-chunk side's chunks
+// in_cs / out_cs elements apart); for kinds 1 and 3 ws_ptrs[r] (the rank's
+// zeroed workspace), and for kind 3 mbox_ptrs[r] ([2][rows][128] int8); a
+// kind never reads the tables it does not take (they may be null).
 // epoch: larger than every earlier call's on these workspaces.
 int mpit_ring_launch(int kind, int dtype, int p, int rows,
                      const unsigned long long* in_ptrs,
@@ -597,10 +800,9 @@ int mpit_ring_launch(int kind, int dtype, int p, int rows,
                : launch_pass(ag_copy_kernel<__nv_bfloat16>,
                              pass_args<__nv_bfloat16>(p, rows, in_ptrs, out_ptrs, out_cs), st);
   }
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaError_t e;
+  Device* g = current_device(&e);
+  if (g == nullptr) return e != cudaSuccess ? static_cast<int>(e) : -1;
   if (g_err_host == nullptr) {
     e = cudaHostAlloc(reinterpret_cast<void**>(&g_err_host), 64,
                       cudaHostAllocMapped | cudaHostAllocPortable);
@@ -609,15 +811,36 @@ int mpit_ring_launch(int kind, int dtype, int p, int rows,
     e = cudaHostGetDevicePointer(reinterpret_cast<void**>(&g_err_dev), g_err_host, 0);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  int nblk = sms / p;
-  if (nblk > MAXB) nblk = MAXB;
-  if (nblk > rows) nblk = rows;
+  int nblk = ring_blocks(g->sms, p, rows);
   if (nblk < 1) return -1;
+  void* fn;
+  int smem = 0;
+  if (kind == 1) {
+    int plan[3];
+    if (q8fold_plan(*g, p, rows, plan)) return -1;
+    const bool resident = plan[0] == 0;
+    nblk = plan[1];
+    smem = plan[2];
+    if (resident && !g->resident_ready) {
+      const int most = g->smem_optin - STATIC_SMEM_RESERVE;
+      e = cudaFuncSetAttribute(q8fold_kernel<float>(true),
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+      if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(q8fold_kernel<__nv_bfloat16>(true),
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      g->resident_ready = true;
+    }
+    fn = dtype == 0 ? q8fold_kernel<float>(resident) : q8fold_kernel<__nv_bfloat16>(resident);
+  } else {
+    fn = dtype == 0 ? reinterpret_cast<void*>(&ag_q8_kernel<float>)
+                    : reinterpret_cast<void*>(&ag_q8_kernel<__nv_bfloat16>);
+  }
   RingArgs a{};
   for (int r = 0; r < p; ++r) {
     a.in[r] = reinterpret_cast<const void*>(in_ptrs[r]);
     a.out[r] = reinterpret_cast<void*>(out_ptrs[r]);
-    a.mbox[r] = reinterpret_cast<void*>(mbox_ptrs[r]);
+    a.mbox[r] = kind == 3 ? reinterpret_cast<void*>(mbox_ptrs[r]) : nullptr;
     a.ws[r] = reinterpret_cast<u64*>(ws_ptrs[r]);
   }
   a.in_cs = in_cs;
@@ -627,13 +850,24 @@ int mpit_ring_launch(int kind, int dtype, int p, int rows,
   a.nblk = nblk;
   a.epoch = epoch;
   a.err = g_err_dev;
-  void* fn = dtype == 0 ? kernel_for<float>(kind) : kernel_for<__nv_bfloat16>(kind);
   void* args[] = {&a};
-  e = cudaLaunchCooperativeKernel(fn, dim3(nblk, p), dim3(NT), args, 0, st);
+  e = cudaLaunchCooperativeKernel(fn, dim3(nblk, p), dim3(NT), args, smem, st);
   if (e != cudaSuccess) {
     cudaGetLastError();
     return static_cast<int>(e);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Tests only: the number of i < n where the q8 fold's quotient of p[i] by
+// s[i] differs from __fdiv_rn's (device arrays; *mismatches, a device
+// word, is added to), on stream.
+int mpit_q8_quot_mismatches(const float* p, const float* s, long long n,
+                            unsigned long long* mismatches, void* stream) {
+  if (n < 1) return -1;
+  const long long blocks = (n + 255) / 256;
+  q8_quot_check_kernel<<<static_cast<unsigned int>(blocks), 256, 0,
+                         static_cast<cudaStream_t>(stream)>>>(p, s, n, mismatches);
   return static_cast<int>(cudaGetLastError());
 }
 

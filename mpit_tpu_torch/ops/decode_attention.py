@@ -37,6 +37,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 
 import torch
 
@@ -76,9 +77,11 @@ _PATHS = {
 _C_PATHS = ("rows", "mma", "split", "q8mma")  # mpit_decode_path's answers, in order
 # Launches of each form of the CUDA kernel since the counts were last set
 # to 0, and of each "<form>/<body>"; a wrapper adds one to both where it
-# launches, and nowhere else.
+# launches, and nowhere else, under the lock: the fleet's worker threads
+# launch concurrently.
 launches = dict.fromkeys(_PATHS, 0)
 path_launches = {f"{form}/{path}": 0 for form, paths in _PATHS.items() for path in paths}
+_COUNT_LOCK = threading.Lock()
 
 
 def reference_decode_attention(q, k, v, lengths):
@@ -290,8 +293,9 @@ def _launch(q, k, v, lengths, block_table, s_len: int, bk: int):
         raise RuntimeError(f"flash-decode kernel launch failed ({err}): {msg}")
     form = "flash_decode_attention" if block_table is None else "flash_paged_decode_attention"
     form += "" if ks is None else "_int8"
-    launches[form] += 1
-    path_launches[f"{form}/{path}"] += 1
+    with _COUNT_LOCK:
+        launches[form] += 1
+        path_launches[f"{form}/{path}"] += 1
     return out, visited
 
 

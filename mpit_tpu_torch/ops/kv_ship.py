@@ -9,6 +9,11 @@ kernel (:func:`mpit_tpu.serve.shipment.ship_kv_remote`, ``_ship_kernel``).
   fallback. Both tensors are contiguous, hold the same number of bytes
   and lie on one device; their dtypes and shapes may differ (a packed
   uint8 payload lands in a uint8 buffer, a bf16 leaf in a bf16 one).
+  The kernel has two bodies, one load-store loop in two shapes:
+  ``wave`` (four words a thread, one wave up to full residency: the
+  fleet's shipments) and ``stream`` (a word a thread: large buffers);
+  the C library's plan (:func:`kernel_plan`, ``mpit_kv_ship_plan``) picks
+  one by size, and :data:`path_launches` counts the launches by body.
 
 Every CUDA payload of the compat simulator (a buffered ``Send``'s
 snapshot and the delivery into the receiver's buffer) and of
@@ -27,13 +32,25 @@ import torch
 
 from mpit_tpu_torch.ops.build import load
 
-__all__ = ["byte_view", "launches", "ship_bytes", "ship_bytes_plain", "tensor_nbytes"]
+__all__ = [
+    "BODIES",
+    "byte_view",
+    "kernel_plan",
+    "launches",
+    "path_launches",
+    "ship_bytes",
+    "ship_bytes_plain",
+    "tensor_nbytes",
+]
 
 _KERNEL_SOURCE = "kv_ship.cu"
+BODIES = ("wave", "stream")  # mpit_kv_ship_plan's bodies, in order
 
-# Launches of the CUDA kernel since the count was last set to 0; the
-# wrapper adds one where it launches, and nowhere else.
+# Launches of the CUDA kernel since the count was last set to 0, and the
+# same launches by body; the wrapper adds one where it launches, and
+# nowhere else.
 launches = {"kv_ship": 0}
+path_launches = dict.fromkeys(BODIES, 0)
 _COUNT_LOCK = threading.Lock()
 
 
@@ -59,13 +76,52 @@ def kernel_library() -> ctypes.CDLL:
     """The copy kernel's library, built from its source at the first call
     (needs ``nvcc``) and loaded."""
     lib = load(_KERNEL_SOURCE)
-    lib.mpit_kv_ship.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-    ]
-    lib.mpit_kv_ship.restype = ctypes.c_int
-    lib.mpit_kv_ship_error_string.argtypes = [ctypes.c_int]
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.mpit_kv_ship_plan.argtypes = [ptr, ptr, i64, i32, i32, ctypes.POINTER(i32)]
+    lib.mpit_kv_ship_plan.restype = i32
+    lib.mpit_kv_ship.argtypes = [ptr, ptr, i64, i32, i32, ptr]
+    lib.mpit_kv_ship.restype = i32
+    lib.mpit_kv_ship_error_string.argtypes = [i32]
     lib.mpit_kv_ship_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _error(lib, err: int, what: str) -> RuntimeError:
+    msg = lib.mpit_kv_ship_error_string(err).decode() if err > 0 else "arguments refused"
+    return RuntimeError(f"kv_ship {what} failed ({err}): {msg}")
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan(n: int, src_mod: int, dst_mod: int, body: int, device: int) -> tuple:
+    # The plan reads the addresses modulo 16 alone, so two 16-byte-aligned
+    # stand-ins carry them.
+    lib = kernel_library()
+    out = (ctypes.c_int * 3)()
+    err = lib.mpit_kv_ship_plan(16 + src_mod, 64 + dst_mod, n, body, device, out)
+    if err:
+        raise _error(lib, err, "plan")
+    return BODIES[out[0]], out[1], out[2]
+
+
+def kernel_plan(src: torch.Tensor, dst: torch.Tensor, body: str | None = None) -> dict:
+    """The C library's plan for copying ``src`` into ``dst`` (CUDA
+    tensors): the body (``wave`` or ``stream``; ``body`` asks for one),
+    the word it moves (16 bytes where both addresses agree modulo 16) and
+    the grid's blocks."""
+    n = _check(src, dst)
+    code = _body_code(body)
+    got, word, blocks = _plan(n, src.data_ptr() % 16, dst.data_ptr() % 16, code,
+                              src.device.index)
+    return {"body": got, "word": word, "blocks": blocks}
+
+
+def _body_code(body) -> int:
+    """The C library's code for ``body`` (-1: the plan's choice)."""
+    if body is None:
+        return -1
+    if body not in BODIES:
+        raise ValueError(f"body must be one of {BODIES} or None, got {body!r}")
+    return BODIES.index(body)
 
 
 def _check(src: torch.Tensor, dst: torch.Tensor) -> int:
@@ -86,22 +142,25 @@ def _check(src: torch.Tensor, dst: torch.Tensor) -> int:
     return n
 
 
-def ship_bytes(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+def ship_bytes(src: torch.Tensor, dst: torch.Tensor, *, body: str | None = None) -> torch.Tensor:
     """Copy ``src``'s bytes into ``dst``, bit for bit: the kernel for CUDA
-    tensors (on the current stream), the plain version for CPU ones.
-    Returns ``dst``."""
+    tensors (on the current stream, the body the plan picks; ``body``
+    asks for one, as the tests and the chip smoke do), the plain version
+    for CPU ones. Returns ``dst``."""
     n = _check(src, dst)
+    code = _body_code(body)
     if src.device.type == "cpu":
         return ship_bytes_plain(src, dst)
     if n == 0:
         return dst  # nothing to move
+    index = src.device.index
+    s, d = src.data_ptr(), dst.data_ptr()
+    ran = _plan(n, s % 16, d % 16, code, index)[0]
     lib = kernel_library()
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream(src.device).cuda_stream
-        err = lib.mpit_kv_ship(src.data_ptr(), dst.data_ptr(), n, stream)
+    err = lib.mpit_kv_ship(s, d, n, code, index, torch._C._cuda_getCurrentRawStream(index))
     if err:
-        msg = lib.mpit_kv_ship_error_string(err).decode() if err > 0 else "arguments refused"
-        raise RuntimeError(f"kv_ship kernel launch failed ({err}): {msg}")
+        raise _error(lib, err, "kernel launch")
     with _COUNT_LOCK:
         launches["kv_ship"] += 1
+        path_launches[ran] += 1
     return dst

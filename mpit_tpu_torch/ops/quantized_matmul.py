@@ -32,6 +32,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import threading
 
 import torch
 
@@ -73,6 +74,9 @@ _COUNTER_WORDS = 4096
 # one where it launches, and nowhere else.
 launches = {"quantized_matmul": 0}
 path_launches = dict.fromkeys(_C_PATHS, 0)
+# Guards the creation of a device's scratch (and so of its lock), and the
+# counts above, which every device's launches share.
+_COUNT_LOCK = threading.Lock()
 
 
 @dataclasses.dataclass
@@ -246,10 +250,18 @@ class _SplitScratch:
     and the f32 workspace of the slices' partial sums (``torch.empty``,
     grown when a call needs more). Kept rather than allocated a call, to
     keep the wrapper's host time short beside the decode tick's short
-    launches. Calls on one device share both, so they run in one stream's
-    order, as the port's do."""
+    launches.
+
+    Calls on one device share both, so they must run in one stream's
+    order, as the port's do: every thread of the port (the fleet's
+    workers among them) launches on the device's default stream. The
+    host side is guarded by ``lock``: a launch holds it from its plan
+    through ``take`` to the queued launch and its count, so no other
+    thread can grow the workspace (and free the block a queued launch
+    was handed) between one thread's ``take`` and its launch."""
 
     def __init__(self, device):
+        self.lock = threading.Lock()
         self.counters = torch.zeros(_COUNTER_WORDS, dtype=torch.int32, device=device)
         self.workspace = torch.empty(0, dtype=torch.float32, device=device)
 
@@ -266,38 +278,46 @@ _SCRATCH: dict = {}
 def _scratch(device) -> _SplitScratch:
     s = _SCRATCH.get(device)
     if s is None:
-        s = _SCRATCH[device] = _SplitScratch(device)
+        with _COUNT_LOCK:
+            s = _SCRATCH.get(device)
+            if s is None:
+                s = _SCRATCH[device] = _SplitScratch(device)
     return s
 
 
 def _launch(x2, w: QuantizedTensor) -> torch.Tensor:
-    """Launch the kernel on the current stream: f32 ``[M, F]``."""
+    """Launch the kernel on the current stream: f32 ``[M, F]``. Plan,
+    workspace, launch and count form one critical section under the
+    device's lock (:class:`_SplitScratch`)."""
     _check_kernel_inputs(x2, w)
     m, d = x2.shape
     f = w.q.shape[1]
-    p = kernel_plan(m, d, f, x2.dtype, x2.device)
-    if p["path"] != _WANT_PATH[x2.dtype]:
-        raise RuntimeError(
-            f"the C library plans the {p['path']} body for {x2.dtype} x, "
-            f"not {_WANT_PATH[x2.dtype]}"
-        )
     out = torch.empty((m, f), dtype=torch.float32, device=x2.device)
-    ws = ctr = None
-    if p["splits"] > 1:  # a workspace [S, M, F] and the tile counters
-        scratch = _scratch(x2.device)
-        ws = scratch.take(p["splits"] * m * f).data_ptr()
-        ctr = scratch.counters.data_ptr()
     lib = kernel_library()
-    with torch.cuda.device(x2.device):
-        stream = torch._C._cuda_getCurrentRawStream(x2.device.index)
-        err = lib.mpit_quantized_matmul(
-            x2.data_ptr(), w.q.data_ptr(), w.scale.data_ptr(), out.data_ptr(), ws, ctr,
-            _COUNTER_WORDS, m, d, f, _X_DTYPES[x2.dtype], stream,
-        )
-    if err:
-        raise _error(lib, err, "kernel launch")
-    launches["quantized_matmul"] += 1
-    path_launches[p["path"]] += 1
+    scratch = _scratch(x2.device)
+    with scratch.lock:
+        p = kernel_plan(m, d, f, x2.dtype, x2.device)
+        if p["path"] != _WANT_PATH[x2.dtype]:
+            raise RuntimeError(
+                f"the C library plans the {p['path']} body for {x2.dtype} x, "
+                f"not {_WANT_PATH[x2.dtype]}"
+            )
+        # A workspace [S, M, F] and the tile counters; ``ws`` holds the
+        # tensor itself until the launch is queued.
+        ws = scratch.take(p["splits"] * m * f) if p["splits"] > 1 else None
+        with torch.cuda.device(x2.device):
+            stream = torch._C._cuda_getCurrentRawStream(x2.device.index)
+            err = lib.mpit_quantized_matmul(
+                x2.data_ptr(), w.q.data_ptr(), w.scale.data_ptr(), out.data_ptr(),
+                None if ws is None else ws.data_ptr(),
+                None if ws is None else scratch.counters.data_ptr(),
+                _COUNTER_WORDS, m, d, f, _X_DTYPES[x2.dtype], stream,
+            )
+        if err:
+            raise _error(lib, err, "kernel launch")
+        with _COUNT_LOCK:
+            launches["quantized_matmul"] += 1
+            path_launches[p["path"]] += 1
     return out
 
 

@@ -30,8 +30,14 @@ kernel row ranges of its flat buffers in place.
   one pass over HBM each: the reduce-scatter as the fold (each rank's
   copies of a chunk added in the ring's order, with its roundings, so
   bit-equal to the plain version), the all-gather as a copy (each
-  shard read once and written into every rank's output). The q8 forms
-  run the ring's hop schedule.
+  shard read once and written into every rank's output). The q8
+  reduce-scatter runs as the q8 fold (each chunk's hop chain computed
+  in place, the int8 value only in registers, the chunk-wide amax
+  shared across blocks at a barrier a hop): ``resident`` where the
+  partials fit in shared memory (one pass over HBM), else ``stream``
+  (one pass a hop); the C library's plan (:func:`q8fold_plan`) names
+  the form and :data:`path_launches` counts launches by it. The q8
+  all-gather runs the ring's hop schedule.
 - :func:`ring_reduce_scatter` / :func:`ring_all_gather` — the public
   collectives on rank-stacked payloads, through the planner; ``p = 1``
   is a no-op (nothing crosses a wire, nothing is quantized).
@@ -70,8 +76,10 @@ __all__ = [
     "device_error",
     "executed_mode",
     "launches",
+    "path_launches",
     "plan_ring",
     "plan_shards",
+    "q8fold_plan",
     "quantize_blocks",
     "quantize_chunk",
     "record_wire",
@@ -92,16 +100,19 @@ SCALE_ROWS = 8
 SCALE_BLOCK_BYTES = SCALE_ROWS * _LANE * 4
 MAX_RANKS = 16  # the kernels' pointer table
 _KERNEL_SOURCE = "ring_collectives.cu"
-# The C library's kinds: ring_rs is the one-pass fold, ring_ag the
-# one-pass copy, the q8 forms the hop schedule.
+# The C library's kinds: ring_rs is the one-pass fold, ring_rs_q8 the q8
+# fold, ring_ag the one-pass copy, ring_ag_q8 the hop schedule.
 _KINDS = {"ring_rs": 0, "ring_rs_q8": 1, "ring_ag": 2, "ring_ag_q8": 3}
 _ONE_PASS = ("ring_rs", "ring_ag")  # no mailbox, no workspace
+_Q8FOLD_FORMS = ("q8fold_resident", "q8fold_stream")  # mpit_q8fold_plan's, in order
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _WS_WORDS = 7 * 256  # one rank's workspace in the kernels (64-bit words)
 
-# Launches of each CUDA kernel since the counts were last set to 0; a
+# Launches of each CUDA kernel since the counts were last set to 0, and
+# the q8 fold's launches by the form the C library's plan names; a
 # wrapper adds one where it launches, and nowhere else.
 launches = dict.fromkeys(_KINDS, 0)
+path_launches = dict.fromkeys(_Q8FOLD_FORMS, 0)
 
 
 def sublane_for(dtype) -> int:
@@ -343,6 +354,11 @@ def kernel_library() -> ctypes.CDLL:
     lib.mpit_ring_launch.argtypes = [i32, i32, i32, i32, u64p, u64p, u64p, u64p, i64, i64,
                                      ctypes.c_uint64, ctypes.c_void_p]
     lib.mpit_ring_launch.restype = i32
+    lib.mpit_q8fold_plan.argtypes = [i32, i32, ctypes.POINTER(i32)]
+    lib.mpit_q8fold_plan.restype = i32
+    lib.mpit_q8_quot_mismatches.argtypes = [ctypes.c_void_p, ctypes.c_void_p, i64,
+                                            ctypes.c_void_p, ctypes.c_void_p]
+    lib.mpit_q8_quot_mismatches.restype = i32
     lib.mpit_ring_error.argtypes = []
     lib.mpit_ring_error.restype = i32
     lib.mpit_ring_error_string.argtypes = [i32]
@@ -390,10 +406,32 @@ def _dense_rows(x, name: str):
         raise ValueError(f"{name} must be 16-byte aligned with strides of whole 16-byte vectors")
 
 
+def _ring_error(lib, err: int, what: str) -> RuntimeError:
+    msg = lib.mpit_ring_error_string(err).decode() if err > 0 else "arguments refused"
+    return RuntimeError(f"{what} failed ({err}): {msg}")
+
+
+@functools.lru_cache(maxsize=1024)
+def q8fold_plan(p: int, rows: int, device) -> dict:
+    """The C library's plan for the q8 fold of ``p`` ranks' ``[rows,
+    128]`` chunks on CUDA ``device`` (``mpit_q8fold_plan``): the form
+    (``q8fold_resident``: the partials stay in shared memory across the
+    hops; ``q8fold_stream``: they live in the output, one pass a hop),
+    the blocks a rank and the shared memory a block."""
+    lib = kernel_library()
+    out = (ctypes.c_int * 3)()
+    with torch.cuda.device(device):
+        err = lib.mpit_q8fold_plan(p, rows, out)
+    if err:
+        raise _ring_error(lib, err, "q8 fold plan")
+    return {"form": _Q8FOLD_FORMS[out[0]], "blocks": out[1], "smem_bytes": out[2]}
+
+
 def _launch(kind: str, xs, out, in_cs: int, out_cs: int):
     """Launch ``kind`` over the ranks of ``xs``. The one-pass forms (the
-    fold and the copy) take no mailbox and no workspace; the q8 hop
-    schedule takes both (an int8 mailbox)."""
+    fold and the copy) take no mailbox and no workspace; the q8 fold takes
+    the workspace (its amax barrier); the q8 all-gather's hop schedule
+    takes both (an int8 mailbox)."""
     p, rows = xs.shape[0], xs.shape[-2]
     if not 2 <= p <= MAX_RANKS:
         raise ValueError(f"the ring kernels take 2 to {MAX_RANKS} ranks, got {p}")
@@ -411,8 +449,10 @@ def _launch(kind: str, xs, out, in_cs: int, out_cs: int):
     epoch = 0
     if kind not in _ONE_PASS:
         ws = _workspace(xs.device)
-        mbox = torch.empty((p, 2, rows, _LANE), dtype=torch.int8, device=xs.device)
-        mbox_table, flags = table(mbox), table(ws.flags)
+        flags = table(ws.flags)
+        if kind == "ring_ag_q8":
+            mbox = torch.empty((p, 2, rows, _LANE), dtype=torch.int8, device=xs.device)
+            mbox_table = table(mbox)
         ws.epoch += 1
         epoch = ws.epoch
     with torch.cuda.device(xs.device):
@@ -422,9 +462,10 @@ def _launch(kind: str, xs, out, in_cs: int, out_cs: int):
             flags, in_cs, out_cs, epoch, stream,
         )
     if err:
-        msg = lib.mpit_ring_error_string(err).decode() if err > 0 else "arguments refused"
-        raise RuntimeError(f"{kind} kernel launch failed ({err}): {msg}")
+        raise _ring_error(lib, err, f"{kind} kernel launch")
     launches[kind] += 1
+    if kind == "ring_rs_q8":
+        path_launches[q8fold_plan(p, rows, xs.device)["form"]] += 1
 
 
 def _device_kind(x) -> str:
@@ -448,8 +489,7 @@ def reduce_scatter_chunks(xs, *, quantized: bool = False, out=None):
     """Reduce-scatter rank-stacked chunks ``xs [p, p, rows, 128]`` into
     ``out [p, rows, 128]`` (new if None; xs' dtype, f32 if
     ``quantized``): the kernel for CUDA tensors (the sum as the one-pass
-    fold, the q8 form on the hop schedule), the plain version for CPU
-    ones."""
+    fold, the q8 form as the q8 fold), the plain version for CPU ones."""
     out = _rs_out(xs, quantized, out)
     if _device_kind(xs) == "cpu" or xs.shape[0] == 1:
         out.copy_(reduce_scatter_plain(xs, quantized=quantized))

@@ -7,16 +7,17 @@ shared memory each body takes, against the kernel library), the int8
 weight store's fused-dequant matmul (its ``mma`` and ``fma`` bodies, as
 the C library's plan names them, at GPT-2 small's shapes and the plan's
 edges; the plan fills the card and its split contraction gives the same
-bits every call), the training flash attention's
+bits every call, also from several threads at once), the training flash attention's
 forward, dq and dk/dv kernels (alone, the bf16 dq and dk/dv on the
 tensor cores at every head dim, in autograd, and in three tiny training
 steps against plain attention),
 the ring reduce-scatter and all-gather kernels, sum and int8 wire
 (bit-equal to their plain versions: the sum forms as the one-card fold
-and copy, the q8 forms on the hop schedule; and in tiny training steps
-over four ranks against the plain collectives), and the KV shipment's copy
-kernel (bit-exact at every alignment, behind the compat simulator's
-CUDA messages and a tiny fleet's shipments).
+and copy, the q8 reduce-scatter as the q8 fold in both its forms, the
+q8 all-gather on the hop schedule; and in tiny training steps over four
+ranks against the plain collectives), and the KV shipment's copy kernel
+(bit-exact at every alignment on both its bodies, behind the compat
+simulator's CUDA messages and a tiny fleet's shipments).
 
 Every test here needs an NVIDIA GPU (the kernel has no CPU mode): each
 carries the ``cuda`` marker and skips, with its reason, where there is
@@ -381,6 +382,53 @@ def test_quantized_matmul_plan_fills_the_card_and_split_is_deterministic(cuda):
     assert tqm.kernel_plan(8, 3072, 768, torch.bfloat16, torch.device("cuda", 0))["splits"] > 1
 
 
+@pytest.mark.parametrize("threads", [4, 8])
+def test_quantized_matmul_from_many_threads_equals_alone(cuda, threads):
+    """The fleet's case: several threads call the matmul at once, each
+    with M growing (1, 8, 64, 512, 1024) over GPT-2 small's four shapes,
+    from a fresh workspace, so wider calls grow the split contraction's
+    shared workspace while narrower ones launch. Every result equals the
+    same call made alone, bit for bit, and the launch counts are exact:
+    plan, workspace, launch and count are one critical section a device."""
+    import threading
+
+    ms = (1, 8, 64, 512, 1024)
+    weights = [tqm.quantize_tensor(_randn((d, f), 20 + i, torch.float32))
+               for i, (d, f) in enumerate(_QMM_SHAPES)]
+    xs = {(m, d): _randn((m, d), 30 + m + d, torch.bfloat16) for m in ms for d in (768, 3072)}
+    calls = [(m, i) for m in ms for i in range(len(_QMM_SHAPES))]
+
+    def call(m, i):
+        return tqm.quantized_matmul(xs[m, _QMM_SHAPES[i][0]], weights[i])
+
+    alone = {c: call(*c) for c in calls}
+    torch.cuda.synchronize()
+    tqm._SCRATCH.clear()  # the threads start from an empty workspace
+    before = (tqm.launches["quantized_matmul"], dict(tqm.path_launches))
+    start = threading.Barrier(threads)
+    got = [dict() for _ in range(threads)]
+
+    def work(t):
+        start.wait()
+        for c in calls[t % 2 :] + calls[: t % 2]:
+            got[t][c] = call(*c)
+
+    pool = [threading.Thread(target=work, args=(t,)) for t in range(threads)]
+    for th in pool:
+        th.start()
+    for th in pool:
+        th.join(timeout=120)
+    torch.cuda.synchronize()
+    assert all(len(g) == len(calls) for g in got)
+    for g in got:
+        for c, out in g.items():
+            assert torch.equal(out, alone[c]), c
+    n = threads * len(calls)
+    assert tqm.launches["quantized_matmul"] == before[0] + n
+    assert tqm.path_launches["mma"] == before[1]["mma"] + n
+    assert tqm.path_launches["fma"] == before[1]["fma"]
+
+
 def test_int8_weight_kernel_engine_matches_reference_engine(cuda):
     """Greedy tokens of the int8-weight kernel engine (matmul and
     attention kernels) equal the whole-dequant reference engine's in
@@ -666,8 +714,8 @@ def _ring_input(shape, dtype, seed, kind="normal"):
 def test_ring_kernels_equal_plain_bitwise(cuda, p, dtype, form, rows):
     """Every form, bit-equal to its plain version (the same ring order,
     the same roundings); each launch counted once per call. ``sum``: the
-    one-card fold and copy; ``q8``: the int8-wire hop schedule. The
-    all-gather also writes into an ``out=`` slice of a wider buffer and
+    one-card fold and copy; ``q8``: the q8 fold and the all-gather's
+    int8-wire hop schedule. The all-gather also writes into an ``out=`` slice of a wider buffer and
     leaves the rest of it as it was."""
     from mpit_tpu_torch.ops import ring_collectives as rc
 
@@ -719,6 +767,89 @@ def test_ring_kernels_take_strided_buckets_and_zero_chunks(cuda):
                           for a, b in ((0, 32), (32, 96))], dim=2)
         assert torch.equal(full, want)
     assert rc.device_error() is None
+
+
+@pytest.mark.parametrize("p", [2, 4, 8, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 37, 8192])
+def test_q8_fold_forms_equal_plain_bitwise(cuda, p, dtype, rows):
+    """The q8 fold on the form the C library's plan names (``resident``
+    where a block's rows of the partials fit in shared memory: p 2 and 4
+    at GPT-2 small's 8192-row bucket; ``stream`` where they do not: p 8
+    and 16 there), bit-equal to ``reduce_scatter_plain(quantized=True)``;
+    with a zero chunk; two calls in a row give the same bits (the amax
+    barrier's epoch tokens); one launch a call, counted by its form."""
+    from mpit_tpu_torch.ops import ring_collectives as rc
+
+    plan = rc.q8fold_plan(p, rows, torch.device("cuda", 0))
+    if rows == 8192:
+        assert plan["form"] == ("q8fold_resident" if p <= 4 else "q8fold_stream")
+    xs = _ring_input((p, p, rows, 128), dtype, 40 + p + rows)
+    xs[:, p // 2] = 0
+    want = rc.reduce_scatter_plain(xs, quantized=True)
+    before = dict(rc.path_launches)
+    first = rc.reduce_scatter_chunks(xs, quantized=True)
+    second = rc.reduce_scatter_chunks(xs, quantized=True)
+    torch.cuda.synchronize()
+    assert {k: n - before[k] for k, n in rc.path_launches.items() if n != before[k]} == {
+        plan["form"]: 2}
+    assert torch.equal(first, want) and torch.equal(second, want)
+    assert not first[p // 2].any()
+    assert rc.device_error() is None
+
+
+def test_q8_fold_quotient_equals_ieee_division(cuda):
+    """The q8 fold divides by a hop's scale as a product with its
+    reciprocal corrected once by the fma residual: bit-equal to
+    ``__fdiv_rn`` for 16M random pairs (scales ``amax / 127`` over 56
+    decades, |p| <= amax, as a hop sees them) and 8M pairs within four
+    ulps of a half-integer quotient, where a wrong last bit would move
+    the int8 rounding."""
+    import ctypes
+
+    from mpit_tpu_torch.ops import ring_collectives as rc
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    n = 1 << 24
+    amax = torch.pow(10.0, torch.rand(n, generator=gen, device="cuda") * 56 - 28)
+    s = amax / torch.tensor(127.0, device="cuda")
+    p = (torch.rand(n, generator=gen, device="cuda") * 2 - 1) * amax
+    k = torch.randint(-127, 127, (n // 16,), generator=gen, device="cuda").float() + 0.5
+    ties_s = s[: n // 16]
+    ties = k * ties_s
+    near_p, near_s = [ties], [ties_s]
+    for direction in (1.0, -1.0):
+        v = ties
+        for _ in range(4):
+            v = torch.nextafter(v, torch.full_like(v, direction * float("inf")))
+            near_p.append(v)
+            near_s.append(ties_s)
+    p = torch.cat([p, *near_p]).contiguous()
+    s = torch.cat([s, *near_s]).contiguous()
+    count = torch.zeros(1, dtype=torch.int64, device="cuda")
+    lib = rc.kernel_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    assert lib.mpit_q8_quot_mismatches(p.data_ptr(), s.data_ptr(), p.numel(),
+                                       count.data_ptr(), ctypes.c_void_p(stream)) == 0
+    torch.cuda.synchronize()
+    assert count.item() == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_q8_fold_reads_the_tail_bucket_in_place(cuda, dtype):
+    """GPT-2 small's ragged tail bucket, read in place from a wider
+    buffer (the bucket loop's strided chunks), on both forms."""
+    from mpit_tpu_torch.ops import ring_collectives as rc
+
+    for p in (4, 8):
+        wide = _ring_input((p, p, 8192 + 3000, 128), dtype, 50 + p)
+        xs = wide[:, :, 8192:]
+        out = torch.full((p, 3000 + 4, 128), 7.0, device="cuda")
+        rc.reduce_scatter_chunks(xs, quantized=True, out=out[:, 2 : 2 + 3000])
+        torch.cuda.synchronize()
+        assert torch.equal(out[:, 2 : 2 + 3000], rc.reduce_scatter_plain(xs, quantized=True))
+        assert (out[:, :2] == 7).all() and (out[:, 2 + 3000 :] == 7).all()
+    assert rc.q8fold_plan(8, 8192, torch.device("cuda", 0))["form"] == "q8fold_stream"
 
 
 def test_ring_public_collectives_and_refusals(cuda):
@@ -807,6 +938,33 @@ def test_kv_ship_kernel_copies_bit_exact(cuda, n, src_off, dst_off):
     assert kv_ship.launches["kv_ship"] == before + 1
     assert torch.equal(dst[dst_off:dst_off + n], src[src_off:src_off + n])
     assert not dst[:dst_off].any() and not dst[dst_off + n:].any()
+
+
+@pytest.mark.parametrize("n", [1, 15, 17, 4711, 4_718_592, 2_506_752, 64 * 2**20])
+@pytest.mark.parametrize("src_off", [0, 1, 3, 8])
+@pytest.mark.parametrize("dst_off", [0, 1, 3, 8])
+def test_kv_ship_bodies_copy_bit_exact(cuda, n, src_off, dst_off):
+    """Both bodies the plan can pick (``wave`` below 32 MiB, ``stream``
+    from there), and the plan's own choice, at every offset pair: every
+    byte copied, nothing written outside dst, one launch a call, counted
+    by its body."""
+    from mpit_tpu_torch.ops import kv_ship
+
+    gen = torch.Generator(device="cuda").manual_seed(n + 16 * src_off + dst_off)
+    src = torch.randint(0, 256, (n + 16,), dtype=torch.uint8, device="cuda", generator=gen)
+    s = src[src_off : src_off + n]
+    for body in (*kv_ship.BODIES, None):
+        dst = torch.zeros(n + 16, dtype=torch.uint8, device="cuda")
+        d = dst[dst_off : dst_off + n]
+        ran = kv_ship.kernel_plan(s, d, body)["body"]
+        assert ran == (body or ("stream" if n >= 32 * 2**20 else "wave"))
+        before = (kv_ship.launches["kv_ship"], dict(kv_ship.path_launches))
+        kv_ship.ship_bytes(s, d, body=body)
+        torch.cuda.synchronize()
+        assert kv_ship.launches["kv_ship"] == before[0] + 1
+        assert kv_ship.path_launches[ran] == before[1][ran] + 1
+        assert torch.equal(d, s)
+        assert not dst[:dst_off].any() and not dst[dst_off + n :].any()
 
 
 def test_kv_ship_dtypes_refusals_and_remote(cuda):

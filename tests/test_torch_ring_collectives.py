@@ -27,7 +27,9 @@ from a seed and handed to both packages. Tolerances, with their reasons:
   quantizes that result again, is held to the port's own composition
   exactly and to JAX's within one more quantization step;
 - one tiny case against the Pallas kernel in TPU interpret mode: q8
-  reduce-scatter at p = 2, the reduce-scatter tolerance above.
+  reduce-scatter at p = 2, the reduce-scatter tolerance above;
+- the models of the one-card kernels' arithmetic (the sum fold, the
+  copy, the q8 fold) against the plain ring, hop by hop: exact.
 """
 
 from __future__ import annotations
@@ -248,6 +250,61 @@ def test_copy_equals_ring_all_gather(p, dtype):
         assert torch.equal(got, trc.all_gather_plain(shards))
         assert torch.equal(got, trc.all_gather_chunks(shards))
         assert all(torch.equal(got[r], got[0]) for r in range(p))
+
+
+def _q8_fold_model(xs, blocks):
+    """The one-card q8 reduce-scatter kernel's arithmetic (the q8 fold,
+    ``rs_q8_fold_kernel`` in ``csrc/ring_collectives.cu``): for rank
+    ``r``, ``min(blocks, rows)`` blocks each carry their rows of chunk
+    ``r``'s partial hop to hop, ``P0 = f32(x[r+1][r])``, then ``Pj =
+    f32(clip(round(P / s), ±127)) · s + f32(x[r+1+j][r])``, each step
+    rounded once, ``s`` the scale of the blocks' amaxes merged by max
+    (the kernel's amax barrier)."""
+    p, _, rows, _ = xs.shape
+    nblk = min(blocks, rows)
+    spans = [(b * rows // nblk, (b + 1) * rows // nblk) for b in range(nblk)]
+    out = []
+    for r in range(p):
+        parts = [xs[(r + 1) % p, r, lo:hi].float() for lo, hi in spans]
+        for j in range(1, p):
+            amax = torch.stack([part.abs().amax() for part in parts]).amax()
+            s = torch.where(amax > 0, amax / torch.tensor(127.0), 1.0)
+            mine = xs[(r + 1 + j) % p, r].float()
+            parts = [torch.clamp(torch.round(part / s), -127, 127) * s + mine[lo:hi]
+                     for part, (lo, hi) in zip(parts, spans)]
+        out.append(torch.cat(parts))
+    return torch.stack(out)
+
+
+@pytest.mark.parametrize("p", [2, 3, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_q8_fold_equals_ring_hops(worlds, p, dtype):
+    """The q8 fold's arithmetic is the hop schedule's: its model (as many
+    blocks a rank as one 132-SM card gives, so several share a chunk's
+    amax) equals :func:`reduce_scatter_plain` with ``quantized`` and the
+    wrapper's CPU path bit for bit, at rows 1 and 37, and with one chunk
+    zero on every rank and one rank's copy of another zero (scale 1). At
+    p 4 in f32 it also meets JAX's ``ring_reduce_scatter(op="qsum")``
+    within the q8 reduce-scatter's FMA bound (module docstring)."""
+    for rows, zero in ((1, False), (37, False), (37, True)):
+        x = _data(110 + p + rows, (p, p * rows * 128), "normal")
+        x *= np.linspace(0.5, 3.0, p, dtype=np.float32)[:, None]
+        xs = torch.from_numpy(x).to(dtype).reshape(p, p, rows, 128)
+        if zero:
+            xs[:, p - 1] = 0  # chunk p - 1's partials are zero at every hop
+            xs[1, 0] = 0  # chunk 0's P0 is zero
+        got = _q8_fold_model(xs, 132 // p)
+        assert got.dtype == torch.float32
+        assert torch.equal(got, trc.reduce_scatter_plain(xs, quantized=True))
+        assert torch.equal(got, trc.reduce_scatter_chunks(xs, quantized=True))
+        if zero:
+            assert not got[p - 1].any()
+        if p == 4 and dtype == torch.float32 and rows == 37:
+            want = _jax_sharded(
+                worlds[p], lambda v: jrc.ring_reduce_scatter(v, "data", op="qsum"),
+                xs.numpy().reshape(-1),
+            )
+            _fma_close(got.numpy().reshape(-1), want, p)
 
 
 @pytest.mark.parametrize("p", [2, 4])

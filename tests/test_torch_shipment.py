@@ -221,3 +221,29 @@ def test_recv_shipment_needs_its_device():
 
     with pytest.raises(TypeError, match="device"):
         recv_shipment(0, None)
+
+
+def test_ship_bytes_refusals_on_the_cpu():
+    """The copy wrapper's checks hold before any path: one device, known
+    devices, contiguous ranges of equal size that do not overlap, and a
+    body the kernel has (``wave``, ``stream`` or the plan's choice); a
+    named body leaves a CPU copy on the plain version."""
+    from mpit_tpu_torch.ops import kv_ship
+
+    before = (kv_ship.launches["kv_ship"], dict(kv_ship.path_launches))
+    x = torch.arange(24, dtype=torch.float32).reshape(2, 3, 4)
+    out = torch.empty_like(x)
+    for body in (None, *kv_ship.BODIES):
+        out.zero_()
+        assert kv_ship.ship_bytes(x, out, body=body) is out and torch.equal(out, x)
+    with pytest.raises(ValueError, match="body must be one of"):
+        kv_ship.ship_bytes(x, out, body="tma")
+    with pytest.raises(ValueError, match="contiguous"):
+        kv_ship.ship_bytes(x.transpose(0, 1), torch.empty(3, 2, 4))
+    with pytest.raises(ValueError, match="bytes"):
+        kv_ship.ship_bytes(x, torch.empty(2, 3, 4, dtype=torch.float64))
+    with pytest.raises(ValueError, match="overlap"):
+        kv_ship.ship_bytes(x.view(-1)[:10], x.view(-1)[5:15])
+    with pytest.raises(ValueError, match="no copy kernel"):
+        kv_ship.ship_bytes(torch.empty(4, device="meta"), torch.empty(4, device="meta"))
+    assert (kv_ship.launches["kv_ship"], kv_ship.path_launches) == before
