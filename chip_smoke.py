@@ -158,24 +158,26 @@ for an H100). Phases, each of which raises (exit code != 0) on failure:
    step at full width and depth: per-step losses within 1e-4 relative.
 3e. kernel vs plain, ring collectives — the reduce-scatter and all-gather
    kernels, sum and int8 wire, against their plain versions (the same
-   ring order hop by hop), BIT FOR BIT; the sum reduce-scatter runs as
-   the one-card fold (``schedule`` ``fold``), the sum all-gather as the
-   one-card copy (``copy``), the q8 reduce-scatter as the q8 fold on the
-   form the C library's plan names (``q8fold_resident``, the partials in
-   shared memory, or ``q8fold_stream``, one pass a hop; the case fails
-   unless that form's launch count moved), the q8 all-gather on the
-   ring's hop schedule (``hops``): p 2, 4 and 8 at 8192 rows a chunk
-   (GPT-2 small's 4 MiB f32 bucket), f32 and bf16 for the sum forms, f32
-   for the q8 forms and bf16 too at p 4; GPT-2 small's ragged tail bucket at p 4, read in
-   place from a wider buffer as the bucket loop reads it; an all-zero
-   chunk (scale 1.0) in both q8 forms; payloads the planner must pad
+   ring order hop by hop), BIT FOR BIT (the bits of every element, signed
+   zeros too); the sum reduce-scatter runs as the fold (``schedule``
+   ``fold``), the sum all-gather as the copy (``copy``), the q8
+   reduce-scatter as the q8 fold and the q8 all-gather as the q8 copy,
+   each on the form the C library's plan names (``q8fold_resident`` /
+   ``q8copy_resident``: the partials / the shard rows in shared memory,
+   one pass over HBM; ``q8fold_stream``: one pass a hop;
+   ``q8copy_stream``: two; the case fails unless that form's launch
+   count moved): p 2, 4 and 8 at 8192 rows a chunk (GPT-2 small's 4 MiB
+   f32 bucket), f32 and bf16 for every form; GPT-2 small's ragged tail
+   bucket at p 4, read in place from a wider buffer as the bucket loop
+   reads it; an all-zero chunk (scale 1.0) in both q8 forms; payloads
+   the planner must pad
    (the public collectives). Every gathered replica identical. Times
    each kernel, its plain version and the library yardstick
    (``xs.view(p, p, c).sum(0)`` for a reduce-scatter, an expand-and-copy
    of the concatenated shards for an all-gather; the port's ``psum``
    mode, never called by the ring modes) over 20 cold-L2 calls, beside
-   the bound and the bytes the schedule itself moves (the fold's, the
-   resident q8 fold's and the copy's are the bound's); then, apart from those times, the kernel's and the
+   the bound and the bytes the schedule itself moves (the resident
+   forms' are the bound's); then, apart from those times, the kernel's and the
    library's device time with the host time before the launch left out
    (``device_ms``, ``library_device_ms``) and the wrapper's host time a
    call (``host_ms``). Every case goes to ``chiprun_out/chip_smoke_ring.json``;
@@ -185,9 +187,9 @@ for an H100). Phases, each of which raises (exit code != 0) on failure:
    30 finite losses, falling; the reduce-scatter and all-gather launch
    counts (set to 0 just before) each equal buckets x 30 for the run's
    form and 0 for the other (``ring``: the one-pass fold and copy, the
-   only kernels of those kinds; ``ring_q8``: the q8 fold and the
-   all-gather's hop schedule, every q8 fold launch on the form the plan
-   names for its bucket, counted in ``path_launches``); the flash counts 12 x 4 x 30 each; the four
+   only kernels of those kinds; ``ring_q8``: the q8 fold and the q8
+   copy, every launch of each on the form the plan names for its bucket,
+   counted in ``path_launches``); the flash counts 12 x 4 x 30 each; the four
    parameter replicas bit-identical after the run. Prints step p50/p95,
    tokens/s and peak memory; then profiles three ``ring`` steps and three
    ``ring_q8`` steps (device time by kernel family, the ring family by
@@ -1370,10 +1372,11 @@ FAMILIES = {
     "quantized_matmul": ("qmm_mma_kernel", "qmm_fma_kernel"),
     "decode_attention": ("decode_kernel",),
     "flash_attention": ("fwd_kernel", "dq_kernel", "dkv_kernel"),
-    # rs_q8_kernel: the q8 reduce-scatter's hop form in trees before the q8
-    # fold, for a `dp_profile` run of such a tree.
+    # rs_q8_kernel and ag_q8_kernel: the q8 kinds' hop forms in trees
+    # before the q8 fold and the q8 copy, for a `dp_profile` run of such a
+    # tree.
     "ring_collectives": ("rs_fold_kernel", "rs_q8_fold_kernel", "rs_q8_kernel",
-                         "ag_copy_kernel", "ag_q8_kernel"),
+                         "ag_copy_kernel", "ag_q8_copy_kernel", "ag_q8_kernel"),
     "gemm": ("nvjet", "gemm", "xmma", "cutlass"),
     "copies": ("copy",),
     "optimizer_foreach": ("foreach", "multi_tensor"),
@@ -1428,39 +1431,46 @@ def ring_bound(kind: str, p: int, rows: int, in_item: int, out_item: int, q8: bo
     and writes one chunk a rank, an all-gather reads one chunk a rank and
     writes p; over the HBM rate, against its f32 operations (sum: one add
     an element and hop; q8 reduce-scatter four: amax, divide, multiply,
-    add; q8 all-gather a divide a source element and a multiply an output
-    element) over the f32 non-tensor peak. Returns ``(bound_ms, by)``."""
+    add; q8 all-gather three a source element: amax, divide, multiply)
+    over the f32 non-tensor peak. Returns ``(bound_ms, by)``."""
     c = rows * 128
     if kind == "rs":
         nbytes = p * p * c * in_item + p * c * out_item
         nops = (4 if q8 else 1) * (p - 1) * p * c
     else:
         nbytes = p * c * in_item + p * p * c * out_item
-        nops = (p * c + p * p * c) if q8 else 0
+        nops = 3 * p * c if q8 else 0
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / PEAK_OPS_PER_S["float32"] * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def ring_schedule_bytes(kind: str, schedule: str, p: int, rows: int, in_item: int,
-                        wire_item: int, out_item: int) -> int:
+def ring_schedule_bytes(schedule: str, p: int, rows: int, in_item: int, out_item: int) -> int:
     """Bytes the schedule itself moves on one card. The fold and the
     resident q8 fold read every rank's p chunks once and write one chunk
-    a rank, the copy reads one chunk a rank once and writes it p times:
-    the bound's bytes. The streaming q8 fold, per rank: hop 0 reads the
-    first copy (its amax), hop 1 reads it again with the second and
-    writes the f32 partial, each later hop reads the partial and a copy
-    and rewrites the partial. On the hop schedule (the q8 all-gather) a
-    rank copies its own chunk once, then per step reads a chunk, writes
-    and reads the mailbox and writes the arrived chunk."""
+    a rank, the copy and the resident q8 copy read one chunk a rank once
+    and write it p times: the bound's bytes. The streaming q8 fold, per
+    rank: hop 0 reads the first copy (its amax), hop 1 reads it again
+    with the second and writes the f32 partial, each later hop reads the
+    partial and a copy and rewrites the partial. The streaming q8 copy
+    reads each chunk twice (its amax, then its stores), counted from HBM
+    though the second read may find it in L2."""
     c = rows * 128
     if schedule in ("fold", "q8fold_resident"):
         return p * p * c * in_item + p * c * out_item
-    if schedule == "copy":
+    if schedule in ("copy", "q8copy_resident"):
         return p * c * in_item + p * p * c * out_item
+    if schedule == "q8copy_stream":
+        return 2 * p * c * in_item + p * p * c * out_item
     if schedule == "q8fold_stream":
         return p * (c * in_item * (p + 1) + c * out_item * (2 * p - 3))
-    return p * c * (in_item + out_item) + p * (p - 1) * c * (out_item + 2 * wire_item + out_item)
+    raise ValueError(f"no byte count for the schedule {schedule!r}")
+
+
+def bits(torch, t):
+    """``t``'s elements as integers of their width: equal bits, signed
+    zeros too, where ``torch.equal`` of the floats takes -0 for +0."""
+    return t.view({4: torch.int32, 2: torch.int16}[t.element_size()])
 
 
 def ring_case(torch, flush, kind: str, xs, quantized: bool, label: str, **extra):
@@ -1468,9 +1478,9 @@ def ring_case(torch, flush, kind: str, xs, quantized: bool, label: str, **extra)
     ``all_gather_chunks``) against its plain version, bit for bit, with
     the kernel, plain and library times, the bound and the schedule's
     bytes, and apart from those the device times without the host's lead
-    and the wrapper's host time. The q8 reduce-scatter's case names the
-    q8 fold's form (the C library's plan) and fails unless that form's
-    launch count moved."""
+    and the wrapper's host time. A q8 case names the form the C library's
+    plan gives its kernel and fails unless that form's launch count
+    moved."""
     from mpit_tpu_torch.ops import ring_collectives as rc
 
     p, rows = xs.shape[0], xs.shape[-2]
@@ -1484,27 +1494,28 @@ def ring_case(torch, flush, kind: str, xs, quantized: bool, label: str, **extra)
         plain = lambda: rc.all_gather_plain(xs, quantized=quantized)  # noqa: E731
         lib = lambda: xs.reshape(1, -1).expand(p, -1).clone()  # noqa: E731
         out_item = xs.element_size()
-    if kind == "rs" and quantized:
-        schedule = rc.q8fold_plan(p, rows, xs.device)["form"]
+    name = f"ring_{kind}" + ("_q8" if quantized else "")
+    if quantized:
+        schedule = rc.q8_plan(name, p, rows, xs.dtype, xs.device)["form"]
     else:
-        schedule = "hops" if quantized else {"rs": "fold", "ag": "copy"}[kind]
+        schedule = {"rs": "fold", "ag": "copy"}[kind]
     before = dict(rc.path_launches)
     got = run()
     torch.cuda.synchronize()
     moved = {k: n - before[k] for k, n in rc.path_launches.items() if n != before[k]}
-    if moved != ({schedule: 1} if schedule in rc.path_launches else {}):
-        fail(f"ring {label}: q8 fold launches by form {moved}, the plan names {schedule}")
+    if moved != ({schedule: 1} if quantized else {}):
+        fail(f"ring {label}: q8 launches by form {moved}, the plan names {schedule}")
     want = plain()
-    if not torch.equal(got, want):
+    if not torch.equal(bits(torch, got), bits(torch, want)):
         err = (got.float() - want.float()).abs().max().item()
         fail(f"ring {label}: kernel != plain (max |error| {err}); {rc.device_error()}")
-    if kind == "ag" and not all(torch.equal(got[r], got[0]) for r in range(1, p)):
+    if kind == "ag" and not all(torch.equal(bits(torch, got[r]), bits(torch, got[0]))
+                                for r in range(1, p)):
         fail(f"ring {label}: the gathered replicas differ")
     in_item = xs.element_size()
     bound_ms, bound_by = ring_bound(kind, p, rows, in_item, out_item, quantized)
     case = {
-        "form": f"ring_{kind}" + ("_q8" if quantized else ""),
-        "label": label, "schedule": schedule,
+        "form": name, "label": label, "schedule": schedule,
         "dtype": str(xs.dtype).removeprefix("torch."), "p": p, "rows": rows, **extra,
         "max_abs_err": 0.0, "bit_equal": True,
         "ms": cold_time_ms(run, torch, flush),
@@ -1518,9 +1529,7 @@ def ring_case(torch, flush, kind: str, xs, quantized: bool, label: str, **extra)
         "library": "xs.view(p, p, c).sum(0)" if kind == "rs"
         else "expand-and-copy of the concatenated shards",
         "bound_ms": bound_ms, "bound_by": bound_by,
-        "ring_schedule_bytes": ring_schedule_bytes(
-            kind, schedule, p, rows, in_item, 1 if quantized else in_item, out_item
-        ),
+        "ring_schedule_bytes": ring_schedule_bytes(schedule, p, rows, in_item, out_item),
     }
     print(json.dumps({"kernel_case": case}), flush=True)
     return case
@@ -1535,10 +1544,9 @@ def ring_kernel_phase(torch, flush, tail_rows: int):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
     cases = []
-    forms = [(torch.float32, False), (torch.bfloat16, False), (torch.float32, True)]
+    forms = [(dtype, q8) for q8 in (False, True) for dtype in (torch.float32, torch.bfloat16)]
     for p in RING_P:
-        # bf16 input to the q8 forms at the training runs' rank count.
-        for dtype, q8 in forms + ([(torch.bfloat16, True)] if p == DP_RANKS else []):
+        for dtype, q8 in forms:
             name = str(dtype).removeprefix("torch.")
             tag = f"p={p} {name}{' q8' if q8 else ''} rows={RING_ROWS}"
             cases.append(ring_case(torch, flush, "rs", randn((p, p, RING_ROWS, 128), p, dtype),
@@ -1577,7 +1585,8 @@ def ring_kernel_phase(torch, flush, tail_rows: int):
             rc.all_gather_plain(splan.shard_to_wire(sh), quantized=q8).reshape(
                 DP_RANKS, DP_RANKS * splan.padded_rows, 128), n // 4,
         )
-        if not (torch.equal(got, want) and torch.equal(got_ag, want_ag)):
+        if not (torch.equal(bits(torch, got), bits(torch, want))
+                and torch.equal(bits(torch, got_ag), bits(torch, want_ag))):
             fail(f"ring planner-padded payload q8={q8}: kernel != plain")
         cases.append({"form": "ring_public_padded", "q8": q8, "payload": n, "p": DP_RANKS,
                       "chunk_rows": plan.chunk_rows, "padded_rows": plan.padded_rows,
@@ -1610,8 +1619,8 @@ def dp_bucket_plan(torch):
 
 def dp_train_phase(torch, card, mode: str, plan: dict):
     """Phase 4d: GPT-2 small over DP_RANKS ranks on the card, ZeRO-1, the
-    gradient sync ``mode``, 30 steps. Returns the ring and flash launch
-    counts of the run and its losses."""
+    gradient sync ``mode``, 30 steps. Returns the run's ring launch
+    counts, its q8 launches by form and its losses."""
     import importlib
 
     import numpy as np
@@ -1643,15 +1652,18 @@ def dp_train_phase(torch, card, mode: str, plan: dict):
     want = {k: need_ring if k in (f"ring_rs{q}", f"ring_ag{q}") else 0 for k in ring}
     if ring != want:
         fail(f"dp {mode}: ring launches {ring}, expected {want}")
-    # ring_q8: every reduce-scatter on the q8 fold's form the plan names
-    # for its bucket's rows (resident at p 4, 8192 rows and the tail).
+    # ring_q8: every reduce-scatter and all-gather on the form the plan
+    # names for its bucket's rows (resident at p 4, 8192 rows and the
+    # tail); the all-gather moves the f32 parameter updates.
     want_forms = dict.fromkeys(forms, 0)
     if q:
         for rows in [RING_ROWS] * (plan["buckets"] - 1) + [plan["tail_rows"]]:
-            form = rc.q8fold_plan(DP_RANKS, rows, torch.device("cuda", 0))["form"]
-            want_forms[form] += steps
+            for kind in ("ring_rs_q8", "ring_ag_q8"):
+                form = rc.q8_plan(kind, DP_RANKS, rows, torch.float32,
+                                  torch.device("cuda", 0))["form"]
+                want_forms[form] += steps
     if forms != want_forms:
-        fail(f"dp {mode}: q8 fold launches by form {forms}, expected {want_forms}")
+        fail(f"dp {mode}: q8 launches by form {forms}, expected {want_forms}")
     if not out["replicas_identical"]:
         fail(f"dp {mode}: the {DP_RANKS} parameter replicas differ after the run")
     if out["grad_sync"] != mode:
@@ -1668,11 +1680,11 @@ def dp_train_phase(torch, card, mode: str, plan: dict):
             "tokens_per_sec_mean": out.get("items_per_sec_mean"),
             "peak_memory_gib": peak / 2**30,
             "replicas_identical": True,
-            "bucket_plan": plan, "ring_launches": ring, "q8fold_launches_by_form": forms,
+            "bucket_plan": plan, "ring_launches": ring, "q8_launches_by_form": forms,
             "flash_launches": flash,
         },
     }), flush=True)
-    return ring, losses
+    return ring, forms, losses
 
 
 def dp_models(torch, cfg, init, attention):
@@ -2204,11 +2216,12 @@ def main() -> None:
     flash_launches = train_phase(torch, card, flush)
     del flush
     train_parity_phase(torch)
-    ring_launches = {}
+    ring_launches, q8_forms = {}, {}
     dp_losses = {}
     for mode in ("ring", "ring_q8"):
-        counts, dp_losses[mode] = dp_train_phase(torch, card, mode, plan)
+        counts, forms, dp_losses[mode] = dp_train_phase(torch, card, mode, plan)
         ring_launches.update({k: n for k, n in counts.items() if n})
+        q8_forms.update({k: n for k, n in forms.items() if n})
     for mode in ("ring", "ring_q8"):
         print(json.dumps({"card": card, "train_dp_profile": dp_profile(torch, mode)}),
               flush=True)
@@ -2305,7 +2318,10 @@ def main() -> None:
         })
         if name.endswith("_q8"):  # no PyTorch call computes the q8 wire
             kernels[-1].update(library_ms=None, library="none computes the q8 wire",
-                               sum_library_ms=head["library_ms"])
+                               sum_library_ms=head["library_ms"],
+                               launches_by_form={
+                                   f: n for f, n in q8_forms.items()
+                                   if f.split("_")[0] == head["schedule"].split("_")[0]})
     head = next(c for c in ship_cases if c["label"] == "payload bf16")
     kernels.append({
         "name": "kv_ship",

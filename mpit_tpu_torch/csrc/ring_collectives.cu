@@ -1,21 +1,19 @@
 // Ring reduce-scatter and all-gather for Hopper (sm_90a), sum and int8 wire,
-// over p ranks whose buffers are named by a per-rank pointer table.
+// over p ranks on this one card whose buffers are named by a per-rank
+// pointer table.
 //
 // Replaces the TPU kernels of mpit_tpu/ops/ring_collectives.py, all four
 // reached through _call_ring (:546, pl.pallas_call at :550):
-//   - rs_fold_kernel<T>   <- _rs_kernel    (:350)  sum, in x's dtype, ranks
-//                                                  on one card (below)
+//   - rs_fold_kernel<T, MAXP>        <- _rs_kernel    (:350)  sum, in x's dtype
 //   - rs_q8_fold_kernel<T, RESIDENT> <- _rs_q8_kernel (:387)  int8 wire, f32
-//                                                  result, ranks on one card
-//                                                  (the q8 fold, below)
-//   - ag_copy_kernel<T>   <- _ag_kernel    (:429)  ranks on one card (below)
-//   - ag_q8_kernel<T>     <- _ag_q8_kernel (:457)  int8 wire
-// The q8 all-gather runs the ring's hop schedule; the other three, with
-// every rank's buffer in this card's HBM, run as one pass over HBM each
-// (the q8 fold one pass a hop where its partials outgrow shared memory).
-// The hop schedules of the sum forms and of the q8 reduce-scatter, for the
-// launch across cards, are rebuilt with the hardware that needs it (the
-// one-card hop form of the q8 reduce-scatter was removed with the fold).
+//                                                             result
+//   - ag_copy_kernel<T>              <- _ag_kernel    (:429)  sum
+//   - ag_q8_copy_kernel<T, RESIDENT> <- _ag_q8_kernel (:457)  int8 wire
+// Every rank's buffer lies in this card's HBM, so nothing has to travel:
+// each runs as one pass over HBM (the q8 fold one pass a hop where its
+// partials outgrow shared memory, the q8 copy two where its shard does).
+// The ring's hop schedule, for the launch across cards, is rebuilt with
+// the hardware that needs it (ROADMAP.md, "B1 across cards").
 //
 // What they compute, per rank i of p, on [rows, 128] chunks:
 //   reduce-scatter: rank i's input holds p chunks; at step s (0..p-2) it
@@ -33,127 +31,110 @@
 //     verbatim, and every rank, the owner included, writes the dequantized
 //     value, so every replica holds the same bits.
 //
-// Launch of the hop schedule (the q8 all-gather): ONE cooperative launch carries
-// all p ranks, grid (B, p):
-// blockIdx.y is the rank, and block b of every rank owns rows
-// [b*rows/B, (b+1)*rows/B) of every chunk, running its own sub-ring with
-// block b of ranks i-1 and i+1 through its own flags. The q8 forms need the
-// chunk-wide amax at every quantization: each block publishes its partial
-// amax, and every block of the rank waits for all B partials and takes
-// their max (exact, so order does not matter): rank_amax, the amax
-// barrier, which the q8 fold shares. p*B <= the SM count and the launch is
-// cooperative, so every block is resident and no spin-wait can wait on a
-// block that is not running.
-//
-// The mailbox discipline of the TPU kernels' _Ring (:263-345), with device
-// memory in place of remote DMA:
-//   - a sender writes only into its right neighbour's double-buffered
-//     mailbox, slot s % 2, then raises that neighbour's FULL flag for the
-//     slot to this step's token;
-//   - a receiver waits for its own FULL flag, reads its mailbox, and raises
-//     its LEFT neighbour's CAP flag for the slot: the left may write that
-//     slot again (step s + 2) only once CAP shows step s was consumed;
-//   - the all-gather forwards the payload that arrived at step s - 1
-//     straight from its mailbox at step s, before it releases that slot.
-// Flags are never cleared: a token is epoch * 256 + step + 1, the epoch a
-// per-device call counter from the wrapper, so every token is larger than
-// any left over from an earlier call or bucket. Launches on one stream
-// finish in order, so the neighbour barrier of _Ring.barrier reduces to
-// that ordering on one device; the per-step flags are kept all the same.
-//
-// Memory order: a writer stores its payload, __threadfence(), then
-// __syncthreads(); one thread then stores the flag with st.release.gpu. A
-// reader's one thread spins with ld.acquire.gpu, __syncthreads(), and the
-// block reads the mailbox through L2 (ld.global.cg): L1 is not coherent
-// across SMs. In the form across cards (one launch per device, the pointer
-// table naming peer buffers over NVLink) the flag stores and loads become
-// .sys scope, and __threadfence() before a flag store becomes
-// __threadfence_system().
-//
-// Every spin has a budget of clock64 cycles; when it runs out the kernel
-// writes an error word into mapped host memory (readable after the context
-// is lost) and traps, so a hung ring ends the launch instead of hanging it.
-//
 // What bounds them on this card: the function's least traffic. A
 // reduce-scatter reads p chunks of every rank and writes one chunk per rank
 // (p*p*c in, p*c out); an all-gather reads p*c and writes p*p*c. At
 // GPT-2 small's bucket (p 4, 8192 rows of 128 f32 per chunk, 4 MiB) that
-// is 80 MiB, about 0.025 ms at 3.35 TB/s. The ring schedule itself moves
-// more on one HBM: every step reads and writes a chunk per rank again
-// through a mailbox, since it is built for links between cards, not one
-// memory. The q8 all-gather's design keeps the payload in registers
-// between its loads and stores (4 elements a thread per iteration) and
-// uses every SM: p*B blocks of 512 threads.
+// is 80 MiB, about 0.025 ms at 3.35 TB/s.
 //
-// The sum reduce-scatter with every rank on this one card: rs_fold_kernel,
-// one pass. All p ranks share one HBM, so nothing needs to travel: for
-// rank r and each element of chunk r it loads the p ranks' copies and adds
-// them in the ring's own order, with the ring's own roundings:
+// The sum reduce-scatter: rs_fold_kernel, one pass. For rank r and each
+// element of chunk r it loads the p ranks' copies and adds them in the
+// ring's own order, with the ring's own roundings:
 //   acc = x[r+1][r];  for j = 2..p: acc = round_T(acc + x[r+j][r])
 // (rank indices mod p; chunk r leaves rank r + 1 at step 0 and each later
 // rank adds its own copy, the last being rank r's). Each add is __fadd_rn
 // in f32 and is rounded to T, as a hop's partial is stored in T, so the
-// result is bit-equal to the ring schedule and to the plain version
-// (reduce_scatter_plain) in f32 and bf16. It moves the function's least
-// traffic, the bound itself: p*p*c read once, p*c written once (80 MiB at
-// GPT-2 small's f32 bucket, p 4), against about 4(p-1) + p chunk passes a
-// rank for the hops. Its design is a bandwidth
-// kernel's: a plain launch (no cooperative residency needed: no block waits
-// on another) of blocks that fill every SM, grid (ceil(groups / 256), p)
-// with blockIdx.y the rank, each thread taking one 16-byte group (4 f32 or
-// 8 bf16), all p loads of the group started before the first add so p * 16
-// bytes a thread are in flight, streaming loads and stores (__ldcs /
-// __stcs: every byte is touched once), the group's registers sized to p
-// (MAXP 4, 8 or 16). No mailbox, no flags, no epoch, no spin.
+// result is bit-equal to the ring and to the plain version
+// (reduce_scatter_plain) in f32 and bf16. It moves the bound's bytes:
+// p*p*c read once, p*c written once. Its design is a bandwidth kernel's: a
+// plain launch (no block waits on another) of blocks that fill every SM,
+// grid (ceil(groups / 256), p) with blockIdx.y the rank, each thread taking
+// one 16-byte group (4 f32 or 8 bf16), all p loads of the group started
+// before the first add so p * 16 bytes a thread are in flight, streaming
+// loads and stores (__ldcs / __stcs: every byte is touched once), the
+// group's registers sized to p (MAXP 4, 8 or 16).
 //
-// The sum all-gather with every rank on this one card: ag_copy_kernel, one
-// pass, of the fold's design. An all-gather is a copy: chunk c of every
-// rank's output is rank c's shard. So each thread loads one 16-byte group of
-// rank c's shard once (__ldcs) and stores it into chunk c of all p ranks'
-// outputs, the p stores issued back to back (__stcs): p*c read, p*p*c
-// written, the bound's bytes (80 MiB at p 4 f32, against the hop
-// schedule's 224 MiB), in a plain launch of grid (ceil(groups / 256), p)
-// with blockIdx.y the source rank c. Bit-equal to the plain version, and
-// every replica holds the same bits.
+// The sum all-gather: ag_copy_kernel, one pass, of the fold's design. An
+// all-gather is a copy: chunk c of every rank's output is rank c's shard.
+// So each thread loads one 16-byte group of rank c's shard once (__ldcs)
+// and stores it into chunk c of all p ranks' outputs, the p stores issued
+// back to back (__stcs): p*c read, p*p*c written, the bound's bytes, with
+// blockIdx.y the source rank c.
 //
-// The q8 reduce-scatter with every rank on this one card: the q8 fold,
-// rs_q8_fold_kernel. For rank r it computes the hop chain of chunk r
-// directly, with the ring's roundings:
+// The q8 reduce-scatter: the q8 fold, rs_q8_fold_kernel. For rank r it
+// computes the hop chain of chunk r directly, with the ring's roundings:
 //   P_0 = f32(x[r+1][r]);  s_j = amax(P_j) / 127 over the WHOLE chunk (1 if
 //   all zero);  P_j = f32(clip(rint(P_{j-1} / s_{j-1}), +-127)) * s_{j-1}
 //   + f32(x[r+1+j][r]) for j = 1 .. p-1, each step rounded once (no FMA);
 //   out = P_{p-1}.
-// No byte needs to travel on one card: the int8 value lives only in a
-// register (only dequant(quant(P)) reaches the result), so there is no
-// mailbox and no FULL/CAP flag. The chunk-wide amax is the one dependency
-// across blocks: a hop computes its block's amax of the new partial in the
-// same pass that makes it, and the rank's blocks meet at rank_amax (its
-// epoch tokens and spin budget) before the next hop. One cooperative
-// launch, grid (B, p), 512 threads a block, one block an SM. Two forms,
-// chosen by mpit_q8fold_plan:
+// The int8 value lives only in a register (only dequant(quant(P)) reaches
+// the result). A hop computes its block's amax of the new partial in the
+// same pass that makes it, and the rank's blocks meet at the amax barrier
+// before the next hop. Two forms, chosen by the plan (q8_plan):
 //   - resident, whenever a block's rows of the f32 partial fit in the
 //     shared memory a block may take (GPT-2 small's bucket at p 4: 249
 //     rows, 127 KB a block): P stays in shared memory across the hops, so
-//     HBM moves the bound's bytes, p*p*c*in read once and 4*p*c written
-//     once;
+//     HBM moves the bound's bytes;
 //   - streaming, when they do not (p 8 at 8192 rows): P lives in out; hop 0
 //     reads x[r+1][r] for its amax, hop 1 reads it again with x[r+2][r] and
-//     writes out, each later hop reads out and x and rewrites out, all in
-//     one pass a hop (the hop schedule took three).
+//     writes out, each later hop reads out and x and rewrites out, one pass
+//     a hop.
 // Each thread takes the same 16-byte groups of x at every hop, and the next
 // trip's groups are in flight while a trip is computed, across the amax
-// barrier too. The divide by a hop's scale is a product with its
+// barrier too. What holds it above the bound (PERF.md): at each of the
+// p - 1 barriers every block of the rank waits for the slowest, and at
+// bf16 the hops' compute and the barriers outweigh the bytes.
+//
+// The q8 all-gather: the q8 copy, ag_q8_copy_kernel. For source rank c and
+// every rank r:
+//   out[r][c] = T(f32(clip(rint(x_c / s_c), +-127)) * s_c),
+//   s_c = amax|x_c| / 127 over the WHOLE chunk (1 if all zero),
+// the product rounded once to f32 and once more to T. The int8 value lives
+// only in a register, so every replica holds the same bits with nothing
+// shipped. Blocks (b, c) read their rows of shard c once, take their amax,
+// meet the chunk's other blocks at ONE amax barrier, then write each
+// dequantized 16-byte group into chunk c of all p outputs, the p stores
+// back to back (__stcs), as the copy does. Two forms, by the same plan:
+//   - resident, whenever a block's rows of x, in x's own dtype, fit in the
+//     shared memory a block may take (f32 p 4 at 8192 rows: 249 rows, 127
+//     KB; bf16 up to p 8): the amax pass stages them there, so HBM moves
+//     the bound's bytes, p*c read once and p*p*c written;
+//   - streaming, when they do not (f32 p 8 at 8192 rows: 512 rows, 256
+//     KiB): the store pass reads the rows again (the amax pass loads them
+//     through L2 without evicting them first, so they are mostly still
+//     there).
+//
+// The divide of the q8 forms by a chunk's scale is a product with its
 // correctly rounded reciprocal corrected once (q8_quot), bit-equal to
-// __fdiv_rn. Bit-equal to reduce_scatter_plain(quantized=True) in f32 and
-// bf16 input. What holds it above the bound (PERF.md): at each of the p - 1
-// barriers every block of the rank waits for the slowest, and at bf16 the
-// hops' compute and the barriers outweigh the bytes.
+// __fdiv_rn, and the rounded quotient is made +0 where it is -0, as the
+// int8 value it stands for has no sign. Both are bit-equal to their plain
+// versions (reduce_scatter_plain / all_gather_plain with quantized) in f32
+// and bf16 input. A NaN is dropped by the amax (fmaxf) and quantizes to
+// -127.
+//
+// The amax barrier (rank_amax), the one dependency across blocks: ONE
+// cooperative launch carries all p chunks, grid (B, p) with blockIdx.y the
+// chunk, and block b owns rows [b*rows/B, (b+1)*rows/B) of it. Each block
+// publishes its partial amax, and every block of the chunk waits for all B
+// partials and takes their max (exact, so order does not matter).
+// p*B <= the SM count and the launch is cooperative, so every block is
+// resident and no spin-wait can wait on a block that is not running.
+// Flags are never cleared: a token is epoch * 256 + barrier + 1, the epoch
+// a per-device call counter from the wrapper, so every token is larger
+// than any left over from an earlier call or bucket (launches on one
+// stream finish in order). Memory order: one thread stores the partial,
+// then the flag with st.release.gpu; a reader's thread spins with
+// ld.acquire.gpu and reads the partials through L2 (ld.global.cg): L1 is
+// not coherent across SMs. Every spin has a budget of clock64 cycles; when
+// it runs out the kernel writes an error word into mapped host memory
+// (readable after the context is lost) and traps, so a hung barrier ends
+// the launch instead of hanging it.
 //
 // C interface for ctypes: mpit_ring_launch returns the cudaError_t of the
 // launch (cudaGetLastError right after it) or -1 for arguments this file
 // does not take; mpit_ring_error reads the error word, 0 if none;
-// mpit_q8fold_plan names the q8 fold's form. Kinds 0, 1 and 2 are the
-// one-card fold, q8 fold and copy; kind 3 the q8 ring schedule.
+// mpit_q8_plan names a q8 form. Kinds 0, 1, 2 and 3 are the fold, the q8
+// fold, the copy and the q8 copy.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -162,24 +143,21 @@
 
 namespace {
 
-constexpr int NT = 512;            // threads per block
+constexpr int NT = 512;            // threads per block of the q8 forms
 constexpr int MAX_RANKS = 16;      // pointer-table entries
-constexpr int MAXB = 256;          // blocks per rank, at most
+constexpr int MAXB = 256;          // blocks per chunk, at most
 constexpr int LANE = 128;
 // Workspace of one rank, in 64-bit words (zeroed once by the wrapper):
-constexpr int WS_FULL = 0;               // [2][MAXB] FULL flags
-constexpr int WS_CAP = 2 * MAXB;         // [2][MAXB] CAP flags
-constexpr int WS_ARRIVE = 4 * MAXB;      // [MAXB] amax-barrier flags
-constexpr int WS_PART = 5 * MAXB;        // [2][MAXB] f32 partial amax
-constexpr int WS_SCALE = 6 * MAXB;       // [2][MAXB] f32 scale mailbox
+constexpr int WS_ARRIVE = 0;       // [MAXB] amax-barrier flags
+constexpr int WS_PART = MAXB;      // [2][MAXB] f32 partial amax
 constexpr long long SPIN_BUDGET = 1LL << 32;  // clock64 cycles, ~2 s
 
 typedef unsigned long long u64;
 
+// The q8 forms' arguments.
 struct RingArgs {
   const void* in[MAX_RANKS];
   void* out[MAX_RANKS];
-  void* mbox[MAX_RANKS];  // [2][rows][128] of the wire type
   u64* ws[MAX_RANKS];
   long long in_cs, out_cs;  // elements between chunks of the p-chunk side
   int p, rows, nblk;
@@ -201,80 +179,22 @@ __device__ __forceinline__ u64 token(const RingArgs& a, int i) {
   return a.epoch * 256ull + static_cast<u64>(i) + 1ull;
 }
 
-// Error word: kind (1 FULL, 2 CAP, 3 amax barrier) | rank << 8 | block << 16
-// | step << 24, then a trap.
-__device__ __noinline__ void fail(const RingArgs& a, int kind, int step) {
-  *a.err = static_cast<unsigned int>(kind) | (blockIdx.y << 8) |
-           (blockIdx.x << 16) | (static_cast<unsigned int>(step) << 24);
+// Error word of a timed-out amax barrier: 1 | the workspace's rank << 8 |
+// block << 16 | barrier << 24, then a trap.
+__device__ __noinline__ void fail(const RingArgs& a, int barrier) {
+  *a.err = 1u | (blockIdx.y << 8) | (blockIdx.x << 16) |
+           (static_cast<unsigned int>(barrier) << 24);
   __threadfence_system();
   __trap();
 }
 
 // One thread waits until *f >= want, within the budget.
-__device__ __forceinline__ void spin(const RingArgs& a, const u64* f, u64 want,
-                                     int kind, int step) {
+__device__ __forceinline__ void spin(const RingArgs& a, const u64* f, u64 want, int barrier) {
   const long long t0 = clock64();
   while (ld_acquire(f) < want) {
-    if (clock64() - t0 > SPIN_BUDGET) fail(a, kind, step);
+    if (clock64() - t0 > SPIN_BUDGET) fail(a, barrier);
     __nanosleep(32);
   }
-}
-
-// The whole block waits for its thread 0's spin.
-__device__ __forceinline__ void block_wait(const RingArgs& a, const u64* f,
-                                           u64 want, int kind, int step) {
-  if (threadIdx.x == 0) {
-    spin(a, f, want, kind, step);
-    __threadfence();
-  }
-  __syncthreads();
-}
-
-// ---- four elements at a time, as float -------------------------------------
-
-__device__ __forceinline__ void load4(const float* p, float v[4]) {
-  const float4 x = *reinterpret_cast<const float4*>(p);
-  v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
-}
-__device__ __forceinline__ void store4(float* p, const float v[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
-__device__ __forceinline__ void unpack_bf16(uint2 x, float v[4]) {
-  const __nv_bfloat162 lo = *reinterpret_cast<__nv_bfloat162*>(&x.x);
-  const __nv_bfloat162 hi = *reinterpret_cast<__nv_bfloat162*>(&x.y);
-  v[0] = __low2float(lo); v[1] = __high2float(lo);
-  v[2] = __low2float(hi); v[3] = __high2float(hi);
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
-  unpack_bf16(*reinterpret_cast<const uint2*>(p), v);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float v[4]) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
-  uint2 x;
-  x.x = *reinterpret_cast<unsigned int*>(&lo);
-  x.y = *reinterpret_cast<unsigned int*>(&hi);
-  *reinterpret_cast<uint2*>(p) = x;
-}
-
-// int8 wire: four bytes.
-__device__ __forceinline__ void load4_cg(const int8_t* p, float v[4]) {
-  const char4 x = __ldcg(reinterpret_cast<const char4*>(p));
-  v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
-}
-__device__ __forceinline__ void copy4_cg(const int8_t* src, int8_t* dst) {
-  *reinterpret_cast<char4*>(dst) = __ldcg(reinterpret_cast<const char4*>(src));
-}
-
-// round(x / scale) half to even, clipped to +-127.
-__device__ __forceinline__ void quant_store4(int8_t* p, const float v[4], float scale) {
-  float r[4];
-  #pragma unroll
-  for (int j = 0; j < 4; ++j) r[j] = fminf(fmaxf(rintf(__fdiv_rn(v[j], scale)), -127.f), 127.f);
-  *reinterpret_cast<char4*>(p) =
-      make_char4(static_cast<signed char>(r[0]), static_cast<signed char>(r[1]),
-                 static_cast<signed char>(r[2]), static_cast<signed char>(r[3]));
 }
 
 __device__ __forceinline__ float q8_scale(float amax) {
@@ -298,9 +218,10 @@ __device__ __forceinline__ float block_max(float v, float* red) {
   return red[0];
 }
 
-// The chunk-wide amax of one rank: this block's partial, published (the
-// release store orders it before the flag), then the max over the partials
-// of every block of the rank (barrier k).
+// The chunk-wide amax of the chunk of blockIdx.y: this block's partial,
+// published (the release store orders it before the flag), then the max
+// over the partials of every block of the chunk (barrier k), on the
+// workspace of rank blockIdx.y.
 __device__ float rank_amax(const RingArgs& a, float mine, int k, float* red) {
   const int r = blockIdx.y, b = blockIdx.x;
   u64* ws = a.ws[r];
@@ -313,27 +234,27 @@ __device__ float rank_amax(const RingArgs& a, float mine, int k, float* red) {
   }
   float v = 0.f;
   if (threadIdx.x < a.nblk) {
-    spin(a, ws + WS_ARRIVE + threadIdx.x, tok, 3, k);
+    spin(a, ws + WS_ARRIVE + threadIdx.x, tok, k);
     v = __ldcg(part + (k & 1) * MAXB + threadIdx.x);
   }
   return block_max(v, red);
 }
 
+// Block blockIdx.x's rows [lo, hi) of a chunk.
 struct Rows {
-  long long r0, n4;  // first row's element offset, groups of 4 elements
+  long long lo, hi;
 };
 
 __device__ __forceinline__ Rows my_rows(const RingArgs& a) {
-  const long long lo = static_cast<long long>(blockIdx.x) * a.rows / a.nblk;
-  const long long hi = static_cast<long long>(blockIdx.x + 1) * a.rows / a.nblk;
-  return Rows{lo * LANE, (hi - lo) * (LANE / 4)};
+  return Rows{static_cast<long long>(blockIdx.x) * a.rows / a.nblk,
+              static_cast<long long>(blockIdx.x + 1) * a.rows / a.nblk};
 }
 
 // ---- the one-card sum reduce-scatter: one pass ------------------------------
 
-constexpr int PASS_NT = 256;  // threads per block of the one-pass kernels
+constexpr int PASS_NT = 256;  // threads per block of the sum kernels
 
-// The one-pass kernels' arguments (the fold's and the copy's).
+// The sum kernels' arguments (the fold's and the copy's).
 struct PassArgs {
   const void* in[MAX_RANKS];
   void* out[MAX_RANKS];
@@ -420,7 +341,7 @@ __global__ void __launch_bounds__(PASS_NT) ag_copy_kernel(PassArgs a) {
     __stcs(reinterpret_cast<uint4*>(static_cast<T*>(a.out[r]) + chunk) + g, v);
 }
 
-// ---- the one-card q8 reduce-scatter: the q8 fold ----------------------------
+// ---- the q8 forms' arithmetic ----------------------------------------------
 
 // The quotient p / s rounded once to f32, as __fdiv_rn gives it. With
 // `fast` (s and its reciprocal r = __frcp_rn(s) both far from overflow and
@@ -437,11 +358,20 @@ __device__ __forceinline__ float q8_quot(float p, float s, float r, bool fast) {
   return __fmaf_rn(__fmaf_rn(-q0, s, p), r, q0);
 }
 
-// dequant(quant(P)) + x for one element: round(P / s) half to even, clipped
-// to +-127, times s, plus x; every step rounded once, as the plain version.
+// Whether q8_quot may take its fast form for the scale s.
+__device__ __forceinline__ bool q8_fast(float s) { return s >= 0x1p-100f && s <= 0x1p100f; }
+
+// dequant(quant(v)) for one element: round(v / s) half to even, clipped to
+// +-127, -0 made +0 (the int8 value has no sign), times s; every step
+// rounded once, as the plain version.
+__device__ __forceinline__ float q8_dq(float v, float s, float r, bool fast) {
+  const float q = fminf(fmaxf(rintf(q8_quot(v, s, r, fast)), -127.f), 127.f);
+  return __fmul_rn(__fadd_rn(q, 0.f), s);
+}
+
+// dequant(quant(P)) + x for one element, each step rounded once.
 __device__ __forceinline__ float q8_hop(float p, float s, float r, bool fast, float x) {
-  const float q = fminf(fmaxf(rintf(q8_quot(p, s, r, fast)), -127.f), 127.f);
-  return __fadd_rn(__fmul_rn(q, s), x);
+  return __fadd_rn(q8_dq(p, s, r, fast), x);
 }
 
 // For the tests: counts the i < n where q8_quot(p[i], s[i]) differs in any
@@ -451,7 +381,7 @@ __global__ void q8_quot_check_kernel(const float* p, const float* s, long long n
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const float si = s[i];
-  if (!(si >= 0x1p-100f && si <= 0x1p100f)) return;
+  if (!q8_fast(si)) return;
   const float fast = q8_quot(p[i], si, __frcp_rn(si), true);
   if (__float_as_uint(fast) != __float_as_uint(__fdiv_rn(p[i], si))) atomicAdd(mismatches, 1ull);
 }
@@ -462,14 +392,17 @@ struct Flag {
 };
 
 // A trip's UNROLL 16-byte groups of x for this thread, g0 + u * NT (u <
-// UNROLL; those at or past ng are not read).
-template <int UNROLL>
+// UNROLL; those at or past ng are not read). LAST: the last read of these
+// bytes, so they leave L2 first (__ldcs); else they stay there (__ldcg).
+template <int UNROLL, bool LAST = true>
 __device__ __forceinline__ void load_trip(const uint4* x, long long g0, long long ng,
                                           uint4 (&raw)[UNROLL]) {
 #pragma unroll
   for (int u = 0; u < UNROLL; ++u)
-    if (g0 + u * NT < ng) raw[u] = __ldcs(x + g0 + u * NT);
+    if (g0 + u * NT < ng) raw[u] = LAST ? __ldcs(x + g0 + u * NT) : __ldcg(x + g0 + u * NT);
 }
+
+// ---- the one-card q8 reduce-scatter: the q8 fold ----------------------------
 
 // Rank r's (blockIdx.y) chunk r, rows of block b (blockIdx.x): P0 = f32 of
 // rank r + 1's copy, then P_j = q8_hop(P_{j-1}, s_{j-1}, rank r + 1 + j's
@@ -495,11 +428,10 @@ __global__ void __launch_bounds__(NT) rs_q8_fold_kernel(RingArgs a) {
   extern __shared__ float4 resident[];  // [VEC / 4][the block's groups]
   __shared__ float red[NT / 32];
   const int p = a.p, r = blockIdx.y;
-  const long long lo = static_cast<long long>(blockIdx.x) * a.rows / a.nblk;
-  const long long hi = static_cast<long long>(blockIdx.x + 1) * a.rows / a.nblk;
-  const long long ng = (hi - lo) * LANE / VEC;  // the block's groups
-  const long long x0 = static_cast<long long>(r) * a.in_cs + lo * LANE;
-  float4* o = reinterpret_cast<float4*>(static_cast<float*>(a.out[r]) + lo * LANE);
+  const Rows rw = my_rows(a);
+  const long long ng = (rw.hi - rw.lo) * LANE / VEC;  // the block's groups
+  const long long x0 = static_cast<long long>(r) * a.in_cs + rw.lo * LANE;
+  float4* o = reinterpret_cast<float4*>(static_cast<float*>(a.out[r]) + rw.lo * LANE);
   // Hop j's copy: rank r + 1 + j's chunk r, this block's rows.
   auto copy = [&](int j) {
     return reinterpret_cast<const uint4*>(static_cast<const T*>(a.in[(r + 1 + j) % p]) + x0);
@@ -574,95 +506,85 @@ __global__ void __launch_bounds__(NT) rs_q8_fold_kernel(RingArgs a) {
     if (j < p - 1) {
       s = q8_scale(rank_amax(a, m, j, red));  // P_j's scale
       rs = __frcp_rn(s);
-      fast = s >= 0x1p-100f && s <= 0x1p100f;
+      fast = q8_fast(s);
       m = 0.f;
     }
   }
 }
 
-// ---- q8 all-gather ------------------------------------------------------------
+// ---- the one-card q8 all-gather: the q8 copy --------------------------------
 
-template <typename T>
-__global__ void __launch_bounds__(NT) ag_q8_kernel(RingArgs a) {
+// Shard c's (blockIdx.y) rows of block b (blockIdx.x), dequant(quant(x))
+// with the scale of the WHOLE shard's amax (rank_amax over the chunk's
+// blocks), into chunk c of every rank's output, the p stores of a group
+// back to back. Pass 1 loads the block's groups and takes their amax;
+// RESIDENT stages them in shared memory, in x's dtype, for pass 2, else
+// pass 2 loads them again. Each thread takes the same groups in both
+// passes, so no barrier inside the block but the amax's.
+template <typename T, bool RESIDENT>
+__global__ void __launch_bounds__(NT) ag_q8_copy_kernel(RingArgs a) {
+  constexpr int VEC = 16 / sizeof(T);  // elements of a 16-byte group
+  constexpr int UNROLL = 8;
+  constexpr int STEP = UNROLL * NT;
+  extern __shared__ uint4 staged[];  // RESIDENT: [the block's groups]
   __shared__ float red[NT / 32];
-  const int p = a.p, r = blockIdx.y, b = blockIdx.x;
-  const int right = (r + 1) % p, left = (r + p - 1) % p;
+  const int c = blockIdx.y;
   const Rows rw = my_rows(a);
-  const long long slot_elems = static_cast<long long>(a.rows) * LANE;
-  const T* x = static_cast<const T*>(a.in[r]) + rw.r0;
-  T* o = static_cast<T*>(a.out[r]) + rw.r0;
-  int8_t* mb_right = static_cast<int8_t*>(a.mbox[right]) + rw.r0;
-  const int8_t* mb_me = static_cast<const int8_t*>(a.mbox[r]) + rw.r0;
-  u64* ws_me = a.ws[r];
-  float* scale_right = reinterpret_cast<float*>(a.ws[right] + WS_SCALE);
-  const float* scale_me = reinterpret_cast<const float*>(ws_me + WS_SCALE);
-
-  // The own chunk, dequantized as every receiver sees it.
+  const long long ng = (rw.hi - rw.lo) * LANE / VEC;  // the block's groups
+  const uint4* x = reinterpret_cast<const uint4*>(static_cast<const T*>(a.in[c]) + rw.lo * LANE);
+  const long long o0 = static_cast<long long>(c) * a.out_cs + rw.lo * LANE;
   float m = 0.f;
-  for (long long g = threadIdx.x; g < rw.n4; g += NT) {
-    float v[4];
-    load4(x + 4 * g, v);
-    m = fmaxf(m, fmaxf(fmaxf(fabsf(v[0]), fabsf(v[1])), fmaxf(fabsf(v[2]), fabsf(v[3]))));
+  for (long long g0 = threadIdx.x; g0 < ng; g0 += STEP) {
+    uint4 raw[UNROLL];
+    load_trip<UNROLL, RESIDENT>(x, g0, ng, raw);
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const long long g = g0 + u * NT;
+      if (g >= ng) continue;
+      float v[VEC];
+      unpack16(raw[u], v);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) m = fmaxf(m, fabsf(v[e]));
+      if constexpr (RESIDENT) staged[g] = raw[u];
+    }
   }
-  const float scale_own = q8_scale(rank_amax(a, m, 0, red));
-  T* own = o + r * a.out_cs;
-  for (long long g = threadIdx.x; g < rw.n4; g += NT) {
-    float v[4];
-    load4(x + 4 * g, v);
-    #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      v[j] = __fmul_rn(fminf(fmaxf(rintf(__fdiv_rn(v[j], scale_own)), -127.f), 127.f), scale_own);
-    store4(own + 4 * g, v);
-  }
-  for (int s = 0; s < p - 1; ++s) {
-    const int recv_c = (r - 1 - s + 2 * p) % p;
-    const int slot = s & 1;
-    if (s >= 2) block_wait(a, ws_me + WS_CAP + slot * MAXB + b, token(a, s - 2), 2, s);
-    int8_t* dst = mb_right + slot * slot_elems;
-    if (s == 0) {
-      for (long long g = threadIdx.x; g < rw.n4; g += NT) {
-        float v[4];
-        load4(x + 4 * g, v);
-        quant_store4(dst + 4 * g, v, scale_own);
+  const float s = q8_scale(rank_amax(a, m, 0, red));
+  const float rs = __frcp_rn(s);
+  // Pass 2, FAST a constant so that no element branches on it.
+  auto stores = [&](auto fast_c) {
+    constexpr bool FAST = decltype(fast_c)::value;
+    for (long long g0 = threadIdx.x; g0 < ng; g0 += STEP) {
+      uint4 raw[UNROLL];
+      if constexpr (RESIDENT) {
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u)
+          if (g0 + u * NT < ng) raw[u] = staged[g0 + u * NT];
+      } else {
+        load_trip(x, g0, ng, raw);
       }
-      if (threadIdx.x == 0) scale_right[slot * MAXB + b] = scale_own;
-    } else {  // forward what arrived at step s - 1, verbatim
-      const int8_t* prev = mb_me + (slot ^ 1) * slot_elems;
-      #pragma unroll 4
-      for (long long g = threadIdx.x; g < rw.n4; g += NT) copy4_cg(prev + 4 * g, dst + 4 * g);
-      if (threadIdx.x == 0)
-        scale_right[slot * MAXB + b] = __ldcg(scale_me + (slot ^ 1) * MAXB + b);
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const long long g = g0 + u * NT;
+        if (g >= ng) continue;
+        float v[VEC];
+        unpack16(raw[u], v);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) v[e] = q8_dq(v[e], s, rs, FAST);
+        const uint4 w = pack16(v);
+#pragma unroll 4
+        for (int r = 0; r < a.p; ++r)
+          __stcs(reinterpret_cast<uint4*>(static_cast<T*>(a.out[r]) + o0) + g, w);
+      }
     }
-    __threadfence();
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      st_release(a.ws[right] + WS_FULL + slot * MAXB + b, token(a, s));
-      // The slot of step s - 1 has been forwarded; the left may reuse it.
-      if (s >= 1) st_release(a.ws[left] + WS_CAP + (slot ^ 1) * MAXB + b, token(a, s - 1));
-    }
-    block_wait(a, ws_me + WS_FULL + slot * MAXB + b, token(a, s), 1, s);
-    const float in_scale = __ldcg(scale_me + slot * MAXB + b);
-    const int8_t* src = mb_me + slot * slot_elems;
-    T* dst_o = o + recv_c * a.out_cs;
-    #pragma unroll 4
-    for (long long g = threadIdx.x; g < rw.n4; g += NT) {
-      float w[4];
-      load4_cg(src + 4 * g, w);
-      #pragma unroll
-      for (int j = 0; j < 4; ++j) w[j] = __fmul_rn(w[j], in_scale);
-      store4(dst_o + 4 * g, w);
-    }
-    if (s == p - 2) {
-      __syncthreads();
-      if (threadIdx.x == 0) st_release(a.ws[left] + WS_CAP + slot * MAXB + b, token(a, s));
-    }
-  }
+  };
+  if (q8_fast(s)) stores(Flag<true>{});
+  else stores(Flag<false>{});
 }
 
 unsigned int* g_err_host = nullptr;
 unsigned int* g_err_dev = nullptr;
 
-// The one-pass kernels' arguments for p ranks' [rows, 128] chunks of T.
+// The sum kernels' arguments for p ranks' [rows, 128] chunks of T.
 template <typename T>
 PassArgs pass_args(int p, int rows, const unsigned long long* in_ptrs,
                    const unsigned long long* out_ptrs, long long cs) {
@@ -677,7 +599,7 @@ PassArgs pass_args(int p, int rows, const unsigned long long* in_ptrs,
   return a;
 }
 
-// A one-pass kernel: one 16-byte group a thread, grid (ceil(groups /
+// A sum kernel: one 16-byte group a thread, grid (ceil(groups /
 // PASS_NT), p), so every SM holds as many blocks as it can take and the
 // hardware refills them as they finish (a grid sized to the occupancy,
 // striding over the groups, was no faster on this card).
@@ -696,14 +618,14 @@ int fold(const PassArgs& a, cudaStream_t stream) {
 }
 
 constexpr int MAX_DEVICES = 64;
-// Shared memory the resident fold leaves for its static arrays and the
+// Shared memory a resident q8 form leaves for its static arrays and the
 // per-block reserve.
 constexpr int STATIC_SMEM_RESERVE = 1024;
 
 struct Device {
   int sms = 0;
   int smem_optin = 0;     // shared memory a block may opt in to
-  bool resident_ready = false;  // the resident fold's opt-in is set
+  bool resident_ready = false;  // the resident q8 forms' opt-in is set
 };
 Device g_dev[MAX_DEVICES];
 
@@ -724,7 +646,7 @@ Device* current_device(cudaError_t* e) {
   return &g;
 }
 
-// Blocks a rank for a cooperative ring launch: one block an SM, p ranks.
+// Blocks a chunk for a cooperative launch: one block an SM, p chunks.
 int ring_blocks(int sms, int p, int rows) {
   int nblk = sms / p;
   if (nblk > MAXB) nblk = MAXB;
@@ -732,14 +654,17 @@ int ring_blocks(int sms, int p, int rows) {
   return nblk;
 }
 
-// The q8 fold's plan: out = {form (0 resident, 1 streaming), blocks a rank,
-// dynamic shared memory bytes}. Resident whenever a block's rows of the f32
-// partial fit in the shared memory a block may take.
-int q8fold_plan(const Device& g, int p, int rows, int out[3]) {
+// The plan of a q8 form (kind 1, the q8 fold; kind 3, the q8 copy) for p
+// ranks' [rows, 128] chunks of dtype: out = {form (0 resident, 1
+// streaming), blocks a chunk, dynamic shared memory bytes}. Resident
+// whenever a block's rows of what it keeps fit in the shared memory a
+// block may take: the fold keeps the f32 partial, the copy x in its dtype.
+int q8_plan(const Device& g, int kind, int dtype, int p, int rows, int out[3]) {
   const int nblk = ring_blocks(g.sms, p, rows);
   if (nblk < 1) return -1;
+  const long long item = kind == 3 && dtype == 1 ? 2 : 4;
   const long long most_rows = (static_cast<long long>(rows) + nblk - 1) / nblk;
-  const long long smem = most_rows * LANE * static_cast<long long>(sizeof(float));
+  const long long smem = most_rows * LANE * item;
   const bool resident = smem <= g.smem_optin - STATIC_SMEM_RESERVE;
   out[0] = resident ? 0 : 1;
   out[1] = nblk;
@@ -748,39 +673,58 @@ int q8fold_plan(const Device& g, int p, int rows, int out[3]) {
 }
 
 template <typename T>
-void* q8fold_kernel(bool resident) {
-  return resident ? reinterpret_cast<void*>(&rs_q8_fold_kernel<T, true>)
-                  : reinterpret_cast<void*>(&rs_q8_fold_kernel<T, false>);
+void* q8_kernel(int kind, bool resident) {
+  if (kind == 1)
+    return resident ? reinterpret_cast<void*>(&rs_q8_fold_kernel<T, true>)
+                    : reinterpret_cast<void*>(&rs_q8_fold_kernel<T, false>);
+  return resident ? reinterpret_cast<void*>(&ag_q8_copy_kernel<T, true>)
+                  : reinterpret_cast<void*>(&ag_q8_copy_kernel<T, false>);
+}
+
+// Lets the four resident kernels take all the shared memory a block may.
+cudaError_t opt_in_resident(Device& g) {
+  if (g.resident_ready) return cudaSuccess;
+  const int most = g.smem_optin - STATIC_SMEM_RESERVE;
+  for (int kind : {1, 3}) {
+    for (void* fn : {q8_kernel<float>(kind, true), q8_kernel<__nv_bfloat16>(kind, true)}) {
+      const cudaError_t e =
+          cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+      if (e != cudaSuccess) return e;
+    }
+  }
+  g.resident_ready = true;
+  return cudaSuccess;
 }
 
 }  // namespace
 
 extern "C" {
 
-// The q8 fold's plan for p ranks' [rows, 128] chunks on the current device:
-// out = {form (0 resident, 1 streaming), blocks a rank, dynamic shared
-// memory bytes}; -1 for arguments it refuses.
-int mpit_q8fold_plan(int p, int rows, int* out) {
-  if (p < 2 || p > MAX_RANKS || rows < 1) return -1;
+// The plan of q8 form kind (1 the q8 fold, 3 the q8 copy) for p ranks'
+// [rows, 128] chunks of dtype (0 f32, 1 bf16) on the current device: out =
+// {form (0 resident, 1 streaming), blocks a chunk, dynamic shared memory
+// bytes}; -1 for arguments it refuses.
+int mpit_q8_plan(int kind, int dtype, int p, int rows, int* out) {
+  if (p < 2 || p > MAX_RANKS || rows < 1 || (kind != 1 && kind != 3) || dtype < 0 ||
+      dtype > 1)
+    return -1;
   cudaError_t e;
   Device* g = current_device(&e);
   if (g == nullptr) return e != cudaSuccess ? static_cast<int>(e) : -1;
-  return q8fold_plan(*g, p, rows, out);
+  return q8_plan(*g, kind, dtype, p, rows, out);
 }
 
-// kind: 0 reduce-scatter (the one-pass fold), 1 q8 reduce-scatter (the q8
-// fold), 2 all-gather (the one-pass copy), 3 q8 all-gather (the hop
-// schedule); dtype of the input (and of every output but the q8
-// reduce-scatter's f32): 0 f32, 1 bf16. Per rank r: in_ptrs[r], out_ptrs[r]
-// ([rows, 128] rows contiguous, 16-byte aligned; the p-chunk side's chunks
-// in_cs / out_cs elements apart); for kinds 1 and 3 ws_ptrs[r] (the rank's
-// zeroed workspace), and for kind 3 mbox_ptrs[r] ([2][rows][128] int8); a
-// kind never reads the tables it does not take (they may be null).
-// epoch: larger than every earlier call's on these workspaces.
+// kind: 0 reduce-scatter (the fold), 1 q8 reduce-scatter (the q8 fold), 2
+// all-gather (the copy), 3 q8 all-gather (the q8 copy); dtype of the input
+// (and of every output but the q8 reduce-scatter's f32): 0 f32, 1 bf16. Per
+// rank r: in_ptrs[r], out_ptrs[r] ([rows, 128] rows contiguous, 16-byte
+// aligned; the p-chunk side's chunks in_cs / out_cs elements apart); for
+// kinds 1 and 3 ws_ptrs[r] (the rank's zeroed workspace; kinds 0 and 2
+// never read it, it may be null). epoch: larger than every earlier call's
+// on these workspaces.
 int mpit_ring_launch(int kind, int dtype, int p, int rows,
                      const unsigned long long* in_ptrs,
                      const unsigned long long* out_ptrs,
-                     const unsigned long long* mbox_ptrs,
                      const unsigned long long* ws_ptrs, long long in_cs,
                      long long out_cs, unsigned long long epoch, void* stream) {
   if (p < 2 || p > MAX_RANKS || rows < 1 || kind < 0 || kind > 3 || dtype < 0 ||
@@ -811,47 +755,27 @@ int mpit_ring_launch(int kind, int dtype, int p, int rows,
     e = cudaHostGetDevicePointer(reinterpret_cast<void**>(&g_err_dev), g_err_host, 0);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  int nblk = ring_blocks(g->sms, p, rows);
-  if (nblk < 1) return -1;
-  void* fn;
-  int smem = 0;
-  if (kind == 1) {
-    int plan[3];
-    if (q8fold_plan(*g, p, rows, plan)) return -1;
-    const bool resident = plan[0] == 0;
-    nblk = plan[1];
-    smem = plan[2];
-    if (resident && !g->resident_ready) {
-      const int most = g->smem_optin - STATIC_SMEM_RESERVE;
-      e = cudaFuncSetAttribute(q8fold_kernel<float>(true),
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, most);
-      if (e == cudaSuccess)
-        e = cudaFuncSetAttribute(q8fold_kernel<__nv_bfloat16>(true),
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, most);
-      if (e != cudaSuccess) return static_cast<int>(e);
-      g->resident_ready = true;
-    }
-    fn = dtype == 0 ? q8fold_kernel<float>(resident) : q8fold_kernel<__nv_bfloat16>(resident);
-  } else {
-    fn = dtype == 0 ? reinterpret_cast<void*>(&ag_q8_kernel<float>)
-                    : reinterpret_cast<void*>(&ag_q8_kernel<__nv_bfloat16>);
-  }
+  int plan[3];
+  if (q8_plan(*g, kind, dtype, p, rows, plan)) return -1;
+  const bool resident = plan[0] == 0;
+  if (resident && (e = opt_in_resident(*g)) != cudaSuccess) return static_cast<int>(e);
+  void* fn = dtype == 0 ? q8_kernel<float>(kind, resident)
+                        : q8_kernel<__nv_bfloat16>(kind, resident);
   RingArgs a{};
   for (int r = 0; r < p; ++r) {
     a.in[r] = reinterpret_cast<const void*>(in_ptrs[r]);
     a.out[r] = reinterpret_cast<void*>(out_ptrs[r]);
-    a.mbox[r] = kind == 3 ? reinterpret_cast<void*>(mbox_ptrs[r]) : nullptr;
     a.ws[r] = reinterpret_cast<u64*>(ws_ptrs[r]);
   }
   a.in_cs = in_cs;
   a.out_cs = out_cs;
   a.p = p;
   a.rows = rows;
-  a.nblk = nblk;
+  a.nblk = plan[1];
   a.epoch = epoch;
   a.err = g_err_dev;
   void* args[] = {&a};
-  e = cudaLaunchCooperativeKernel(fn, dim3(nblk, p), dim3(NT), args, smem, st);
+  e = cudaLaunchCooperativeKernel(fn, dim3(a.nblk, p), dim3(NT), args, plan[2], st);
   if (e != cudaSuccess) {
     cudaGetLastError();
     return static_cast<int>(e);
@@ -871,7 +795,8 @@ int mpit_q8_quot_mismatches(const float* p, const float* s, long long n,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The error word a timed-out spin left (0: none); readable after the trap.
+// The error word a timed-out amax barrier left (0: none); readable after
+// the trap.
 int mpit_ring_error(void) {
   return g_err_host == nullptr ? 0 : static_cast<int>(*g_err_host);
 }

@@ -26,18 +26,21 @@ kernel row ranges of its flat buffers in place.
 - :func:`reduce_scatter_chunks` / :func:`all_gather_chunks` — the
   wrappers: a CPU tensor takes the plain version, a CUDA tensor the
   kernel of ``csrc/ring_collectives.cu`` or an error, never a fallback.
-  Every rank of a World lies on one card, so the sum forms run there as
-  one pass over HBM each: the reduce-scatter as the fold (each rank's
-  copies of a chunk added in the ring's order, with its roundings, so
-  bit-equal to the plain version), the all-gather as a copy (each
-  shard read once and written into every rank's output). The q8
-  reduce-scatter runs as the q8 fold (each chunk's hop chain computed
-  in place, the int8 value only in registers, the chunk-wide amax
-  shared across blocks at a barrier a hop): ``resident`` where the
-  partials fit in shared memory (one pass over HBM), else ``stream``
-  (one pass a hop); the C library's plan (:func:`q8fold_plan`) names
-  the form and :data:`path_launches` counts launches by it. The q8
-  all-gather runs the ring's hop schedule.
+  Every rank of a World lies on one card, so nothing has to travel and
+  each runs as one pass over HBM: the sum reduce-scatter as the fold
+  (each rank's copies of a chunk added in the ring's order, with its
+  roundings, so bit-equal to the plain version), the sum all-gather as
+  a copy (each shard read once and written into every rank's output).
+  The q8 forms keep the int8 value in registers and share each chunk's
+  amax across blocks at a barrier: the q8 reduce-scatter as the q8 fold
+  (each chunk's hop chain computed in place, a barrier a hop), the q8
+  all-gather as the q8 copy (each shard read, its amax met at one
+  barrier, the dequantized chunk written into every rank's output).
+  Each has two forms: ``resident`` where what a block keeps (the fold's
+  f32 partials, the copy's shard rows) fits in shared memory, one pass
+  over HBM; else ``stream`` (the fold one pass a hop, the copy two). The
+  C library's plan (:func:`q8_plan`) names the form and
+  :data:`path_launches` counts launches by it.
 - :func:`ring_reduce_scatter` / :func:`ring_all_gather` — the public
   collectives on rank-stacked payloads, through the planner; ``p = 1``
   is a no-op (nothing crosses a wire, nothing is quantized).
@@ -79,7 +82,7 @@ __all__ = [
     "path_launches",
     "plan_ring",
     "plan_shards",
-    "q8fold_plan",
+    "q8_plan",
     "quantize_blocks",
     "quantize_chunk",
     "record_wire",
@@ -100,19 +103,21 @@ SCALE_ROWS = 8
 SCALE_BLOCK_BYTES = SCALE_ROWS * _LANE * 4
 MAX_RANKS = 16  # the kernels' pointer table
 _KERNEL_SOURCE = "ring_collectives.cu"
-# The C library's kinds: ring_rs is the one-pass fold, ring_rs_q8 the q8
-# fold, ring_ag the one-pass copy, ring_ag_q8 the hop schedule.
+# The C library's kinds: ring_rs is the fold, ring_rs_q8 the q8 fold,
+# ring_ag the copy, ring_ag_q8 the q8 copy.
 _KINDS = {"ring_rs": 0, "ring_rs_q8": 1, "ring_ag": 2, "ring_ag_q8": 3}
-_ONE_PASS = ("ring_rs", "ring_ag")  # no mailbox, no workspace
-_Q8FOLD_FORMS = ("q8fold_resident", "q8fold_stream")  # mpit_q8fold_plan's, in order
+# The q8 kinds' forms, in the order of mpit_q8_plan's answer; the other
+# kinds take no workspace.
+_Q8_FORMS = {"ring_rs_q8": ("q8fold_resident", "q8fold_stream"),
+             "ring_ag_q8": ("q8copy_resident", "q8copy_stream")}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_WS_WORDS = 7 * 256  # one rank's workspace in the kernels (64-bit words)
+_WS_WORDS = 2 * 256  # one rank's workspace in the kernels (64-bit words)
 
 # Launches of each CUDA kernel since the counts were last set to 0, and
-# the q8 fold's launches by the form the C library's plan names; a
+# the q8 kinds' launches by the form the C library's plan names; a
 # wrapper adds one where it launches, and nowhere else.
 launches = dict.fromkeys(_KINDS, 0)
-path_launches = dict.fromkeys(_Q8FOLD_FORMS, 0)
+path_launches = dict.fromkeys([f for forms in _Q8_FORMS.values() for f in forms], 0)
 
 
 def sublane_for(dtype) -> int:
@@ -351,11 +356,11 @@ def kernel_library() -> ctypes.CDLL:
     (needs ``nvcc``) and loaded."""
     lib = load(_KERNEL_SOURCE)
     i32, i64, u64p = ctypes.c_int, ctypes.c_longlong, ctypes.POINTER(ctypes.c_uint64)
-    lib.mpit_ring_launch.argtypes = [i32, i32, i32, i32, u64p, u64p, u64p, u64p, i64, i64,
+    lib.mpit_ring_launch.argtypes = [i32, i32, i32, i32, u64p, u64p, u64p, i64, i64,
                                      ctypes.c_uint64, ctypes.c_void_p]
     lib.mpit_ring_launch.restype = i32
-    lib.mpit_q8fold_plan.argtypes = [i32, i32, ctypes.POINTER(i32)]
-    lib.mpit_q8fold_plan.restype = i32
+    lib.mpit_q8_plan.argtypes = [i32, i32, i32, i32, ctypes.POINTER(i32)]
+    lib.mpit_q8_plan.restype = i32
     lib.mpit_q8_quot_mismatches.argtypes = [ctypes.c_void_p, ctypes.c_void_p, i64,
                                             ctypes.c_void_p, ctypes.c_void_p]
     lib.mpit_q8_quot_mismatches.restype = i32
@@ -367,9 +372,9 @@ def kernel_library() -> ctypes.CDLL:
 
 
 class _Workspace:
-    """One device's flags, partial amaxes and scale mailboxes for every
-    rank (zeroed once, never cleared) and its call counter: every launch
-    takes the next epoch, so its tokens exceed all earlier ones."""
+    """One device's amax-barrier flags and partial amaxes for every rank
+    (zeroed once, never cleared) and its call counter: every launch takes
+    the next epoch, so its tokens exceed all earlier ones."""
 
     def __init__(self, device):
         self.flags = torch.zeros((MAX_RANKS, _WS_WORDS), dtype=torch.int64, device=device)
@@ -387,16 +392,16 @@ def _workspace(device) -> _Workspace:
 
 
 def device_error() -> str | None:
-    """What the error word of a ring that timed out says (None if no ring
-    has), readable after the trap has cost the CUDA context."""
+    """What the error word of a q8 kernel whose amax barrier timed out
+    says (None if none has), readable after the trap has cost the CUDA
+    context."""
     if not torch.cuda.is_available():
         return None
     word = kernel_library().mpit_ring_error()
     if not word:
         return None
-    what = {1: "payload (FULL flag)", 2: "slot release (CAP flag)", 3: "amax barrier"}
-    return (f"ring spin timed out waiting for the {what.get(word & 0xFF, word & 0xFF)}: "
-            f"rank {(word >> 8) & 0xFF}, block {(word >> 16) & 0xFF}, step {word >> 24}")
+    return (f"ring amax barrier timed out: rank {(word >> 8) & 0xFF}'s workspace, "
+            f"block {(word >> 16) & 0xFF}, barrier {word >> 24}")
 
 
 def _dense_rows(x, name: str):
@@ -412,26 +417,27 @@ def _ring_error(lib, err: int, what: str) -> RuntimeError:
 
 
 @functools.lru_cache(maxsize=1024)
-def q8fold_plan(p: int, rows: int, device) -> dict:
-    """The C library's plan for the q8 fold of ``p`` ranks' ``[rows,
-    128]`` chunks on CUDA ``device`` (``mpit_q8fold_plan``): the form
-    (``q8fold_resident``: the partials stay in shared memory across the
-    hops; ``q8fold_stream``: they live in the output, one pass a hop),
-    the blocks a rank and the shared memory a block."""
+def q8_plan(kind: str, p: int, rows: int, dtype, device) -> dict:
+    """The C library's plan (``mpit_q8_plan``) for q8 kind ``kind``
+    (``ring_rs_q8``, the q8 fold; ``ring_ag_q8``, the q8 copy) over ``p``
+    ranks' ``[rows, 128]`` chunks of ``dtype`` on CUDA ``device``: the
+    form (``*_resident``: the fold's partials or the copy's shard rows
+    stay in shared memory; ``*_stream``: the fold's partials live in the
+    output, one pass a hop, and the copy reads its rows twice), the
+    blocks a chunk and the shared memory a block."""
     lib = kernel_library()
     out = (ctypes.c_int * 3)()
     with torch.cuda.device(device):
-        err = lib.mpit_q8fold_plan(p, rows, out)
+        err = lib.mpit_q8_plan(_KINDS[kind], _DTYPES[dtype], p, rows, out)
     if err:
-        raise _ring_error(lib, err, "q8 fold plan")
-    return {"form": _Q8FOLD_FORMS[out[0]], "blocks": out[1], "smem_bytes": out[2]}
+        raise _ring_error(lib, err, f"{kind} plan")
+    return {"form": _Q8_FORMS[kind][out[0]], "blocks": out[1], "smem_bytes": out[2]}
 
 
 def _launch(kind: str, xs, out, in_cs: int, out_cs: int):
-    """Launch ``kind`` over the ranks of ``xs``. The one-pass forms (the
-    fold and the copy) take no mailbox and no workspace; the q8 fold takes
-    the workspace (its amax barrier); the q8 all-gather's hop schedule
-    takes both (an int8 mailbox)."""
+    """Launch ``kind`` over the ranks of ``xs``. The q8 kinds take the
+    workspace (their amax barrier) and count their launches by form; the
+    fold and the copy take nothing else."""
     p, rows = xs.shape[0], xs.shape[-2]
     if not 2 <= p <= MAX_RANKS:
         raise ValueError(f"the ring kernels take 2 to {MAX_RANKS} ranks, got {p}")
@@ -445,27 +451,24 @@ def _launch(kind: str, xs, out, in_cs: int, out_cs: int):
         step = t.stride(0) * t.element_size()
         return (ctypes.c_uint64 * p)(*(t.data_ptr() + r * step for r in range(p)))
 
-    mbox = mbox_table = flags = None
+    flags = None
     epoch = 0
-    if kind not in _ONE_PASS:
+    if kind in _Q8_FORMS:
         ws = _workspace(xs.device)
         flags = table(ws.flags)
-        if kind == "ring_ag_q8":
-            mbox = torch.empty((p, 2, rows, _LANE), dtype=torch.int8, device=xs.device)
-            mbox_table = table(mbox)
         ws.epoch += 1
         epoch = ws.epoch
     with torch.cuda.device(xs.device):
         stream = torch.cuda.current_stream(xs.device).cuda_stream
         err = lib.mpit_ring_launch(
-            _KINDS[kind], _DTYPES[xs.dtype], p, rows, table(xs), table(out), mbox_table,
-            flags, in_cs, out_cs, epoch, stream,
+            _KINDS[kind], _DTYPES[xs.dtype], p, rows, table(xs), table(out), flags,
+            in_cs, out_cs, epoch, stream,
         )
     if err:
         raise _ring_error(lib, err, f"{kind} kernel launch")
     launches[kind] += 1
-    if kind == "ring_rs_q8":
-        path_launches[q8fold_plan(p, rows, xs.device)["form"]] += 1
+    if kind in _Q8_FORMS:
+        path_launches[q8_plan(kind, p, rows, xs.dtype, xs.device)["form"]] += 1
 
 
 def _device_kind(x) -> str:
@@ -503,8 +506,8 @@ def reduce_scatter_chunks(xs, *, quantized: bool = False, out=None):
 def all_gather_chunks(xs, *, quantized: bool = False, out=None):
     """All-gather rank-stacked chunks ``xs [p, rows, 128]`` into ``out [p,
     p, rows, 128]`` (new if None, xs' dtype): the kernel for CUDA
-    tensors (the sum as the one-pass copy, the q8 form on the hop
-    schedule), the plain version for CPU ones."""
+    tensors (the sum as the copy, the q8 form as the q8 copy), the plain
+    version for CPU ones."""
     _check_stacked(xs, "ag")
     p, rows = xs.shape[0], xs.shape[1]
     if out is None:
@@ -539,8 +542,8 @@ def record_wire(name: str, plan: RingPlan, wire_dtype, *, scales: bool, mode: st
     """Charge one collective's wire bytes (the plan's, at the quantized
     size) to the obs counter ``ring_wire_bytes`` when obs is on: what the
     JAX package charges, the ring's size on links between devices. With
-    every rank on one card no wire bytes move (the sum forms are one pass
-    over HBM each); the counter still prices the ring."""
+    every rank on one card no wire bytes move (every form is one pass over
+    HBM, or two); the counter still prices the ring."""
     obs.counter("ring_wire_bytes", plan.wire_payload_bytes(wire_dtype, scales=scales),
                 collective=name, mode=mode)
 

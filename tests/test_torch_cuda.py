@@ -13,9 +13,9 @@ tensor cores at every head dim, in autograd, and in three tiny training
 steps against plain attention),
 the ring reduce-scatter and all-gather kernels, sum and int8 wire
 (bit-equal to their plain versions: the sum forms as the one-card fold
-and copy, the q8 reduce-scatter as the q8 fold in both its forms, the
-q8 all-gather on the hop schedule; and in tiny training steps over four
-ranks against the plain collectives), and the KV shipment's copy kernel
+and copy, the q8 reduce-scatter as the q8 fold and the q8 all-gather as
+the q8 copy, each in both its forms; and in tiny training steps over
+four ranks against the plain collectives), and the KV shipment's copy kernel
 (bit-exact at every alignment on both its bodies, behind the compat
 simulator's CUDA messages and a tiny fleet's shipments).
 
@@ -707,36 +707,52 @@ def _ring_input(shape, dtype, seed, kind="normal"):
     return x.to(dtype)
 
 
+def _bits(t):
+    """``t``'s elements as integers of their width: equal bits, signed
+    zeros too, where ``torch.equal`` of the floats takes -0 for +0."""
+    return t.view({4: torch.int32, 2: torch.int16}[t.element_size()])
+
+
+def _moved(before, counts):
+    return {k: n - before[k] for k, n in counts.items() if n != before[k]}
+
+
 @pytest.mark.parametrize("p", [2, 3, 4, 8, 16])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("form", ["sum", "q8"])
 @pytest.mark.parametrize("rows", [1, 37, 256])
 def test_ring_kernels_equal_plain_bitwise(cuda, p, dtype, form, rows):
     """Every form, bit-equal to its plain version (the same ring order,
-    the same roundings); each launch counted once per call. ``sum``: the
-    one-card fold and copy; ``q8``: the q8 fold and the all-gather's
-    int8-wire hop schedule. The all-gather also writes into an ``out=`` slice of a wider buffer and
+    the same roundings); each launch counted once per call, and a q8
+    kind's once by the form the C library's plan names. ``sum``: the
+    one-card fold and copy; ``q8``: the q8 fold and the q8 copy. The
+    all-gather also writes into an ``out=`` slice of a wider buffer and
     leaves the rest of it as it was."""
     from mpit_tpu_torch.ops import ring_collectives as rc
 
     quantized = form == "q8"
     q = "_q8" if quantized else ""
+    dev = torch.device("cuda", 0)
+
+    def forms(kind):
+        return {rc.q8_plan(kind, p, rows, dtype, dev)["form"]: 1} if quantized else {}
+
     xs = _ring_input((p, p, rows, 128), dtype, p * rows + quantized)
-    before = dict(rc.launches)
+    before, before_forms = dict(rc.launches), dict(rc.path_launches)
     got = rc.reduce_scatter_chunks(xs, quantized=quantized)
     torch.cuda.synchronize()
-    assert {k: n - before[k] for k, n in rc.launches.items() if n != before[k]} == {
-        f"ring_rs{q}": 1}
+    assert _moved(before, rc.launches) == {f"ring_rs{q}": 1}
+    assert _moved(before_forms, rc.path_launches) == forms(f"ring_rs{q}")
     assert torch.equal(got, rc.reduce_scatter_plain(xs, quantized=quantized))
     shards = _ring_input((p, rows, 128), dtype, 7 + p + rows)
-    before = dict(rc.launches)
+    before, before_forms = dict(rc.launches), dict(rc.path_launches)
     full = rc.all_gather_chunks(shards, quantized=quantized)
     torch.cuda.synchronize()
-    assert {k: n - before[k] for k, n in rc.launches.items() if n != before[k]} == {
-        f"ring_ag{q}": 1}
-    assert torch.equal(full, rc.all_gather_plain(shards, quantized=quantized))
+    assert _moved(before, rc.launches) == {f"ring_ag{q}": 1}
+    assert _moved(before_forms, rc.path_launches) == forms(f"ring_ag{q}")
+    assert torch.equal(_bits(full), _bits(rc.all_gather_plain(shards, quantized=quantized)))
     for r in range(1, p):
-        assert torch.equal(full[r], full[0])
+        assert torch.equal(_bits(full[r]), _bits(full[0]))
     wide = torch.full((p, p, rows + 5, 128), 7.0, dtype=dtype, device="cuda")
     rc.all_gather_chunks(shards, quantized=quantized, out=wide[:, :, 2 : 2 + rows])
     torch.cuda.synchronize()
@@ -776,24 +792,26 @@ def test_q8_fold_forms_equal_plain_bitwise(cuda, p, dtype, rows):
     """The q8 fold on the form the C library's plan names (``resident``
     where a block's rows of the partials fit in shared memory: p 2 and 4
     at GPT-2 small's 8192-row bucket; ``stream`` where they do not: p 8
-    and 16 there), bit-equal to ``reduce_scatter_plain(quantized=True)``;
+    and 16 there), bit-equal to ``reduce_scatter_plain(quantized=True)``
+    (signed zeros too: lane 0 is -0 in every copy, so each hop's partial
+    there quantizes to an int8 zero, which has no sign, and adds -0);
     with a zero chunk; two calls in a row give the same bits (the amax
     barrier's epoch tokens); one launch a call, counted by its form."""
     from mpit_tpu_torch.ops import ring_collectives as rc
 
-    plan = rc.q8fold_plan(p, rows, torch.device("cuda", 0))
+    plan = rc.q8_plan("ring_rs_q8", p, rows, dtype, torch.device("cuda", 0))
     if rows == 8192:
         assert plan["form"] == ("q8fold_resident" if p <= 4 else "q8fold_stream")
     xs = _ring_input((p, p, rows, 128), dtype, 40 + p + rows)
     xs[:, p // 2] = 0
+    xs[..., 0] = -0.0
     want = rc.reduce_scatter_plain(xs, quantized=True)
     before = dict(rc.path_launches)
     first = rc.reduce_scatter_chunks(xs, quantized=True)
     second = rc.reduce_scatter_chunks(xs, quantized=True)
     torch.cuda.synchronize()
-    assert {k: n - before[k] for k, n in rc.path_launches.items() if n != before[k]} == {
-        plan["form"]: 2}
-    assert torch.equal(first, want) and torch.equal(second, want)
+    assert _moved(before, rc.path_launches) == {plan["form"]: 2}
+    assert torch.equal(_bits(first), _bits(want)) and torch.equal(_bits(second), _bits(want))
     assert not first[p // 2].any()
     assert rc.device_error() is None
 
@@ -849,7 +867,49 @@ def test_q8_fold_reads_the_tail_bucket_in_place(cuda, dtype):
         torch.cuda.synchronize()
         assert torch.equal(out[:, 2 : 2 + 3000], rc.reduce_scatter_plain(xs, quantized=True))
         assert (out[:, :2] == 7).all() and (out[:, 2 + 3000 :] == 7).all()
-    assert rc.q8fold_plan(8, 8192, torch.device("cuda", 0))["form"] == "q8fold_stream"
+    assert rc.q8_plan("ring_rs_q8", 8, 8192, dtype, torch.device("cuda", 0))["form"] == (
+        "q8fold_stream")
+
+
+@pytest.mark.parametrize("p", [2, 4, 8, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 37, 8192])
+def test_q8_gather_forms_equal_plain_bitwise(cuda, p, dtype, rows):
+    """The q8 all-gather as the q8 copy on the form the C library's plan
+    names (``resident`` where a block's rows of the shard, in its dtype,
+    fit in shared memory: f32 to p 4 and bf16 to p 8 at GPT-2 small's
+    8192-row bucket; ``stream`` beyond), bit-equal to
+    ``all_gather_plain(quantized=True)`` (signed zeros too), every
+    replica identical: with an all-zero chunk and a chunk whose amax lies
+    in its last block only, read in place from a wider buffer (the bucket
+    loop's strided shards) and written into an ``out=`` slice, then a
+    second call on the same workspace; one launch a call, counted by its
+    form."""
+    from mpit_tpu_torch.ops import ring_collectives as rc
+
+    plan = rc.q8_plan("ring_ag_q8", p, rows, dtype, torch.device("cuda", 0))
+    if rows == 8192:
+        resident = p <= (4 if dtype == torch.float32 else 8)
+        assert plan["form"] == ("q8copy_resident" if resident else "q8copy_stream")
+    wide = _ring_input((p, rows + 3, 128), dtype, 60 + p + rows)
+    shards = wide[:, 2 : 2 + rows]
+    shards[p - 1] = 0
+    shards[0] *= 1e-3  # its amax, 5.0, in the last row: the last block's
+    shards[0, -1, 7] = 5.0
+    want = rc.all_gather_plain(shards, quantized=True)
+    out = torch.full((p, p, rows + 4, 128), 7.0, dtype=dtype, device="cuda")
+    before = dict(rc.path_launches)
+    rc.all_gather_chunks(shards, quantized=True, out=out[:, :, 1 : 1 + rows])
+    second = rc.all_gather_chunks(shards, quantized=True)
+    torch.cuda.synchronize()
+    assert _moved(before, rc.path_launches) == {plan["form"]: 2}
+    first = out[:, :, 1 : 1 + rows]
+    assert torch.equal(_bits(first), _bits(want)) and torch.equal(_bits(second), _bits(want))
+    for r in range(1, p):
+        assert torch.equal(_bits(first[r]), _bits(first[0]))
+    assert (out[:, :, :1] == 7).all() and (out[:, :, 1 + rows :] == 7).all()
+    assert not first[:, p - 1].any() and (first[:, 0, -1, 7] == 5.0).all()
+    assert rc.device_error() is None
 
 
 def test_ring_public_collectives_and_refusals(cuda):

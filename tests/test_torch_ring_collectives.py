@@ -29,7 +29,8 @@ from a seed and handed to both packages. Tolerances, with their reasons:
 - one tiny case against the Pallas kernel in TPU interpret mode: q8
   reduce-scatter at p = 2, the reduce-scatter tolerance above;
 - the models of the one-card kernels' arithmetic (the sum fold, the
-  copy, the q8 fold) against the plain ring, hop by hop: exact.
+  copy, the q8 fold, the q8 copy) against the plain ring, hop by hop:
+  exact; the q8 copy's model in every bit, signed zeros too.
 """
 
 from __future__ import annotations
@@ -305,6 +306,68 @@ def test_q8_fold_equals_ring_hops(worlds, p, dtype):
                 xs.numpy().reshape(-1),
             )
             _fma_close(got.numpy().reshape(-1), want, p)
+
+
+def _bits(t):
+    """``t``'s elements as integers of their width: equal bits, signed
+    zeros too, where ``torch.equal`` of the floats takes -0 for +0."""
+    return t.view({4: torch.int32, 2: torch.int16}[t.element_size()])
+
+
+def _q8_copy_model(shards, blocks):
+    """The one-card q8 all-gather kernel's arithmetic (the q8 copy,
+    ``ag_q8_copy_kernel`` in ``csrc/ring_collectives.cu``): for shard
+    ``c``, ``min(blocks, rows)`` blocks each take the amax of their rows,
+    merged by max (the kernel's amax barrier) into the scale ``s``; each
+    element becomes ``f32(clip(round(x / s), ±127) + 0) · s`` (``+ 0``:
+    the int8 value it stands for has no sign, so -0 becomes +0), rounded
+    once to the shards' dtype and written into chunk ``c`` of every
+    rank's output."""
+    p, rows, _ = shards.shape
+    nblk = min(blocks, rows)
+    spans = [(b * rows // nblk, (b + 1) * rows // nblk) for b in range(nblk)]
+    out = shards.new_empty((p, *shards.shape))
+    for c in range(p):
+        x = shards[c].float()
+        amax = torch.stack([x[lo:hi].abs().amax() for lo, hi in spans]).amax()
+        s = torch.where(amax > 0, amax / torch.tensor(127.0), 1.0)
+        q = torch.clamp(torch.round(x / s), -127, 127) + 0.0
+        out[:, c] = (q * s).to(shards.dtype)
+    return out
+
+
+@pytest.mark.parametrize("p", [2, 3, 4, 8, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_q8_gather_equals_ring_all_gather(worlds, p, dtype):
+    """The q8 copy's arithmetic is the ring's: its model (as many blocks
+    a chunk as one 132-SM card gives, so several share a chunk's amax)
+    equals :func:`all_gather_plain` with ``quantized`` and the wrapper's
+    CPU path in every bit, every replica the same, at rows 1 and 37, and
+    with one chunk zero (scale 1) and one whose amax lies in its last
+    block only. At p 4 in f32 it also equals JAX's
+    ``ring_all_gather(quantized=True)`` in every bit."""
+    for rows, special in ((1, False), (37, False), (37, True)):
+        x = _data(150 + p + rows, (p, rows * 128), "normal")
+        x *= np.linspace(0.5, 3.0, p, dtype=np.float32)[:, None]
+        shards = torch.from_numpy(x).to(dtype).reshape(p, rows, 128)
+        if special:
+            shards[p - 1] = 0
+            shards[0] *= 1e-3  # its amax, 5.0, in the last row: the last block's
+            shards[0, -1, 7] = 5.0
+        got = _q8_copy_model(shards, 132 // p)
+        assert torch.equal(_bits(got), _bits(trc.all_gather_plain(shards, quantized=True)))
+        assert torch.equal(_bits(got), _bits(trc.all_gather_chunks(shards, quantized=True)))
+        assert all(torch.equal(_bits(got[r]), _bits(got[0])) for r in range(p))
+        if special:
+            assert not got[:, p - 1].any()
+            assert got[0, 0, -1, 7] == 5.0
+        if p == 4 and dtype == torch.float32 and rows == 37 and not special:
+            want = _jax_sharded(
+                worlds[p], lambda v: jrc.ring_all_gather(v, "data", quantized=True),
+                x.reshape(-1), out_spec=P(None),
+            )
+            np.testing.assert_array_equal(got[0].numpy().reshape(-1).view(np.int32),
+                                          np.asarray(want, np.float32).view(np.int32))
 
 
 @pytest.mark.parametrize("p", [2, 4])
