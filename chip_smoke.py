@@ -4,6 +4,7 @@ one GPU, training on one rank and over four data-parallel ranks.
 
     python3 chip_smoke.py
     python3 chip_smoke.py dp_profile ring_q8   # phase 4d's profile of one mode alone
+    python3 chip_smoke.py convnets             # phases 4c, 4cd, 4cp and 5c alone
 
 Run from the root of a checkout on a machine with an NVIDIA GPU (written
 for an H100). Phases, each of which raises (exit code != 0) on failure:
@@ -245,6 +246,48 @@ for an H100). Phases, each of which raises (exit code != 0) on failure:
    (``FaultPlan``, lease 0.75 s): at least one re-queue, tokens identical;
    the results go to ``chiprun_out/chip_smoke_fleet.json``.
 
+The convnet workloads (BASELINE.json's configs #1-#3). Phase 3e also
+holds the ring kernels at the convnets' bucket plans over four ranks
+(AlexNet: 15 buckets of its 119,338-row shard, the first full 8192-row
+bucket and the 4650-row tail, read in place from a wider buffer; LeNet:
+one 122-row bucket), both kinds, sum and q8, bit for bit; phase 3f the
+copy kernel at AlexNet's flat f32 message (61,101,056 elements,
+244.4 MB), bit for bit, each body timed apart. Then, each through the
+workload's ``main`` in process and raising on failure:
+
+4c. convnets on one rank — ``imagenet`` at full width (224 x 224, 1000
+   classes, bf16 compute, f32 parameters, goo SGD lr 0.01 momentum 0.9,
+   batch 128, 30 steps, seed 0): finite losses, the last five's mean
+   below the first five's; images/s at the step p50 (the host's data
+   stream sets it), step p50/p95, peak memory; the same step over two
+   batches staged on the card, alternated, timed with CUDA events after
+   five warm-up steps, and profiled for three steps (device time by
+   kernel family: convolutions, GEMMs, pooling, elementwise, optimizer,
+   copies; idle share); then ``mnist`` (batch 32, 30 steps): the loss
+   below 0.5 and eval top-1 above 0.7, as the JAX package's test holds;
+4cd. convnets over four ranks — ``imagenet --mesh data=4 --zero1 true``
+   through ``ring`` and ``ring_q8`` (global batch 128, 20 steps) and
+   ``mnist --mesh data=4 --grad-sync ring`` (config #2, 30 steps, the
+   loss below 0.5): finite losses, the replicas bit-identical, the ring
+   launches (set to 0 just before) buckets x steps for the run's kinds
+   and 0 for the others, the q8 ones on the forms the plan names;
+4cp. the parameter server — ``mnist --mode parity --nranks 2`` (config
+   #1: 40 steps, batch 32, the final loss below the first, eval accuracy
+   above 0.5), ``mnist --mode parity --nranks 5 --easgd true
+   --sync-every 4`` and ``imagenet --mode parity --nranks 5`` (config #3
+   at full width, 2 steps a client): the copy kernel's launches (set to
+   0 just before) exactly four a Downpour client step and four an EASGD
+   exchange (each flat message a send snapshot and a delivery), the
+   ``ps_msgs`` counters and the wall time reported;
+5c. convnet parity — f32 (TF32 off, cuDNN deterministic, no autotuning),
+   three goo SGD steps from one seeded port initialisation, LeNet and
+   AlexNet at 128 x 128 with 8 classes, batch 32: ``ring`` losses within
+   1e-5 relative of ``psum``'s at p 4, ``ring_q8`` within ``0.02 +
+   0.02·|loss|`` (the JAX package's pin), one rank within 1e-4 relative
+   of the four ranks (cuDNN's algorithms differ by batch size).
+Their records go to ``chiprun_out/chip_smoke_convnets.json``; the
+kernels line's ring and copy rows count their launches by run.
+
 The last lines are the kernels JSON line (each decode form twice: at
 T 1, its ``split`` body, and at its prefill width as ``<form>_prefill``,
 each with the main path's launches of that body; every number in it
@@ -326,6 +369,22 @@ SHIP_PAYLOADS = {
     "payload bf16": 2 * L_SMALL * SHIP_ROWS * H * DH * 2,
     "payload int8": 2 * (L_SMALL * SHIP_ROWS * H * DH + L_SMALL * SHIP_ROWS * H * 4),
 }
+# Phases 4c, 4cd, 4cp and 5c: the convnet workloads of BASELINE.json's
+# configs #1-#3 (LeNet on MNIST, AlexNet on ImageNet), four ranks or five
+# parity ranks on the one card. AlexNet's defaults are the workload's own:
+# 224 x 224, 1000 classes, bf16 compute, f32 parameters, goo SGD at lr 0.01
+# with momentum 0.9.
+CONV_RANKS = 4
+IMAGENET_ARGS = ["--batch-size", "128", "--eval-batch", "128", "--log-every", "1"]
+IMAGENET_STEPS, IMAGENET_DP_STEPS = 30, 20
+MNIST_ARGS = ["--steps", "30", "--batch-size", "32", "--log-every", "10"]
+ALEXNET_FLAT = 61_101_056  # the flat layout of AlexNet's 61,100,840 parameters
+CONV_PARITY_TOL = 1e-5  # relative, per-step loss, f32, ring vs psum
+# Relative, per-step loss, f32: one rank against four on the same global
+# batch. The four ranks' mean of means equals the one rank's mean up to
+# rounding, but cuDNN picks its algorithms by batch size, so the sums
+# run in other orders; three steps at lr 0.01-0.05 carry that through.
+CONV_RANKS_TOL = 1e-4
 # Phase 4f: the JAX package's test liveness (no spurious evictions).
 FLEET_LIVENESS = "heartbeat_s=0.05,lease_s=5.0"
 FORMS = (
@@ -1383,11 +1442,13 @@ FAMILIES = {
 }
 
 
-def profile_window(torch, one_step, batches) -> dict:
+def profile_window(torch, one_step, batches, families=None) -> dict:
     """``one_step(batch)`` over ``batches`` under ``torch.profiler``:
-    device busy time by kernel family (:data:`FAMILIES`) and the device's
-    idle share of the window's wall time. Reports, gates nothing; "not
-    measured" when the profiler records no device activity."""
+    device busy time by kernel family (``families``, default
+    :data:`FAMILIES`) and the device's idle share of the window's wall
+    time. Reports, gates nothing; "not measured" when the profiler
+    records no device activity."""
+    families = FAMILIES if families is None else families
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1402,12 +1463,12 @@ def profile_window(torch, one_step, batches) -> dict:
         if str(getattr(e, "device_type", "")).split(".")[-1] != "CUDA":
             continue
         name = e.key.lower()
-        fam = next((f for f, keys in FAMILIES.items() if any(k in name for k in keys)),
+        fam = next((f for f, keys in families.items() if any(k in name for k in keys)),
                    "other")
         busy[fam] = busy.get(fam, 0.0) + e.self_device_time_total / 1e3
         kernels[e.key[:80]] = kernels.get(e.key[:80], 0.0) + e.self_device_time_total / 1e3
         if fam == "ring_collectives":
-            kind = next(k for k in FAMILIES[fam] if k in name)
+            kind = next(k for k in families[fam] if k in name)
             ring[kind] = ring.get(kind, 0.0) + e.self_device_time_total / 1e3
     if not busy:
         return {"profile": "not measured (no device activity recorded)",
@@ -1535,8 +1596,10 @@ def ring_case(torch, flush, kind: str, xs, quantized: bool, label: str, **extra)
     return case
 
 
-def ring_kernel_phase(torch, flush, tail_rows: int):
-    """Phase 3e: the four ring kernels against their plain versions."""
+def ring_kernel_phase(torch, flush, tail_rows: int, conv_plans: dict):
+    """Phase 3e: the four ring kernels against their plain versions; at
+    GPT-2 small's bucket plan and at the convnets' (``conv_plans``,
+    :func:`convnet_bucket_plans`)."""
     from mpit_tpu_torch.ops import ring_collectives as rc
 
     def randn(shape, seed, dtype=torch.float32):
@@ -1562,6 +1625,26 @@ def ring_kernel_phase(torch, flush, tail_rows: int):
         shards = randn((DP_RANKS, RING_ROWS + tail_rows, 128), 6)
         cases.append(ring_case(torch, flush, "ag", shards[:, RING_ROWS:], q8,
                                f"ag tail bucket q8={q8}", strided=True))
+    # The convnets' buckets at p 4, read in place from the flat buffer as
+    # the bucket loop reads them: AlexNet's first full bucket and its
+    # ragged tail, LeNet's one bucket.
+    for q8 in (False, True):
+        for net, plan in conv_plans.items():
+            head = plan["first_bucket_rows"]
+            picks = {"bucket": (0, head)}
+            if plan["buckets"] > 1:
+                picks["tail bucket"] = (head, head + plan["tail_rows"])
+            for what, (r0, r1) in picks.items():
+                wide = randn((DP_RANKS, DP_RANKS, r1, 128), 11)
+                cases.append(ring_case(torch, flush, "rs", wide[:, :, r0:r1], q8,
+                                       f"rs {net} {what} q8={q8}", strided=r0 > 0,
+                                       workload=net))
+                shards = randn((DP_RANKS, r1, 128), 12)
+                cases.append(ring_case(torch, flush, "ag", shards[:, r0:r1], q8,
+                                       f"ag {net} {what} q8={q8}", strided=r0 > 0,
+                                       workload=net))
+                del wide, shards
+        torch.cuda.empty_cache()
     # An all-zero chunk (scale 1.0) in the q8 forms.
     xs = randn((DP_RANKS, DP_RANKS, 256, 128), 7)
     xs[:, 2] = 0
@@ -1839,7 +1922,7 @@ def train_parity_phase(torch):
 
 
 # Phase 3f's sizes at which each body of the copy kernel is timed apart.
-SHIP_BODY_SIZES = ("payload bf16", "payload int8", "32 MiB", "256 MiB")
+SHIP_BODY_SIZES = ("payload bf16", "payload int8", "32 MiB", "256 MiB", "alexnet flat f32")
 
 
 def ship_case(torch, flush, label: str, src, dst):
@@ -1938,6 +2021,10 @@ def ship_kernel_phase(torch, flush):
     for mib in (32, 256):
         src = bytes_at(mib * 2**20, 0)
         cases.append(ship_case(torch, flush, f"{mib} MiB", src, torch.empty_like(src)))
+    # The parity protocol's AlexNet message: the flat f32 parameter
+    # vector (61,101,056 elements, 244.4 MB).
+    src = rnd((ALEXNET_FLAT,), torch.float32)
+    cases.append(ship_case(torch, flush, "alexnet flat f32", src, torch.empty_like(src)))
     return cases
 
 
@@ -2121,6 +2208,388 @@ def fleet_parity_phase(torch):
     return results
 
 
+# ---- the convnet workloads (phases 4c, 4cd, 4cp, 5c) -------------------------
+
+# The convnet profile's kernel families, matched in this order: cuDNN's
+# convolution kernels (forward, data and weight gradients, and the input
+# padding cuDNN adds; some carry "gemm" or "xmma" in their names, so they
+# come before the GEMMs), the
+# pools, cuBLAS's GEMMs (the dense layers), the goo rules' foreach
+# kernels, copies and casts, the elementwise passes (ReLU, bias adds, the
+# loss) and the layout transposes cuDNN may add.
+CONV_FAMILIES = {
+    "convolution": ("conv", "fprop", "dgrad", "wgrad", "implicit", "winograd", "fft", "cudnn",
+                    "padding"),
+    "pooling": ("pool",),
+    "gemm": ("nvjet", "gemm", "xmma", "cutlass"),
+    "optimizer_foreach": ("foreach", "multi_tensor"),
+    "copies": ("copy",),
+    "elementwise": ("elementwise", "vectorized", "reduce", "softmax", "index", "scatter",
+                    "gather", "threshold", "fill"),
+    "layout": ("nchwtonhwc", "nhwctonchw", "transpose", "permute"),
+}
+
+
+def convnet_bucket_plans(torch) -> dict:
+    """AlexNet's and LeNet's flat lengths over CONV_RANKS ranks, and their
+    bucket plans at the default 4 MB."""
+    from mpit_tpu_torch import comm
+    from mpit_tpu_torch.models import AlexNet, LeNet
+    from mpit_tpu_torch.opt.sharded import FlatLayout, padded_len
+    from mpit_tpu_torch.train.grad_sync import GradSync
+
+    world = comm.init({"data": CONV_RANKS}, devices=["cuda"])
+    plans = {}
+    for net, model in (("alexnet", AlexNet(device="meta")), ("lenet", LeNet(device="meta"))):
+        layout = FlatLayout(dict(model.named_parameters()))
+        rows = padded_len(layout.total, CONV_RANKS) // (CONV_RANKS * 128)
+        buckets = GradSync(world, "ring").bucket_rows(rows)
+        plans[net] = {"flat_len": layout.total, "shard_rows": rows, "buckets": len(buckets),
+                      "first_bucket_rows": buckets[0][1] - buckets[0][0],
+                      "tail_rows": buckets[-1][1] - buckets[-1][0]}
+    if plans["alexnet"]["flat_len"] != ALEXNET_FLAT:
+        fail(f"AlexNet's flat layout holds {plans['alexnet']['flat_len']}, not {ALEXNET_FLAT}")
+    return plans
+
+
+def falling(losses) -> tuple[float, float]:
+    """The means of the first and the last five losses."""
+    import numpy as np
+
+    return float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+
+
+def convnet_one_rank_phase(torch, card) -> dict:
+    """Phase 4c: ``imagenet`` at full width on one rank (the loop's
+    images/s, which the host's data stream sets; step p50; peak memory),
+    the same step timed over two batches staged on the card, a profile of
+    three steps, and ``mnist`` (config #1's model, SPMD)."""
+    import numpy as np
+
+    from mpit_tpu_torch.asyncsgd import imagenet, mnist
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = imagenet.main(IMAGENET_ARGS + ["--steps", str(IMAGENET_STEPS)])
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = out["losses"]
+    if out["steps"] != IMAGENET_STEPS or not all(math.isfinite(x) for x in losses):
+        fail(f"imagenet one rank: {out['steps']} steps, losses {losses}")
+    first, last = falling(losses)
+    if not last < first:
+        fail(f"imagenet one rank: the last five losses' mean {last} >= the first five's {first}")
+    step_ms = np.asarray(out["step_ms"][2:])
+    p50 = float(np.percentile(step_ms, 50))
+    record = {
+        "args": IMAGENET_ARGS + ["--steps", str(IMAGENET_STEPS)], "steps": out["steps"],
+        "losses": losses, "first5_mean": first, "last5_mean": last, "eval": out["eval"],
+        # The loop's best window can be a burst of the prefetched batches;
+        # the sustained rate is the batch over the step p50.
+        "images_per_sec_best_window": out.get("items_per_sec"),
+        "images_per_sec_p50": 128 * 1e3 / p50,
+        "step_ms_p50": p50, "step_ms_p95": float(np.percentile(step_ms, 95)),
+        "peak_memory_gib": peak / 2**30, "wall_s": wall_s,
+    }
+    record.update(convnet_staged_step(torch))
+    busy = record["profile_3_steps"].get("device_busy_ms_per_step")
+    if busy is not None:  # the step's device work against its time
+        record["staged_device_idle_share"] = max(0.0, 1 - busy / record["staged_step_ms"])
+        record["loop_device_idle_share"] = max(0.0, 1 - busy / p50)
+    print(json.dumps({"card": card, "train_imagenet": record}), flush=True)
+    t0 = time.perf_counter()
+    out = mnist.main(MNIST_ARGS)
+    losses = out["losses"]
+    if not (out["steps"] == 30 and out["final_loss"] < 0.5 < losses[0]
+            and out["eval"]["top1"] > 0.7):
+        fail(f"mnist one rank: steps {out['steps']}, losses {losses}, eval {out['eval']}")
+    mrec = {"args": MNIST_ARGS, "losses": losses, "eval": out["eval"],
+            "images_per_sec": out.get("items_per_sec"), "wall_s": time.perf_counter() - t0}
+    print(json.dumps({"card": card, "train_mnist": mrec}), flush=True)
+    return {"imagenet": record, "mnist": mrec}
+
+
+def convnet_staged_step(torch, steps: int = 20, warmup: int = 5) -> dict:
+    """The 4c step (AlexNet at full width, one rank, goo SGD lr 0.01
+    momentum 0.9, batch 128) over two batches staged on the card,
+    alternated: device ms a step from CUDA events after ``warmup``
+    steps, and the profile of three steps (device time by kernel family,
+    idle share). The host's data stream is out of this loop."""
+    from mpit_tpu_torch.asyncsgd import runner
+    from mpit_tpu_torch.asyncsgd.imagenet import ImagenetConfig
+    from mpit_tpu_torch.data import synthetic_imagenet
+    from mpit_tpu_torch.models import AlexNet
+    from mpit_tpu_torch.train import make_train_step
+
+    cfg = ImagenetConfig()
+    model = AlexNet(device="cuda", generator=torch.Generator().manual_seed(0))
+    loss_fn, _ = runner._classifier_fns(model, top5=False)
+    init_fn, step_fn = make_train_step(loss_fn, runner.build_tx(cfg))
+    state = {"s": init_fn(dict(model.named_parameters()))}
+    stream = synthetic_imagenet(num_classes=cfg.num_classes, seed=0).batches(128)
+    staged = [{k: torch.from_numpy(v).cuda() for k, v in next(stream).items()}
+              for _ in range(2)]
+
+    def one_step(b):
+        state["s"], _ = step_fn(state["s"], b)
+
+    for i in range(warmup):
+        one_step(staged[i % 2])
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for i in range(steps):
+        one_step(staged[i % 2])
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    ms = start.elapsed_time(end) / steps
+    profile = profile_window(torch, one_step, [staged[i % 2] for i in range(3)],
+                             families=CONV_FAMILIES)
+    del model, state, staged
+    torch.cuda.empty_cache()
+    return {"staged_step_ms": ms, "staged_images_per_sec": 128 * 1e3 / ms,
+            "staged_wall_ms_per_step": host_ms, "staged_steps": steps,
+            "profile_3_steps": profile}
+
+
+def convnet_dp_phase(torch, card, plans: dict) -> dict:
+    """Phase 4cd: ``imagenet --mesh data=4 --zero1 true`` through ``ring``
+    and ``ring_q8`` (global batch 128, 20 steps), and ``mnist --mesh
+    data=4 --grad-sync ring`` (config #2): finite losses, the replicas
+    bit-identical, the ring launches (set to 0 just before) buckets x
+    steps for the run's kinds and 0 for the others, the q8 launches on
+    the forms the plan names. Returns each run's launches by kernel."""
+    import numpy as np
+
+    from mpit_tpu_torch.asyncsgd import imagenet, mnist
+    from mpit_tpu_torch.ops import ring_collectives as rc
+
+    runs = {
+        "imagenet_ring": (imagenet.main, "alexnet", "ring", IMAGENET_DP_STEPS,
+                          IMAGENET_ARGS + ["--steps", str(IMAGENET_DP_STEPS)]),
+        "imagenet_ring_q8": (imagenet.main, "alexnet", "ring_q8", IMAGENET_DP_STEPS,
+                             IMAGENET_ARGS + ["--steps", str(IMAGENET_DP_STEPS)]),
+        "mnist_ring": (mnist.main, "lenet", "ring", 30, MNIST_ARGS),
+    }
+    learns = {"mnist_ring": lambda o: o["final_loss"] < 0.5 < o["losses"][0]}
+    launches = {}
+    for name, (main, net, mode, steps, args) in runs.items():
+        args = args + ["--mesh", f"data={CONV_RANKS}", "--zero1", "true", "--grad-sync", mode]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        rc.launches.update(dict.fromkeys(rc.launches, 0))
+        rc.path_launches.update(dict.fromkeys(rc.path_launches, 0))
+        t0 = time.perf_counter()
+        out = main(args)
+        wall_s = time.perf_counter() - t0
+        ring, forms = dict(rc.launches), dict(rc.path_launches)
+        losses = out["losses"]
+        if out["steps"] != steps or not all(math.isfinite(x) for x in losses):
+            fail(f"{name}: {out['steps']} steps, losses {losses}")
+        if not out["replicas_identical"]:
+            fail(f"{name}: the {CONV_RANKS} parameter replicas differ after the run")
+        if not learns.get(name, lambda o: True)(out):
+            fail(f"{name}: losses {losses} do not fall below 0.5")
+        if out["grad_sync"] != mode:
+            fail(f"{name}: the step ran {out['grad_sync']}")
+        plan = plans[net]
+        q = "_q8" if mode == "ring_q8" else ""
+        want = {k: plan["buckets"] * steps if k in (f"ring_rs{q}", f"ring_ag{q}") else 0
+                for k in ring}
+        if ring != want:
+            fail(f"{name}: ring launches {ring}, expected {want}")
+        want_forms = dict.fromkeys(forms, 0)
+        if q:
+            sizes = [plan["first_bucket_rows"]] * (plan["buckets"] - 1) + [plan["tail_rows"]]
+            for rows in sizes:
+                for kind in ("ring_rs_q8", "ring_ag_q8"):
+                    form = rc.q8_plan(kind, CONV_RANKS, rows, torch.float32,
+                                      torch.device("cuda", 0))["form"]
+                    want_forms[form] += steps
+        if forms != want_forms:
+            fail(f"{name}: q8 launches by form {forms}, expected {want_forms}")
+        launches[name] = {k: n for k, n in ring.items() if n}
+        step_ms = np.asarray(out["step_ms"][2:])
+        print(json.dumps({"card": card, "train_convnet_dp": {
+            "run": name, "args": args, "steps": steps, "losses": losses,
+            "first5_mean": falling(losses)[0], "last5_mean": falling(losses)[1],
+            "eval": out["eval"], "images_per_sec_best_window": out.get("items_per_sec"),
+            "images_per_sec_p50": int(args[args.index("--batch-size") + 1]) * 1e3
+            / float(np.percentile(step_ms, 50)),
+            "step_ms_p50": float(np.percentile(step_ms, 50)),
+            "step_ms_p95": float(np.percentile(step_ms, 95)),
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30, "wall_s": wall_s,
+            "replicas_identical": True, "bucket_plan": plan, "ring_launches": ring,
+            "q8_launches_by_form": forms,
+        }}), flush=True)
+    return launches
+
+
+def convnet_parity_phase(torch, card) -> dict:
+    """Phase 4cp: mpiT's pserver/pclient protocol on the card (config #1
+    literally; five ranks with EASGD; config #3 at full width). Every
+    flat message is two launches of the copy kernel (the send snapshot
+    and the delivery): a Downpour client step four (the fetch's reply and
+    the gradient), an EASGD exchange four (the client's parameters and
+    the reply). The launches of each run (set to 0 just before) must be
+    exactly that; the ps_msgs counters and wall time are reported.
+    Returns the launches by run."""
+    from mpit_tpu_torch import obs
+    from mpit_tpu_torch.asyncsgd import imagenet, mnist
+    from mpit_tpu_torch.ops import kv_ship
+
+    runs = {  # name: (main, args, check)
+        "mnist_parity_downpour_2": (mnist.main, ["--mode", "parity", "--nranks", "2",
+                                                 "--steps", "40", "--batch-size", "32"],
+                                    lambda o: o["final_loss"] < o["first_loss"]
+                                    and o["eval"]["accuracy"] > 0.5),
+        "mnist_parity_easgd_5": (mnist.main, ["--mode", "parity", "--nranks", "5",
+                                              "--steps", "60", "--batch-size", "32",
+                                              "--easgd", "true", "--sync-every", "4"],
+                                 lambda o: o["final_loss"] < o["first_loss"]),
+        "imagenet_parity_downpour_5": (imagenet.main, ["--mode", "parity", "--nranks", "5",
+                                                       "--steps", "8", "--batch-size", "128",
+                                                       "--eval-batch", "128"],
+                                       lambda o: all(math.isfinite(x) for x in o["losses"])),
+    }
+    launches = {}
+    for name, (main, args, check) in runs.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kv_ship.launches["kv_ship"] = 0
+        kv_ship.path_launches.update(dict.fromkeys(kv_ship.path_launches, 0))
+        rec = obs.enable(obs.Recorder())
+        try:
+            out = main(args)
+        finally:
+            obs.disable()
+        torch.cuda.synchronize()
+        n, bodies = kv_ship.launches["kv_ship"], dict(kv_ship.path_launches)
+        if not check(out):
+            fail(f"{name}: losses {out['losses']}, eval {out['eval']}")
+        clients = int(args[args.index("--nranks") + 1]) - 1
+        steps = int(args[args.index("--steps") + 1]) // clients
+        if out["protocol"] == "easgd":
+            sync = int(args[args.index("--sync-every") + 1])
+            want = 4 * clients * (steps // sync)
+        else:
+            want = 4 * clients * steps
+        if n != want:
+            fail(f"{name}: {n} copy-kernel launches, expected {want}")
+        msgs = {}
+        for (cname, attrs), v in rec.snapshot()["counters"].items():
+            if cname == "ps_msgs":
+                a = dict(attrs)
+                msgs[f"{a['role']}/{a['kind']}"] = int(v)
+        launches[name] = n
+        print(json.dumps({"card": card, "train_parity": {
+            "run": name, "args": args, "protocol": out["protocol"], "losses": out["losses"],
+            "first_loss": out["first_loss"], "final_loss": out["final_loss"],
+            "eval": out["eval"], "flat_len": out["flat_len"],
+            "message_bytes": out["flat_len"] * 4, "wall_s": out["wall_s"],
+            "kv_ship_launches": n, "kv_ship_by_body": bodies, "ps_msgs": msgs,
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        }}), flush=True)
+    return launches
+
+
+def convnet_parity_f32_phase(torch) -> dict:
+    """Phase 5c: f32 (TF32 off, cuDNN deterministic, no autotuning), three
+    goo SGD steps from one seeded port initialisation over the same
+    global batches: LeNet (batch 32, lr 0.05) and AlexNet at image 128
+    with 8 classes (batch 32, lr 0.01). ``ring`` against ``psum`` at p 4
+    within CONV_PARITY_TOL, ``ring_q8`` within ``0.02 + 0.02·|loss|`` of
+    ``psum`` (the JAX package's pin), and one rank against the four
+    ranks' ``psum`` within CONV_RANKS_TOL."""
+    from mpit_tpu_torch import comm
+    from mpit_tpu_torch.asyncsgd import runner
+    from mpit_tpu_torch.data import shard_batch, synthetic_imagenet, synthetic_mnist
+    from mpit_tpu_torch.models import AlexNet, LeNet
+    from mpit_tpu_torch.opt import goo
+    from mpit_tpu_torch.train import make_train_step
+
+    nets = {
+        "lenet": (lambda **kw: LeNet(**kw), synthetic_mnist(seed=0), 0.05),
+        "alexnet_128_c8": (lambda **kw: AlexNet(8, torch.float32, image_size=128, **kw),
+                           synthetic_imagenet(image_size=128, num_classes=8, seed=0), 0.01),
+    }
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    out = {}
+    try:
+        for net, (make, ds, lr) in nets.items():
+            init = make(generator=torch.Generator().manual_seed(0)).state_dict()
+            stream = ds.batches(32)
+            batches = [next(stream) for _ in range(3)]
+            losses = {}
+            for mode in ("one_rank", "psum", "ring", "ring_q8"):
+                p = 1 if mode == "one_rank" else CONV_RANKS
+                models = [make(device="cuda") for _ in range(p)]
+                for m in models:
+                    m.load_state_dict(init)
+                fns = [runner._classifier_fns(m, top5=False)[0] for m in models]
+                world = None if p == 1 else comm.init({"data": p}, devices=["cuda"])
+                init_fn, step_fn = make_train_step(
+                    fns[0] if world is None else fns, goo(lr, 0.9), world,
+                    grad_sync="psum" if p == 1 else mode,
+                )
+                named = [dict(m.named_parameters()) for m in models]
+                state = init_fn(named[0] if world is None else named)
+                losses[mode] = []
+                for b in batches:
+                    b = ({k: torch.from_numpy(v).cuda() for k, v in b.items()}
+                         if world is None else shard_batch(world, b))
+                    state, m = step_fn(state, b)
+                    losses[mode].append(m["loss"].item())
+                if not state.replicas_equal():
+                    fail(f"parity f32 {net} {mode}: replicas differ")
+                del models, state, step_fn
+                torch.cuda.empty_cache()
+            rel = max(abs(a - b) / abs(b) for a, b in zip(losses["ring"], losses["psum"]))
+            if not rel <= CONV_PARITY_TOL:
+                fail(f"parity f32 {net}: ring {losses['ring']} vs psum {losses['psum']}")
+            gaps = [abs(a - b) for a, b in zip(losses["psum"], losses["ring_q8"])]
+            if any(g > 0.02 + 0.02 * abs(a) for a, g in zip(losses["psum"], gaps)):
+                fail(f"parity f32 {net}: ring_q8 {losses['ring_q8']} vs psum {losses['psum']}")
+            one = max(abs(a - b) / abs(b) for a, b in zip(losses["one_rank"], losses["psum"]))
+            if not one <= CONV_RANKS_TOL:
+                fail(f"parity f32 {net}: one rank {losses['one_rank']} vs four {losses['psum']}")
+            out[net] = {"losses": losses, "ring_max_rel_diff": rel,
+                        "ring_q8_max_abs_gap": max(gaps), "one_rank_max_rel_diff": one}
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+    print(json.dumps({"convnet_parity_f32": out}), flush=True)
+    return out
+
+
+def convnet_phases(torch, card, plans: dict) -> dict:
+    """Phases 4c, 4cd, 4cp and 5c in turn; their records also go to
+    ``chiprun_out/chip_smoke_convnets.json``. Returns the main paths'
+    launches: the ring kernels' by run and kernel, the copy kernel's by
+    run."""
+    t0 = time.perf_counter()
+    one = convnet_one_rank_phase(torch, card)
+    print(f"phase 4c: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    ring = convnet_dp_phase(torch, card, plans)
+    print(f"phase 4cd: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    ship = convnet_parity_phase(torch, card)
+    print(f"phase 4cp: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    parity = convnet_parity_f32_phase(torch)
+    print(f"phase 5c: {time.perf_counter() - t0:.1f} s", flush=True)
+    launches = {"ring": ring, "kv_ship": ship}
+    OUT.mkdir(exist_ok=True)
+    (OUT / "chip_smoke_convnets.json").write_text(json.dumps(
+        {"card": card, "bucket_plans": plans, "one_rank": one, "launches": launches,
+         "parity_f32": parity}, indent=1))
+    return {"launches": launches}
+
+
 def main() -> None:
     import torch
 
@@ -2142,6 +2611,11 @@ def main() -> None:
         build.build(build.KERNEL_SOURCES)
         print(json.dumps({"card": card, "train_dp_profile": dp_profile(torch, sys.argv[2])}))
         return
+    if sys.argv[1:2] == ["convnets"]:  # the convnet phases alone (4c, 4cd, 4cp, 5c)
+        build.build(build.KERNEL_SOURCES)
+        conv = convnet_phases(torch, card, convnet_bucket_plans(torch))
+        print(json.dumps({"card": card, "convnet_launches": conv["launches"]}))
+        return
     t0 = time.perf_counter()
     logs = build.build(build.KERNEL_SOURCES, force=True)
     build_s = time.perf_counter() - t0
@@ -2159,16 +2633,18 @@ def main() -> None:
     )
     flash_cases = flash_kernel_phase(torch, flush)
     plan = dp_bucket_plan(torch)
-    ring_cases = ring_kernel_phase(torch, flush, plan["tail_rows"])
+    conv_plans = convnet_bucket_plans(torch)
+    ring_cases = ring_kernel_phase(torch, flush, plan["tail_rows"], conv_plans)
     t0 = time.perf_counter()
     ship_cases = ship_kernel_phase(torch, flush)
     print(f"phase 3f: {time.perf_counter() - t0:.1f} s", flush=True)
     (OUT / "chip_smoke_ship.json").write_text(
         json.dumps({"card": card, "cases": ship_cases}, indent=1)
     )
-    (OUT / "chip_smoke_ring.json").write_text(
-        json.dumps({"card": card, "bucket_plan": plan, "cases": ring_cases}, indent=1)
-    )
+    (OUT / "chip_smoke_ring.json").write_text(json.dumps(
+        {"card": card, "bucket_plan": plan, "convnet_bucket_plans": conv_plans,
+         "cases": ring_cases}, indent=1
+    ))
     (OUT / "chip_smoke_kernels.json").write_text(json.dumps({"card": card, "cases": cases}, indent=1))
     (OUT / "chip_smoke_flash.json").write_text(
         json.dumps({"card": card, "cases": flash_cases}, indent=1)
@@ -2226,6 +2702,7 @@ def main() -> None:
         print(json.dumps({"card": card, "train_dp_profile": dp_profile(torch, mode)}),
               flush=True)
     dp_parity_phase(torch, dp_losses["ring_q8"])
+    conv = convnet_phases(torch, card, conv_plans)
 
     kernels = []
     # Each decode form twice: at T 1 (the tick, split body) and at its
@@ -2310,7 +2787,10 @@ def main() -> None:
             "source": "mpit_tpu_torch/csrc/ring_collectives.cu",
             "replaces": f"mpit_tpu/ops/ring_collectives.py:{body}",
             "call_site": "mpit_tpu/ops/ring_collectives.py:550",
-            "launches": ring_launches[name],
+            "launches": ring_launches[name] + sum(
+                r.get(name, 0) for r in conv["launches"]["ring"].values()),
+            "launches_by_run": {"gpt2_dp": ring_launches[name], **{
+                run: r[name] for run, r in conv["launches"]["ring"].items() if name in r}},
             **{k: head[k] for k in ("schedule", "max_abs_err", "ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms", "library", "ring_schedule_bytes",
                                     "device_ms")},
@@ -2330,8 +2810,8 @@ def main() -> None:
         "replaces": "mpit_tpu/serve/shipment.py:301",
         "call_site": "mpit_tpu/serve/shipment.py:313",
         "path": head["body"],
-        "launches": sum(ship_launches.values()),
-        "launches_by_run": ship_launches,
+        "launches": sum(ship_launches.values()) + sum(conv["launches"]["kv_ship"].values()),
+        "launches_by_run": {**ship_launches, **conv["launches"]["kv_ship"]},
         **{k: head[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                 "library_ms", "library", "device_ms", "library_device_ms")},
         "shape": {"bytes": head["bytes"], "dtype": head["dtype"]},

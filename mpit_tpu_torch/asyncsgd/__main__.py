@@ -1,10 +1,15 @@
 """Workload launcher: ``python -m mpit_tpu_torch.asyncsgd <workload> [options]``.
 
-The port of :mod:`mpit_tpu.asyncsgd.__main__`. ``gpt2`` trains on the
-GPU, on one rank or over ``--mesh data=N`` ranks (``--device cpu`` for
-the CPU); ``mnist``, ``imagenet`` and
-``resnet`` arrive with a later slice and raise ``SystemExit`` naming
-it. Prints the workload's result as one JSON line.
+The port of :mod:`mpit_tpu.asyncsgd.__main__`. ``mnist``, ``imagenet``
+and ``gpt2`` train on the GPU, on one rank or over ``--mesh data=N``
+ranks, and the convnets also under ``--mode parity --nranks N`` (1
+pserver + N - 1 pclients); ``--device cpu`` runs on the CPU. ``resnet``
+arrives with a later slice and raises ``SystemExit`` naming it. Prints
+the workload's result as one JSON line.
+
+    python -m mpit_tpu_torch.asyncsgd mnist --steps 30 --batch-size 32
+    python -m mpit_tpu_torch.asyncsgd imagenet --mesh data=4 --grad-sync ring
+    python -m mpit_tpu_torch.asyncsgd mnist --mode parity --nranks 2 --device cpu
 """
 
 from __future__ import annotations

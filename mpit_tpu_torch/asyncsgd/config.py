@@ -3,10 +3,11 @@
 The port of :mod:`mpit_tpu.asyncsgd.config`: each workload is a plain
 dataclass and its command line is generated from the fields
 (:func:`mpit_tpu_torch.config.from_argv`, with ``overrides``). The
-fields are those of the JAX package that this slice reads; every other
+fields are those of the JAX package that the port reads; every other
 flag of the JAX CLI still parses, and raises ``SystemExit`` naming the
-slice that brings it (``asyncsgd.runner.LATER_FLAGS``). ``device`` is
-the port's own: ``cuda`` (the default) or ``cpu``.
+slice that brings it (``asyncsgd.runner.LATER_FLAGS``). Two fields are
+the port's own: ``device`` (``cuda``, the default, or ``cpu``) and
+``ps_timeout`` (the parity mode's compat job limit).
 """
 
 from __future__ import annotations
@@ -21,13 +22,16 @@ __all__ = ["TrainConfig", "add_dataclass_args", "from_argv", "parse_mesh"]
 @dataclasses.dataclass
 class TrainConfig:
     """Options shared by every workload script (the Lua ``opt`` table
-    analogue). Only the ``spmd`` mode is ported: one rank, or ``--mesh
-    data=N`` ranks driven from this process."""
+    analogue). ``mode``: ``spmd`` (one rank, or ``--mesh data=N`` ranks
+    driven from this process) or ``parity`` (1 parameter server +
+    ``nranks - 1`` clients on the compat simulator); ``elastic`` arrives
+    with a later slice."""
 
     mode: str = "spmd"  # spmd | parity | elastic
     steps: int = 200
-    batch_size: int = 64  # global batch
+    batch_size: int = 64  # global (split over the ranks or the clients)
     lr: float = 0.05
+    momentum: float = 0.9  # goo SGD (the convnets); gpt2 trains with goo_adam
     weight_decay: float = 0.0
     # lr schedule (opt/schedules.py): "" = constant, "warmup",
     # "warmup_cosine", "step".
@@ -43,8 +47,20 @@ class TrainConfig:
     # per grad bucket; "ring_q8" = the ring with the int8 wire (lossy).
     grad_sync: str = "psum"  # psum | ring | ring_q8
     grad_bucket_mb: float = 4.0  # ring tiers: bucket size (MB of f32)
+    easgd: bool = False  # parity: elastic averaging in place of Downpour
+    easgd_alpha: float = 0.125
+    sync_every: int = 1  # parity: client steps between server exchanges
+    nranks: int = 2  # parity: 1 server + (nranks - 1) clients
+    # parity: the compat job's wall-clock limit (s); a longer run is
+    # taken for a deadlock and aborted with every rank's mailbox state.
+    ps_timeout: float = 600.0
     mesh: str = ""  # e.g. "data=4"; "" = one rank
     log_every: int = 50
+    eval_batch: int = 256
+    # Every N steps (and at the last) the val split's sweep is logged as
+    # eval_* rows; 0 = one held-out batch evaluated at the end.
+    eval_every: int = 0
+    eval_batches: int = 0  # cap the sweep (0 = the synthetic split's 8)
     spike_factor: float = 0.0  # >0: treat loss > factor * EMA as divergence
     fetch_lag: int = 2  # losses read back this many log points late
     prefetch_depth: int = 2  # host batches staged ahead of the step

@@ -1,0 +1,52 @@
+"""MNIST LeNet: baseline configs #1 and #2, on the GPU. The port of
+:mod:`mpit_tpu.asyncsgd.mnist`.
+
+Both shapes of the reference run from this one script:
+
+- ``--mode spmd`` (the default): the collapsed step, on one rank or
+  over ``--mesh data=N`` ranks (config #2's four clients are ``--mesh
+  data=4``; ``--grad-sync ring|ring_q8`` syncs through the ring kernels);
+- ``--mode parity --nranks 2`` / ``--nranks 5``: the reference-shaped
+  1 server + N clients protocol on the compat simulator (Downpour, or
+  ``--easgd true`` for elastic averaging), every message on the card.
+
+    python -m mpit_tpu_torch.asyncsgd mnist --steps 30 --batch-size 32
+    python -m mpit_tpu_torch.asyncsgd mnist --mesh data=4 --grad-sync ring
+    python -m mpit_tpu_torch.asyncsgd mnist --mode parity --nranks 5 --easgd true
+    python -m mpit_tpu_torch.asyncsgd mnist --device cpu --steps 30 --batch-size 32
+
+Data is the synthetic MNIST stream (28×28×1, 10 classes, prototype plus
+noise), bit for bit the JAX package's.
+"""
+
+from __future__ import annotations
+
+from mpit_tpu_torch.asyncsgd import runner
+from mpit_tpu_torch.asyncsgd.config import TrainConfig, from_argv
+from mpit_tpu_torch.data import synthetic_mnist
+from mpit_tpu_torch.models import LeNet
+from mpit_tpu_torch.serve.engine import resolve_device
+
+__all__ = ["main"]
+
+
+def main(argv: list[str] | None = None, *, initial_params=None, **overrides) -> dict:
+    """Train LeNet as the flags say. ``initial_params`` (a ``state_dict``,
+    e.g. :func:`mpit_tpu_torch.models.layers.params_from_jax` of the JAX
+    package's ``model.init``) replaces the seeded initialisation;
+    ``overrides`` replace flag values."""
+    cfg = from_argv(TrainConfig, argv, prog="asyncsgd.mnist", overrides=overrides,
+                    later=runner.LATER_FLAGS)
+    runner.reject_later_slices(cfg)
+    resolve_device(cfg.device)  # fail before the dataset is built
+    print(runner.describe(cfg, "mnist-lenet"))
+    dataset = runner.classification_dataset(cfg, lambda: synthetic_mnist(seed=cfg.seed))
+
+    def make_model(**kw):
+        return LeNet(num_classes=dataset.num_classes, **kw)
+
+    return runner.run_classifier(cfg, make_model, dataset, initial_params=initial_params)
+
+
+if __name__ == "__main__":
+    print(main())

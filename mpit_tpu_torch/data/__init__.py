@@ -2,6 +2,17 @@
 World's ranks."""
 
 from mpit_tpu_torch.data.loader import shard_batch
-from mpit_tpu_torch.data.synthetic import SyntheticLM
+from mpit_tpu_torch.data.synthetic import (
+    SyntheticClassification,
+    SyntheticLM,
+    synthetic_imagenet,
+    synthetic_mnist,
+)
 
-__all__ = ["SyntheticLM", "shard_batch"]
+__all__ = [
+    "SyntheticClassification",
+    "SyntheticLM",
+    "shard_batch",
+    "synthetic_imagenet",
+    "synthetic_mnist",
+]

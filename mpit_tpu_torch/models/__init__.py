@@ -1,5 +1,6 @@
-"""Models of the port."""
+"""Models of the port: GPT-2, and the convnets LeNet and AlexNet."""
 
+from mpit_tpu_torch.models.alexnet import AlexNet
 from mpit_tpu_torch.models.gpt2 import (
     GPT2,
     GPT2Config,
@@ -10,10 +11,13 @@ from mpit_tpu_torch.models.gpt2 import (
     paged_cached_attention,
     paged_gather,
 )
+from mpit_tpu_torch.models.lenet import LeNet
 
 __all__ = [
+    "AlexNet",
     "GPT2",
     "GPT2Config",
+    "LeNet",
     "cache_update",
     "cached_attention",
     "default_attention",

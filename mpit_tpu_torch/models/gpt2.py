@@ -55,6 +55,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from mpit_tpu_torch.models.layers import lecun_normal_
 from mpit_tpu_torch.ops.kv_quant import QuantizedKV, dequantize_kv, quantize_kv
 from mpit_tpu_torch.ops.lm_head import lm_head_xent
 from mpit_tpu_torch.ops.quantized_matmul import (
@@ -277,13 +278,6 @@ class GPT2Config:
         return GPT2Config(**defaults)
 
 
-def _lecun_normal_(w: torch.Tensor, generator) -> None:
-    """flax's ``lecun_normal``: a normal truncated at two standard
-    deviations, scaled so the variance is ``1 / fan_in``."""
-    std = math.sqrt(1.0 / w.shape[0]) / 0.87962566103423978
-    nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
-
-
 class QuantizedWeight(nn.Module):
     """The seat of one int8-stored weight ``[rows, cols]``: buffers ``q``
     int8 and ``scale`` f32 ``[rows, 1]``, which ``state_dict`` carries
@@ -330,7 +324,7 @@ class Dense(nn.Module):
         self.matmul_fn = quant_matmul_fn
 
     def reset_parameters(self, generator) -> None:
-        _lecun_normal_(self.kernel.data, generator)
+        lecun_normal_(self.kernel.data, generator)
         self.bias.data.zero_()
 
     def forward(self, x):

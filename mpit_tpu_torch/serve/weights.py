@@ -18,12 +18,13 @@ tree, as the port's :class:`~mpit_tpu_torch.models.GPT2` state.
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Mapping
 
 import numpy as np
 import torch
 
 from mpit_tpu_torch.models.gpt2 import GPT2Config
+from mpit_tpu_torch.models.layers import flatten_tree
 from mpit_tpu_torch.ops.quantized_matmul import quantize_tensor
 
 __all__ = [
@@ -67,18 +68,6 @@ def expected_param_shapes(cfg: GPT2Config) -> dict[str, tuple[int, ...]]:
     return out
 
 
-def _flatten(tree: Mapping, prefix: str = "") -> dict[str, Any]:
-    """Nested dicts → ``/``-joined keys; an already flat dict passes."""
-    flat: dict[str, Any] = {}
-    for key, val in tree.items():
-        path = f"{prefix}{key}"
-        if isinstance(val, Mapping):
-            flat.update(_flatten(val, path + "/"))
-        else:
-            flat[path] = val
-    return flat
-
-
 def infer_config(
     params: Mapping, *, num_heads: int = 0, meta: Mapping | None = None
 ) -> GPT2Config:
@@ -86,7 +75,7 @@ def infer_config(
     Every geometry field except the head count follows from the shapes;
     the head count is ``num_heads``, else the checkpoint's ``meta``,
     else GPT-2's ``d_model / 64``."""
-    flat = _flatten(params)
+    flat = flatten_tree(params)
     vocab, d_model = flat["wte"].shape
     max_seq_len = flat["wpe"].shape[0]
     num_layers = len({k.split("/")[0] for k in flat if k.startswith("block_")})
@@ -116,7 +105,7 @@ def validate_params(cfg: GPT2Config, params: Mapping) -> None:
     """Raise with a precise diff when ``params`` deviates from
     :func:`expected_param_shapes`."""
     expected = expected_param_shapes(cfg)
-    got = {k: tuple(np.shape(v)) for k, v in _flatten(params).items()}
+    got = {k: tuple(np.shape(v)) for k, v in flatten_tree(params).items()}
     missing = sorted(set(expected) - set(got))
     extra = sorted(set(got) - set(expected))
     wrong = sorted(
@@ -177,7 +166,7 @@ def params_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
     ``<name>.q`` int8 and ``<name>.scale`` f32, bit for bit. Any other
     leaf raises with its path."""
     state = {}
-    for path, leaf in _flatten(params).items():
+    for path, leaf in flatten_tree(params).items():
         parts = path.split("/")
         if parts[0].startswith("block_"):
             parts = ["blocks", parts[0][len("block_"):], *parts[1:]]

@@ -3,8 +3,8 @@ divergence guard and the SIGTERM drain.
 
 The port of :func:`mpit_tpu.train.loop.hardened_loop`, without what a
 checkpoint brings (periodic saves, divergence restore, the preemption
-checkpoint), the profile window, the roofline registration, the
-sentinel and the eval hook: those arrive with later slices of the port.
+checkpoint), the profile window, the roofline registration and the
+sentinel: those arrive with later slices of the port.
 
 - **Prefetch.** A background thread draws host batches ahead of the
   step into a queue of ``prefetch_depth``, as torch tensors in pinned
@@ -30,6 +30,11 @@ sentinel and the eval hook: those arrive with later slices of the port.
   when no checkpoint is older than the failing step).
 - **SIGTERM drain.** A SIGTERM (from the main thread's handler) ends
   the run after the step in flight; the result says ``preempted``.
+- **Eval.** With ``eval_every`` and ``eval_hook``, the hook runs on the
+  state every ``eval_every`` steps and after the last step, in an
+  ``eval`` span; its metrics are logged as ``eval_<name>`` and the last
+  result is returned as ``eval``. The device time of an eval falls into
+  the next step's ``step_ms`` (its mark is taken before the eval).
 """
 
 from __future__ import annotations
@@ -125,6 +130,8 @@ def hardened_loop(
     prefetch_depth: int = 2,
     step_attrs: dict | None = None,
     world=None,
+    eval_every: int = 0,
+    eval_hook: Callable | None = None,
 ) -> dict:
     """Drive ``step_fn(state, batch) -> (state, metrics)`` from
     ``state.step`` to ``steps``; ``metrics["loss"]`` is a device scalar.
@@ -132,11 +139,13 @@ def hardened_loop(
     ``batches`` is the host iterator, already past the batches
     ``state.step`` consumed. ``step_attrs`` label every ``step`` span.
     ``world``: split each batch over its ranks for the step.
+    ``eval_hook(state) -> metrics`` runs every ``eval_every`` steps and
+    after the last step.
     Returns ``{"state", "steps", "losses", "final_loss", "restores",
     "preempted", "step_ms"}`` (``step_ms``: one per step, the first
     holding the run's set-up) plus ``items_per_sec`` (best window),
     ``items_per_sec_last`` and ``items_per_sec_mean`` once a window
-    closed."""
+    closed, and ``eval`` (the last hook's metrics) once one ran."""
     device = torch.device(device)
     logger = logger or MetricLogger()
     step_attrs = step_attrs or {}
@@ -161,6 +170,7 @@ def hardened_loop(
         return a.elapsed_time(b) / 1e3
 
     marks = [mark()]  # marks[i]: the end of step start + i (0: the start)
+    last_eval: dict | None = None
 
     preempted = {"flag": False}
 
@@ -217,6 +227,11 @@ def hardened_loop(
             while pending and (len(pending) > fetch_lag or step == steps):
                 burst.append(pending.popleft())
             consume(burst, step)
+            if eval_hook and eval_every and (step % eval_every == 0 or step == steps):
+                with obs.span("eval"):
+                    last_eval = eval_hook(state)
+                if last_eval:
+                    logger.log(step, {"eval_" + k: v for k, v in last_eval.items()})
         consume(list(pending), step)
     finally:
         stream.close()
@@ -236,6 +251,8 @@ def hardened_loop(
         "preempted": preempted["flag"],
         "step_ms": step_ms,
     }
+    if last_eval:  # an empty sweep records nothing
+        out["eval"] = last_eval
     if rate_trace:
         out["items_per_sec"] = round(max(rate_trace), 2)
         out["items_per_sec_last"] = round(rate_trace[-1], 2)

@@ -27,6 +27,10 @@ state IN PLACE under ``torch.no_grad()``.
     the replicas stay bit-identical (:meth:`TrainState.replicas_equal`).
 
   Metrics are the mean over the ranks, summed in rank order.
+
+:func:`make_eval_step` is the eval counterpart: ``eval_fn`` on every
+rank's slice of the batch, its metrics combined over the ranks in rank
+order (the exact-count contract of JAX's ``make_eval_step``).
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ import torch
 from mpit_tpu_torch.opt.sharded import FlatLayout, padded_len, sharded
 from mpit_tpu_torch.train.grad_sync import GRAD_SYNC_MODES, GradSync
 
-__all__ = ["FlatReplicas", "TrainState", "make_train_step"]
+__all__ = ["FlatReplicas", "TrainState", "make_eval_step", "make_train_step"]
 
 
 class FlatReplicas:
@@ -228,3 +232,40 @@ def _ranks(loss_fn, tx, world, zero1: bool, gs: GradSync):
     step_fn.grad_sync_mode = gs.exec_mode
     step_fn.grad_sync = gs
     return init_fn, step_fn
+
+
+def make_eval_step(eval_fn, world=None):
+    """Build ``eval_step(state, batch) -> metrics`` on one rank (``world``
+    None) or over a World's ranks: the port of JAX's ``make_eval_step``.
+
+    ``eval_fn(params, batch) -> metrics`` (scalar tensors), or a list of
+    one per rank; it runs under ``torch.no_grad()`` on each rank's
+    parameters and slice of the batch (one mapping on one rank, a list
+    of one per rank otherwise), and the ranks' metrics are combined in
+    rank order. Exact-count contract: where ``eval_fn`` returns a
+    ``"_weight"`` (its count of real, unpadded rows), every other metric
+    is a weighted mean, combined as ``Σ m·w / max(Σ w, 1)``, and the
+    result's ``"_weight"`` is ``Σ w``; without one, the plain mean over
+    the ranks."""
+    p = 1 if world is None else world.num_devices
+    eval_fns = list(eval_fn) if isinstance(eval_fn, (list, tuple)) else [eval_fn] * p
+    if len(eval_fns) != p:
+        raise ValueError(f"{len(eval_fns)} eval functions for {p} ranks")
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch):
+        params = [state.params] if world is None else state.params
+        batches = [batch] if world is None else batch
+        if len(batches) != p:
+            raise ValueError(f"{len(batches)} batches for {p} ranks")
+        ranks = [dict(eval_fns[r](params[r], batches[r])) for r in range(p)]
+        weights = [m.pop("_weight", None) for m in ranks]
+        if weights[0] is None:
+            return {k: sum(m[k] for m in ranks) / p for k in ranks[0]}
+        wsum = sum(weights)
+        out = {k: sum(m[k] * w for m, w in zip(ranks, weights)) / wsum.clamp_min(1.0)
+               for k in ranks[0]}
+        out["_weight"] = wsum
+        return out
+
+    return eval_step

@@ -15,9 +15,11 @@ the ring reduce-scatter and all-gather kernels, sum and int8 wire
 (bit-equal to their plain versions: the sum forms as the one-card fold
 and copy, the q8 reduce-scatter as the q8 fold and the q8 all-gather as
 the q8 copy, each in both its forms; and in tiny training steps over
-four ranks against the plain collectives), and the KV shipment's copy kernel
-(bit-exact at every alignment on both its bodies, behind the compat
-simulator's CUDA messages and a tiny fleet's shipments).
+four ranks against the plain collectives; and at the convnets' bucket
+plans), and the KV shipment's copy kernel
+(bit-exact at every alignment on both its bodies and at AlexNet's
+244.4 MB flat message, behind the compat simulator's CUDA messages, a
+tiny fleet's shipments and the parameter-server actors).
 
 Every test here needs an NVIDIA GPU (the kernel has no CPU mode): each
 carries the ``cuda`` marker and skips, with its reason, where there is
@@ -1114,3 +1116,114 @@ def test_tiny_fleet_on_the_card_equals_server(cuda, geo):
     shipments = sum(w.get("processed", 0) for w in out["workers"])
     assert shipments == len(prompts)
     assert kv_ship.launches["kv_ship"] - before == 2 * shipments
+
+
+# ---- the convnet slice: B1 at its bucket plans, B5 at its flat message --------
+
+
+def _convnet_bucket_plan(model, p=4):
+    """The ZeRO-1 shard's rows over ``p`` ranks and the bucket rows of
+    ``model``'s flat layout (4 MB buckets, the default)."""
+    from mpit_tpu_torch import comm
+    from mpit_tpu_torch.opt.sharded import FlatLayout, padded_len
+    from mpit_tpu_torch.train.grad_sync import GradSync
+
+    layout = FlatLayout(dict(model.named_parameters()))
+    rows = padded_len(layout.total, p) // (p * 128)
+    world = comm.init({"data": p}, devices=["cuda"])
+    return rows, GradSync(world, "ring").bucket_rows(rows)
+
+
+@pytest.mark.parametrize("net", ["alexnet", "lenet"])
+@pytest.mark.parametrize("form", ["sum", "q8"])
+def test_ring_kernels_at_the_convnet_bucket_plans(cuda, net, form):
+    """AlexNet at p 4: 15 buckets of its 119,338-row shard, a full
+    8192-row one and the ragged tail (4650 rows) read in place from the
+    flat buffer; LeNet: one 122-row bucket. Each kind bit-equal to its
+    plain version."""
+    from mpit_tpu_torch.models import AlexNet, LeNet
+    from mpit_tpu_torch.ops import ring_collectives as rc
+
+    p, quantized = 4, form == "q8"
+    model = AlexNet(device="meta") if net == "alexnet" else LeNet(device="meta")
+    rows, buckets = _convnet_bucket_plan(model, p)
+    if net == "alexnet":
+        assert (rows, len(buckets), buckets[-1][1] - buckets[-1][0]) == (119_338, 15, 4650)
+        picked = [buckets[0], buckets[-1]]
+    else:
+        assert buckets == [(0, 122)]
+        picked = buckets
+    wide = _ring_input((p, p, rows, 128), torch.float32, 90 + quantized)
+    for r0, r1 in picked:
+        xs = wide[:, :, r0:r1]
+        got = rc.reduce_scatter_chunks(xs, quantized=quantized)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(got), _bits(rc.reduce_scatter_plain(xs, quantized=quantized)))
+        shards = got[:, : r1 - r0]
+        full = rc.all_gather_chunks(shards, quantized=quantized)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(full), _bits(rc.all_gather_plain(shards, quantized=quantized)))
+    assert rc.device_error() is None
+
+
+def test_kv_ship_at_the_alexnet_flat_message(cuda):
+    """The parity protocol's AlexNet message, 61,101,056 f32 elements
+    (244.4 MB): the copy kernel equals ``copy_`` bit for bit, on the
+    ``stream`` body, one launch."""
+    from mpit_tpu_torch.models import AlexNet
+    from mpit_tpu_torch.ops import kv_ship
+    from mpit_tpu_torch.opt.sharded import FlatLayout
+
+    n = FlatLayout(dict(AlexNet(device="meta").named_parameters())).total
+    assert n == 61_101_056
+    src = _ring_input((n,), torch.float32, 5)
+    dst, want = torch.empty_like(src), torch.empty_like(src)
+    assert kv_ship.kernel_plan(src, dst)["body"] == "stream"
+    before = kv_ship.launches["kv_ship"]
+    kv_ship.ship_bytes(src, dst)
+    torch.cuda.synchronize()
+    assert kv_ship.launches["kv_ship"] == before + 1
+    want.copy_(src)
+    assert torch.equal(_bits(dst), _bits(want))
+
+
+@pytest.mark.parametrize("protocol", ["downpour", "easgd"])
+def test_parameter_server_on_the_card_equals_the_cpu(cuda, protocol):
+    """The parity actors with the flat vectors on the card: every reply
+    and the final server parameters equal the CPU run's within 1e-6;
+    every flat message is two copy-kernel launches (the send snapshot and
+    the delivery), the control messages stay on the CPU."""
+    from mpit_tpu_torch.asyncsgd import actors
+    from mpit_tpu_torch.opt import goo
+    from mpit_tpu_torch.ops import kv_ship
+
+    rng = np.random.default_rng(3)
+    n, rounds = 100_000, 4
+    flat0 = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+    payloads = [torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+                for _ in range(rounds)]
+
+    def run(device):
+        def client(c, widx):
+            replies = []
+            for k, x in enumerate(payloads):
+                x = x.to(device)
+                if protocol == "downpour":
+                    replies.append(c.fetch().clone())
+                    c.push_grad(x)
+                else:
+                    replies.append(c.elastic_exchange(x + k, 0.25))
+            return [r.cpu() for r in replies]
+
+        return actors.run_parameter_server(flat0.to(device), goo(0.1, 0.9), client,
+                                           nranks=2, easgd_alpha=0.25, timeout=60)
+
+    before = kv_ship.launches["kv_ship"]
+    got = run("cuda")
+    torch.cuda.synchronize()
+    assert kv_ship.launches["kv_ship"] - before == 4 * rounds
+    want = run("cpu")
+    for a, b in zip(got[1], want[1]):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+    assert got[0].device.type == "cuda"
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-6, atol=1e-6)

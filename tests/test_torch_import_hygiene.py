@@ -40,5 +40,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert out["banned"] == []
     for name in ("mpit_tpu_torch.compat.simulator", "mpit_tpu_torch.ops.kv_ship",
                  "mpit_tpu_torch.serve.fleet", "mpit_tpu_torch.obs.aggregate",
-                 "mpit_tpu_torch.serve.__main__"):
+                 "mpit_tpu_torch.serve.__main__", "mpit_tpu_torch.asyncsgd.actors",
+                 "mpit_tpu_torch.asyncsgd.mnist", "mpit_tpu_torch.asyncsgd.imagenet",
+                 "mpit_tpu_torch.models.lenet", "mpit_tpu_torch.models.alexnet",
+                 "mpit_tpu_torch.models.layers"):
         assert name in out["modules"], name

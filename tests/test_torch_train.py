@@ -328,7 +328,7 @@ def test_cli_trains_tiny_on_the_cpu(capsys):
 @pytest.mark.parametrize(
     "argv",
     [
-        ["mnist"], ["imagenet"], ["resnet"],
+        ["mnist", "--mode", "elastic"], ["imagenet", "--augment", "true"], ["resnet"],
         ["gpt2", "--mesh", "data=1,model=2"],
         ["gpt2", "--mesh", "seq=2"], ["gpt2", "--mesh", "data=1,pipe=2"],
         ["gpt2", "--mesh", "data=1,expert=2"], ["gpt2", "--data-dir", "/d"],
@@ -339,9 +339,9 @@ def test_cli_trains_tiny_on_the_cpu(capsys):
         ["gpt2", "--mode", "elastic"], ["gpt2", "--ulysses", "true"],
         ["gpt2", "--prefetch-workers", "2"], ["gpt2", "--prefetch-max-depth", "2"],
         ["gpt2", "--moe-experts", "16"], ["gpt2", "--pp-schedule", "1f1b"],
-        ["gpt2", "--fsdp-axis", "data"], ["gpt2", "--eval-every", "10"],
+        ["gpt2", "--fsdp-axis", "data"], ["gpt2", "--easgd-beta", "0.5"],
         ["gpt2", "--max-restores", "3"], ["gpt2", "--ckpt-every", "5"],
-        ["gpt2", "--momentum", "0.5"], ["gpt2", "--nranks", "4"],
+        ["gpt2", "--lease-s", "2"], ["gpt2", "--augment", "true"],
     ],
     ids=lambda a: "_".join(a).replace("-", ""),
 )
