@@ -5,6 +5,7 @@ one GPU, training on one rank and over four data-parallel ranks.
     python3 chip_smoke.py
     python3 chip_smoke.py dp_profile ring_q8   # phase 4d's profile of one mode alone
     python3 chip_smoke.py convnets             # phases 4c, 4cd, 4cp and 5c alone
+    python3 chip_smoke.py resnet               # 3e at ResNet-50's plan, then 4r, 4rd, 5r
 
 Run from the root of a checkout on a machine with an NVIDIA GPU (written
 for an H100). Phases, each of which raises (exit code != 0) on failure:
@@ -288,6 +289,36 @@ workload's ``main`` in process and raising on failure:
 Their records go to ``chiprun_out/chip_smoke_convnets.json``; the
 kernels line's ring and copy rows count their launches by run.
 
+ResNet-50 (BASELINE.json's config #4). Phase 3e also holds the ring
+kernels at its bucket plan over four ranks (7 buckets of its 49,924-row
+shard: a full 8192-row bucket and the 772-row tail, read in place), both
+kinds, sum and q8, bit for bit. Then, through ``resnet``'s ``main`` in
+process and raising on failure:
+
+4r. ResNet-50 on one rank — at full width (224 x 224, 1000 classes, the
+   s2d stem, bf16 compute, f32 parameters and BatchNorm statistics, goo
+   SGD lr 0.1 momentum 0.9 weight decay 1e-4, batch 128, 20 steps, seed
+   0): finite losses and a finite eval (loss, top-1, top-5) through the
+   running statistics; images/s at the step p50 (the host's data stream
+   sets it), step p50/p95, peak memory; the same step over two batches
+   made on the card, alternated, timed with CUDA events after five
+   warm-up steps (its own peak memory), and profiled for three steps
+   (device time by kernel family: convolutions, reductions, elementwise
+   passes, copies, pooling, goo; idle share);
+4rd. ResNet-50 over four ranks — ``--mesh data=4 --zero1 true`` through
+   ``ring`` and ``ring_q8`` (32 images a rank, 10 steps), as 4cd checks
+   its runs: finite losses, the replicas bit-identical (parameters and
+   BatchNorm buffers), the ring launches (set to 0 just before) buckets x
+   steps for the run's kinds and 0 for the others, the q8 ones on the
+   forms the plan names;
+5r. ResNet parity — f32 (TF32 off, cuDNN deterministic, no autotuning),
+   three steps (lr 0.01) at 64 x 64 with 8 classes, eight images a rank
+   over four: ``ring`` within 1e-5 relative of ``psum`` (losses) and
+   1e-4 x max(1, max |x|) (every BatchNorm buffer), ``ring_q8`` within
+   ``0.02 + 0.02·|loss|``; the replicas bit-identical in every mode.
+Their records go to ``chiprun_out/chip_smoke_resnet.json``; the kernels
+line's ring rows count 4rd's launches by run.
+
 The last lines are the kernels JSON line (each decode form twice: at
 T 1, its ``split`` body, and at its prefill width as ``<form>_prefill``,
 each with the main path's launches of that body; every number in it
@@ -385,6 +416,21 @@ CONV_PARITY_TOL = 1e-5  # relative, per-step loss, f32, ring vs psum
 # rounding, but cuDNN picks its algorithms by batch size, so the sums
 # run in other orders; three steps at lr 0.01-0.05 carry that through.
 CONV_RANKS_TOL = 1e-4
+# Phases 4r, 4rd and 5r: ResNet-50 (BASELINE.json's config #4) at its
+# defaults, the workload's own: 224 x 224, 1000 classes, the s2d stem,
+# bf16 compute, f32 parameters and statistics, goo SGD at lr 0.1 with
+# momentum 0.9 and weight decay 1e-4; batch 128 on one rank, 32 a rank
+# over four.
+RESNET_ARGS = ["--batch-size", "128", "--eval-batch", "128", "--log-every", "1"]
+RESNET_STEPS, RESNET_DP_STEPS = 20, 10
+RESNET_FLAT = 25_560_832  # the flat layout of ResNet-50's 25,559,912 parameters
+# 5r: f32, three steps at 64 x 64 with 8 classes, eight images a rank,
+# lr 0.01. Relative, per-step loss, ring against psum (the ring sums the
+# ranks in another order, and the norms' gradients carry the difference).
+RESNET_PARITY_TOL = 1e-5
+# The same, for every BatchNorm buffer after the three steps: times
+# max(1, max |psum's|).
+RESNET_STATS_TOL = 1e-4
 # Phase 4f: the JAX package's test liveness (no spurious evictions).
 FLEET_LIVENESS = "heartbeat_s=0.05,lease_s=5.0"
 FORMS = (
@@ -1596,15 +1642,46 @@ def ring_case(torch, flush, kind: str, xs, quantized: bool, label: str, **extra)
     return case
 
 
+def cuda_randn(torch, shape, seed: int, dtype=None):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype or torch.float32)
+
+
+def plan_ring_cases(torch, flush, plans: dict) -> list:
+    """Phase 3e at the convnets' and ResNet-50's bucket plans over
+    DP_RANKS ranks (``plans``, :func:`convnet_bucket_plans`), f32, sum
+    and q8: each net's first full bucket and, where it has more than
+    one, its ragged tail, read in place from a wider buffer as the bucket
+    loop reads them."""
+    cases = []
+    for q8 in (False, True):
+        for net, plan in plans.items():
+            head = plan["first_bucket_rows"]
+            picks = {"bucket": (0, head)}
+            if plan["buckets"] > 1:
+                picks["tail bucket"] = (head, head + plan["tail_rows"])
+            for what, (r0, r1) in picks.items():
+                wide = cuda_randn(torch, (DP_RANKS, DP_RANKS, r1, 128), 11)
+                cases.append(ring_case(torch, flush, "rs", wide[:, :, r0:r1], q8,
+                                       f"rs {net} {what} q8={q8}", strided=r0 > 0,
+                                       workload=net))
+                shards = cuda_randn(torch, (DP_RANKS, r1, 128), 12)
+                cases.append(ring_case(torch, flush, "ag", shards[:, r0:r1], q8,
+                                       f"ag {net} {what} q8={q8}", strided=r0 > 0,
+                                       workload=net))
+                del wide, shards
+        torch.cuda.empty_cache()
+    return cases
+
+
 def ring_kernel_phase(torch, flush, tail_rows: int, conv_plans: dict):
     """Phase 3e: the four ring kernels against their plain versions; at
-    GPT-2 small's bucket plan and at the convnets' (``conv_plans``,
-    :func:`convnet_bucket_plans`)."""
+    GPT-2 small's bucket plan and at the convnets' and ResNet-50's
+    (``conv_plans``, :func:`plan_ring_cases`)."""
     from mpit_tpu_torch.ops import ring_collectives as rc
 
     def randn(shape, seed, dtype=torch.float32):
-        gen = torch.Generator(device="cuda").manual_seed(seed)
-        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        return cuda_randn(torch, shape, seed, dtype)
 
     cases = []
     forms = [(dtype, q8) for q8 in (False, True) for dtype in (torch.float32, torch.bfloat16)]
@@ -1625,26 +1702,7 @@ def ring_kernel_phase(torch, flush, tail_rows: int, conv_plans: dict):
         shards = randn((DP_RANKS, RING_ROWS + tail_rows, 128), 6)
         cases.append(ring_case(torch, flush, "ag", shards[:, RING_ROWS:], q8,
                                f"ag tail bucket q8={q8}", strided=True))
-    # The convnets' buckets at p 4, read in place from the flat buffer as
-    # the bucket loop reads them: AlexNet's first full bucket and its
-    # ragged tail, LeNet's one bucket.
-    for q8 in (False, True):
-        for net, plan in conv_plans.items():
-            head = plan["first_bucket_rows"]
-            picks = {"bucket": (0, head)}
-            if plan["buckets"] > 1:
-                picks["tail bucket"] = (head, head + plan["tail_rows"])
-            for what, (r0, r1) in picks.items():
-                wide = randn((DP_RANKS, DP_RANKS, r1, 128), 11)
-                cases.append(ring_case(torch, flush, "rs", wide[:, :, r0:r1], q8,
-                                       f"rs {net} {what} q8={q8}", strided=r0 > 0,
-                                       workload=net))
-                shards = randn((DP_RANKS, r1, 128), 12)
-                cases.append(ring_case(torch, flush, "ag", shards[:, r0:r1], q8,
-                                       f"ag {net} {what} q8={q8}", strided=r0 > 0,
-                                       workload=net))
-                del wide, shards
-        torch.cuda.empty_cache()
+    cases += plan_ring_cases(torch, flush, conv_plans)
     # An all-zero chunk (scale 1.0) in the q8 forms.
     xs = randn((DP_RANKS, DP_RANKS, 256, 128), 7)
     xs[:, 2] = 0
@@ -2231,16 +2289,18 @@ CONV_FAMILIES = {
 
 
 def convnet_bucket_plans(torch) -> dict:
-    """AlexNet's and LeNet's flat lengths over CONV_RANKS ranks, and their
-    bucket plans at the default 4 MB."""
+    """AlexNet's, LeNet's and ResNet-50's flat lengths over CONV_RANKS
+    ranks, and their bucket plans at the default 4 MB."""
     from mpit_tpu_torch import comm
-    from mpit_tpu_torch.models import AlexNet, LeNet
+    from mpit_tpu_torch.models import AlexNet, LeNet, ResNet50
     from mpit_tpu_torch.opt.sharded import FlatLayout, padded_len
     from mpit_tpu_torch.train.grad_sync import GradSync
 
     world = comm.init({"data": CONV_RANKS}, devices=["cuda"])
     plans = {}
-    for net, model in (("alexnet", AlexNet(device="meta")), ("lenet", LeNet(device="meta"))):
+    nets = (("alexnet", AlexNet(device="meta")), ("lenet", LeNet(device="meta")),
+            ("resnet50", ResNet50(device="meta")))
+    for net, model in nets:
         layout = FlatLayout(dict(model.named_parameters()))
         rows = padded_len(layout.total, CONV_RANKS) // (CONV_RANKS * 128)
         buckets = GradSync(world, "ring").bucket_rows(rows)
@@ -2249,6 +2309,8 @@ def convnet_bucket_plans(torch) -> dict:
                       "tail_rows": buckets[-1][1] - buckets[-1][0]}
     if plans["alexnet"]["flat_len"] != ALEXNET_FLAT:
         fail(f"AlexNet's flat layout holds {plans['alexnet']['flat_len']}, not {ALEXNET_FLAT}")
+    if plans["resnet50"]["flat_len"] != RESNET_FLAT:
+        fail(f"ResNet-50's flat layout holds {plans['resnet50']['flat_len']}, not {RESNET_FLAT}")
     return plans
 
 
@@ -2355,19 +2417,21 @@ def convnet_staged_step(torch, steps: int = 20, warmup: int = 5) -> dict:
             "profile_3_steps": profile}
 
 
-def convnet_dp_phase(torch, card, plans: dict) -> dict:
+def convnet_dp_phase(torch, card, plans: dict, runs: dict | None = None) -> dict:
     """Phase 4cd: ``imagenet --mesh data=4 --zero1 true`` through ``ring``
     and ``ring_q8`` (global batch 128, 20 steps), and ``mnist --mesh
     data=4 --grad-sync ring`` (config #2): finite losses, the replicas
-    bit-identical, the ring launches (set to 0 just before) buckets x
-    steps for the run's kinds and 0 for the others, the q8 launches on
-    the forms the plan names. Returns each run's launches by kernel."""
+    bit-identical (with a BatchNorm model, its buffers too), the ring
+    launches (set to 0 just before) buckets x steps for the run's kinds
+    and 0 for the others, the q8 launches on the forms the plan names.
+    ``runs`` replaces the runs (phase 4rd's). Returns each run's
+    launches by kernel."""
     import numpy as np
 
     from mpit_tpu_torch.asyncsgd import imagenet, mnist
     from mpit_tpu_torch.ops import ring_collectives as rc
 
-    runs = {
+    runs = runs or {
         "imagenet_ring": (imagenet.main, "alexnet", "ring", IMAGENET_DP_STEPS,
                           IMAGENET_ARGS + ["--steps", str(IMAGENET_DP_STEPS)]),
         "imagenet_ring_q8": (imagenet.main, "alexnet", "ring_q8", IMAGENET_DP_STEPS,
@@ -2423,6 +2487,7 @@ def convnet_dp_phase(torch, card, plans: dict) -> dict:
             "step_ms_p95": float(np.percentile(step_ms, 95)),
             "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30, "wall_s": wall_s,
             "replicas_identical": True, "bucket_plan": plan, "ring_launches": ring,
+            "first_loss": losses[0], "last_loss": losses[-1],
             "q8_launches_by_form": forms,
         }}), flush=True)
     return launches
@@ -2590,6 +2655,211 @@ def convnet_phases(torch, card, plans: dict) -> dict:
     return {"launches": launches}
 
 
+# ---- ResNet-50 (phases 4r, 4rd, 5r) ---------------------------------------------
+
+# The ResNet profile's kernel families, matched in this order: cuDNN's
+# convolutions, the pools, the reductions (BatchNorm's sums of x and x²
+# and of their gradients, the mean pool, the loss), the goo rules'
+# foreach kernels, copies and casts (the norms' f32 copies of the
+# activations among them), the elementwise passes (the norms'
+# scale-shift and its gradient, ReLUs, residual adds), GEMMs (the head)
+# and layout transposes.
+RESNET_FAMILIES = {
+    "convolution": CONV_FAMILIES["convolution"],
+    "pooling": ("pool",),
+    "reductions": ("reduce",),
+    "optimizer_foreach": ("foreach", "multi_tensor"),
+    "copies": ("copy",),
+    "elementwise": ("elementwise", "vectorized", "softmax", "index", "scatter", "gather",
+                    "threshold", "fill"),
+    "gemm": ("nvjet", "gemm", "xmma", "cutlass"),
+    "layout": ("nchwtonhwc", "nhwctonchw", "transpose", "permute"),
+}
+
+
+def resnet_one_rank_phase(torch, card) -> dict:
+    """Phase 4r: ``resnet`` at full width on one rank (RESNET_ARGS,
+    RESNET_STEPS steps): finite losses and a finite eval through the
+    running statistics; the loop's images/s at the step p50 (the host's
+    synthetic stream sets it), step p50/p95, peak memory; then the step
+    over batches staged on the card (:func:`resnet_staged_step`)."""
+    import numpy as np
+
+    from mpit_tpu_torch.asyncsgd import resnet
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    args = RESNET_ARGS + ["--steps", str(RESNET_STEPS)]
+    t0 = time.perf_counter()
+    out = resnet.main(args)
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = out["losses"]
+    if out["steps"] != RESNET_STEPS or not all(math.isfinite(x) for x in losses):
+        fail(f"resnet one rank: {out['steps']} steps, losses {losses}")
+    if set(out["eval"]) != {"loss", "top1", "top5"} or not all(
+            math.isfinite(v) for v in out["eval"].values()):
+        fail(f"resnet one rank: eval {out['eval']}")
+    step_ms = np.asarray(out["step_ms"][2:])
+    p50 = float(np.percentile(step_ms, 50))
+    record = {
+        "args": args, "steps": out["steps"], "losses": losses, "first_loss": losses[0],
+        "last_loss": losses[-1], "first5_mean": falling(losses)[0],
+        "last5_mean": falling(losses)[1], "eval": out["eval"],
+        "images_per_sec_best_window": out.get("items_per_sec"),
+        "images_per_sec_p50": 128 * 1e3 / p50,
+        "step_ms_p50": p50, "step_ms_p95": float(np.percentile(step_ms, 95)),
+        "peak_memory_gib": peak / 2**30, "wall_s": wall_s,
+    }
+    record.update(resnet_staged_step(torch))
+    busy = record["profile_3_steps"].get("device_busy_ms_per_step")
+    if busy is not None:
+        record["staged_device_idle_share"] = max(0.0, 1 - busy / record["staged_step_ms"])
+        record["loop_device_idle_share"] = max(0.0, 1 - busy / p50)
+    print(json.dumps({"card": card, "train_resnet": record}), flush=True)
+    return record
+
+
+def resnet_staged_step(torch, steps: int = 20, warmup: int = 5) -> dict:
+    """The 4r step (ResNet-50 at full width, one rank, batch 128) over two
+    batches made on the card from a seed, alternated: device ms a step
+    from CUDA events after ``warmup`` steps, the peak memory of the step
+    alone, and the profile of three steps (device time by RESNET_FAMILIES
+    family, idle share). The host's data stream is out of this loop."""
+    from mpit_tpu_torch.asyncsgd import runner
+    from mpit_tpu_torch.asyncsgd.resnet import ResnetConfig
+    from mpit_tpu_torch.models import ResNet50
+    from mpit_tpu_torch.train import make_train_step
+
+    cfg = ResnetConfig()
+    model = ResNet50(device="cuda", generator=torch.Generator().manual_seed(0))
+    loss_fn, _ = runner._classifier_fns(model, top5=False, stateful=True)
+    init_fn, step_fn = make_train_step(loss_fn, runner.build_tx(cfg), stateful=True)
+    state = {"s": init_fn(dict(model.named_parameters()), dict(model.named_buffers()))}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    staged = [{"image": torch.randn(128, cfg.image_size, cfg.image_size, 3, device="cuda",
+                                    generator=gen),
+               "label": torch.randint(0, cfg.num_classes, (128,), device="cuda",
+                                      generator=gen)} for _ in range(2)]
+
+    def one_step(b):
+        state["s"], _ = step_fn(state["s"], b)
+
+    for i in range(warmup):
+        one_step(staged[i % 2])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for i in range(steps):
+        one_step(staged[i % 2])
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    ms = start.elapsed_time(end) / steps
+    peak = torch.cuda.max_memory_allocated()
+    profile = profile_window(torch, one_step, [staged[i % 2] for i in range(3)],
+                             families=RESNET_FAMILIES)
+    del model, state, staged
+    torch.cuda.empty_cache()
+    return {"staged_step_ms": ms, "staged_images_per_sec": 128 * 1e3 / ms,
+            "staged_wall_ms_per_step": host_ms, "staged_steps": steps,
+            "staged_peak_memory_gib": peak / 2**30, "profile_3_steps": profile}
+
+
+def resnet_parity_f32_phase(torch) -> dict:
+    """Phase 5r: f32 (TF32 off, cuDNN deterministic, no autotuning),
+    three goo SGD steps (lr 0.01, momentum 0.9, weight decay 1e-4) of
+    ResNet-50 at 64 x 64 with 8 classes from one seeded port
+    initialisation, over CONV_RANKS ranks with eight images each:
+    ``ring`` within RESNET_PARITY_TOL of ``psum`` (losses) and
+    RESNET_STATS_TOL (every BatchNorm buffer), ``ring_q8`` within ``0.02
+    + 0.02·|loss|`` of ``psum`` (the JAX package's pin); the replicas,
+    parameters and buffers, bit-identical in every mode."""
+    from mpit_tpu_torch import comm
+    from mpit_tpu_torch.asyncsgd import runner
+    from mpit_tpu_torch.data import shard_batch, synthetic_imagenet
+    from mpit_tpu_torch.models import ResNet50
+    from mpit_tpu_torch.opt import goo
+    from mpit_tpu_torch.train import make_train_step
+
+    def make(**kw):
+        return ResNet50(8, torch.float32, norm_dtype=torch.float32, **kw)
+
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        init = make(generator=torch.Generator().manual_seed(0)).state_dict()
+        stream = synthetic_imagenet(image_size=64, num_classes=8, seed=0).batches(8 * CONV_RANKS)
+        batches = [next(stream) for _ in range(3)]
+        losses, stats = {}, {}
+        world = comm.init({"data": CONV_RANKS}, devices=["cuda"])
+        for mode in ("psum", "ring", "ring_q8"):
+            models = [make(device="cuda") for _ in range(CONV_RANKS)]
+            for m in models:
+                m.load_state_dict(init)
+            fns = [runner._classifier_fns(m, top5=False, stateful=True)[0] for m in models]
+            init_fn, step_fn = make_train_step(fns, goo(0.01, 0.9, weight_decay=1e-4), world,
+                                               stateful=True, grad_sync=mode)
+            state = init_fn([dict(m.named_parameters()) for m in models],
+                            [dict(m.named_buffers()) for m in models])
+            losses[mode] = []
+            for b in batches:
+                state, m = step_fn(state, shard_batch(world, b))
+                losses[mode].append(m["loss"].item())
+            if not state.replicas_equal():
+                fail(f"parity f32 resnet {mode}: replicas differ")
+            stats[mode] = {k: v.clone() for k, v in models[0].named_buffers()}
+            del models, state, step_fn
+            torch.cuda.empty_cache()
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses["ring"], losses["psum"]))
+        if not rel <= RESNET_PARITY_TOL:
+            fail(f"parity f32 resnet: ring {losses['ring']} vs psum {losses['psum']}")
+        stats_rel = max(
+            (stats["ring"][k] - v).abs().max().item() / max(1.0, v.abs().max().item())
+            for k, v in stats["psum"].items())
+        if not stats_rel <= RESNET_STATS_TOL:
+            fail(f"parity f32 resnet: ring's statistics part from psum's by {stats_rel}")
+        if all(torch.equal(stats["psum"][k], torch.zeros_like(v) if k.endswith("mean")
+                           else torch.ones_like(v)) for k, v in stats["psum"].items()):
+            fail("parity f32 resnet: the running statistics never moved")
+        gaps = [abs(a - b) for a, b in zip(losses["psum"], losses["ring_q8"])]
+        if any(g > 0.02 + 0.02 * abs(a) for a, g in zip(losses["psum"], gaps)):
+            fail(f"parity f32 resnet: ring_q8 {losses['ring_q8']} vs psum {losses['psum']}")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+    out = {"losses": losses, "ring_max_rel_diff": rel, "ring_stats_max_rel_diff": stats_rel,
+           "ring_q8_max_abs_gap": max(gaps)}
+    print(json.dumps({"resnet_parity_f32": out}), flush=True)
+    return out
+
+
+def resnet_phases(torch, card, plans: dict) -> dict:
+    """Phases 4r, 4rd and 5r in turn; their records also go to
+    ``chiprun_out/chip_smoke_resnet.json``. Returns 4rd's ring launches
+    by run and kernel."""
+    from mpit_tpu_torch.asyncsgd import resnet
+
+    t0 = time.perf_counter()
+    one = resnet_one_rank_phase(torch, card)
+    print(f"phase 4r: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    args = RESNET_ARGS + ["--steps", str(RESNET_DP_STEPS)]
+    ring = convnet_dp_phase(torch, card, plans, runs={
+        f"resnet_{mode}": (resnet.main, "resnet50", mode, RESNET_DP_STEPS, args)
+        for mode in ("ring", "ring_q8")})
+    print(f"phase 4rd: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    parity = resnet_parity_f32_phase(torch)
+    print(f"phase 5r: {time.perf_counter() - t0:.1f} s", flush=True)
+    OUT.mkdir(exist_ok=True)
+    (OUT / "chip_smoke_resnet.json").write_text(json.dumps(
+        {"card": card, "bucket_plan": plans["resnet50"], "one_rank": one, "launches": ring,
+         "parity_f32": parity}, indent=1))
+    return {"launches": ring}
+
+
 def main() -> None:
     import torch
 
@@ -2615,6 +2885,23 @@ def main() -> None:
         build.build(build.KERNEL_SOURCES)
         conv = convnet_phases(torch, card, convnet_bucket_plans(torch))
         print(json.dumps({"card": card, "convnet_launches": conv["launches"]}))
+        return
+    if sys.argv[1:2] == ["resnet"]:  # 3e at ResNet-50's plan, then 4r, 4rd and 5r alone
+        build.build(build.KERNEL_SOURCES)
+        plans = convnet_bucket_plans(torch)
+        flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+        warm_up(torch)
+        cases = plan_ring_cases(torch, flush, {"resnet50": plans["resnet50"]})
+        from mpit_tpu_torch.ops import ring_collectives as rc
+
+        if rc.device_error():
+            fail(rc.device_error())
+        del flush
+        OUT.mkdir(exist_ok=True)
+        (OUT / "chip_smoke_ring_resnet.json").write_text(json.dumps(
+            {"card": card, "bucket_plan": plans["resnet50"], "cases": cases}, indent=1))
+        res = resnet_phases(torch, card, plans)
+        print(json.dumps({"card": card, "resnet_launches": res["launches"]}))
         return
     t0 = time.perf_counter()
     logs = build.build(build.KERNEL_SOURCES, force=True)
@@ -2703,6 +2990,9 @@ def main() -> None:
               flush=True)
     dp_parity_phase(torch, dp_losses["ring_q8"])
     conv = convnet_phases(torch, card, conv_plans)
+    res = resnet_phases(torch, card, conv_plans)
+    # The ring kernels' launches by run: the convnets' and ResNet-50's.
+    ring_runs = {**conv["launches"]["ring"], **res["launches"]}
 
     kernels = []
     # Each decode form twice: at T 1 (the tick, split body) and at its
@@ -2787,10 +3077,9 @@ def main() -> None:
             "source": "mpit_tpu_torch/csrc/ring_collectives.cu",
             "replaces": f"mpit_tpu/ops/ring_collectives.py:{body}",
             "call_site": "mpit_tpu/ops/ring_collectives.py:550",
-            "launches": ring_launches[name] + sum(
-                r.get(name, 0) for r in conv["launches"]["ring"].values()),
+            "launches": ring_launches[name] + sum(r.get(name, 0) for r in ring_runs.values()),
             "launches_by_run": {"gpt2_dp": ring_launches[name], **{
-                run: r[name] for run, r in conv["launches"]["ring"].items() if name in r}},
+                run: r[name] for run, r in ring_runs.items() if name in r}},
             **{k: head[k] for k in ("schedule", "max_abs_err", "ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms", "library", "ring_schedule_bytes",
                                     "device_ms")},

@@ -1,14 +1,14 @@
 """Workload launcher: ``python -m mpit_tpu_torch.asyncsgd <workload> [options]``.
 
-The port of :mod:`mpit_tpu.asyncsgd.__main__`. ``mnist``, ``imagenet``
-and ``gpt2`` train on the GPU, on one rank or over ``--mesh data=N``
-ranks, and the convnets also under ``--mode parity --nranks N`` (1
-pserver + N - 1 pclients); ``--device cpu`` runs on the CPU. ``resnet``
-arrives with a later slice and raises ``SystemExit`` naming it. Prints
-the workload's result as one JSON line.
+The port of :mod:`mpit_tpu.asyncsgd.__main__`. ``mnist``, ``imagenet``,
+``resnet`` and ``gpt2`` train on the GPU, on one rank or over ``--mesh
+data=N`` ranks, and LeNet and AlexNet also under ``--mode parity
+--nranks N`` (1 pserver + N - 1 pclients); ``--device cpu`` runs on the
+CPU. Prints the workload's result as one JSON line.
 
     python -m mpit_tpu_torch.asyncsgd mnist --steps 30 --batch-size 32
     python -m mpit_tpu_torch.asyncsgd imagenet --mesh data=4 --grad-sync ring
+    python -m mpit_tpu_torch.asyncsgd resnet --mesh data=4 --zero1 true --grad-sync ring
     python -m mpit_tpu_torch.asyncsgd mnist --mode parity --nranks 2 --device cpu
 """
 
@@ -18,7 +18,7 @@ import importlib
 import json
 import sys
 
-from mpit_tpu_torch.asyncsgd import LATER_WORKLOADS, WORKLOADS
+from mpit_tpu_torch.asyncsgd import WORKLOADS
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -28,11 +28,6 @@ def main(argv: list[str] | None = None) -> int:
         print(f"workloads: {', '.join(WORKLOADS)}")
         return 0
     name, rest = argv[0], argv[1:]
-    if name in LATER_WORKLOADS:
-        raise SystemExit(
-            f"workload {name!r}: not in this port yet; it arrives with "
-            f"{LATER_WORKLOADS[name]}"
-        )
     if name not in WORKLOADS:
         print(f"unknown workload {name!r}; choose from {WORKLOADS}", file=sys.stderr)
         return 2

@@ -66,6 +66,16 @@ class TrainConfig:
     prefetch_depth: int = 2  # host batches staged ahead of the step
     seed: int = 0
     device: str = "cuda"  # cuda | cpu
+    # The classification workloads' data (runner.classification_dataset).
+    data_dir: str = ""  # an npy directory (data/filedata.py); "" = synthetic
+    # Train-stream augmentation (data/augment.py): "shift" = random
+    # shift-crop by crop_pad and hflip; "rrc" = random-resized-crop to
+    # train_size (0 = the stored size) and hflip, --data-dir only.
+    augment: bool = False
+    augment_mode: str = "shift"  # shift | rrc
+    crop_pad: int = 4
+    train_size: int = 0
+    rrc_min_scale: float = 0.08  # rrc: the least crop-area fraction
 
     def mesh_shape(self) -> dict[str, int] | None:
         return parse_mesh(self.mesh)

@@ -52,6 +52,8 @@ _LATER_TIER_FLAGS = {
     ),
     "fsdp_axis": "the tensor-parallel training tier (slice 6 of the port)",
 }
+# The classifiers' image-augmentation flags, which no token stream reads.
+_IMAGE_FLAGS = ("augment", "augment_mode", "crop_pad", "train_size", "rrc_min_scale")
 
 
 @dataclasses.dataclass
@@ -94,6 +96,18 @@ def main(argv: list[str] | None = None, *, initial_params=None, **overrides) -> 
             "gpt2 is SPMD-only: it exists to exercise the parallel tiers, "
             "not the legacy async protocol"
         )
+    if cfg.data_dir:
+        raise SystemExit(
+            f"--data-dir {cfg.data_dir}: gpt2's on-disk token stream (FileLM) arrives with "
+            f"{runner.DATA_SLICE}"
+        )
+    for name in _IMAGE_FLAGS:
+        if getattr(cfg, name) != getattr(TrainConfig, name):
+            raise SystemExit(
+                f"--{name.replace('_', '-')} {getattr(cfg, name)}: image augmentation, which "
+                f"gpt2's token streams (the synthetic one, and FileLM with {runner.DATA_SLICE}) "
+                "do not have"
+            )
     runner.reject_later_slices(cfg)
     print(runner.describe(cfg, "gpt2"))
     device = resolve_device(cfg.device)

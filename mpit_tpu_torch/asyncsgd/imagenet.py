@@ -15,7 +15,8 @@ the KV copy kernel. AlexNet computes in bf16 with float32 parameters;
         --batch-size 4 --image-size 64 --num-classes 8 --eval-batch 4
 
 Data is the synthetic ImageNet stream (prototype plus noise), bit for
-bit the JAX package's.
+bit the JAX package's, or the npy directory of ``--data-dir``, whose
+classes and image size replace the flags'.
 """
 
 from __future__ import annotations
@@ -53,6 +54,10 @@ def main(argv: list[str] | None = None, *, initial_params=None, **overrides) -> 
             image_size=cfg.image_size, num_classes=cfg.num_classes, seed=cfg.seed
         ),
     )
+    if cfg.data_dir:  # the geometry comes from the directory, not the flags
+        cfg = dataclasses.replace(
+            cfg, num_classes=dataset.num_classes, image_size=dataset.image_shape[0]
+        )
 
     def make_model(**kw):
         return AlexNet(num_classes=cfg.num_classes, image_size=cfg.image_size, **kw)

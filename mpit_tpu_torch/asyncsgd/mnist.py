@@ -16,7 +16,8 @@ Both shapes of the reference run from this one script:
     python -m mpit_tpu_torch.asyncsgd mnist --device cpu --steps 30 --batch-size 32
 
 Data is the synthetic MNIST stream (28×28×1, 10 classes, prototype plus
-noise), bit for bit the JAX package's.
+noise), bit for bit the JAX package's, or a 28×28×1 npy directory
+(``--data-dir``).
 """
 
 from __future__ import annotations
@@ -41,6 +42,10 @@ def main(argv: list[str] | None = None, *, initial_params=None, **overrides) -> 
     resolve_device(cfg.device)  # fail before the dataset is built
     print(runner.describe(cfg, "mnist-lenet"))
     dataset = runner.classification_dataset(cfg, lambda: synthetic_mnist(seed=cfg.seed))
+    if cfg.data_dir and dataset.image_shape != (28, 28, 1):
+        raise SystemExit(
+            f"mnist: --data-dir images are {dataset.image_shape}, LeNet expects (28, 28, 1)"
+        )
 
     def make_model(**kw):
         return LeNet(num_classes=dataset.num_classes, **kw)

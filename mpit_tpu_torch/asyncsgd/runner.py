@@ -16,13 +16,16 @@ Two execution paths, selected by ``--mode``:
   compat simulator (Downpour, or EASGD with ``--easgd true``), for
   semantics parity, not speed.
 
-:func:`run_classifier` is the convnet workloads' shared body (``mnist``,
-``imagenet``). Everything of the JAX harness that needs a checkpoint
-directory or a later slice's machinery is refused with ``SystemExit``
-naming the slice that brings it: the flags of :data:`LATER_FLAGS` (not
-fields of the port's config, so nothing can read them by mistake) as the
-command line is parsed, and the values of ``--mode``, ``--mesh`` and
-``--easgd`` that the port does not run by :func:`reject_later_slices`.
+:func:`run_classifier` is the classifiers' shared body (``mnist``,
+``imagenet`` and, with ``stateful=True``, ``resnet``), and
+:func:`classification_dataset` their data: the synthetic stream, or the
+npy directory of ``--data-dir``, augmented with ``--augment``.
+Everything of the JAX harness that needs a checkpoint directory or a
+later slice's machinery is refused with ``SystemExit`` naming the slice
+that brings it: the flags of :data:`LATER_FLAGS` (not fields of the
+port's config, so nothing can read them by mistake) as the command line
+is parsed, and the values of ``--mode``, ``--mesh`` and ``--easgd`` that
+the port does not run by :func:`reject_later_slices`.
 """
 
 from __future__ import annotations
@@ -36,22 +39,21 @@ import torch
 from mpit_tpu_torch.asyncsgd import actors
 from mpit_tpu_torch.asyncsgd.config import TrainConfig
 from mpit_tpu_torch.comm import init as init_world
-from mpit_tpu_torch.data import shard_batch
+from mpit_tpu_torch.data import FileClassification, shard_batch
 from mpit_tpu_torch.opt import goo, schedules
 from mpit_tpu_torch.serve.engine import resolve_device
 from mpit_tpu_torch.train import MetricLogger, hardened_loop, make_eval_step, make_train_step
 from mpit_tpu_torch.train.step import FlatReplicas
 
 __all__ = [
-    "LATER_FLAGS", "accuracy", "build_tx", "classification_dataset", "describe",
+    "DATA_SLICE", "LATER_FLAGS", "accuracy", "build_tx", "classification_dataset", "describe",
     "make_stream", "make_val_sweep", "make_world", "reject_later_slices", "run_classifier",
     "run_parity_classifier", "run_spmd", "softmax_xent", "topk_accuracy",
 ]
 
-_RESNET = "the ResNet slice of the port (ROADMAP.md §A 3b)"
 _CHECKPOINT = "the checkpoint slice of the port"
 _OBSERVABILITY = "the observability slice of the port"
-_DATA = "the data-pipeline slice of the port (ROADMAP.md §A 12)"
+DATA_SLICE = "the data-pipeline slice of the port (ROADMAP.md §A 12)"
 _ELASTIC = "the elastic slice of the port, after checkpoints (ROADMAP.md §A 6)"
 
 # The JAX TrainConfig's flags that no code of the port reads -> the
@@ -59,21 +61,25 @@ _ELASTIC = "the elastic slice of the port, after checkpoints (ROADMAP.md §A 6)"
 LATER_FLAGS = {
     **dict.fromkeys(("easgd_beta", "lease_s", "heartbeat_s", "staleness_bound"), _ELASTIC),
     # The port's prefetch has one thread and a fixed depth.
-    **dict.fromkeys(("native", "data_dir", "prefetch_workers", "prefetch_max_depth",
-                     "train_size"), _DATA),
+    **dict.fromkeys(("native", "prefetch_workers", "prefetch_max_depth"), DATA_SLICE),
     **dict.fromkeys(
         ("ckpt_dir", "ckpt_every", "save_dense", "resume_dense", "max_restores"), _CHECKPOINT
     ),
     **dict.fromkeys(("profile_dir", "sentinel"), _OBSERVABILITY),
-    **dict.fromkeys(("augment", "augment_mode", "crop_pad", "rrc_min_scale"), _RESNET),
 }
 
 
 def reject_later_slices(cfg: TrainConfig) -> None:
     """``SystemExit`` for the values of the config's fields that the
     port does not run: ``--mode elastic``, ``--easgd true`` under
-    ``--mode spmd`` (``goo.elastic_average``) and a mesh axis other than
-    ``data``."""
+    ``--mode spmd`` (``goo.elastic_average``), a mesh axis other than
+    ``data``, and, as in JAX, ``--augment-mode rrc`` or ``--train-size``
+    without ``--data-dir`` (the synthetic streams shift-crop only)."""
+    if not cfg.data_dir and ((cfg.augment and cfg.augment_mode != "shift") or cfg.train_size):
+        raise SystemExit(
+            "--augment-mode rrc / --train-size need --data-dir (the synthetic streams "
+            "implement shift-crop augmentation only)"
+        )
     if cfg.mode not in ("spmd", "parity"):
         raise SystemExit(f"--mode {cfg.mode}: arrives with {_ELASTIC}")
     if cfg.easgd and cfg.mode == "spmd":
@@ -147,10 +153,22 @@ def topk_accuracy(logits, labels, k: int = 5, valid=None):
 
 
 def classification_dataset(cfg: TrainConfig, synthetic_factory):
-    """The synthetic stand-in from ``synthetic_factory()``. ``--data-dir``
-    (the on-disk datasets) and ``--augment`` are refused as the flags
-    parse (:data:`LATER_FLAGS`)."""
-    return synthetic_factory()
+    """``--data-dir`` selects the npy directory
+    (:class:`~mpit_tpu_torch.data.FileClassification`, with the config's
+    augmentation); else the synthetic stand-in from
+    ``synthetic_factory()``, its train stream shift-cropped and flipped
+    with ``--augment``. :func:`reject_later_slices` has refused what
+    needs a directory."""
+    if cfg.data_dir:
+        return FileClassification(
+            cfg.data_dir, seed=cfg.seed, augment=cfg.augment, augment_mode=cfg.augment_mode,
+            crop_pad=cfg.crop_pad, train_size=cfg.train_size,
+            rrc_scale=(cfg.rrc_min_scale, 1.0),
+        )
+    ds = synthetic_factory()
+    ds.augment = cfg.augment
+    ds.crop_pad = cfg.crop_pad
+    return ds
 
 
 def make_val_sweep(cfg: TrainConfig, dataset):
@@ -181,6 +199,7 @@ def run_spmd(
     loss_fn,
     init_params: Callable,
     *,
+    stateful: bool = False,
     tx=None,
     items_per_batch: int | None = None,
     step_attrs: dict | None = None,
@@ -196,7 +215,11 @@ def run_spmd(
     model ``loss_fn(params, batch) -> (loss, aux)`` reads them through
     (the seam a caller uses to start from other weights, e.g. the JAX
     package's): one mapping, or with a ``world`` a list of one per rank
-    beside a list of ``loss_fn``s. ``tx`` is the goo rule (default
+    beside a list of ``loss_fn``s. With ``stateful`` (a BatchNorm model,
+    :func:`mpit_tpu_torch.train.make_train_step`'s stateful form),
+    ``init_params() -> (params, extra)``, ``extra`` the models' buffers
+    likewise, and ``loss_fn`` and ``eval_fn`` take ``extra`` after
+    ``params``. ``tx`` is the goo rule (default
     :func:`build_tx`); ``items_per_batch`` the throughput unit (tokens
     per global batch for LM workloads); ``step_attrs`` label the loop's
     ``step`` spans, with ``grad_sync=`` the executed sync mode added.
@@ -211,15 +234,15 @@ def run_spmd(
     device = resolve_device(cfg.device)
     init_fn, step_fn = make_train_step(
         loss_fn, build_tx(cfg) if tx is None else tx, world, zero1=cfg.zero1,
-        grad_sync=cfg.grad_sync, grad_bucket_mb=cfg.grad_bucket_mb,
+        stateful=stateful, grad_sync=cfg.grad_sync, grad_bucket_mb=cfg.grad_bucket_mb,
     )
-    state = init_fn(init_params())
+    state = init_fn(*init_params()) if stateful else init_fn(init_params())
     run_device = device if world is None else world.device
 
     def split(batch):
         return _on_device(batch, run_device) if world is None else shard_batch(world, batch)
 
-    ev = None if eval_fn is None else make_eval_step(eval_fn, world)
+    ev = None if eval_fn is None else make_eval_step(eval_fn, world, stateful=stateful)
     eval_hook = None
     if cfg.eval_every and ev is not None and val_sweep is not None:
 
@@ -278,24 +301,28 @@ def run_spmd(
     return out
 
 
-# ---- the convnet workloads (mnist, imagenet) ------------------------------
+# ---- the classifier workloads (mnist, imagenet, resnet) -------------------
 
 
-def _classifier_fns(model, top5: bool):
+def _classifier_fns(model, top5: bool, stateful: bool = False):
     """``(loss_fn, eval_fn)`` of a classifier bound to ``model``:
     softmax cross entropy with top-1 accuracy as the aux metric, and the
     eval metrics ``loss``, ``top1`` (``top5`` with ``top5``) and, for a
-    batch with a ``valid`` mask, ``_weight``."""
+    batch with a ``valid`` mask, ``_weight``. With ``stateful`` (a
+    BatchNorm model, ``forward(x, *, train)``) both take ``extra``, the
+    model's own buffers: the loss runs ``train=True``, which steps them
+    in place, and returns them as its new state; the eval runs
+    ``train=False``, normalising with them."""
 
     def loss_fn(params, batch):
         del params  # the model's own parameters
-        logits = model(batch["image"])
+        logits = model(batch["image"], train=True) if stateful else model(batch["image"])
         acc = accuracy(logits.detach(), batch["label"])
         return softmax_xent(logits, batch["label"]), {"accuracy": acc}
 
     def eval_fn(params, batch):
         del params
-        logits = model(batch["image"])
+        logits = model(batch["image"], train=False) if stateful else model(batch["image"])
         v = batch.get("valid")
         out = {"loss": softmax_xent(logits, batch["label"], v),
                "top1": accuracy(logits, batch["label"], v)}
@@ -305,17 +332,30 @@ def _classifier_fns(model, top5: bool):
             out["_weight"] = v.float().sum()
         return out
 
-    return loss_fn, eval_fn
+    if not stateful:
+        return loss_fn, eval_fn
+
+    def stateful_loss_fn(params, extra, batch):
+        del extra  # the model's own buffers, which its forward steps
+        return (*loss_fn(params, batch), dict(model.named_buffers()))
+
+    def stateful_eval_fn(params, extra, batch):
+        del extra
+        return eval_fn(params, batch)
+
+    return stateful_loss_fn, stateful_eval_fn
 
 
 def run_classifier(cfg: TrainConfig, make_model: Callable, dataset, *, initial_params=None,
-                   top5: bool = False) -> dict:
-    """A convnet workload's body: ``--mode parity`` through
+                   top5: bool = False, stateful: bool = False) -> dict:
+    """A classifier workload's body: ``--mode parity`` through
     :func:`run_parity_classifier`, else :func:`run_spmd` with one model
     per rank, all from one set of weights (the seeded initialisation of
     ``make_model(device=..., generator=...)``, or ``initial_params``, a
     ``state_dict``), the eval of ``top1`` (and ``top5`` with ``top5``)
-    on the held-out batch or the val sweep."""
+    on the held-out batch or the val sweep. ``stateful``: a BatchNorm
+    model, its buffers the step's ``extra`` (averaged over the ranks
+    after every step)."""
     reject_later_slices(cfg)
     device = resolve_device(cfg.device)
     if cfg.mode == "parity":
@@ -331,13 +371,21 @@ def run_classifier(cfg: TrainConfig, make_model: Callable, dataset, *, initial_p
         model = make_model(device=device if world is None else world.rank_device(r))
         model.load_state_dict(initial_params)
         models.append(model)
-    fns = [_classifier_fns(m, top5) for m in models]
+    fns = [_classifier_fns(m, top5, stateful) for m in models]
     params = [dict(m.named_parameters()) for m in models]
+    extras = [dict(m.named_buffers()) for m in models]
+
+    def init_params():
+        if world is None:
+            return (params[0], extras[0]) if stateful else params[0]
+        return (params, extras) if stateful else params
+
     return run_spmd(
         cfg,
         make_stream(cfg, dataset),
         fns[0][0] if world is None else [f[0] for f in fns],
-        lambda: params[0] if world is None else params,
+        init_params,
+        stateful=stateful,
         world=world,
         eval_fn=fns[0][1] if world is None else [f[1] for f in fns],
         eval_batch=dataset.eval_batch(cfg.eval_batch),

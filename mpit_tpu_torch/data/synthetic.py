@@ -5,7 +5,9 @@ streams: the same seeds give the same arrays, bit for bit.
 
 - :class:`SyntheticClassification` — prototype-plus-noise images (each
   class a fixed random prototype, samples ``prototype + noise``), NHWC
-  float32 as the JAX package makes them; :func:`synthetic_mnist` and
+  float32 as the JAX package makes them, the train stream shift-cropped
+  and flipped with ``augment`` (:func:`~mpit_tpu_torch.data.augment.augment_images`
+  on the batch's own ``RandomState``); :func:`synthetic_mnist` and
   :func:`synthetic_imagenet` give its MNIST and ImageNet shapes.
 - :class:`SyntheticLM` — tokens following a sparse random bigram table,
   so a model can push the per-token cross entropy from ``log(vocab)``
@@ -19,11 +21,9 @@ from typing import Iterator
 
 import numpy as np
 
-__all__ = ["SyntheticClassification", "SyntheticLM", "synthetic_imagenet", "synthetic_mnist"]
+from mpit_tpu_torch.data.augment import augment_images
 
-# The JAX stream's train-time augmentation (shift-crop and hflip) and its
-# C++ core arrive with later slices of the port.
-_AUGMENT = "the ResNet slice of the port (augmentation, ROADMAP.md §A 3b)"
+__all__ = ["SyntheticClassification", "SyntheticLM", "synthetic_imagenet", "synthetic_mnist"]
 
 
 @dataclasses.dataclass
@@ -34,18 +34,20 @@ class SyntheticClassification:
     Every batch has its own ``RandomState``, seeded from the stream's
     base and the batch index (counter-based), so ``skip`` is O(1).
     ``eval_batch`` and ``val_batches`` draw from a seed namespace
-    (``salt=1``) that no train stream reaches. ``augment`` must stay
-    False: the augmentation arrives with a later slice."""
+    (``salt=1``) that no train stream reaches. ``augment``: the train
+    stream's random shift-crop (``crop_pad``) and flip (``hflip``), drawn
+    from the batch's generator after its images; eval and val batches are
+    never augmented."""
 
     image_shape: tuple[int, ...] = (28, 28, 1)
     num_classes: int = 10
     noise: float = 0.3
     seed: int = 0
     augment: bool = False
+    crop_pad: int = 4
+    hflip: bool = True
 
     def __post_init__(self):
-        if self.augment:
-            raise SystemExit(f"augment: not in this port yet; it arrives with {_AUGMENT}")
         rng = np.random.RandomState(self.seed)
         self.prototypes = rng.randn(self.num_classes, *self.image_shape).astype(np.float32)
 
@@ -67,8 +69,10 @@ class SyntheticClassification:
         base = self.seed + 1 if seed is None else seed
         idx = skip
         while True:
-            images, labels, _ = self._raw_batch(batch_size, base, idx)
+            images, labels, rng = self._raw_batch(batch_size, base, idx)
             idx += 1
+            if self.augment:
+                images = augment_images(images, rng, pad=self.crop_pad, hflip=self.hflip)
             yield {"image": images, "label": labels}
 
     def eval_batch(self, batch_size: int, *, seed: int = 10_000) -> dict[str, np.ndarray]:

@@ -28,6 +28,14 @@ state IN PLACE under ``torch.no_grad()``.
 
   Metrics are the mean over the ranks, summed in rank order.
 
+- **Stateful** (``stateful=True``, the ResNet's BatchNorm): the loss also
+  takes and returns the model state that is not a gradient (``extra``,
+  the norms' running averages). On p ranks every rank's new state is
+  averaged over the ranks, summed in rank order (JAX's ``pmean``), and
+  every rank's buffers are set to that mean, so the replicas stay
+  bit-identical; on one rank the new state is kept as it is. The state
+  is no parameter: it stays out of the flat buffers and of ZeRO-1.
+
 :func:`make_eval_step` is the eval counterpart: ``eval_fn`` on every
 rank's slice of the batch, its metrics combined over the ranks in rank
 order (the exact-count contract of JAX's ``make_eval_step``).
@@ -90,13 +98,16 @@ class TrainState:
     ``p`` ranks: ``params`` is the list of the ranks' mappings, ``flat``
     their :class:`FlatReplicas`, and the optimizer state's buffers are
     rank-stacked ``[p, S]`` shards (ZeRO-1) or ``[p, N]`` replicas.
-    ``step`` is a host int. (JAX's ``extra``, non-gradient model state
-    such as BatchNorm statistics, comes with the convnet slice.)"""
+    ``step`` is a host int. ``extra`` is the model state that is not a
+    gradient (JAX's ``extra``: the BatchNorm buffers of a stateful step),
+    a name → tensor mapping, or with p ranks a list of one per rank;
+    None for a stateless model."""
 
     step: int
     params: Any
     opt_state: Any
     flat: FlatReplicas | None = None
+    extra: Any = None
 
     def bind(self, model) -> "TrainState":
         """Load ``params`` into ``model`` (a list of models, one per rank,
@@ -116,11 +127,15 @@ class TrainState:
         return dataclasses.replace(self, params=params, opt_state=opt, flat=flat)
 
     def replicas_equal(self) -> bool:
-        """Whether every rank's parameters equal rank 0's bit for bit."""
+        """Whether every rank's parameters, and its ``extra`` buffers,
+        equal rank 0's bit for bit."""
         if self.flat is None:
             return True
         rows = self.flat.params
-        return all(torch.equal(rows[0], rows[r]) for r in range(1, rows.shape[0]))
+        if not all(torch.equal(rows[0], rows[r]) for r in range(1, rows.shape[0])):
+            return False
+        extra = self.extra or [{}]
+        return all(torch.equal(extra[0][k], t) for e in extra[1:] for k, t in e.items())
 
 
 def _map_tensors(state, fn):
@@ -145,6 +160,7 @@ def make_train_step(
     world=None,
     *,
     zero1: bool = True,
+    stateful: bool = False,
     grad_sync: str = "psum",
     grad_bucket_mb: float = 4.0,
 ):
@@ -153,13 +169,19 @@ def make_train_step(
 
     ``loss_fn(params, batch) -> (loss, aux)``, or a list of one per rank:
     ``params`` is a rank's name → tensor mapping; a model-backed loss
-    reads them through the model they are bound to. ``tx`` is a goo rule
+    reads them through the model they are bound to. With ``stateful``,
+    ``loss_fn(params, extra, batch) -> (loss, aux, new_extra)``: ``extra``
+    the rank's state that is not a gradient (name → tensor, e.g. a
+    model's BatchNorm buffers), ``new_extra`` its next value (it may be
+    ``extra`` itself, updated in place). ``tx`` is a goo rule
     (:mod:`mpit_tpu_torch.opt.goo`). ``grad_sync``: ``psum`` | ``ring``
     | ``ring_q8``, in ``grad_bucket_mb`` buckets (a World of one rank
     syncs nothing).
 
-    ``init_fn(params) -> TrainState``: one mapping (one rank) or a list
-    of one per rank, the ranks' parameters rebound into one flat buffer.
+    ``init_fn(params, extra=None) -> TrainState``: one mapping (one rank)
+    or a list of one per rank, the ranks' parameters rebound into one
+    flat buffer; ``extra`` likewise (the step writes its new values into
+    these tensors).
     ``step_fn(state, batch) -> (state, metrics)``: ``batch`` one mapping
     (one rank) or a list of one per rank
     (:func:`mpit_tpu_torch.data.shard_batch`); ``metrics["loss"]`` a
@@ -169,18 +191,41 @@ def make_train_step(
     if grad_sync not in GRAD_SYNC_MODES:
         raise ValueError(f"grad_sync must be one of {GRAD_SYNC_MODES}, got {grad_sync!r}")
     if world is None:
-        return _one_rank(loss_fn, tx)
-    return _ranks(loss_fn, tx, world, zero1, GradSync(world, grad_sync, bucket_mb=grad_bucket_mb))
+        return _one_rank(loss_fn, tx, stateful)
+    return _ranks(loss_fn, tx, world, zero1, stateful,
+                  GradSync(world, grad_sync, bucket_mb=grad_bucket_mb))
 
 
-def _one_rank(loss_fn, tx):
-    def init_fn(params) -> TrainState:
-        return TrainState(step=0, params=dict(params), opt_state=tx.init(dict(params)))
+def _call_loss(loss_fn, params, extra, batch, stateful: bool):
+    """``(loss, aux, new_extra)`` of either loss form (``new_extra`` None
+    without ``stateful``)."""
+    if stateful:
+        return loss_fn(params, extra, batch)
+    return (*loss_fn(params, batch), None)
+
+
+def _set_extra(dst: Mapping, new: Mapping) -> None:
+    """Write ``new`` into the state's ``extra`` tensors (a no-op where
+    ``new`` is ``dst`` itself)."""
+    if set(new) != set(dst):
+        raise ValueError(f"new_extra names {sorted(set(new) ^ set(dst))} differ from extra's")
+    with torch.no_grad():
+        for k, t in dst.items():
+            if new[k] is not t:
+                t.copy_(new[k])
+
+
+def _one_rank(loss_fn, tx, stateful: bool):
+    def init_fn(params, extra=None) -> TrainState:
+        return TrainState(step=0, params=dict(params), opt_state=tx.init(dict(params)),
+                          extra=None if extra is None else dict(extra))
 
     def step_fn(state: TrainState, batch):
         params = state.params
-        loss, aux = loss_fn(params, batch)
+        loss, aux, new_extra = _call_loss(loss_fn, params, state.extra, batch, stateful)
         grads = torch.autograd.grad(loss, list(params.values()))
+        if stateful:  # after the backward, which may read the old state
+            _set_extra(state.extra, new_extra)
         tx.step(params, grads, state.opt_state)
         state.step += 1
         return state, {"loss": loss.detach(), **aux}
@@ -189,33 +234,41 @@ def _one_rank(loss_fn, tx):
     return init_fn, step_fn
 
 
-def _ranks(loss_fn, tx, world, zero1: bool, gs: GradSync):
+def _ranks(loss_fn, tx, world, zero1: bool, stateful: bool, gs: GradSync):
     p = world.num_devices
     loss_fns = list(loss_fn) if isinstance(loss_fn, (list, tuple)) else [loss_fn] * p
     if len(loss_fns) != p:
         raise ValueError(f"{len(loss_fns)} loss functions for {p} ranks")
     stx = sharded(tx, world, comm=gs) if zero1 else None
 
-    def init_fn(params_list) -> TrainState:
+    def init_fn(params_list, extra=None) -> TrainState:
         if len(params_list) != p:
             raise ValueError(f"{len(params_list)} parameter sets for {p} ranks")
+        if extra is not None and len(extra) != p:
+            raise ValueError(f"{len(extra)} extra states for {p} ranks")
         flat = FlatReplicas(params_list)
         if flat.params.device != world.device:
             raise ValueError(f"parameters on {flat.params.device}, the World on {world.device}")
         opt = stx.init(flat.params) if zero1 else tx.init([torch.zeros_like(flat.params)])
-        return TrainState(step=0, params=list(params_list), opt_state=opt, flat=flat)
+        return TrainState(step=0, params=list(params_list), opt_state=opt, flat=flat,
+                          extra=None if extra is None else [dict(e) for e in extra])
 
     def step_fn(state: TrainState, batches: Sequence):
         if len(batches) != p:
             raise ValueError(f"{len(batches)} batches for {p} ranks")
         flat = state.flat
-        losses, auxes = [], []
+        losses, auxes, new_extras = [], [], []
         for r in range(p):
-            loss, aux = loss_fns[r](state.params[r], batches[r])
+            extra = None if state.extra is None else state.extra[r]
+            loss, aux, new_extra = _call_loss(loss_fns[r], state.params[r], extra, batches[r],
+                                              stateful)
             grads = torch.autograd.grad(loss, flat.leaves[r], materialize_grads=True)
             torch._foreach_copy_(flat.grad_views[r], grads)
             losses.append(loss.detach())
             auxes.append(aux)
+            new_extras.append(new_extra)
+        if stateful:
+            _average_extra(state.extra, new_extras)
         with torch.no_grad():
             if zero1:
                 updates = stx.update(flat.grads, state.opt_state, flat.params)
@@ -234,15 +287,36 @@ def _ranks(loss_fn, tx, world, zero1: bool, gs: GradSync):
     return init_fn, step_fn
 
 
-def make_eval_step(eval_fn, world=None):
+@torch.no_grad()
+def _average_extra(extras: Sequence[Mapping], new_extras: Sequence[Mapping]) -> None:
+    """JAX's ``pmean`` of the ranks' new state: each tensor's sum over
+    the ranks in rank order, over ``p``, written into every rank's
+    ``extra`` (the means are taken before any rank's tensors are
+    written, so ``new_extras`` may be ``extras`` themselves)."""
+    p = len(extras)
+    names = list(extras[0])
+    for r, new in enumerate(new_extras):
+        if set(new) != set(names):
+            raise ValueError(f"rank {r}'s new_extra names differ from its extra's")
+    means = [new_extras[0][k].clone() for k in names]
+    for new in new_extras[1:]:
+        torch._foreach_add_(means, [new[k] for k in names])
+    torch._foreach_div_(means, float(p))
+    for extra in extras:
+        torch._foreach_copy_([extra[k] for k in names], means)
+
+
+def make_eval_step(eval_fn, world=None, *, stateful: bool = False):
     """Build ``eval_step(state, batch) -> metrics`` on one rank (``world``
     None) or over a World's ranks: the port of JAX's ``make_eval_step``.
 
     ``eval_fn(params, batch) -> metrics`` (scalar tensors), or a list of
-    one per rank; it runs under ``torch.no_grad()`` on each rank's
-    parameters and slice of the batch (one mapping on one rank, a list
-    of one per rank otherwise), and the ranks' metrics are combined in
-    rank order. Exact-count contract: where ``eval_fn`` returns a
+    one per rank (with ``stateful``, ``eval_fn(params, extra, batch)``,
+    ``extra`` the rank's :attr:`TrainState.extra`: the running
+    statistics a BatchNorm model normalises with); it runs under
+    ``torch.no_grad()`` on each rank's parameters and slice of the batch
+    (one mapping on one rank, a list of one per rank otherwise), and the
+    ranks' metrics are combined in rank order. Exact-count contract: where ``eval_fn`` returns a
     ``"_weight"`` (its count of real, unpadded rows), every other metric
     is a weighted mean, combined as ``Σ m·w / max(Σ w, 1)``, and the
     result's ``"_weight"`` is ``Σ w``; without one, the plain mean over
@@ -255,10 +329,12 @@ def make_eval_step(eval_fn, world=None):
     @torch.no_grad()
     def eval_step(state: TrainState, batch):
         params = [state.params] if world is None else state.params
+        extras = [state.extra] if world is None else state.extra
         batches = [batch] if world is None else batch
         if len(batches) != p:
             raise ValueError(f"{len(batches)} batches for {p} ranks")
-        ranks = [dict(eval_fns[r](params[r], batches[r])) for r in range(p)]
+        ranks = [dict(eval_fns[r](params[r], extras[r], batches[r]) if stateful
+                      else eval_fns[r](params[r], batches[r])) for r in range(p)]
         weights = [m.pop("_weight", None) for m in ranks]
         if weights[0] is None:
             return {k: sum(m[k] for m in ranks) / p for k in ranks[0]}

@@ -125,8 +125,11 @@ def test_synthetic_classification_bit_equal_to_jax(name):
 
 
 def test_synthetic_augment_and_shapes():
-    with pytest.raises(SystemExit, match="slice"):
-        SyntheticClassification(augment=True)
+    aug = SyntheticClassification(augment=True, crop_pad=2, seed=1)
+    plain = SyntheticClassification(seed=1)
+    a, b = next(aug.batches(4)), next(plain.batches(4))
+    np.testing.assert_array_equal(a["label"], b["label"])
+    assert a["image"].shape == b["image"].shape and not np.array_equal(a["image"], b["image"])
     assert synthetic_mnist().image_shape == (28, 28, 1)
     assert synthetic_imagenet(num_classes=2).image_shape == (224, 224, 3)
     assert inspect.signature(synthetic_imagenet).parameters["num_classes"].default == 1000

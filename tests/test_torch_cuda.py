@@ -1134,21 +1134,25 @@ def _convnet_bucket_plan(model, p=4):
     return rows, GradSync(world, "ring").bucket_rows(rows)
 
 
-@pytest.mark.parametrize("net", ["alexnet", "lenet"])
+@pytest.mark.parametrize("net", ["alexnet", "lenet", "resnet50"])
 @pytest.mark.parametrize("form", ["sum", "q8"])
 def test_ring_kernels_at_the_convnet_bucket_plans(cuda, net, form):
     """AlexNet at p 4: 15 buckets of its 119,338-row shard, a full
     8192-row one and the ragged tail (4650 rows) read in place from the
-    flat buffer; LeNet: one 122-row bucket. Each kind bit-equal to its
+    flat buffer; LeNet: one 122-row bucket; ResNet-50: 7 buckets of its
+    49,924-row shard, the tail 772 rows. Each kind bit-equal to its
     plain version."""
-    from mpit_tpu_torch.models import AlexNet, LeNet
+    from mpit_tpu_torch.models import AlexNet, LeNet, ResNet50
     from mpit_tpu_torch.ops import ring_collectives as rc
 
     p, quantized = 4, form == "q8"
-    model = AlexNet(device="meta") if net == "alexnet" else LeNet(device="meta")
+    model = {"alexnet": AlexNet, "lenet": LeNet, "resnet50": ResNet50}[net](device="meta")
     rows, buckets = _convnet_bucket_plan(model, p)
     if net == "alexnet":
         assert (rows, len(buckets), buckets[-1][1] - buckets[-1][0]) == (119_338, 15, 4650)
+        picked = [buckets[0], buckets[-1]]
+    elif net == "resnet50":
+        assert (rows, len(buckets), buckets[-1][1] - buckets[-1][0]) == (49_924, 7, 772)
         picked = [buckets[0], buckets[-1]]
     else:
         assert buckets == [(0, 122)]
@@ -1227,3 +1231,102 @@ def test_parameter_server_on_the_card_equals_the_cpu(cuda, protocol):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
     assert got[0].device.type == "cuda"
     torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-6, atol=1e-6)
+
+
+# ---- the ResNet slice: the stateful step on the card -------------------------------
+
+
+def _tiny_resnet(**kw):
+    from mpit_tpu_torch.models import ResNet50
+
+    return ResNet50(10, torch.float32, (1, 1, 1, 1), torch.float32, **kw)
+
+
+def _resnet_steps(device, p, mode, init, batches):
+    """Three stateful goo steps (lr 0.01, momentum 0.9, weight decay
+    1e-4) of the tiny f32 ResNet on ``device``, one rank or ``p``;
+    returns the losses, the state and the models."""
+    from mpit_tpu_torch import comm
+    from mpit_tpu_torch.asyncsgd import runner
+    from mpit_tpu_torch.data import shard_batch
+    from mpit_tpu_torch.opt import goo
+    from mpit_tpu_torch.train import make_train_step
+
+    models = [_tiny_resnet(device=device) for _ in range(p)]
+    for m in models:
+        m.load_state_dict(init)
+    fns = [runner._classifier_fns(m, top5=False, stateful=True)[0] for m in models]
+    world = None if p == 1 else comm.init({"data": p}, devices=[device])
+    init_fn, step_fn = make_train_step(fns[0] if world is None else fns,
+                                       goo(0.01, 0.9, weight_decay=1e-4), world,
+                                       stateful=True, grad_sync=mode)
+    named = [dict(m.named_parameters()) for m in models]
+    bufs = [dict(m.named_buffers()) for m in models]
+    state = init_fn(named[0], bufs[0]) if world is None else init_fn(named, bufs)
+    losses = []
+    for b in batches:
+        b = ({k: torch.from_numpy(v).to(device) for k, v in b.items()} if world is None
+             else shard_batch(world, b))
+        state, m = step_fn(state, b)
+        losses.append(m["loss"].item())
+    return losses, state, models
+
+
+@pytest.fixture
+def deterministic_f32(cuda):
+    """TF32 off, cuDNN deterministic, no autotuning; restored after."""
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark) = saved
+
+
+def _resnet_case(p):
+    from mpit_tpu_torch.data import synthetic_imagenet
+
+    init = _tiny_resnet(generator=torch.Generator().manual_seed(0)).state_dict()
+    stream = synthetic_imagenet(image_size=32, num_classes=10, seed=0).batches(8 * p)
+    return init, [next(stream) for _ in range(3)]
+
+
+def test_resnet_step_on_the_card_matches_the_cpu(deterministic_f32):
+    """Three f32 stateful steps of the tiny ResNet on one rank: the
+    card's losses within 1e-5 relative of the CPU's, every parameter and
+    BatchNorm buffer within 1e-4 x max(1, max |cpu|) (cuDNN and the CPU
+    sum the convolutions in other orders; the norms' gradients carry
+    that into the updates)."""
+    init, batches = _resnet_case(1)
+    got, _, gm = _resnet_steps("cuda", 1, "psum", init, batches)
+    want, _, wm = _resnet_steps("cpu", 1, "psum", init, batches)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
+    for (name, a), b in zip(gm[0].state_dict().items(), wm[0].state_dict().values()):
+        tol = 1e-4 * max(1.0, b.abs().max().item())
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=tol, msg=name)
+
+
+@pytest.mark.parametrize("mode", ["ring", "ring_q8"])
+def test_resnet_replicas_and_statistics_bit_equal_over_four_ranks(deterministic_f32, mode):
+    """The tiny ResNet over four ranks on the card through the ring
+    kernels: after three steps every rank's parameters and BatchNorm
+    buffers equal rank 0's bit for bit, the buffers moved from their
+    start, and each ring kind launched buckets x steps times."""
+    from mpit_tpu_torch.ops import ring_collectives as rc
+
+    init, batches = _resnet_case(4)
+    before = dict(rc.launches)
+    losses, state, models = _resnet_steps("cuda", 4, mode, init, batches)
+    assert all(np.isfinite(losses))
+    assert state.replicas_equal()
+    for r in range(1, 4):
+        for (name, a), b in zip(models[0].named_buffers(), models[r].buffers()):
+            assert torch.equal(a, b), (r, name)
+    assert not torch.equal(models[0].get_buffer("ScaleShiftBatchNorm_0.mean").cpu(),
+                           init["ScaleShiftBatchNorm_0.mean"])
+    q = "_q8" if mode == "ring_q8" else ""
+    _, buckets = _convnet_bucket_plan(models[0], 4)
+    assert len(buckets) == 2  # 15,703 shard rows: 8192 and 7511
+    moved = {k: n - before[k] for k, n in rc.launches.items() if n != before[k]}
+    assert moved == {f"ring_rs{q}": 3 * len(buckets), f"ring_ag{q}": 3 * len(buckets)}

@@ -43,5 +43,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "mpit_tpu_torch.serve.__main__", "mpit_tpu_torch.asyncsgd.actors",
                  "mpit_tpu_torch.asyncsgd.mnist", "mpit_tpu_torch.asyncsgd.imagenet",
                  "mpit_tpu_torch.models.lenet", "mpit_tpu_torch.models.alexnet",
-                 "mpit_tpu_torch.models.layers"):
+                 "mpit_tpu_torch.models.layers", "mpit_tpu_torch.models.norm",
+                 "mpit_tpu_torch.models.resnet", "mpit_tpu_torch.asyncsgd.resnet",
+                 "mpit_tpu_torch.data.augment", "mpit_tpu_torch.data.filedata",
+                 "mpit_tpu_torch.data.images"):
         assert name in out["modules"], name
