@@ -6,6 +6,8 @@ one GPU, training on one rank and over four data-parallel ranks.
     python3 chip_smoke.py dp_profile ring_q8   # phase 4d's profile of one mode alone
     python3 chip_smoke.py convnets             # phases 4c, 4cd, 4cp and 5c alone
     python3 chip_smoke.py resnet               # 3e at ResNet-50's plan, then 4r, 4rd, 5r
+    python3 chip_smoke.py recovery             # phases 4k, 4kd, 4kx and 4e alone
+    python3 chip_smoke.py elastic 10           # phase 4e alone, ten times over
 
 Run from the root of a checkout on a machine with an NVIDIA GPU (written
 for an H100). Phases, each of which raises (exit code != 0) on failure:
@@ -318,6 +320,48 @@ process and raising on failure:
    ``0.02 + 0.02·|loss|``; the replicas bit-identical in every mode.
 Their records go to ``chiprun_out/chip_smoke_resnet.json``; the kernels
 line's ring rows count 4rd's launches by run.
+
+Checkpoints, the dense format and the elastic tier, in a temporary
+directory deleted at the end:
+
+4k. checkpoints and resume — ``mnist`` on one rank (20 steps) and
+   ``imagenet`` (AlexNet at full width, batch 128) over four ranks
+   through ``ring`` (8 steps), each with ``--ckpt-dir`` under 5c's
+   settings: an uninterrupted run; a run stopped at N/2 by a SIGTERM that
+   the main thread's own forward hook sends, which saves and exits
+   resumable; its resumption to N. The resumed losses and rank 0's final
+   parameters equal the uninterrupted run's bit for bit, the replicas
+   equal, the ring launches buckets x steps in every run. Then each
+   checkpoint's cost at full width (AlexNet over four ranks, GPT-2 small
+   with Adam over four, and GPT-2's dense file): its bytes, the time a
+   save holds the step (asynchronous and synchronous), ``wait()`` and
+   ``restore``;
+4kd. divergence restore — ``mnist`` with ``--ckpt-dir``, rank 0's input
+   poisoned at one step: one restore, the run completes with finite
+   losses, every checkpoint left holds finite values; poisoned twice with
+   ``--max-restores 1``, ``Diverged`` is raised;
+4kx. dense across geometry — GPT-2 small at full width (seq 512, batch
+   8, the flash kernels) over four ranks (ZeRO-1, ``ring``): 6 steps
+   uninterrupted; 3 with ``--save-dense``, continued on two ranks with
+   ``--resume-dense`` to 6, within GPT2_DENSE_TOL of the uninterrupted
+   run (ring launches buckets x steps at each p, flash 12 a rank and
+   step); the final ``.npz`` through ``python -m mpit_tpu_torch.serve
+   --ckpt``'s ``main`` (decode launches), its parameters bit-equal to the
+   trained rank 0 model's, and f32 greedy tokens from it equal to those
+   of an engine on the parameters in memory;
+4e. the elastic tier — ``mnist --mode elastic --nranks 5`` (four LeNet
+   replicas, 60 steps of 32 images each, an exchange every 4 steps,
+   alpha 0.5 / N_active): healthy (no eviction; the loss falls: the
+   centre's held-out eval loss below the initial parameters', and the
+   median of replica 0's later logged losses below its first two), a kill
+   with ``--ckpt-dir`` (crash, eviction, rejoin 5 steps back), a hang
+   past the lease (evict, readmit) and a NaN (quarantine, restore,
+   rejoin); in each the copy kernel's launches exactly 2 x (registers +
+   rejoins) + 4 x exchanges, with events, version, wall time, steps/s,
+   staleness and exchanges by replica, the step straggler and the eval
+   on the centre reported.
+Their records go to ``chiprun_out/chip_smoke_recovery.json``; the kernels
+line's ring, flash and copy rows count their launches by run.
 
 The last lines are the kernels JSON line (each decode form twice: at
 T 1, its ``split`` body, and at its prefill width as ``<form>_prefill``,
@@ -2860,6 +2904,544 @@ def resnet_phases(torch, card, plans: dict) -> dict:
     return {"launches": ring}
 
 
+# ---- checkpoints, the dense format and the elastic tier (4k, 4kd, 4kx, 4e) ----------
+
+RECOVERY_MNIST_ARGS = ["--batch-size", "32", "--log-every", "1"]
+RECOVERY_MNIST_STEPS = 20
+RECOVERY_ALEXNET_STEPS = 8
+# 4kx: GPT-2 small at full width, seq 512, batch 8, the flash kernels,
+# ZeRO-1 through the ring kernels; the data=2 continuation of a data=4
+# run against the uninterrupted data=4 run. Absolute, per-step loss: the
+# ranks' GEMMs run at half the rows (cuBLAS's bf16 results are not
+# row-invariant in M), and Adam turns the sign noise of near-zero
+# gradients into steps of up to lr.
+GPT2_DENSE_ARGS = ["--flash", "true", "--log-every", "1", "--zero1", "true",
+                   "--grad-sync", "ring"]
+GPT2_DENSE_STEPS = 6
+GPT2_DENSE_TOL = 2e-2
+# 4e: four LeNet replicas at full width, 60 steps of 32 images each,
+# an exchange every 4 steps, alpha = 0.5 / N_active; JAX's liveness
+# defaults (heartbeat 0.1 s, lease 1.0 s).
+ELASTIC_ARGS = ["--mode", "elastic", "--nranks", "5", "--batch-size", "128", "--steps", "240",
+                "--sync-every", "4", "--easgd-beta", "0.5", "--log-every", "10",
+                "--eval-batch", "256"]
+
+
+class deterministic:
+    """5c's settings for the enclosed block: TF32 off, cuDNN
+    deterministic, no autotuning; restored after."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        b = self.torch.backends
+        self.saved = (b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32, b.cudnn.deterministic,
+                      b.cudnn.benchmark)
+        b.cuda.matmul.allow_tf32 = b.cudnn.allow_tf32 = False
+        b.cudnn.deterministic, b.cudnn.benchmark = True, False
+
+    def __exit__(self, *exc):
+        b = self.torch.backends
+        (b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32, b.cudnn.deterministic,
+         b.cudnn.benchmark) = self.saved
+
+
+class model_hook:
+    """A forward pre-hook on every module for the enclosed block: keeps
+    the instances of ``cls`` in the order they first run (rank 0's model
+    first), and with ``sigterm_at`` sends this process a SIGTERM from the
+    main thread during rank 0's ``sigterm_at``-th forward (its step
+    ``sigterm_at``, which then finishes)."""
+
+    def __init__(self, torch, cls, sigterm_at: int = 0):
+        self.torch, self.cls, self.sigterm_at = torch, cls, sigterm_at
+        self.models, self.calls = [], 0
+
+    def __call__(self, module, args):
+        import os
+        import signal
+
+        if not isinstance(module, self.cls):
+            return None
+        if not any(m is module for m in self.models):
+            self.models.append(module)
+        if module is self.models[0]:
+            self.calls += 1
+            if self.calls == self.sigterm_at:
+                os.kill(os.getpid(), signal.SIGTERM)
+        return None
+
+    def __enter__(self):
+        self.handle = self.torch.nn.modules.module.register_module_forward_pre_hook(self)
+        return self
+
+    def __exit__(self, *exc):
+        self.handle.remove()
+
+
+def rank0_params(model) -> dict:
+    return {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+
+
+def ckpt_steps(path) -> list:
+    from mpit_tpu_torch.train import AtomicCheckpoint
+
+    return AtomicCheckpoint(path).all_steps()
+
+
+def recovery_resume_phase(torch, card, plans: dict, tmp) -> dict:
+    """Phase 4k: ``mnist`` on one rank and ``imagenet`` (AlexNet at full
+    width) over four ranks through ``ring``, each with ``--ckpt-dir``:
+    an uninterrupted run of N steps, and a run stopped at N/2 by a
+    SIGTERM from the main thread's step hook, then resumed to N. Under
+    5c's settings the resumed losses and the final parameters equal the
+    uninterrupted run's bit for bit and the replicas are equal; the ring
+    launches are buckets x steps in every run. Returns each run's ring
+    launches."""
+    from mpit_tpu_torch.asyncsgd import imagenet, mnist
+    from mpit_tpu_torch.models import AlexNet, LeNet
+    from mpit_tpu_torch.ops import ring_collectives as rc
+
+    runs = {  # name: (main, model class, args, N, bucket plan)
+        "mnist": (mnist.main, LeNet, RECOVERY_MNIST_ARGS, RECOVERY_MNIST_STEPS, None),
+        "imagenet_ring": (imagenet.main, AlexNet,
+                          IMAGENET_ARGS + ["--mesh", f"data={CONV_RANKS}", "--zero1", "true",
+                                           "--grad-sync", "ring"],
+                          RECOVERY_ALEXNET_STEPS, plans["alexnet"]),
+    }
+    launches, records = {}, {}
+    for name, (main, cls, args, n, plan) in runs.items():
+        every = ["--ckpt-every", str(n // 2)]
+        out, params, wall = {}, {}, {}
+        for part, extra, hook_at in (
+            ("full", ["--steps", str(n), "--ckpt-dir", str(tmp / f"{name}_full")], 0),
+            ("stopped", ["--steps", str(n), "--ckpt-dir", str(tmp / name)], n // 2),
+            ("resumed", ["--steps", str(n), "--ckpt-dir", str(tmp / name)], 0),
+        ):
+            torch.cuda.empty_cache()
+            rc.launches.update(dict.fromkeys(rc.launches, 0))
+            t0 = time.perf_counter()
+            with deterministic(torch), model_hook(torch, cls, hook_at) as hook:
+                out[part] = main(args + every + extra)
+            torch.cuda.synchronize()
+            wall[part] = time.perf_counter() - t0
+            params[part] = rank0_params(hook.models[0])
+            ran = out[part]["steps"] - (n // 2 if part == "resumed" else 0)
+            if plan is not None:
+                want = {k: plan["buckets"] * ran if k in ("ring_rs", "ring_ag") else 0
+                        for k in rc.launches}
+                if dict(rc.launches) != want:
+                    fail(f"4k {name} {part}: ring launches {dict(rc.launches)}, expected {want}")
+                launches[f"{name}_{part}"] = {k: v for k, v in rc.launches.items() if v}
+                if not out[part]["replicas_identical"]:
+                    fail(f"4k {name} {part}: the replicas differ")
+            del hook
+        full, stopped, resumed = out["full"], out["stopped"], out["resumed"]
+        if not (stopped["preempted"] and stopped["steps"] == n // 2):
+            fail(f"4k {name}: the SIGTERM run ended at {stopped['steps']}, "
+                 f"preempted {stopped['preempted']}")
+        if ckpt_steps(tmp / name) != [n // 2, n]:
+            fail(f"4k {name}: checkpoints {ckpt_steps(tmp / name)}, expected {[n // 2, n]}")
+        if stopped["losses"] + resumed["losses"] != full["losses"]:
+            fail(f"4k {name}: losses {stopped['losses']} + {resumed['losses']} != "
+                 f"{full['losses']}")
+        diff = [k for k, v in params["full"].items() if not torch.equal(v, params["resumed"][k])]
+        if diff:
+            fail(f"4k {name}: the resumed run's parameters differ at {diff[:4]}")
+        if not all(math.isfinite(x) for x in full["losses"]):
+            fail(f"4k {name}: losses {full['losses']}")
+        records[name] = {
+            "args": args + every, "steps": n, "stopped_at": stopped["steps"],
+            "losses": full["losses"], "resumed_bit_equal": True,
+            "checkpoints": ckpt_steps(tmp / name),
+            "wall_s": wall, "ring_launches": {p: launches.get(f"{name}_{p}") for p in out},
+        }
+        print(json.dumps({"card": card, "recovery_resume": {name: records[name]}}), flush=True)
+        for path in (tmp / name, tmp / f"{name}_full"):
+            for f in path.iterdir():
+                f.unlink()
+    return {"launches": launches, "records": records}
+
+
+def save_timing(torch, name: str, state) -> dict:
+    """One state's checkpoint: the time ``save`` holds the step
+    (asynchronous and synchronous), ``wait()``, ``restore`` into the
+    state's own tensors, and the file's size. The parameters are set to
+    one random row on every rank first."""
+    import os
+    import tempfile
+    from pathlib import Path as _P
+
+    from mpit_tpu_torch.train import CheckpointManager
+
+    fp = state.flat.params
+    fp.copy_(torch.empty(fp.shape[1], device=fp.device).uniform_(-0.1, 0.1).expand_as(fp))
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        for mode, async_save in (("async", True), ("sync", False)):
+            ck = CheckpointManager(_P(d) / mode, async_save=async_save, max_to_keep=1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ck.save(1, state)
+            out[f"{mode}_save_holds_ms"] = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            ck.wait()
+            out[f"{mode}_wait_ms"] = (time.perf_counter() - t0) * 1e3
+            path = _P(d) / mode / "step_0000000001.npz"
+            out["bytes"] = os.path.getsize(path)
+            t0 = time.perf_counter()
+            ck.restore(state)
+            torch.cuda.synchronize()
+            out[f"{mode}_restore_ms"] = (time.perf_counter() - t0) * 1e3
+            ck.close()
+            path.unlink()
+    if state.flat is not None and not state.replicas_equal():
+        fail(f"save timing {name}: the replicas differ after the restore")
+    return out
+
+
+def recovery_save_timing(torch, card) -> dict:
+    """Phase 4k's checkpoint costs at full width: AlexNet over four ranks
+    (goo momentum, ZeRO-1) and GPT-2 small over four (Adam, ZeRO-1), and
+    GPT-2's dense file (``dense_from_dp`` + ``save_dense``, then
+    ``load_dense`` + ``dp_from_dense``)."""
+    import os
+    import tempfile
+
+    from mpit_tpu_torch import comm
+    from mpit_tpu_torch.asyncsgd import runner
+    from mpit_tpu_torch.models import GPT2, AlexNet, GPT2Config
+    from mpit_tpu_torch.opt import goo, goo_adam
+    from mpit_tpu_torch.train import (dense_from_dp, dp_from_dense, load_dense,
+                                      make_train_step, save_dense)
+
+    world = comm.init({"data": CONV_RANKS}, devices=["cuda"])
+    out = {}
+    models = [AlexNet(device="cuda") for _ in range(CONV_RANKS)]
+    init_fn, _ = make_train_step([runner._classifier_fns(m, False)[0] for m in models],
+                                 goo(0.01, 0.9), world, grad_sync="ring")
+    state = init_fn([dict(m.named_parameters()) for m in models])
+    out["alexnet_p4"] = save_timing(torch, "alexnet", state)
+    del models, state, init_fn
+    torch.cuda.empty_cache()
+    mcfg = GPT2Config.small()
+    models = [GPT2(mcfg, device="cuda") for _ in range(CONV_RANKS)]
+    tx = goo_adam(3e-4)
+    init_fn, _ = make_train_step([lambda p, b: None] * CONV_RANKS, tx, world)
+    state = init_fn([dict(m.named_parameters()) for m in models])
+    out["gpt2_small_adam_p4"] = save_timing(torch, "gpt2", state)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "g.npz")
+        t0 = time.perf_counter()
+        save_dense(path, dense_from_dp(state, tx), num_heads=12, tie_head=True)
+        dense = {"save_ms": (time.perf_counter() - t0) * 1e3, "bytes": os.path.getsize(path)}
+        t0 = time.perf_counter()
+        dp_from_dense(load_dense(path), state, tx)
+        torch.cuda.synchronize()
+        dense["load_ms"] = (time.perf_counter() - t0) * 1e3
+    out["gpt2_small_adam_dense"] = dense
+    del models, state
+    torch.cuda.empty_cache()
+    print(json.dumps({"card": card, "checkpoint_costs": out}), flush=True)
+    return out
+
+
+def recovery_divergence_phase(torch, card, tmp) -> dict:
+    """Phase 4kd: ``mnist`` with ``--ckpt-dir``, a loss made non-finite
+    at a chosen step (rank 0's input poisoned by a forward hook): the
+    loop restores the newest checkpoint older than the target, logs it
+    and completes; every checkpoint left holds finite values (none was
+    written at a failing step). Poisoned twice with ``--max-restores
+    1``, the run raises ``Diverged``."""
+    import numpy as np
+
+    from mpit_tpu_torch.asyncsgd import mnist
+    from mpit_tpu_torch.models import LeNet
+    from mpit_tpu_torch.train import Diverged
+
+    def poison(at):
+        calls = {"n": 0}
+
+        def hook(module, args):
+            if isinstance(module, LeNet):
+                calls["n"] += 1
+                if calls["n"] in at:
+                    return (args[0] * float("nan"),)
+            return None
+
+        return torch.nn.modules.module.register_module_forward_pre_hook(hook)
+
+    args = ["--steps", str(RECOVERY_MNIST_STEPS), "--ckpt-every", "4", *RECOVERY_MNIST_ARGS]
+    handle = poison({10})
+    try:
+        out = mnist.main(["--ckpt-dir", str(tmp / "div"), *args])
+    finally:
+        handle.remove()
+    if not (out["restores"] == 1 and out["steps"] == RECOVERY_MNIST_STEPS
+            and all(math.isfinite(x) for x in out["losses"])):
+        fail(f"4kd: restores {out['restores']}, steps {out['steps']}, losses {out['losses']}")
+    finite = {}
+    for f in sorted((tmp / "div").glob("step_*.npz")):
+        with np.load(f) as z:
+            finite[f.name] = all(bool(np.isfinite(z[k]).all()) for k in z.files)
+    if not all(finite.values()):
+        fail(f"4kd: a checkpoint holds non-finite values: {finite}")
+    handle = poison({10, 13})
+    try:
+        mnist.main(["--ckpt-dir", str(tmp / "div2"), "--max-restores", "1", *args])
+        raised = None
+    except Diverged as e:
+        raised = str(e)
+    finally:
+        handle.remove()
+    if raised is None:
+        fail("4kd: two injections with --max-restores 1 did not raise Diverged")
+    record = {"restores": out["restores"], "losses": out["losses"],
+              "checkpoints_finite": finite, "second_injection_raised": raised}
+    print(json.dumps({"card": card, "recovery_divergence": record}), flush=True)
+    return record
+
+
+def recovery_dense_phase(torch, card, tmp) -> dict:
+    """Phase 4kx: GPT-2 small at full width over four ranks (ZeRO-1,
+    ``ring``, the flash kernels): an uninterrupted run of 6 steps; a run
+    of 3 with ``--save-dense``; its continuation to 6 on two ranks with
+    ``--resume-dense`` (and ``--save-dense`` of the end), within
+    GPT2_DENSE_TOL of the uninterrupted run. The final file through
+    ``python -m mpit_tpu_torch.serve --ckpt``'s ``main`` (the decode
+    kernel launched), and in f32: its parameters equal the trained rank
+    0 model's bit for bit, and greedy tokens of an engine on the file
+    equal those of an engine on the parameters in memory. Returns the
+    runs' ring and flash launches."""
+    import importlib
+
+    from mpit_tpu_torch import comm
+    from mpit_tpu_torch.asyncsgd import gpt2
+    from mpit_tpu_torch.asyncsgd.config import from_argv
+    from mpit_tpu_torch.models import GPT2
+    from mpit_tpu_torch.ops import decode_attention as da
+    from mpit_tpu_torch.ops import ring_collectives as rc
+    from mpit_tpu_torch.opt.sharded import FlatLayout, padded_len
+    from mpit_tpu_torch.serve import Engine, Request, Server
+    from mpit_tpu_torch.serve.__main__ import main as serve_main
+    from mpit_tpu_torch.serve.weights import load_gpt2_params
+    from mpit_tpu_torch.train.grad_sync import GradSync
+
+    fa = importlib.import_module("mpit_tpu_torch.ops.flash_attention")
+    n, half = GPT2_DENSE_STEPS, GPT2_DENSE_STEPS // 2
+    mcfg_run = from_argv(gpt2.GPT2TrainConfig, GPT2_DENSE_ARGS).model_config()
+    layout_total = FlatLayout(dict(GPT2(mcfg_run, device="meta").named_parameters())).total
+
+    def buckets(p):
+        rows = padded_len(layout_total, p) // (p * 128)
+        return len(GradSync(comm.init({"data": p}, devices=["cuda"]), "ring").bucket_rows(rows))
+
+    half_path, final_path = str(tmp / "half.npz"), str(tmp / "final.npz")
+    runs = {  # name: (p, args, steps run)
+        "gpt2_dense_full_p4": (4, ["--steps", str(n)], n),
+        "gpt2_dense_half_p4": (4, ["--steps", str(half), "--save-dense", half_path], half),
+        "gpt2_dense_resumed_p2": (2, ["--steps", str(n), "--resume-dense", half_path,
+                                      "--save-dense", final_path], n - half),
+    }
+    out, launches, wall = {}, {}, {}
+    for name, (p, extra, ran) in runs.items():
+        torch.cuda.empty_cache()
+        rc.launches.update(dict.fromkeys(rc.launches, 0))
+        fa.launches.update(dict.fromkeys(fa.launches, 0))
+        t0 = time.perf_counter()
+        with model_hook(torch, GPT2) as hook:
+            out[name] = gpt2.main(GPT2_DENSE_ARGS + ["--mesh", f"data={p}"] + extra)
+        torch.cuda.synchronize()
+        wall[name] = time.perf_counter() - t0
+        want = {k: buckets(p) * ran if k in ("ring_rs", "ring_ag") else 0 for k in rc.launches}
+        if dict(rc.launches) != want:
+            fail(f"4kx {name}: ring launches {dict(rc.launches)}, expected {want}")
+        per_step = mcfg_run.num_layers * p
+        if any(v != per_step * ran for v in fa.launches.values()):
+            fail(f"4kx {name}: flash launches {dict(fa.launches)}, expected {per_step * ran} each")
+        if not out[name]["replicas_identical"]:
+            fail(f"4kx {name}: the replicas differ")
+        launches[name] = {**{k: v for k, v in rc.launches.items() if v},
+                          **{f"flash_{k}": v for k, v in fa.launches.items()}}
+        trained = rank0_params(hook.models[0])
+        del hook
+    full = out["gpt2_dense_full_p4"]["losses"]
+    cont = out["gpt2_dense_half_p4"]["losses"] + out["gpt2_dense_resumed_p2"]["losses"]
+    gaps = [abs(a - b) for a, b in zip(full, cont)]
+    if len(cont) != n or max(gaps) > GPT2_DENSE_TOL:
+        fail(f"4kx: the data=2 continuation {cont} against data=4 {full}")
+    torch.cuda.empty_cache()
+    da.launches.update(dict.fromkeys(da.launches, 0))
+    served = serve_main(["--ckpt", final_path, "--requests", "8", "--max-new-tokens", "16",
+                         "--slots", "4"])
+    decode = {k: v for k, v in da.launches.items() if v}
+    if served["requests_completed"] != 8 or not decode:
+        fail(f"4kx: serve --ckpt completed {served['requests_completed']}, decode {decode}")
+    state, mcfg = load_gpt2_params(final_path)
+    diff = [k for k, v in trained.items() if not torch.equal(v, state[k])]
+    if diff:
+        fail(f"4kx: the dense file's parameters differ from the trained model's at {diff[:4]}")
+    mcfg = dataclasses.replace(mcfg, dtype=torch.float32)
+    prompts = [[(7 * i + j) % mcfg.vocab_size for j in range(4 + 2 * i)] for i in range(4)]
+
+    def tokens(params):
+        server = Server(Engine(mcfg, params, slots=4, max_len=24, prefill_len=16,
+                               device="cuda"))
+        for i, pr in enumerate(prompts):
+            server.submit(Request(rid=i, prompt=pr, max_new_tokens=12))
+        return {c.rid: c.tokens for c in server.run()}
+
+    from_file, in_memory = tokens(state), tokens(trained)
+    if from_file != in_memory:
+        fail(f"4kx: f32 greedy tokens from the file {from_file} != in memory {in_memory}")
+    record = {"args": GPT2_DENSE_ARGS, "losses_full_p4": full, "losses_half_then_p2": cont,
+              "max_abs_gap": max(gaps), "tol": GPT2_DENSE_TOL, "wall_s": wall,
+              "first_half_bit_equal": cont[:half] == full[:half],
+              "launches": launches, "serve_decode_launches": decode,
+              "serve_wall_s": served["wall_s"], "f32_tokens_equal": True,
+              "tokens": sum(len(t) for t in from_file.values())}
+    print(json.dumps({"card": card, "recovery_dense": record}), flush=True)
+    return {"launches": launches, "record": record}
+
+
+def elastic_phase(torch, card, tmp) -> dict:
+    """Phase 4e: ``mnist --mode elastic --nranks 5`` (four LeNet replicas
+    and the anchor on the card) four ways: healthy (every staleness
+    noted: ``--staleness-bound 0``), a kill with ``--ckpt-dir`` (crash,
+    eviction, rejoin from the checkpoint), a hang past the lease
+    (evict, then readmit) and a NaN (quarantine, restore, rejoin; the
+    centre finite). The copy kernel's launches (set to 0 just before)
+    must be exactly two a register or rejoin and four an exchange; the
+    healthy run evicts nobody and its loss falls: the centre's eval loss
+    on the 256 held-out images is below that of the initial parameters,
+    and the median of replica 0's logged losses after its first two is
+    below the mean of those two. (One logged loss is one 32-image batch:
+    near zero loss a single confidently wrong image lifts it by several
+    nats, so a pair of logged losses cannot judge the trend.) Returns
+    the launches by run."""
+    import numpy as np
+
+    from mpit_tpu_torch.asyncsgd import mnist
+    from mpit_tpu_torch.asyncsgd.runner import _on_device, softmax_xent
+    from mpit_tpu_torch.compat import FaultPlan
+    from mpit_tpu_torch.data import synthetic_mnist
+    from mpit_tpu_torch.models import LeNet
+    from mpit_tpu_torch.ops import kv_ship
+
+    # The centre's initial eval loss: the runner's seeded LeNet (seed 0)
+    # on its eval batch (--eval-batch 256).
+    with torch.no_grad():
+        held_out = _on_device(synthetic_mnist(seed=0).eval_batch(256), "cuda")
+        first = LeNet(num_classes=10, device="cuda", generator=torch.Generator().manual_seed(0))
+        initial_eval = float(softmax_xent(first(held_out["image"]), held_out["label"]))
+    del first, held_out
+
+    runs = {  # name: (extra args, fault plan)
+        "elastic_healthy": (["--staleness-bound", "0"], None),
+        "elastic_kill_rejoin": (["--ckpt-dir", str(tmp / "kill"), "--ckpt-every", "10"],
+                                FaultPlan(seed=0, kill_at={1: 35}, rejoin_delay_s=2.0)),
+        "elastic_hang": ([], FaultPlan(seed=0, hang_at={2: (24, 2.5)})),
+        "elastic_nan": (["--ckpt-dir", str(tmp / "nan"), "--ckpt-every", "10",
+                         "--max-restores", "2"], FaultPlan(seed=0, nan_at={3: 21})),
+    }
+    launches, records = {}, {}
+    for name, (extra, plan) in runs.items():
+        kv_ship.launches["kv_ship"] = 0
+        t0 = time.perf_counter()
+        out = mnist.main(ELASTIC_ARGS + extra, fault_plan=plan)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = kv_ship.launches["kv_ship"]
+        server, stats = out["server"], out["replica_stats"]
+        rejoins = sum(r["rejoins"] for r in stats)
+        want = 2 * (len(stats) + rejoins) + 4 * out["anchor_version"]
+        if n != want:
+            fail(f"4e {name}: {n} copy-kernel launches, expected {want} (2 x ({len(stats)} "
+                 f"registers + {rejoins} rejoins) + 4 x {out['anchor_version']} exchanges)")
+        if out["anchor_version"] != sum(r["exchanges"] for r in stats):
+            fail(f"4e {name}: version {out['anchor_version']} != the replicas' exchanges")
+        if not all(r["completed"] for r in stats):
+            fail(f"4e {name}: a replica did not complete: {stats}")
+        kinds = [e[0] for e in server["events"]]
+        head, later = float(np.mean(out["losses"][:2])), float(np.median(out["losses"][2:]))
+        ok = {
+            "elastic_healthy": lambda: server["evictions"] == 0
+            and out["eval"]["loss"] < initial_eval and later < head,
+            "elastic_kill_rejoin": lambda: stats[0]["crashes"] == 1
+            and stats[0]["rejoin_steps_to_recover"] == 5 and "evicted" in kinds
+            and ("rejoined", 1, "rejoin") in server["events"],
+            "elastic_hang": lambda: [e[1] for e in server["events"] if e[0] == "evicted"] == [2]
+            and any(e[0] == "rejoined" and e[1] == 2 for e in server["events"]),
+            "elastic_nan": lambda: stats[2]["quarantines"] >= 1 and stats[2]["restores"] >= 1
+            and server["evictions"] == 0 and math.isfinite(out["eval"]["loss"]),
+        }[name]()
+        if not ok:  # the short figures last: a log's tail keeps them
+            fail(f"4e {name}: events {server['events']}, stats {stats}; evictions "
+                 f"{server['evictions']}, the centre's eval {out['eval']} against "
+                 f"{initial_eval} at init, replica 0's losses {out['losses']} (median after "
+                 f"the first two {later}, mean of the first two {head})")
+        stale = {}
+        for e in server["events"]:
+            if e[0] == "staleness_exceeded":
+                stale.setdefault(e[1], []).append(e[2])
+        launches[name] = n
+        records[name] = {
+            "args": ELASTIC_ARGS + extra, "wall_s": wall, "version": out["anchor_version"],
+            "events": {k: kinds.count(k) for k in sorted(set(kinds))},
+            "event_log": [e for e in server["events"] if e[0] != "staleness_exceeded"],
+            "replicas": [{k: r.get(k) for k in ("exchanges", "steps_per_s", "wall_s",
+                                                 "crashes", "rejoins", "restores",
+                                                 "quarantines", "rejoin_steps_to_recover")}
+                         for r in stats],
+            "staleness": {r: {"n": len(v), "max": max(v), "mean": float(np.mean(v))}
+                          for r, v in sorted(stale.items())},
+            "step_straggler_rank": out.get("flight", {}).get("step_straggler_rank"),
+            "losses_replica0": out["losses"], "eval_on_centre": out["eval"],
+            "eval_at_init": initial_eval,
+            "kv_ship_launches": n, "fault_events": out.get("fault_events"),
+        }
+        print(json.dumps({"card": card, "elastic": {name: records[name]}}), flush=True)
+    return {"launches": launches, "records": records}
+
+
+def recovery_phases(torch, card, plans: dict) -> dict:
+    """Phases 4k, 4kd, 4kx and 4e in turn, in a temporary directory
+    deleted at the end; their records also go to
+    ``chiprun_out/chip_smoke_recovery.json``. Returns the main paths'
+    launches: the ring kernels' by run and kernel, the copy kernel's by
+    run, the flash kernels' by run."""
+    import tempfile
+
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        tmp = Path(d)
+        t0 = time.perf_counter()
+        resume = recovery_resume_phase(torch, card, plans, tmp)
+        out["costs"] = recovery_save_timing(torch, card)
+        print(f"phase 4k: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        out["divergence"] = recovery_divergence_phase(torch, card, tmp)
+        print(f"phase 4kd: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        dense = recovery_dense_phase(torch, card, tmp)
+        print(f"phase 4kx: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        elastic = elastic_phase(torch, card, tmp)
+        print(f"phase 4e: {time.perf_counter() - t0:.1f} s", flush=True)
+    out.update(resume=resume["records"], dense=dense["record"], elastic=elastic["records"])
+    ring = {**resume["launches"],
+            **{k: {n: c for n, c in v.items() if n.startswith("ring")}
+               for k, v in dense["launches"].items()}}
+    flash = {k: {n[len("flash_"):]: c for n, c in v.items() if n.startswith("flash_")}
+             for k, v in dense["launches"].items()}
+    launches = {"ring": ring, "kv_ship": elastic["launches"], "flash": flash}
+    OUT.mkdir(exist_ok=True)
+    (OUT / "chip_smoke_recovery.json").write_text(json.dumps(
+        {"card": card, "launches": launches, **out}, indent=1, default=str))
+    return {"launches": launches}
+
+
 def main() -> None:
     import torch
 
@@ -2902,6 +3484,25 @@ def main() -> None:
             {"card": card, "bucket_plan": plans["resnet50"], "cases": cases}, indent=1))
         res = resnet_phases(torch, card, plans)
         print(json.dumps({"card": card, "resnet_launches": res["launches"]}))
+        return
+    if sys.argv[1:2] == ["elastic"]:  # phase 4e alone, run N times (default once)
+        import tempfile
+
+        build.build(build.KERNEL_SOURCES)
+        reps = int(sys.argv[2]) if len(sys.argv) > 2 else 1
+        with tempfile.TemporaryDirectory() as d:
+            records = [elastic_phase(torch, card, Path(d) / str(i))["records"]
+                       for i in range(reps)]
+        OUT.mkdir(exist_ok=True)
+        (OUT / "chip_smoke_elastic.json").write_text(json.dumps(
+            {"card": card, "repeats": records}, indent=1, default=str))
+        print(json.dumps({"card": card, "elastic_repeats": reps}))
+        return
+    if sys.argv[1:2] == ["recovery"]:  # phases 4k, 4kd, 4kx and 4e alone
+        build.build(build.KERNEL_SOURCES)
+        rec = recovery_phases(torch, card, convnet_bucket_plans(torch))
+        print(json.dumps({"card": card, "recovery_launches": rec["launches"]}))
+        print(f"chip_smoke recovery: {time.perf_counter() - t_start:.1f} s in all", flush=True)
         return
     t0 = time.perf_counter()
     logs = build.build(build.KERNEL_SOURCES, force=True)
@@ -2991,8 +3592,10 @@ def main() -> None:
     dp_parity_phase(torch, dp_losses["ring_q8"])
     conv = convnet_phases(torch, card, conv_plans)
     res = resnet_phases(torch, card, conv_plans)
-    # The ring kernels' launches by run: the convnets' and ResNet-50's.
-    ring_runs = {**conv["launches"]["ring"], **res["launches"]}
+    rec = recovery_phases(torch, card, conv_plans)
+    # The ring kernels' launches by run: the convnets', ResNet-50's and the
+    # checkpointed runs' (4k, 4kx).
+    ring_runs = {**conv["launches"]["ring"], **res["launches"], **rec["launches"]["ring"]}
 
     kernels = []
     # Each decode form twice: at T 1 (the tick, split body) and at its
@@ -3058,7 +3661,10 @@ def main() -> None:
             "source": "mpit_tpu_torch/csrc/flash_attention.cu",
             "replaces": f"mpit_tpu/ops/flash_attention.py:{body}",
             "call_site": f"mpit_tpu/ops/flash_attention.py:{call}",
-            "launches": flash_launches[kind],
+            "launches": flash_launches[kind] + sum(
+                r.get(kind, 0) for r in rec["launches"]["flash"].values()),
+            "launches_by_run": {"gpt2_train": flash_launches[kind], **{
+                run: r[kind] for run, r in rec["launches"]["flash"].items()}},
             "max_abs_err": max(v for k, v in head["max_abs_err"].items()),
             **{k: head[k] for k in ("tol", "ms", "plain_ms", "bound_ms", "bound_by",
                                     "library_ms", "library")},
@@ -3099,8 +3705,10 @@ def main() -> None:
         "replaces": "mpit_tpu/serve/shipment.py:301",
         "call_site": "mpit_tpu/serve/shipment.py:313",
         "path": head["body"],
-        "launches": sum(ship_launches.values()) + sum(conv["launches"]["kv_ship"].values()),
-        "launches_by_run": {**ship_launches, **conv["launches"]["kv_ship"]},
+        "launches": (sum(ship_launches.values()) + sum(conv["launches"]["kv_ship"].values())
+                     + sum(rec["launches"]["kv_ship"].values())),
+        "launches_by_run": {**ship_launches, **conv["launches"]["kv_ship"],
+                            **rec["launches"]["kv_ship"]},
         **{k: head[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                 "library_ms", "library", "device_ms", "library_device_ms")},
         "shape": {"bytes": head["bytes"], "dtype": head["dtype"]},

@@ -3,9 +3,10 @@
 The port of :mod:`mpit_tpu.asyncsgd.config`: each workload is a plain
 dataclass and its command line is generated from the fields
 (:func:`mpit_tpu_torch.config.from_argv`, with ``overrides``). The
-fields are those of the JAX package that the port reads; every other
-flag of the JAX CLI still parses, and raises ``SystemExit`` naming the
-slice that brings it (``asyncsgd.runner.LATER_FLAGS``). Two fields are
+fields are those of the JAX package that the port reads, with JAX's
+defaults; every other flag of the JAX CLI still parses, and raises
+``SystemExit`` naming the slice that brings it
+(``asyncsgd.runner.LATER_FLAGS``). Two fields are
 the port's own: ``device`` (``cuda``, the default, or ``cpu``) and
 ``ps_timeout`` (the parity mode's compat job limit).
 """
@@ -23,9 +24,11 @@ __all__ = ["TrainConfig", "add_dataclass_args", "from_argv", "parse_mesh"]
 class TrainConfig:
     """Options shared by every workload script (the Lua ``opt`` table
     analogue). ``mode``: ``spmd`` (one rank, or ``--mesh data=N`` ranks
-    driven from this process) or ``parity`` (1 parameter server +
-    ``nranks - 1`` clients on the compat simulator); ``elastic`` arrives
-    with a later slice."""
+    driven from this process), ``parity`` (1 parameter server +
+    ``nranks - 1`` clients on the compat simulator) or ``elastic`` (1
+    anchor server + ``nranks - 1`` replicas, each on the hardened loop,
+    with heartbeats, leases, quarantine and crash/rejoin over per-replica
+    checkpoints; ``mnist`` only)."""
 
     mode: str = "spmd"  # spmd | parity | elastic
     steps: int = 200
@@ -49,18 +52,34 @@ class TrainConfig:
     grad_bucket_mb: float = 4.0  # ring tiers: bucket size (MB of f32)
     easgd: bool = False  # parity: elastic averaging in place of Downpour
     easgd_alpha: float = 0.125
-    sync_every: int = 1  # parity: client steps between server exchanges
-    nranks: int = 2  # parity: 1 server + (nranks - 1) clients
+    # elastic: alpha = easgd_beta / N_active when > 0 (eviction reshapes
+    # the denominator); 0 keeps the fixed easgd_alpha.
+    easgd_beta: float = 0.0
+    sync_every: int = 1  # parity/elastic: client steps between server exchanges
+    nranks: int = 2  # parity/elastic: 1 server + (nranks - 1) clients/replicas
+    # elastic liveness: a replica silent past lease_s is evicted; a pull
+    # more than staleness_bound centre versions stale is noted, not fatal.
+    lease_s: float = 1.0
+    heartbeat_s: float = 0.1
+    staleness_bound: int = 8
     # parity: the compat job's wall-clock limit (s); a longer run is
     # taken for a deadlock and aborted with every rank's mailbox state.
     ps_timeout: float = 600.0
     mesh: str = ""  # e.g. "data=4"; "" = one rank
     log_every: int = 50
+    ckpt_dir: str = ""  # checkpoint directory ("" = no checkpoints)
+    ckpt_every: int = 0
+    # The cross-geometry dense .npz (train/convert.py): --save-dense writes
+    # it at the run's end (a preemption included); --resume-dense restores
+    # it onto this run's ranks, the ZeRO-1 shards re-cut.
+    save_dense: str = ""
+    resume_dense: str = ""
     eval_batch: int = 256
     # Every N steps (and at the last) the val split's sweep is logged as
     # eval_* rows; 0 = one held-out batch evaluated at the end.
     eval_every: int = 0
     eval_batches: int = 0  # cap the sweep (0 = the synthetic split's 8)
+    max_restores: int = 1  # checkpoint restores after a diverged loss
     spike_factor: float = 0.0  # >0: treat loss > factor * EMA as divergence
     fetch_lag: int = 2  # losses read back this many log points late
     prefetch_depth: int = 2  # host batches staged ahead of the step

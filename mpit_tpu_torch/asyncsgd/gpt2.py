@@ -17,6 +17,18 @@ false`` the plain :func:`~mpit_tpu_torch.models.gpt2.default_attention`.
         --vocab-size 128 --seq-len 32 --num-layers 2 --num-heads 2 --d-model 32
     python -m mpit_tpu_torch.asyncsgd gpt2 --flash true --mesh data=4 \\
         --zero1 true --grad-sync ring
+    python -m mpit_tpu_torch.asyncsgd gpt2 --flash true --mesh data=4 --steps 20 \\
+        --ckpt-dir runs/gpt2 --ckpt-every 10 --save-dense runs/gpt2.npz
+    python -m mpit_tpu_torch.asyncsgd gpt2 --flash true --mesh data=2 --steps 40 \\
+        --resume-dense runs/gpt2.npz
+    python -m mpit_tpu_torch.serve --ckpt runs/gpt2.npz
+
+Checkpoints (``--ckpt-dir``, the dense tier's contract in JAX): saved
+synchronously every ``--ckpt-every`` steps and at the natural end, a
+resume seeks the token stream past the consumed batches.
+``--save-dense`` writes the cross-geometry ``.npz`` with ``num_heads``
+and ``tie_head`` in its meta, so ``serve --ckpt`` (and the JAX
+package's ``load_gpt2_params``) reads it without guessing.
 
 Every other tier of the JAX workload (a mesh with a model, seq, pipe or
 expert axis) and every flag of a later slice raises ``SystemExit``
@@ -109,6 +121,8 @@ def main(argv: list[str] | None = None, *, initial_params=None, **overrides) -> 
                 "do not have"
             )
     runner.reject_later_slices(cfg)
+    runner.refuse_elastic(cfg, "gpt2")
+    runner.refuse_dense(cfg, stateful=False)
     print(runner.describe(cfg, "gpt2"))
     device = resolve_device(cfg.device)
     world = runner.make_world(cfg, device)
@@ -150,6 +164,10 @@ def main(argv: list[str] | None = None, *, initial_params=None, **overrides) -> 
         items_per_batch=cfg.batch_size * cfg.seq_len,
         step_attrs={"attention": "flash" if cfg.flash else "plain"},
         world=world,
+        stream_factory=lambda skip: runner.make_stream(cfg, dataset, cfg.seq_len, skip=skip),
+        dense_meta={"num_heads": mcfg.num_heads, "tie_head": mcfg.tie_head},
+        async_save=False,
+        final_save=True,
     )
     out.update(
         tier="shard_map+zero1",

@@ -46,6 +46,8 @@ def main(argv: list[str] | None = None, *, initial_params=None, **overrides) -> 
     cfg = from_argv(ImagenetConfig, argv, prog="asyncsgd.imagenet", overrides=overrides,
                     later=runner.LATER_FLAGS)
     runner.reject_later_slices(cfg)
+    runner.refuse_elastic(cfg, "imagenet")
+    runner.refuse_dense(cfg, stateful=False)
     resolve_device(cfg.device)  # fail before the dataset is built
     print(runner.describe(cfg, "imagenet-alexnet"))
     dataset = runner.classification_dataset(

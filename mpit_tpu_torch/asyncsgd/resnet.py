@@ -62,6 +62,8 @@ def main(argv: list[str] | None = None, *, initial_params=None, **overrides) -> 
     if cfg.bn_impl not in NORMS:
         raise SystemExit(f"--bn-impl must be scale_shift or flax, got {cfg.bn_impl!r}")
     runner.reject_later_slices(cfg)
+    runner.refuse_elastic(cfg, "resnet")
+    runner.refuse_dense(cfg, stateful=True)
     resolve_device(cfg.device)  # fail before the dataset is built
     print(runner.describe(cfg, "imagenet-resnet50"))
     dataset = runner.classification_dataset(

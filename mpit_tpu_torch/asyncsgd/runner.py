@@ -1,7 +1,7 @@
 """Shared run harness of the port's training workloads: the port of
 :mod:`mpit_tpu.asyncsgd.runner`.
 
-Two execution paths, selected by ``--mode``:
+Three execution paths, selected by ``--mode``:
 
 - :func:`run_spmd` drives the train step (value and grad, gradient
   sync, goo update) for ``cfg.steps`` steps through
@@ -10,30 +10,41 @@ Two execution paths, selected by ``--mode``:
   ranks (ZeRO-1 with ``--zero1``, the sync by ``--grad-sync`` in
   ``--grad-bucket-mb`` buckets), the global batch split over them; with
   an ``eval_fn``, the periodic val sweep (``--eval-every``) or one
-  held-out batch at the end;
+  held-out batch at the end; with ``--ckpt-dir`` the checkpoint cadence
+  (``--ckpt-every``), the resume (seek-based, through
+  ``stream_factory``), the divergence restore (``--max-restores``) and
+  the preemption checkpoint; ``--save-dense`` / ``--resume-dense`` the
+  cross-geometry ``.npz`` shared with the JAX package;
 - :func:`run_parity_classifier` runs the reference-shaped protocol: 1
   pserver + ``nranks - 1`` pclients exchanging tagged messages on the
   compat simulator (Downpour, or EASGD with ``--easgd true``), for
-  semantics parity, not speed.
+  semantics parity, not speed;
+- :func:`run_elastic_classifier` (``mnist --mode elastic``) runs the
+  elastic EASGD tier (:mod:`mpit_tpu_torch.train.elastic`): 1 anchor
+  server + ``nranks - 1`` replicas, each on the hardened loop, through
+  kills, hangs and NaNs.
 
 :func:`run_classifier` is the classifiers' shared body (``mnist``,
 ``imagenet`` and, with ``stateful=True``, ``resnet``), and
 :func:`classification_dataset` their data: the synthetic stream, or the
-npy directory of ``--data-dir``, augmented with ``--augment``.
-Everything of the JAX harness that needs a checkpoint directory or a
-later slice's machinery is refused with ``SystemExit`` naming the slice
-that brings it: the flags of :data:`LATER_FLAGS` (not fields of the
-port's config, so nothing can read them by mistake) as the command line
-is parsed, and the values of ``--mode``, ``--mesh`` and ``--easgd`` that
-the port does not run by :func:`reject_later_slices`.
+npy directory of ``--data-dir``, augmented with ``--augment``;
+:func:`run_meta` the geometry pinned to a checkpoint directory.
+Everything of the JAX harness that needs a later slice's machinery is
+refused with ``SystemExit`` naming the slice that brings it: the flags
+of :data:`LATER_FLAGS` (not fields of the port's config, so nothing can
+read them by mistake) as the command line is parsed, and the values of
+``--mesh`` and ``--easgd`` that the port does not run by
+:func:`reject_later_slices`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Callable
 
+import numpy as np
 import torch
 
 from mpit_tpu_torch.asyncsgd import actors
@@ -42,36 +53,37 @@ from mpit_tpu_torch.comm import init as init_world
 from mpit_tpu_torch.data import FileClassification, shard_batch
 from mpit_tpu_torch.opt import goo, schedules
 from mpit_tpu_torch.serve.engine import resolve_device
-from mpit_tpu_torch.train import MetricLogger, hardened_loop, make_eval_step, make_train_step
-from mpit_tpu_torch.train.step import FlatReplicas
+from mpit_tpu_torch.train import (
+    CheckpointManager, MetricLogger, dense_from_dp, dp_from_dense, hardened_loop, load_dense,
+    make_eval_step, make_train_step, save_dense,
+)
+from mpit_tpu_torch.opt.sharded import FlatLayout
+from mpit_tpu_torch.train.step import FlatReplicas, TrainState
 
 __all__ = [
     "DATA_SLICE", "LATER_FLAGS", "accuracy", "build_tx", "classification_dataset", "describe",
-    "make_stream", "make_val_sweep", "make_world", "reject_later_slices", "run_classifier",
-    "run_parity_classifier", "run_spmd", "softmax_xent", "topk_accuracy",
+    "make_stream", "make_val_sweep", "make_world", "refuse_dense", "refuse_elastic",
+    "reject_later_slices",
+    "run_classifier", "run_elastic_classifier", "run_meta", "run_parity_classifier", "run_spmd",
+    "softmax_xent", "topk_accuracy",
 ]
 
-_CHECKPOINT = "the checkpoint slice of the port"
-_OBSERVABILITY = "the observability slice of the port"
+_OBSERVABILITY = "the observability slice of the port (ROADMAP.md §A 11)"
 DATA_SLICE = "the data-pipeline slice of the port (ROADMAP.md §A 12)"
-_ELASTIC = "the elastic slice of the port, after checkpoints (ROADMAP.md §A 6)"
+_EASGD_SPMD = "a later slice of the elastic tier (ROADMAP.md §A 6)"
 
 # The JAX TrainConfig's flags that no code of the port reads -> the
 # slice that brings them. Giving one raises SystemExit naming it.
 LATER_FLAGS = {
-    **dict.fromkeys(("easgd_beta", "lease_s", "heartbeat_s", "staleness_bound"), _ELASTIC),
     # The port's prefetch has one thread and a fixed depth.
     **dict.fromkeys(("native", "prefetch_workers", "prefetch_max_depth"), DATA_SLICE),
-    **dict.fromkeys(
-        ("ckpt_dir", "ckpt_every", "save_dense", "resume_dense", "max_restores"), _CHECKPOINT
-    ),
     **dict.fromkeys(("profile_dir", "sentinel"), _OBSERVABILITY),
 }
 
 
 def reject_later_slices(cfg: TrainConfig) -> None:
     """``SystemExit`` for the values of the config's fields that the
-    port does not run: ``--mode elastic``, ``--easgd true`` under
+    port does not run: an unknown ``--mode``, ``--easgd true`` under
     ``--mode spmd`` (``goo.elastic_average``), a mesh axis other than
     ``data``, and, as in JAX, ``--augment-mode rrc`` or ``--train-size``
     without ``--data-dir`` (the synthetic streams shift-crop only)."""
@@ -80,17 +92,30 @@ def reject_later_slices(cfg: TrainConfig) -> None:
             "--augment-mode rrc / --train-size need --data-dir (the synthetic streams "
             "implement shift-crop augmentation only)"
         )
-    if cfg.mode not in ("spmd", "parity"):
-        raise SystemExit(f"--mode {cfg.mode}: arrives with {_ELASTIC}")
+    if cfg.mode not in ("spmd", "parity", "elastic"):
+        raise SystemExit(f"--mode {cfg.mode}: spmd, parity or elastic")
     if cfg.easgd and cfg.mode == "spmd":
         raise SystemExit(
-            f"--easgd true under --mode spmd (goo.elastic_average): arrives with {_ELASTIC}"
+            "--easgd true under --mode spmd (goo.elastic_average, its ZeRO-1 semantics): "
+            f"arrives with {_EASGD_SPMD}"
         )
     mesh = cfg.mesh_shape() or {}
     if set(mesh) - {"data"}:
         raise SystemExit(
             f"--mesh {cfg.mesh}: the model/seq/pipe/expert tiers arrive with "
             "the tensor-parallel slice and the parallel tiers after it"
+        )
+
+
+def refuse_elastic(cfg: TrainConfig, workload: str) -> None:
+    """``SystemExit`` for ``--mode elastic`` in a workload other than
+    ``mnist``. The JAX package has no elastic branch there: its
+    ``imagenet``, ``resnet`` and ``gpt2`` train SPMD under ``--mode
+    elastic`` without a word (ROADMAP.md §C); the port says so."""
+    if cfg.mode == "elastic":
+        raise SystemExit(
+            f"{workload} --mode elastic: the elastic tier trains mnist only; the JAX "
+            f"package's {workload} has no elastic branch (it trains SPMD instead)"
         )
 
 
@@ -111,8 +136,60 @@ def make_world(cfg: TrainConfig, device):
 def make_stream(cfg: TrainConfig, dataset, *args, skip: int = 0):
     """The workload's input stream: the dataset's Python generator
     (``--native``, the C++ loader, is one of :data:`LATER_FLAGS`).
-    ``args`` are forwarded (``seq_len``)."""
+    ``args`` are forwarded (``seq_len``); ``skip`` fast-forwards past the
+    batches a resumed run already consumed, in O(1)."""
     return dataset.batches(cfg.batch_size, *args, skip=skip)
+
+
+def run_meta(cfg: TrainConfig) -> dict:
+    """The fields pinned to a checkpoint directory
+    (:meth:`~mpit_tpu_torch.train.CheckpointManager.ensure_meta`):
+    JAX's ``run_meta``, the same dict for the same flags. Everything the
+    resumed run's equality to the uninterrupted one depends on: the lr
+    curve, the optimizer, the data order (batch size, seed, ``data_dir``
+    made absolute, the augmentation) and the stream that draws it
+    (``python``: the port has no native core yet, ROADMAP.md §A 12); the
+    gradient-sync wire (``ring_q8`` is lossy, its bucket size sets its
+    scales); and every field a workload's config adds, pinned
+    wholesale."""
+    meta = {
+        **schedules.geometry(cfg),
+        "momentum": cfg.momentum,
+        "weight_decay": cfg.weight_decay,
+        "batch_size": cfg.batch_size,
+        "seed": cfg.seed,
+        "data_dir": os.path.abspath(cfg.data_dir) if cfg.data_dir else "",
+        "stream_impl": "python",
+        "augment": cfg.augment,
+        "augment_mode": cfg.augment_mode if cfg.augment else "",
+        "crop_pad": cfg.crop_pad if cfg.augment else 0,
+        "train_size": cfg.train_size,
+        "easgd": cfg.easgd,
+        "grad_sync": cfg.grad_sync,
+    }
+    if cfg.grad_sync == "ring_q8":
+        meta["grad_q8_bucket_mb"] = cfg.grad_bucket_mb
+    if cfg.easgd:
+        meta["easgd_alpha"] = cfg.easgd_alpha
+    base_fields = {f.name for f in dataclasses.fields(TrainConfig)}
+    for f in dataclasses.fields(type(cfg)):
+        if f.name not in base_fields:
+            meta[f.name] = getattr(cfg, f.name)
+    return meta
+
+
+def refuse_dense(cfg: TrainConfig, stateful: bool) -> None:
+    """JAX's refusal: the dense format carries the ZeRO-1 DP layout and
+    no stateful extras (BatchNorm statistics). The workloads call it
+    before they build a model; :func:`run_spmd` again for its callers."""
+    if (cfg.resume_dense or cfg.save_dense) and (not cfg.zero1 or stateful):
+        raise SystemExit(
+            "--resume-dense/--save-dense convert the ZeRO-1 DP layout; "
+            "run with --zero1 true, a stateless model (BatchNorm "
+            "models use same-geometry --ckpt-dir resume), and a single "
+            "controller process (multi-host runs checkpoint via "
+            "--ckpt-dir)"
+        )
 
 
 def describe(cfg: TrainConfig, workload: str) -> str:
@@ -207,6 +284,10 @@ def run_spmd(
     eval_fn=None,
     eval_batch: dict | None = None,
     val_sweep: Callable | None = None,
+    stream_factory: Callable | None = None,
+    dense_meta: dict | None = None,
+    async_save: bool = True,
+    final_save: bool = False,
 ) -> dict:
     """Drive the train step for ``cfg.steps`` steps on one rank, or over
     ``world``'s ranks (:func:`make_world`).
@@ -229,15 +310,62 @@ def run_spmd(
     with ``val_sweep`` and ``--eval-every``, the val split's sweep every
     N steps and at the last, combined over the sweep as ``Σ m·w / Σ w``
     (``w``: a batch's ``_weight``, else 1); the result's ``eval`` is the
-    last sweep, or else ``eval_fn`` on ``eval_batch`` at the end."""
+    last sweep, or else ``eval_fn`` on ``eval_batch`` at the end.
+
+    Checkpoints (``--ckpt-dir``): a
+    :class:`~mpit_tpu_torch.train.CheckpointManager` (``async_save``)
+    pinned to :func:`run_meta`, saved every ``--ckpt-every`` steps (with
+    ``final_save`` also at the end) and on a SIGTERM; a run over a
+    directory with a checkpoint resumes from it, the stream rebuilt past
+    the consumed batches by ``stream_factory(skip)`` (else ``batches``
+    is drained that far). ``--resume-dense`` wins over the checkpoint
+    unless the checkpoint is past its step (the choice is printed), and
+    ``--save-dense`` writes the dense ``.npz`` on every exit path,
+    ``dense_meta`` (``num_heads``, ``tie_head``) in it."""
     reject_later_slices(cfg)
+    refuse_dense(cfg, stateful)
     device = resolve_device(cfg.device)
+    tx = build_tx(cfg) if tx is None else tx
     init_fn, step_fn = make_train_step(
-        loss_fn, build_tx(cfg) if tx is None else tx, world, zero1=cfg.zero1,
-        stateful=stateful, grad_sync=cfg.grad_sync, grad_bucket_mb=cfg.grad_bucket_mb,
+        loss_fn, tx, world, zero1=cfg.zero1, stateful=stateful, grad_sync=cfg.grad_sync,
+        grad_bucket_mb=cfg.grad_bucket_mb,
     )
     state = init_fn(*init_params()) if stateful else init_fn(init_params())
     run_device = device if world is None else world.device
+    ckpt = None
+    if cfg.ckpt_dir:
+        ckpt = CheckpointManager(cfg.ckpt_dir, world, async_save=async_save)
+        ckpt.ensure_meta(run_meta(cfg), defaults=run_meta(type(cfg)()))
+    # Restore-source resolution: the dense file bootstraps a new geometry
+    # until the checkpoint has moved past its step; the choice is printed.
+    use_dense = False
+    if cfg.resume_dense:
+        with np.load(cfg.resume_dense) as z:
+            dense_step = int(z["__step__"])
+        latest = ckpt.latest_step() if ckpt is not None else None
+        use_dense = latest is None or latest <= dense_step
+        print(
+            "[asyncsgd] restore source: "
+            + (f"dense {cfg.resume_dense} (step {dense_step})" if use_dense
+               else f"checkpoint {cfg.ckpt_dir} (step {latest} > dense step {dense_step})")
+        )
+    if use_dense:
+        dp_from_dense(load_dense(cfg.resume_dense), state, tx)
+    elif ckpt is not None and ckpt.latest_step() is not None:
+        ckpt.restore(state)
+    start_step = state.step
+    if start_step and stream_factory is not None:
+        batches = stream_factory(start_step)
+    else:
+        for skipped in range(start_step):
+            try:
+                next(batches)
+            except StopIteration:
+                raise RuntimeError(
+                    f"checkpoint-resume needs to skip {start_step} consumed batches but the "
+                    f"stream ended after {skipped} — the stream is shorter than the "
+                    "checkpointed run (did the data config change between runs?)"
+                ) from None
 
     def split(batch):
         return _on_device(batch, run_device) if world is None else shard_batch(world, batch)
@@ -257,23 +385,36 @@ def run_spmd(
                 denom += w
             return {k: v / denom for k, v in totals.items()} if denom else {}
 
-    result = hardened_loop(
-        state,
-        step_fn,
-        batches,
-        steps=cfg.steps,
-        device=run_device,
-        items_per_batch=items_per_batch or cfg.batch_size,
-        log_every=cfg.log_every,
-        logger=MetricLogger(),
-        spike_factor=cfg.spike_factor,
-        fetch_lag=cfg.fetch_lag,
-        prefetch_depth=cfg.prefetch_depth,
-        step_attrs={**(step_attrs or {}), "grad_sync": step_fn.grad_sync_mode},
-        world=world,
-        eval_every=cfg.eval_every if eval_hook else 0,
-        eval_hook=eval_hook,
-    )
+    logger = MetricLogger()
+    try:
+        result = hardened_loop(
+            state,
+            step_fn,
+            batches,
+            steps=cfg.steps,
+            device=run_device,
+            items_per_batch=items_per_batch or cfg.batch_size,
+            log_every=cfg.log_every,
+            logger=logger,
+            ckpt=ckpt,
+            ckpt_every=cfg.ckpt_every,
+            max_restores=cfg.max_restores,
+            final_save=final_save,
+            spike_factor=cfg.spike_factor,
+            fetch_lag=cfg.fetch_lag,
+            prefetch_depth=cfg.prefetch_depth,
+            step_attrs={**(step_attrs or {}), "grad_sync": step_fn.grad_sync_mode},
+            world=world,
+            eval_every=cfg.eval_every if eval_hook else 0,
+            eval_hook=eval_hook,
+        )
+    finally:
+        if ckpt is not None:
+            ckpt.close()  # pending saves are durable, on every exit
+    if cfg.save_dense:
+        # Written on every exit path, the preemption drain included.
+        save_dense(cfg.save_dense, dense_from_dp(result["state"], tx), **(dense_meta or {}))
+        logger.log(result["state"].step, {"event": "dense_saved", "path": cfg.save_dense})
     ranks = 1 if world is None else world.num_devices
     out = {
         "mode": "spmd",
@@ -347,19 +488,24 @@ def _classifier_fns(model, top5: bool, stateful: bool = False):
 
 
 def run_classifier(cfg: TrainConfig, make_model: Callable, dataset, *, initial_params=None,
-                   top5: bool = False, stateful: bool = False) -> dict:
+                   top5: bool = False, stateful: bool = False, fault_plan=None) -> dict:
     """A classifier workload's body: ``--mode parity`` through
-    :func:`run_parity_classifier`, else :func:`run_spmd` with one model
+    :func:`run_parity_classifier`, ``--mode elastic`` through
+    :func:`run_elastic_classifier`, else :func:`run_spmd` with one model
     per rank, all from one set of weights (the seeded initialisation of
     ``make_model(device=..., generator=...)``, or ``initial_params``, a
     ``state_dict``), the eval of ``top1`` (and ``top5`` with ``top5``)
     on the held-out batch or the val sweep. ``stateful``: a BatchNorm
     model, its buffers the step's ``extra`` (averaged over the ranks
-    after every step)."""
+    after every step). ``fault_plan`` (``--mode elastic`` only): a
+    :class:`~mpit_tpu_torch.compat.FaultPlan` for the fleet."""
     reject_later_slices(cfg)
     device = resolve_device(cfg.device)
     if cfg.mode == "parity":
         return run_parity_classifier(cfg, make_model, dataset, initial_params=initial_params)
+    if cfg.mode == "elastic":
+        return run_elastic_classifier(cfg, make_model, dataset, initial_params=initial_params,
+                                      fault_plan=fault_plan)
     world = make_world(cfg, device)
     ranks = 1 if world is None else world.num_devices
     models = []
@@ -390,6 +536,7 @@ def run_classifier(cfg: TrainConfig, make_model: Callable, dataset, *, initial_p
         eval_fn=fns[0][1] if world is None else [f[1] for f in fns],
         eval_batch=dataset.eval_batch(cfg.eval_batch),
         val_sweep=make_val_sweep(cfg, dataset),
+        stream_factory=lambda skip: make_stream(cfg, dataset, skip=skip),
     )
 
 
@@ -485,3 +632,105 @@ def run_parity_classifier(cfg: TrainConfig, make_model: Callable, dataset, *,
         "final_loss": client_losses[0][-1],
         "eval": {"accuracy": acc, "loss": eval_loss},
     }
+
+
+def run_elastic_classifier(cfg: TrainConfig, make_model: Callable, dataset, *,
+                           initial_params=None, fault_plan=None) -> dict:
+    """The elastic EASGD tier (:mod:`mpit_tpu_torch.train.elastic`): 1
+    anchor server + ``nranks - 1`` replicas on the compat simulator, each
+    on the hardened loop with its own model, whose parameters are views
+    of its flat f32 vector on the run's device (the
+    :class:`~mpit_tpu_torch.opt.sharded.FlatLayout` buffer), goo SGD on
+    it, an anchor exchange every ``--sync-every`` steps, heartbeats and
+    leases (``--heartbeat-s``, ``--lease-s``), ``--easgd-alpha`` or
+    ``α = --easgd-beta / N_active``, quarantine and, with ``--ckpt-dir``,
+    per-replica checkpoints for crash and rejoin. As JAX computes them:
+    ``steps // replicas`` steps and ``batch_size // replicas`` images a
+    replica, replica ``i``'s stream seeded ``seed + 100 + i``; the final
+    eval runs on the anchor's centre. ``fault_plan``: seeded faults
+    (kills, hangs, NaNs, slowdowns, message drops). ``--ps-timeout``
+    bounds the compat job. On the card the model's first pass and the
+    copy kernel's library are loaded before the fleet starts, so no
+    first-use stall outlasts a lease."""
+    from mpit_tpu_torch.train.elastic import ElasticConfig, run_elastic
+
+    device = resolve_device(cfg.device)
+    nreplicas = max(cfg.nranks - 1, 1)
+    seeded = initial_params is None
+    first = make_model(device=device,
+                       generator=torch.Generator().manual_seed(cfg.seed) if seeded else None)
+    if not seeded:
+        first.load_state_dict(initial_params)
+    init_sd = {k: v.detach().clone() for k, v in first.state_dict().items()}
+    steps_per_replica = max(cfg.steps // nreplicas, 1)
+    per_replica_batch = max(cfg.batch_size // nreplicas, 1)
+
+    def init_replica():
+        model = make_model(device=device)
+        model.load_state_dict(init_sd)
+        flat = FlatReplicas([dict(model.named_parameters())])
+        params, grads, leaves = flat.params[0], flat.grads[0], flat.leaves[0]
+        loss_fn, _ = _classifier_fns(model, top5=False)
+        tx = build_tx(cfg)
+
+        def step_fn(state, batch):
+            loss, _ = loss_fn(None, batch)
+            torch._foreach_copy_(flat.grad_views[0], torch.autograd.grad(loss, leaves))
+            with torch.no_grad():
+                (update,) = tx.update([grads], state.opt_state, [params])
+                params.add_(update)
+            state.step += 1
+            return state, {"loss": loss.detach()}
+
+        return TrainState(step=0, params=params, opt_state=tx.init([params])), step_fn
+
+    def stream_factory(ridx: int, skip: int):
+        return dataset.batches(per_replica_batch, seed=cfg.seed + 100 + ridx, skip=skip)
+
+    if device.type == "cuda":
+        from mpit_tpu_torch.ops import kv_ship
+
+        kv_ship.kernel_library()
+        warm = _on_device(next(stream_factory(0, 0)), device)
+        loss, _ = _classifier_fns(first, top5=False)[0](None, warm)
+        loss.backward()
+        first.zero_grad(set_to_none=True)
+        torch.cuda.synchronize(device)
+    ecfg = ElasticConfig(
+        replicas=nreplicas, steps=steps_per_replica, sync_every=max(cfg.sync_every, 1),
+        alpha=cfg.easgd_alpha, beta=cfg.easgd_beta, staleness_bound=cfg.staleness_bound,
+        heartbeat_s=cfg.heartbeat_s, lease_s=cfg.lease_s, ckpt_dir=cfg.ckpt_dir,
+        ckpt_every=cfg.ckpt_every, max_restores=cfg.max_restores, log_every=cfg.log_every,
+        fetch_lag=cfg.fetch_lag,
+    )
+    out = run_elastic(ecfg, init_replica, stream_factory, fault_plan=fault_plan,
+                      items_per_batch=per_replica_batch, job_timeout_s=cfg.ps_timeout)
+
+    # The final model's eval, on the anchor's centre (as the parity path
+    # evaluates the server's parameters).
+    layout = FlatLayout(dict(first.named_parameters()))
+    with torch.no_grad():
+        for name, view in layout.views(out["center"]).items():
+            first.get_parameter(name).copy_(view)
+        eval_b = _on_device(dataset.eval_batch(cfg.eval_batch), device)
+        logits = first(eval_b["image"])
+        acc = float(accuracy(logits, eval_b["label"]))
+        eval_loss = float(softmax_xent(logits, eval_b["label"]))
+    result = {
+        "mode": "elastic",
+        "protocol": "easgd",
+        "device": str(device),
+        "replicas": nreplicas,
+        "steps_per_replica": steps_per_replica,
+        "anchor_version": out["version"],
+        "server": {k: v for k, v in out["server"].items() if k != "center"},
+        "replica_stats": [{k: v for k, v in r.items() if k != "losses"}
+                          for r in out["replicas"]],
+        "losses": out["replicas"][0]["losses"],
+        "final_loss": out["replicas"][0]["final_loss"],
+        "eval": {"accuracy": acc, "loss": eval_loss},
+    }
+    for key in ("flight", "fault_events"):
+        if key in out:
+            result[key] = out[key]
+    return result

@@ -1,10 +1,10 @@
 """The training drive loop: prefetch, lagged loss read-back, logging,
-divergence guard and the SIGTERM drain.
+divergence guard and restore, checkpoint cadence and the SIGTERM drain.
 
-The port of :func:`mpit_tpu.train.loop.hardened_loop`, without what a
-checkpoint brings (periodic saves, divergence restore, the preemption
-checkpoint), the profile window, the roofline registration and the
-sentinel: those arrive with later slices of the port.
+The port of :func:`mpit_tpu.train.loop.hardened_loop`, without the
+profile window, the roofline registration, the sentinel and the
+dispatch fence (JAX's fetch-only fence bounds XLA's async dispatch; an
+eager step has none to bound): those arrive with later slices.
 
 - **Prefetch.** A background thread draws host batches ahead of the
   step into a queue of ``prefetch_depth``, as torch tensors in pinned
@@ -15,7 +15,9 @@ sentinel: those arrive with later slices of the port.
 - **Lagged read-back.** At each log point the loop keeps the step's
   loss as a device scalar and reads it back only once more than
   ``fetch_lag`` log points are waiting, so no step waits on the host.
-  The last step drains every waiting loss.
+  A sync point — a checkpoint save, an eval, the last step — drains
+  every waiting loss first and then checks its own step's loss, so a
+  checkpoint is never written on an unchecked or failing loss.
 - **Throughput.** The loop marks every step's end on the device's
   timeline (a CUDA event; a host clock on the CPU). ``items_per_sec``
   is taken over the steps between two read-backs, timed by their
@@ -24,12 +26,29 @@ sentinel: those arrive with later slices of the port.
   tracks the device only while the host runs ahead of it; an eager
   PyTorch step can be host-bound, and then a window that closes in a
   burst of read-backs would credit several steps to the time of one.)
+- **Checkpoints** (``ckpt``: a
+  :class:`~mpit_tpu_torch.train.checkpoint.CheckpointManager` or
+  :class:`~mpit_tpu_torch.train.checkpoint.AtomicCheckpoint`): a save
+  every ``ckpt_every`` steps, at a sync point; with ``final_save`` one
+  at the natural end unless the cadence saved that step; then
+  ``ckpt.wait()``.
 - **Divergence.** Every read-back goes through
-  :class:`~mpit_tpu_torch.train.guard.DivergenceGuard`; with no
-  checkpoint to restore, a :class:`Diverged` propagates (as JAX's does
-  when no checkpoint is older than the failing step).
+  :class:`~mpit_tpu_torch.train.guard.DivergenceGuard`. On
+  :class:`Diverged` the loop restores the newest checkpoint older than
+  the previous restore target (a state saved at step t can already be
+  poisoned while loss t was finite), up to ``max_restores`` times; with
+  no candidate left, or past the limit, the error propagates. The
+  restore writes into the state's own tensors. After it the guard is
+  reset, the waiting losses are dropped (they belong to the abandoned
+  trajectory), the loss trace is rebased to the restored step and a
+  fresh throughput window opens; the stream keeps its position (exact
+  replay is for a clean resume, not for recovery). The loop logs
+  ``{"event": "restored_after_divergence", ...}`` with JAX's keys.
 - **SIGTERM drain.** A SIGTERM (from the main thread's handler) ends
-  the run after the step in flight; the result says ``preempted``.
+  the run after the step in flight: the waiting losses are drained and
+  checked, the state is saved (unless the cadence saved that step) and
+  ``{"event": "preempted_checkpoint_and_exit", "resumable": bool(ckpt)}``
+  is logged.
 - **Eval.** With ``eval_every`` and ``eval_hook``, the hook runs on the
   state every ``eval_every`` steps and after the last step, in an
   ``eval`` span; its metrics are logged as ``eval_<name>`` and the last
@@ -51,7 +70,7 @@ import torch
 
 from mpit_tpu_torch import obs
 from mpit_tpu_torch.data.loader import shard_batch
-from mpit_tpu_torch.train.guard import DivergenceGuard
+from mpit_tpu_torch.train.guard import Diverged, DivergenceGuard
 from mpit_tpu_torch.train.metrics import MetricLogger
 
 __all__ = ["hardened_loop"]
@@ -125,7 +144,11 @@ def hardened_loop(
     items_per_batch: int | None = None,
     log_every: int = 50,
     logger: MetricLogger | None = None,
+    ckpt=None,
+    ckpt_every: int = 0,
+    max_restores: int = 1,
     spike_factor: float = 0.0,
+    final_save: bool = False,
     fetch_lag: int = 2,
     prefetch_depth: int = 2,
     step_attrs: dict | None = None,
@@ -137,12 +160,14 @@ def hardened_loop(
     ``state.step`` to ``steps``; ``metrics["loss"]`` is a device scalar.
 
     ``batches`` is the host iterator, already past the batches
-    ``state.step`` consumed. ``step_attrs`` label every ``step`` span.
-    ``world``: split each batch over its ranks for the step.
-    ``eval_hook(state) -> metrics`` runs every ``eval_every`` steps and
-    after the last step.
+    ``state.step`` consumed (a seek-based resume is the caller's).
+    ``step_attrs`` label every ``step`` span. ``world``: split each batch
+    over its ranks for the step. ``ckpt`` / ``ckpt_every`` /
+    ``max_restores`` / ``final_save``: the checkpoint cadence and the
+    divergence restore (module docstring). ``eval_hook(state) ->
+    metrics`` runs every ``eval_every`` steps and after the last step.
     Returns ``{"state", "steps", "losses", "final_loss", "restores",
-    "preempted", "step_ms"}`` (``step_ms``: one per step, the first
+    "preempted", "step_ms"}`` (``step_ms``: one per step run, the first
     holding the run's set-up) plus ``items_per_sec`` (best window),
     ``items_per_sec_last`` and ``items_per_sec_mean`` once a window
     closed, and ``eval`` (the last hook's metrics) once one ran."""
@@ -151,10 +176,12 @@ def hardened_loop(
     step_attrs = step_attrs or {}
     guard = DivergenceGuard(spike_factor=spike_factor, lag=fetch_lag, fence=log_every)
     start = step = state.step
-    pending: deque = deque()  # (step, loss device scalar)
+    pending: deque = deque()  # (step, loss device scalar, kind)
     loss_trace: list[tuple[int, float]] = []
     rate_trace: list[float] = []
-    log_step: int | None = None  # the last read-back's step; the first opens no window
+    log_step: int | None = None  # the last window's end; None: the next read-back opens one
+    restores = 0
+    restore_before: int | None = None  # ceiling for the next restore target
 
     def mark():
         if device.type != "cuda":
@@ -169,7 +196,10 @@ def hardened_loop(
         b.synchronize()  # the read-back waited for the step's loss, not its end
         return a.elapsed_time(b) / 1e3
 
-    marks = [mark()]  # marks[i]: the end of step start + i (0: the start)
+    # marks[s]: the end of step s on this trajectory; segments: every
+    # step's mark in run order, a new segment after each restore.
+    marks = {step: mark()}
+    segments = [[marks[step]]]
     last_eval: dict | None = None
 
     preempted = {"flag": False}
@@ -184,70 +214,140 @@ def hardened_loop(
     except ValueError:  # not the main thread: no handler
         prev_handler, handler_installed = None, False
 
-    def consume(burst: list, at_step: int) -> None:
-        """Read back, check and log a burst of waiting losses; the last
-        of a burst closes a throughput window over the steps since the
-        previous window closed (the others log without a rate)."""
+    def consume(entry, at_step: int, close: bool) -> None:
+        """Read back and check one waiting loss; a ``log`` entry is
+        logged, and with ``close`` it ends a throughput window over the
+        steps since the previous one ended."""
         nonlocal log_step
-        for i, (s, loss) in enumerate(burst):
-            with obs.span("host_fence", lag=at_step - s):
-                val = float(loss)
-            guard.check(s, val, detected_step=at_step)
-            loss_trace.append((s, val))
-            vals = {"loss": val}
-            if i == len(burst) - 1:
-                if items_per_batch and log_step is not None and s > log_step:
-                    dt = elapsed_s(marks[log_step - start], marks[s - start])
-                    rate = items_per_batch * (s - log_step) / dt
-                    vals["items_per_sec"] = round(rate, 2)
-                    rate_trace.append(rate)
-                log_step = s
-            logger.log(s, vals)
+        s, loss, kind = entry
+        with obs.span("host_fence", why=kind, lag=at_step - s):
+            val = float(loss)
+        guard.check(s, val, detected_step=at_step)
+        if kind != "log":
+            return
+        loss_trace.append((s, val))
+        vals = {"loss": val}
+        if close:
+            if items_per_batch and log_step is not None and s > log_step:
+                dt = elapsed_s(marks[log_step], marks[s])
+                rate = items_per_batch * (s - log_step) / dt
+                vals["items_per_sec"] = round(rate, 2)
+                rate_trace.append(rate)
+            log_step = s
+        logger.log(s, vals)
+
+    def drain(at_step: int, close_last: bool = True) -> None:
+        while pending:
+            e = pending.popleft()
+            consume(e, at_step, close=close_last and not pending)
 
     stream = _Prefetcher(batches, device, prefetch_depth)
     try:
-        while step < steps:
-            if preempted["flag"]:
-                logger.log(step, {"event": "preempted_and_exit", "resumable": False})
-                break
+        while True:
             with obs.span("prefetch_wait"):
                 try:
                     batch = next(stream)
                 except StopIteration:
-                    break
-                if world is not None:
+                    batch = None
+                if batch is not None and world is not None:
                     batch = shard_batch(world, batch)
-            with obs.span("step", **step_attrs):
-                state, metrics = step_fn(state, batch)
-            marks.append(mark())
+            try:
+                if batch is None or step >= steps:
+                    drain(step)
+                    break
+                if preempted["flag"]:
+                    # Drain WITH checks: the checkpoint must not ship a
+                    # trajectory a waiting loss condemns (a Diverged
+                    # restores below, and the next iteration saves that).
+                    drain(step)
+                    if ckpt:
+                        with obs.span("checkpoint_save", reason="preempted"):
+                            if ckpt.latest_step() != step:  # the cadence saved it
+                                ckpt.save(step, state)
+                            ckpt.wait()
+                    logger.log(step, {"event": "preempted_checkpoint_and_exit",
+                                      "resumable": bool(ckpt)})
+                    break
+                with obs.span("step", **step_attrs):
+                    state, metrics = step_fn(state, batch)
+                marks[step + 1] = mark()
+                segments[-1].append(marks[step + 1])
+                should_log = (step + 1) % log_every == 0 or step + 1 == steps
+                should_save = bool(ckpt and ckpt_every and (step + 1) % ckpt_every == 0)
+                should_eval = bool(
+                    eval_hook and eval_every and ((step + 1) % eval_every == 0 or step + 1 == steps)
+                )
+                if fetch_lag > 0 and not (should_save or should_eval or step + 1 == steps):
+                    if should_log:
+                        pending.append((step + 1, metrics["loss"], "log"))
+                    burst = []
+                    while len(pending) > fetch_lag:
+                        burst.append(pending.popleft())
+                    for i, e in enumerate(burst):
+                        consume(e, step + 1, close=i == len(burst) - 1)
+                else:
+                    # A sync point: drain, then check this step's loss.
+                    drain(step + 1, close_last=False)
+                    if should_log or should_save:
+                        consume((step + 1, metrics["loss"], "log" if should_log else "save"),
+                                step + 1, close=True)
+                    if should_save:
+                        with obs.span("checkpoint_save"):
+                            ckpt.save(step + 1, state)
+                        # A new checked checkpoint supersedes the suspicion
+                        # a past restore cast on the newest one.
+                        restore_before = None
+                if should_eval:
+                    with obs.span("eval"):
+                        last_eval = eval_hook(state)
+                    if last_eval:
+                        logger.log(step + 1, {"eval_" + k: v for k, v in last_eval.items()})
+            except Diverged as dvg:
+                candidates = [
+                    s for s in (ckpt.all_steps() if ckpt else [])
+                    if restore_before is None or s < restore_before
+                ]
+                if not candidates or restores >= max_restores:
+                    raise
+                target = max(candidates)
+                restores += 1
+                with obs.span("divergence_restore", target=target):
+                    state = ckpt.restore(state, step=target)
+                step = state.step
+                restore_before = target
+                guard.reset()
+                pending.clear()
+                loss_trace = [(s, v) for s, v in loss_trace if s <= step]
+                log_step = None  # a fresh window: the step counter went back
+                marks = {step: mark()}
+                segments.append([marks[step]])
+                logger.log(step, {"event": "restored_after_divergence",
+                                  "bad_loss": dvg.loss, "restores": restores,
+                                  "diverged_step": dvg.step,
+                                  "detected_step": dvg.detected_step})
+                continue
             step += 1
-            if step % log_every == 0 or step == steps:
-                pending.append((step, metrics["loss"]))
-            burst = []
-            while pending and (len(pending) > fetch_lag or step == steps):
-                burst.append(pending.popleft())
-            consume(burst, step)
-            if eval_hook and eval_every and (step % eval_every == 0 or step == steps):
-                with obs.span("eval"):
-                    last_eval = eval_hook(state)
-                if last_eval:
-                    logger.log(step, {"eval_" + k: v for k, v in last_eval.items()})
-        consume(list(pending), step)
     finally:
         stream.close()
         if handler_installed:
             signal.signal(
                 signal.SIGTERM, prev_handler if prev_handler is not None else signal.SIG_DFL
             )
+    if ckpt:
+        with obs.span("checkpoint_save", reason="final"):
+            if (final_save and not preempted["flag"] and step > start
+                    and ckpt.latest_step() != step):  # the cadence saved it
+                ckpt.save(step, state)
+            ckpt.wait()
 
-    step_ms = [elapsed_s(a, b) * 1e3 for a, b in zip(marks, marks[1:])]
+    step_ms = [elapsed_s(a, b) * 1e3 for seg in segments for a, b in zip(seg, seg[1:])]
     losses = [v for _, v in loss_trace]
     out = {
         "state": state,
         "steps": state.step,
         "losses": losses,
         "final_loss": losses[-1] if losses else float("nan"),
-        "restores": 0,
+        "restores": restores,
         "preempted": preempted["flag"],
         "step_ms": step_ms,
     }

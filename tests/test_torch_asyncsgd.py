@@ -166,7 +166,8 @@ def test_val_sweep_every_n_steps():
     assert set(out["eval"]) == {"loss", "top1"} and 0.0 <= out["eval"]["top1"] <= 1.0
 
 
-# The ResNet slice brought ``resnet``, ``--data-dir`` and ``--augment``:
+# The ResNet slice brought ``resnet``, ``--data-dir`` and ``--augment``,
+# the checkpoint and elastic slice ``--mode elastic`` and ``--lease-s``:
 # their cases (ids kept) now hold what stays refused around them, each
 # with its own reason.
 _NOW = {
@@ -175,6 +176,10 @@ _NOW = {
     "imagenet_augment_true": (["imagenet", "--augment", "true", "--augment-mode", "rrc"],
                               "need --data-dir"),
     "imagenet_trainsize_128": (["imagenet", "--train-size", "128"], "need --data-dir"),
+    "mnist_mode_elastic": (["mnist", "--mode", "elastic", "--sentinel", "true"], "slice"),
+    "imagenet_mode_elastic": (["imagenet", "--mode", "elastic"], "mnist only"),
+    "mnist_leases_2": (["mnist", "--mode", "elastic", "--lease-s", "2", "--profile-dir", "/p"],
+                       "slice"),
 }
 
 

@@ -19,7 +19,10 @@ four ranks against the plain collectives; and at the convnets' bucket
 plans), and the KV shipment's copy kernel
 (bit-exact at every alignment on both its bodies and at AlexNet's
 244.4 MB flat message, behind the compat simulator's CUDA messages, a
-tiny fleet's shipments and the parameter-server actors).
+tiny fleet's shipments, the parameter-server actors and the elastic
+tier's anchor, its launches counted); and the checkpoints of a state on
+the card (an asynchronous save ahead of an in-place step, a restore
+into a bound four-rank state, bit for bit).
 
 Every test here needs an NVIDIA GPU (the kernel has no CPU mode): each
 carries the ``cuda`` marker and skips, with its reason, where there is
@@ -40,6 +43,8 @@ dequantize to the same f32 weights and sum in f32, in other orders.
 """
 
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import pytest
@@ -1330,3 +1335,125 @@ def test_resnet_replicas_and_statistics_bit_equal_over_four_ranks(deterministic_
     assert len(buckets) == 2  # 15,703 shard rows: 8192 and 7511
     moved = {k: n - before[k] for k, n in rc.launches.items() if n != before[k]}
     assert moved == {f"ring_rs{q}": 3 * len(buckets), f"ring_ag{q}": 3 * len(buckets)}
+
+
+# ---- the checkpoint and elastic slice ----------------------------------------------
+
+
+def test_async_save_holds_the_state_from_before_the_next_step(cuda, tmp_path):
+    """An asynchronous save of a CUDA state, followed at once by an
+    in-place step that rewrites every buffer: the file holds the state
+    from before the step (the snapshot's copies are ordered before it on
+    the stream, the writer waits on their event)."""
+    from mpit_tpu_torch.opt import goo
+    from mpit_tpu_torch.train import CheckpointManager, TrainState
+
+    n = 8 * 2**20
+    params = {"w": torch.randn(n, device="cuda"), "b": torch.randn(1000, device="cuda")}
+    tx = goo(0.1, 0.9)
+    state = TrainState(step=3, params=params, opt_state=tx.init(params))
+    before = {k: v.cpu() for k, v in params.items()}
+    ck = CheckpointManager(tmp_path)
+    ck.save(3, state)
+    for _ in range(20):  # the next steps, enqueued at once behind the save's copies
+        tx.step(params, {k: torch.ones_like(v) for k, v in params.items()}, state.opt_state)
+    ck.wait()
+    like = TrainState(step=0, params={k: torch.zeros_like(v) for k, v in params.items()},
+                      opt_state=tx.init(params))
+    ck.restore(like)
+    for k, v in before.items():
+        assert torch.equal(like.params[k].cpu(), v), k
+    assert not torch.equal(params["w"].cpu(), before["w"])
+
+
+def test_restore_into_a_bound_state_over_four_ranks(cuda, tmp_path):
+    """LeNet over four ranks on the card (ZeRO-1 through ``ring``): three
+    steps, a checkpoint, three more; a fresh state from another init,
+    bound to its models, restored from the checkpoint and stepped three
+    times equals the uninterrupted run bit for bit (TF32 off, cuDNN
+    deterministic), the replicas equal after the restore."""
+    from mpit_tpu_torch import comm
+    from mpit_tpu_torch.asyncsgd import runner
+    from mpit_tpu_torch.data import shard_batch, synthetic_mnist
+    from mpit_tpu_torch.models import LeNet
+    from mpit_tpu_torch.opt import goo
+    from mpit_tpu_torch.train import CheckpointManager, make_train_step
+
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        world = comm.init({"data": 4}, devices=["cuda"])
+        stream = synthetic_mnist(seed=0).batches(32)
+        batches = [next(stream) for _ in range(6)]
+
+        def fresh(seed):
+            init = LeNet(generator=torch.Generator().manual_seed(seed)).state_dict()
+            models = [LeNet(device="cuda") for _ in range(4)]
+            for m in models:
+                m.load_state_dict(init)
+            init_fn, step_fn = make_train_step(
+                [runner._classifier_fns(m, False)[0] for m in models], goo(0.05, 0.9), world,
+                grad_sync="ring")
+            return init_fn([dict(m.named_parameters()) for m in models]), step_fn
+
+        state, step_fn = fresh(0)
+        ck = CheckpointManager(tmp_path)
+        for i, b in enumerate(batches):
+            state, _ = step_fn(state, shard_batch(world, b))
+            if i == 2:
+                ck.save(3, state)
+        ck.wait()
+        other, step2 = fresh(1)
+        ck.restore(other)
+        assert other.step == 3 and other.replicas_equal()
+        for b in batches[3:]:
+            other, _ = step2(other, shard_batch(world, b))
+        assert torch.equal(other.flat.params, state.flat.params)
+        assert all(torch.equal(a, b) for a, b in zip(other.opt_state.momentum,
+                                                     state.opt_state.momentum))
+    finally:
+        (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) = saved
+
+
+def test_anchor_exchange_launches_counted_exactly(cuda):
+    """Two replicas register and exchange with the anchor on the card:
+    every flat message is a send snapshot and a delivery through the
+    copy kernel, so a register costs two launches and an exchange four;
+    the control messages (stop) none. The centre equals the CPU run's."""
+    from mpit_tpu_torch import compat
+    from mpit_tpu_torch.ops import kv_ship
+    from mpit_tpu_torch.train import elastic
+
+    n, rounds = 50_000, 3
+    init = torch.from_numpy(np.random.default_rng(0).standard_normal(n).astype(np.float32))
+
+    def run(device):
+        cfg = elastic.ElasticConfig(replicas=2, alpha=0.25, lease_s=30.0, heartbeat_s=1.0)
+        order = [threading.Event() for _ in range(2 * rounds + 1)]
+        order[0].set()
+
+        def main(rank):
+            if rank == 0:
+                return elastic.anchor_server(init.to(device), cfg)
+            client = elastic.AnchorClient(n, cfg, device=device)
+            client.register(0)
+            for k in range(rounds):
+                turn = 2 * k + rank - 1
+                order[turn].wait(30)
+                client.exchange(torch.full((n,), float(rank + k), device=device), k)
+                order[turn + 1].set()
+            client.stop(rounds)
+            return None
+
+        return compat.run(main, 3, pass_rank=True, timeout=60)[0]
+
+    before = kv_ship.launches["kv_ship"]
+    got = run("cuda")
+    torch.cuda.synchronize()
+    assert kv_ship.launches["kv_ship"] - before == 2 * 2 + 4 * 2 * rounds
+    want = run("cpu")
+    assert got["version"] == want["version"] == 2 * rounds
+    assert torch.equal(got["center"].cpu(), want["center"])
