@@ -8,6 +8,7 @@ one GPU, training on one rank and over four data-parallel ranks.
     python3 chip_smoke.py resnet               # 3e at ResNet-50's plan, then 4r, 4rd, 5r
     python3 chip_smoke.py recovery             # phases 4k, 4kd, 4kx and 4e alone
     python3 chip_smoke.py elastic 10           # phase 4e alone, ten times over
+    python3 chip_smoke.py spec                 # phases 3s, 4s, 5s and 4z (after 4 and 5)
 
 Run from the root of a checkout on a machine with an NVIDIA GPU (written
 for an H100). Phases, each of which raises (exit code != 0) on failure:
@@ -117,6 +118,43 @@ for an H100). Phases, each of which raises (exit code != 0) on failure:
    engine (whole-weight dequant), identical greedy tokens in f32 (both
    hold the same int8 bytes; only the summation order differs), and
    with int8 K/V as well, held to the ``INT8_TIE`` rule.
+
+Speculative decoding and EASGD under the SPMD step, each path's launch
+counts set to 0 just before it and read just after (records in
+``chiprun_out/chip_smoke_spec.json``):
+
+3s. kernel vs plain at the verify's shapes — the decode kernel at T = 2
+   to 5, S 512, dense and paged (pages of 16), bf16 over bf16 (``mma``)
+   and over int8 K/V (``q8mma``), against its plain version (5e-2) and
+   SDPA on the same view; the int8 matmul at 40 rows (8 slots x 5) on
+   GPT-2 small's four shapes against its plain version (1e-4 x max(1,
+   max |plain|)) and ``torch.matmul`` over the dequantized weight, the
+   same bits on three repeated calls;
+4s. speculative serving — phase 4's runs with ``--spec-k 4
+   --draft-config truncate:2`` (dense, paged, paged int8 K/V, dense int8
+   weights): 16 of 16 requests and 512 tokens, every attention launch on
+   the form's tensor-core body (prefill and the T = 5 verify; the draft
+   runs plain attention), with int8 weights every matmul launch on
+   ``mma`` (the target's and the draft's, counted exactly); greedy
+   tokens against the plain run of the same form, a parting failing
+   where the plain path, teacher-forced on the plain run's tokens, ranks
+   the plain token above the speculative one by more than ``INT8_TIE``;
+   a sampled run (temperature 1, top-k 50); acceptance, tokens per tick,
+   decode tok/s beside phase 4's and a profile of eight speculative
+   ticks (device time by family, idle share);
+5s. speculative parity — f32 at GPT-2 small's width (phase 5's weights
+   and stream, k 4, the first two layers as the draft): the kernel and
+   the reference speculative engines against the plain kernel engine,
+   partings within ``F32_TIE`` of the plain model teacher-forced;
+4z. EASGD under SPMD — ``mnist --easgd true`` on one rank and over
+   ``--mesh data=4`` through ``ring`` and ``ring_q8`` with ``--zero1``
+   true and false (30 steps), ``imagenet`` (AlexNet at full width) over
+   four ranks through ``ring`` for 8 steps: losses finite (LeNet's
+   falling), the centre finite (the runs' states captured around
+   ``make_train_step``), replicas bit-identical, ring launches buckets x
+   steps, and the zero1 forms equal (``ring`` bit for bit: losses,
+   parameters, centre; ``ring_q8`` within 0.02 + 0.02·|loss| over the
+   first 20 steps, both ending below 0.5).
 
 3d. kernel vs plain, flash attention — the forward, dq and dk/dv kernels
    against their plain versions at GPT-2 small's head geometry (B 8, H
@@ -359,13 +397,21 @@ directory deleted at the end:
    rejoin); in each the copy kernel's launches exactly 2 x (registers +
    rejoins) + 4 x exchanges, with events, version, wall time, steps/s,
    staleness and exchanges by replica, the step straggler and the eval
-   on the centre reported.
+   on the centre reported; every replica's loss at every step and every
+   exchange's version and staleness (``elastic_probe``, around the
+   loss functions and ``AnchorClient.exchange``), each replica's jumps
+   (losses past step 40 above 1.0), and PR 15's first gate (replica 0's
+   last two logged losses against its first two) beside today's.
+   ``elastic N`` also writes a summary over the N healthy runs.
 Their records go to ``chiprun_out/chip_smoke_recovery.json``; the kernels
 line's ring, flash and copy rows count their launches by run.
 
 The last lines are the kernels JSON line (each decode form twice: at
 T 1, its ``split`` body, and at its prefill width as ``<form>_prefill``,
-each with the main path's launches of that body; every number in it
+each with the main path's launches of that body; the bf16 forms a third
+time at the speculative verify's T = 5 as ``<form>_verify`` and the
+matmul at its 40 rows as ``quantized_matmul_verify``, with phase 4s's
+launches; every number in it
 but ``bound_ms`` measured in this run, so the earlier design's times,
 ``before_ms``, stay in the per-case records), the card's name and power
 limit as ``nvidia-smi`` prints them, and ``{"ok": true, "device":
@@ -2130,17 +2176,21 @@ def ship_kernel_phase(torch, flush):
     return cases
 
 
-def fleet_divergences(torch, model, prompts, got, want, quantized: bool):
+def fleet_divergences(torch, model, prompts, got, want, quantized: bool, what: str = "fleet",
+                      one_sided: bool = False):
     """Each request whose fleet tokens part from the single Server's: its
     first diverging token judged by the plain path teacher-forced on the
     Server's tokens (int8 cache when ``quantized``). Fails when a gap
-    exceeds ``INT8_TIE``."""
+    exceeds ``INT8_TIE``; with ``one_sided``, only when the plain path
+    ranks the Server's token above ``got``'s by more than ``INT8_TIE``
+    (a ``got`` token the plain path ranks higher is no fault of ``got``'s
+    run)."""
     ties = {}
     for r in want:
         if got.get(r) == want[r]:
             continue
         if len(got.get(r, ())) != len(want[r]):
-            fail(f"fleet: request {r} has {len(got.get(r, ()))} tokens, the Server's {len(want[r])}")
+            fail(f"{what}: request {r} has {len(got.get(r, ()))} tokens, the Server's {len(want[r])}")
         if quantized:
             ties[r] = int8_divergence(torch, model, prompts[r], got[r], want[r])
         else:
@@ -2149,16 +2199,25 @@ def fleet_divergences(torch, model, prompts, got, want, quantized: bool):
                 row = model(torch.tensor([prompts[r] + want[r][:i]], device="cuda"))[0, -1].float()
             ties[r] = {"token_index": i, "got": got[r][i], "want": want[r][i],
                        "gap": (row[want[r][i]] - row[got[r][i]]).item()}
-    wide = {r: d for r, d in ties.items() if not abs(d["gap"]) <= INT8_TIE}
+    wide = {r: d for r, d in ties.items()
+            if not (d["gap"] if one_sided else abs(d["gap"])) <= INT8_TIE}
     if wide:
-        fail(f"fleet tokens part from the Server's beyond a near-tie (|gap| > {INT8_TIE}): {wide}")
+        fail(f"{what}: tokens part from the Server's beyond a near-tie (gap > {INT8_TIE}): {wide}")
     return ties
 
 
-def server_tokens(torch, args):
+def server_tokens(torch, args, cache: dict):
     """The single Server's greedy tokens for the CLI configuration
     ``args`` (phase 4's run, rebuilt in process: greedy decode on the
-    same engine is deterministic) and the requests' prompts."""
+    same engine is deterministic) and the requests' prompts; each
+    configuration runs once a ``cache`` (4f and 4s share the plain runs)."""
+    key = tuple(args)
+    if key not in cache:
+        cache[key] = _server_tokens(torch, args)
+    return cache[key]
+
+
+def _server_tokens(torch, args):
     from mpit_tpu_torch.config import from_argv
     from mpit_tpu_torch.serve import Server
     from mpit_tpu_torch.serve.__main__ import ServeConfig, _build_engine, synthetic_requests
@@ -2175,7 +2234,7 @@ def server_tokens(torch, args):
     return tokens, {str(r.rid): list(r.prompt) for r in reqs}
 
 
-def fleet_phase(torch, card, ship_cases):
+def fleet_phase(torch, card, ship_cases, tokens: dict):
     """Phase 4f: ``python -m mpit_tpu_torch.serve --fleet``'s ``main`` in
     process at phase 4's configuration: dense with one prefill and one
     decode worker, the paged pool with int8 K/V and two decode workers,
@@ -2211,7 +2270,7 @@ def fleet_phase(torch, card, ship_cases):
         ("dense_int8_weights", INT8W_ARGS, FORMS[0], "prefill=1,decode=2"),
     ):
         int8w = "--weights-dtype" in args
-        want, prompts = server_tokens(torch, SERVE_ARGS + args)
+        want, prompts = server_tokens(torch, SERVE_ARGS + args, tokens)
         da.launches.update(dict.fromkeys(da.launches, 0))
         da.path_launches.update(dict.fromkeys(da.path_launches, 0))
         qm.launches.update(dict.fromkeys(qm.launches, 0))
@@ -3305,6 +3364,77 @@ def recovery_dense_phase(torch, card, tmp) -> dict:
     return {"launches": launches, "record": record}
 
 
+# 4e: a replica's training loss past this step above this value is a
+# jump (PR 15's passing runs log at most 0.47 near step 50 of 60; the
+# refused run logged 3 or more there).
+JUMP_AFTER_STEP, JUMP_LOSS = 40, 1.0
+
+
+class elastic_probe:
+    """For the enclosed block: every replica's training loss at every
+    step (around the loss function of each model the elastic runner
+    builds, keyed by the compat rank's thread) and every exchange (the
+    replica, its step, the centre version it had seen and the version the
+    reply carried, taken before the server's update: their gap is the
+    server's staleness). The
+    elastic tier's results are left as JAX's are."""
+
+    def __enter__(self):
+        import threading
+
+        from mpit_tpu_torch.asyncsgd import runner
+        from mpit_tpu_torch.train import elastic
+
+        self.losses, self.exchanges = {}, []
+        self.runner, self.fns = runner, runner._classifier_fns
+        self.client, self.exchange = elastic.AnchorClient, elastic.AnchorClient.exchange
+        fns, exchange, probe = self.fns, self.exchange, self
+
+        def classifier_fns(model, *a, **kw):
+            loss_fn, eval_fn = fns(model, *a, **kw)
+
+            def loss_and_record(params, batch):
+                loss, aux = loss_fn(params, batch)
+                name = threading.current_thread().name
+                if name.startswith("mpit-rank-"):
+                    probe.losses.setdefault(int(name.rsplit("-", 1)[1]), []).append(
+                        loss.detach())
+                return loss, aux
+
+            return loss_and_record, eval_fn
+
+        def exchange_and_record(client, flat, step):
+            seen = client.version
+            out = exchange(client, flat, step)
+            probe.exchanges.append((client._rank, step, seen, client.version))
+            return out
+
+        runner._classifier_fns = classifier_fns
+        elastic.AnchorClient.exchange = exchange_and_record
+        return self
+
+    def __exit__(self, *exc):
+        self.runner._classifier_fns = self.fns
+        self.client.exchange = self.exchange
+
+    def record(self) -> dict:
+        """Each replica's losses, its exchanges ``(step, version seen,
+        staleness)`` and its jumps (losses past ``JUMP_AFTER_STEP`` above
+        ``JUMP_LOSS``, as ``(step, loss)``)."""
+        out = {}
+        for rank in sorted(self.losses):
+            losses = [float(x) for x in self.losses[rank]]
+            out[rank] = {
+                "losses": losses,
+                "exchanges": [(st, seen, reply - seen)
+                              for r, st, seen, reply in self.exchanges if r == rank],
+                "jumps": [(i + 1, x) for i, x in enumerate(losses)
+                          if i + 1 > JUMP_AFTER_STEP and x > JUMP_LOSS],
+                "max_loss_after": max(losses[JUMP_AFTER_STEP:], default=None),
+            }
+        return out
+
+
 def elastic_phase(torch, card, tmp) -> dict:
     """Phase 4e: ``mnist --mode elastic --nranks 5`` (four LeNet replicas
     and the anchor on the card) four ways: healthy (every staleness
@@ -3349,9 +3479,11 @@ def elastic_phase(torch, card, tmp) -> dict:
     for name, (extra, plan) in runs.items():
         kv_ship.launches["kv_ship"] = 0
         t0 = time.perf_counter()
-        out = mnist.main(ELASTIC_ARGS + extra, fault_plan=plan)
+        with elastic_probe() as probe:
+            out = mnist.main(ELASTIC_ARGS + extra, fault_plan=plan)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        replicas = probe.record()
         n = kv_ship.launches["kv_ship"]
         server, stats = out["server"], out["replica_stats"]
         rejoins = sum(r["rejoins"] for r in stats)
@@ -3399,6 +3531,15 @@ def elastic_phase(torch, card, tmp) -> dict:
             "step_straggler_rank": out.get("flight", {}).get("step_straggler_rank"),
             "losses_replica0": out["losses"], "eval_on_centre": out["eval"],
             "eval_at_init": initial_eval,
+            # The gate PR 15's first tree had (replica 0's last two logged
+            # losses against its first two), beside today's.
+            "old_gate": {"first2_mean": head,
+                         "last2_mean": float(np.mean(out["losses"][-2:])),
+                         "passes": float(np.mean(out["losses"][-2:])) < head},
+            "new_gate": {"first2_mean": head, "later_median": later,
+                         "eval_loss": out["eval"]["loss"], "passes": ok},
+            "every_replica": replicas,
+            "replicas_with_jumps": sorted(r for r, v in replicas.items() if v["jumps"]),
             "kv_ship_launches": n, "fault_events": out.get("fault_events"),
         }
         print(json.dumps({"card": card, "elastic": {name: records[name]}}), flush=True)
@@ -3440,6 +3581,494 @@ def recovery_phases(torch, card, plans: dict) -> dict:
     (OUT / "chip_smoke_recovery.json").write_text(json.dumps(
         {"card": card, "launches": launches, **out}, indent=1, default=str))
     return {"launches": launches}
+
+
+# ---- speculative decoding and EASGD under SPMD (3s, 4s, 5s, 4z) ------------------
+
+# 4s: phase 4's stream, drafting four tokens a tick with the target's
+# first two layers; the verify runs the decode kernel at T = k + 1 = 5
+# and the int8 matmul at 8 slots x 5 = 40 rows.
+SPEC_K = 4
+SPEC_ARGS = ["--spec-k", str(SPEC_K), "--draft-config", "truncate:2"]
+SPEC_T = (2, 3, 4, 5)
+SPEC_QMM_ROWS = B * (SPEC_K + 1)
+# 5s: the widest gap at which f32 speculative greedy tokens may part
+# from the plain engine's (the verify sums on the rows body at T = 5
+# where a plain tick sums on split at T = 1: last-bit differences).
+F32_TIE = 1e-3
+# 4z: LeNet (configs #1-#2) for 30 steps of 32 images, and AlexNet
+# (config #3) at full width for 8 steps over four ranks.
+EASGD_MNIST_ARGS = ["--easgd", "true", "--steps", "30", "--batch-size", "32",
+                    "--log-every", "1"]
+EASGD_ALEXNET_STEPS = 8
+# ring_q8's zero1 forms are held within 0.02 + 0.02·|loss| (the JAX
+# package's q8 pin) over LeNet's first 20 steps, and both must end below
+# 0.5. In the steep descent after them (steps 25-29: 1.2 -> 0.15) a
+# rounding that falls the other way shifts the drop by a step, and the
+# forms part by up to 0.09 on the CPU, as ring_q8 parts from psum there.
+EASGD_Q8_PIN_STEPS = 20
+
+
+def spec_kernel_phase(torch, flush) -> list:
+    """Phase 3s: the decode kernel at the verify's query widths T = 2 to 5
+    (dense and paged with pages of 16, bf16 over bf16 and over int8 K/V:
+    the ``mma`` and ``q8mma`` bodies), S 512, lengths spread from 0 to S -
+    T, against its plain version (bf16 tolerance) and SDPA on the same
+    (gathered, dequantized) view; and the int8 matmul at the verify's 40
+    rows on GPT-2 small's four shapes against its plain version and
+    ``torch.matmul`` over the dequantized weight, the same bits on three
+    repeated calls. Every case goes to ``chip_smoke_kernels.json``."""
+    from mpit_tpu_torch.models.gpt2 import paged_gather
+    from mpit_tpu_torch.ops import decode_attention as da
+    from mpit_tpu_torch.ops import quantized_matmul as qm
+    from mpit_tpu_torch.ops.kv_quant import dequantize_kv, kv_wire_bytes_per_row, quantize_kv
+
+    cases, s, dtype = [], 512, torch.bfloat16
+    gc.collect()
+    warm_up(torch, 0.5)
+    for int8 in (False, True):
+        for ps in (None, 16):
+            for t in SPEC_T:
+                seed = 900 + t + (ps or 0) + 7 * int8
+                gen = torch.Generator(device="cuda").manual_seed(seed)
+                q = torch.randn((B, t, H, DH), generator=gen, device="cuda").to(dtype)
+                lens = torch.linspace(0, s - t, B, device="cuda").int()
+                if ps:
+                    n_ps = s // ps
+                    pool = B * n_ps + 1
+                    k, v = (torch.randn((pool, ps, H, DH), generator=gen, device="cuda").to(dtype)
+                            for _ in range(2))
+                    perm = torch.randperm(pool, generator=torch.Generator().manual_seed(seed))
+                    bt = perm[: B * n_ps].reshape(B, n_ps).int().cuda()
+                    if int8:
+                        k, v = quantize_kv(k), quantize_kv(v)
+                    kd, vd = paged_gather(k, bt), paged_gather(v, bt)
+                    form, extra = "flash_paged_decode_attention", bt.numel() * 4
+                    run = lambda: da.flash_paged_decode_attention(q, k, v, lens, bt)  # noqa: E731
+                    plain = lambda: da.reference_paged_decode_attention(q, k, v, lens, bt)  # noqa: E731
+                else:
+                    k, v = (torch.randn((B, s, H, DH), generator=gen, device="cuda").to(dtype)
+                            for _ in range(2))
+                    if int8:
+                        k, v = quantize_kv(k), quantize_kv(v)
+                    kd, vd = k, v
+                    form, extra = "flash_decode_attention", 0
+                    run = lambda: da.flash_decode_attention(q, k, v, lens)  # noqa: E731
+                    plain = lambda: da.reference_decode_attention(q, k, v, lens)  # noqa: E731
+                form += "_int8" if int8 else ""
+                path = da._decode_path(dtype, torch.int8 if int8 else dtype, t)
+                out = decode_call(torch, da, form, path, run)
+                err = (out.float() - plain().float()).abs().max().item()
+                if not math.isfinite(err) or err > TOL["bfloat16"]:
+                    fail(f"3s {form} ps={ps} T={t}: kernel vs plain {err} > {TOL['bfloat16']}")
+                if int8:
+                    kd, vd = dequantize_kv(kd).to(dtype), dequantize_kv(vd).to(dtype)
+                row = kv_wire_bytes_per_row(H, DH, torch.int8 if int8 else dtype)
+                bound_ms, bound_by = bound(torch, lens, t, s, row, q, extra)
+                cases.append({
+                    "form": form, "path": path, "dtype": "bfloat16",
+                    "kv": "int8" if int8 else "bfloat16", "page_size": ps, "B": B, "S": s,
+                    "T": t, "H": H, "Dh": DH, "use": "verify", "max_abs_err": err,
+                    "tol": TOL["bfloat16"], "ms": cold_time_ms(run, torch, flush),
+                    "plain_ms": cold_time_ms(plain, torch, flush),
+                    "library_ms": cold_time_ms(sdpa_call(torch, q, kd, vd, lens), torch, flush),
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                })
+                print(json.dumps({"kernel_case": cases[-1]}), flush=True)
+    m = SPEC_QMM_ROWS
+    for d, f in QMM_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(m + d + f)
+        x = torch.randn((m, d), generator=gen, device="cuda").to(dtype)
+        w = qm.quantize_tensor(torch.randn((d, f), generator=gen, device="cuda") / math.sqrt(d))
+        plan = qm.kernel_plan(m, d, f, dtype, x.device)
+        paths = dict(qm.path_launches)
+        out = qm.quantized_matmul(x, w)
+        torch.cuda.synchronize()
+        ran = {k: n - paths[k] for k, n in qm.path_launches.items() if n != paths[k]}
+        if ran != {plan["path"]: 1}:
+            fail(f"3s quantized_matmul M={m} D={d} F={f}: launches by body {ran}")
+        plain = qm.quantized_matmul_plain(x, w)
+        err = (out - plain).abs().max().item()
+        tol = QMM_TOL * max(1.0, plain.abs().max().item())
+        if not math.isfinite(err) or err > tol:
+            fail(f"3s quantized_matmul M={m} D={d} F={f}: kernel vs plain {err} > {tol}")
+        if not all(torch.equal(qm.quantized_matmul(x, w), out) for _ in range(3)):
+            fail(f"3s quantized_matmul M={m} D={d} F={f}: repeated calls differ")
+        w_deq = qm.dequantize_tensor(w)
+        run = lambda: qm.quantized_matmul(x, w)  # noqa: E731
+        bound_ms, bound_by = qmm_bound(m, d, f, x)
+        cases.append({
+            "form": "quantized_matmul", "dtype": "bfloat16", "M": m, "D": d, "F": f,
+            "use": "verify", "path": plan["path"], "tile": list(plan["tile"]),
+            "splits": plan["splits"], "blocks": plan["blocks"], "max_abs_err": err, "tol": tol,
+            "ms": cold_time_ms(run, torch, flush),
+            "plain_ms": cold_time_ms(lambda: qm.quantized_matmul_plain(x, w), torch, flush),
+            "library_ms": cold_time_ms(lambda: torch.matmul(x.float(), w_deq), torch, flush),
+            "device_ms": cold_time_ms(run, torch, flush, lead_cycles=HOST_LEAD_CYCLES),
+            "host_ms": host_time_ms(run, torch), "bound_ms": bound_ms, "bound_by": bound_by,
+        })
+        print(json.dumps({"kernel_case": cases[-1]}), flush=True)
+    return cases
+
+
+def spec_tick_profile(torch, args, ticks: int = 8) -> dict:
+    """4s's dense speculative engine under ``torch.profiler``: ``ticks``
+    speculative ticks (draft, then verify) of 8 slots after one prefill
+    (see :func:`profile_window`)."""
+    import numpy as np
+
+    from mpit_tpu_torch.config import from_argv
+    from mpit_tpu_torch.serve.__main__ import ServeConfig, _build_engine
+
+    cfg = from_argv(ServeConfig, SERVE_ARGS + args)
+    engine, mcfg = _build_engine(cfg)
+    slots = cfg.slots
+    tokens = np.random.default_rng(cfg.seed).integers(0, mcfg.vocab_size, (slots, cfg.prefill_len))
+    every = np.ones(slots, bool)
+    temp, topk = np.zeros(slots, np.float32), np.zeros(slots, np.int32)
+    budget, eos = np.full(slots, 1 << 20, np.int32), np.full(slots, -1, np.int32)
+
+    def tick(_):
+        engine.spec_draft(every, temp, topk)
+        engine.spec_verify(every, temp, topk, budget, eos)
+
+    def start():
+        engine.reset()
+        engine.prefill(tokens, np.full(slots, cfg.prefill_len, np.int32), every, temp, topk)
+
+    start()
+    tick(None)  # the first launches' one-off costs, outside the window
+    start()
+    out = profile_window(torch, tick, list(range(ticks)))
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def spec_serve_phase(torch, card, serve_records, tokens: dict) -> dict:
+    """Phase 4s: phase 4's runs with ``--spec-k 4 --draft-config
+    truncate:2`` through the serve CLI's ``main``: dense, paged, paged
+    with int8 K/V and dense with int8 weights. Gates: 16 of 16 requests
+    and 512 tokens; every attention launch on its form's tensor-core body
+    (the prefill and the T = 5 verify; the target never decodes at T =
+    1, the draft runs plain attention); with int8 weights every matmul
+    launch on ``mma``; the greedy tokens against the plain run of the
+    same form (:func:`server_tokens`), each parting judged by the plain
+    path teacher-forced on the plain run's tokens: it fails where that
+    path ranks the plain run's token above the speculative run's by more
+    than ``INT8_TIE`` (the verify sums on the T = 5 tensor-core body where
+    a plain tick sums on split: where the plain path ranks the
+    speculative token higher, the plain run, not the speculative one,
+    parted from it). Then a
+    sampled run (temperature 1, top-k 50): its counts hold. Reports the
+    acceptance, tokens per tick, decode tok/s beside phase 4's plain run
+    and a profile of the dense speculative tick. Returns the launches by
+    run and by body."""
+    import dataclasses
+
+    from mpit_tpu_torch.models import GPT2, GPT2Config
+    from mpit_tpu_torch.ops import decode_attention as da
+    from mpit_tpu_torch.ops import quantized_matmul as qm
+    from mpit_tpu_torch.serve import quantize_gpt2_params
+    from mpit_tpu_torch.serve.__main__ import main
+
+    state = GPT2(GPT2Config.small(), generator=torch.Generator().manual_seed(0)).state_dict()
+    judge = GPT2(GPT2Config.small(), device="cuda")
+    judge.load_state_dict(state)
+    judge_int8w = GPT2(
+        dataclasses.replace(GPT2Config.small(), quant_matmul_fn=qm.quantized_matmul_reference),
+        device="cuda", quantized=True,
+    )
+    judge_int8w.load_state_dict(quantize_gpt2_params(state))
+    del state
+    plain_tok_s = {tuple(r["args"]): r["serve"]["decode_tokens_per_sec"]
+                   for r in serve_records if "serve" in r}
+    runs = {
+        "spec_dense": ([], FORMS[0]),
+        "spec_paged": (PAGED_ARGS, FORMS[2]),
+        "spec_paged_int8_kv": (PAGED_ARGS + ["--kv-dtype", "int8"], FORMS[3]),
+        "spec_dense_int8_weights": (INT8W_ARGS, FORMS[0]),
+        "spec_dense_sampled": (["--temperature", "1", "--top-k", "50"], FORMS[0]),
+    }
+    launches, bodies, qmm_launches, records = {}, {}, {}, []
+    for name, (args, form) in runs.items():
+        sampled = "--temperature" in args
+        int8w = "--weights-dtype" in args
+        if not sampled:
+            want, prompts = server_tokens(torch, SERVE_ARGS + args, tokens)
+        for mod in (da, qm):
+            mod.launches.update(dict.fromkeys(mod.launches, 0))
+            mod.path_launches.update(dict.fromkeys(mod.path_launches, 0))
+        out = main(SERVE_ARGS + args + SPEC_ARGS)
+        counts = dict(da.launches)
+        paths = {k: n for k, n in da.path_launches.items() if n}
+        mm, mm_paths = qm.launches["quantized_matmul"], {k: n for k, n in qm.path_launches.items() if n}
+        phases = out["obs_summary"]
+        layers = out["model"]["layers"]
+        n_prefill, n_tick = phases["prefill"]["count"], phases["decode"]["count"]
+        tag = f"4s {name}"
+        if out["requests_completed"] != 16 or out["truncated"] or out["generated_tokens"] != 512:
+            fail(f"{tag}: {out['requests_completed']} of 16 requests, "
+                 f"{out['generated_tokens']} tokens of 512")
+        body = "q8mma" if form.endswith("_int8") else "mma"
+        want_paths = {f"{form}/{body}": layers * (n_prefill + n_tick)}
+        if paths != want_paths or any(n for f, n in counts.items() if f != form):
+            fail(f"{tag}: attention launches by body {paths}, expected {want_paths} "
+                 f"(and no other form: {counts})")
+        if phases["spec_verify"]["count"] != n_tick or phases["spec_draft"]["count"] != n_tick:
+            fail(f"{tag}: {phases['spec_draft']['count']} drafts and "
+                 f"{phases['spec_verify']['count']} verifies for {n_tick} ticks")
+        # The target's four dense layers a call and the draft's (two
+        # layers, k + 1 forwards a tick and one a prefill) on mma.
+        need_mm = 4 * (layers * (n_prefill + n_tick) + 2 * (n_prefill + (SPEC_K + 1) * n_tick))
+        if int8w and (mm != need_mm or mm_paths != {"mma": mm}):
+            fail(f"{tag}: matmul launches {mm} by body {mm_paths}, expected {need_mm} on mma")
+        if not int8w and mm:
+            fail(f"{tag}: quantized_matmul launched without --weights-dtype int8")
+        ties = None
+        if not sampled:
+            got, _ = server_tokens(torch, SERVE_ARGS + args + SPEC_ARGS, tokens)
+            ties = fleet_divergences(torch, judge_int8w if int8w else judge, prompts, got, want,
+                                     quantized="--kv-dtype" in args, what=tag, one_sided=True)
+        launches[name] = counts[form]
+        bodies[name] = paths
+        qmm_launches[name] = mm
+        records.append({
+            "card": card, "run": name, "args": args + SPEC_ARGS,
+            "requests_completed": out["requests_completed"],
+            "generated_tokens": out["generated_tokens"], "ticks": n_tick,
+            "accepted_tokens_per_tick": out["accepted_tokens_per_tick"],
+            "draft_acceptance_rate": out["draft_acceptance_rate"],
+            "decode_tokens_per_sec": out["decode_tokens_per_sec"],
+            "plain_decode_tokens_per_sec": plain_tok_s.get(tuple(args)),
+            "tick_ms_p50": phases["decode"]["p50_s"] * 1e3,
+            "draft_ms_p50": phases["spec_draft"]["p50_s"] * 1e3,
+            "verify_ms_p50": phases["spec_verify"]["p50_s"] * 1e3,
+            "wall_s": out["wall_s"], "attention_launches_by_body": paths,
+            "matmul_launches": mm,
+            "tokens_vs_plain": None if ties is None else
+            {"identical_requests": 16 - len(ties), "near_ties": ties},
+        })
+        print(json.dumps(records[-1]), flush=True)
+    del judge, judge_int8w
+    torch.cuda.empty_cache()
+    records.append({"card": card, "spec_tick_profile": spec_tick_profile(torch, SPEC_ARGS)})
+    print(json.dumps(records[-1]), flush=True)
+    return {"launches": launches, "bodies": bodies, "qmm": qmm_launches, "records": records}
+
+
+def spec_parity_phase(torch, mcfg, state) -> dict:
+    """Phase 5s: f32 speculative greedy tokens at GPT-2 small's width
+    (phase 5's weights and stream, k 4, the first two layers as the
+    draft): the kernel engine (the verify on the decode kernel's rows
+    body) and the reference engine against the plain kernel engine.
+    Partings are judged by the plain model teacher-forced on the plain
+    tokens, within ``F32_TIE``."""
+    from mpit_tpu_torch.config import from_argv
+    from mpit_tpu_torch.models import GPT2
+    from mpit_tpu_torch.serve import Engine, Server, draft_from_target
+    from mpit_tpu_torch.serve.__main__ import ServeConfig, synthetic_requests
+
+    cfg = from_argv(ServeConfig, SERVE_ARGS)
+    dstate, dcfg = draft_from_target(state, mcfg, 2)
+    tokens, prompts, stats = {}, {}, {}
+    for name, mode, spec in (("plain", "kernel", {}),
+                             ("spec_kernel", "kernel", dict(spec_k=SPEC_K, draft_params=dstate,
+                                                            draft_cfg=dcfg)),
+                             ("spec_reference", "reference", dict(
+                                 spec_k=SPEC_K, draft_params=dstate, draft_cfg=dcfg))):
+        engine = Engine(mcfg, state, slots=cfg.slots, max_len=cfg.max_len,
+                        prefill_len=cfg.prefill_len, seed=cfg.seed, device="cuda",
+                        decode_attention=mode, **spec)
+        server = Server(engine)
+        for req in synthetic_requests(cfg, mcfg.vocab_size):
+            server.submit(req)
+            prompts[str(req.rid)] = list(req.prompt)
+        tokens[name] = {str(c.rid): list(c.tokens) for c in server.run()}
+        stats[name] = {k: server.stats().get(k) for k in ("accepted_tokens_per_tick",
+                                                          "draft_acceptance_rate", "ticks")}
+        del engine, server
+        torch.cuda.empty_cache()
+    judge = GPT2(mcfg, device="cuda")
+    judge.load_state_dict(state)
+    out = {"stats": stats}
+    for name in ("spec_kernel", "spec_reference"):
+        got, want = tokens[name], tokens["plain"]
+        if len(got) != 16 or sum(map(len, got.values())) != 512:
+            fail(f"5s {name}: {len(got)} requests, {sum(map(len, got.values()))} tokens")
+        ties = {}
+        for r in want:
+            if got[r] == want[r]:
+                continue
+            ties[r] = report_divergence(torch, judge, prompts[r], got[r], want[r])
+            with torch.no_grad():
+                i = ties[r]["token_index"]
+                row = judge(torch.tensor([prompts[r] + want[r][:i]], device="cuda"))[0, -1]
+            ties[r]["gap"] = (row[want[r][i]] - row[got[r][i]]).item()
+        wide = {r: d for r, d in ties.items() if not abs(d["gap"]) <= F32_TIE}
+        if wide:
+            fail(f"5s {name}: f32 tokens part from the plain engine's beyond {F32_TIE}: {wide}")
+        out[name] = {"identical_requests": 16 - len(ties), "near_ties": ties}
+    del judge
+    torch.cuda.empty_cache()
+    print(json.dumps({"parity_spec_f32": out}), flush=True)
+    return out
+
+
+class capture_states:
+    """For the enclosed block: every ``TrainState`` that
+    ``runner.make_train_step``'s ``init_fn`` builds, in order (the CLI
+    runs' states, which their steps update in place)."""
+
+    def __init__(self):
+        self.states = []
+
+    def __enter__(self):
+        from mpit_tpu_torch.asyncsgd import runner
+
+        self.runner, self.orig = runner, runner.make_train_step
+
+        def make_train_step(*a, **kw):
+            init_fn, step_fn = self.orig(*a, **kw)
+
+            def init(*ia, **ikw):
+                state = init_fn(*ia, **ikw)
+                self.states.append(state)
+                return state
+
+            return init, step_fn
+
+        runner.make_train_step = make_train_step
+        return self
+
+    def __exit__(self, *exc):
+        self.runner.make_train_step = self.orig
+
+
+def flat_center(state):
+    """A p-rank EASGD state's centre as one flat vector: the ZeRO-1
+    ``[p, S]`` shards end to end, or rank 0's row of the plain-DP ``[p,
+    N]`` centre."""
+    (c,) = state.opt_state[1].center
+    return c[0] if c.shape == state.flat.params.shape else c.reshape(-1)
+
+
+def easgd_phase(torch, card, plans: dict) -> dict:
+    """Phase 4z: EASGD under the SPMD step through the CLI (``--easgd
+    true``): ``mnist`` on one rank, and over ``--mesh data=4`` through
+    ``ring`` and ``ring_q8`` with ``--zero1`` true and false; AlexNet at
+    full width over four ranks through ``ring`` for 8 steps. Gates:
+    losses finite, LeNet's falling (the means of the first and last five;
+    AlexNet's 8 steps are reported), the centre finite, the replicas
+    bit-identical, the ring launches (set to 0 just before) buckets x
+    steps of the mode's kinds, and the zero1 forms equal: ``ring``'s
+    losses, parameters and centre bit for bit, ``ring_q8``'s losses
+    within ``0.02 + 0.02·|loss|`` over ``EASGD_Q8_PIN_STEPS`` and both
+    ending below 0.5 (the ZeRO-1 form gathers int8 updates where plain
+    DP gathers int8 gradients). Returns the ring launches by run."""
+    from mpit_tpu_torch.asyncsgd import imagenet, mnist
+    from mpit_tpu_torch.ops import ring_collectives as rc
+
+    runs = {"mnist_easgd_1": (mnist.main, "lenet", None, None, EASGD_MNIST_ARGS)}
+    for mode in ("ring", "ring_q8"):
+        for z in ("true", "false"):
+            runs[f"mnist_easgd_{mode}_zero1_{z}"] = (
+                mnist.main, "lenet", mode, z,
+                EASGD_MNIST_ARGS + ["--mesh", f"data={CONV_RANKS}", "--grad-sync", mode,
+                                    "--zero1", z])
+    runs["imagenet_easgd_ring"] = (
+        imagenet.main, "alexnet", "ring", "true",
+        IMAGENET_ARGS + ["--easgd", "true", "--steps", str(EASGD_ALEXNET_STEPS), "--mesh",
+                         f"data={CONV_RANKS}", "--grad-sync", "ring", "--zero1", "true"])
+    import numpy as np
+
+    launches, results, records = {}, {}, []
+    for name, (main, net, mode, z, args) in runs.items():
+        rc.launches.update(dict.fromkeys(rc.launches, 0))
+        rc.path_launches.update(dict.fromkeys(rc.path_launches, 0))
+        t0 = time.perf_counter()
+        with capture_states() as cap:
+            out = main(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ring = {k: n for k, n in rc.launches.items() if n}
+        (state,) = cap.states
+        losses = out["losses"]
+        steps = EASGD_ALEXNET_STEPS if net == "alexnet" else 30
+        if out["steps"] != steps or not all(math.isfinite(x) for x in losses):
+            fail(f"4z {name}: {out['steps']} steps, losses {losses}")
+        first5, last5 = falling(losses)
+        if net == "lenet" and not last5 < first5:
+            fail(f"4z {name}: losses do not fall ({first5} -> {last5}): {losses}")
+        center = flat_center(state) if mode else torch.cat(
+            [t.reshape(-1) for t in state.opt_state[1].center.values()])
+        if not bool(torch.isfinite(center).all()):
+            fail(f"4z {name}: the centre is not finite")
+        if mode and not out["replicas_identical"]:
+            fail(f"4z {name}: the {CONV_RANKS} replicas differ")
+        if mode:
+            q = "_q8" if mode == "ring_q8" else ""
+            want = {f"ring_rs{q}": plans[net]["buckets"] * steps,
+                    f"ring_ag{q}": plans[net]["buckets"] * steps}
+            if ring != want:
+                fail(f"4z {name}: ring launches {ring}, expected {want}")
+        elif ring:
+            fail(f"4z {name}: ring launches on one rank: {ring}")
+        launches[name] = ring
+        results[name] = (losses, state)
+        step_ms = np.asarray(out["step_ms"][2:])
+        records.append({
+            "card": card, "run": name, "args": args, "losses": losses,
+            "first5_mean": first5, "last5_mean": last5, "eval": out.get("eval"),
+            "step_ms_p50": float(np.percentile(step_ms, 50)), "wall_s": wall,
+            "ring_launches": ring, "center_abs_max": float(center.abs().max()),
+        })
+        print(json.dumps({"easgd": records[-1]}), flush=True)
+    forms = {}
+    for mode in ("ring", "ring_q8"):
+        (l1, s1), (l0, s0) = (results[f"mnist_easgd_{mode}_zero1_{z}"] for z in ("true", "false"))
+        if mode == "ring":
+            same = (l1 == l0 and torch.equal(s1.flat.params, s0.flat.params)
+                    and torch.equal(flat_center(s1), flat_center(s0)))
+            if not same:
+                fail(f"4z {mode}: the zero1 forms differ: losses {l1} / {l0}")
+        else:
+            head = EASGD_Q8_PIN_STEPS
+            gap = max(abs(a - b) - (0.02 + 0.02 * abs(b)) for a, b in zip(l1[:head], l0[:head]))
+            if gap > 0 or not max(l1[-1], l0[-1]) < 0.5:
+                fail(f"4z {mode}: the zero1 forms part beyond 0.02 + 0.02|loss| in the first "
+                     f"{head} steps, or one ends above 0.5: {l1} / {l0}")
+        forms[mode] = {"losses_equal": l1 == l0,
+                       "center_max_abs_diff": float((flat_center(s1) - flat_center(s0))
+                                                    .abs().max())}
+    records.append({"card": card, "zero1_forms": forms})
+    print(json.dumps({"easgd": records[-1]}), flush=True)
+    del results
+    torch.cuda.empty_cache()
+    return {"launches": launches, "records": records}
+
+
+def spec_phases(torch, card, flush, serve_records, mcfg, state, plans, tokens: dict) -> dict:
+    """Phases 3s, 4s, 5s and 4z in turn; their records also go to
+    ``chiprun_out/chip_smoke_spec.json``. ``tokens``: the plain runs'
+    greedy tokens by CLI arguments, as 4f left them."""
+    t0 = time.perf_counter()
+    cases = spec_kernel_phase(torch, flush)
+    print(f"phase 3s: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    serve = spec_serve_phase(torch, card, serve_records, tokens)
+    print(f"phase 4s: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    parity = spec_parity_phase(torch, mcfg, state)
+    print(f"phase 5s: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    easgd = easgd_phase(torch, card, plans)
+    print(f"phase 4z: {time.perf_counter() - t0:.1f} s", flush=True)
+    OUT.mkdir(exist_ok=True)
+    (OUT / "chip_smoke_spec.json").write_text(json.dumps(
+        {"card": card, "cases": cases, "serve": serve["records"], "parity_f32": parity,
+         "easgd": easgd["records"]}, indent=1, default=str))
+    return {"cases": cases, "serve": serve, "easgd": easgd}
 
 
 def main() -> None:
@@ -3493,10 +4122,34 @@ def main() -> None:
         with tempfile.TemporaryDirectory() as d:
             records = [elastic_phase(torch, card, Path(d) / str(i))["records"]
                        for i in range(reps)]
+        healthy = [r["elastic_healthy"] for r in records]
+        summary = {
+            "repeats": reps,
+            "healthy_runs_with_a_jump": sum(bool(h["replicas_with_jumps"]) for h in healthy),
+            "jumps": [(i, r, h["every_replica"][r]["jumps"]) for i, h in enumerate(healthy)
+                      for r in h["replicas_with_jumps"]],
+            "old_gate_failures": sum(not h["old_gate"]["passes"] for h in healthy),
+            "eval_on_centre_max": max(h["eval_on_centre"]["loss"] for h in healthy),
+        }
         OUT.mkdir(exist_ok=True)
         (OUT / "chip_smoke_elastic.json").write_text(json.dumps(
-            {"card": card, "repeats": records}, indent=1, default=str))
-        print(json.dumps({"card": card, "elastic_repeats": reps}))
+            {"card": card, "summary": summary, "repeats": records}, indent=1, default=str))
+        print(json.dumps({"card": card, "elastic_summary": summary}, default=str))
+        return
+    if sys.argv[1:2] == ["spec"]:  # phases 3s, 4s, 5s and 4z alone
+        build.build(build.KERNEL_SOURCES)
+        flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+        warm_up(torch)
+        serve_records = []
+        for args, form in (([], FORMS[0]), (PAGED_ARGS, FORMS[2]),
+                           (PAGED_ARGS + ["--kv-dtype", "int8"], FORMS[3]), (INT8W_ARGS, FORMS[0])):
+            serve_phase(torch, card, args, form, serve_records)
+        mcfg, state = parity_phase(torch)
+        spec = spec_phases(torch, card, flush, serve_records, mcfg, state,
+                           convnet_bucket_plans(torch), {})
+        print(json.dumps({"card": card, "spec_launches": spec["serve"]["bodies"],
+                          "easgd_launches": spec["easgd"]["launches"]}))
+        print(f"chip_smoke spec: {time.perf_counter() - t_start:.1f} s in all", flush=True)
         return
     if sys.argv[1:2] == ["recovery"]:  # phases 4k, 4kd, 4kx and 4e alone
         build.build(build.KERNEL_SOURCES)
@@ -3566,11 +4219,14 @@ def main() -> None:
         for body, n in c[3].items():
             qmm_bodies[body] = qmm_bodies.get(body, 0) + n
     t0 = time.perf_counter()
-    ship_launches, fleet_records = fleet_phase(torch, card, ship_cases)
+    tokens = {}  # the plain runs' greedy tokens, shared by 4f and 4s
+    ship_launches, fleet_records = fleet_phase(torch, card, ship_cases, tokens)
     print(f"phase 4f: {time.perf_counter() - t0:.1f} s", flush=True)
     mcfg, state = parity_phase(torch)
     paged_parity_phase(torch, mcfg, state)
     int8w_parity_phase(torch, mcfg, state)
+    spec = spec_phases(torch, card, flush, serve_records, mcfg, state, conv_plans, tokens)
+    del mcfg, state
     t0 = time.perf_counter()
     fleet_parity = fleet_parity_phase(torch)
     print(f"phase 5f: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -3626,6 +4282,28 @@ def main() -> None:
                 "shape": {k: head.get(k) for k in ("dtype", "kv", "page_size", "B", "S", "T",
                                                    "H", "Dh")},
             })
+    # Each decode form at the speculative verify's width (T = k + 1 = 5),
+    # with phase 4s's launches of that form (prefill and verify, one body).
+    spec_runs = {FORMS[0]: "spec_dense", FORMS[2]: "spec_paged", FORMS[3]: "spec_paged_int8_kv"}
+    for form, run in spec_runs.items():
+        head = next(c for c in spec["cases"] if c["form"] == form and c["T"] == SPEC_K + 1
+                    and c.get("page_size") in (None, 16))
+        kernels.append({
+            "name": form + "_verify",
+            "route": "cuda",
+            "path": head["path"],
+            "source": "mpit_tpu_torch/csrc/decode_attention.cu",
+            "replaces": "mpit_tpu/ops/decode_attention.py:166",
+            "call_site": (
+                "mpit_tpu/ops/decode_attention.py:419" if "paged" in form
+                else "mpit_tpu/ops/decode_attention.py:369"
+            ),
+            "launches": spec["serve"]["bodies"][run].get(f"{form}/{head['path']}", 0),
+            **{k: head[k] for k in ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms")},
+            "shape": {k: head.get(k) for k in ("dtype", "kv", "page_size", "B", "S", "T",
+                                               "H", "Dh")},
+        })
     # The decode tick's qkv projection at bf16 activations.
     head = next(
         c for c in cases
@@ -3642,6 +4320,22 @@ def main() -> None:
         "launches": sum(qmm_launches.values()),
         "launches_by_run": qmm_launches,
         "launches_by_body": qmm_bodies,
+        **{k: head[k] for k in ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms", "splits", "blocks")},
+        "shape": {k: head[k] for k in ("dtype", "M", "D", "F")},
+    })
+    # The verify's qkv projection: 8 slots x (k + 1) rows, phase 4s's
+    # int8-weight run (the target's and the draft's matmuls).
+    head = next(c for c in spec["cases"] if c["form"] == "quantized_matmul"
+                and (c["M"], c["D"], c["F"]) == (SPEC_QMM_ROWS, 768, 2304))
+    kernels.append({
+        "name": "quantized_matmul_verify",
+        "route": "cuda",
+        "source": "mpit_tpu_torch/csrc/quantized_matmul.cu",
+        "replaces": "mpit_tpu/ops/quantized_matmul.py:272",
+        "call_site": "mpit_tpu/ops/quantized_matmul.py:321",
+        "path": head["path"],
+        "launches": spec["serve"]["qmm"]["spec_dense_int8_weights"],
         **{k: head[k] for k in ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms",
                                 "bound_by", "library_ms", "splits", "blocks")},
         "shape": {k: head[k] for k in ("dtype", "M", "D", "F")},

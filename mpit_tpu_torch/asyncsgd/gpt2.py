@@ -122,6 +122,11 @@ def main(argv: list[str] | None = None, *, initial_params=None, **overrides) -> 
             )
     runner.reject_later_slices(cfg)
     runner.refuse_elastic(cfg, "gpt2")
+    if cfg.easgd:
+        raise SystemExit(
+            "gpt2 --easgd true: the JAX package's gpt2 trains its own goo_adam and "
+            "ignores --easgd (it trains without the elastic term); the port refuses it"
+        )
     runner.refuse_dense(cfg, stateful=False)
     print(runner.describe(cfg, "gpt2"))
     device = resolve_device(cfg.device)

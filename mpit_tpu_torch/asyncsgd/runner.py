@@ -33,8 +33,9 @@ Everything of the JAX harness that needs a later slice's machinery is
 refused with ``SystemExit`` naming the slice that brings it: the flags
 of :data:`LATER_FLAGS` (not fields of the port's config, so nothing can
 read them by mistake) as the command line is parsed, and the values of
-``--mesh`` and ``--easgd`` that the port does not run by
-:func:`reject_later_slices`.
+``--mesh`` that the port does not run by :func:`reject_later_slices`.
+``--easgd true`` under ``--mode spmd`` chains the elastic term after
+goo (:func:`build_tx`).
 """
 
 from __future__ import annotations
@@ -51,7 +52,7 @@ from mpit_tpu_torch.asyncsgd import actors
 from mpit_tpu_torch.asyncsgd.config import TrainConfig
 from mpit_tpu_torch.comm import init as init_world
 from mpit_tpu_torch.data import FileClassification, shard_batch
-from mpit_tpu_torch.opt import goo, schedules
+from mpit_tpu_torch.opt import chain, elastic_average, goo, schedules
 from mpit_tpu_torch.serve.engine import resolve_device
 from mpit_tpu_torch.train import (
     CheckpointManager, MetricLogger, dense_from_dp, dp_from_dense, hardened_loop, load_dense,
@@ -61,7 +62,8 @@ from mpit_tpu_torch.opt.sharded import FlatLayout
 from mpit_tpu_torch.train.step import FlatReplicas, TrainState
 
 __all__ = [
-    "DATA_SLICE", "LATER_FLAGS", "accuracy", "build_tx", "classification_dataset", "describe",
+    "DATA_SLICE", "LATER_FLAGS", "accuracy", "base_tx", "build_tx", "classification_dataset",
+    "describe",
     "make_stream", "make_val_sweep", "make_world", "refuse_dense", "refuse_elastic",
     "reject_later_slices",
     "run_classifier", "run_elastic_classifier", "run_meta", "run_parity_classifier", "run_spmd",
@@ -70,7 +72,6 @@ __all__ = [
 
 _OBSERVABILITY = "the observability slice of the port (ROADMAP.md §A 11)"
 DATA_SLICE = "the data-pipeline slice of the port (ROADMAP.md §A 12)"
-_EASGD_SPMD = "a later slice of the elastic tier (ROADMAP.md §A 6)"
 
 # The JAX TrainConfig's flags that no code of the port reads -> the
 # slice that brings them. Giving one raises SystemExit naming it.
@@ -83,8 +84,7 @@ LATER_FLAGS = {
 
 def reject_later_slices(cfg: TrainConfig) -> None:
     """``SystemExit`` for the values of the config's fields that the
-    port does not run: an unknown ``--mode``, ``--easgd true`` under
-    ``--mode spmd`` (``goo.elastic_average``), a mesh axis other than
+    port does not run: an unknown ``--mode``, a mesh axis other than
     ``data``, and, as in JAX, ``--augment-mode rrc`` or ``--train-size``
     without ``--data-dir`` (the synthetic streams shift-crop only)."""
     if not cfg.data_dir and ((cfg.augment and cfg.augment_mode != "shift") or cfg.train_size):
@@ -94,11 +94,6 @@ def reject_later_slices(cfg: TrainConfig) -> None:
         )
     if cfg.mode not in ("spmd", "parity", "elastic"):
         raise SystemExit(f"--mode {cfg.mode}: spmd, parity or elastic")
-    if cfg.easgd and cfg.mode == "spmd":
-        raise SystemExit(
-            "--easgd true under --mode spmd (goo.elastic_average, its ZeRO-1 semantics): "
-            f"arrives with {_EASGD_SPMD}"
-        )
     mesh = cfg.mesh_shape() or {}
     if set(mesh) - {"data"}:
         raise SystemExit(
@@ -259,11 +254,25 @@ def make_val_sweep(cfg: TrainConfig, dataset):
     return sweep
 
 
-def build_tx(cfg: TrainConfig):
-    """The goo SGD rule of a config (Downpour), with its lr schedule
-    (constant when ``--schedule`` is empty). EASGD under SPMD
-    (``goo.elastic_average``) is refused by :func:`reject_later_slices`."""
+def base_tx(cfg: TrainConfig):
+    """The goo SGD rule of a config, with its lr schedule (constant when
+    ``--schedule`` is empty): the parity clients' and the elastic
+    replicas' local rule (JAX builds ``gopt.goo`` there directly)."""
     return goo(schedules.from_config(cfg), cfg.momentum, weight_decay=cfg.weight_decay)
+
+
+def build_tx(cfg: TrainConfig, *, axis: str | None = None):
+    """The SPMD step's rule (JAX's ``build_tx``): Downpour's goo, or with
+    ``--easgd true`` goo chained with the elastic term over ``axis``
+    (the SPMD spelling of the reference's elastic dynamics: the centre
+    is the mean over the ranks, the pserver reduced to a collective).
+    Under ZeRO-1 each rank's centre shard averages that shard of every
+    replica (``opt/goo.py``), where the JAX package averages the
+    devices' different shards (ROADMAP.md §C)."""
+    base = base_tx(cfg)
+    if cfg.easgd:
+        return chain(base, elastic_average(cfg.easgd_alpha, axis=axis))
+    return base
 
 
 def _on_device(batch: dict, device) -> dict:
@@ -325,7 +334,7 @@ def run_spmd(
     reject_later_slices(cfg)
     refuse_dense(cfg, stateful)
     device = resolve_device(cfg.device)
-    tx = build_tx(cfg) if tx is None else tx
+    tx = build_tx(cfg, axis="data") if tx is None else tx
     init_fn, step_fn = make_train_step(
         loss_fn, tx, world, zero1=cfg.zero1, stateful=stateful, grad_sync=cfg.grad_sync,
         grad_bucket_mb=cfg.grad_bucket_mb,
@@ -583,7 +592,7 @@ def run_parity_classifier(cfg: TrainConfig, make_model: Callable, dataset, *,
         stream = dataset.batches(per_client_batch, seed=cfg.seed + 100 + widx)
         losses = []
         if cfg.easgd:
-            local_tx = build_tx(cfg)
+            local_tx = base_tx(cfg)
             with torch.no_grad():
                 params.copy_(flat_init)
             opt_state = local_tx.init([params])
@@ -606,7 +615,7 @@ def run_parity_classifier(cfg: TrainConfig, make_model: Callable, dataset, *,
 
     t0 = time.perf_counter()
     results = actors.run_parameter_server(
-        flat_init, build_tx(cfg), client_fn, nranks=nclients + 1,
+        flat_init, base_tx(cfg), client_fn, nranks=nclients + 1,
         easgd_alpha=cfg.easgd_alpha, timeout=cfg.ps_timeout,
     )
     wall_s = time.perf_counter() - t0
@@ -671,7 +680,7 @@ def run_elastic_classifier(cfg: TrainConfig, make_model: Callable, dataset, *,
         flat = FlatReplicas([dict(model.named_parameters())])
         params, grads, leaves = flat.params[0], flat.grads[0], flat.leaves[0]
         loss_fn, _ = _classifier_fns(model, top5=False)
-        tx = build_tx(cfg)
+        tx = base_tx(cfg)
 
         def step_fn(state, batch):
             loss, _ = loss_fn(None, batch)

@@ -96,19 +96,30 @@ def default_attention(q, k, v, *, causal: bool = True):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def cache_update(cache, new, lengths):
+def cache_update(cache, new, lengths, valid=None):
     """Write ``new`` ``[B, T, H, Dh]`` into ``cache`` ``[B, S, H, Dh]`` at
     rows ``lengths .. lengths + T - 1`` of each slot, in place; returns
     ``cache``. A start that would overrun S is clamped to ``S - T``, as
-    ``lax.dynamic_update_slice`` clamps it in the JAX package."""
+    ``lax.dynamic_update_slice`` clamps it in the JAX package. Rows with
+    ``valid`` ``[B, T]`` False keep what they held (JAX's ``_kv_where``
+    of the speculative verify: a slot that takes no part keeps its
+    rows)."""
     b, t = new.shape[:2]
     start = lengths.long().clamp(0, cache.shape[1] - t)
     rows = start[:, None] + torch.arange(t, device=new.device)
     slot = torch.arange(b, device=new.device)[:, None]
     if isinstance(cache, QuantizedKV):
-        cache[slot, rows] = quantize_kv(new)
+        new = quantize_kv(new)
+        if valid is not None:
+            old, keep = cache[slot, rows], ~valid[:, :, None, None]
+            new = QuantizedKV(q=torch.where(keep, old.q, new.q),
+                              scale=torch.where(keep, old.scale, new.scale))
+        cache[slot, rows] = new
     else:
-        cache[slot, rows] = new.to(cache.dtype)
+        new = new.to(cache.dtype)
+        if valid is not None:
+            new = torch.where(valid[:, :, None, None], new, cache[slot, rows])
+        cache[slot, rows] = new
     return cache
 
 
@@ -373,9 +384,11 @@ class Block(nn.Module):
         self.out = dense(cfg.ff_dim, d)
 
     def forward(self, x, layer_cache=None):
-        """``layer_cache``: ``(k, v, lengths)`` with k/v ``[B, S, H, Dh]``
-        and lengths ``[B]`` — the new K/V rows are written into k/v at
-        ``lengths`` (in place) and attention runs against the cache. The
+        """``layer_cache``: ``(k, v, lengths, write_valid)`` with k/v
+        ``[B, S, H, Dh]``, lengths ``[B]`` and ``write_valid`` ``[B, T]``
+        or None — the new K/V rows are written into k/v at ``lengths``
+        (in place, the rows ``write_valid`` marks False kept) and
+        attention runs against the cache. The
         paged 5-tuple ``(k_pool, v_pool, lengths, block_table,
         write_idx)`` writes the rows at ``write_idx``, the flat pool rows
         :func:`GPT2.forward` built once for all layers (masked rows go
@@ -395,9 +408,9 @@ class Block(nn.Module):
                 split(q).contiguous(), k_pool, v_pool, lengths, block_table
             )
         else:
-            k_cache, v_cache, lengths = layer_cache
-            cache_update(k_cache, split(k), lengths)
-            cache_update(v_cache, split(v), lengths)
+            k_cache, v_cache, lengths, valid = layer_cache
+            cache_update(k_cache, split(k), lengths, valid)
+            cache_update(v_cache, split(v), lengths, valid)
             attn_fn = cfg.cache_attention_fn or cached_attention
             attn = attn_fn(split(q).contiguous(), k_cache, v_cache, lengths)
         attn = attn.reshape(*attn.shape[:-2], cfg.d_model)
@@ -469,7 +482,9 @@ class GPT2(nn.Module):
         Dh]`` and lengths ``[B]`` int32, the tokens already cached per
         slot. The T new tokens are written at ``lengths`` (in place) and
         attend causally against the cache from positions ``lengths +
-        arange(T)``; the return becomes ``(out, (k, v))``.
+        arange(T)``; the return becomes ``(out, (k, v))``. A fourth
+        element ``write_valid`` ``[B, T]`` bool keeps the rows it marks
+        False as they were.
 
         ``paged_cache``: ``(k_pools, v_pools, lengths, block_tables,
         write_valid)`` with pools ``[num_layers, P + 1, page_size, H,
@@ -483,7 +498,9 @@ class GPT2(nn.Module):
         embeddings are never kept.
 
         ``return_hidden`` (requires a cache) skips the head and returns
-        the final post-``ln_f`` hiddens ``[B, T, d_model]``.
+        the final post-``ln_f`` hiddens ``[B, T, d_model]``: the forward
+        without the head (JAX's ``with_head=False``), which the blocked
+        samplers and a speculative draft's head-less append run.
         """
         cfg = self.cfg
         if cache is not None and paged_cache is not None:
@@ -500,7 +517,8 @@ class GPT2(nn.Module):
             )
         t = tokens.shape[-1]
         if cache is not None:
-            cache_k, cache_v, cache_lengths = cache
+            cache_k, cache_v, cache_lengths, *cache_valid = cache
+            cache_valid = cache_valid[0] if cache_valid else None
         elif paged_cache is not None:
             cache_k, cache_v, cache_lengths, block_tables, write_valid = paged_cache
             write_idx = paged_write_index(
@@ -523,7 +541,7 @@ class GPT2(nn.Module):
         x = emb.to(cfg.dtype) + pe.to(cfg.dtype)
         for i, block in enumerate(self.blocks):
             if cache is not None:
-                x = block(x, (cache_k[i], cache_v[i], cache_lengths))
+                x = block(x, (cache_k[i], cache_v[i], cache_lengths, cache_valid))
             elif paged_cache is not None:
                 x = block(
                     x,

@@ -23,7 +23,7 @@ import torch
 
 from mpit_tpu_torch.ops.quantized_matmul import QuantizedTensor, dequantize_tensor
 
-__all__ = ["gumbel", "lm_head_sample", "lm_head_xent"]
+__all__ = ["gumbel", "gumbel_columns", "lm_head_sample", "lm_head_verify", "lm_head_xent"]
 
 _NEG_BIG = -1e30  # "-inf" that survives subtraction without NaNs
 
@@ -123,6 +123,124 @@ def lm_head_sample(
     sampled = torch.where(top_k > 0, tk_tok, si)
     greedy = temperature.to(dev) <= 0.0
     return torch.where(greedy, gi, sampled).int()
+
+
+def gumbel_columns(noise, off, width, n, generator, device):
+    """Gumbel noise ``[n, width]``: columns ``off..off+width`` of
+    ``noise`` when given, else a draw from ``generator``."""
+    if noise is not None:
+        return noise[:, off : off + width].to(device, torch.float32)
+    return gumbel((n, width), generator=generator, device=device)
+
+
+def lm_head_verify(
+    h,
+    head,
+    drafted,
+    qprobs,
+    temperature,
+    top_k,
+    *,
+    generator=None,
+    noise=None,
+    buffer_noise=None,
+    block_size: int = 8192,
+    k_cap: int = 128,
+    compute_dtype=torch.float32,
+):
+    """Per-row verify quantities for exact speculative sampling, blocked
+    over the vocabulary: the port of ``mpit_tpu.ops.lm_head.lm_head_verify``
+    (a ``lax`` op there too, never Pallas).
+
+    ``h`` ``[N, d_model]`` hidden rows (one per slot × verify position),
+    ``head`` ``[vocab, d_model]`` (plain or quantized), ``drafted``
+    ``[N]`` the token each row scored (any value on bonus rows),
+    ``qprobs`` ``[N, vocab]`` the draft's probabilities (zeros on bonus
+    rows), ``temperature`` / ``top_k`` ``[N]`` with
+    :func:`lm_head_sample`'s semantics. Pass A streams the blocks for
+    the greedy argmax (strict ``>`` keeps the first maximum), the
+    full-support logsumexp of ``logits / temp``, the drafted token's
+    logit and the top-``k_cap`` candidate buffer; pass B, only when a row
+    samples the full vocabulary, draws the residual ``norm(max(p − q,
+    0))`` block by block by Gumbel-argmax. The top-k residual lives in
+    the buffer and needs no second pass.
+
+    Noise: block ``b``'s Gumbel draw is columns ``b·block`` onwards of
+    ``noise`` ``[N, n_blocks·block]`` and the buffer's is
+    ``buffer_noise`` ``[N, min(k_cap, vocab)]`` (the JAX package's
+    ``gumbel(fold_in(key, b), (N, block))`` and ``fold_in(key,
+    n_blocks)`` draws, handed over by the tests); else ``generator``
+    draws the buffer's first, then each block's in pass B — the contract
+    of :func:`mpit_tpu_torch.serve.spec.verify_reference`, to which this
+    is bitwise equal at one block. Returns ``(greedy [N] int32, p_x [N]
+    f32, repl [N] int32)``."""
+    vocab, _ = head.shape
+    block = min(block_size, _round_up(vocab, 128))
+    n = h.shape[0]
+    dev = h.device
+    kb = min(k_cap, vocab)
+    temperature = temperature.float().to(dev)
+    top_k = top_k.to(dev)
+    temp = temperature.clamp_min(1e-6)
+    drafted = drafted.long().to(dev)
+    neg = torch.full((n,), float("-inf"), device=dev)
+    zero_i = torch.zeros((n,), dtype=torch.int64, device=dev)
+    gv, gi, m = neg, zero_i, neg
+    s = torch.zeros((n,), device=dev)
+    tl = torch.full((n,), _NEG_BIG, device=dev)
+    bv = torch.full((n, kb), _NEG_BIG, device=dev)
+    bi = torch.zeros((n, kb), dtype=torch.int64, device=dev)
+    for off in range(0, vocab, block):
+        logits = _block_logits(h, head[off : off + block], compute_dtype)
+        width = logits.shape[1]
+        bm, bmi = logits.max(dim=-1)
+        upd = bm > gv
+        gv, gi = torch.where(upd, bm, gv), torch.where(upd, bmi + off, gi)
+        scaled = logits / temp[:, None]
+        m_new = torch.maximum(m, scaled.amax(dim=-1))
+        s = s * torch.exp(m - m_new) + torch.exp(scaled - m_new[:, None]).sum(-1)
+        m = m_new
+        lt = drafted - off
+        in_blk = (lt >= 0) & (lt < width)
+        cand = logits.gather(1, lt.clamp(0, width - 1)[:, None])[:, 0]
+        tl = torch.where(in_blk, cand, tl)
+        cv, ci = torch.topk(logits, min(kb, width), dim=-1)
+        bv, sel = torch.topk(torch.cat([bv, cv], dim=-1), kb, dim=-1)
+        bi = torch.gather(torch.cat([bi, ci + off], dim=-1), 1, sel)
+    lse_full = m + torch.log(s)
+    kk = top_k.long().clamp(1, kb)
+    thresh = bv.gather(1, (kk - 1)[:, None])[:, 0]
+    keep = bv >= thresh[:, None]
+    sc_b = bv / temp[:, None]
+    m_b = torch.where(keep, sc_b, float("-inf")).amax(dim=1)
+    lse_topk = m_b + torch.log(
+        torch.where(keep, torch.exp(sc_b - m_b[:, None]), 0.0).sum(dim=1)
+    )
+    p_x = torch.where(
+        top_k > 0,
+        torch.where(tl >= thresh, torch.exp(tl / temp - lse_topk), 0.0),
+        torch.exp(tl / temp - lse_full),
+    )
+    q_b = qprobs.to(dev).gather(1, bi)
+    p_b = torch.where(keep, torch.exp(sc_b - lse_topk[:, None]), 0.0)
+    res_b = torch.clamp_min(p_b - q_b, 0.0)
+    g_b = gumbel_columns(buffer_noise, 0, kb, n, generator, dev)
+    buf_tok = bi.gather(1, (torch.log(res_b) + g_b).argmax(dim=1)[:, None])[:, 0]
+    full_tok = zero_i
+    if bool(((top_k == 0) & (temperature > 0.0)).any()):
+        best = neg
+        for off in range(0, vocab, block):
+            logits = _block_logits(h, head[off : off + block], compute_dtype)
+            width = logits.shape[1]
+            p = torch.exp(logits / temp[:, None] - lse_full[:, None])
+            res = torch.clamp_min(p - qprobs[:, off : off + width].to(dev), 0.0)
+            score = torch.log(res) + gumbel_columns(noise, off, width, n, generator, dev)
+            sm, smi = score.max(dim=-1)
+            upd = sm > best
+            best = torch.where(upd, sm, best)
+            full_tok = torch.where(upd, smi + off, full_tok)
+    repl = torch.where(top_k > 0, buf_tok, full_tok).int()
+    return gi.int(), p_x, repl
 
 
 def _mm_f32(a, b, compute_dtype):

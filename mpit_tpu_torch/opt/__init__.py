@@ -4,6 +4,11 @@ Their ZeRO-1 sharding over a World's ranks is
 would hide the module)."""
 
 from mpit_tpu_torch.opt import schedules
-from mpit_tpu_torch.opt.goo import AdamState, GooState, goo, goo_adam
+from mpit_tpu_torch.opt.goo import (
+    AdamState, ElasticState, GooState, chain, elastic_average, goo, goo_adam,
+)
 
-__all__ = ["AdamState", "GooState", "goo", "goo_adam", "schedules"]
+__all__ = [
+    "AdamState", "ElasticState", "GooState", "chain", "elastic_average", "goo", "goo_adam",
+    "schedules",
+]

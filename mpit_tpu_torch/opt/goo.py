@@ -23,10 +23,18 @@ the updates ``u`` for the caller to add (``p + u``, optax's
   :class:`AdamState` ``(count, mu, nu)``, one for one with optax's
   ``ScaleByAdamState``.
 
+- :func:`elastic_average` — the EASGD elastic term, chained after a
+  base rule (:func:`chain`): the worker pull ``u ← u − α·(p − c)`` on
+  top of the base rule's update, and the centre step ``c ← c + β·(x̄ −
+  c)``, ``x̄`` the mean over the ranks of the post-step parameters
+  ``p + u``. State :class:`ElasticState` ``(center)``.
+- :func:`chain` — optax's ``chain`` for the goo rules: the updates pass
+  through each rule in turn, the state is the tuple of theirs.
+
 A learning rate is a constant or a schedule ``count -> lr``
 (:mod:`mpit_tpu_torch.opt.schedules`), called with the count before the
 step increments it. Counts are host integers: a schedule never waits on
-the device. ``elastic_average`` comes with the elastic-averaging slice.
+the device.
 """
 
 from __future__ import annotations
@@ -39,7 +47,9 @@ import torch
 
 from mpit_tpu_torch.opt.schedules import LearningRate
 
-__all__ = ["AdamState", "GooState", "goo", "goo_adam"]
+__all__ = [
+    "AdamState", "ElasticState", "GooState", "chain", "elastic_average", "goo", "goo_adam",
+]
 
 
 @dataclasses.dataclass
@@ -49,6 +59,14 @@ class GooState:
 
     momentum: list | None
     count: int | None = None
+
+
+@dataclasses.dataclass
+class ElasticState:
+    """The EASGD centre variable x̃, the pserver's canonical parameters:
+    a mapping or list like the parameters it was made from."""
+
+    center: Mapping | list
 
 
 @dataclasses.dataclass
@@ -221,3 +239,130 @@ def goo_adam(
     """Adam, or AdamW when ``weight_decay`` is non-zero, as optax computes
     them: ``u = m̂ / (sqrt(v̂) + eps)`` (+ ``wd·p``), ``p ← p − lr·u``."""
     return _GooAdam(lr, b1, b2, eps, weight_decay)
+
+
+class _Elastic:
+    # The ZeRO-1 wrapper hands this rule the ranks' flat replicas
+    # (``replicas=``) beside its shards (opt/sharded.py).
+    takes_replicas = True
+
+    def __init__(self, alpha, beta, axis):
+        self.alpha = alpha
+        self.beta = alpha if beta is None else beta
+        self.axis = axis
+
+    def init(self, params) -> ElasticState:
+        if isinstance(params, Mapping):
+            return ElasticState(center={n: p.detach().clone() for n, p in params.items()})
+        return ElasticState(center=[p.detach().clone() for p in params])
+
+    def _mean(self, params, pulled, replicas, stacked):
+        """x̄: the mean over the ranks of the post-step parameters, each
+        element's sum in rank order over ``p``. ``replicas`` None: the
+        rows of ``params`` are the ranks (``[p, N]``; one worker when
+        ``axis`` is None). With ``replicas`` (the ranks' ``[p, N]`` flat
+        parameters), ``params`` and ``pulled`` are ZeRO-1 ``[p, S]``
+        shards, row ``r`` shard ``r`` of rank ``r``: shard ``r`` of x̄ is
+        the sum over the ranks ``q`` of ``replicas[q]``'s shard ``r``
+        plus ``pulled[r]`` (every rank adds the same gathered update), so
+        element ``i`` is averaged with element ``i`` of every other
+        replica, never with another shard's. Both forms add the same
+        values in the same order: their centres are equal bit for bit.
+        ``stacked`` False: one rank's own tensors (no rank dim)."""
+        if replicas is None:
+            if self.axis is None or not stacked:
+                return params + pulled
+            new = params + pulled
+            acc = new[0].clone()
+            for q in range(1, new.shape[0]):
+                acc.add_(new[q])
+            return acc / new.shape[0]
+        p, s = params.shape
+        flat = replicas
+        if flat.shape[1] != p * s:
+            flat = torch.nn.functional.pad(flat, (0, p * s - flat.shape[1]))
+        x = flat.view(p, p, s)  # [rank q, shard r, S]
+        acc = x[0] + pulled
+        for q in range(1, p):
+            acc.add_(x[q] + pulled)
+        return acc / p
+
+    @torch.no_grad()
+    def update(self, updates, state: ElasticState, params=None, *, replicas=None,
+               stacked=True):
+        """``u − α·(p − c)`` (new tensors, in ``updates``' structure); the
+        centre steps toward the ranks' mean of ``p + u − α·(p − c)``, in
+        place. ``params`` and the centre are rank-stacked along ``axis``
+        (dim 0), or ZeRO-1 shards with ``replicas`` (:meth:`_mean`);
+        ``stacked`` False: one rank's tensors, the mean the rank itself."""
+        if params is None:
+            raise ValueError("elastic_average requires params")
+        names = _names(updates)
+        us, ps = _tensors(updates, names), _tensors(params, names)
+        cs = _tensors(state.center, names)
+        if replicas is not None and len(ps) != 1:
+            raise ValueError("replicas= takes one flat shard buffer")
+        pulled = []
+        for u, p, c in zip(us, ps, cs):
+            pull = u - torch.sub(p, c).mul_(self.alpha)
+            mean = self._mean(p, pull, replicas, stacked)
+            c.add_(torch.sub(mean, c).mul_(self.beta))
+            pulled.append(pull)
+        return _restructure(pulled, names)
+
+
+class _Chain:
+    def __init__(self, txs):
+        self.txs = tuple(txs)
+        self.takes_replicas = any(getattr(t, "takes_replicas", False) for t in self.txs)
+
+    def __getattr__(self, name):
+        # The base rule's settings (``lr``, ``momentum``) read through.
+        if name == "txs":
+            raise AttributeError(name)
+        return getattr(self.txs[0], name)
+
+    def init(self, params) -> tuple:
+        return tuple(t.init(params) for t in self.txs)
+
+    @torch.no_grad()
+    def update(self, grads, state: tuple, params=None, *, replicas=None, stacked=True):
+        """The updates through each rule in turn (optax's ``chain``);
+        ``replicas`` and ``stacked`` go to the rules that take them."""
+        updates = grads
+        for t, st in zip(self.txs, state):
+            if getattr(t, "takes_replicas", False):
+                updates = t.update(updates, st, params, replicas=replicas, stacked=stacked)
+            else:
+                updates = t.update(updates, st, params)
+        return updates
+
+    @torch.no_grad()
+    def step(self, params, grads, state: tuple) -> tuple:
+        """One rank's step: ``p ← p + u`` (optax's ``apply_updates``)."""
+        names = _names(params)
+        grads = _restructure(_tensors(grads, names), names)  # keyed as the state is
+        updates = self.update(grads, state, params, stacked=False)
+        torch._foreach_add_(_tensors(params, names), _tensors(updates, names))
+        return state
+
+
+def elastic_average(
+    alpha: float, beta: float | None = None, *, axis: str | None = None
+) -> _Elastic:
+    """The EASGD elastic term (``mpit_tpu.opt.goo.elastic_average``),
+    chained after a base rule: ``chain(goo(lr), elastic_average(α,
+    axis="data"))``. Worker: ``u ← u − α·(p − c)``; centre: ``c ← c +
+    β·(x̄ − c)``, ``x̄`` the mean over ``axis``'s ranks of ``p + u``
+    (``axis`` None: one worker, ``x̄ = p + u``); ``beta`` defaults to
+    ``alpha``. On a World the ranks are the rows of the rank-stacked
+    parameters; under ZeRO-1 each rank's centre shard averages that
+    shard of every replica (:meth:`_Elastic._mean`)."""
+    return _Elastic(alpha, beta, axis)
+
+
+def chain(*txs) -> _Chain:
+    """optax's ``chain`` of goo rules: ``init`` the tuple of their
+    states, ``update`` the updates through each in turn, ``step`` one
+    rank's ``p ← p + u``."""
+    return _Chain(txs)

@@ -124,14 +124,21 @@ class _Sharded:
         self.tx, self.world, self.mean_grads, self.comm = tx, world, mean_grads, comm
 
     def init(self, flat_params):
-        """The rule's state over every rank's shard: ``[p, S]`` buffers."""
-        return self.tx.init([torch.zeros_like(shard_of(flat_params))])
+        """The rule's state over every rank's shard: ``[p, S]`` buffers
+        (JAX's ``tx.init`` of each device's shard: an elastic centre
+        starts at it)."""
+        return self.tx.init([shard_of(flat_params).clone(memory_format=torch.contiguous_format)])
 
     @torch.no_grad()
     def update(self, flat_grads, state, flat_params):
         """``[p, N]`` local (unreduced) gradients → ``[p, N]`` updates, the
         state's shards advanced in place. The cross-rank sum rides the
-        reduce-scatter; ``mean_grads`` divides it by ``p``."""
+        reduce-scatter; ``mean_grads`` divides it by ``p``. A rule that
+        averages the parameters over the ranks (``elastic_average``)
+        also gets ``replicas=flat_params``: the JAX package hands it only
+        each device's shard, so its ``pmean`` there averages shard ``r``
+        of one device with shard ``s`` of another (ROADMAP.md §C); here
+        the rule averages each shard over the replicas."""
         p, size = flat_grads.shape
         if p != self.world.num_devices:
             raise ValueError(f"{p} ranks of gradients for a World of {self.world.num_devices}")
@@ -144,7 +151,8 @@ class _Sharded:
             p_shard = self.comm.param_shard(flat_params)
         if self.mean_grads:
             g = g / p
-        (u,) = self.tx.update([g], state, [p_shard])
+        kw = {"replicas": flat_params} if getattr(self.tx, "takes_replicas", False) else {}
+        (u,) = self.tx.update([g], state, [p_shard], **kw)
         if self.comm is None:
             return C.allgather(u.reshape(p, -1, LANE)).reshape(p, -1)[:, :size]
         return self.comm.gather_updates(u, size)

@@ -13,9 +13,13 @@
 - :mod:`~mpit_tpu_torch.serve.scheduler` — the FIFO continuous-batching
   loop: queue → admit into freed slots (and pages) between decode ticks
   → per-slot retirement (EOS / max tokens / cache full), with obs spans.
+- :mod:`~mpit_tpu_torch.serve.spec` — speculative decoding's math
+  (the proposal, the acceptance, the full-logits verifier); the engine
+  runs it with ``Engine(spec_k=..., draft_params=..., draft_cfg=...)``.
 - :mod:`~mpit_tpu_torch.serve.weights` — the dense ``.npz`` reader, the
-  JAX param tree → ``state_dict`` carry-over and the int8 weight store
-  (``quantize_gpt2_params``, ``params_wire_bytes``).
+  JAX param tree → ``state_dict`` carry-over, the int8 weight store
+  (``quantize_gpt2_params``, ``params_wire_bytes``) and the
+  layer-truncated self-draft (``draft_from_target``).
 - :mod:`~mpit_tpu_torch.serve.shipment` — a prefill's KV rows as three
   wire messages (the JAX package's bytes); on the card the payload moves
   through the CUDA copy kernel (``ship_kv_remote``).
@@ -51,6 +55,7 @@ from mpit_tpu_torch.serve.shipment import (
     unpack_shipment,
 )
 from mpit_tpu_torch.serve.weights import (
+    draft_from_target,
     expected_param_shapes,
     infer_config,
     load_dense,
@@ -75,6 +80,7 @@ __all__ = [
     "TTFTProjector",
     "alloc_cache",
     "alloc_paged_cache",
+    "draft_from_target",
     "expected_param_shapes",
     "infer_config",
     "inject_shipment",

@@ -11,6 +11,10 @@ goes to stderr. ``--fleet prefill=P,decode=D[,lease_s=...]`` serves the
 same stream through the disaggregated fleet instead
 (:mod:`mpit_tpu_torch.serve.fleet`: a router, P prefill and D decode
 workers, each with its own engine, KV shipped between them).
+``--spec-k K`` serves speculatively, with a draft from ``--draft-ckpt
+state.npz`` (``--draft-num-heads``), ``--draft-config tiny`` (a random
+tiny model of the target's vocabulary) or ``--draft-config
+truncate:N`` (the target's first N layers).
 
 Runs on the GPU (``--device cuda``, the default; it raises without
 one); ``--device cpu`` is for testing. The flags of paths this port
@@ -63,12 +67,16 @@ class ServeConfig:
     kv_dtype: str = ""
     # Matmul weight storage: f32 | int8 ("" = the weights as loaded).
     weights_dtype: str = ""
-    # Flags of later slices: non-default values are rejected.
-    kv_host_pages: int = 0
+    # Speculative decoding: spec_k > 0 drafts k tokens a tick and
+    # verifies them in one target pass. The draft: --draft-ckpt (a
+    # dense .npz, heads by --draft-num-heads), or --draft-config tiny |
+    # truncate:N (the target's first N layers).
     spec_k: int = 0
     draft_ckpt: str = ""
     draft_config: str = ""
     draft_num_heads: int = 0
+    # Flags of later slices: non-default values are rejected.
+    kv_host_pages: int = 0
     mesh: str = ""
     sentinel: bool = False
     trace: str = ""
@@ -90,10 +98,6 @@ class ServeConfig:
 # Flag -> the later slice of the port that brings it (see ROADMAP.md).
 _LATER_SLICES = {
     "kv_host_pages": "the host-KV-tier slice",
-    "spec_k": "the speculative-decoding slice",
-    "draft_ckpt": "the speculative-decoding slice",
-    "draft_config": "the speculative-decoding slice",
-    "draft_num_heads": "the speculative-decoding slice",
     "mesh": "the tensor-parallel slice",
     "loadgen": "the open-loop load-harness slice",
     "duration": "the open-loop load-harness slice",
@@ -140,6 +144,15 @@ def _reject_later_slices(cfg: ServeConfig) -> None:
         raise SystemExit(
             f"--weights-dtype {cfg.weights_dtype!r}: expected f32 or int8"
         )
+    if cfg.fleet and cfg.spec_k:
+        # JAX's fleet builds speculative workers, but its KV shipment
+        # (export_kv_rows / inject_kv_rows) moves the target's cache
+        # only: a decode worker's draft would never see the prompt.
+        raise SystemExit(
+            "--fleet with --spec-k: the KV shipment carries the target's "
+            "cache only, so a decode worker's draft would draft from a cache "
+            "that never saw the prompt; serve speculatively without --fleet"
+        )
     if cfg.weights_dtype == "int8" and cfg.decode_attention == "reference":
         # Same rule as --kv-dtype: the reference engine runs the
         # whole-dequant matmul oracle.
@@ -168,6 +181,7 @@ def _build_engine(cfg: ServeConfig):
         )
         gen = torch.Generator().manual_seed(cfg.seed)
         params = GPT2(mcfg, generator=gen).state_dict()
+    draft_params, draft_cfg = _resolve_draft(cfg, params, mcfg)
     engine = Engine(
         mcfg,
         params,
@@ -186,8 +200,69 @@ def _build_engine(cfg: ServeConfig):
         prefill_chunk=cfg.prefill_chunk or None,
         kv_dtype=cfg.kv_dtype or None,
         weights_dtype=cfg.weights_dtype or None,
+        spec_k=cfg.spec_k,
+        draft_params=draft_params,
+        draft_cfg=draft_cfg,
     )
     return engine, mcfg
+
+
+def _resolve_draft(cfg: ServeConfig, params, mcfg):
+    """The speculative draft ``(state, cfg)`` the flags name, or ``(None,
+    None)``; every bad combination is a ``SystemExit`` before a model is
+    built, as in the JAX CLI."""
+    import torch
+
+    from mpit_tpu_torch.models import GPT2, GPT2Config
+    from mpit_tpu_torch.serve import draft_from_target, load_gpt2_params
+
+    if not cfg.spec_k:
+        if cfg.draft_ckpt or cfg.draft_config:
+            raise SystemExit("--draft-ckpt/--draft-config require --spec-k >= 1")
+        return None, None
+    if cfg.draft_ckpt and cfg.draft_config:
+        raise SystemExit(
+            "--draft-ckpt and --draft-config are mutually exclusive: one draft "
+            "model per engine"
+        )
+    if not cfg.kv_pages:
+        # The dense verify needs spec_k - 1 rows of headroom past prompt +
+        # max_new; refuse the geometry here, not per request.
+        need = cfg.prompt_len + cfg.max_new_tokens + cfg.spec_k - 1
+        if need > cfg.max_len:
+            raise SystemExit(
+                f"--spec-k {cfg.spec_k}: prompt_len + max_new_tokens + spec_k - 1 "
+                f"= {need} > --max-len {cfg.max_len} on the dense engine; shrink "
+                "the stream, lower --spec-k, grow --max-len, or use --kv-pages "
+                "(the paged engine drops out-of-range draft rows)"
+            )
+    if cfg.draft_ckpt:
+        return load_gpt2_params(cfg.draft_ckpt, num_heads=cfg.draft_num_heads)
+    if cfg.draft_config.startswith("truncate:"):
+        try:
+            n = int(cfg.draft_config.split(":", 1)[1])
+        except ValueError:
+            raise SystemExit(
+                f"--draft-config {cfg.draft_config!r}: expected truncate:<num_layers>"
+            ) from None
+        if not 1 <= n < mcfg.num_layers:
+            raise SystemExit(
+                f"--draft-config truncate:{n}: need 1 <= N < the target's "
+                f"{mcfg.num_layers} layers (an equal-depth draft costs what the "
+                "target costs)"
+            )
+        return draft_from_target(params, mcfg, n)
+    if cfg.draft_config == "tiny":
+        dcfg = GPT2Config.tiny(
+            vocab_size=mcfg.vocab_size, max_seq_len=mcfg.max_seq_len, dtype=mcfg.dtype
+        )
+        gen = torch.Generator().manual_seed(cfg.seed + 1)
+        return GPT2(dcfg, generator=gen).state_dict(), dcfg
+    raise SystemExit(
+        f"--spec-k {cfg.spec_k} needs a draft: --draft-ckpt state.npz, "
+        f"--draft-config tiny, or --draft-config truncate:N "
+        f"(got draft_config={cfg.draft_config!r})"
+    )
 
 
 def synthetic_requests(cfg: ServeConfig, vocab_size: int):

@@ -29,6 +29,20 @@ dequantized cache) and samples from materialized logits
 write); ``None`` follows the model dtype. It may differ from the
 activation dtype.
 
+``spec_k=k`` (with ``draft_params`` / ``draft_cfg``) swaps the decode
+tick for speculative draft-then-verify, as in the JAX package: the draft
+model (its own cache: one a slot, or on the pool a draft pool that
+mirrors the target's block tables and copy-on-write copies) proposes
+``k`` tokens a slot (:meth:`Engine.spec_draft`), one target pass at T =
+k + 1 verifies them (:meth:`Engine.spec_verify`: the kernel engine
+samples through the blocked :func:`~mpit_tpu_torch.ops.lm_head.lm_head_verify`,
+the reference engine through
+:func:`~mpit_tpu_torch.serve.spec.verify_reference`), and the lengths
+advance by the emitted count only (the rollback). The draft runs the
+plain attention, as JAX's does: its proposal ``q`` is part of the
+acceptance contract and its logits are small. Prefill fills the draft's
+cache too; :meth:`Engine.decode` raises on a speculative engine.
+
 ``weights_dtype="int8"`` serves the int8 weight store: the state is
 quantized on the CPU (:func:`~mpit_tpu_torch.serve.weights.quantize_gpt2_params`)
 before it moves to the device, and the dense layers run the
@@ -66,7 +80,7 @@ from mpit_tpu_torch.ops.decode_attention import (
     pick_block_k,
 )
 from mpit_tpu_torch.ops.kv_quant import QuantizedKV, kv_tensors
-from mpit_tpu_torch.ops.lm_head import gumbel, lm_head_sample
+from mpit_tpu_torch.ops.lm_head import gumbel, lm_head_sample, lm_head_verify
 from mpit_tpu_torch.ops.quantized_matmul import (
     kernel_library as qmm_kernel_library,
     quantized_matmul,
@@ -76,6 +90,12 @@ from mpit_tpu_torch.serve.kvcache import (
     PageAllocator,
     alloc_cache,
     alloc_paged_cache,
+)
+from mpit_tpu_torch.serve.spec import (
+    accept_emit,
+    draft_distribution,
+    modified_logits,
+    verify_reference,
 )
 from mpit_tpu_torch.serve.weights import quantize_gpt2_params
 
@@ -104,23 +124,11 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def modified_logits(logits, temperature, top_k):
-    """Per-slot top-k threshold (at the k-th largest logit, when
-    ``top_k > 0``) then division by ``max(temperature, 1e-6)``."""
-    vocab = logits.shape[-1]
-    sorted_desc = logits.sort(dim=-1, descending=True).values
-    k_idx = (top_k.long() - 1).clamp(0, vocab - 1)
-    thresh = sorted_desc.gather(1, k_idx[:, None])
-    masked = logits.masked_fill(
-        (top_k[:, None] > 0) & (logits < thresh), float("-inf")
-    )
-    return masked / temperature.float().clamp_min(1e-6)[:, None]
-
-
 def sample_tokens(logits, temperature, top_k, *, generator=None, noise=None):
     """Per-slot sampling over ``logits`` ``[S, V]`` f32:
     ``temperature <= 0`` is greedy (argmax), else a categorical draw from
-    :func:`modified_logits` by the Gumbel-max trick. ``noise`` ``[S, V]``
+    :func:`~mpit_tpu_torch.serve.spec.modified_logits` (the one the
+    speculative draft shares) by the Gumbel-max trick. ``noise`` ``[S, V]``
     replaces the Gumbel draw from ``generator`` (tests feed both
     packages the same numbers). Returns ``[S]`` int32."""
     if noise is None:
@@ -148,7 +156,15 @@ class Engine:
     page_size``). ``prefill_chunk`` (paged only) is the prompt slice one
     prefill call feeds per slot. ``weights_dtype="int8"`` quantizes the
     matmul weights on the CPU and serves them through the fused-dequant
-    matmul (its kernel library, too, is built at construction)."""
+    matmul (its kernel library, too, is built at construction); a
+    speculative engine's draft quantizes too and always runs the
+    fused-dequant matmul, even on a reference engine (JAX:
+    ``mpit_tpu/serve/engine.py:785-803``).
+
+    ``spec_k`` > 0 makes the engine speculative (module docstring):
+    ``draft_params`` is the draft's ``state_dict`` and ``draft_cfg`` its
+    config (:func:`~mpit_tpu_torch.serve.weights.draft_from_target`), of
+    the target's vocabulary, with positions covering ``max_len``."""
 
     def __init__(
         self,
@@ -167,6 +183,9 @@ class Engine:
         prefill_chunk: int | None = None,
         kv_dtype: str | None = None,
         weights_dtype: str | None = None,
+        spec_k: int = 0,
+        draft_params=None,
+        draft_cfg: GPT2Config | None = None,
     ):
         if decode_attention not in _DECODE_MODES:
             raise ValueError(
@@ -186,6 +205,34 @@ class Engine:
         self.device = resolve_device(device)
         self.slots = slots
         self.max_len = min(max_len or cfg.max_seq_len, cfg.max_seq_len)
+        self.spec_k = int(spec_k or 0)
+        if self.spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {spec_k}")
+        if self.spec_k:
+            if draft_params is None or draft_cfg is None:
+                raise ValueError(
+                    "spec_k > 0 requires draft_params and draft_cfg (the draft "
+                    "model proposing the k tokens the target verifies); a "
+                    "layer-truncated self-draft comes from "
+                    "serve.weights.draft_from_target"
+                )
+            if draft_cfg.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    f"draft vocab_size {draft_cfg.vocab_size} != target vocab_size "
+                    f"{cfg.vocab_size}: speculation verifies draft proposals under "
+                    "the target distribution, token for token"
+                )
+            if draft_cfg.max_seq_len < self.max_len:
+                raise ValueError(
+                    f"draft max_seq_len {draft_cfg.max_seq_len} < engine max_len "
+                    f"{self.max_len}: the draft's positional table must cover every "
+                    "cache position it drafts at"
+                )
+        elif draft_params is not None or draft_cfg is not None:
+            raise ValueError(
+                "draft_params/draft_cfg without spec_k: pass spec_k >= 1 to "
+                "enable speculation"
+            )
         self.prefill_len = min(prefill_len or self.max_len, self.max_len)
         self.kv_quantized = kv_dtype == "int8"
         # The label spans and stats carry: what a cached row is stored
@@ -273,10 +320,44 @@ class Engine:
         else:
             self.allocator = None
             self.cache = alloc_cache(cfg, slots, self.max_len, **store)
+        self.draft_cfg = self.draft_model = self.draft_cache = None
+        self._spec_state = None  # (drafted, q_x, q_probs) on the device
+        if self.spec_k:
+            self._build_draft(draft_params, draft_cfg, store)
         self.last_token = torch.zeros(
             (slots,), dtype=torch.int32, device=self.device
         )
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
+
+    def _build_draft(self, params, cfg: GPT2Config, store: dict) -> None:
+        """The draft model and its cache. The draft runs the plain
+        attention and materializes its logits, as JAX's does: its
+        proposal ``q`` is part of the acceptance contract (this is the
+        JAX design, not a fallback from the kernel). Under int8 weights
+        it quantizes too and always runs the fused-dequant matmul. Its
+        cache mirrors the target's: one a slot, or a pool of the same
+        page geometry and K/V storage under the same block tables."""
+        cfg = dataclasses.replace(cfg, cache_attention_fn=None, paged_attention_fn=None)
+        if self.weights_quantized:
+            cfg = dataclasses.replace(
+                cfg,
+                quant_matmul_fn=functools.partial(
+                    quantized_matmul, block_rows=cfg.quant_block_rows or None
+                ),
+            )
+            params = quantize_gpt2_params(params)  # on the CPU
+            if self.device.type == "cuda":
+                qmm_kernel_library()
+        self.draft_cfg = cfg
+        self.draft_model = GPT2(cfg, device=self.device, quantized=self.weights_quantized)
+        self.draft_model.load_state_dict(params)
+        self.draft_model.requires_grad_(False)
+        if self.paged:
+            self.draft_cache = alloc_paged_cache(
+                cfg, self.slots, self.num_pages, self.page_size, **store
+            )
+        else:
+            self.draft_cache = alloc_cache(cfg, self.slots, self.max_len, **store)
 
     def _tensor(self, x, dtype) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
@@ -342,6 +423,17 @@ class Engine:
             c.v[:, idx] = v[:, idx]
             c.lengths[idx] = plen[idx]
             self.last_token[idx] = tok[idx]
+            if self.spec_k:
+                # The draft's prefill rides along: the same tokens into
+                # its own cache, no sampling (JAX fuses it into the step).
+                d = self.draft_cache
+                dk, dv = d.k[:, every], d.v[:, every]
+                self.draft_model(
+                    self._tensor(tokens, torch.long), cache=(dk, dv, fresh),
+                    return_hidden=True,
+                )
+                d.k[:, idx] = dk[:, idx]
+                d.v[:, idx] = dv[:, idx]
         return self.last_token.cpu().numpy()
 
     @torch.no_grad()
@@ -387,6 +479,20 @@ class Engine:
                 self._tensor(topk, torch.int32),
             )
             c.lengths[idx] = lens[idx] + self._tensor(chunk_lens[part], torch.int32)
+            if self.spec_k:
+                # The draft's chunk: the same slices and write mask (the
+                # floor included: shared pages already hold the draft
+                # K/V of the slot that registered the prefix), through
+                # the same block tables into the draft pool.
+                d = self.draft_cache
+                self.draft_model(
+                    self._tensor(tokens, torch.long),
+                    paged_cache=(
+                        d.k, d.v, lens, self._block_tables(),
+                        self._tensor(write_valid, torch.bool),
+                    ),
+                    return_hidden=True,
+                )
             keep = np.flatnonzero(np.asarray(sample_mask, bool) & (chunk_lens > 0))
             keep = self._tensor(keep, torch.long)
             self.last_token[keep] = tok[keep]
@@ -396,14 +502,23 @@ class Engine:
     def copy_page(self, src: int, dst: int) -> None:
         """Device half of a copy-on-write remap: copy pool page ``src``
         to ``dst`` across all layers, K and V, and the page's scales on
-        an int8 pool."""
-        for buf in kv_tensors(self.cache.k) + kv_tensors(self.cache.v):
-            buf[:, dst] = buf[:, src]
+        an int8 pool; a speculative engine's draft pool too (the same
+        block tables, the same remap)."""
+        for c in (self.cache, self.draft_cache):
+            if c is None:
+                continue
+            for buf in kv_tensors(c.k) + kv_tensors(c.v):
+                buf[:, dst] = buf[:, src]
 
     @torch.no_grad()
     def decode(self, active, temp, topk) -> np.ndarray:
         """One decode tick over the slot batch; returns the per-slot
         next token (host numpy; stale for inactive slots)."""
+        if self.spec_k:
+            raise ValueError(
+                "a speculative engine ticks through spec_draft + spec_verify "
+                "(there is no plain decode step to run)"
+            )
         active = self._tensor(active, torch.bool)
         c = self.cache
         # Inactive slots are free slots: their length is clamped to 0,
@@ -430,6 +545,130 @@ class Engine:
         c.lengths = torch.where(active, lens + 1, lens)
         self.last_token = torch.where(active, tok, self.last_token)
         return self.last_token.cpu().numpy()
+
+    def _draft_append(self, tokens, lens, active, block_tables, cap, *, with_head):
+        """One T = 1 draft forward at ``lens``: logits ``[S, V]`` f32, or
+        None head-less. Inactive slots' rows are not written; on the pool
+        neither is a row past the slot's mapped pages (``cap``): the
+        block table has no entry for it."""
+        d = self.draft_cache
+        valid = active[:, None]
+        if self.paged:
+            valid = valid & (lens[:, None] < cap[:, None])
+            cache = dict(paged_cache=(d.k, d.v, lens, block_tables, valid))
+        else:
+            cache = dict(cache=(d.k, d.v, lens, valid))
+        out, _ = self.draft_model(tokens[:, None].long(), return_hidden=not with_head, **cache)
+        return out[:, 0].float() if with_head else None
+
+    @torch.no_grad()
+    def spec_draft(self, active, temp, topk) -> None:
+        """Phase 1 of a speculative tick: ``spec_k`` T = 1 draft steps per
+        active slot from its last token, each proposal an exact sample
+        of q (:func:`~mpit_tpu_torch.serve.spec.draft_distribution`;
+        greedy rows take the draft's argmax), then one head-less append
+        of the last proposal at ``lengths + k``: a fully accepted tick
+        advances the length past it, and without that row the draft's
+        context would keep a hole inside its window (acceptance, not the
+        output, would suffer). The draft cache's rows are written at
+        ``lengths .. lengths + k``; its lengths are the target's and
+        advance at verify. Proposals and their probabilities stay on the
+        device for :meth:`spec_verify`."""
+        if not self.spec_k:
+            raise ValueError("spec_draft requires Engine(spec_k=...)")
+        act = self._tensor(active, torch.bool)
+        temp = self._tensor(temp, torch.float32)
+        topk = self._tensor(topk, torch.int32)
+        lens0 = torch.where(act, self.cache.lengths, 0)
+        bt = cap = None
+        if self.paged:
+            bt = self._block_tables()
+            cap = self._tensor(self.allocator.mapped_tokens(), torch.int32)
+        cur = self.last_token
+        drafted, qx, qprobs = [], [], []
+        for j in range(self.spec_k):
+            logits = self._draft_append(cur, lens0 + j, act, bt, cap, with_head=True)
+            probs, scaled = draft_distribution(logits, temp, topk)
+            noise = gumbel(scaled.shape, generator=self._gen, device=self.device)
+            samp = (scaled + noise).argmax(dim=-1)
+            tok = torch.where(temp <= 0.0, logits.argmax(dim=-1), samp).int()
+            drafted.append(tok)
+            qx.append(probs.gather(1, tok.long()[:, None])[:, 0])
+            qprobs.append(probs)
+            cur = tok
+        self._draft_append(cur, lens0 + self.spec_k, act, bt, cap, with_head=False)
+        self._spec_state = (
+            torch.stack(drafted, dim=1), torch.stack(qx, dim=1), torch.stack(qprobs, dim=1)
+        )
+
+    @torch.no_grad()
+    def spec_verify(self, active, temp, topk, budget, eos):
+        """Phase 2: one target pass at T = k + 1 over ``[last, d_1 ..
+        d_k]`` (the flash-decode kernel's T > 1 bodies on a kernel
+        engine), the verify sampler over all k + 1 positions, then the
+        longest accepted prefix (:func:`~mpit_tpu_torch.serve.spec.accept_emit`).
+        Lengths advance by the emitted count only: rejected drafts' rows
+        sit past the new length, masked, and the next append overwrites
+        them — the rollback, dense and paged alike. On the dense cache an
+        inactive slot keeps its rows; on the pool no row past a slot's
+        mapped pages is written. ``budget`` ``[slots]`` tokens each
+        request may still emit, ``eos`` ``[slots]`` its EOS id (-1:
+        none). Returns host numpy ``(emit [S, k+1], n_emit [S], n_acc
+        [S])``: slot ``s`` emitted ``emit[s, :n_emit[s]]``."""
+        if self._spec_state is None:
+            raise ValueError("spec_verify without a pending spec_draft")
+        drafted, qx, qprobs = self._spec_state
+        self._spec_state = None
+        k = self.spec_k
+        act = self._tensor(active, torch.bool)
+        temp = self._tensor(temp, torch.float32)
+        topk = self._tensor(topk, torch.int32)
+        c = self.cache
+        lens = torch.where(act, c.lengths, 0)
+        feed = torch.cat([self.last_token[:, None], drafted], dim=1).long()
+        if self.paged:
+            pos = lens[:, None] + torch.arange(k + 1, device=self.device)
+            cap = self._tensor(self.allocator.mapped_tokens(), torch.int32)
+            valid = act[:, None] & (pos < cap[:, None])
+            cache = dict(paged_cache=(c.k, c.v, lens, self._block_tables(), valid))
+        else:
+            cache = dict(cache=(c.k, c.v, lens, act[:, None].expand(-1, k + 1)))
+        out, _ = self.model(feed, return_hidden=self._blocked_head, **cache)
+        s = self.slots
+        nrows = s * (k + 1)
+        # The bonus position: q = 0 makes its residual a plain target
+        # sample (max(p - 0, 0) = p), one formula for reject and bonus.
+        qpad = torch.cat([qprobs, torch.zeros_like(qprobs[:, :1])], dim=1)
+        drafted_pad = torch.nn.functional.pad(drafted, (0, 1))
+        rows = dict(
+            temperature=temp.repeat_interleave(k + 1), top_k=topk.repeat_interleave(k + 1),
+            generator=self._gen,
+        )
+        if self._blocked_head:
+            g, p_x, repl = lm_head_verify(
+                out.reshape(nrows, out.shape[-1]), self.model.head_weight(),
+                drafted_pad.reshape(nrows), qpad.reshape(nrows, -1),
+                k_cap=self.sample_k_cap, compute_dtype=self.cfg.head_dtype, **rows,
+            )
+        else:
+            # k_cap = vocab keeps the reference's top-k unbounded, like
+            # its sampler.
+            g, p_x, repl = verify_reference(
+                out.reshape(nrows, -1).float(), drafted_pad.reshape(nrows),
+                qpad.reshape(nrows, -1), k_cap=self.cfg.vocab_size, **rows,
+            )
+        u = torch.rand((s, k), generator=self._gen, device=self.device)
+        emit, n_emit, n_acc = accept_emit(
+            drafted, g.reshape(s, k + 1), p_x.reshape(s, k + 1)[:, :k], qx, u,
+            repl.reshape(s, k + 1), temp <= 0.0, self._tensor(budget, torch.int32),
+            self._tensor(eos, torch.int32),
+        )
+        n_emit = torch.where(act, n_emit, 0)
+        n_acc = torch.where(act, n_acc, 0)
+        last = emit.gather(1, (n_emit.long() - 1).clamp_min(0)[:, None])[:, 0]
+        self.last_token = torch.where(act, last, self.last_token)
+        c.lengths = lens + n_emit
+        return emit.cpu().numpy(), n_emit.cpu().numpy(), n_acc.cpu().numpy()
 
     def lengths(self) -> np.ndarray:
         return self.cache.lengths.cpu().numpy()
@@ -508,8 +747,12 @@ class Engine:
     def reset(self, seed: int = 0) -> None:
         """Clear all slots (and the page bookkeeping) and re-seed the
         sampler."""
-        for buf in kv_tensors(self.cache.k) + kv_tensors(self.cache.v):
-            buf.zero_()
+        for c in (self.cache, self.draft_cache):
+            if c is None:
+                continue
+            for buf in kv_tensors(c.k) + kv_tensors(c.v):
+                buf.zero_()
+        self._spec_state = None
         self.cache.lengths.zero_()
         self.last_token.zero_()
         self._gen.manual_seed(seed)

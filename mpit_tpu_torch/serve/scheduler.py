@@ -18,13 +18,16 @@ Observability (:mod:`mpit_tpu_torch.obs`):
 - spans ``prefill`` (per admission batch or prefill chunk) and
   ``decode`` (per tick), each closed by the host fetch of the sampled
   tokens, labelled with the attention mode and sampler actually running
-  (and the cache's ``kv_dtype`` when it was chosen explicitly);
+  (and the cache's ``kv_dtype`` when it was chosen explicitly); on a
+  speculative engine the ``decode`` span (``spec_k=``) holds the nested
+  ``spec_draft`` and ``spec_verify`` spans, with the same labels;
 - per-request spans from explicit timestamps: ``queue_wait`` (submit →
   admit), ``request_ttft`` (submit → first token), ``request_latency``
   (submit → retire);
 - gauges ``slot_occupancy``, ``kv_tokens_cached`` and, paged,
   ``kv_pool_occupancy`` and ``prefix_pages_shared``; counters
-  ``serve_tokens``, ``serve_requests``, ``kv_cow_copies`` and, in
+  ``serve_tokens``, ``serve_requests``, ``kv_cow_copies``,
+  ``spec_drafted_tokens`` and ``spec_accepted_tokens`` and, in
   kernel mode, ``decode_blocks_skipped`` (cache tiles the length-aware
   kernel did not read this tick, from :func:`num_kv_blocks`); the
   ``kv_pool_exhausted`` instant when admission starts waiting on pages.
@@ -105,6 +108,10 @@ class _Live:
     base: int = 0
     floor: int = 0
 
+    def remaining_new(self) -> int:
+        """Output tokens still owed: a speculative tick's budget."""
+        return self.req.max_new_tokens - len(self.tokens)
+
     def feed_tokens(self) -> list:
         """What prefill feeds the device: the prompt."""
         return self.req.prompt
@@ -139,6 +146,13 @@ class Server:
         if engine.weights_dtype_explicit:
             self._kv_attrs["weights_dtype"] = engine.weights_dtype
         self._paged = engine.paged
+        # Speculative decoding: k drafted tokens a tick, and the roll-up
+        # stats() reports (tokens emitted per slot-tick, acceptance).
+        self._spec = int(getattr(engine, "spec_k", 0) or 0)
+        self._spec_emitted = 0
+        self._spec_active_ticks = 0
+        self._spec_drafted = 0
+        self._spec_accepted = 0
         self.queue: deque[_Live] = deque()
         self.live: dict[int, _Live] = {}  # slot -> in-flight request
         # Paged: slots whose prompt is still being written, one chunk
@@ -182,6 +196,21 @@ class Server:
                 f"({len(req.prompt)} + {req.max_new_tokens}) exceeds the "
                 f"engine's max_len {self.engine.max_len}"
             )
+        if self._spec and not self._paged:
+            # The dense verify writes k + 1 rows at the fill; JAX's
+            # dense write clamps its start at the buffer's end, so
+            # without k - 1 spare rows it would write shifted rows. The
+            # port refuses the same geometry at submit. (The pool needs
+            # none: rows past a slot's mapped pages are not written.)
+            need = len(req.prompt) + req.max_new_tokens + self._spec - 1
+            if need > self.engine.max_len:
+                raise ValueError(
+                    f"request {req.rid!r}: speculative decode (spec_k="
+                    f"{self._spec}) writes draft rows past the fill: prompt + "
+                    f"max_new_tokens + spec_k - 1 = {need} exceeds the dense "
+                    f"cache's max_len {self.engine.max_len}; shrink the request, "
+                    f"lower spec_k, or grow max_len"
+                )
         if self._paged:
             # A request the pool could never hold is a caller error:
             # raise now, not when admission finds it can never stop
@@ -400,7 +429,80 @@ class Server:
             )
         )
 
+    def _spec_tick(self) -> None:
+        """One speculative decode tick: draft k tokens per live slot,
+        verify the k + 1 positions in one target pass, emit each slot's
+        longest accepted prefix and the replacement / bonus token, the
+        lengths advanced on the device by exactly the emitted count (the
+        rollback). Spanned ``decode`` (``spec_k=``) around the nested
+        ``spec_draft`` and ``spec_verify`` spans, each labelled with the
+        attention mode."""
+        eng = self.engine
+        k = self._spec
+        active = np.zeros((eng.slots,), bool)
+        budget = np.ones((eng.slots,), np.int32)
+        eos = np.full((eng.slots,), -1, np.int32)
+        for slot, live in self.live.items():
+            active[slot] = True
+            budget[slot] = live.remaining_new()
+            if live.req.eos_id is not None:
+                eos[slot] = live.req.eos_id
+        if self._paged:
+            # Every page the verify span [fill, fill + k] can write must
+            # be the slot's own before the step: the plain tick's COW
+            # probe, once a page in the span (writes past the mapped
+            # pages are dropped, so the span stops at the last one).
+            ps = eng.page_size
+            caps = eng.allocator.mapped_tokens()
+            for slot, live in self.live.items():
+                fill = live.cache_fill()
+                last_pos = min(fill + k, int(caps[slot]) - 1)
+                for page_idx in range(fill // ps, last_pos // ps + 1):
+                    pair = eng.allocator.cow_before_write(slot, max(fill, page_idx * ps))
+                    if pair is not None:
+                        eng.copy_page(*pair)
+                        obs.counter("kv_cow_copies")
+        n_live = int(active.sum())
+        rids = [live.req.rid for live in self.live.values()]
+        labels = dict(active=n_live, attention=self._attn_mode, sampler=self._sampler,
+                      rids=rids, **self._kv_attrs)
+        with obs.span("decode", spec_k=k, **labels):
+            with obs.span("spec_draft", **labels):
+                eng.spec_draft(active, self._temp, self._topk)
+            with obs.span("spec_verify", **labels):
+                emit, n_emit, n_acc = eng.spec_verify(
+                    active, self._temp, self._topk, budget, eos
+                )
+        now = time.perf_counter()
+        emitted = int(n_emit.sum())
+        accepted = int(n_acc.sum())
+        obs.counter("serve_tokens", float(emitted))
+        obs.counter("spec_drafted_tokens", float(k * n_live))
+        obs.counter("spec_accepted_tokens", float(accepted))
+        self._spec_emitted += emitted
+        self._spec_active_ticks += n_live
+        self._spec_drafted += k * n_live
+        self._spec_accepted += accepted
+        if self._attn_mode == "kernel":
+            # The plain tick's tile accounting at the verify's T = k + 1.
+            lens = np.asarray([live.cache_fill() for live in self.live.values()])
+            bk = eng.decode_block_k
+            total = eng.max_len // bk
+            visited = num_kv_blocks(lens, k + 1, eng.max_len, bk)
+            n_free = eng.slots - lens.size
+            obs.counter(
+                "decode_blocks_skipped",
+                float(total * eng.slots - int(visited.sum()) - n_free),
+            )
+        for slot in list(self.live):
+            n = int(n_emit[slot])
+            self.live[slot].tokens.extend(int(t) for t in emit[slot, :n])
+            self._maybe_retire(slot, now)
+
     def _decode_tick(self) -> None:
+        if self._spec:
+            self._spec_tick()
+            return
         active = np.zeros((self.engine.slots,), bool)
         for slot in self.live:
             active[slot] = True
@@ -516,6 +618,19 @@ class Server:
             "kv_dtype": self.engine.kv_dtype,
             "weights_dtype": self.engine.weights_dtype,
         }
+        if self._spec:
+            # Tokens emitted per slot-tick (1.0 = plain decode) and the
+            # fraction of drafted tokens the target kept.
+            out["spec_k"] = self._spec
+            out["spec_drafted_tokens"] = self._spec_drafted
+            out["spec_accepted_tokens"] = self._spec_accepted
+            if self._spec_active_ticks:
+                out["accepted_tokens_per_tick"] = round(
+                    self._spec_emitted / self._spec_active_ticks, 4
+                )
+                out["draft_acceptance_rate"] = round(
+                    self._spec_accepted / max(self._spec_drafted, 1), 4
+                )
         if self._paged:
             alloc = self.engine.allocator
             out.update(

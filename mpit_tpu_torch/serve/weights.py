@@ -13,11 +13,14 @@ tree, as the port's :class:`~mpit_tpu_torch.models.GPT2` state.
   for the port's model;
 - :func:`load_gpt2_params` — the three together: ``(state, cfg)``;
 - :func:`quantize_gpt2_params` / :func:`params_wire_bytes` — the int8
-  weight store over a ``state_dict``, and the bytes a state occupies.
+  weight store over a ``state_dict``, and the bytes a state occupies;
+- :func:`draft_from_target` — a layer-truncated self-draft for
+  speculative decoding.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Mapping
 
 import numpy as np
@@ -28,6 +31,7 @@ from mpit_tpu_torch.models.layers import flatten_tree
 from mpit_tpu_torch.ops.quantized_matmul import quantize_tensor
 
 __all__ = [
+    "draft_from_target",
     "expected_param_shapes",
     "infer_config",
     "load_dense",
@@ -226,3 +230,26 @@ def load_gpt2_params(path: str, *, num_heads: int = 0):
     cfg = infer_config(params, num_heads=num_heads, meta=meta)
     validate_params(cfg, params)
     return params_from_jax(params), cfg
+
+
+def draft_from_target(params: Mapping, cfg: GPT2Config, num_layers: int):
+    """A layer-truncated self-draft (``mpit_tpu.serve.weights.draft_from_target``):
+    the first ``num_layers`` blocks of a target ``state_dict``, sharing
+    its embeddings, final LayerNorm and head. The entries are the
+    target's own tensors (references, not copies), and the draft passes
+    every compatibility check of ``Engine(spec_k=...)`` by construction
+    (the same vocabulary, a covering positional table). Returns
+    ``(draft_state, draft_cfg)``."""
+    if not 1 <= num_layers < cfg.num_layers:
+        raise ValueError(
+            f"draft_from_target needs 1 <= num_layers < target layers "
+            f"({cfg.num_layers}), got {num_layers}: an equal-depth draft "
+            f"costs what the target costs and speculation buys nothing"
+        )
+    out = {}
+    for name, t in params.items():
+        parts = str(name).split(".")
+        if parts[0] == "blocks" and int(parts[1]) >= num_layers:
+            continue
+        out[name] = t
+    return out, dataclasses.replace(cfg, num_layers=num_layers)

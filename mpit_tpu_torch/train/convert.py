@@ -24,8 +24,8 @@ rank.
 **The dense state** (the DP half of JAX's cross-geometry format):
 :class:`DenseState` is the JAX package's, field for field — the dense
 param tree under JAX's names and layouts, one dense tree per vector leaf
-of the goo state in JAX's order (goo: the momentum trace; Adam: μ, ν),
-the scalar leaves (the counts, int32) and the step.
+of the goo state in JAX's order (goo: the momentum trace; Adam: μ, ν;
+EASGD's chain: then the elastic centre), the scalar leaves (the counts, int32) and the step.
 :func:`dense_from_dp` gathers it from the port's state (one rank, or the
 ``[p, S]`` ZeRO-1 shards of p ranks); :func:`dp_from_dense` writes one
 into a state ``init_fn`` built, for any p, the shards re-cut.
@@ -50,7 +50,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from mpit_tpu_torch.opt.goo import AdamState, GooState
+from mpit_tpu_torch.opt.goo import AdamState, ElasticState, GooState
 from mpit_tpu_torch.opt.sharded import FlatLayout, _jax_key, padded_len
 from mpit_tpu_torch.serve.weights import params_from_jax
 from mpit_tpu_torch.train.step import TrainState
@@ -239,18 +239,31 @@ def _state_layout(state: TrainState) -> FlatLayout:
 
 def _moment_buffers(opt) -> list:
     """The goo state's vector leaves in JAX's order: goo's momentum
-    trace; Adam's μ then ν (optax's ``ScaleByAdamState(count, mu, nu)``)."""
+    trace; Adam's μ then ν (optax's ``ScaleByAdamState(count, mu, nu)``);
+    a chain's (``chain(goo, elastic_average)``, EASGD) its rules' in
+    turn, the elastic centre as one more moment, as JAX's
+    ``dense_from_dp`` takes every vector leaf of the chained state."""
+    if isinstance(opt, tuple):
+        return [b for sub in opt for b in _moment_buffers(sub)]
     if isinstance(opt, AdamState):
         return [opt.mu, opt.nu]
     if isinstance(opt, GooState):
         return [] if opt.momentum is None else [opt.momentum]
+    if isinstance(opt, ElasticState):
+        return [opt.center]
     raise TypeError(f"{type(opt).__name__} is not a goo state")
+
+
+def _counted(opt):
+    """The state that holds the counts: a chain's base rule's."""
+    return opt[0] if isinstance(opt, tuple) else opt
 
 
 def _scalar_count(opt, tx) -> int:
     """How many scalar leaves JAX's state holds: goo's schedule count
     (none for a constant lr); Adam's count, and optax's schedule count
-    beside it when the lr is a schedule."""
+    beside it when the lr is a schedule. The elastic term holds none."""
+    opt = _counted(opt)
     if isinstance(opt, AdamState):
         return 2 if callable(getattr(tx, "lr", None)) else 1
     return 0 if opt.count is None else 1
@@ -287,7 +300,8 @@ def dense_from_dp(state: TrainState, tx) -> DenseState:
         params = {n: v.numpy() for n, v in layout.views(row).items()}
     opt = state.opt_state
     moments = [_nest(_moment_flat(b, layout, state)) for b in _moment_buffers(opt)]
-    count = np.asarray(opt.count if opt.count is not None else 0, np.int32)
+    count = _counted(opt).count
+    count = np.asarray(count if count is not None else 0, np.int32)
     scalars = [count.copy() for _ in range(_scalar_count(opt, tx))]
     return DenseState(step=int(state.step), params=_nest(params), moments=moments,
                       scalars=scalars)
@@ -347,7 +361,7 @@ def dp_from_dense(dense: DenseState, state: TrainState, tx) -> TrainState:
             fill_flat(full, leaves)
             t.copy_(full.view(p, -1))
     if dense.scalars:
-        opt.count = int(np.asarray(dense.scalars[0]))
+        _counted(opt).count = int(np.asarray(dense.scalars[0]))
     state.step = int(dense.step)
     return state
 

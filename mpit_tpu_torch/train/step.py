@@ -139,8 +139,10 @@ class TrainState:
 
 
 def _map_tensors(state, fn):
-    """``state`` (a goo state dataclass) with ``fn`` applied to every
-    tensor of its buffer lists."""
+    """``state`` (a goo state dataclass, or a chain's tuple of them) with
+    ``fn`` applied to every tensor of its buffer lists."""
+    if isinstance(state, tuple):
+        return tuple(_map_tensors(s, fn) for s in state)
     if not dataclasses.is_dataclass(state):
         return state
     out = {}
@@ -249,7 +251,7 @@ def _ranks(loss_fn, tx, world, zero1: bool, stateful: bool, gs: GradSync):
         flat = FlatReplicas(params_list)
         if flat.params.device != world.device:
             raise ValueError(f"parameters on {flat.params.device}, the World on {world.device}")
-        opt = stx.init(flat.params) if zero1 else tx.init([torch.zeros_like(flat.params)])
+        opt = stx.init(flat.params) if zero1 else tx.init([flat.params.clone()])
         return TrainState(step=0, params=list(params_list), opt_state=opt, flat=flat,
                           extra=None if extra is None else [dict(e) for e in extra])
 

@@ -167,7 +167,8 @@ def test_val_sweep_every_n_steps():
 
 
 # The ResNet slice brought ``resnet``, ``--data-dir`` and ``--augment``,
-# the checkpoint and elastic slice ``--mode elastic`` and ``--lease-s``:
+# the checkpoint and elastic slice ``--mode elastic`` and ``--lease-s``,
+# the EASGD-under-SPMD slice ``--easgd true``:
 # their cases (ids kept) now hold what stays refused around them, each
 # with its own reason.
 _NOW = {
@@ -180,6 +181,7 @@ _NOW = {
     "imagenet_mode_elastic": (["imagenet", "--mode", "elastic"], "mnist only"),
     "mnist_leases_2": (["mnist", "--mode", "elastic", "--lease-s", "2", "--profile-dir", "/p"],
                        "slice"),
+    "mnist_easgd_true": (["mnist", "--easgd", "true", "--profile-dir", "/p"], "slice"),
 }
 
 

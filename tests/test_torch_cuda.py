@@ -20,9 +20,13 @@ plans), and the KV shipment's copy kernel
 (bit-exact at every alignment on both its bodies and at AlexNet's
 244.4 MB flat message, behind the compat simulator's CUDA messages, a
 tiny fleet's shipments, the parameter-server actors and the elastic
-tier's anchor, its launches counted); and the checkpoints of a state on
+tier's anchor, its launches counted); the checkpoints of a state on
 the card (an asynchronous save ahead of an in-place step, a restore
-into a bound four-rank state, bit for bit).
+into a bound four-rank state, bit for bit); and speculative decoding's
+shapes (the decode kernel at the verify's T 2 to 5 on each body, the
+matmul at its 40 rows, also from four threads) and its engine (f32
+greedy tokens of the speculative kernel engine against the plain and
+the speculative reference engines).
 
 Every test here needs an NVIDIA GPU (the kernel has no CPU mode): each
 carries the ``cuda`` marker and skips, with its reason, where there is
@@ -1457,3 +1461,99 @@ def test_anchor_exchange_launches_counted_exactly(cuda):
     want = run("cpu")
     assert got["version"] == want["version"] == 2 * rounds
     assert torch.equal(got["center"].cpu(), want["center"])
+
+
+# ---- speculative decoding: the verify's shapes and the engine ----------------
+
+
+@pytest.mark.parametrize("kv", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("ps", [None, 4, 16], ids=["dense", "ps4", "ps16"])
+@pytest.mark.parametrize("t", [2, 3, 4, 5])
+def test_decode_bodies_at_verify_widths_match_plain(cuda, kv, ps, t):
+    """The verify's query widths T = k + 1 (2 to 5) on each body (bf16
+    q and K/V: mma; bf16 q over int8 K/V: q8mma; f32: rows), dense and
+    paged (pages of 4 rows: the T rows straddle a page), with lengths 0,
+    3, 100 and S - T; within q's tolerance of plain, launches on the body
+    the rule names."""
+    b, h, d, s = 4, 12, 64, 256
+    dt = torch.float32 if kv == "f32" else torch.bfloat16
+    q = _randn((b, t, h, d), t, dt)
+    lens = torch.tensor([0, 3, 100, s - t], dtype=torch.int32, device="cuda")
+    if ps is None:
+        k, v = (_randn((b, s, h, d), seed, dt) for seed in (1, 2))
+    else:
+        p = b * (s // ps) + 3
+        k, v = (_randn((p, ps, h, d), seed, dt) for seed in (1, 2))
+        bt = torch.randperm(p, generator=torch.Generator().manual_seed(t))[: b * (s // ps)]
+        bt = bt.reshape(b, s // ps).int().cuda()
+    if kv == "int8":
+        k, v = quantize_kv(k), quantize_kv(v)
+    path = tda._decode_path(dt, torch.int8 if kv == "int8" else dt, t)
+    assert path == {"f32": "rows", "bf16": "mma", "int8": "q8mma"}[kv]
+    before = dict(tda.path_launches)
+    if ps is None:
+        out = tda.flash_decode_attention(q, k, v, lens)
+        ref = tda.reference_decode_attention(q, k, v, lens)
+    else:
+        out = tda.flash_paged_decode_attention(q, k, v, lens, bt)
+        ref = tda.reference_paged_decode_attention(q, k, v, lens, bt)
+    torch.cuda.synchronize()
+    assert sum(_path_delta(before).values()) == 1
+    assert all(key.endswith("/" + path) for key in _path_delta(before))
+    tol = 1e-4 if kv == "f32" else 5e-2
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("d,f", _QMM_SHAPES)
+def test_quantized_matmul_at_verify_rows(cuda, d, f):
+    """M = 40, the verify's rows over 8 slots at k 4: within the matmul's
+    tolerance of plain on the ``mma`` body, the same bits on every call
+    and from four threads at once (the fleet's case)."""
+    x = _randn((40, d), 4, torch.bfloat16)
+    w = tqm.quantize_tensor(_randn((d, f), 5, torch.float32))
+    assert tqm.kernel_plan(40, d, f, torch.bfloat16, x.device)["path"] == "mma"
+    first = tqm.quantized_matmul(x, w)
+    ref = tqm.quantized_matmul_plain(x, w)
+    assert (first - ref).abs().max().item() <= 1e-4 * max(1.0, ref.abs().max().item())
+    got = [None] * 4
+
+    def work(i):
+        got[i] = [tqm.quantized_matmul(x, w) for _ in range(3)]
+
+    pool = [threading.Thread(target=work, args=(i,)) for i in range(4)]
+    for th in pool:
+        th.start()
+    for th in pool:
+        th.join(timeout=60)
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, first) for outs in got for o in outs)
+
+
+@pytest.mark.parametrize("kw", [{}, {"kv_pages": 16, "kv_page_size": 8},
+                                {"weights_dtype": "int8"}], ids=["dense", "paged", "int8w"])
+def test_speculative_kernel_engine_matches_plain_and_reference(cuda, kw):
+    """f32 greedy tokens of the speculative kernel engine (the verify on
+    the decode kernel's ``rows`` body at T = 3, the draft on plain
+    attention) equal the plain kernel engine's and the speculative
+    reference engine's; every verify launched the decode kernel."""
+    from mpit_tpu_torch.serve import draft_from_target
+
+    cfg = GPT2Config.tiny(vocab_size=64, max_seq_len=64, num_layers=2, num_heads=2,
+                          d_model=32, dtype=torch.float32)
+    state = GPT2(cfg, generator=torch.Generator().manual_seed(0)).state_dict()
+    dstate, dcfg = draft_from_target(state, cfg, 1)
+    prompts = [[5, 9, 3], [7], [1, 2, 3, 4, 5], [9, 9], [3, 1], [60, 2, 2, 1]]
+    spec = dict(spec_k=2, draft_params=dstate, draft_cfg=dcfg)
+    tokens = {}
+    for name, mode, extra in (("plain", "kernel", {}), ("spec", "kernel", spec),
+                              ("spec_ref", "reference", spec)):
+        before = dict(tda.path_launches)
+        server = Server(Engine(cfg, state, slots=2, max_len=40, prefill_len=8,
+                               decode_attention=mode, **kw, **extra))
+        for i, p in enumerate(prompts):
+            server.submit(Request(rid=i, prompt=p, max_new_tokens=6))
+        tokens[name] = {c.rid: c.tokens for c in server.run()}
+        if name == "spec":
+            rows = sum(n for key, n in _path_delta(before).items() if key.endswith("/rows"))
+            assert rows >= cfg.num_layers * server.stats()["ticks"] // 2
+    assert tokens["spec"] == tokens["plain"] == tokens["spec_ref"]

@@ -214,7 +214,9 @@ def test_main_returns_stats_keys():
         # path is the parity oracle, not an int8 serving path).
         ["--kv-dtype", "int8", "--decode-attention", "reference"],
         ["--weights-dtype", "int8", "--decode-attention", "reference"],
-        ["--spec-k", "2"],
+        # Speculation is served now; beside a later slice's flag it still
+        # refuses, before a model is built.
+        ["--spec-k", "2", "--draft-config", "truncate:1", "--kv-host-pages", "8"],
         ["--mesh", "model=2"],
         ["--loadgen", "rate=8"],
         ["--policy", "on"],

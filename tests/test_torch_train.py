@@ -349,13 +349,14 @@ def test_later_slice_flags_raise(argv):
     # The ResNet slice brought ``resnet`` and ``--augment``, the
     # checkpoint and elastic slice ``--mode elastic`` for mnist and the
     # checkpoint, dense and liveness flags: their cases (ids kept) now
-    # hold the refusals that stay around them.
+    # hold the refusals that stay around them. EASGD under SPMD came with
+    # its slice; gpt2 refuses ``--easgd`` because JAX's gpt2 ignores it.
     small = ["--image-size", "32", "--num-classes", "10"]
     argv = {"resnet": ["resnet", "--mode", "parity"],
             "imagenet_augment_true": ["imagenet", "--augment", "true", "--augment-mode",
                                       "rrc"],
             "mnist_mode_elastic": ["imagenet", "--mode", "elastic", *small],
-            "gpt2_ckptdir_/c": ["mnist", "--easgd", "true"],
+            "gpt2_ckptdir_/c": ["mnist", "--easgd", "true", "--native", "true"],
             "gpt2_savedense_/s.npz": ["gpt2", "--save-dense", "/s.npz", "--zero1", "false"],
             "gpt2_resumedense_/s.npz": ["resnet", "--resume-dense", "/s.npz", *small],
             "gpt2_easgdbeta_0.5": ["resnet", "--mode", "elastic", *small],
@@ -364,7 +365,7 @@ def test_later_slice_flags_raise(argv):
             "gpt2_leases_2": ["mnist", "--mode", "elastic", "--sentinel", "true"],
             }.get("_".join(argv).replace("-", ""), argv)
     match = (r"need --data-dir" if argv[0] == "imagenet" and "rrc" in argv
-             else r"slice|SPMD-only|mnist only|ZeRO-1 DP layout")
+             else r"slice|SPMD-only|mnist only|ZeRO-1 DP layout|ignores --easgd")
     with pytest.raises(SystemExit, match=match):
         cli_main([*argv[:1], "--device", "cpu", *argv[1:]] if argv[0] == "gpt2" else argv)
 
