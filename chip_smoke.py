@@ -10,6 +10,7 @@ one GPU, training on one rank and over four data-parallel ranks.
     python3 chip_smoke.py elastic 10           # phase 4e alone, ten times over
     python3 chip_smoke.py spec                 # phases 3s, 4s, 5s and 4z (after 4 and 5)
     python3 chip_smoke.py tp                   # phases 3m, 4m and 5m (after 5)
+    python3 chip_smoke.py policy               # phase 4p alone
 
 Run from the root of a checkout on a machine with an NVIDIA GPU (written
 for an H100). Phases, each of which raises (exit code != 0) on failure:
@@ -184,6 +185,29 @@ the one card, Megatron blocks and a head-sharded cache (records in
    stream): the TP kernel engine at p 2 and 4 and the TP reference engine
    at p 2, each 16 of 16 requests identical to phase 5's one-rank kernel
    engine.
+
+Open-loop serving under the scheduling policy (records in
+``chiprun_out/chip_smoke_policy.json``):
+
+4p. ``python -m mpit_tpu_torch.serve``'s ``main`` once with ``--loadgen``,
+   ``--policy`` and ``--kv-host-pages`` on the paged pool (every arrival
+   answered, the paged form's ``split`` and ``mma`` bodies); then GPT-2
+   small through the engine the CLI builds, 4 slots over 96 pages of 16,
+   ``Server.run_timed`` over a seeded open-loop trace (8 req/s for 4 s,
+   drained) of two classes, interactive (priority 0, a 20 ms TTFT target)
+   and batch (priority 1, 96-160 new tokens), under the policy with
+   admission shedding off: bf16 and int8 K/V with 160 host pages (resumes
+   restream), int8 weights without (resumes recompute). Gates: every
+   arrival answered in full; preemptions above 0, and resumes of the
+   run's mode (restreamed pages with the host tier); every restored page
+   equal bit for bit to its page as the spill began (``PageCheck``);
+   attention launches on the form's ``split`` and ``mma``/``q8mma``
+   bodies alone, the matmul's all on ``mma`` in the int8-weight run and
+   none elsewhere; the preempted requests' tokens equal to their
+   closed-loop run (FIFO, no policy, the same engine) or parted one-sided
+   within ``INT8_TIE``, the plain path teacher-forced. Prints spill and
+   restore ms a page (32 pages, wall clock, idle engine), resume p50/p95
+   by mode and TTFT p50/p95 by tier.
 
 3d. kernel vs plain, flash attention — the forward, dq and dk/dv kernels
    against their plain versions at GPT-2 small's head geometry (B 8, H
@@ -442,7 +466,9 @@ time at the speculative verify's T = 5 as ``<form>_verify`` and the
 matmul at its 40 rows as ``quantized_matmul_verify``, with phase 4s's
 launches; the TP shapes as ``<form>_tp<p>``, ``<form>_tp<p>_prefill``,
 ``flash_decode_attention_tp2_verify`` and ``quantized_matmul_tp<p>_<layer>``,
-with phase 4m's launches; every number in it
+with phase 4m's launches; the paged forms as ``<form>_policy`` and
+``<form>_policy_prefill`` and the matmul as ``quantized_matmul_policy``,
+with phase 4p's launches; every number in it
 but ``bound_ms`` measured in this run, so the earlier design's times,
 ``before_ms``, stay in the per-case records), the card's name and power
 limit as ``nvidia-smi`` prints them, and ``{"ok": true, "device":
@@ -3752,6 +3778,8 @@ def spec_tick_profile(torch, args, ticks: int = 8) -> dict:
     from mpit_tpu_torch.config import from_argv
     from mpit_tpu_torch.serve.__main__ import ServeConfig, _build_engine
 
+    import numpy as np
+
     cfg = from_argv(ServeConfig, SERVE_ARGS + args)
     engine, mcfg = _build_engine(cfg)
     slots = cfg.slots
@@ -4512,6 +4540,310 @@ def tp_kernel_rows(tp: dict) -> list:
             })
     return rows
 
+# Phase 4p: open-loop serving under the scheduling policy, at a capacity
+# that makes it preempt. GPT-2 small at phase 4's width, 4 slots over 96
+# pages of 16 tokens (four batch requests of up to 18 pages fit, so the
+# slots bind), prefill chunk 64; interactive requests (priority 0, a 20 ms
+# TTFT target: any queued one that finds no free slot is projected past
+# it) and batch requests (priority 1, long outputs), seeded, 6 req/s for
+# 4 s, drained.
+POLICY_ARGS = ["--slots", "4", "--kv-pages", "96", "--kv-page-size", "16",
+               "--prefill-chunk", "64"]
+POLICY_HOST = ["--kv-host-pages", "160"]
+POLICY_SPEC = "admission=0,min_samples=2"
+POLICY_RATE, POLICY_DURATION, POLICY_TTFT = 8.0, 4.0, 0.02
+POLICY_CLI_LOAD = ("rate=4,prompt_min=16,prompt_max=64,new_min=16,new_max=32,"
+                   "priority=1,ttft_target=0.5")
+POLICY_SPILL_PAGES = 32  # pages a spill/restore timing moves
+
+
+def policy_load(loadgen):
+    classes = (
+        loadgen.RequestClass("interactive", weight=0.5, prompt_len=(8, 48),
+                             max_new_tokens=(8, 16), priority=0, ttft_target_s=POLICY_TTFT),
+        loadgen.RequestClass("batch", weight=0.5, prompt_len=(64, 128),
+                             max_new_tokens=(96, 160), priority=1),
+    )
+    return loadgen.LoadSpec(rate=POLICY_RATE, classes=classes)
+
+
+class PageCheck:
+    """Wraps one engine's host-tier calls: each spilled page's tensors are
+    cloned on the card as the spill starts (stream order puts the clone
+    where the spill's gather reads), and after each restore the page must
+    equal that clone bit for bit."""
+
+    def __init__(self, torch, engine):
+        self.torch, self.engine = torch, engine
+        self.saved, self.checked, self.bad = {}, 0, []
+        self._spill, self._restore, self._free = (
+            engine.spill_page, engine.restore_page, engine.host_free)
+        engine.spill_page, engine.restore_page, engine.host_free = (
+            self.spill, self.restore, self.free)
+
+    def spill(self, dp, hp):
+        self.saved[int(hp)] = [v.clone() for v in self.engine._page_views(int(dp))]
+        self._spill(dp, hp)
+
+    def restore(self, hp, dp, *, release=False):
+        self._restore(hp, dp, release=release)
+        want = self.saved.pop(int(hp)) if release else self.saved[int(hp)]
+        got = self.engine._page_views(int(dp))
+        self.checked += 1
+        if not all(self.torch.equal(a, b) for a, b in zip(got, want)):
+            self.bad.append((int(hp), int(dp)))
+
+    def free(self, hp):
+        self.saved.pop(int(hp), None)
+        self._free(hp)
+
+
+def tier_copy_ms(torch, engine) -> dict:
+    """Spill and restore times a page on an idle engine: POLICY_SPILL_PAGES
+    spills then one drain, and as many restores then a synchronize, each
+    on the wall clock after one untimed round; the page's bytes beside."""
+    n = POLICY_SPILL_PAGES
+    out = {"page_bytes": engine.page_bytes}
+    for rep in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            engine.spill_page(i, i)
+        engine.drain_spills()
+        t1 = time.perf_counter()
+        for i in range(n):
+            engine.restore_page(i, n + i, release=True)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    out["spill_ms_a_page"] = (t1 - t0) * 1e3 / n
+    out["restore_ms_a_page"] = (t2 - t1) * 1e3 / n
+    out["spill_gb_per_s"] = engine.page_bytes * n / (t1 - t0) / 1e9
+    out["restore_gb_per_s"] = engine.page_bytes * n / (t2 - t1) / 1e9
+    engine.reset()
+    return out
+
+
+def policy_cli_run(torch, card) -> dict:
+    """The CLI's open-loop path once: ``--loadgen`` with ``--policy`` and
+    ``--kv-host-pages`` on the paged pool, every arrival answered through
+    the paged form's bodies."""
+    from mpit_tpu_torch.ops import decode_attention as da
+    from mpit_tpu_torch.serve.__main__ import main
+
+    da.launches.update(dict.fromkeys(da.launches, 0))
+    da.path_launches.update(dict.fromkeys(da.path_launches, 0))
+    out = main(SERVE_ARGS + POLICY_ARGS + POLICY_HOST + [
+        "--loadgen", POLICY_CLI_LOAD, "--duration", "2", "--policy", POLICY_SPEC,
+        "--stats-interval", "1"])
+    paths = {k: n for k, n in da.path_launches.items() if n}
+    if out["requests_completed"] != out["load"]["arrivals"] or out["truncated"]:
+        fail(f"4p CLI: {out['requests_completed']} of {out['load']['arrivals']} answered")
+    if set(paths) != {f"{FORMS[2]}/split", f"{FORMS[2]}/mma"} or out["device"] != "cuda":
+        fail(f"4p CLI: launches by body {paths} on {out['device']}")
+    return {"card": card, "args": POLICY_ARGS + POLICY_HOST, "load": out["load"],
+            "requests_completed": out["requests_completed"], "wall_s": out["wall_s"],
+            "ttft_p95_s": out.get("ttft_p95_s"), "policy": out["policy"],
+            "launches_by_body": paths}
+
+
+def policy_run(torch, card, name, args, form, judge) -> dict:
+    """One 4p run: the engine the CLI builds for ``args``, warmed, then
+    ``Server.run_timed`` over the seeded two-class trace under the
+    policy, drained, every restore checked against its spill; then the
+    preempted requests closed loop (FIFO, no policy) on the same engine,
+    their tokens held against the open-loop run's (``INT8_TIE``, one
+    sided, the plain path teacher-forced)."""
+    from mpit_tpu_torch.config import from_argv
+    from mpit_tpu_torch.obs.stream import StreamRegistry
+    from mpit_tpu_torch.ops import decode_attention as da
+    from mpit_tpu_torch.ops import quantized_matmul as qm
+    from mpit_tpu_torch.serve import (
+        Request, SchedulingPolicy, Server, generate_arrivals, loadgen, parse_policy_spec,
+        warm_engine,
+    )
+    from mpit_tpu_torch.serve.__main__ import ServeConfig, _build_engine
+
+    import numpy as np
+
+    cfg = from_argv(ServeConfig, SERVE_ARGS + args)
+    engine, mcfg = _build_engine(cfg)
+    host = engine.host_pages > 0
+    warm_engine(engine)
+    copy = tier_copy_ms(torch, engine) if host else None
+    check = PageCheck(torch, engine) if host else None
+    arrivals = generate_arrivals(policy_load(loadgen), vocab_size=mcfg.vocab_size,
+                                 duration_s=POLICY_DURATION, seed=0)
+    registry = StreamRegistry()
+    server = Server(engine, stream=registry,
+                    policy=SchedulingPolicy(parse_policy_spec(POLICY_SPEC), registry))
+    for mod in (da, qm):
+        mod.launches.update(dict.fromkeys(mod.launches, 0))
+        mod.path_launches.update(dict.fromkeys(mod.path_launches, 0))
+    victims = set()
+    preempt = server._preempt
+
+    def note(slot, **kw):
+        victims.add(server.live[slot].req.rid)
+        preempt(slot, **kw)
+
+    server._preempt = note
+    t0 = time.perf_counter()
+    done = server.run_timed(arrivals, duration=POLICY_DURATION, drain=True)
+    wall = time.perf_counter() - t0
+    st = server.stats()
+    paths = {k: n for k, n in da.path_launches.items() if n}
+    qmm = qm.launches["quantized_matmul"]
+    qmm_paths = {k: n for k, n in qm.path_launches.items() if n}
+    tag = f"4p {name}"
+    got = {c.rid: list(c.tokens) for c in done}
+    want_n = {a.request.rid: a.request.max_new_tokens for a in arrivals}
+    if {r: len(t) for r, t in got.items()} != want_n or st["truncated"] or st["shed"]:
+        fail(f"{tag}: {len(got)} of {len(arrivals)} arrivals answered in full "
+             f"(shed {st['shed']}, truncated {st['truncated']})")
+    resumes = {m: len(d) for m, d in server.resume_durations.items()}
+    mode = "restream" if host else "recompute"
+    if not st["preemptions"] or not resumes[mode] or (host and not st["host_restreamed_pages"]):
+        fail(f"{tag}: preemptions {st['preemptions']}, resumes {resumes}, restreamed "
+             f"pages {st.get('host_restreamed_pages')}")
+    if check is not None and (check.bad or not check.checked):
+        fail(f"{tag}: restored pages differ from their spills at (seat, page) {check.bad} "
+             f"of {check.checked}")
+    body = "q8mma" if form.endswith("_int8") else "mma"
+    if set(paths) != {f"{form}/split", f"{form}/{body}"}:
+        fail(f"{tag}: attention launches by body {paths}")
+    int8w = "--weights-dtype" in args
+    if int8w != bool(qmm) or (int8w and qmm_paths != {"mma": qmm}):
+        fail(f"{tag}: quantized_matmul launches {qmm} by body {qmm_paths}")
+    # The preempted requests' closed-loop run on the same engine.
+    engine.reset()
+    if check is not None:
+        engine.spill_page, engine.restore_page, engine.host_free = (
+            check._spill, check._restore, check._free)
+    by_rid = {a.request.rid: a.request for a in arrivals}
+    closed = Server(engine)
+    for rid in sorted(victims):
+        r = by_rid[rid]
+        closed.submit(Request(rid=rid, prompt=r.prompt, max_new_tokens=r.max_new_tokens))
+    want = {c.rid: list(c.tokens) for c in closed.run()}
+    ties = fleet_divergences(torch, judge, {r: by_rid[r].prompt for r in want},
+                             {r: got[r] for r in want}, want, quantized="--kv-dtype" in args,
+                             what=tag, one_sided=True)
+    durs = {m: d for m, d in server.resume_durations.items() if d}
+    rec = {
+        "card": card, "run": name, "args": args, "wall_s": wall,
+        "arrivals": len(arrivals), "requests_completed": len(done),
+        "generated_tokens": st["generated_tokens"], "ticks": st["ticks"],
+        "preemptions": st["preemptions"], "policy": st["policy"], "resumes": resumes,
+        "resume_ms": {m: {"p50": float(np.percentile(d, 50)) * 1e3,
+                          "p95": float(np.percentile(d, 95)) * 1e3, "n": len(d)}
+                      for m, d in durs.items()},
+        "ttft_ms_by_tier": {
+            t: {"p50": registry.total_sketch(f"request_ttft_tier{t}").quantile(0.5) * 1e3,
+                "p95": registry.total_sketch(f"request_ttft_tier{t}").quantile(0.95) * 1e3}
+            for t in (0, 1) if registry.total_sketch(f"request_ttft_tier{t}") is not None},
+        "kv_pool_occupancy_peak": st["kv_pool_occupancy_peak"],
+        "concurrency_peak": st["concurrency_peak"],
+        "attention_launches_by_body": paths, "matmul_launches": qmm,
+        "matmul_launches_by_body": qmm_paths,
+        "preempted_requests": len(victims),
+        "tokens_vs_closed_loop": {"identical_requests": len(victims) - len(ties),
+                                  "near_ties": ties},
+    }
+    if host:
+        rec.update({k: st[k] for k in (
+            "host_spilled_pages", "host_restreamed_pages", "host_spill_bytes",
+            "host_restream_bytes", "host_held_peak_bytes", "parked_spills",
+            "spilled_prefix_entries", "host_prefix_hits", "promoted_entries")})
+        rec["restores_checked_bit_equal"] = check.checked
+        rec["tier_copy"] = copy
+    print(json.dumps(rec), flush=True)
+    del engine, server, closed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def policy_phase(torch, card) -> dict:
+    """Phase 4p: the CLI's open-loop path once, then the bf16 and int8 K/V
+    pools with the host tier and the int8-weight pool without one; its
+    records go to ``chiprun_out/chip_smoke_policy.json``. Returns the
+    runs' attention and matmul launches by body."""
+    import dataclasses
+
+    from mpit_tpu_torch.models import GPT2, GPT2Config
+    from mpit_tpu_torch.ops import quantized_matmul as qm
+    from mpit_tpu_torch.serve import quantize_gpt2_params
+
+    t0 = time.perf_counter()
+    records = [policy_cli_run(torch, card)]
+    print(json.dumps(records[-1]), flush=True)
+    state = GPT2(GPT2Config.small(), generator=torch.Generator().manual_seed(0)).state_dict()
+    judge = GPT2(GPT2Config.small(), device="cuda")
+    judge.load_state_dict(state)
+    judge_int8w = GPT2(
+        dataclasses.replace(GPT2Config.small(), quant_matmul_fn=qm.quantized_matmul_reference),
+        device="cuda", quantized=True,
+    )
+    judge_int8w.load_state_dict(quantize_gpt2_params(state))
+    del state
+    runs = (
+        ("bf16_host", POLICY_ARGS + POLICY_HOST, FORMS[2], judge),
+        ("int8_kv_host", POLICY_ARGS + POLICY_HOST + ["--kv-dtype", "int8"], FORMS[3], judge),
+        ("int8_weights_recompute", POLICY_ARGS + INT8W_ARGS, FORMS[2], judge_int8w),
+    )
+    for name, args, form, j in runs:
+        records.append(policy_run(torch, card, name, args, form, j))
+    del judge, judge_int8w
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    print(f"phase 4p: {seconds:.1f} s", flush=True)
+    OUT.mkdir(exist_ok=True)
+    (OUT / "chip_smoke_policy.json").write_text(json.dumps(
+        {"card": card, "seconds": seconds, "runs": records}, indent=1, default=str))
+    return {r["run"]: {"attention": r["attention_launches_by_body"],
+                       "matmul": r["matmul_launches"]} for r in records[1:]}
+
+
+def policy_kernel_rows(cases: list, pol: dict) -> list:
+    """The kernels line's rows of phase 4p: each paged form it drives at
+    T 1 (the tick's split body) and at the prefill chunk's width (mma or
+    q8mma: fresh prompts and resumed feeds alike), with 4p's launches of
+    that body summed over its runs, phase 3b's case at the same shape for
+    the rest; and the int8 matmul at the tick's 8 rows with the
+    int8-weight run's launches."""
+    rows = []
+    for form in (FORMS[2], FORMS[3]):
+        for t, suffix in ((1, ""), (64, "_prefill")):
+            head = next(c for c in cases if c["form"] == form and c["dtype"] == "bfloat16"
+                        and c["S"] == 512 and c["T"] == t and c.get("page_size") == 16)
+            rows.append({
+                "name": f"{form}_policy{suffix}", "route": "cuda", "path": head["path"],
+                "source": "mpit_tpu_torch/csrc/decode_attention.cu",
+                "replaces": "mpit_tpu/ops/decode_attention.py:166",
+                "call_site": "mpit_tpu/ops/decode_attention.py:419",
+                "launches": sum(r["attention"].get(f"{form}/{head['path']}", 0)
+                                for r in pol.values()),
+                "launches_by_run": {run: r["attention"].get(f"{form}/{head['path']}", 0)
+                                    for run, r in pol.items()},
+                **{k: head[k] for k in ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")},
+                "shape": {k: head.get(k) for k in ("dtype", "kv", "page_size", "B", "S", "T",
+                                                   "H", "Dh")},
+            })
+    head = next(c for c in cases if c["form"] == "quantized_matmul" and c["dtype"] == "bfloat16"
+                and (c["M"], c["D"], c["F"]) == (8, 768, 2304))
+    rows.append({
+        "name": "quantized_matmul_policy", "route": "cuda", "path": head["path"],
+        "source": "mpit_tpu_torch/csrc/quantized_matmul.cu",
+        "replaces": "mpit_tpu/ops/quantized_matmul.py:272",
+        "call_site": "mpit_tpu/ops/quantized_matmul.py:321",
+        "launches": sum(r["matmul"] for r in pol.values()),
+        **{k: head[k] for k in ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms", "splits", "blocks")},
+        "shape": {k: head[k] for k in ("dtype", "M", "D", "F")},
+    })
+    return rows
+
 
 def main() -> None:
     import torch
@@ -4604,6 +4936,12 @@ def main() -> None:
         print(json.dumps({"kernels": tp_kernel_rows(tp)}))
         print(f"chip_smoke tp: {time.perf_counter() - t_start:.1f} s in all", flush=True)
         return
+    if sys.argv[1:2] == ["policy"]:  # phase 4p alone
+        build.build(build.KERNEL_SOURCES)
+        pol = policy_phase(torch, card)
+        print(json.dumps({"card": card, "policy_launches": pol}))
+        print(f"chip_smoke policy: {time.perf_counter() - t_start:.1f} s in all", flush=True)
+        return
     if sys.argv[1:2] == ["recovery"]:  # phases 4k, 4kd, 4kx and 4e alone
         build.build(build.KERNEL_SOURCES)
         rec = recovery_phases(torch, card, convnet_bucket_plans(torch))
@@ -4681,6 +5019,7 @@ def main() -> None:
     spec = spec_phases(torch, card, flush, serve_records, mcfg, state, conv_plans, tokens)
     tp = tp_phases(torch, card, flush, mcfg, state, one_rank, tokens, serve_records)
     del mcfg, state
+    pol = policy_phase(torch, card)
     t0 = time.perf_counter()
     fleet_parity = fleet_parity_phase(torch)
     print(f"phase 5f: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -4795,6 +5134,7 @@ def main() -> None:
         "shape": {k: head[k] for k in ("dtype", "M", "D", "F")},
     })
     kernels += tp_kernel_rows(tp)
+    kernels += policy_kernel_rows(cases, pol)
     flash_sources = {"fwd": (121, 362), "dq": (195, 408), "dkv": (237, 428)}
     for kind, (body, call) in flash_sources.items():
         head = next(

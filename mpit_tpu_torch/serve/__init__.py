@@ -13,9 +13,15 @@
   ``world=`` / ``tp_axis=`` serve tensor-parallel (:mod:`~mpit_tpu_torch.serve.tp`:
   Megatron blocks over the ranks of the ``model`` axis, a head-sharded
   cache).
-- :mod:`~mpit_tpu_torch.serve.scheduler` — the FIFO continuous-batching
+- :mod:`~mpit_tpu_torch.serve.scheduler` — the continuous-batching
   loop: queue → admit into freed slots (and pages) between decode ticks
-  → per-slot retirement (EOS / max tokens / cache full), with obs spans.
+  → per-slot retirement (EOS / max tokens / cache full), with obs spans
+  and the stream registry's windows; bounded intake, preemption and the
+  host KV tier's spills and restreams; ``run`` (closed loop) and
+  ``run_timed`` (an open-loop trace by its clock).
+- :mod:`~mpit_tpu_torch.serve.loadgen` — seeded open-loop arrival traces
+  (``LoadSpec``, ``RequestClass``, ``generate_arrivals``,
+  ``split_arrivals``, ``parse_load_spec``).
 - :mod:`~mpit_tpu_torch.serve.spec` — speculative decoding's math
   (the proposal, the acceptance, the full-logits verifier); the engine
   runs it with ``Engine(spec_k=..., draft_params=..., draft_cfg=...)``.
@@ -29,8 +35,11 @@
   through the CUDA copy kernel (``ship_kv_remote``).
 - :mod:`~mpit_tpu_torch.serve.fleet` — the disaggregated fleet over the
   compat layer: router, prefill and decode workers (``run_fleet``).
-- :mod:`~mpit_tpu_torch.serve.policy` — ``TTFTProjector``, the router's
-  admission estimate.
+- :mod:`~mpit_tpu_torch.serve.policy` — the scheduling policy
+  (``SchedulingPolicy``, ``PolicyConfig``, ``parse_policy_spec``:
+  priority tiers, tenant-fair order, admission shedding, preemption
+  verdicts) and ``TTFTProjector``, its and the fleet router's admission
+  estimate.
 
 ``python -m mpit_tpu_torch.serve`` serves a synthetic stream (``--fleet``:
 through the fleet).
@@ -47,7 +56,20 @@ from mpit_tpu_torch.serve.kvcache import (
     alloc_paged_cache,
     pages_needed,
 )
-from mpit_tpu_torch.serve.policy import TTFTProjector
+from mpit_tpu_torch.serve.loadgen import (
+    Arrival,
+    LoadSpec,
+    RequestClass,
+    generate_arrivals,
+    parse_load_spec,
+    split_arrivals,
+)
+from mpit_tpu_torch.serve.policy import (
+    PolicyConfig,
+    SchedulingPolicy,
+    TTFTProjector,
+    parse_policy_spec,
+)
 from mpit_tpu_torch.serve.scheduler import Completed, Request, Server, warm_engine
 from mpit_tpu_torch.serve.shipment import (
     KVShipment,
@@ -73,20 +95,26 @@ from mpit_tpu_torch.serve.weights import (
 
 __all__ = [
     "AdmitPlan",
+    "Arrival",
     "Completed",
     "Engine",
     "FleetConfig",
     "KVCache",
     "KVShipment",
+    "LoadSpec",
     "PageAllocator",
     "PagedKVCache",
+    "PolicyConfig",
     "Request",
+    "RequestClass",
+    "SchedulingPolicy",
     "Server",
     "TTFTProjector",
     "alloc_cache",
     "alloc_paged_cache",
     "draft_from_target",
     "expected_param_shapes",
+    "generate_arrivals",
     "infer_config",
     "inject_shipment",
     "load_dense",
@@ -96,6 +124,8 @@ __all__ = [
     "params_from_jax",
     "params_wire_bytes",
     "parse_fleet_spec",
+    "parse_load_spec",
+    "parse_policy_spec",
     "quantize_gpt2_params",
     "recv_shipment",
     "resolve_device",
@@ -104,6 +134,7 @@ __all__ = [
     "send_shipment",
     "shard_gpt2_params",
     "ship_kv_remote",
+    "split_arrivals",
     "unpack_shipment",
     "validate_params",
     "warm_engine",

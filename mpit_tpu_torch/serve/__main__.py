@@ -20,11 +20,29 @@ tensor-parallel over N ranks on the one device (the engine's
 axis is ``model`` where the mesh has one, else its first axis, as in the
 JAX CLI.
 
+``--loadgen "rate=8,process=bursty,tenants=4"`` drives an open-loop
+arrival trace instead (:mod:`mpit_tpu_torch.serve.loadgen`, seeded by
+``--seed``) through ``Server.run_timed`` for ``--duration`` seconds
+(``--drain`` answers every admitted request), after the engine is warmed
+outside the window; a live line of rolling-window stats (TTFT and
+latency p50/p95, req/s, tok/s, occupancy, queue depth, over
+``--window-s``) goes to stderr every ``--stats-interval`` seconds, and
+the JSON carries the ``load`` block and ``window_stats``.
+``--max-queue N`` sheds arrivals past N queued. ``--policy on`` (or a
+spec such as ``"quantum=4,preempt=1,admission_factor=1.2,weight.t0=2"``)
+swaps the FIFO queue for the scheduling policy
+(:mod:`mpit_tpu_torch.serve.policy`: priority tiers, tenant fairness,
+admission shedding and, paged, preemption); priorities and TTFT targets
+ride the load spec (``...,priority=1,ttft_target=0.2``).
+``--kv-host-pages N`` gives the paged pool a host KV tier of N pages:
+preemption victims park there and resume by restreaming, and prefix
+entries outlive their pages.
+
 Runs on the GPU (``--device cuda``, the default; it raises without
 one); ``--device cpu`` is for testing. The flags of paths this port
-does not carry yet are kept, and a non-default value raises
-``SystemExit`` naming the later slice that brings them: they are never
-silently ignored.
+does not carry yet (``--slo-*``, ``--sentinel``, ``--trace``) are kept,
+and a non-default value raises ``SystemExit`` naming ROADMAP.md §A 11,
+which brings them: they are never silently ignored.
 """
 
 from __future__ import annotations
@@ -82,20 +100,29 @@ class ServeConfig:
     # Tensor parallelism: "model=N" (or "data=D,model=M": one data
     # replica is served) over ranks on the one device.
     mesh: str = ""
-    # Flags of later slices: non-default values are rejected.
+    # The paged pool's host KV tier: pages of host memory for parked
+    # preemption victims and migrated prefix entries (0 = none).
     kv_host_pages: int = 0
+    # Open-loop load: "" keeps the closed-loop stream; else a
+    # serve.loadgen spec ("rate=8,process=poisson|bursty,tenants=4,
+    # prompt_min=..,prompt_max=..,new_min=..,new_max=..,prefix=..,
+    # priority=..,ttft_target=..").
+    loadgen: str = ""
+    duration: float = 10.0  # the admission window, seconds
+    drain: bool = True  # tick past the window until every request is answered
+    window_s: float = 5.0  # rolling-window span of the live stats
+    stats_interval: float = 2.0  # live line cadence, seconds (0 = silent)
+    max_queue: int = 0  # shed arrivals past this queue depth (0 = unbounded)
+    # Scheduling policy: "" = FIFO; "on" = the defaults; or a
+    # serve.policy spec ("quantum=4,preempt=1,admission_factor=1.2,
+    # weight.<tenant>=2").
+    policy: str = ""
+    # Flags of a later slice: non-default values are rejected.
     sentinel: bool = False
     trace: str = ""
-    loadgen: str = ""
-    duration: float = 10.0
-    drain: bool = True
-    window_s: float = 5.0
-    stats_interval: float = 2.0
-    max_queue: int = 0
     slo_ttft_p95: float = 0.0
     slo_latency_p95: float = 0.0
     slo_shed_rate: float = 0.0
-    policy: str = ""
     # Disaggregated fleet: "" = one Server; else a serve.fleet spec
     # ("prefill=1,decode=2[,lease_s=5.0,heartbeat_s=0.05,...]").
     fleet: str = ""
@@ -103,20 +130,14 @@ class ServeConfig:
 
 # Flag -> the later slice of the port that brings it (see ROADMAP.md).
 _LATER_SLICES = {
-    "kv_host_pages": "the host-KV-tier slice",
-    "loadgen": "the open-loop load-harness slice",
-    "duration": "the open-loop load-harness slice",
-    "drain": "the open-loop load-harness slice",
-    "window_s": "the open-loop load-harness slice",
-    "stats_interval": "the open-loop load-harness slice",
-    "max_queue": "the open-loop load-harness slice",
-    "policy": "the scheduling-policy slice",
-    "slo_ttft_p95": "the SLO/sentinel observability slice",
-    "slo_latency_p95": "the SLO/sentinel observability slice",
-    "slo_shed_rate": "the SLO/sentinel observability slice",
-    "sentinel": "the SLO/sentinel observability slice",
-    "trace": "the trace-export observability slice",
+    "slo_ttft_p95": "the SLO monitor (ROADMAP.md §A 11)",
+    "slo_latency_p95": "the SLO monitor (ROADMAP.md §A 11)",
+    "slo_shed_rate": "the SLO monitor (ROADMAP.md §A 11)",
+    "sentinel": "the serving sentinel (ROADMAP.md §A 11)",
+    "trace": "the Chrome trace export (ROADMAP.md §A 11)",
 }
+# Flags of the single Server's loop, which the fleet's router does not run.
+_SERVER_ONLY = ("loadgen", "max_queue", "policy", "kv_host_pages")
 
 
 def _reject_later_slices(cfg: ServeConfig) -> None:
@@ -158,6 +179,21 @@ def _reject_later_slices(cfg: ServeConfig) -> None:
             "cache only, so a decode worker's draft would draft from a cache "
             "that never saw the prompt; serve speculatively without --fleet"
         )
+    if cfg.kv_host_pages and not cfg.kv_pages:
+        raise SystemExit(
+            f"--kv-host-pages {cfg.kv_host_pages}: the host KV tier spills the "
+            "paged pool's pages; pass --kv-pages"
+        )
+    if cfg.fleet:
+        defaults = ServeConfig()
+        for name in _SERVER_ONLY:
+            if getattr(cfg, name) != getattr(defaults, name):
+                raise SystemExit(
+                    f"--fleet with --{name.replace('_', '-')}: the fleet's router "
+                    "serves the closed-loop stream with its own admission; "
+                    "the open-loop harness, the policy and the host KV tier "
+                    "drive one Server"
+                )
     if cfg.fleet and cfg.mesh:
         # The fleet's KV shipment (export_kv_rows / inject_kv_rows) moves
         # one device's whole rows; a tensor-parallel engine's rows are cut
@@ -226,6 +262,7 @@ def _build_engine(cfg: ServeConfig):
         draft_cfg=draft_cfg,
         world=world,
         tp_axis=tp_axis,
+        kv_host_pages=cfg.kv_host_pages or None,
     )
     return engine, mcfg
 
@@ -394,22 +431,138 @@ def _run_fleet_cli(cfg: ServeConfig) -> dict:
     return result
 
 
+def _check_load_geometry(cfg: ServeConfig, spec) -> None:
+    """Refuse, before the window, a load spec whose requests the engine
+    could not take: ``submit`` raises on an oversized request as a
+    caller's bug, and here the caller is this spec and geometry."""
+    from mpit_tpu_torch.serve import pages_needed
+
+    for klass in spec.classes:
+        if klass.max_prompt_total > cfg.prefill_len:
+            raise SystemExit(
+                f"--loadgen class {klass.name!r}: prefix + prompt_max "
+                f"{klass.max_prompt_total} > --prefill-len {cfg.prefill_len}"
+            )
+        need = klass.max_prompt_total + klass.max_new_tokens[1]
+        if need > cfg.max_len:
+            raise SystemExit(
+                f"--loadgen class {klass.name!r}: prefix + prompt_max + new_max "
+                f"= {need} > --max-len {cfg.max_len}"
+            )
+        if cfg.spec_k and not cfg.kv_pages and need + cfg.spec_k - 1 > cfg.max_len:
+            raise SystemExit(
+                f"--loadgen class {klass.name!r} + --spec-k {cfg.spec_k}: the dense "
+                f"verify needs spec_k - 1 rows of headroom: prefix + prompt_max + "
+                f"new_max + spec_k - 1 = {need + cfg.spec_k - 1} > --max-len "
+                f"{cfg.max_len}; lower --spec-k, grow --max-len, or use --kv-pages"
+            )
+        if cfg.kv_pages:
+            pages = pages_needed(klass.max_prompt_total, klass.max_new_tokens[1],
+                                 cfg.kv_page_size)
+            if pages > cfg.kv_pages:
+                raise SystemExit(
+                    f"--loadgen class {klass.name!r}: a request may need {pages} "
+                    f"pages of {cfg.kv_page_size} tokens > --kv-pages {cfg.kv_pages}"
+                )
+
+
+def live_line(registry, server, now: float) -> str:
+    """One line of rolling-window stats: TTFT and latency percentiles,
+    arrival and token rates, occupancy, queue depth, completions and
+    sheds; preemptions under a policy, the cache and weight dtypes when
+    chosen, and on the pool its occupancy, cached tokens, shared pages
+    and host pages in use."""
+    ws = registry.window_stats()
+    h, r, g = ws["histograms"], ws["rates"], ws["gauges"]
+
+    def ms(name, k):
+        v = h.get(name, {}).get(k)
+        return f"{v * 1000:.0f}" if v is not None else "-"
+
+    line = (
+        f"[t={now:6.1f}s] "
+        f"ttft p50/p95={ms('request_ttft', 'p50')}/{ms('request_ttft', 'p95')}ms "
+        f"lat p95={ms('request_latency', 'p95')}ms "
+        f"req/s={r.get('serve_arrivals', {}).get('rate_per_s', 0.0):.1f} "
+        f"tok/s={r.get('serve_tokens', {}).get('rate_per_s', 0.0):.0f} "
+        f"occ={g.get('slot_occupancy', 0.0):.2f} "
+        f"q={g.get('queue_depth', 0.0):.0f} "
+        f"done={len(server.completed)} shed={len(server.shed)}"
+    )
+    if server.policy is not None:
+        line += f" pre={server.policy.preemptions}"
+    if server.engine.kv_dtype_explicit:
+        line += f" kvd={server.engine.kv_dtype}"
+    if server.engine.weights_dtype_explicit:
+        line += f" wd={server.engine.weights_dtype}"
+    if "kv_pool_occupancy" in g:
+        line += (
+            f" kv={g['kv_pool_occupancy']:.2f}"
+            f" kvtok={g.get('kv_tokens_cached', 0.0):.0f}"
+            f" shr={g.get('prefix_pages_shared', 0.0):.0f}"
+        )
+    if "kv_host_pages_in_use" in g:
+        line += f" host={g['kv_host_pages_in_use']:.0f}"
+    return line
+
+
 def main(argv: list[str] | None = None) -> dict:
     cfg = from_argv(ServeConfig, argv, prog="python -m mpit_tpu_torch.serve")
     _reject_later_slices(cfg)
     if cfg.fleet:
         return _run_fleet_cli(cfg)
     from mpit_tpu_torch import obs
-    from mpit_tpu_torch.serve import Server
+    from mpit_tpu_torch.obs.stream import StreamRegistry
+    from mpit_tpu_torch.serve import (
+        SchedulingPolicy,
+        Server,
+        generate_arrivals,
+        parse_load_spec,
+        parse_policy_spec,
+        warm_engine,
+    )
 
+    try:
+        spec = parse_load_spec(cfg.loadgen) if cfg.loadgen else None
+        policy_cfg = parse_policy_spec(cfg.policy) if cfg.policy else None
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+    if spec is not None:
+        _check_load_geometry(cfg, spec)
     rec = obs.enable(obs.Recorder())
     try:
         engine, mcfg = _build_engine(cfg)
-        server = Server(engine)
-        for req in synthetic_requests(cfg, mcfg.vocab_size):
-            server.submit(req)
-        t0 = time.perf_counter()
-        server.run()
+        registry = StreamRegistry(window_s=cfg.window_s)
+        policy = (
+            SchedulingPolicy(policy_cfg, registry) if policy_cfg is not None else None
+        )
+        server = Server(
+            engine, stream=registry, max_queue=cfg.max_queue or None, policy=policy
+        )
+        if spec is not None:
+            # The first launches' one-off costs land outside the window.
+            warm_engine(engine)
+            arrivals = generate_arrivals(
+                spec, vocab_size=mcfg.vocab_size, duration_s=cfg.duration,
+                seed=cfg.seed,
+            )
+            last_line = [0.0]
+
+            def on_tick(srv, now):
+                if cfg.stats_interval <= 0 or now - last_line[0] < cfg.stats_interval:
+                    return
+                last_line[0] = now
+                print(live_line(registry, srv, now), file=sys.stderr, flush=True)
+
+            t0 = time.perf_counter()
+            server.run_timed(
+                arrivals, duration=cfg.duration, drain=cfg.drain, on_tick=on_tick
+            )
+        else:
+            for req in synthetic_requests(cfg, mcfg.vocab_size):
+                server.submit(req)
+            t0 = time.perf_counter()
+            server.run()
         wall = time.perf_counter() - t0
     finally:
         obs.disable()
@@ -420,7 +573,7 @@ def main(argv: list[str] | None = None) -> dict:
     decode_tokens = stats["generated_tokens"] - stats["requests_completed"]
     tok_s = round(decode_tokens / decode_s, 2) if decode_s else None
     print(summary_line(engine, stats, wall, tok_s), file=sys.stderr, flush=True)
-    return {
+    out = {
         "model": {
             "layers": mcfg.num_layers,
             "d_model": mcfg.d_model,
@@ -442,6 +595,17 @@ def main(argv: list[str] | None = None) -> dict:
             for name, p in summ["phases"].items()
         },
     }
+    if spec is not None:
+        out["load"] = {
+            "rate": spec.rate,
+            "process": spec.process,
+            "tenants": spec.tenants,
+            "duration_s": cfg.duration,
+            "arrivals": len(arrivals),
+            "shed": len(server.shed),
+        }
+        out["window_stats"] = registry.window_stats()
+    return out
 
 
 if __name__ == "__main__":

@@ -56,6 +56,19 @@ as in JAX. Under ``data × model`` the data replicas of a serving engine
 compute the same thing (JAX replicates them over the data axis), so the
 engine computes one replica: ``p`` is the ``tp_axis`` size.
 
+``kv_host_pages=N`` (paged only) gives the pool a host KV tier: ``N``
+page-sized seats in host memory (pinned on the card, allocated at
+construction) where the scheduler parks a preemption victim's pages and
+migrates prefix entries that would die with theirs.
+:meth:`Engine.spill_page` first copies a page, whole (every layer, K and
+V, an int8 pool's scales, every rank's head shard, the draft pool), into
+a fresh device tensor on the current stream: stream order puts that copy
+before any later write into the page, which the next prefill may make.
+The device-to-host copy then runs on a side stream behind a CUDA event,
+overlapping the next tick; :meth:`Engine.drain_spills` waits on the
+events, and :meth:`Engine.restore_page` drains a seat still in flight
+before it writes the seat back into a page.
+
 ``weights_dtype="int8"`` serves the int8 weight store: the state is
 quantized on the CPU (:func:`~mpit_tpu_torch.serve.weights.quantize_gpt2_params`)
 before it moves to the device, and the dense layers run the
@@ -206,6 +219,7 @@ class Engine:
         draft_cfg: GPT2Config | None = None,
         world=None,
         tp_axis: str | None = None,
+        kv_host_pages: int | None = None,
     ):
         if decode_attention not in _DECODE_MODES:
             raise ValueError(
@@ -278,6 +292,15 @@ class Engine:
         self.kv_dtype = kv_dtype or _DTYPE_SHORT.get(cfg.dtype, str(cfg.dtype))
 
         self.paged = kv_pages is not None
+        self.host_pages = int(kv_host_pages or 0)
+        if self.host_pages < 0:
+            raise ValueError(f"kv_host_pages must be >= 0, got {kv_host_pages}")
+        if self.host_pages and not self.paged:
+            raise ValueError(
+                "kv_host_pages is the paged engine's host KV tier; the "
+                "dense cache spills whole slots via export_kv_rows "
+                "(pass kv_pages=)"
+            )
         if self.paged:
             if kv_pages < 1:
                 raise ValueError(f"kv_pages must be >= 1, got {kv_pages}")
@@ -357,7 +380,8 @@ class Engine:
         tp_store = dict(store, ranks=self.tp)
         if self.paged:
             self.allocator = PageAllocator(
-                self.num_pages, self.page_size, self.pages_per_slot, slots
+                self.num_pages, self.page_size, self.pages_per_slot, slots,
+                host_pages=self.host_pages,
             )
             self.cache = alloc_paged_cache(
                 cfg, slots, self.num_pages, self.page_size, **tp_store
@@ -373,6 +397,8 @@ class Engine:
             (slots,), dtype=torch.int32, device=self.device
         )
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        if self.host_pages:
+            self._alloc_host_tier()
 
     def _build_draft(self, params, cfg: GPT2Config, store: dict) -> None:
         """The draft model and its cache. The draft runs the plain
@@ -557,6 +583,125 @@ class Engine:
                 continue
             for buf in kv_tensors(c.k) + kv_tensors(c.v):
                 buf[c.at(dst)] = buf[c.at(src)]
+
+    # -- host KV tier ------------------------------------------------------
+    def _page_views(self, page: int) -> list:
+        """Page ``page`` of every tensor a pool page spans: K and V (int8
+        rows and scales on an int8 pool) of the target's pool (every
+        rank's shard), then the draft's."""
+        return [
+            buf[c.at(page)]
+            for c in (self.cache, self.draft_cache)
+            if c is not None
+            for buf in kv_tensors(c.k) + kv_tensors(c.v)
+        ]
+
+    @functools.cached_property
+    def page_bytes(self) -> int:
+        """Bytes of one pool page across every tensor it spans (every
+        layer and rank, K and V, scales, the draft pool): what a spill or
+        a restore moves. 0 on the dense engine."""
+        if not self.paged:
+            return 0
+        return sum(v.numel() * v.element_size() for v in self._page_views(0))
+
+    def _alloc_host_tier(self) -> None:
+        """The seats: one host tensor a pool tensor, ``[host_pages] +``
+        its page's shape, pinned when the pool is on the card (pinning
+        failure raises: the tier never falls back to pageable memory),
+        plus the copy stream and the seat bookkeeping."""
+        pin = self.device.type == "cuda"
+        self._host_seats = [
+            torch.empty((self.host_pages, *v.shape), dtype=v.dtype, pin_memory=pin)
+            for v in self._page_views(0)
+        ]
+        self._copy_stream = torch.cuda.Stream(self.device) if pin else None
+        self._host_landed: set[int] = set()  # seats holding a payload
+        # Spills whose device-to-host copy may still be running: seat ->
+        # its CUDA event.
+        self._pending_spills: dict = {}
+        self.host_spilled_pages = 0
+        self.host_restreamed_pages = 0
+        self.host_spill_bytes = 0
+        self.host_restream_bytes = 0
+
+    def _require_host_tier(self) -> None:
+        if not self.host_pages:
+            raise ValueError("the host KV tier needs Engine(kv_host_pages=...)")
+
+    @torch.no_grad()
+    def spill_page(self, device_page: int, host_page: int) -> None:
+        """Start the spill of pool page ``device_page`` into seat
+        ``host_page``: the page is gathered into fresh device tensors on
+        the current stream (so a later write into the page, queued
+        behind it, cannot reach the copy), then copied to the pinned
+        seat on the copy stream behind an event. The seat holds the
+        payload once :meth:`drain_spills` has waited on that event."""
+        self._require_host_tier()
+        dp, hp = int(device_page), int(host_page)
+        self._pending_spills.pop(hp, None)
+        self._host_landed.discard(hp)
+        gathered = [v.clone() for v in self._page_views(dp)]
+        if self._copy_stream is None:  # the CPU: a plain copy
+            for seat, g in zip(self._host_seats, gathered):
+                seat[hp].copy_(g)
+            self._host_landed.add(hp)
+        else:
+            stream = self._copy_stream
+            stream.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(stream):
+                for seat, g in zip(self._host_seats, gathered):
+                    seat[hp].copy_(g, non_blocking=True)
+                    g.record_stream(stream)  # kept until the copy is done
+                event = torch.cuda.Event()
+                event.record(stream)
+            self._pending_spills[hp] = event
+        self.host_spilled_pages += 1
+        self.host_spill_bytes += self.page_bytes
+
+    def drain_spills(self) -> int:
+        """Wait for every spill still in flight; their seats then hold
+        their payloads. Called at the tick boundary, when the copies have
+        had the last tick to run. Returns the number of pages landed."""
+        if not self.host_pages or not self._pending_spills:
+            return 0
+        pending, self._pending_spills = self._pending_spills, {}
+        for hp, event in pending.items():
+            event.synchronize()
+            self._host_landed.add(hp)
+        return len(pending)
+
+    @torch.no_grad()
+    def restore_page(self, host_page: int, device_page: int, *, release: bool = False) -> None:
+        """Write seat ``host_page`` back into pool page ``device_page``,
+        whole (every tensor the spill took), on the current stream.
+        A seat whose spill is still in flight drains first.
+        ``release=True`` consumes the payload (a parked victim's resume);
+        otherwise the seat keeps it (a host prefix entry keeps serving
+        hits until promotion frees it). A seat without a payload raises
+        ``KeyError``."""
+        self._require_host_tier()
+        hp, dp = int(host_page), int(device_page)
+        if hp in self._pending_spills:
+            self.drain_spills()
+        if hp not in self._host_landed:
+            raise KeyError(f"host seat {hp} holds no payload")
+        for seat, view in zip(self._host_seats, self._page_views(dp)):
+            view.copy_(seat[hp].to(self.device, non_blocking=True))
+        self.host_restreamed_pages += 1
+        self.host_restream_bytes += self.page_bytes
+        if release:
+            self._host_landed.discard(hp)
+
+    def host_free(self, host_page: int) -> None:
+        """Drop seat ``host_page``'s payload without restoring it
+        (promotion made it redundant, a cold eviction reclaimed it, or a
+        resume's prefix hit covered it). A copy still in flight into the
+        seat finishes on the copy stream, before any later spill's."""
+        self._require_host_tier()
+        hp = int(host_page)
+        self._pending_spills.pop(hp, None)
+        self._host_landed.discard(hp)
 
     @torch.no_grad()
     def decode(self, active, temp, topk) -> np.ndarray:
@@ -793,8 +938,14 @@ class Engine:
             )
             for dst, src in pairs:
                 put(dst, src.to(device=dst.device, dtype=dst.dtype))
+        self.arm_slot(slot, length, first_token)
+
+    def arm_slot(self, slot: int, length: int, last_token: int) -> None:
+        """Arm ``slot`` for the next tick: its cache holds ``length`` rows
+        (injected, or restored from the host tier) and ``last_token`` is
+        its newest token, whose row the tick writes."""
         self.cache.lengths[slot] = int(length)
-        self.last_token[slot] = int(first_token)
+        self.last_token[slot] = int(last_token)
 
     def _refuse_tp_shipment(self) -> None:
         """The fleet's KV shipment moves one device's whole rows; a
@@ -818,5 +969,14 @@ class Engine:
         self.cache.lengths.zero_()
         self.last_token.zero_()
         self._gen.manual_seed(seed)
+        if self.host_pages:
+            # The tier empties with the pool: wait for copies in flight,
+            # drop every payload, zero the counters.
+            self.drain_spills()
+            self._host_landed.clear()
+            self.host_spilled_pages = 0
+            self.host_restreamed_pages = 0
+            self.host_spill_bytes = 0
+            self.host_restream_bytes = 0
         if self.paged:
             self.allocator.reset()

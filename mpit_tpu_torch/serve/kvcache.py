@@ -10,11 +10,13 @@ shared by all slots with its host-side page bookkeeping.
   scales with the tokens held, not with ``slots × max_len``, and a page
   named by two block tables is a shared prefix.
 - :class:`PageAllocator` — pure host Python and numpy: the free list,
-  per-page refcounts, the rolling-hash prefix index and copy-on-write
-  reserves, as in :mod:`mpit_tpu.serve.kvcache` without the host tier
-  and the memory ledger (later slices). Validity comes from ``lengths``
-  and the attention mask, never from buffer contents, so freed pages are
-  handed out again without zeroing.
+  per-page refcounts, the rolling-hash prefix index, copy-on-write
+  reserves and, with ``host_pages``, the host KV tier's seats (parked
+  preemption victims and prefix entries migrated off the pool), as in
+  :mod:`mpit_tpu.serve.kvcache` without the memory ledger (a later
+  slice). Validity comes from ``lengths`` and the attention mask, never
+  from buffer contents, so freed pages are handed out again without
+  zeroing.
 
 ``quantized=True`` puts a :class:`~mpit_tpu_torch.ops.kv_quant.QuantizedKV`
 (int8 rows and their per-(row, head) f32 scales) in each K/V seat of
@@ -33,6 +35,7 @@ tables) are one for all ranks.
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import numpy as np
 import torch
@@ -182,10 +185,15 @@ class AdmitPlan:
     """What :meth:`PageAllocator.admit` decided for one admission:
     ``shared_tokens`` prompt tokens whose K/V already sits in mapped
     shared pages (0 = cold), which is also the slot's write floor, and
-    the slot's ``pages`` in position order."""
+    the slot's ``pages`` in position order. ``restream`` holds the
+    ``(host_page, device_page)`` pairs to restore before the first
+    prefill chunk: non-empty only when the prefix hit landed on a
+    host-tier entry, whose pages come back into the first fresh pages of
+    the mapping."""
 
     shared_tokens: int
     pages: tuple
+    restream: tuple = ()
 
 
 def _prefix_hashes(tokens) -> list:
@@ -205,6 +213,21 @@ def _prefix_hashes(tokens) -> list:
 class _PrefixEntry:
     tokens: tuple  # the exact prefix (full compare before mapping)
     pages: tuple  # pages covering it, in position order
+    # Which namespace ``pages`` indexes: "hbm" ids are pool pages
+    # (refcounted, mappable); "host" ids are host seats, never
+    # refcounted or mapped: a hit restores them into fresh pages.
+    tier: str = "hbm"
+
+
+@dataclasses.dataclass(frozen=True)
+class _ParkedKV:
+    """A preemption victim's spilled K/V: ``host_pages`` (position
+    order) hold rows ``[0, fill)``, ``fill`` being the victim's cache
+    fill (``prompt + generated - 1``) when it was evicted. Its resume
+    restores them instead of prefilling the feed again."""
+
+    host_pages: tuple
+    fill: int
 
 
 class PageAllocator:
@@ -225,11 +248,22 @@ class PageAllocator:
       at admit, so a copy can never fail mid-decode.
     - **No partial allocation**: :meth:`admit` takes the whole
       requirement (fresh pages + COW reserve) or nothing.
+    - **Host tier** (``host_pages`` > 0): a second namespace of page ids,
+      seats whose payloads the engine keeps in host memory. A retiring
+      slot's sole-reader prefix entries migrate there instead of dying
+      (:meth:`spill_prefix_on_free`) and keep serving admissions by
+      restream; a preemption victim parks its rows there
+      (:meth:`park_pages`). Cold host entries are evicted to make room
+      (:meth:`_reclaim_host`); parked records never are.
     """
 
-    def __init__(self, num_pages: int, page_size: int, pages_per_slot: int, slots: int):
+    def __init__(self, num_pages: int, page_size: int, pages_per_slot: int, slots: int,
+                 *, host_pages: int = 0):
         if num_pages < 1:
             raise ValueError(f"num_pages must be >= 1, got {num_pages}")
+        if host_pages < 0:
+            raise ValueError(f"host_pages must be >= 0, got {host_pages}")
+        self.host_pages = host_pages
         self.num_pages = num_pages
         self.page_size = page_size
         self.pages_per_slot = pages_per_slot
@@ -246,11 +280,21 @@ class PageAllocator:
         self._slot_pages: dict[int, list[int]] = {}
         self._index: dict[tuple[int, int], _PrefixEntry] = {}
         self._page_keys: dict[int, set] = {}  # page -> index keys citing it
+        self._prefix_touch: dict[tuple, int] = {}  # index key -> last tick used
+        # The host tier: the allocator owns the seat ids, the engine the
+        # payloads.
+        self.host_free: list[int] = list(range(self.host_pages))[::-1]
+        self._host_page_keys: dict[int, set] = {}  # host page -> keys
+        self._parked: dict[Any, _ParkedKV] = {}  # rid -> parked record
         self.cow_copies = 0
         self.prefix_hits = 0
         self.admissions = 0
         self.shared_tokens_total = 0
         self.prompt_tokens_total = 0
+        self.host_prefix_hits = 0  # admits served from the host tier
+        self.parked_spills = 0  # preemption victims parked on the host
+        self.spilled_prefix_entries = 0  # entries migrated to the host
+        self.promoted_entries = 0  # host entries registered on the pool again
 
     # -- capacity -----------------------------------------------------------
     @property
@@ -281,6 +325,15 @@ class PageAllocator:
             else 0.0
         )
 
+    @property
+    def host_pages_in_use(self) -> int:
+        return self.host_pages - len(self.host_free)
+
+    @property
+    def host_resident_entries(self) -> int:
+        """Prefix-index entries whose K/V lives only in host memory."""
+        return sum(1 for e in self._index.values() if e.tier == "host")
+
     def pages_for(self, prompt_len: int, max_new_tokens: int) -> int:
         return pages_needed(prompt_len, max_new_tokens, self.page_size)
 
@@ -295,12 +348,13 @@ class PageAllocator:
                 return n, entry
         return 0, None
 
-    def admit(self, slot: int, prompt, max_new_tokens: int):
+    def admit(self, slot: int, prompt, max_new_tokens: int, *, tick: int = 0):
         """Map pages for one request into ``slot``'s block table.
 
         Returns an :class:`AdmitPlan`, or ``None`` when the pool cannot
         hold the request right now (nothing is taken; the caller keeps
-        it queued). Raises only for a request that could never fit."""
+        it queued). Raises only for a request that could never fit.
+        ``tick`` stamps the hit entry's recency (host eviction order)."""
         prompt = tuple(int(t) for t in prompt)
         need_total = self.pages_for(len(prompt), max_new_tokens)
         if need_total > self.pages_per_slot:
@@ -316,8 +370,14 @@ class PageAllocator:
                 f"shrink prompt + max_new_tokens or grow num_pages"
             )
         shared_tokens, entry = self._find_shared_prefix(prompt)
-        shared_pages = list(entry.pages) if entry is not None else []
-        partial_shared = bool(shared_tokens % self.page_size)
+        # A host-tier hit maps no shared pages: the prefix restores into
+        # fresh private pages (refcounts and COW never span tiers), so
+        # every page is the slot's own and no COW reserve is taken.
+        host_hit = entry is not None and entry.tier == "host"
+        shared_pages = (
+            [] if host_hit else list(entry.pages) if entry is not None else []
+        )
+        partial_shared = bool(shared_tokens % self.page_size) and not host_hit
         own_needed = need_total - len(shared_pages)
         # The whole requirement up front — fresh pages now, plus one
         # reserved free page for a mapped partial page's future copy.
@@ -337,35 +397,200 @@ class PageAllocator:
         self.block_tables[slot] = 0  # no stale entries from the last tenant
         self.block_tables[slot, : len(mapping)] = mapping
         self.admissions += 1
+        restream = ()
         if shared_tokens:
             self.prefix_hits += 1
+            # A hit refreshes the entry's recency on either tier: a host
+            # entry still paying for itself is not the next one evicted.
+            hashes = _prefix_hashes(prompt[:shared_tokens])
+            self._prefix_touch[(shared_tokens, hashes[-1])] = tick
+        if host_hit:
+            # The hit's pages restore into the first fresh pages, in
+            # position order. The entry stays on the host until
+            # register_prefix promotes it.
+            restream = tuple(
+                (int(h), int(mapping[i])) for i, h in enumerate(entry.pages)
+            )
+            self.host_prefix_hits += 1
         self.shared_tokens_total += shared_tokens
         self.prompt_tokens_total += len(prompt)
-        return AdmitPlan(shared_tokens=shared_tokens, pages=tuple(mapping))
+        return AdmitPlan(
+            shared_tokens=shared_tokens, pages=tuple(mapping), restream=restream
+        )
 
-    def register_prefix(self, slot: int, prompt) -> None:
+    def register_prefix(self, slot: int, prompt, *, tick: int = 0) -> list:
         """Index ``slot``'s fully prefilled prompt: one entry per
         page-aligned prefix plus the full prompt (its partly filled last
         page). Call only after the final prefill chunk ran — an entry
-        must never advertise K/V that is not on the device yet."""
+        must never advertise K/V that is not on the device yet.
+
+        A host-tier entry under the same key is promoted: the prefix is
+        on the pool again, so its host copy goes. Returns the host seats
+        that freed, whose payloads the engine drops."""
         prompt = tuple(int(t) for t in prompt)
         mapping = self._slot_pages.get(slot)
         if mapping is None:
-            return
+            return []
         hashes = _prefix_hashes(prompt)
         ps = self.page_size
         plen = len(prompt)
         boundaries = [k * ps for k in range(1, plen // ps + 1)]
         if plen % ps:
             boundaries.append(plen)
+        freed_host: list[int] = []
         for n in boundaries:
             key = (n, hashes[n])
-            if key in self._index:
-                continue  # first registration wins; content identical
+            prev = self._index.get(key)
+            if prev is not None:
+                if prev.tier != "host":
+                    continue  # first registration wins; content identical
+                freed_host += self._evict_host_entry(key, prev)
+                self.promoted_entries += 1
             pages = tuple(mapping[: -(-n // ps)])
             self._index[key] = _PrefixEntry(tokens=prompt[:n], pages=pages)
+            self._prefix_touch[key] = tick
             for p in pages:
                 self._page_keys.setdefault(p, set()).add(key)
+        return freed_host
+
+    # -- host tier ----------------------------------------------------------
+    def spill_prefix_on_free(self, slot: int):
+        """Plan the host migration of the prefix entries about to die
+        with ``slot``'s pages. Call before :meth:`free_slot`: the entries
+        citing a sole-reader (refcount 1) page of ``slot`` move to the
+        host tier, every device page they cite (still-shared ones too,
+        so the host copy stands alone) gets a seat, and their device
+        bookkeeping goes, so a later free of a surviving shared page
+        cannot kill them.
+
+        Returns ``(copies, evicted)``: ``copies`` the ``[(device_page,
+        host_page)]`` spills the engine runs before the pages recycle
+        (all or nothing: a host tier too small returns ``([], [])`` and
+        the entries die as without a tier); ``evicted`` the seats cold
+        host entries gave up, whose payloads the engine drops."""
+        if not self.host_pages:
+            return [], []
+        dying = [
+            p for p in self._slot_pages.get(slot, [])
+            if self.refcount[p] == 1 and self._page_keys.get(p)
+        ]
+        if not dying:
+            return [], []
+        keys: set = set()
+        for p in dying:
+            keys |= self._page_keys[p]
+        entries = [(k, self._index[k]) for k in sorted(keys) if k in self._index]
+        pages: list[int] = []
+        seen: set = set()
+        for _k, e in entries:
+            for p in e.pages:
+                if p not in seen:
+                    seen.add(p)
+                    pages.append(int(p))
+        evicted = self._reclaim_host(len(pages))
+        if evicted is None:
+            return [], []
+        mapping = {p: self.host_free.pop() for p in pages}
+        for k, e in entries:
+            for p in e.pages:
+                s = self._page_keys.get(p)
+                if s is not None:
+                    s.discard(k)
+                    if not s:
+                        del self._page_keys[p]
+            moved = _PrefixEntry(
+                tokens=e.tokens,
+                pages=tuple(mapping[int(p)] for p in e.pages),
+                tier="host",
+            )
+            self._index[k] = moved
+            for h in moved.pages:
+                self._host_page_keys.setdefault(h, set()).add(k)
+        self.spilled_prefix_entries += len(entries)
+        return [(p, mapping[p]) for p in pages], evicted
+
+    def park_pages(self, rid, slot: int, fill: int):
+        """Take host seats for a preemption victim's rows ``[0, fill)``,
+        all or nothing, evicting cold host prefix entries if needed
+        (parked records are never evicted: they are promised resumes).
+        Call before :meth:`free_slot`. Returns ``(copies, evicted)`` as
+        :meth:`spill_prefix_on_free` does, or ``None`` when the host tier
+        cannot hold them (the resume then recomputes)."""
+        if not self.host_pages or fill <= 0:
+            return None
+        mapping = self._slot_pages.get(slot)
+        npages = -(-fill // self.page_size)
+        if mapping is None or npages > len(mapping):
+            return None
+        evicted = self._reclaim_host(npages)
+        if evicted is None:
+            return None
+        host = [self.host_free.pop() for _ in range(npages)]
+        self._parked[rid] = _ParkedKV(host_pages=tuple(host), fill=fill)
+        self.parked_spills += 1
+        return [(int(mapping[i]), host[i]) for i in range(npages)], evicted
+
+    def peek_parked(self, rid):
+        """The parked record of ``rid`` (or None), its seats still held."""
+        return self._parked.get(rid)
+
+    def take_parked(self, rid):
+        """Pop ``rid``'s parked record and free its seats. Call only after
+        the payloads were consumed (restored or dropped): the next spill
+        may reuse the seats at once."""
+        rec = self._parked.pop(rid, None)
+        if rec is not None:
+            self.host_free.extend(rec.host_pages)
+        return rec
+
+    def drop_parked(self, rid) -> list:
+        """Discard ``rid``'s parked record. Returns the freed seats, whose
+        payloads the engine drops."""
+        rec = self._parked.pop(rid, None)
+        if rec is None:
+            return []
+        self.host_free.extend(rec.host_pages)
+        return list(rec.host_pages)
+
+    def _reclaim_host(self, need: int):
+        """Free seats until ``need`` are available, evicting the coldest
+        host prefix entries first (by last use, then length). Returns the
+        evicted seats (``[]`` when enough were free) or ``None`` when
+        ``need`` cannot be reached, in which case nothing was evicted."""
+        if need <= len(self.host_free):
+            return []
+        if len(self.host_free) + len(self._host_page_keys) < need:
+            return None
+        order = sorted(
+            {k for ks in self._host_page_keys.values() for k in ks},
+            key=lambda k: (self._prefix_touch.get(k, 0), k[0]),
+        )
+        freed: list[int] = []
+        for key in order:
+            if len(self.host_free) >= need:
+                break
+            entry = self._index.get(key)
+            if entry is None or entry.tier != "host":
+                continue
+            freed += self._evict_host_entry(key, entry)
+        return freed
+
+    def _evict_host_entry(self, key, entry) -> list:
+        """Drop one host-tier entry; seats no key cites any more return
+        to ``host_free`` and are returned (their payloads go)."""
+        self._index.pop(key, None)
+        self._prefix_touch.pop(key, None)
+        freed: list[int] = []
+        for h in entry.pages:
+            s = self._host_page_keys.get(h)
+            if s is None:
+                continue
+            s.discard(key)
+            if not s:
+                del self._host_page_keys[h]
+                self.host_free.append(h)
+                freed.append(int(h))
+        return freed
 
     def mapped_tokens(self) -> np.ndarray:
         """Per-slot writable capacity (mapped pages × page_size), int32
@@ -433,6 +658,7 @@ class PageAllocator:
             if self.refcount[p] == 0:
                 for key in self._page_keys.pop(p, ()):
                     entry = self._index.pop(key, None)
+                    self._prefix_touch.pop(key, None)
                     if entry is not None:
                         for q in entry.pages:
                             if q != p and q in self._page_keys:

@@ -4,7 +4,32 @@ Requests queue on the host and are admitted into free KV-cache slots
 between decode ticks (a new request rides the next prefill while the
 others keep decoding); each slot retires on EOS, max-new-tokens or a
 full cache, and its slot goes to the next queued request at once.
-FIFO order, closed loop: :meth:`Server.run` drains everything submitted.
+:meth:`Server.run` drains everything submitted (closed loop);
+:meth:`Server.run_timed` submits an open-loop arrival trace
+(:mod:`mpit_tpu_torch.serve.loadgen`) by its own clock, ticking in
+between. ``max_queue`` bounds the queue: arrivals beyond it are shed,
+counted and not raised.
+
+``Server(policy=SchedulingPolicy(...))`` replaces the FIFO queue with
+the policy tier (:mod:`mpit_tpu_torch.serve.policy`): priority tiers,
+tenant-fair order within a tier, projected-TTFT admission shedding at
+submit (``shed_admission``, kept apart from ``max_queue``'s
+``shed_queue_full``), and preemption on the paged engine: a lower-tier
+live generation is parked (its pages freed as retirement frees them,
+its tokens kept) and re-queued at the front of its tier, to resume
+through the chunked prefill with ``feed = prompt + tokens``. The
+resume's last row recomputes the decode tick the eviction displaced, so
+a resumed greedy request equals its un-preempted run.
+
+With a host KV tier (``Engine(kv_host_pages=...)``) a victim's pages
+are spilled to host seats before they recycle, and its resume restores
+them and goes live at once: the next tick writes the displaced row, as
+the uninterrupted run's tick did (the JAX package re-runs that row as a
+one-token prefill chunk; on the card a chunk's row differs from a
+tick's in its last bits, and a greedy token can part at a near-tie). A
+retiring slot's sole-reader prefix entries migrate to the host instead
+of dying, and a later hit on one restores its pages. Each resume's time (re-admission to its next
+token) is recorded by mode, ``restream`` or ``recompute``.
 
 On a paged engine admission also needs pages: the FIFO head is granted
 its whole page requirement (fresh pages, shared-prefix mappings and a
@@ -30,12 +55,26 @@ Observability (:mod:`mpit_tpu_torch.obs`):
   ``spec_drafted_tokens`` and ``spec_accepted_tokens`` and, in
   kernel mode, ``decode_blocks_skipped`` (cache tiles the length-aware
   kernel did not read this tick, from :func:`num_kv_blocks`); the
-  ``kv_pool_exhausted`` instant when admission starts waiting on pages.
+  ``kv_pool_exhausted`` instant when admission starts waiting on pages;
+- ``serve_shed``/``serve_shed_<cause>`` and ``serve_preemptions``
+  counters, the ``request_shed``, ``request_preempted`` and
+  ``request_resumed`` instants, and ``kv_host_restreams`` /
+  ``kv_prefix_spills`` with a host tier.
+
+``stream=`` (a :class:`~mpit_tpu_torch.obs.stream.StreamRegistry`) gets
+the rolling-window feed under the JAX package's names: histograms
+``request_ttft``, ``request_latency``, ``queue_wait``, ``prefill_tick``,
+``decode_tick`` (and ``resume_<mode>``); rates ``serve_arrivals``,
+``serve_completed``, ``serve_tokens``, ``serve_shed``,
+``serve_shed_<cause>``, ``serve_preemptions``; gauges ``queue_depth``,
+``slot_occupancy`` (and the KV gauges). A policy's projector reads the
+two tick windows; a policy without a registry gets a private one.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from collections import deque
 from typing import Any
@@ -51,11 +90,19 @@ __all__ = ["Completed", "Request", "Server", "warm_engine"]
 def warm_engine(engine) -> None:
     """Run one throwaway request through ``engine`` (spanned
     ``warmup``), then reset it: the first launches' one-off costs land
-    outside a timed window."""
+    outside a timed window. A paged engine also copies page 0 onto
+    itself (the COW copy), and a host tier spills page 0 to seat 0,
+    drains and restores it (a no-op round trip)."""
     with obs.span("warmup"):
         warm = Server(engine)
         warm.submit(Request(rid="warm", prompt=[1, 2, 3], max_new_tokens=2))
         warm.run()
+        if engine.paged:
+            engine.copy_page(0, 0)
+            if engine.host_pages:
+                engine.spill_page(0, 0)
+                engine.drain_spills()
+                engine.restore_page(0, 0, release=True)
     engine.reset()
 
 
@@ -63,7 +110,10 @@ def warm_engine(engine) -> None:
 class Request:
     """One generation request. ``temperature <= 0`` = greedy;
     ``top_k = 0`` = full vocabulary; ``eos_id = None`` = never stop
-    early."""
+    early; ``tenant`` labels the requester (stamped on its spans when
+    set). ``priority`` is the scheduling policy's tier (0 = highest; the
+    FIFO scheduler ignores it) and ``ttft_target_s`` the TTFT target the
+    policy's admission and preemption decisions use (<= 0 = none)."""
 
     rid: Any
     prompt: list[int]
@@ -71,6 +121,9 @@ class Request:
     temperature: float = 0.0
     top_k: int = 0
     eos_id: int | None = None
+    tenant: str = ""
+    priority: int = 0
+    ttft_target_s: float = 0.0
 
 
 @dataclasses.dataclass
@@ -85,6 +138,7 @@ class Completed:
     first_token_t: float
     finish_t: float
     truncated: bool = False  # retired by cache-full, not EOS/max-tokens
+    tenant: str = ""
 
     @property
     def ttft_s(self) -> float:
@@ -107,14 +161,30 @@ class _Live:
     # pages).
     base: int = 0
     floor: int = 0
+    # Preemption: ``feed`` is None until a preemption parks the request,
+    # then prompt + the tokens generated so far (the resume prefill's
+    # last row is the decode tick the eviction displaced); ``preempts``
+    # bounds thrash; ``park_tick`` is the tick it was parked.
+    feed: list | None = None
+    preempts: int = 0
+    park_tick: int = 0
+    # How the last resume rebuilt the cache ("restream" from parked host
+    # pages, "recompute" through the chunked prefill) and when it was
+    # re-admitted; cleared at the first token after the resume.
+    resume_mode: str = ""
+    resume_t: float = 0.0
 
     def remaining_new(self) -> int:
-        """Output tokens still owed: a speculative tick's budget."""
+        """Output tokens still owed: a speculative tick's budget, and
+        the generation term of a resume's page requirement (the tokens
+        already generated move into the feed, so the pages are the
+        same)."""
         return self.req.max_new_tokens - len(self.tokens)
 
     def feed_tokens(self) -> list:
-        """What prefill feeds the device: the prompt."""
-        return self.req.prompt
+        """What prefill feeds the device: the prompt, or the resume
+        sequence after a preemption."""
+        return self.feed if self.feed is not None else self.req.prompt
 
     def cache_fill(self) -> int:
         """Host mirror of the slot's device cache fill. Prefill cached
@@ -128,13 +198,30 @@ class Server:
     """The continuous-batching loop around one
     :class:`~mpit_tpu_torch.serve.Engine`.
 
-    Host-side only: slot bookkeeping, the FIFO queue, retirement and
-    telemetry. ``submit()`` enqueues; ``run()`` drives admit/decode
-    ticks until the queue and all slots drain (or ``max_ticks``).
+    Host-side only: slot bookkeeping, the request queue, retirement and
+    telemetry. ``submit()`` enqueues (or sheds); ``run()`` drives
+    admit/decode ticks until the queue and all slots drain (or
+    ``max_ticks``); ``run_timed()`` drives an open-loop arrival trace by
+    its clock. ``stream``, ``max_queue`` and ``policy``: module
+    docstring.
     """
 
-    def __init__(self, engine):
+    def __init__(self, engine, *, stream=None, max_queue=None, policy=None):
         self.engine = engine
+        self.policy = policy
+        if policy is not None and stream is None:
+            # The policy's projector reads rolling tick windows: without
+            # a caller's registry a private one keeps admission and
+            # preemption on evidence, not silently off.
+            from mpit_tpu_torch.obs.stream import StreamRegistry
+
+            stream = StreamRegistry()
+        self.stream = stream
+        if policy is not None:
+            policy.bind_registry(stream)
+        if max_queue is not None and max_queue < 1:
+            raise ValueError(f"max_queue must be >= 1, got {max_queue}")
+        self.max_queue = max_queue
         # Stamped on every prefill/decode span: the attention mode and
         # the sampler this engine runs, and the cache and weight dtypes
         # when they were chosen explicitly.
@@ -146,6 +233,7 @@ class Server:
         if engine.weights_dtype_explicit:
             self._kv_attrs["weights_dtype"] = engine.weights_dtype
         self._paged = engine.paged
+        self._host_tier = self._paged and engine.host_pages > 0
         # Speculative decoding: k drafted tokens a tick, and the roll-up
         # stats() reports (tokens emitted per slot-tick, acceptance).
         self._spec = int(getattr(engine, "spec_k", 0) or 0)
@@ -160,6 +248,8 @@ class Server:
         self.prefilling: dict[int, _Live] = {}
         self.free: list[int] = list(range(engine.slots))[::-1]  # pop() = slot 0 first
         self.completed: list[Completed] = []
+        self.shed: list[Request] = []
+        self.shed_causes: dict[str, int] = {}  # cause -> count
         self.tick = 0
         self.admissions = 0
         self._occupancy_sum = 0.0
@@ -169,16 +259,33 @@ class Server:
         self._kv_occ_sum = 0.0
         self._kv_occ_peak = 0.0
         self._pages_shared_peak = 0
+        self._host_in_use_peak = 0
+        # Resume durations by rebuild mode: re-admission to the first
+        # token after it.
+        self.resume_durations: dict[str, list] = {"restream": [], "recompute": []}
         # Per-slot sampling-control arrays (host; refreshed on admit/retire).
         s = engine.slots
         self._temp = np.zeros((s,), np.float32)
         self._topk = np.zeros((s,), np.int32)
 
     # -- intake -------------------------------------------------------------
-    def submit(self, req: Request) -> None:
-        """Enqueue one request; malformed requests raise."""
+    @staticmethod
+    def _span_attrs(req: Request) -> dict:
+        """``rid`` (and ``tenant`` when set) for per-request spans."""
+        return {"rid": req.rid, "tenant": req.tenant} if req.tenant else {"rid": req.rid}
+
+    def submit(self, req: Request) -> bool:
+        """Enqueue one request; returns False when it was shed instead:
+        by ``max_queue`` (cause ``queue_full``) or by the policy's
+        projected-TTFT verdict (cause ``admission``). Malformed requests
+        raise: shedding is a load decision, validation a caller's bug."""
         if not req.prompt:
             raise ValueError(f"request {req.rid!r}: empty prompt")
+        if req.priority < 0:
+            raise ValueError(
+                f"request {req.rid!r}: priority must be >= 0 (0 = "
+                f"highest tier), got {req.priority}"
+            )
         if req.max_new_tokens < 1:
             raise ValueError(
                 f"request {req.rid!r}: max_new_tokens must be >= 1 "
@@ -232,7 +339,56 @@ class Server:
                 f"{k_cap}); raise Engine(sample_k_cap=...) or use "
                 f"top_k=0 (full vocab)"
             )
-        self.queue.append(_Live(req, time.perf_counter()))
+        if self.stream is not None:
+            # Arrivals count before the shed decision: a shed rate is
+            # sheds over arrivals.
+            self.stream.inc("serve_arrivals")
+        cause = None
+        if self.max_queue is not None and self._qdepth() >= self.max_queue:
+            cause = "queue_full"
+        elif self.policy is not None and self.policy.should_shed(req):
+            cause = "admission"
+            self.policy.shed_admission += 1
+        if cause is not None:
+            self.shed.append(req)
+            self.shed_causes[cause] = self.shed_causes.get(cause, 0) + 1
+            obs.counter("serve_shed")
+            obs.counter(f"serve_shed_{cause}")
+            obs.instant(
+                "request_shed", cause=cause, queue_depth=self._qdepth(),
+                **self._span_attrs(req),
+            )
+            if self.stream is not None:
+                self.stream.inc("serve_shed")
+                self.stream.inc(f"serve_shed_{cause}")
+            return False
+        self._enqueue(_Live(req, time.perf_counter()))
+        return True
+
+    # -- queue plumbing (FIFO deque or the policy's tiers) --------------------
+    def _enqueue(self, live: _Live) -> None:
+        if self.policy is not None:
+            self.policy.enqueue(live)
+        else:
+            self.queue.append(live)
+
+    def _qdepth(self) -> int:
+        return self.policy.pending() if self.policy is not None else len(self.queue)
+
+    def _next_queued(self) -> _Live | None:
+        """Pop the next request to admit: FIFO, or the policy's
+        tier-then-deficit-round-robin choice."""
+        if self.policy is not None:
+            return self.policy.next()
+        return self.queue.popleft() if self.queue else None
+
+    def _restore_queued(self, live: _Live) -> None:
+        """Undo one pop (the admission found no pages): back to the head
+        of its queue (the policy also refunds the spent credit)."""
+        if self.policy is not None:
+            self.policy.restore(live)
+        else:
+            self.queue.appendleft(live)
 
     # -- the loop -----------------------------------------------------------
     def _admit(self) -> None:
@@ -245,49 +401,241 @@ class Server:
             self._admit_dense()
 
     def _admit_paged(self) -> None:
-        """Grant the FIFO head a free slot and its whole page requirement
-        (all or nothing, in the allocator), or stop: stopping at the
-        first request that does not fit keeps admission fair, so a
-        stream of small requests cannot starve a big one."""
+        """Grant the next queued request (FIFO head, or the policy's
+        choice) a free slot and its whole page requirement (all or
+        nothing, in the allocator), or stop: stopping at the first
+        request that does not fit keeps admission fair, so a stream of
+        small requests cannot starve a big one.
+
+        With a policy, a capacity miss (no free slot, or no pages for
+        the chosen request) may preempt instead of stopping: when the
+        best queued tier's head is projected to miss its TTFT target, a
+        lower-tier live generation is parked and the loop retries. Each
+        preemption frees one victim; the live set and
+        ``max_preemptions`` bound the loop."""
         alloc = self.engine.allocator
         now = time.perf_counter()
-        while self.free and self.queue:
-            live = self.queue[0]
+        while True:
+            if not self.free:
+                if not self._try_preempt(now):
+                    break
+                continue  # a slot (and its victim's pages) just freed
+            live = self._next_queued()
+            if live is None:
+                break
             slot = self.free[-1]
             feed = live.feed_tokens()
-            plan = alloc.admit(slot, feed, live.req.max_new_tokens)
+            plan = alloc.admit(slot, feed, live.remaining_new(), tick=self.tick)
             if plan is None:
-                # The pool is full right now; nothing was taken. The
-                # instant marks only the transition into exhaustion, so
-                # a long overload writes one event, not one per tick.
+                # The pool is full right now; nothing was taken. Back to
+                # the queue head, and retry once a retirement (or a
+                # preemption) frees pages. The instant marks only the
+                # transition into exhaustion, so a long overload writes
+                # one event, not one per tick.
+                self._restore_queued(live)
+                if self._try_preempt(now):
+                    continue
                 if not self._pool_exhausted:
                     self._pool_exhausted = True
                     obs.instant(
                         "kv_pool_exhausted", tick=self.tick,
-                        free_pages=alloc.free_pages, queued=len(self.queue),
+                        free_pages=alloc.free_pages, queued=self._qdepth(),
                     )
                 break
-            self.queue.popleft()
             self.free.pop()
             self._pool_exhausted = False
             # The write floor is the shared-token count; the forward
-            # re-runs at least the last prompt token (its output seeds
-            # the first output token), so the feed base stops one below
-            # the end even on a full-prompt prefix hit.
+            # re-runs at least the last feed token (its output seeds the
+            # next token), so the feed base stops one below the end even
+            # on a full-feed prefix hit.
             live.floor = plan.shared_tokens
             live.base = min(plan.shared_tokens, len(feed) - 1)
             self._temp[slot] = live.req.temperature
             self._topk[slot] = live.req.top_k
-            obs.span_at("queue_wait", live.submit_t, now, rid=live.req.rid)
-            self.prefilling[slot] = live
+            if plan.restream:
+                # A host-tier prefix hit: its pages come back into the
+                # fresh pages before the first chunk, and the write floor
+                # masks re-writes below it as for a pool hit. The entry
+                # keeps its seats until promotion.
+                for hp, dp in plan.restream:
+                    self.engine.restore_page(hp, dp)
+                obs.counter("kv_host_restreams", len(plan.restream))
+            if live.tokens:
+                # Resumed after a preemption: its queue wait and TTFT
+                # were recorded in its first stint.
+                mode = "recompute"
+                if self._host_tier:
+                    rec = alloc.peek_parked(live.req.rid)
+                    if rec is not None:
+                        if self._restream_parked(slot, live, plan, rec):
+                            mode = "restream"
+                        alloc.take_parked(live.req.rid)
+                live.resume_mode = mode
+                live.resume_t = now
+                if self.policy is not None:
+                    self.policy.resumes += 1
+                obs.instant(
+                    "request_resumed", generated=len(live.tokens), mode=mode,
+                    **self._span_attrs(live.req),
+                )
+            else:
+                obs.span_at(
+                    "queue_wait", live.submit_t, now, **self._span_attrs(live.req)
+                )
+                if self.stream is not None:
+                    self.stream.observe("queue_wait", now - live.submit_t)
+            if live.resume_mode == "restream":
+                # Every row below the fill is back: the slot decodes
+                # from this tick on (_finish_restream closes the resume).
+                self.engine.arm_slot(slot, live.cache_fill(), live.tokens[-1])
+                self.live[slot] = live
+            else:
+                self.prefilling[slot] = live
             self.admissions += 1
 
+    # -- preemption (paged engines only) --------------------------------------
+    def _try_preempt(self, now: float) -> bool:
+        """Park one lower-tier live generation when the policy says the
+        best queued tier's head would otherwise miss its TTFT target.
+        True when a victim was evicted (a slot and its pages are free)."""
+        if self.policy is None or not self._paged:
+            return False
+        priority = self.policy.wants_preemption(now)
+        if priority is None:
+            return False
+        # A restreamed resume awaiting its first tick is still mid-resume,
+        # as a prefilling slot is: not a candidate.
+        victim = self.policy.pick_victim(
+            {s: l for s, l in self.live.items() if l.resume_mode != "restream"}, priority
+        )
+        if victim is None:
+            return False
+        self._preempt(victim, for_tier=priority)
+        return True
+
+    def _preempt(self, slot: int, *, for_tier: int | None = None) -> None:
+        """Evict ``slot``'s live request: free its pages as retirement
+        frees them (sole-owner pages to the free list, shared pages one
+        refcount down), keep its tokens as the resume feed, and re-queue
+        it at the front of its tier (of the FIFO queue without a
+        policy). With a host tier its filled rows are spilled first, all
+        or nothing, and the prefix entries dying with the slot migrate;
+        otherwise the resume recomputes them."""
+        live = self.live.pop(slot)
+        alloc = self.engine.allocator
+        owned, shared = alloc.slot_page_stats(slot)
+        spilled = 0
+        if self._host_tier:
+            planned = alloc.park_pages(live.req.rid, slot, live.cache_fill())
+            if planned is not None:
+                copies, evicted = planned
+                for hp in evicted:
+                    self.engine.host_free(hp)
+                for dp, hp in copies:
+                    self.engine.spill_page(dp, hp)
+                spilled = len(copies)
+            self._spill_dying_prefixes(slot)
+        alloc.free_slot(slot)
+        self.free.append(slot)
+        self._temp[slot] = 0.0
+        self._topk[slot] = 0
+        live.preempts += 1
+        live.feed = list(live.req.prompt) + [int(t) for t in live.tokens]
+        live.base = 0
+        live.floor = 0
+        live.park_tick = self.tick
+        obs.counter("serve_preemptions")
+        for_rid = self.policy.last_preemption_for if for_tier is not None else ""
+        obs.instant(
+            "request_preempted",
+            tier=live.req.priority,
+            for_tier=for_tier if for_tier is not None else -1,
+            for_rid=for_rid,
+            generated=len(live.tokens),
+            pages_freed=owned,
+            pages_unshared=shared,
+            pages_spilled=spilled,
+            **self._span_attrs(live.req),
+        )
+        if self.stream is not None:
+            self.stream.inc("serve_preemptions")
+        if self.policy is not None:
+            self.policy.preemptions += 1
+            self.policy.requeue_front(live)
+        else:
+            self.queue.appendleft(live)
+
+    def _spill_dying_prefixes(self, slot: int) -> None:
+        """Migrate the prefix entries that would die with ``slot``'s
+        pages to the host tier; call just before ``free_slot``. All or
+        nothing: when the tier cannot hold them they die as without it."""
+        if not self._host_tier:
+            return
+        copies, evicted = self.engine.allocator.spill_prefix_on_free(slot)
+        for hp in evicted:
+            self.engine.host_free(hp)
+        for dp, hp in copies:
+            self.engine.spill_page(dp, hp)
+        if copies:
+            obs.counter("kv_prefix_spills", len(copies))
+
+    def _restream_parked(self, slot: int, live: _Live, plan, rec) -> bool:
+        """Rebuild a resumed victim's rows ``[shared, fill)`` from its
+        parked seats instead of prefilling the feed again. Rows below
+        the admission's shared floor are on the pool already (a prefix
+        hit); a still-shared boundary page is copied out first, and each
+        restored page is written whole (parked rows below the floor equal
+        the resident ones, rows past the fill stay masked). False when
+        the prefix hit already covers every parked row (the payloads are
+        dropped, and the feed's one remaining row is prefilled)."""
+        eng = self.engine
+        alloc = eng.allocator
+        ps = alloc.page_size
+        s = plan.shared_tokens
+        fill = rec.fill
+        if s >= fill:
+            for hp in rec.host_pages:
+                eng.host_free(hp)
+            return False
+        if s % ps:
+            # The boundary page holds shared rows below ``s``: a whole-page
+            # restore over a still-shared page would corrupt its other
+            # readers. The admission reserved the page this copy takes.
+            pair = alloc.cow_before_write(slot, s)
+            if pair is not None:
+                eng.copy_page(*pair)
+                obs.counter("kv_cow_copies")
+        bt = alloc.block_tables[slot]
+        for pi in range(s // ps, (fill - 1) // ps + 1):
+            eng.restore_page(int(rec.host_pages[pi]), int(bt[pi]), release=True)
+        for pi in range(0, s // ps):
+            # Wholly below the shared floor: the pool's pages serve them.
+            eng.host_free(int(rec.host_pages[pi]))
+        return True
+
+    def _finish_restream(self, slot: int, live: _Live, now: float) -> None:
+        """After the first tick of a restreamed resume, which wrote the
+        feed's last row: register the feed in the prefix index (as a
+        resume's final prefill chunk does) and record the resume's time."""
+        alloc = self.engine.allocator
+        for hp in alloc.register_prefix(slot, live.feed_tokens(), tick=self.tick):
+            self.engine.host_free(hp)
+        self._close_resume(live, now)
+
+    def _close_resume(self, live: _Live, now: float) -> None:
+        """Record a resume's time, re-admission to its next token, by mode."""
+        dur = now - live.resume_t
+        self.resume_durations.setdefault(live.resume_mode, []).append(dur)
+        if self.stream is not None:
+            self.stream.observe(f"resume_{live.resume_mode}", dur)
+        live.resume_mode = ""
+
     def _prefill_chunk_tick(self) -> None:
-        """Advance every prefilling slot by one prompt chunk, in one
-        batched call. Slots whose last prompt token rides this chunk
-        sample their first output token, register their prompt in the
-        prefix index (only now: an entry must never advertise K/V not
-        yet on the device) and go live."""
+        """Advance every prefilling slot by one feed chunk, in one
+        batched call. Slots whose last feed token rides this chunk
+        sample their next token, register their feed in the prefix index
+        (only now: an entry must never advertise K/V not yet on the
+        device) and go live."""
         if not self.prefilling:
             return
         eng = self.engine
@@ -299,6 +647,7 @@ class Server:
         floor = np.zeros((s,), np.int32)
         sample_mask = np.zeros((s,), bool)
         finishing: list[tuple[int, _Live]] = []
+        now = time.perf_counter()
         for slot, live in self.prefilling.items():
             p = live.feed_tokens()
             n = min(w, len(p) - live.base)
@@ -333,23 +682,49 @@ class Server:
                 self._temp, self._topk,
             )
         t_first = time.perf_counter()
+        if self.stream is not None:
+            self.stream.observe("prefill_tick", t_first - now)
         for slot, live in self.prefilling.items():
             live.base += int(chunk_lens[slot])
         for slot, live in finishing:
             del self.prefilling[slot]
-            alloc.register_prefix(slot, live.feed_tokens())
-            live.first_token_t = t_first
-            live.tokens = [int(first[slot])]
-            obs.span_at(
-                "request_ttft", live.submit_t, t_first, rid=live.req.rid
-            )
+            for hp in alloc.register_prefix(slot, live.feed_tokens(), tick=self.tick):
+                # Promoted: the prefix is on the pool again.
+                eng.host_free(hp)
+            if live.tokens:
+                # Resumed: this chunk's token is the decode step the
+                # eviction displaced.
+                live.tokens.append(int(first[slot]))
+                if live.resume_mode:
+                    self._close_resume(live, t_first)
+            else:
+                live.first_token_t = t_first
+                live.tokens = [int(first[slot])]
+                self._record_ttft(live, t_first)
             self.live[slot] = live
             self._maybe_retire(slot, t_first)
 
+    def _record_ttft(self, live: _Live, t_first: float) -> None:
+        """The ``request_ttft`` span and windows, with the per-tier
+        series (``request_ttft_tier<p>``) when tiers are in play and the
+        per-tenant one behind ``stats()``'s tenant roll-up."""
+        req = live.req
+        obs.span_at("request_ttft", live.submit_t, t_first, **self._span_attrs(req))
+        if self.stream is None:
+            return
+        ttft = t_first - live.submit_t
+        self.stream.observe("request_ttft", ttft)
+        if self.policy is not None or req.priority or req.ttft_target_s > 0:
+            self.stream.observe(f"request_ttft_tier{req.priority}", ttft)
+        if req.tenant:
+            self.stream.observe(f"request_ttft_tenant:{req.tenant}", ttft)
+
     def _admit_dense(self) -> None:
-        """Move queued requests into free slots and prefill them, in one
-        batched call however many were admitted this tick."""
-        if not self.queue or not self.free:
+        """Move queued requests into free slots (FIFO, or the policy's
+        order) and prefill them, in one batched call however many were
+        admitted this tick. The dense engine never preempts: a slot has
+        no pages to free."""
+        if not self._qdepth() or not self.free:
             return
         s, plen = self.engine.slots, self.engine.prefill_len
         tokens = np.zeros((s, plen), np.int32)
@@ -357,8 +732,10 @@ class Server:
         admit = np.zeros((s,), bool)
         batch: list[tuple[int, _Live]] = []
         now = time.perf_counter()
-        while self.free and self.queue:
-            live = self.queue.popleft()
+        while self.free:
+            live = self._next_queued()
+            if live is None:
+                break
             slot = self.free.pop()
             p = live.req.prompt
             tokens[slot, : len(p)] = p
@@ -366,7 +743,9 @@ class Server:
             admit[slot] = True
             self._temp[slot] = live.req.temperature
             self._topk[slot] = live.req.top_k
-            obs.span_at("queue_wait", live.submit_t, now, rid=live.req.rid)
+            obs.span_at("queue_wait", live.submit_t, now, **self._span_attrs(live.req))
+            if self.stream is not None:
+                self.stream.observe("queue_wait", now - live.submit_t)
             batch.append((slot, live))
         with obs.span(
             "prefill", admitted=len(batch), attention=self._attn_mode,
@@ -378,13 +757,13 @@ class Server:
                 tokens, lens, admit, self._temp, self._topk
             )
         t_first = time.perf_counter()
+        if self.stream is not None:
+            self.stream.observe("prefill_tick", t_first - now)
         self.admissions += len(batch)
         for slot, live in batch:
             live.first_token_t = t_first
             live.tokens = [int(first[slot])]
-            obs.span_at(
-                "request_ttft", live.submit_t, t_first, rid=live.req.rid
-            )
+            self._record_ttft(live, t_first)
             self.live[slot] = live
             self._maybe_retire(slot, t_first)
 
@@ -407,13 +786,17 @@ class Server:
         if self._paged:
             # Unmap the slot's pages: sole-owner pages return to the free
             # list (handed out again without zeroing) and the prefix
-            # entries citing them die.
+            # entries citing them die, unless the host tier takes them.
+            self._spill_dying_prefixes(slot)
             self.engine.allocator.free_slot(slot)
         self.free.append(slot)
         self._temp[slot] = 0.0
         self._topk[slot] = 0
-        obs.span_at("request_latency", live.submit_t, now, rid=req.rid)
+        obs.span_at("request_latency", live.submit_t, now, **self._span_attrs(req))
         obs.counter("serve_requests")
+        if self.stream is not None:
+            self.stream.observe("request_latency", now - live.submit_t)
+            self.stream.inc("serve_completed")
         truncated = (
             full and tok != req.eos_id and len(live.tokens) < req.max_new_tokens
         )
@@ -426,6 +809,7 @@ class Server:
                 first_token_t=live.first_token_t,
                 finish_t=now,
                 truncated=truncated,
+                tenant=req.tenant,
             )
         )
 
@@ -466,6 +850,7 @@ class Server:
         rids = [live.req.rid for live in self.live.values()]
         labels = dict(active=n_live, attention=self._attn_mode, sampler=self._sampler,
                       rids=rids, **self._kv_attrs)
+        t0 = time.perf_counter()
         with obs.span("decode", spec_k=k, **labels):
             with obs.span("spec_draft", **labels):
                 eng.spec_draft(active, self._temp, self._topk)
@@ -483,6 +868,9 @@ class Server:
         self._spec_active_ticks += n_live
         self._spec_drafted += k * n_live
         self._spec_accepted += accepted
+        if self.stream is not None:
+            self.stream.inc("serve_tokens", float(emitted))
+            self.stream.observe("decode_tick", now - t0)
         if self._attn_mode == "kernel":
             # The plain tick's tile accounting at the verify's T = k + 1.
             lens = np.asarray([live.cache_fill() for live in self.live.values()])
@@ -496,7 +884,10 @@ class Server:
             )
         for slot in list(self.live):
             n = int(n_emit[slot])
-            self.live[slot].tokens.extend(int(t) for t in emit[slot, :n])
+            live = self.live[slot]
+            live.tokens.extend(int(t) for t in emit[slot, :n])
+            if live.resume_mode == "restream":
+                self._finish_restream(slot, live, now)
             self._maybe_retire(slot, now)
 
     def _decode_tick(self) -> None:
@@ -518,6 +909,7 @@ class Server:
                 if pair is not None:
                     self.engine.copy_page(*pair)
                     obs.counter("kv_cow_copies")
+        t0 = time.perf_counter()
         with obs.span(
             "decode", active=int(active.sum()), attention=self._attn_mode,
             sampler=self._sampler,
@@ -527,6 +919,9 @@ class Server:
             toks = self.engine.decode(active, self._temp, self._topk)
         now = time.perf_counter()
         obs.counter("serve_tokens", float(active.sum()))
+        if self.stream is not None:
+            self.stream.inc("serve_tokens", float(active.sum()))
+            self.stream.observe("decode_tick", now - t0)
         if self._attn_mode == "kernel":
             # Cache tiles the length-aware kernel skipped this tick, by
             # the kernel's own bound (num_kv_blocks). Free slots run
@@ -541,37 +936,50 @@ class Server:
                 float(total * self.engine.slots - int(visited.sum()) - n_free),
             )
         for slot in list(self.live):
-            self.live[slot].tokens.append(int(toks[slot]))
+            live = self.live[slot]
+            live.tokens.append(int(toks[slot]))
+            if live.resume_mode == "restream":
+                self._finish_restream(slot, live, now)
             self._maybe_retire(slot, now)
 
     def _pending(self) -> bool:
-        """Work outstanding: queued, mid-prefill (paged) or live."""
-        return bool(self.queue or self.prefilling or self.live)
+        """Work outstanding: queued (FIFO or the policy's tiers),
+        mid-prefill (paged) or live."""
+        return bool(self._qdepth() or self.prefilling or self.live)
 
     def _kv_gauges(self) -> None:
         """Cache-memory gauges: ``kv_tokens_cached`` (live fills plus
-        prefill progress) and, paged, pool occupancy and shared pages."""
-        obs.gauge(
-            "kv_tokens_cached",
-            float(
-                sum(live.cache_fill() for live in self.live.values())
-                + sum(live.base for live in self.prefilling.values())
-            ),
+        prefill progress) and, paged, pool occupancy and shared pages;
+        in the recorder and the stream windows."""
+        kv_tokens = float(
+            sum(live.cache_fill() for live in self.live.values())
+            + sum(live.base for live in self.prefilling.values())
         )
-        if not self._paged:
-            return
-        alloc = self.engine.allocator
-        occ = alloc.occupancy
-        shared = alloc.pages_shared
-        self._kv_occ_sum += occ
-        self._kv_occ_peak = max(self._kv_occ_peak, occ)
-        self._pages_shared_peak = max(self._pages_shared_peak, shared)
-        obs.gauge("kv_pool_occupancy", occ)
-        obs.gauge("prefix_pages_shared", float(shared))
+        gauges = {"kv_tokens_cached": kv_tokens}
+        if self._paged:
+            alloc = self.engine.allocator
+            occ = alloc.occupancy
+            shared = alloc.pages_shared
+            self._kv_occ_sum += occ
+            self._kv_occ_peak = max(self._kv_occ_peak, occ)
+            self._pages_shared_peak = max(self._pages_shared_peak, shared)
+            gauges.update(kv_pool_occupancy=occ, prefix_pages_shared=float(shared))
+            if self._host_tier:
+                in_use = alloc.host_pages_in_use
+                self._host_in_use_peak = max(self._host_in_use_peak, in_use)
+                gauges["kv_host_pages_in_use"] = float(in_use)
+        for name, val in gauges.items():
+            obs.gauge(name, val)
+            if self.stream is not None:
+                self.stream.set_gauge(name, val)
 
     def _run_tick(self) -> None:
-        """One loop iteration: admit, prefill chunk (paged), gauges,
-        decode."""
+        """One loop iteration: land last tick's spills, admit, prefill
+        chunk (paged), gauges, decode."""
+        if self._host_tier:
+            # The spills dispatched last tick copied under its decode;
+            # waiting here costs what is left of them.
+            self.engine.drain_spills()
         self._admit()
         if self._paged:
             self._prefill_chunk_tick()
@@ -580,6 +988,16 @@ class Server:
         occupancy = busy / self.engine.slots
         self._occupancy_sum += occupancy
         obs.gauge("slot_occupancy", occupancy)
+        if self.stream is not None:
+            self.stream.set_gauge("slot_occupancy", occupancy)
+            self.stream.set_gauge("queue_depth", float(self._qdepth()))
+        if self.policy is not None:
+            # One backlog gauge per tier the run has seen, zeros
+            # included, so an emptied tier reads 0.
+            for tier, depth in self.policy.tier_depths().items():
+                obs.gauge(f"queue_depth_tier{tier}", float(depth))
+                if self.stream is not None:
+                    self.stream.set_gauge(f"queue_depth_tier{tier}", float(depth))
         self._kv_gauges()
         if self.live:
             self._decode_tick()
@@ -597,7 +1015,79 @@ class Server:
             self._truncated = True
         return self.completed
 
+    def run_timed(
+        self,
+        arrivals,
+        *,
+        duration: float | None = None,
+        drain: bool = True,
+        max_ticks: int = 1_000_000,
+        on_tick=None,
+    ) -> list[Completed]:
+        """Open-loop drive: submit each
+        :class:`~mpit_tpu_torch.serve.loadgen.Arrival` when its clock
+        (seconds from the call) comes due, tick the engine in between,
+        and stop admitting at ``duration`` seconds (``None``: when the
+        trace runs out).
+
+        ``drain=True`` keeps ticking past the window until queued and
+        live work finishes, so every admitted request is answered.
+        ``drain=False`` stops at the window's end: past saturation a
+        drain would never return, and what completed inside the window
+        is the result (``stats()`` reports ``truncated``).
+        ``on_tick(server, now_s)`` is called once a loop iteration (the
+        CLI's live line). While nothing is pending the loop sleeps to the
+        next arrival, at most 50 ms at a time. Sheds are counted, not
+        raised."""
+        arrivals = sorted(arrivals, key=lambda a: a.t)
+        self._truncated = False
+        t0 = time.perf_counter()
+        i = 0
+        end_t = math.inf if duration is None else duration
+        while self.tick < max_ticks:
+            now = time.perf_counter() - t0
+            while i < len(arrivals) and arrivals[i].t <= min(now, end_t):
+                self.submit(arrivals[i].request)
+                i += 1
+            pending_arrivals = i < len(arrivals) and arrivals[i].t < end_t
+            if now >= end_t and not (drain and self._pending()):
+                break
+            if not pending_arrivals and not self._pending():
+                if now >= end_t or i >= len(arrivals):
+                    break  # the trace is spent and everything answered
+            if not self._pending():
+                wake = arrivals[i].t if pending_arrivals else end_t
+                delay = min(wake - now, 0.05)
+                if delay > 0:
+                    time.sleep(delay)
+                if on_tick is not None:
+                    on_tick(self, now)
+                continue
+            self._run_tick()
+            if on_tick is not None:
+                on_tick(self, time.perf_counter() - t0)
+        if self._pending():
+            self._truncated = True
+        return self.completed
+
     # -- reporting ----------------------------------------------------------
+    def _tenant_rollup(self) -> dict:
+        """Per-tenant completions, sheds and, with a stream registry, the
+        whole run's p95 TTFT. Empty when no request carried a tenant."""
+        out: dict[str, dict] = {}
+        for c in self.completed:
+            if c.tenant:
+                out.setdefault(c.tenant, {"completed": 0, "shed": 0})["completed"] += 1
+        for r in self.shed:
+            if r.tenant:
+                out.setdefault(r.tenant, {"completed": 0, "shed": 0})["shed"] += 1
+        if self.stream is not None:
+            for t, e in out.items():
+                sk = self.stream.total_sketch(f"request_ttft_tenant:{t}")
+                if sk is not None and sk.count:
+                    e["ttft_p95_s"] = round(sk.quantile(0.95), 6)
+        return dict(sorted(out.items()))
+
     def stats(self) -> dict:
         """Host-side serving roll-up (the obs summary carries the
         span-derived histograms; this is the request-math view)."""
@@ -645,6 +1135,46 @@ class Server:
                 prefix_pages_shared_peak=self._pages_shared_peak,
                 kv_cow_copies=alloc.cow_copies,
             )
+            if self._host_tier:
+                eng = self.engine
+                out.update(
+                    kv_host_pages=alloc.host_pages,
+                    kv_host_pages_in_use=alloc.host_pages_in_use,
+                    host_spilled_pages=eng.host_spilled_pages,
+                    host_restreamed_pages=eng.host_restreamed_pages,
+                    host_spill_bytes=eng.host_spill_bytes,
+                    host_restream_bytes=eng.host_restream_bytes,
+                    host_held_peak_bytes=max(self._host_in_use_peak,
+                                             alloc.host_pages_in_use) * eng.page_bytes,
+                    host_prefix_hits=alloc.host_prefix_hits,
+                    parked_spills=alloc.parked_spills,
+                    spilled_prefix_entries=alloc.spilled_prefix_entries,
+                    promoted_entries=alloc.promoted_entries,
+                )
+            # Resume p95s by mode, for every paged server: an untiered
+            # run gives the recompute figure a tiered one's restream
+            # figure is held against.
+            for mode, durs in sorted(self.resume_durations.items()):
+                if durs:
+                    out[f"resume_{mode}_p95_s"] = round(
+                        float(np.percentile(np.asarray(durs), 95)), 6
+                    )
+        if self.shed:
+            # The total and the two causes apart, zeros included.
+            out["requests_shed"] = {
+                "total": len(self.shed),
+                "shed_queue_full": self.shed_causes.get("queue_full", 0),
+                "shed_admission_projection": self.shed_causes.get("admission", 0),
+            }
+        out["shed"] = len(self.shed)
+        out["shed_causes"] = dict(sorted(self.shed_causes.items()))
+        if self.policy is not None:
+            pol = self.policy.stats()
+            out["preemptions"] = pol["preemptions"]
+            out["policy"] = pol
+        tenants = self._tenant_rollup()
+        if tenants:
+            out["tenants"] = tenants
         if done:
             lat = np.asarray([c.latency_s for c in done])
             ttft = np.asarray([c.ttft_s for c in done])

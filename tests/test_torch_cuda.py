@@ -1647,3 +1647,68 @@ def test_tp_engine_on_the_card_matches_one_rank(cuda, p, kw):
     attn, mm = launches[p]
     assert attn == p * launches[0][0]
     assert mm == (p * launches[0][1] if "weights_dtype" in kw else 0)
+
+
+def _host_tier_engine(kw):
+    from mpit_tpu_torch import comm
+
+    cfg = GPT2Config.tiny(vocab_size=64, max_seq_len=64, num_layers=2, num_heads=4,
+                          d_model=64, dtype=torch.float32)
+    state = GPT2(cfg, generator=torch.Generator().manual_seed(0)).state_dict()
+    kw = dict(kw)
+    if kw.pop("tp", 0):
+        kw.update(world=comm.init({"model": 2}, devices=["cuda"]), tp_axis="model")
+    return Engine(cfg, state, slots=2, max_len=64, prefill_len=32, kv_pages=10,
+                  kv_page_size=8, prefill_chunk=8, kv_host_pages=8, **kw)
+
+
+@pytest.mark.parametrize("kw", [{}, {"kv_dtype": "bf16"}, {"kv_dtype": "int8"}, {"tp": 2}],
+                         ids=["f32", "bf16", "int8", "tp2"])
+def test_host_tier_restores_spilled_page_bit_equal(cuda, kw):
+    """A page spilled to its pinned seat, overwritten on the card, then
+    restored: every tensor it spans (rows, scales, every rank's heads)
+    is back bit for bit."""
+    engine = _host_tier_engine(kw)
+    assert all(seat.is_pinned() for seat in engine._host_seats)
+    server = Server(engine)
+    server.submit(Request(rid=0, prompt=list(range(1, 19)), max_new_tokens=20))
+    server.run(max_ticks=4)
+    page = int(engine.allocator.block_tables[0, 1])
+    before = [v.clone() for v in engine._page_views(page)]
+    engine.spill_page(page, 5)
+    for v in engine._page_views(page):
+        v.fill_(3)
+    assert engine.drain_spills() == 1
+    engine.restore_page(5, page, release=True)
+    assert all(torch.equal(a, b) for a, b in zip(engine._page_views(page), before))
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_host_tier_spill_survives_the_next_prefill_rewriting_its_page(cuda, kv_dtype):
+    """A victim is parked and, before any drain, a new request is admitted
+    into the pages it freed and prefilled (its rows written over the
+    spilled pages). The seats hold the victim's rows as they were, and
+    the victim resumes from them and completes."""
+    from mpit_tpu_torch.serve import SchedulingPolicy
+
+    engine = _host_tier_engine({"kv_dtype": kv_dtype})
+    server = Server(engine, policy=SchedulingPolicy())
+    server.submit(Request(rid="v", prompt=list(range(3, 23)), max_new_tokens=20, priority=1))
+    server.run(max_ticks=6)
+    slot = next(iter(server.live))
+    fill = server.live[slot].cache_fill()
+    pages = [int(p) for p in engine.allocator.block_tables[slot, : -(-fill // 8)]]
+    before = [[v.clone() for v in engine._page_views(p)] for p in pages]
+    server._preempt(slot)
+    seats = engine.allocator.peek_parked("v").host_pages
+    server.submit(Request(rid="b", prompt=list(range(40, 64)), max_new_tokens=4))
+    server._admit()
+    server._prefill_chunk_tick()  # b's first chunk, before the tick's drain
+    b_slot = next(iter(server.prefilling), None) or next(iter(server.live))
+    assert set(pages) & set(int(p) for p in engine.allocator.block_tables[b_slot, :3])
+    engine.drain_spills()
+    for hp, views in zip(seats, before):
+        assert all(torch.equal(seat[hp], v.cpu()) for seat, v in zip(engine._host_seats, views))
+    done = {c.rid: c.tokens for c in server.run()}
+    assert len(done["v"]) == 20 and len(done["b"]) == 4
+    assert len(server.resume_durations["restream"]) == 1

@@ -209,6 +209,8 @@ def test_main_returns_stats_keys():
 @pytest.mark.parametrize(
     "flags",
     [
+        # The host KV tier is served now; it spills pool pages, so it
+        # refuses without the pool.
         ["--kv-host-pages", "8"],
         # Not later slices: the JAX CLI rejects them too (the reference
         # path is the parity oracle, not an int8 serving path).
@@ -216,23 +218,35 @@ def test_main_returns_stats_keys():
         ["--weights-dtype", "int8", "--decode-attention", "reference"],
         # Speculation is served now; beside a later slice's flag it still
         # refuses, before a model is built.
-        ["--spec-k", "2", "--draft-config", "truncate:1", "--kv-host-pages", "8"],
+        ["--spec-k", "2", "--draft-config", "truncate:1", "--trace", "t.json"],
         # --mesh serves now (tensor parallelism); beside --fleet it refuses,
         # naming the item that brings the fleet over it.
         ["--mesh", "model=2", "--fleet", "prefill=1,decode=1"],
-        ["--loadgen", "rate=8"],
-        ["--policy", "on"],
-        # The fleet is served now; with a later slice's flag it still
-        # refuses, before any worker starts.
+        # The load harness is served now; beside the SLO monitor's flag
+        # (ROADMAP.md §A 11) it still refuses.
+        ["--loadgen", "rate=8", "--slo-shed-rate", "0.1"],
+        # The policy is served now; a bad spec refuses before a model is built.
+        ["--policy", "quantum=0"],
+        # The fleet's router runs its own closed-loop admission: the
+        # Server's policy refuses beside it, before any worker starts.
         ["--fleet", "prefill=1,decode=1", "--policy", "on"],
         ["--slo-ttft-p95", "0.5"],
         ["--sentinel", "true"],
-        ["--max-queue", "4"],
+        # Bounded intake is served now; a load class the prefill buffer
+        # cannot hold refuses before the window.
+        ["--max-queue", "4", "--loadgen", "rate=8,prompt_max=40"],
     ],
 )
 def test_later_slice_flags_are_rejected(flags):
-    match = ("reference" if "reference" in flags
-             else "§A 8c" if "--mesh" in flags else "slice")
+    match = (
+        "reference" if "reference" in flags
+        else "§A 8c" if "--mesh" in flags
+        else "fleet's router" if "--fleet" in flags
+        else "pass --kv-pages" if "--kv-host-pages" in flags
+        else "quantum" if "quantum=0" in flags
+        else "prefill-len" if "--max-queue" in flags
+        else "§A 11"
+    )
     with pytest.raises(SystemExit, match=match):
         main(["--device", "cpu", *flags])
 
