@@ -489,8 +489,12 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 OUT = HERE / "chiprun_out"
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 / f32 non-tensor
+# The card's peaks, from the port's ChipSpec (H100 SXM data sheet: 3.35
+# TB/s HBM, 989 TFLOP/s dense bf16, 67 TFLOP/s f32 outside the tensor
+# cores), so the bounds here and the roofline share one source; set by
+# load_peaks() once the port is imported.
+HBM_BYTES_PER_S = None
+PEAK_OPS_PER_S = None
 TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 LSE_TOL = 1e-4  # the flash forward's f32 lse, in both dtypes
 # Logits: the widest gap at which int8 greedy tokens may part from the
@@ -650,6 +654,14 @@ def card_line() -> str:
         capture_output=True, text=True, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def load_peaks() -> None:
+    global HBM_BYTES_PER_S, PEAK_OPS_PER_S
+    from mpit_tpu_torch.utils.profiling import H100_SXM
+
+    HBM_BYTES_PER_S = H100_SXM.hbm_bandwidth
+    PEAK_OPS_PER_S = {"bfloat16": H100_SXM.peak_flops_bf16, "float32": H100_SXM.peak_flops_f32}
 
 
 def import_port():
@@ -4581,21 +4593,21 @@ class PageCheck:
         engine.spill_page, engine.restore_page, engine.host_free = (
             self.spill, self.restore, self.free)
 
-    def spill(self, dp, hp):
+    def spill(self, dp, hp, **ledger):
         self.saved[int(hp)] = [v.clone() for v in self.engine._page_views(int(dp))]
-        self._spill(dp, hp)
+        self._spill(dp, hp, **ledger)
 
-    def restore(self, hp, dp, *, release=False):
-        self._restore(hp, dp, release=release)
+    def restore(self, hp, dp, *, release=False, **ledger):
+        self._restore(hp, dp, release=release, **ledger)
         want = self.saved.pop(int(hp)) if release else self.saved[int(hp)]
         got = self.engine._page_views(int(dp))
         self.checked += 1
         if not all(self.torch.equal(a, b) for a, b in zip(got, want)):
             self.bad.append((int(hp), int(dp)))
 
-    def free(self, hp):
+    def free(self, hp, **ledger):
         self.saved.pop(int(hp), None)
-        self._free(hp)
+        self._free(hp, **ledger)
 
 
 def tier_copy_ms(torch, engine) -> dict:
@@ -4845,6 +4857,260 @@ def policy_kernel_rows(cases: list, pol: dict) -> list:
     return rows
 
 
+# Phase 4o: observability over the main paths. Serving: GPT-2 small on
+# 4p's paged geometry (4 slots, 96 pages of 16, chunk 64), open loop at 4
+# req/s for 1.5 s, drained, bf16 and int8 weights, through the CLI with an
+# SLO, the sentinel and the trace; the obs CLI reads what it wrote (and a
+# baseline snapshot made from its output). Then, in process on the same geometry, the closed-loop stream
+# with obs off and on (tokens equal, decode tick p50 of each) and the
+# decode kernel's visited tiles against the engine's model. Training:
+# GPT-2 small on one rank, 10 steps with the sentinel and the profile
+# window (the step's roofline over the steps outside it).
+OBS_LOAD = "rate=4,prompt_min=16,prompt_max=64,new_min=16,new_max=32"
+OBS_ARGS = POLICY_ARGS + ["--loadgen", OBS_LOAD, "--duration", "1.5", "--stats-interval", "1"]
+OBS_FLAGS = ["--slo-ttft-p95", "0.5", "--sentinel", "true"]
+OBS_TRAIN_ARGS = ["--flash", "true", "--steps", "10", "--log-every", "1", "--sentinel", "true"]
+
+
+def obs_shares(entry: dict) -> dict:
+    """A roofline entry's shares unrounded, from its achieved work and
+    seconds against the card's bf16 and HBM peaks (the entry's own keep
+    two decimals, and a decode tick's MFU rounds to 0.00)."""
+    sec = entry.get("seconds") or 0.0
+    if not sec or "mfu_pct" not in entry or "hbm_util_pct" not in entry:
+        return {}
+    return {"mfu": 100 * entry.get("achieved_flops", 0.0) / sec / PEAK_OPS_PER_S["bfloat16"],
+            "hbm": 100 * entry.get("achieved_hbm_bytes", 0.0) / sec / HBM_BYTES_PER_S}
+
+
+def obs_shares_ok(entry: dict) -> bool:
+    """Both shares of a roofline entry in (0, 100]: a share past 100% is a
+    fault of the timing, not a fast kernel."""
+    shares = obs_shares(entry)
+    return bool(shares) and all(0 < v <= 100 for v in shares.values())
+
+
+def obs_serve_cli(torch, card, name: str, extra: list) -> dict:
+    """One 4o CLI run: launches read around it, then the gates on what it
+    returned and wrote, then the obs CLI over its files."""
+    import contextlib
+    import io
+
+    from mpit_tpu_torch.obs import baseline
+    from mpit_tpu_torch.obs.__main__ import main as obs_main
+    from mpit_tpu_torch.ops import decode_attention as da
+    from mpit_tpu_torch.ops import quantized_matmul as qm
+    from mpit_tpu_torch.serve.__main__ import main
+
+    d = OUT / "chip_smoke_obs"
+    d.mkdir(parents=True, exist_ok=True)
+    tr, base, res = (d / f"{name}_{k}.json" for k in ("trace", "baseline", "out"))
+    gc.collect()  # nothing earlier may be freed under the ledger's reconciliation
+    for counts in (da.launches, da.path_launches, qm.launches, qm.path_launches):
+        counts.update(dict.fromkeys(counts, 0))
+    out = main(SERVE_ARGS + OBS_ARGS + extra + OBS_FLAGS + ["--trace", str(tr)])
+    paths = {k: n for k, n in da.path_launches.items() if n}
+    qmm = {k: n for k, n in qm.path_launches.items() if n}
+    res.write_text(json.dumps(out, default=str))
+    baseline.save(base, {"phases": out["obs_summary"], "roofline": out["roofline"]},
+                  memory=out["memory"])
+    tag = f"4o {name}"
+    if out["requests_completed"] != out["load"]["arrivals"] or out["truncated"]:
+        fail(f"{tag}: {out['requests_completed']} of {out['load']['arrivals']} answered")
+    if set(paths) != {f"{FORMS[2]}/split", f"{FORMS[2]}/mma"}:
+        fail(f"{tag}: attention launches by body {paths}")
+    if ("--weights-dtype" in extra) != bool(qmm) or (qmm and set(qmm) != {"mma"}):
+        fail(f"{tag}: quantized_matmul launches by body {qmm}")
+    doc = json.loads(tr.read_text())
+    spans = {ev["name"] for ev in doc["traceEvents"] if ev.get("ph") == "X"}
+    if not {"prefill", "decode"} <= spans:
+        fail(f"{tag}: the trace holds spans {sorted(spans)}")
+    roof = out.get("roofline", {}).get("phases", {})
+    name_now = torch.cuda.get_device_name(0)
+    for phase in ("prefill", "decode"):
+        entry = roof.get(phase, {})
+        if not obs_shares_ok(entry) or entry.get("card") != name_now:
+            fail(f"{tag}: roofline {phase} {entry}")
+    mem = out["memory"]
+    rec = mem["reconciliation"]
+    if not mem["conservation"]["ok"] or not rec["within_tolerance"]:
+        fail(f"{tag}: ledger conservation {mem['conservation']['ok']}, reconciliation {rec}")
+    if "sentinel" not in out or "slo" not in out or not out.get("exemplars"):
+        fail(f"{tag}: the sentinel, slo or exemplars block is missing")
+    rcs = {}
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        for cmd, args in (("why-slow", [str(res)]), ("capacity", [str(res)]),
+                          ("diff", [str(base), str(base)]), ("summary", [str(tr)])):
+            rcs[cmd] = obs_main([cmd, *args])
+    (d / f"{name}_obs_cli.txt").write_text(log.getvalue())
+    if any(rcs.values()):
+        fail(f"{tag}: obs CLI exit codes {rcs}")
+    record = {
+        "card": card, "run": name, "args": OBS_ARGS + extra + OBS_FLAGS,
+        "load": out["load"], "requests_completed": out["requests_completed"],
+        "launches_by_body": paths, "quantized_matmul_launches_by_body": qmm,
+        "roofline": {ph: {k: roof[ph].get(k) for k in (
+            "executions", "seconds", "mfu_pct", "hbm_util_pct", "achieved_hbm_gbps",
+            "achieved_gflops_per_s", "bound_modeled", "card", "power_limit")}
+            | {"shares_unrounded": obs_shares(roof[ph])} for ph in ("prefill", "decode")},
+        "decode_tick_ms_p50": out["obs_summary"]["decode"]["p50_s"] * 1e3,
+        "memory": {k: mem[k] for k in ("held_bytes", "held_peak_bytes", "held_by_subsystem",
+                                       "kv_headroom_min_pct", "reconciliation")
+                   if k in mem},
+        "slo": out["slo"], "sentinel_clean": out["sentinel"]["clean"],
+        "sentinel_counts": out["sentinel"]["anomaly_counts"],
+        "exemplars": len(out["exemplars"]), "engine_compiles": out["engine_compiles"],
+        "obs_cli": rcs,
+    }
+    print(json.dumps(record), flush=True)
+    return record
+
+
+def obs_serve_inprocess(torch, card, name: str, extra: list) -> dict:
+    """4o in process: the CLI's engine for ``extra`` on 4o's geometry, the
+    closed-loop synthetic stream with obs off, on, off, on (the recorder
+    with registered costs, the sentinel, an SLO, the request ledger);
+    greedy tokens must be equal in all four, and the decode tick p50 of
+    each is kept. In the first obs-on run, after 6 ticks, the decode
+    kernel run over the engine's pool at the live fills returns its
+    visited tiles, which must equal the engine's model bit for bit."""
+    import numpy as np
+
+    from mpit_tpu_torch import obs
+    from mpit_tpu_torch.config import from_argv
+    from mpit_tpu_torch.obs import roofline
+    from mpit_tpu_torch.ops import decode_attention as da
+    from mpit_tpu_torch.serve import Server, warm_engine
+    from mpit_tpu_torch.serve.__main__ import ServeConfig, _build_engine, synthetic_requests
+
+    cfg = from_argv(ServeConfig, SERVE_ARGS + POLICY_ARGS + extra)
+    engine, mcfg = _build_engine(cfg)
+    reqs = list(synthetic_requests(cfg, mcfg.vocab_size))
+    warm_engine(engine)
+    runs, visited = [], None
+    for with_obs in (False, True, False, True):
+        engine.reset()
+        reg = obs.StreamRegistry()
+        kw = {}
+        rec = obs.enable(obs.Recorder()) if with_obs else None
+        if with_obs:
+            engine.register_roofline()
+            sent = obs.Sentinel(phases=("decode", "prefill"), warmup=4)
+            kw = dict(sentinel=sent, ledger=obs.Ledger(mode="full"),
+                      slo=obs.SLOMonitor([obs.SLO.ttft_p95(0.5)], reg, sentinel=sent))
+        server = Server(engine, stream=reg, **kw)
+        for r in reqs:
+            server.submit(r)
+        if with_obs and visited is None:
+            server.run(max_ticks=6)
+            fills = np.zeros(engine.slots, np.int32)
+            for slot, live in server.live.items():
+                fills[slot] = live.cache_fill()
+            live_lens = fills[sorted(server.live)]
+            q = torch.randn((engine.slots, 1, mcfg.num_heads, mcfg.head_dim),
+                            device="cuda").bfloat16()
+            c = engine.cache
+            _, vis = da.flash_paged_decode_attention(
+                q, c.k[0], c.v[0], torch.tensor(fills, device="cuda"), engine._block_tables(),
+                block_k=engine.decode_block_k, return_visited=True)
+            vis = vis.cpu().numpy()
+            model = da.num_kv_blocks(fills, 1, engine.max_len, engine.decode_block_k)
+            tiles = int(da.num_kv_blocks(live_lens, 1, engine.max_len,
+                                         engine.decode_block_k).sum()) + engine.slots - len(
+                live_lens)
+            want = roofline.decode_step_hbm_bytes(
+                int(vis.sum()), block_k=engine.decode_block_k, kv_row_bytes=engine._kv_row_bytes,
+                num_layers=mcfg.num_layers, param_bytes=engine._param_bytes,
+                appended_rows=len(live_lens))
+            if not (np.array_equal(vis, model) and tiles == int(vis.sum())
+                    and engine.decode_achieved_hbm_bytes(live_lens) == want):
+                fail(f"4o {name}: kernel visited {vis.tolist()}, model {model.tolist()}, "
+                     f"engine tiles {tiles}")
+            visited = {"fills": fills.tolist(), "kernel_visited": vis.tolist(),
+                       "engine_tiles": tiles}
+        server.run()
+        stats = server.stats()
+        if rec is not None:
+            obs.disable()
+        tokens = {c.rid: c.tokens for c in server.completed}
+        if len(tokens) != len(reqs) or not stats["memory"]["conservation"]["ok"]:
+            fail(f"4o {name}: {len(tokens)} of {len(reqs)} completed, ledger "
+                 f"{stats['memory']['conservation']['ok']}")
+        runs.append({"obs": with_obs, "tokens": tokens,
+                     "decode_tick_ms_p50": reg.total_sketch("decode_tick").quantile(0.5) * 1e3})
+    if any(r["tokens"] != runs[0]["tokens"] for r in runs):
+        fail(f"4o {name}: greedy tokens differ between obs off and on")
+    record = {"card": card, "run": name, "visited": visited,
+              "decode_tick_ms_p50": [(r["obs"], r["decode_tick_ms_p50"]) for r in runs]}
+    print(json.dumps(record), flush=True)
+    del engine
+    torch.cuda.empty_cache()
+    return record
+
+
+def obs_train(torch, card) -> dict:
+    """4o training: GPT-2 small, one rank, 10 steps through the flash
+    kernels with the sentinel and the profile window (steps 2..5, in a
+    temporary directory); the profiler's trace must hold the three flash
+    kernels' device events, and the step's roofline shares lie in (0, 100]."""
+    import importlib
+    import tempfile
+
+    from mpit_tpu_torch.asyncsgd.gpt2 import main
+    from mpit_tpu_torch.utils.profiling import device_events
+
+    fa = importlib.import_module("mpit_tpu_torch.ops.flash_attention")
+    fa.launches.update(dict.fromkeys(fa.launches, 0))
+    with tempfile.TemporaryDirectory() as tmp:
+        out = main(OBS_TRAIN_ARGS + ["--profile-dir", tmp])
+        events = device_events(out["profile"]["path"])
+    launches = dict(fa.launches)
+    names = [e["name"] for e in events]
+    found = {k: sum(k in n for n in names) for k in ("fwd_kernel", "dq_kernel", "dkv_kernel")}
+    if not all(found.values()):
+        fail(f"4o train: the profiler's trace holds flash kernels {found}")
+    roof = out["roofline"]["phases"]["step"]
+    if not obs_shares_ok(roof) or out["steps"] != 10 or "sentinel" not in out:
+        fail(f"4o train: steps {out['steps']}, roofline {roof}")
+    if any(n < 12 * 10 for n in launches.values()):
+        fail(f"4o train: flash launches {launches} < layers x steps")
+    record = {
+        "card": card, "run": "gpt2_train", "args": OBS_TRAIN_ARGS,
+        "profile_device_events": len(events), "flash_events_in_profile": found,
+        "launches": launches, "sentinel": out["sentinel"]["anomaly_counts"],
+        "sentinel_clean": out["sentinel"]["clean"],
+        "roofline": {k: roof.get(k) for k in ("executions", "seconds", "mfu_pct",
+                                               "hbm_util_pct", "achieved_gflops_per_s",
+                                               "bound_modeled", "card", "power_limit")}
+        | {"shares_unrounded": obs_shares(roof)},
+        "step_ms_p50": sorted(out["step_ms"][1:])[len(out["step_ms"][1:]) // 2],
+    }
+    print(json.dumps(record), flush=True)
+    return record
+
+
+def obs_phase(torch, card) -> dict:
+    """Phase 4o: returns its records and the launches of its runs."""
+    t0 = time.perf_counter()
+    records = []
+    for name, extra in (("bf16", []), ("int8_weights", INT8W_ARGS)):
+        records.append(obs_serve_cli(torch, card, name, extra))
+    for name, extra in (("bf16", []), ("int8_weights", INT8W_ARGS)):
+        records.append(obs_serve_inprocess(torch, card, name, extra))
+    records.append(obs_train(torch, card))
+    OUT.mkdir(exist_ok=True)
+    (OUT / "chip_smoke_obs.json").write_text(json.dumps(records, indent=1, default=str))
+    print(f"phase 4o: {time.perf_counter() - t0:.1f} s", flush=True)
+    return {
+        "paged_split": sum(r["launches_by_body"].get(f"{FORMS[2]}/split", 0)
+                           for r in records[:2]),
+        "paged_mma": sum(r["launches_by_body"].get(f"{FORMS[2]}/mma", 0) for r in records[:2]),
+        "quantized_matmul": sum(records[1]["quantized_matmul_launches_by_body"].values()),
+        **{f"flash_{k}": n for k, n in records[-1]["launches"].items()},
+    }
+
+
 def main() -> None:
     import torch
 
@@ -4853,6 +5119,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available")
     import_port()
+    load_peaks()
     # Full-precision f32 matmuls wherever f32 results are compared.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4942,6 +5209,12 @@ def main() -> None:
         print(json.dumps({"card": card, "policy_launches": pol}))
         print(f"chip_smoke policy: {time.perf_counter() - t_start:.1f} s in all", flush=True)
         return
+    if sys.argv[1:2] == ["obs"]:  # phase 4o alone
+        build.build(build.KERNEL_SOURCES)
+        launches = obs_phase(torch, card)
+        print(json.dumps({"card": card, "obs_launches": launches}))
+        print(f"chip_smoke obs: {time.perf_counter() - t_start:.1f} s in all", flush=True)
+        return
     if sys.argv[1:2] == ["recovery"]:  # phases 4k, 4kd, 4kx and 4e alone
         build.build(build.KERNEL_SOURCES)
         rec = recovery_phases(torch, card, convnet_bucket_plans(torch))
@@ -5020,6 +5293,7 @@ def main() -> None:
     tp = tp_phases(torch, card, flush, mcfg, state, one_rank, tokens, serve_records)
     del mcfg, state
     pol = policy_phase(torch, card)
+    obs_launches = obs_phase(torch, card)
     t0 = time.perf_counter()
     fleet_parity = fleet_parity_phase(torch)
     print(f"phase 5f: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -5135,6 +5409,13 @@ def main() -> None:
     })
     kernels += tp_kernel_rows(tp)
     kernels += policy_kernel_rows(cases, pol)
+    # Phase 4o's own launches, beside each row's main-path count.
+    obs_rows = {f"{FORMS[2]}": "paged_split", f"{FORMS[2]}_prefill": "paged_mma",
+                "quantized_matmul": "quantized_matmul"}
+    for row in kernels:
+        key = obs_rows.get(row["name"])
+        if key is not None:
+            row["launches_4o"] = obs_launches[key]
     flash_sources = {"fwd": (121, 362), "dq": (195, 408), "dkv": (237, 428)}
     for kind, (body, call) in flash_sources.items():
         head = next(
@@ -5154,6 +5435,7 @@ def main() -> None:
                 r.get(kind, 0) for r in rec["launches"]["flash"].values()),
             "launches_by_run": {"gpt2_train": flash_launches[kind], **{
                 run: r[kind] for run, r in rec["launches"]["flash"].items()}},
+            "launches_4o": obs_launches[f"flash_{kind}"],
             "max_abs_err": max(v for k, v in head["max_abs_err"].items()),
             **{k: head[k] for k in ("tol", "ms", "plain_ms", "bound_ms", "bound_by",
                                     "library_ms", "library")},

@@ -83,6 +83,11 @@ class TrainConfig:
     spike_factor: float = 0.0  # >0: treat loss > factor * EMA as divergence
     fetch_lag: int = 2  # losses read back this many log points late
     prefetch_depth: int = 2  # host batches staged ahead of the step
+    # Observability (obs/sentinel.py, utils/profiling.py): the anomaly
+    # sentinel over the steps' device times, and a torch.profiler trace
+    # of steps 2..5 into profile_dir (SPMD mode).
+    sentinel: bool = False
+    profile_dir: str = ""
     seed: int = 0
     device: str = "cuda"  # cuda | cpu
     # The classification workloads' data (runner.classification_dataset).

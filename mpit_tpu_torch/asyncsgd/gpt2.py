@@ -30,6 +30,15 @@ resume seeks the token stream past the consumed batches.
 and ``tie_head`` in its meta, so ``serve --ckpt`` (and the JAX
 package's ``load_gpt2_params``) reads it without guessing.
 
+``--sentinel true`` runs the step-time sentinel over the steps' device
+times and ``--profile-dir DIR`` traces steps 2..5 with ``torch.profiler``
+(a Chrome trace with the kernels' device events in ``DIR/trace.json``);
+the result's ``roofline`` holds each step's analytic cost against its
+device seconds.
+
+    python -m mpit_tpu_torch.asyncsgd gpt2 --flash true --steps 10 \\
+        --sentinel true --profile-dir runs/gpt2_profile
+
 Every other tier of the JAX workload (a mesh with a model, seq, pipe or
 expert axis) and every flag of a later slice raises ``SystemExit``
 naming the slice that brings it.
@@ -48,6 +57,7 @@ from mpit_tpu_torch.models import GPT2, GPT2Config, default_attention
 from mpit_tpu_torch.opt import goo_adam, schedules
 from mpit_tpu_torch.ops.flash_attention import flash_attention
 from mpit_tpu_torch.serve.engine import resolve_device
+from mpit_tpu_torch.utils.profiling import gpt2_step_cost, tree_bytes
 
 __all__ = ["GPT2TrainConfig", "main"]
 
@@ -160,6 +170,13 @@ def main(argv: list[str] | None = None, *, initial_params=None, **overrides) -> 
     tx = goo_adam(schedules.from_config(cfg), weight_decay=cfg.weight_decay)
     loss_fns = [loss_for(m) for m in models]
     params = [dict(m.named_parameters()) for m in models]
+    # One step's analytic cost over the global batch (every rank's share,
+    # all on the one card), against the activations' arithmetic peak.
+    roofline = gpt2_step_cost(
+        mcfg, "train", slots=cfg.batch_size, width=cfg.seq_len, ctx=cfg.seq_len,
+        param_bytes=tree_bytes(params[0]),
+    )
+    roofline["dtype"] = "bf16" if mcfg.dtype == torch.bfloat16 else "f32"
     out = runner.run_spmd(
         cfg,
         runner.make_stream(cfg, dataset, cfg.seq_len),
@@ -173,6 +190,7 @@ def main(argv: list[str] | None = None, *, initial_params=None, **overrides) -> 
         dense_meta={"num_heads": mcfg.num_heads, "tie_head": mcfg.tie_head},
         async_save=False,
         final_save=True,
+        roofline=roofline,
     )
     out.update(
         tier="shard_map+zero1",

@@ -35,7 +35,11 @@ of :data:`LATER_FLAGS` (not fields of the port's config, so nothing can
 read them by mistake) as the command line is parsed, and the values of
 ``--mesh`` that the port does not run by :func:`reject_later_slices`.
 ``--easgd true`` under ``--mode spmd`` chains the elastic term after
-goo (:func:`build_tx`).
+goo (:func:`build_tx`). ``--sentinel true`` wires the step-time
+sentinel into the loop (SPMD) or the anchor server (elastic), and
+``--profile-dir`` the SPMD loop's profile window; the SPMD run logs its
+gradient sync's modeled wire bytes (:class:`~mpit_tpu_torch.utils.CommModel`,
+returned as ``comm``).
 """
 
 from __future__ import annotations
@@ -60,17 +64,18 @@ from mpit_tpu_torch.train import (
 )
 from mpit_tpu_torch.opt.sharded import FlatLayout
 from mpit_tpu_torch.train.step import FlatReplicas, TrainState
+from mpit_tpu_torch.utils.profiling import CommModel, tree_bytes
 
 __all__ = [
     "DATA_SLICE", "LATER_FLAGS", "accuracy", "base_tx", "build_tx", "classification_dataset",
     "describe",
-    "make_stream", "make_val_sweep", "make_world", "refuse_dense", "refuse_elastic",
+    "make_sentinel", "make_stream", "make_val_sweep", "make_world", "refuse_dense",
+    "refuse_elastic",
     "reject_later_slices",
     "run_classifier", "run_elastic_classifier", "run_meta", "run_parity_classifier", "run_spmd",
     "softmax_xent", "topk_accuracy",
 ]
 
-_OBSERVABILITY = "the observability slice of the port (ROADMAP.md §A 11)"
 DATA_SLICE = "the data-pipeline slice of the port (ROADMAP.md §A 12)"
 
 # The JAX TrainConfig's flags that no code of the port reads -> the
@@ -78,7 +83,6 @@ DATA_SLICE = "the data-pipeline slice of the port (ROADMAP.md §A 12)"
 LATER_FLAGS = {
     # The port's prefetch has one thread and a fixed depth.
     **dict.fromkeys(("native", "prefetch_workers", "prefetch_max_depth"), DATA_SLICE),
-    **dict.fromkeys(("profile_dir", "sentinel"), _OBSERVABILITY),
 }
 
 
@@ -95,6 +99,11 @@ def reject_later_slices(cfg: TrainConfig) -> None:
         )
     if cfg.mode not in ("spmd", "parity", "elastic"):
         raise SystemExit(f"--mode {cfg.mode}: spmd, parity or elastic")
+    if cfg.profile_dir and cfg.mode != "spmd":
+        raise SystemExit(
+            f"--profile-dir with --mode {cfg.mode}: the profile window is the SPMD "
+            "loop's; the parity and elastic modes run their ranks as compat threads"
+        )
     mesh = cfg.mesh_shape() or {}
     if {"model", "fsdp"} & set(mesh):
         raise SystemExit(
@@ -178,6 +187,15 @@ def run_meta(cfg: TrainConfig) -> dict:
         if f.name not in base_fields:
             meta[f.name] = getattr(cfg, f.name)
     return meta
+
+
+def make_sentinel(cfg: TrainConfig):
+    """The step-time anomaly sentinel of ``--sentinel true``, or None."""
+    if not cfg.sentinel:
+        return None
+    from mpit_tpu_torch.obs import Sentinel
+
+    return Sentinel()
 
 
 def refuse_dense(cfg: TrainConfig, stateful: bool) -> None:
@@ -304,6 +322,7 @@ def run_spmd(
     dense_meta: dict | None = None,
     async_save: bool = True,
     final_save: bool = False,
+    roofline: dict | None = None,
 ) -> dict:
     """Drive the train step for ``cfg.steps`` steps on one rank, or over
     ``world``'s ranks (:func:`make_world`).
@@ -337,7 +356,13 @@ def run_spmd(
     is drained that far). ``--resume-dense`` wins over the checkpoint
     unless the checkpoint is past its step (the choice is printed), and
     ``--save-dense`` writes the dense ``.npz`` on every exit path,
-    ``dense_meta`` (``num_heads``, ``tie_head``) in it."""
+    ``dense_meta`` (``num_heads``, ``tie_head``) in it.
+
+    ``--sentinel true`` and ``--profile-dir`` go to the loop, as does
+    ``roofline`` (one step's modeled cost); the result then carries
+    ``sentinel``, ``profile`` and ``roofline``. The gradient sync's
+    modeled wire bytes a step (:class:`CommModel`, at the wire's width:
+    ¼ of f32 for ``ring_q8``) are logged and returned as ``comm``."""
     reject_later_slices(cfg)
     refuse_dense(cfg, stateful)
     device = resolve_device(cfg.device)
@@ -346,7 +371,15 @@ def run_spmd(
         loss_fn, tx, world, zero1=cfg.zero1, stateful=stateful, grad_sync=cfg.grad_sync,
         grad_bucket_mb=cfg.grad_bucket_mb,
     )
-    state = init_fn(*init_params()) if stateful else init_fn(init_params())
+    init = init_params()
+    state = init_fn(*init) if stateful else init_fn(init)
+    first = init[0] if stateful else init
+    first = first[0] if isinstance(first, list) else first
+    gs = getattr(step_fn, "grad_sync", None)
+    comm = CommModel(
+        tree_bytes(first), 1 if world is None else world.num_devices, zero1=cfg.zero1,
+        wire_scale=gs.wire_scale() if gs is not None else 1.0,
+    )
     run_device = device if world is None else world.device
     ckpt = None
     if cfg.ckpt_dir:
@@ -402,6 +435,7 @@ def run_spmd(
             return {k: v / denom for k, v in totals.items()} if denom else {}
 
     logger = MetricLogger()
+    logger.log(start_step, {"comm_" + k: v for k, v in comm.summary().items()})
     try:
         result = hardened_loop(
             state,
@@ -423,6 +457,9 @@ def run_spmd(
             world=world,
             eval_every=cfg.eval_every if eval_hook else 0,
             eval_hook=eval_hook,
+            sentinel=make_sentinel(cfg),
+            profile_dir=cfg.profile_dir,
+            roofline=roofline,
         )
     finally:
         if ckpt is not None:
@@ -445,7 +482,11 @@ def run_spmd(
         "restores": result["restores"],
         "preempted": result["preempted"],
         "step_ms": result["step_ms"],
+        "comm": comm.summary(),
     }
+    for k in ("sentinel", "profile", "roofline", "compiles"):
+        if k in result:
+            out[k] = result[k]
     if world is not None:
         out["replicas_identical"] = result["state"].replicas_equal()
     for k in ("items_per_sec", "items_per_sec_last", "items_per_sec_mean"):
@@ -720,7 +761,8 @@ def run_elastic_classifier(cfg: TrainConfig, make_model: Callable, dataset, *,
         fetch_lag=cfg.fetch_lag,
     )
     out = run_elastic(ecfg, init_replica, stream_factory, fault_plan=fault_plan,
-                      items_per_batch=per_replica_batch, job_timeout_s=cfg.ps_timeout)
+                      sentinel=make_sentinel(cfg), items_per_batch=per_replica_batch,
+                      job_timeout_s=cfg.ps_timeout)
 
     # The final model's eval, on the anchor's centre (as the parity path
     # evaluates the server's parameters).
@@ -746,7 +788,7 @@ def run_elastic_classifier(cfg: TrainConfig, make_model: Callable, dataset, *,
         "final_loss": out["replicas"][0]["final_loss"],
         "eval": {"accuracy": acc, "loss": eval_loss},
     }
-    for key in ("flight", "fault_events"):
+    for key in ("flight", "fault_events", "sentinel"):
         if key in out:
             result[key] = out[key]
     return result

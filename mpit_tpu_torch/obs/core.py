@@ -1,12 +1,11 @@
 """Event core: spans, counters, gauges, the process-global Recorder and
 per-thread recorders.
 
-A standard-library copy of the part of :mod:`mpit_tpu.obs.core` the
-serving scheduler, the compat simulator and the fleet use. Every
-primitive is two module-global reads when no recorder is installed:
-:func:`span` then returns a shared no-op context manager, so
-instrumentation costs nothing until :func:`enable` or
-:func:`local_recorder`.
+The port of :mod:`mpit_tpu.obs.core` (standard library only; numpy is
+imported lazily by the roll-up). Every primitive is two module-global
+reads when no recorder is installed: :func:`span` then returns a shared
+no-op context manager, so instrumentation costs nothing until
+:func:`enable` or :func:`local_recorder`.
 
 - a *span* is ``("X", name, t0, dur, tid, attrs)``, a named wall-clock
   interval on a thread (``t0`` in seconds since the recorder's epoch);
@@ -16,7 +15,11 @@ instrumentation costs nothing until :func:`enable` or
 - a *thread-local* recorder (:func:`local_recorder`) takes the place of
   the global one on its thread: each rank thread of a compat job keeps
   its own event stream, which :mod:`mpit_tpu_torch.obs.aggregate`
-  drains and merges.
+  drains and merges;
+- the *roofline* accounting keeps, per phase, the modeled cost of one
+  execution (:meth:`Recorder.add_cost`) and explicitly accumulated
+  achieved work (:meth:`Recorder.add_work`); :meth:`Recorder.summary`
+  rolls them up through :func:`mpit_tpu_torch.obs.roofline.rollup`.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from __future__ import annotations
 import contextlib
 import threading
 import time
-from typing import Any, Mapping
+from typing import Any, Iterator, Mapping
 
 __all__ = [
     "Recorder",
@@ -32,6 +35,7 @@ __all__ = [
     "disable",
     "enable",
     "enabled",
+    "gap_attribution",
     "gauge",
     "get_global_recorder",
     "get_recorder",
@@ -83,6 +87,10 @@ class Recorder:
         self.counters: dict[tuple[str, tuple], float] = {}
         self.gauges: dict[tuple[str, tuple], float] = {}
         self._thread_names: dict[int, str] = {}
+        # Roofline accounting: per phase, one execution's modeled cost
+        # (set once, at registration) and the explicit achieved work.
+        self.costs: dict[str, dict] = {}
+        self.work: dict[str, dict] = {}
 
     def _add_event(self, event: tuple) -> None:
         th = threading.current_thread()
@@ -117,6 +125,37 @@ class Recorder:
         with self._lock:
             self.gauges[(name, _attr_key(attrs))] = float(value)
 
+    def add_cost(self, phase: str, cost: Mapping[str, Any]) -> None:
+        """Register a phase's per-execution modeled cost (the last
+        registration wins)."""
+        with self._lock:
+            self.costs[phase] = dict(cost)
+
+    def add_work(
+        self,
+        phase: str,
+        *,
+        flops: float | None = None,
+        hbm_bytes: float | None = None,
+        ici_bytes: float | None = None,
+        n: int = 1,
+    ) -> None:
+        """Accumulate explicit achieved work for a phase; a component
+        ever fed here is marked ``explicit``, and the roll-up uses its
+        sum instead of executions x the modeled cost."""
+        with self._lock:
+            w = self.work.setdefault(
+                phase,
+                {"flops": 0.0, "hbm_bytes": 0.0, "ici_bytes": 0.0, "n": 0,
+                 "explicit": set()},
+            )
+            w["n"] += n
+            for key, value in (("flops", flops), ("hbm_bytes", hbm_bytes),
+                               ("ici_bytes", ici_bytes)):
+                if value is not None:
+                    w[key] += float(value)
+                    w["explicit"].add(key)
+
     def snapshot(self) -> dict:
         """Consistent copy of all buffers."""
         with self._lock:
@@ -126,7 +165,26 @@ class Recorder:
                 "gauges": dict(self.gauges),
                 "thread_names": dict(self._thread_names),
                 "dropped": self.dropped,
+                "costs": {k: dict(v) for k, v in self.costs.items()},
+                "work": {k: {**v, "explicit": set(v["explicit"])}
+                         for k, v in self.work.items()},
             }
+
+    def counter_items(self, name: str) -> Iterator[tuple[dict, float]]:
+        """``(attrs, value)`` for every counter series named ``name``."""
+        with self._lock:
+            items = [(dict(k[1]), v) for k, v in self.counters.items() if k[0] == name]
+        return iter(items)
+
+    def counter_total(self, name: str) -> float:
+        """A counter's sum over all its attribute sets."""
+        with self._lock:
+            return sum(v for k, v in self.counters.items() if k[0] == name)
+
+    def event_count(self) -> int:
+        """The event buffer's length: a cursor for ``summary(since=)``."""
+        with self._lock:
+            return len(self.events)
 
     def drain(self) -> dict:
         """Snapshot AND clear: a flight-recorder gather ships each
@@ -138,38 +196,63 @@ class Recorder:
                 "gauges": self.gauges,
                 "thread_names": dict(self._thread_names),
                 "dropped": self.dropped,
+                "costs": self.costs,
+                "work": self.work,
             }
             self.events = []
             self.counters = {}
             self.gauges = {}
             self.dropped = 0
+            self.costs = {}
+            self.work = {}
         return out
 
-    def summary(self) -> dict:
+    def summary(self, *, top_collectives: int = 5, since: int = 0) -> dict:
         """``{"phases": {name: {count, total_s, p50_s, p95_s[, labels]}},
-        "counters": {name: total}[, "instants": {name: count}],
-        "dropped_events": n}``. String span attributes are mode labels
-        (e.g. ``attention="kernel"``): their distinct values roll up under
-        the phase's ``labels``."""
+        "collectives": [...], "counters": {name: total}[, "roofline"]
+        [, "instants": {name: count}], "dropped_events": n}``.
+
+        String span attributes are mode labels (e.g.
+        ``attention="kernel"``): their distinct values roll up under the
+        phase's ``labels``. ``collectives`` lists the top ops by the
+        ``collective_bytes`` counter (modeled wire bytes). ``since``
+        restricts the phase roll-up to events from that buffer index on
+        (:meth:`event_count`); counters are cumulative either way, and the
+        ``roofline`` section (registered costs against span seconds,
+        ``compile`` overlay seconds excluded) appears only unscoped:
+        achieved work is not indexed by event."""
         snap = self.snapshot()
         by_name: dict[str, list[float]] = {}
         labels: dict[str, dict[str, set]] = {}
         instants: dict[str, int] = {}
-        for kind, name, _t0, dur, _tid, attrs in snap["events"]:
+        compile_s: dict[str, float] = {}
+        for kind, name, _t0, dur, _tid, attrs in snap["events"][since:]:
             if kind == "i":
                 instants[name] = instants.get(name, 0) + 1
                 continue
             by_name.setdefault(name, []).append(dur)
+            if name == "compile" and attrs and "phase" in attrs:
+                compile_s[attrs["phase"]] = compile_s.get(attrs["phase"], 0.0) + dur
             for k, v in (attrs or {}).items():
                 if isinstance(v, str):
                     labels.setdefault(name, {}).setdefault(k, set()).add(v)
         phases = phase_stats(by_name)
         for name, lab in labels.items():
             phases[name]["labels"] = {k: sorted(vs) for k, vs in lab.items()}
+        colls = [(dict(k[1]), v) for k, v in snap["counters"].items()
+                 if k[0] == "collective_bytes"]
+        colls.sort(key=lambda kv: kv[1], reverse=True)
+        collectives = [{**attrs, "wire_bytes": v} for attrs, v in colls[:top_collectives]]
         counters: dict[str, float] = {}
         for (name, _akey), v in snap["counters"].items():
             counters[name] = counters.get(name, 0.0) + v
-        out = {"phases": phases, "counters": counters}
+        out = {"phases": phases, "collectives": collectives, "counters": counters}
+        if snap["costs"] and since == 0:
+            from mpit_tpu_torch.obs import roofline as _roofline
+
+            out["roofline"] = _roofline.rollup(
+                snap["costs"], snap["work"], phases, overlay_seconds=compile_s
+            )
         if instants:
             out["instants"] = dict(sorted(instants.items()))
         out["dropped_events"] = snap["dropped"]
@@ -327,7 +410,46 @@ def gauge(name: str, value: float, **attrs) -> None:
         rec.add_gauge(name, value, attrs or None)
 
 
-def summary() -> dict:
+def summary(*, top_collectives: int = 5, since: int = 0) -> dict:
     """Summary of the calling thread's recorder (``{}`` when disabled)."""
     rec = _current()
-    return {} if rec is None else rec.summary()
+    if rec is None:
+        return {}
+    return rec.summary(top_collectives=top_collectives, since=since)
+
+
+# The training loop's host phases around the step (``hardened_loop``'s
+# spans); the prefetch thread's own stages overlap the loop and are
+# reported apart. Overlay phases nest inside another phase's span (a
+# ``compile`` span covers the call that built a kernel library) and are
+# never summed into the loop's wall.
+_HOST_PHASES = ("prefetch_wait", "host_fence", "checkpoint_save", "eval",
+                "divergence_restore")
+_OVERLAPPED_PHASES = ("prefetch_host", "prefetch_device_put")
+_OVERLAY_PHASES = ("compile",)
+
+
+def gap_attribution(summ: Mapping | None = None) -> dict:
+    """Attribute a training run's loop wall across its phases: ``step``
+    against each host phase, with the host share of the loop total
+    (``summ``: a :func:`summary`-shaped dict, default the installed
+    recorder's). A large ``host_fence`` share is the host waiting for the
+    device; a large ``prefetch_wait`` share is input starvation."""
+    if summ is None:
+        summ = summary()
+    phases = summ.get("phases", {}) if summ else {}
+    step_s = phases.get("step", {}).get("total_s", 0.0)
+    host = {n: phases[n]["total_s"] for n in _HOST_PHASES if n in phases}
+    overlap = {n: round(phases[n]["total_s"], 4) for n in _OVERLAPPED_PHASES if n in phases}
+    host_s = sum(host.values())
+    loop_s = step_s + host_s
+    out = {
+        "loop_s": round(loop_s, 4),
+        "step_s": round(step_s, 4),
+        "host_s": round(host_s, 4),
+        "host_phases_s": {n: round(v, 4) for n, v in sorted(host.items())},
+        "host_share_pct": round(100.0 * host_s / loop_s, 2) if loop_s else 0.0,
+    }
+    if overlap:
+        out["overlapped_s"] = overlap
+    return out

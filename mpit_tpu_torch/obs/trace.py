@@ -1,16 +1,19 @@
 """Request lifecycle ledger: per-request causal events and tail
-exemplars, the part of :mod:`mpit_tpu.obs.trace` the serving fleet
-uses (the Chrome-trace exemplar export and the why-slow report are not
-ported yet).
+exemplars (the port of :mod:`mpit_tpu.obs.trace`).
 
 Every request carries a :class:`TraceContext` and accrues typed causal
-events at each decision seam (the fleet's assign, prefill, shipment,
-re-queue and done events among them). Aggregate per-event-kind counters
+events at each decision seam: the scheduler's (enqueue, admission
+verdict with its projection inputs, shed, slot bind, prefill chunks,
+decode-tick membership, COW copies, preemption park and resume, spec
+draft and accept, retire reason) and the fleet's (assign, prefill,
+shipment, re-queue, done). Aggregate per-event-kind counters
 are always on (mode ``aggregate`` or ``full``); full ledgers are
 retained only for exemplars:
 
 - the slowest-k requests per SLO window (k = ``exemplar_k``),
-- any request alive during a pinned instant (:meth:`Ledger.pin_inflight`),
+- any request alive during an ``slo_breach``/``anomaly`` instant
+  (pinned via :meth:`Ledger.pin_inflight`, wired through
+  ``Sentinel(on_note=...)``),
 - any errored/truncated request.
 
 Everything else drops its ledger at retire; only the counters remain.
@@ -21,7 +24,12 @@ is explicit (``scheduler_gap``), so the components reconcile against
 the measured latency by construction.
 
 A trace context serializes to canonical JSON — version-tagged, no
-pickle, byte-identical when re-serialized.
+pickle, byte-identical when re-serialized — and ships over compat
+(:func:`send_trace_context` / :func:`recv_trace_context`: length
+prefixed, on dedicated tags of a duplicated communicator).
+:func:`exemplar_trace_events` puts a retained exemplar's events on the
+Chrome trace; :func:`collect_exemplars` and :func:`format_why_slow` are
+``python -m mpit_tpu_torch.obs why-slow``'s back end.
 """
 
 from __future__ import annotations
@@ -34,6 +42,11 @@ from typing import Any, Callable, Iterable, Mapping
 
 TRACE_FORMAT = "mpit-obs-trace-ctx-v1"
 LEDGER_FORMAT = "mpit-obs-ledger-v1"
+
+# Trace-context shipment tags: readable labels in a reserved range; the
+# duplicated communicator's own matching space does the isolating.
+TAG_TRACE_HEADER = 0x0B5_101
+TAG_TRACE_PAYLOAD = 0x0B5_102
 
 #: Components reported by :func:`attribute_latency`, in display order.
 ATTRIBUTION_COMPONENTS = (
@@ -92,6 +105,40 @@ class TraceContext:
             origin_rank=int(doc["origin_rank"]),
             seq=int(doc["seq"]),
         )
+
+
+def send_trace_context(ctx: TraceContext, dest: int, *, comm=None) -> None:
+    """Ship a trace context to ``dest`` over the compat simulator:
+    length-prefixed on dedicated tags over a duplicated communicator; a
+    throwaway thread-local recorder absorbs the shipment's own Send
+    accounting, so the application's P2P counters stay clean."""
+    import torch
+
+    from mpit_tpu_torch.compat import simulator as sim
+    from mpit_tpu_torch.obs import core
+
+    ship = sim.Comm_dup(comm, key="obs-trace-context")
+    payload = torch.frombuffer(bytearray(ctx.to_bytes()), dtype=torch.uint8)
+    with core.local_recorder(core.Recorder()):
+        sim.Send(torch.tensor([payload.numel()], dtype=torch.int64), dest,
+                 tag=TAG_TRACE_HEADER, comm=ship)
+        sim.Send(payload, dest, tag=TAG_TRACE_PAYLOAD, comm=ship)
+
+
+def recv_trace_context(src: int, *, comm=None) -> TraceContext:
+    """Receive a trace context shipped by :func:`send_trace_context`."""
+    import torch
+
+    from mpit_tpu_torch.compat import simulator as sim
+    from mpit_tpu_torch.obs import core
+
+    ship = sim.Comm_dup(comm, key="obs-trace-context")
+    with core.local_recorder(core.Recorder()):
+        hdr = torch.zeros(1, dtype=torch.int64)
+        sim.Recv(hdr, src=src, tag=TAG_TRACE_HEADER, comm=ship)
+        buf = torch.zeros(int(hdr[0]), dtype=torch.uint8)
+        sim.Recv(buf, src=src, tag=TAG_TRACE_PAYLOAD, comm=ship)
+    return TraceContext.from_bytes(buf.numpy().tobytes())
 
 
 # ---------------------------------------------------------------------------
@@ -282,7 +329,8 @@ class Ledger:
     def pin_inflight(self, reason: str, *, step=None) -> list[str]:
         """Pin every in-flight request's ledger for retention.
 
-        Wire as an instant's callback so an ``slo_breach``/``anomaly``
+        Wire as a ``Sentinel(on_note=...)`` callback (the scheduler
+        does this) so an ``slo_breach``/``anomaly``
         instant and the requests alive when it fired become joinable.
         Returns the pinned rids (the breach-time in-flight set).
         """
@@ -410,10 +458,115 @@ class Ledger:
         }
 
     def snapshot(self) -> dict:
-        """Full serializable dump."""
+        """Full serializable dump (the ``why-slow`` CLI's input shape)."""
         return {
             "format": LEDGER_FORMAT,
             **self.stats(),
             "pin_events": list(self.pin_events),
             "exemplars": self.exemplars(),
         }
+
+
+# ---------------------------------------------------------------------------
+# Perfetto surfacing.
+# ---------------------------------------------------------------------------
+
+
+def exemplar_trace_events(
+    exemplar: Mapping[str, Any], *, pid: int = 0, tid: int = 0,
+) -> list[dict]:
+    """Chrome-format instants for one exemplar's ledger events, each
+    carrying the ``rid`` (and ``trace_id``) arg, so they land on the
+    request's rid-filterable lane next to its ``queue_wait`` /
+    ``request_ttft`` / ``request_latency`` spans. Feed them to
+    ``export_chrome_trace(..., extra_events=...)``. Timestamps are
+    relative to the exemplar's own submit instant."""
+    rid = exemplar.get("rid", "")
+    base = float(exemplar.get("submit_t", 0.0)) * 1e6
+    out = []
+    for kind, t_rel, attrs in exemplar.get("events", []):
+        args = {"rid": rid, **attrs}
+        if exemplar.get("trace_id"):
+            args["trace_id"] = exemplar["trace_id"]
+        out.append({
+            "name": f"ledger:{kind}",
+            "ph": "i",
+            "s": "t",
+            "ts": base + float(t_rel) * 1e6,
+            "pid": pid,
+            "tid": tid,
+            "cat": "ledger",
+            "args": args,
+        })
+    return out
+
+
+# ---------------------------------------------------------------------------
+# why-slow forensics (the CLI's back end; its exit codes live in __main__).
+# ---------------------------------------------------------------------------
+
+
+def collect_exemplars(doc: Mapping[str, Any]) -> tuple[list[dict], str | None]:
+    """Pull exemplars out of a ledger snapshot, a ``Server.stats()``
+    dict (or the serving CLI's output, which carries it), or a
+    BENCH_DETAIL.json (every workload's ``trace_forensics`` block).
+    Returns ``(exemplars, error)``, worst first; ``error`` is set when
+    the input is unusable (no ledger, no exemplars, or a ledger that
+    dropped events: forensics over holes would misattribute)."""
+    docs: list[Mapping[str, Any]] = []
+    if doc.get("format") == LEDGER_FORMAT:
+        docs.append(doc)
+    elif "workloads" in doc:
+        for _name, wl in sorted(doc.get("workloads", {}).items()):
+            block = wl.get("trace_forensics") if isinstance(wl, Mapping) else None
+            if isinstance(block, Mapping):
+                docs.append(block)
+    elif "exemplars" in doc:
+        docs.append(doc)
+    if not docs:
+        return [], "no ledger exemplars found in input"
+    exemplars: list[dict] = []
+    for d in docs:
+        if int(d.get("dropped_events", 0)) > 0:
+            return [], (
+                f"ledger truncated ({d.get('dropped_events')} dropped "
+                "events) — forensics would misattribute; refusing"
+            )
+        exemplars.extend(d.get("exemplars", []))
+    if not exemplars:
+        return [], "input has a ledger block but zero retained exemplars"
+    exemplars.sort(key=lambda e: -float(e.get("latency_s", 0.0)))
+    return exemplars, None
+
+
+def format_why_slow(exemplar: Mapping[str, Any]) -> str:
+    """Render one exemplar as a lifeline and an attribution table."""
+    lines = [
+        f"why-slow: rid={exemplar.get('rid')} "
+        f"trace={exemplar.get('trace_id')} "
+        f"status={exemplar.get('status')} "
+        f"latency={float(exemplar.get('latency_s', 0.0)) * 1e3:.2f}ms",
+        f"retained because: {', '.join(exemplar.get('retained_because', []))}"
+        + (
+            f"  retire: {exemplar['retire_reason']}"
+            if exemplar.get("retire_reason") else ""
+        ),
+        "",
+        "attribution:",
+    ]
+    attr = exemplar.get("attribution", {})
+    latency = float(attr.get("request_latency_s", 0.0)) or 1.0
+    for comp in ATTRIBUTION_COMPONENTS:
+        v = float(attr.get(comp, 0.0))
+        lines.append(f"  {comp:24s} {v * 1e3:10.3f}ms  {v / latency * 100.0:5.1f}%")
+    lines.append(
+        f"  {'request_latency_s':24s} "
+        f"{float(attr.get('request_latency_s', 0.0)) * 1e3:10.3f}ms  "
+        f"(reconciles within {float(attr.get('reconciliation_pct', 0.0)):.2f}%)"
+    )
+    lines.append("")
+    lines.append("lifeline:")
+    for kind, t_rel, attrs in exemplar.get("events", []):
+        detail = " ".join(f"{k}={v}" for k, v in attrs.items())
+        lines.append(f"  +{float(t_rel) * 1e3:9.3f}ms  {kind:15s} {detail}")
+    return "\n".join(lines)

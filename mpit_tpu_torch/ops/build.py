@@ -20,7 +20,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "CSRC", "KERNEL_SOURCES", "build", "load"]
+__all__ = ["BUILD_DIR", "CSRC", "KERNEL_SOURCES", "build", "event_count", "load"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
@@ -38,6 +38,17 @@ NVCC_FLAGS = (
     "-Xcompiler",
     "-fPIC",
 )
+
+
+# Sources compiled and libraries loaded in this process: what a
+# CompileWatch (obs/roofline.py) reads around a call.
+_events = 0
+
+
+def event_count() -> int:
+    """How many sources this process has compiled and libraries it has
+    loaded so far."""
+    return _events
 
 
 def _nvcc() -> str:
@@ -73,6 +84,7 @@ def build(sources=KERNEL_SOURCES, *, force: bool = False) -> dict[str, str]:
     together. Returns ``{source: compiler output}`` for the sources
     compiled by this call (``ptxas`` register and shared-memory usage
     included); raises with the compiler's output if any build fails."""
+    global _events
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = None
     running = {}
@@ -88,6 +100,7 @@ def build(sources=KERNEL_SOURCES, *, force: bool = False) -> dict[str, str]:
             stderr=subprocess.STDOUT,
         )
         running[source] = (proc, tmp, out)
+        _events += 1
     logs = {}
     failed = []
     for source, (proc, tmp, out) in running.items():
@@ -105,5 +118,7 @@ def build(sources=KERNEL_SOURCES, *, force: bool = False) -> dict[str, str]:
 @functools.cache
 def load(source: str) -> ctypes.CDLL:
     """The loaded library for ``source``, built first if needed."""
+    global _events
     build((source,))
+    _events += 1
     return ctypes.CDLL(str(_lib_path(source)))

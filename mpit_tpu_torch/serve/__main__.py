@@ -38,11 +38,21 @@ ride the load spec (``...,priority=1,ttft_target=0.2``).
 preemption victims park there and resume by restreaming, and prefix
 entries outlive their pages.
 
+Observability: ``--slo-ttft-p95 S``, ``--slo-latency-p95 S`` and
+``--slo-shed-rate F`` declare SLO targets evaluated once a tick over the
+rolling windows (the JSON's ``slo`` block); ``--sentinel true`` runs the
+anomaly sentinel over the prefill and decode ticks (``sentinel``);
+``--trace run.json`` writes the run's Chrome trace, with the request
+ledger's exemplars on their requests' lanes (the ledger rides along, so
+the JSON's ``exemplars`` feed ``python -m mpit_tpu_torch.obs why-slow``).
+The JSON always carries the ``roofline`` block (each phase's
+modeled work against its span seconds: ``mfu_pct`` / ``hbm_util_pct``
+against the card's peaks on a known card, labelled with the card and its
+power limit; the platform label and no percentage on the CPU) and the
+``memory`` block (the engine's memory ledger, for ``obs capacity``).
+
 Runs on the GPU (``--device cuda``, the default; it raises without
-one); ``--device cpu`` is for testing. The flags of paths this port
-does not carry yet (``--slo-*``, ``--sentinel``, ``--trace``) are kept,
-and a non-default value raises ``SystemExit`` naming ROADMAP.md §A 11,
-which brings them: they are never silently ignored.
+one); ``--device cpu`` is for testing.
 """
 
 from __future__ import annotations
@@ -117,7 +127,8 @@ class ServeConfig:
     # serve.policy spec ("quantum=4,preempt=1,admission_factor=1.2,
     # weight.<tenant>=2").
     policy: str = ""
-    # Flags of a later slice: non-default values are rejected.
+    # Observability: the step-time sentinel, a Chrome trace path (with
+    # the request ledger), SLO targets (0 = none).
     sentinel: bool = False
     trace: str = ""
     slo_ttft_p95: float = 0.0
@@ -128,27 +139,15 @@ class ServeConfig:
     fleet: str = ""
 
 
-# Flag -> the later slice of the port that brings it (see ROADMAP.md).
-_LATER_SLICES = {
-    "slo_ttft_p95": "the SLO monitor (ROADMAP.md §A 11)",
-    "slo_latency_p95": "the SLO monitor (ROADMAP.md §A 11)",
-    "slo_shed_rate": "the SLO monitor (ROADMAP.md §A 11)",
-    "sentinel": "the serving sentinel (ROADMAP.md §A 11)",
-    "trace": "the Chrome trace export (ROADMAP.md §A 11)",
-}
 # Flags of the single Server's loop, which the fleet's router does not run.
-_SERVER_ONLY = ("loadgen", "max_queue", "policy", "kv_host_pages")
+_SERVER_ONLY = (
+    "loadgen", "max_queue", "policy", "kv_host_pages", "sentinel", "trace", "slo_ttft_p95",
+    "slo_latency_p95", "slo_shed_rate",
+)
 
 
-def _reject_later_slices(cfg: ServeConfig) -> None:
-    defaults = ServeConfig()
-    for name, slice_name in _LATER_SLICES.items():
-        val = getattr(cfg, name)
-        if val != getattr(defaults, name):
-            raise SystemExit(
-                f"--{name.replace('_', '-')} {val!r}: not in this port yet; "
-                f"it arrives with {slice_name}"
-            )
+def _check_flags(cfg: ServeConfig) -> None:
+    """``SystemExit`` for a flag value or combination the CLI refuses."""
     if cfg.decode_attention not in ("kernel", "reference"):
         raise SystemExit(
             f"--decode-attention {cfg.decode_attention!r}: expected kernel "
@@ -191,8 +190,8 @@ def _reject_later_slices(cfg: ServeConfig) -> None:
                 raise SystemExit(
                     f"--fleet with --{name.replace('_', '-')}: the fleet's router "
                     "serves the closed-loop stream with its own admission; "
-                    "the open-loop harness, the policy and the host KV tier "
-                    "drive one Server"
+                    "the open-loop harness, the policy, the host KV tier and "
+                    "the serving obs flags drive one Server"
                 )
     if cfg.fleet and cfg.mesh:
         # The fleet's KV shipment (export_kv_rows / inject_kv_rows) moves
@@ -466,12 +465,27 @@ def _check_load_geometry(cfg: ServeConfig, spec) -> None:
                 )
 
 
-def live_line(registry, server, now: float) -> str:
+def _slo_targets(cfg: ServeConfig) -> list:
+    from mpit_tpu_torch.obs.slo import SLO
+
+    targets = []
+    if cfg.slo_ttft_p95 > 0:
+        targets.append(SLO.ttft_p95(cfg.slo_ttft_p95))
+    if cfg.slo_latency_p95 > 0:
+        targets.append(SLO.latency_p95(cfg.slo_latency_p95))
+    if cfg.slo_shed_rate > 0:
+        targets.append(SLO.shed_rate(cfg.slo_shed_rate))
+    return targets
+
+
+def live_line(registry, server, now: float, monitor=None) -> str:
     """One line of rolling-window stats: TTFT and latency percentiles,
     arrival and token rates, occupancy, queue depth, completions and
     sheds; preemptions under a policy, the cache and weight dtypes when
-    chosen, and on the pool its occupancy, cached tokens, shared pages
-    and host pages in use."""
+    chosen, on the pool its occupancy, cached tokens, shared pages and
+    host pages in use; the ledger's held bytes, the KV subsystem's and
+    its headroom; the decode tick's modeled HBM rate and, on a known
+    card, its MFU; the SLO targets in breach."""
     ws = registry.window_stats()
     h, r, g = ws["histograms"], ws["rates"], ws["gauges"]
 
@@ -503,12 +517,47 @@ def live_line(registry, server, now: float) -> str:
         )
     if "kv_host_pages_in_use" in g:
         line += f" host={g['kv_host_pages_in_use']:.0f}"
+    if "hbm_held_bytes" in g:
+        line += (
+            f" hbm={g['hbm_held_bytes'] / 1e6:.1f}MB"
+            f" held={g.get('kv_held_bytes', 0.0) / 1e6:.1f}MB"
+            f" headroom={g.get('kv_headroom_pct', 0.0):.0f}%"
+        )
+    bw = r.get("decode_hbm_bytes", {}).get("rate_per_s", 0.0)
+    if bw:
+        # The decode tick's length-aware modeled bytes over the window;
+        # MFU only on a card with a known spec (off it, a percentage of a
+        # peak would be fiction).
+        line += f" hbmbw={bw / 1e9:.2f}GB/s"
+        fl = r.get("decode_flops", {}).get("rate_per_s", 0.0)
+        peaks = _card_peaks(server.engine)
+        if fl and peaks is not None:
+            line += f" mfu={100.0 * fl / peaks['peak_flops']:.2f}%"
+        else:
+            line += " mfu=-"
+    if monitor is not None:
+        breached = [n for n, t in monitor.report()["targets"].items() if t["in_breach"]]
+        if breached:
+            line += " SLO-BREACH:" + ",".join(breached)
     return line
+
+
+def _card_peaks(engine):
+    """The card's peaks for the engine's compute dtype, or None off the
+    card or on a card without a known spec."""
+    from mpit_tpu_torch.obs.roofline import chip_peaks
+
+    if engine.platform != "cuda":
+        return None
+    import torch
+
+    peaks = chip_peaks(dtype="bf16" if engine.cfg.dtype == torch.bfloat16 else "f32")
+    return peaks if peaks["peak_flops"] else None
 
 
 def main(argv: list[str] | None = None) -> dict:
     cfg = from_argv(ServeConfig, argv, prog="python -m mpit_tpu_torch.serve")
-    _reject_later_slices(cfg)
+    _check_flags(cfg)
     if cfg.fleet:
         return _run_fleet_cli(cfg)
     from mpit_tpu_torch import obs
@@ -530,18 +579,26 @@ def main(argv: list[str] | None = None) -> dict:
     if spec is not None:
         _check_load_geometry(cfg, spec)
     rec = obs.enable(obs.Recorder())
+    sentinel = obs.Sentinel(phases=("decode", "prefill"), warmup=4) if cfg.sentinel else None
+    # The request ledger rides along with --trace: its exemplars go on
+    # the trace's request lanes and into the JSON (why-slow's input).
+    ledger = obs.Ledger(mode="full") if cfg.trace else None
     try:
         engine, mcfg = _build_engine(cfg)
         registry = StreamRegistry(window_s=cfg.window_s)
+        targets = _slo_targets(cfg)
+        monitor = obs.SLOMonitor(targets, registry, sentinel=sentinel) if targets else None
         policy = (
             SchedulingPolicy(policy_cfg, registry) if policy_cfg is not None else None
         )
         server = Server(
-            engine, stream=registry, max_queue=cfg.max_queue or None, policy=policy
+            engine, sentinel=sentinel, stream=registry, slo=monitor,
+            max_queue=cfg.max_queue or None, policy=policy, ledger=ledger,
         )
         if spec is not None:
-            # The first launches' one-off costs land outside the window.
-            warm_engine(engine)
+            # The first launches' one-off costs land outside the window;
+            # the steps' analytic costs are registered with the recorder.
+            warm_engine(engine, register_costs=True)
             arrivals = generate_arrivals(
                 spec, vocab_size=mcfg.vocab_size, duration_s=cfg.duration,
                 seed=cfg.seed,
@@ -552,22 +609,23 @@ def main(argv: list[str] | None = None) -> dict:
                 if cfg.stats_interval <= 0 or now - last_line[0] < cfg.stats_interval:
                     return
                 last_line[0] = now
-                print(live_line(registry, srv, now), file=sys.stderr, flush=True)
+                print(live_line(registry, srv, now, monitor), file=sys.stderr, flush=True)
 
             t0 = time.perf_counter()
             server.run_timed(
                 arrivals, duration=cfg.duration, drain=cfg.drain, on_tick=on_tick
             )
         else:
+            engine.register_roofline()
             for req in synthetic_requests(cfg, mcfg.vocab_size):
                 server.submit(req)
             t0 = time.perf_counter()
             server.run()
         wall = time.perf_counter() - t0
+        stats = server.stats()
     finally:
         obs.disable()
     summ = rec.summary()
-    stats = server.stats()
     decode_s = summ["phases"].get("decode", {}).get("total_s", 0.0)
     # First tokens come from prefill; decode throughput counts the rest.
     decode_tokens = stats["generated_tokens"] - stats["requests_completed"]
@@ -595,6 +653,8 @@ def main(argv: list[str] | None = None) -> dict:
             for name, p in summ["phases"].items()
         },
     }
+    if summ.get("roofline"):
+        out["roofline"] = summ["roofline"]
     if spec is not None:
         out["load"] = {
             "rate": spec.rate,
@@ -605,6 +665,10 @@ def main(argv: list[str] | None = None) -> dict:
             "shed": len(server.shed),
         }
         out["window_stats"] = registry.window_stats()
+    if cfg.trace:
+        extra = [ev for ex in ledger.exemplars() for ev in obs.trace.exemplar_trace_events(ex)]
+        obs.export_chrome_trace(cfg.trace, recorder=rec, extra_events=extra)
+        out["trace"] = cfg.trace
     return out
 
 

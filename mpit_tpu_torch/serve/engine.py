@@ -76,6 +76,19 @@ fused-dequant matmul (:func:`mpit_tpu_torch.ops.quantized_matmul.quantized_matmu
 the CUDA kernel on the card) — or, in a reference engine, the
 whole-dequant oracle. ``None`` and ``"f32"`` serve the state as loaded.
 
+Every engine keeps a byte-exact device-memory ledger (``memledger``,
+:class:`~mpit_tpu_torch.obs.MemLedger`): its weight store, its cache
+tensors, the draft and the per-slot state are granted once at
+construction from the tensors' own sizes; the paged allocator grants and
+frees pages (``kv_pages``) and copy-on-write reserves as they move, the
+scheduler grants and frees the dense cache's slots (``kv_slots``), and
+the host tier its seats (``kv_host_pages``). ``compile_watch`` records a
+kernel-library build inside an engine call
+(:class:`~mpit_tpu_torch.obs.roofline.CompileWatch`);
+:meth:`Engine.register_roofline` registers each step's analytic cost with
+the obs recorder and :meth:`Engine.decode_achieved_hbm_bytes` models a
+decode tick's bytes from the tiles the length-aware kernel visits.
+
 The cache is updated in place (JAX rebuilds it each step). Every call
 runs the forward over all slots, as the JAX package's fixed shapes do:
 the matmuls' row count is then the same whichever requests share a
@@ -99,13 +112,16 @@ import numpy as np
 import torch
 
 from mpit_tpu_torch.models.gpt2 import GPT2, GPT2Config
+from mpit_tpu_torch.obs import roofline as _roofline
+from mpit_tpu_torch.obs.memledger import MemLedger
 from mpit_tpu_torch.ops.decode_attention import (
     flash_decode_attention,
     flash_paged_decode_attention,
     kernel_library,
+    num_kv_blocks,
     pick_block_k,
 )
-from mpit_tpu_torch.ops.kv_quant import QuantizedKV, kv_tensors
+from mpit_tpu_torch.ops.kv_quant import QuantizedKV, kv_tensors, kv_wire_bytes_per_row
 from mpit_tpu_torch.ops.lm_head import gumbel, lm_head_sample, lm_head_verify
 from mpit_tpu_torch.ops.quantized_matmul import (
     kernel_library as qmm_kernel_library,
@@ -122,9 +138,15 @@ from mpit_tpu_torch.serve.spec import (
     accept_emit,
     draft_distribution,
     modified_logits,
+    register_draft_store,
     verify_reference,
 )
-from mpit_tpu_torch.serve.weights import quantize_gpt2_params, shard_gpt2_params
+from mpit_tpu_torch.serve.weights import (
+    quantize_gpt2_params,
+    register_param_store,
+    shard_gpt2_params,
+)
+from mpit_tpu_torch.utils.profiling import gpt2_step_cost
 
 __all__ = ["Engine", "modified_logits", "resolve_device", "sample_tokens"]
 
@@ -137,6 +159,20 @@ _DTYPE_SHORT = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _KV_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": None}
 # Engine.weights_dtype values; None = the state as loaded (f32).
 _WEIGHT_DTYPES = ("f32", "int8")
+
+
+def _watched(phase: str):
+    """Route an engine call through the engine's ``compile_watch``, under
+    the span name the scheduler uses for it."""
+
+    def deco(fn):
+        @functools.wraps(fn)
+        def call(self, *args, **kwargs):
+            return self.compile_watch.call(phase, fn, self, *args, **kwargs)
+
+        return call
+
+    return deco
 
 
 def resolve_device(device) -> torch.device:
@@ -237,6 +273,18 @@ class Engine:
                 f"None = the state as loaded), got {weights_dtype!r}"
             )
         self.device = resolve_device(device)
+        # "cuda" or "cpu": the label the roofline and the memory ledger
+        # carry (percentages and device reconciliation only on the card).
+        self.platform = self.device.type
+        # What the process held on the card before this engine's tensors:
+        # the memory ledger reconciles against the allocator less this.
+        self.device_bytes_before = (
+            torch.cuda.memory_allocated(self.device) if self.platform == "cuda" else 0
+        )
+        # Kernel-library builds inside engine calls; warm_engine pins the
+        # expectation once the warm-up has run.
+        self.compile_watch = _roofline.CompileWatch(scope="engine")
+        self.roofline_costs: dict | None = None  # set by register_roofline
         self.tp_axis = tp_axis
         self.tp = 0  # the ranks of the tensor-parallel axis; 0: one rank
         if tp_axis is not None:
@@ -399,6 +447,60 @@ class Engine:
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         if self.host_pages:
             self._alloc_host_tier()
+        # One cached K (or V) row of one layer at its storage width (int8
+        # rows with their scales): the length-aware decode bytes' unit.
+        self._kv_row_bytes = kv_wire_bytes_per_row(
+            cfg.num_heads, cfg.head_dim,
+            torch.int8 if self.kv_quantized else kv_tensors(self.cache.k)[0].dtype,
+        )
+        self._register_memory()
+
+    def _register_memory(self) -> None:
+        """The memory ledger's static grants, from the tensors' own sizes:
+        the weight store (``weights``), the cache tensors and lengths
+        (``kv_pool``), the draft (``draft_weights``, its cache on
+        ``kv_pool``), the last tokens (``step_buffers``); and the nested
+        capacities the allocator (``kv_pages``, ``kv_cow_reserve``), the
+        scheduler (``kv_slots``) and the host tier (``kv_host_pages``)
+        grant into."""
+        ml = self.memledger = MemLedger(platform=self.platform)
+        target = self.model.state_dict()
+        self._param_bytes = register_param_store(ml, target)
+
+        def nbytes(c) -> int:
+            return sum(t.numel() * t.element_size() for t in kv_tensors(c.k) + kv_tensors(c.v))
+
+        kv_buf = nbytes(self.cache)
+        lengths_bytes = self.cache.lengths.numel() * self.cache.lengths.element_size()
+        draft_kv = 0
+        if self.draft_cache is not None:
+            draft_kv = nbytes(self.draft_cache)
+            d_len = self.draft_cache.lengths
+            lengths_bytes += d_len.numel() * d_len.element_size()
+        ml.register("kv_pool", capacity_bytes=kv_buf + draft_kv + lengths_bytes)
+        ml.grant("kv_pool", kv_buf + lengths_bytes, kind="cache_buffers")
+        if self.spec_k:
+            register_draft_store(
+                ml, self.draft_model.state_dict(), target_params=target, kv_bytes=draft_kv
+            )
+        ml.grant("step_buffers", self.last_token.numel() * self.last_token.element_size(),
+                 kind="last_token")
+        self.slot_bytes = 0
+        if self.paged:
+            # page_bytes spans every tensor a page spans, the draft pool's
+            # too; the pool's trash page is in kv_pool, not in kv_pages.
+            ml.register("kv_pages", capacity_bytes=self.num_pages * self.page_bytes,
+                        nested_in="kv_pool")
+            ml.register("kv_cow_reserve", nested_in="kv_pool")
+            self.allocator.memledger = ml
+            self.allocator.page_bytes = self.page_bytes
+            if self.host_pages:
+                ml.register("kv_host_pages", capacity_bytes=self.host_pages * self.page_bytes,
+                            nested_in="host_ram")
+        else:
+            self.slot_bytes = (kv_buf + draft_kv) // self.slots
+            ml.register("kv_slots", capacity_bytes=self.slots * self.slot_bytes,
+                        nested_in="kv_pool")
 
     def _build_draft(self, params, cfg: GPT2Config, store: dict) -> None:
         """The draft model and its cache. The draft runs the plain
@@ -463,6 +565,7 @@ class Engine:
             compute_dtype=self.cfg.head_dtype,
         )
 
+    @_watched("prefill")
     @torch.no_grad()
     def prefill(self, tokens, prompt_lens, admit, temp, topk) -> np.ndarray:
         """Admit requests: ``tokens`` ``[slots, prefill_len]`` (padded),
@@ -509,6 +612,7 @@ class Engine:
                 d.v[:, idx] = dv[:, idx]
         return self.last_token.cpu().numpy()
 
+    @_watched("prefill")
     @torch.no_grad()
     def prefill_paged(
         self, tokens, base, chunk_lens, floor, sample_mask, temp, topk
@@ -571,6 +675,7 @@ class Engine:
             self.last_token[keep] = tok[keep]
         return self.last_token.cpu().numpy()
 
+    @_watched("copy_page")
     @torch.no_grad()
     def copy_page(self, src: int, dst: int) -> None:
         """Device half of a copy-on-write remap: copy pool page ``src``
@@ -629,14 +734,18 @@ class Engine:
         if not self.host_pages:
             raise ValueError("the host KV tier needs Engine(kv_host_pages=...)")
 
+    @_watched("spill_page")
     @torch.no_grad()
-    def spill_page(self, device_page: int, host_page: int) -> None:
+    def spill_page(self, device_page: int, host_page: int, *, owner=None,
+                   tick: int = 0) -> None:
         """Start the spill of pool page ``device_page`` into seat
         ``host_page``: the page is gathered into fresh device tensors on
         the current stream (so a later write into the page, queued
         behind it, cannot reach the copy), then copied to the pinned
         seat on the copy stream behind an event. The seat holds the
-        payload once :meth:`drain_spills` has waited on that event."""
+        payload once :meth:`drain_spills` has waited on that event. The
+        seat's bytes are granted in the memory ledger here (``owner`` /
+        ``tick`` annotate the grant)."""
         self._require_host_tier()
         dp, hp = int(device_page), int(host_page)
         self._pending_spills.pop(hp, None)
@@ -658,6 +767,8 @@ class Engine:
             self._pending_spills[hp] = event
         self.host_spilled_pages += 1
         self.host_spill_bytes += self.page_bytes
+        self.memledger.grant("kv_host_pages", self.page_bytes, owner=owner, tick=tick,
+                             kind="spill")
 
     def drain_spills(self) -> int:
         """Wait for every spill still in flight; their seats then hold
@@ -671,15 +782,18 @@ class Engine:
             self._host_landed.add(hp)
         return len(pending)
 
+    @_watched("restore_page")
     @torch.no_grad()
-    def restore_page(self, host_page: int, device_page: int, *, release: bool = False) -> None:
+    def restore_page(self, host_page: int, device_page: int, *, release: bool = False,
+                     kind: str = "restream", owner=None, tick: int = 0) -> None:
         """Write seat ``host_page`` back into pool page ``device_page``,
         whole (every tensor the spill took), on the current stream.
         A seat whose spill is still in flight drains first.
         ``release=True`` consumes the payload (a parked victim's resume);
         otherwise the seat keeps it (a host prefix entry keeps serving
-        hits until promotion frees it). A seat without a payload raises
-        ``KeyError``."""
+        hits until promotion frees it; a released seat's bytes are freed
+        in the memory ledger, ``kind`` naming why). A seat without a
+        payload raises ``KeyError``."""
         self._require_host_tier()
         hp, dp = int(host_page), int(device_page)
         if hp in self._pending_spills:
@@ -692,17 +806,22 @@ class Engine:
         self.host_restream_bytes += self.page_bytes
         if release:
             self._host_landed.discard(hp)
+            self.memledger.free("kv_host_pages", self.page_bytes, owner=owner, kind=kind)
 
-    def host_free(self, host_page: int) -> None:
+    def host_free(self, host_page: int, *, kind: str = "host_free", owner=None,
+                  tick: int = 0) -> None:
         """Drop seat ``host_page``'s payload without restoring it
         (promotion made it redundant, a cold eviction reclaimed it, or a
-        resume's prefix hit covered it). A copy still in flight into the
-        seat finishes on the copy stream, before any later spill's."""
+        resume's prefix hit covered it) and free its bytes in the memory
+        ledger. A copy still in flight into the seat finishes on the copy
+        stream, before any later spill's."""
         self._require_host_tier()
         hp = int(host_page)
         self._pending_spills.pop(hp, None)
         self._host_landed.discard(hp)
+        self.memledger.free("kv_host_pages", self.page_bytes, owner=owner, kind=kind)
 
+    @_watched("decode")
     @torch.no_grad()
     def decode(self, active, temp, topk) -> np.ndarray:
         """One decode tick over the slot batch; returns the per-slot
@@ -754,6 +873,7 @@ class Engine:
         out, _ = self.draft_model(tokens[:, None].long(), return_hidden=not with_head, **cache)
         return out[:, 0].float() if with_head else None
 
+    @_watched("spec_draft")
     @torch.no_grad()
     def spec_draft(self, active, temp, topk) -> None:
         """Phase 1 of a speculative tick: ``spec_k`` T = 1 draft steps per
@@ -794,6 +914,7 @@ class Engine:
             torch.stack(drafted, dim=1), torch.stack(qx, dim=1), torch.stack(qprobs, dim=1)
         )
 
+    @_watched("spec_verify")
     @torch.no_grad()
     def spec_verify(self, active, temp, topk, budget, eos):
         """Phase 2: one target pass at T = k + 1 over ``[last, d_1 ..
@@ -862,6 +983,76 @@ class Engine:
         self.last_token = torch.where(act, last, self.last_token)
         c.lengths = lens + n_emit
         return emit.cpu().numpy(), n_emit.cpu().numpy(), n_acc.cpu().numpy()
+
+    # -- roofline accounting -------------------------------------------------
+    def register_roofline(self) -> dict:
+        """Register each step's analytic per-execution cost
+        (:func:`~mpit_tpu_torch.utils.profiling.gpt2_step_cost`) with the
+        obs recorder under the span names the scheduler uses —
+        ``prefill`` and ``decode``, or ``prefill``, ``spec_draft`` and
+        ``spec_verify`` on a speculative engine — against the bf16 or f32
+        peak as the model computes. The costs are of the padded steps:
+        every slot, the prefill width (or chunk), the whole cache window;
+        the scheduler feeds the decode tick's length-aware bytes
+        (:meth:`decode_achieved_hbm_bytes`) as explicit work. Returns
+        ``{phase: cost}``, kept as ``roofline_costs``."""
+        width = self.prefill_chunk if self.paged else self.prefill_len
+        kw = dict(slots=self.slots, ctx=self.max_len, param_bytes=self._param_bytes,
+                  kv_row_bytes=self._kv_row_bytes)
+        steps = {"prefill": gpt2_step_cost(self.cfg, "prefill", width=width, **kw)}
+        if self.spec_k:
+            k = self.spec_k
+            dkw = dict(
+                slots=self.slots, ctx=self.max_len,
+                param_bytes=self.memledger.held("draft_weights"),
+                kv_row_bytes=kv_wire_bytes_per_row(
+                    self.draft_cfg.num_heads, self.draft_cfg.head_dim,
+                    torch.int8 if self.kv_quantized
+                    else kv_tensors(self.draft_cache.k)[0].dtype,
+                ),
+            )
+            # The draft's prefill rides in the prefill call (no head).
+            draft = gpt2_step_cost(self.draft_cfg, "prefill", width=width, head_rows=0, **dkw)
+            for key in ("flops", "matmul_flops", "hbm_bytes"):
+                steps["prefill"][key] += draft[key]
+            steps["spec_draft"] = gpt2_step_cost(self.draft_cfg, "spec_draft", width=k, **dkw)
+            steps["spec_verify"] = gpt2_step_cost(self.cfg, "spec_verify", width=k + 1, **kw)
+        else:
+            steps["decode"] = gpt2_step_cost(self.cfg, "decode", width=1, **kw)
+        dtype = "bf16" if self.cfg.dtype == torch.bfloat16 else "f32"
+        for phase, cost in steps.items():
+            _roofline.register_cost(
+                phase, flops=cost["flops"], hbm_bytes=cost["hbm_bytes"],
+                platform=self.platform, source=cost["source"], dtype=dtype,
+            )
+        self.roofline_costs = steps
+        return steps
+
+    def decode_achieved_hbm_bytes(self, live_lens, t_q: int = 1, *,
+                                  include_params: bool = True):
+        """Modeled device bytes of one decode tick on the length-aware
+        kernel path: the weights once, the K/V tiles the kernel visits
+        for ``live_lens`` (the live slots' cache fills at the tick's
+        start) at query width ``t_q`` (1, or k + 1 for a speculative
+        verify), one tile for each free slot (its length is clamped to
+        0), and the rows appended — at the cache's storage width (int8
+        rows with their scales). The tile count is
+        :func:`~mpit_tpu_torch.ops.decode_attention.num_kv_blocks`, the
+        bound the kernel's own visited count follows. ``None`` on a
+        reference engine (no tile skipping to account)."""
+        if self.decode_attention == "reference":
+            return None
+        lens = np.asarray(live_lens)
+        visited = num_kv_blocks(lens, t_q, self.max_len, self.decode_block_k)
+        total_tiles = int(visited.sum()) + (self.slots - lens.size)
+        return _roofline.decode_step_hbm_bytes(
+            total_tiles,
+            block_k=self.decode_block_k,
+            kv_row_bytes=self._kv_row_bytes,
+            num_layers=self.cfg.num_layers,
+            param_bytes=self._param_bytes if include_params else 0.0,
+            appended_rows=lens.size * t_q,
+        )
 
     def lengths(self) -> np.ndarray:
         return self.cache.lengths.cpu().numpy()
@@ -969,14 +1160,22 @@ class Engine:
         self.cache.lengths.zero_()
         self.last_token.zero_()
         self._gen.manual_seed(seed)
+        ml = self.memledger
         if self.host_pages:
             # The tier empties with the pool: wait for copies in flight,
-            # drop every payload, zero the counters.
+            # drop every payload, zero the counters, free its bytes.
             self.drain_spills()
             self._host_landed.clear()
             self.host_spilled_pages = 0
             self.host_restreamed_pages = 0
             self.host_spill_bytes = 0
             self.host_restream_bytes = 0
+            if ml.held("kv_host_pages"):
+                ml.free("kv_host_pages", ml.held("kv_host_pages"), kind="reset")
         if self.paged:
-            self.allocator.reset()
+            self.allocator.reset()  # frees its pages and reserves in the ledger
+        elif ml.held("kv_slots"):
+            ml.free("kv_slots", ml.held("kv_slots"), kind="reset")
+        # Owner recency and exhaustion forensics describe the last run;
+        # the static grants stay (so do the tensors).
+        ml.reset_transients()

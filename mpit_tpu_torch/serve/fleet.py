@@ -21,9 +21,10 @@ paper's pserver request loop as inference, on the compat layer
   payload never leaves it: the compat layer moves it through the CUDA
   copy kernel.
 - **ranks P+1..P+D, decode workers**: admit shipments into their own
-  slots (paged: an all-or-nothing ``allocator.admit``; dense: the free
-  deque), inject the KV rows, and stream decode ticks until
-  EOS/max-tokens, reporting completions to the router.
+  slots (paged: an all-or-nothing ``allocator.admit``; dense: a slot of
+  the free deque, granted in the engine's memory ledger), inject the KV
+  rows, and stream decode ticks until EOS/max-tokens, reporting
+  completions to the router; each reports its ledger's held bytes.
 
 Every worker runs a heartbeat thread (bind_thread + the rank's own
 recorder); a killed worker (``FaultPlan.kill_at``) stops its
@@ -626,6 +627,9 @@ def _decode_worker(rank, engine_factory, cfg: FleetConfig, fault_plan,
         lv = live.pop(slot)
         if engine.paged:
             engine.allocator.free_slot(slot)
+        else:
+            engine.memledger.free("kv_slots", engine.slot_bytes, owner=lv.rid, kind="retire")
+        engine.memledger.forget(lv.rid)
         free.append(slot)
         _send_json(
             {
@@ -645,12 +649,15 @@ def _decode_worker(rank, engine_factory, cfg: FleetConfig, fault_plan,
         slot = free[0]
         if engine.paged:
             plan = engine.allocator.admit(
-                slot, ship.prompt, ship.max_new_tokens
+                slot, ship.prompt, ship.max_new_tokens, owner=ship.rid, tick=ticks,
             )
             if plan is None:
                 return False  # pool full — stays in backlog
-        # A dense slot is the free deque's alone: the HBM memory ledger
-        # that grants it in the JAX package is not ported yet.
+        else:
+            # A dense slot's bytes, granted in the engine's memory ledger
+            # as the single Server grants them.
+            engine.memledger.grant("kv_slots", engine.slot_bytes, owner=ship.rid,
+                                   tick=ticks, kind="admit")
         free.popleft()
         inject_shipment(engine, slot, ship, ledger=ledger)
         live[slot] = _DecodeLive(
@@ -744,6 +751,7 @@ def _decode_worker(rank, engine_factory, cfg: FleetConfig, fault_plan,
         _obs.instant("fleet_worker_killed", rank=rank, step=death.step)
     finally:
         hb_stop.set()
+    ml = engine.memledger
     return {
         "role": "decode",
         "rank": rank,
@@ -752,6 +760,10 @@ def _decode_worker(rank, engine_factory, cfg: FleetConfig, fault_plan,
         "ticks": ticks,
         "killed": killed,
         "ledger_counts": dict(ledger.counts),
+        # The engine's memory ledger: slots (or pages) granted and freed
+        # by this worker; a clean worker holds none of them at the end.
+        "memory": {"held_bytes": int(ml.held()), "held_by_subsystem": ml.decompose(),
+                   "conservation_ok": ml.conservation()["ok"]},
     }
 
 

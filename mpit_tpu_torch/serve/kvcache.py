@@ -13,8 +13,10 @@ shared by all slots with its host-side page bookkeeping.
   per-page refcounts, the rolling-hash prefix index, copy-on-write
   reserves and, with ``host_pages``, the host KV tier's seats (parked
   preemption victims and prefix entries migrated off the pool), as in
-  :mod:`mpit_tpu.serve.kvcache` without the memory ledger (a later
-  slice). Validity comes from ``lengths`` and the attention mask, never
+  :mod:`mpit_tpu.serve.kvcache`; with the engine's memory ledger bound
+  (``memledger``, ``page_bytes``) every page leaving or rejoining the
+  free list and every copy-on-write reserve is a grant or a free.
+  Validity comes from ``lengths`` and the attention mask, never
   from buffer contents, so freed pages are handed out again without
   zeroing.
 
@@ -195,6 +197,12 @@ class AdmitPlan:
     pages: tuple
     restream: tuple = ()
 
+    @property
+    def pages_granted(self) -> int:
+        """Pages this admission mapped (fresh and shared): the slot-bind
+        figure the request ledger records."""
+        return len(self.pages)
+
 
 def _prefix_hashes(tokens) -> list:
     """Rolling polynomial hash of every prefix: ``out[i]`` covers
@@ -269,9 +277,22 @@ class PageAllocator:
         self.pages_per_slot = pages_per_slot
         self.slots = slots
         self.block_tables = np.zeros((slots, pages_per_slot), np.int32)
+        # The engine binds its memory ledger and the bytes one page spans
+        # (every layer, K and V, the draft pool) after construction; every
+        # page leaving or rejoining the free list, and every COW reserve,
+        # is then a grant or a free. None: unwired, nothing is recorded.
+        self.memledger = None
+        self.page_bytes = 0
         self.reset()
 
     def reset(self) -> None:
+        if self.memledger is not None and self.pages_in_use:
+            # Return what is still held before the wipe: conservation
+            # holds across a reset.
+            self.memledger.free("kv_pages", self.pages_in_use * self.page_bytes, kind="reset")
+            if self.reserved:
+                self.memledger.free("kv_cow_reserve", self.reserved * self.page_bytes,
+                                    kind="reset")
         self.block_tables[:] = 0
         self.refcount = np.zeros(self.num_pages, np.int64)
         self.free: list[int] = list(range(self.num_pages))[::-1]  # pop() = 0 first
@@ -281,6 +302,7 @@ class PageAllocator:
         self._index: dict[tuple[int, int], _PrefixEntry] = {}
         self._page_keys: dict[int, set] = {}  # page -> index keys citing it
         self._prefix_touch: dict[tuple, int] = {}  # index key -> last tick used
+        self._slot_owner: dict[int, tuple] = {}  # slot -> (rid, tenant), for the ledger
         # The host tier: the allocator owns the seat ids, the engine the
         # payloads.
         self.host_free: list[int] = list(range(self.host_pages))[::-1]
@@ -348,13 +370,15 @@ class PageAllocator:
                 return n, entry
         return 0, None
 
-    def admit(self, slot: int, prompt, max_new_tokens: int, *, tick: int = 0):
+    def admit(self, slot: int, prompt, max_new_tokens: int, *,
+              owner=None, tenant=None, tick: int = 0):
         """Map pages for one request into ``slot``'s block table.
 
         Returns an :class:`AdmitPlan`, or ``None`` when the pool cannot
         hold the request right now (nothing is taken; the caller keeps
         it queued). Raises only for a request that could never fit.
-        ``tick`` stamps the hit entry's recency (host eviction order)."""
+        ``tick`` stamps the hit entry's recency (host eviction order);
+        ``owner`` / ``tenant`` annotate the memory ledger's grants."""
         prompt = tuple(int(t) for t in prompt)
         need_total = self.pages_for(len(prompt), max_new_tokens)
         if need_total > self.pages_per_slot:
@@ -394,8 +418,21 @@ class PageAllocator:
             self.reserved += 1
         mapping = shared_pages + fresh
         self._slot_pages[slot] = mapping
+        self._slot_owner[slot] = (owner, tenant)
         self.block_tables[slot] = 0  # no stale entries from the last tenant
         self.block_tables[slot, : len(mapping)] = mapping
+        if self.memledger is not None:
+            # Only the fresh pages are new occupancy (a shared mapping is
+            # a refcount on pages granted already); the COW reserve is
+            # held capacity too: it gates admission.
+            if fresh:
+                self.memledger.grant("kv_pages", len(fresh) * self.page_bytes, owner=owner,
+                                     tenant=tenant, tick=tick, kind="admit")
+            elif owner is not None:
+                self.memledger.touch(owner, tick=tick, tenant=tenant, state="admit")
+            if partial_shared:
+                self.memledger.grant("kv_cow_reserve", self.page_bytes, owner=owner,
+                                     tenant=tenant, tick=tick, kind="cow_reserve")
         self.admissions += 1
         restream = ()
         if shared_tokens:
@@ -618,9 +655,17 @@ class PageAllocator:
                 "COW with an empty free list — reservation accounting bug"
             )
         dst = self.free.pop()
+        if self.memledger is not None:
+            # The copy's page is new occupancy, paid for by the reserve
+            # this mapper took at admission.
+            owner, tenant = self._slot_owner.get(slot, (None, None))
+            self.memledger.grant("kv_pages", self.page_bytes, owner=owner, tenant=tenant,
+                                 kind="cow_copy")
         if self._cow_reserve.get(page, 0) > 0:
             self._cow_reserve[page] -= 1
             self.reserved -= 1
+            if self.memledger is not None:
+                self.memledger.free("kv_cow_reserve", self.page_bytes, kind="cow_copy")
         self.refcount[page] -= 1
         self.refcount[dst] = 1
         self._trim_reserve(page)
@@ -639,6 +684,9 @@ class PageAllocator:
         if excess > 0:
             self._cow_reserve[page] -= excess
             self.reserved -= excess
+            if self.memledger is not None:
+                self.memledger.free("kv_cow_reserve", excess * self.page_bytes,
+                                    kind="trim_reserve")
 
     # -- release ------------------------------------------------------------
     def slot_page_stats(self, slot: int) -> tuple:
@@ -652,6 +700,8 @@ class PageAllocator:
     def free_slot(self, slot: int) -> None:
         """Unmap ``slot``'s pages: pages at refcount 0 return to the free
         list, and the prefix entries citing them die."""
+        owner, _ = self._slot_owner.pop(slot, (None, None))
+        released = 0
         for p in self._slot_pages.pop(slot, []):
             self.refcount[p] -= 1
             self._trim_reserve(p)
@@ -664,3 +714,9 @@ class PageAllocator:
                             if q != p and q in self._page_keys:
                                 self._page_keys[q].discard(key)
                 self.free.append(p)
+                released += 1
+        if self.memledger is not None and released:
+            # Only pages back at refcount 0 end occupancy; a refcount
+            # dropped on a shared page frees nothing.
+            self.memledger.free("kv_pages", released * self.page_bytes, owner=owner,
+                                kind="free_slot")

@@ -61,6 +61,35 @@ Observability (:mod:`mpit_tpu_torch.obs`):
   ``request_resumed`` instants, and ``kv_host_restreams`` /
   ``kv_prefix_spills`` with a host tier.
 
+The obs layers wired into the loop, each optional:
+
+- ``sentinel=`` (a :class:`~mpit_tpu_torch.obs.Sentinel`, typically
+  ``phases=("decode", "prefill")``) observes every prefill and decode
+  tick's wall; the engine's ``compile_watch`` and a
+  :class:`~mpit_tpu_torch.obs.roofline.UtilizationWatch` over the decode
+  tick's modeled HBM rate report into it;
+- ``slo=`` (an :class:`~mpit_tpu_torch.obs.SLOMonitor` over ``stream``)
+  is evaluated once a tick, idle stretches of ``run_timed`` included;
+- ``ledger=`` (a request :class:`~mpit_tpu_torch.obs.Ledger`) receives
+  each request's causal events: intake, the admission verdict with its
+  projection inputs, shed, ``admit_blocked`` with the headroom that
+  refused it, slot bind, prefill chunks, decode-tick membership, COW
+  copies, preemption park and resume, spec draft and accept, retire
+  with its reason; the sentinel's notes pin the in-flight set;
+- the engine's memory ledger (``engine.memledger``): the scheduler
+  grants and frees the dense cache's slots, keeps owners' recency,
+  samples held bytes and KV headroom a tick, and at a pool-exhaustion
+  edge records the ranked holders; ``stats()["memory"]`` is the byte
+  decomposition with its conservation verdict and, on the card, its
+  reconciliation with the allocator;
+- the roofline: a kernel engine's decode (or verify) tick feeds its
+  length-aware modeled bytes (:meth:`Engine.decode_achieved_hbm_bytes`)
+  as explicit work, so ``obs.summary()["roofline"]`` divides what the
+  kernel read by the tick's wall.
+
+``worker_id`` / ``role`` name the server in a fleet (``single`` /
+``standalone`` alone).
+
 ``stream=`` (a :class:`~mpit_tpu_torch.obs.stream.StreamRegistry`) gets
 the rolling-window feed under the JAX package's names: histograms
 ``request_ttft``, ``request_latency``, ``queue_wait``, ``prefill_tick``,
@@ -87,12 +116,16 @@ from mpit_tpu_torch.ops.decode_attention import num_kv_blocks
 __all__ = ["Completed", "Request", "Server", "warm_engine"]
 
 
-def warm_engine(engine) -> None:
+def warm_engine(engine, *, register_costs: bool = False) -> None:
     """Run one throwaway request through ``engine`` (spanned
     ``warmup``), then reset it: the first launches' one-off costs land
     outside a timed window. A paged engine also copies page 0 onto
     itself (the COW copy), and a host tier spills page 0 to seat 0,
-    drains and restores it (a no-op round trip)."""
+    drains and restores it (a no-op round trip). The engine's
+    ``compile_watch`` is then pinned to the builds so far: a kernel
+    library built later is an ``unexpected_recompile``.
+    ``register_costs=True`` also registers the steps' analytic costs with
+    the obs recorder (:meth:`~mpit_tpu_torch.serve.Engine.register_roofline`)."""
     with obs.span("warmup"):
         warm = Server(engine)
         warm.submit(Request(rid="warm", prompt=[1, 2, 3], max_new_tokens=2))
@@ -102,7 +135,11 @@ def warm_engine(engine) -> None:
             if engine.host_pages:
                 engine.spill_page(0, 0)
                 engine.drain_spills()
-                engine.restore_page(0, 0, release=True)
+                engine.restore_page(0, 0, release=True, kind="warm")
+        watch = engine.compile_watch
+        watch.expected = watch.compiles
+        if register_costs:
+            engine.register_roofline()
     engine.reset()
 
 
@@ -168,6 +205,9 @@ class _Live:
     feed: list | None = None
     preempts: int = 0
     park_tick: int = 0
+    # The last tick this request's cache was touched (bind, prefill
+    # chunk, decode): the memory ledger's eviction ranking reads it.
+    last_touch: int = 0
     # How the last resume rebuilt the cache ("restream" from parked host
     # pages, "recompute" through the chunked prefill) and when it was
     # re-admitted; cleared at the first token after the resume.
@@ -202,13 +242,29 @@ class Server:
     telemetry. ``submit()`` enqueues (or sheds); ``run()`` drives
     admit/decode ticks until the queue and all slots drain (or
     ``max_ticks``); ``run_timed()`` drives an open-loop arrival trace by
-    its clock. ``stream``, ``max_queue`` and ``policy``: module
-    docstring.
+    its clock. ``stream``, ``max_queue``, ``policy``, ``sentinel``,
+    ``slo``, ``ledger``, ``worker_id`` and ``role``: module docstring.
     """
 
-    def __init__(self, engine, *, stream=None, max_queue=None, policy=None):
+    def __init__(self, engine, *, sentinel=None, stream=None, slo=None, max_queue=None,
+                 policy=None, ledger=None, worker_id="", role=""):
         self.engine = engine
         self.policy = policy
+        self.sentinel = sentinel
+        self.worker_id = worker_id or "single"
+        self.role = role or "standalone"
+        self._ledger = ledger
+        if ledger is not None and sentinel is not None:
+            # A breach or anomaly pins the requests in flight when it
+            # fires; chained, so a caller's own callback keeps firing.
+            prev = sentinel.on_note
+
+            def _pin(record, _prev=prev, _ledger=ledger):
+                if _prev is not None:
+                    _prev(record)
+                _ledger.pin_inflight(record.get("kind", "anomaly"), step=record.get("step"))
+
+            sentinel.on_note = _pin
         if policy is not None and stream is None:
             # The policy's projector reads rolling tick windows: without
             # a caller's registry a private one keeps admission and
@@ -219,6 +275,12 @@ class Server:
         self.stream = stream
         if policy is not None:
             policy.bind_registry(stream)
+        self.slo = slo
+        if slo is not None and stream is None:
+            raise ValueError(
+                "Server(slo=...) needs the stream registry the monitor "
+                "evaluates over — pass stream=slo.registry"
+            )
         if max_queue is not None and max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
         self.max_queue = max_queue
@@ -241,6 +303,19 @@ class Server:
         self._spec_active_ticks = 0
         self._spec_drafted = 0
         self._spec_accepted = 0
+        # An unexpected kernel-library build and a sustained collapse of
+        # the decode tick's modeled HBM rate land in this server's
+        # sentinel report.
+        if sentinel is not None:
+            engine.compile_watch.sentinel = sentinel
+        self._util_watch = (
+            obs.roofline.UtilizationWatch(sentinel=sentinel) if sentinel is not None else None
+        )
+        self._decode_hbm_bytes = 0.0  # length-aware modeled bytes moved
+        self._memledger = engine.memledger
+        self._held_peak = 0
+        self._headroom_min_pct: float | None = None
+        self._host_held_peak = 0
         self.queue: deque[_Live] = deque()
         self.live: dict[int, _Live] = {}  # slot -> in-flight request
         # Paged: slots whose prompt is still being written, one chunk
@@ -343,24 +418,42 @@ class Server:
             # Arrivals count before the shed decision: a shed rate is
             # sheds over arrivals.
             self.stream.inc("serve_arrivals")
+        if self._ledger is not None:
+            # The ledger opens at intake: a shed request still gets its
+            # verdict, which is what a why-slow reading needs.
+            self._ledger.begin(
+                req.rid, priority=req.priority, tenant=req.tenant,
+                prompt_len=len(req.prompt), max_new=req.max_new_tokens,
+            )
         cause = None
         if self.max_queue is not None and self._qdepth() >= self.max_queue:
             cause = "queue_full"
-        elif self.policy is not None and self.policy.should_shed(req):
-            cause = "admission"
-            self.policy.shed_admission += 1
+        elif self.policy is not None:
+            if self.policy.should_shed(req):
+                cause = "admission"
+                self.policy.shed_admission += 1
+            if self._ledger is not None:
+                # The verdict with the projection inputs behind it.
+                self._ledger.event(req.rid, "admission", **self.policy.last_admission)
+        reason = {"queue_full": "queue_full", "admission": "admission_projection"}.get(cause)
         if cause is not None:
             self.shed.append(req)
             self.shed_causes[cause] = self.shed_causes.get(cause, 0) + 1
             obs.counter("serve_shed")
             obs.counter(f"serve_shed_{cause}")
+            # The headroom the refusal was made against.
+            headroom = self._kv_headroom()
             obs.instant(
-                "request_shed", cause=cause, queue_depth=self._qdepth(),
-                **self._span_attrs(req),
+                "request_shed", cause=cause, reason=reason, queue_depth=self._qdepth(),
+                **headroom, **self._span_attrs(req),
             )
             if self.stream is not None:
                 self.stream.inc("serve_shed")
                 self.stream.inc(f"serve_shed_{cause}")
+            if self._ledger is not None:
+                self._ledger.event(req.rid, "shed", reason=reason,
+                                   queue_depth=self._qdepth(), **headroom)
+                self._ledger.retire(req.rid, status="shed", reason=reason)
             return False
         self._enqueue(_Live(req, time.perf_counter()))
         return True
@@ -425,7 +518,10 @@ class Server:
                 break
             slot = self.free[-1]
             feed = live.feed_tokens()
-            plan = alloc.admit(slot, feed, live.remaining_new(), tick=self.tick)
+            plan = alloc.admit(
+                slot, feed, live.remaining_new(), owner=live.req.rid,
+                tenant=live.req.tenant or None, tick=self.tick,
+            )
             if plan is None:
                 # The pool is full right now; nothing was taken. Back to
                 # the queue head, and retry once a retirement (or a
@@ -435,15 +531,22 @@ class Server:
                 self._restore_queued(live)
                 if self._try_preempt(now):
                     continue
+                if self._ledger is not None:
+                    self._ledger.event(
+                        live.req.rid, "admit_blocked", tick=self.tick,
+                        need_pages=alloc.pages_for(len(feed), live.remaining_new()),
+                        free_pages=alloc.free_pages, **self._kv_headroom(),
+                    )
                 if not self._pool_exhausted:
                     self._pool_exhausted = True
-                    obs.instant(
-                        "kv_pool_exhausted", tick=self.tick,
-                        free_pages=alloc.free_pages, queued=self._qdepth(),
-                    )
+                    # Who holds the pool the head needed, ranked.
+                    dump = self._exhaustion_dump()
+                    self._memledger.note_exhaustion(dump)
+                    obs.instant("kv_pool_exhausted", **dump)
                 break
             self.free.pop()
             self._pool_exhausted = False
+            live.last_touch = self.tick
             # The write floor is the shared-token count; the forward
             # re-runs at least the last feed token (its output seeds the
             # next token), so the feed base stops one below the end even
@@ -458,8 +561,14 @@ class Server:
                 # masks re-writes below it as for a pool hit. The entry
                 # keeps its seats until promotion.
                 for hp, dp in plan.restream:
-                    self.engine.restore_page(hp, dp)
+                    self.engine.restore_page(hp, dp, owner=live.req.rid, tick=self.tick)
                 obs.counter("kv_host_restreams", len(plan.restream))
+            if self._ledger is not None:
+                self._ledger.event(
+                    live.req.rid, "slot_bind", slot=slot, tick=self.tick,
+                    resumed=bool(live.tokens), shared_tokens=plan.shared_tokens,
+                    pages=plan.pages_granted, restreamed_pages=len(plan.restream),
+                )
             if live.tokens:
                 # Resumed after a preemption: its queue wait and TTFT
                 # were recorded in its first stint.
@@ -478,6 +587,11 @@ class Server:
                     "request_resumed", generated=len(live.tokens), mode=mode,
                     **self._span_attrs(live.req),
                 )
+                if self._ledger is not None:
+                    self._ledger.event(
+                        live.req.rid, "preempt_resume", slot=slot, tick=self.tick,
+                        generated=len(live.tokens), mode=mode,
+                    )
             else:
                 obs.span_at(
                     "queue_wait", live.submit_t, now, **self._span_attrs(live.req)
@@ -530,11 +644,11 @@ class Server:
             if planned is not None:
                 copies, evicted = planned
                 for hp in evicted:
-                    self.engine.host_free(hp)
+                    self.engine.host_free(hp, kind="host_evict")
                 for dp, hp in copies:
-                    self.engine.spill_page(dp, hp)
+                    self.engine.spill_page(dp, hp, owner=live.req.rid, tick=self.tick)
                 spilled = len(copies)
-            self._spill_dying_prefixes(slot)
+            self._spill_dying_prefixes(slot, owner=live.req.rid)
         alloc.free_slot(slot)
         self.free.append(slot)
         self._temp[slot] = 0.0
@@ -544,6 +658,10 @@ class Server:
         live.base = 0
         live.floor = 0
         live.park_tick = self.tick
+        # Parked is cold: the owner stays on the ledger's recency index,
+        # marked parked, for the eviction ranking.
+        self._memledger.touch(live.req.rid, tick=self.tick,
+                              tenant=live.req.tenant or None, state="parked")
         obs.counter("serve_preemptions")
         for_rid = self.policy.last_preemption_for if for_tier is not None else ""
         obs.instant(
@@ -557,6 +675,12 @@ class Server:
             pages_spilled=spilled,
             **self._span_attrs(live.req),
         )
+        if self._ledger is not None:
+            self._ledger.event(
+                live.req.rid, "preempt_park", tick=self.tick, tier=live.req.priority,
+                for_tier=for_tier if for_tier is not None else -1, for_rid=for_rid,
+                generated=len(live.tokens), pages_freed=owned,
+            )
         if self.stream is not None:
             self.stream.inc("serve_preemptions")
         if self.policy is not None:
@@ -565,7 +689,7 @@ class Server:
         else:
             self.queue.appendleft(live)
 
-    def _spill_dying_prefixes(self, slot: int) -> None:
+    def _spill_dying_prefixes(self, slot: int, *, owner=None) -> None:
         """Migrate the prefix entries that would die with ``slot``'s
         pages to the host tier; call just before ``free_slot``. All or
         nothing: when the tier cannot hold them they die as without it."""
@@ -573,9 +697,9 @@ class Server:
             return
         copies, evicted = self.engine.allocator.spill_prefix_on_free(slot)
         for hp in evicted:
-            self.engine.host_free(hp)
+            self.engine.host_free(hp, kind="host_evict")
         for dp, hp in copies:
-            self.engine.spill_page(dp, hp)
+            self.engine.spill_page(dp, hp, owner=owner, tick=self.tick)
         if copies:
             obs.counter("kv_prefix_spills", len(copies))
 
@@ -593,9 +717,10 @@ class Server:
         ps = alloc.page_size
         s = plan.shared_tokens
         fill = rec.fill
+        rid = live.req.rid
         if s >= fill:
             for hp in rec.host_pages:
-                eng.host_free(hp)
+                eng.host_free(hp, kind="restream_unused", owner=rid)
             return False
         if s % ps:
             # The boundary page holds shared rows below ``s``: a whole-page
@@ -605,12 +730,16 @@ class Server:
             if pair is not None:
                 eng.copy_page(*pair)
                 obs.counter("kv_cow_copies")
+                if self._ledger is not None:
+                    self._ledger.event(rid, "cow_copy", tick=self.tick, src=pair[0],
+                                       dst=pair[1], phase="restream")
         bt = alloc.block_tables[slot]
         for pi in range(s // ps, (fill - 1) // ps + 1):
-            eng.restore_page(int(rec.host_pages[pi]), int(bt[pi]), release=True)
+            eng.restore_page(int(rec.host_pages[pi]), int(bt[pi]), release=True,
+                             kind="restream", owner=rid, tick=self.tick)
         for pi in range(0, s // ps):
             # Wholly below the shared floor: the pool's pages serve them.
-            eng.host_free(int(rec.host_pages[pi]))
+            eng.host_free(int(rec.host_pages[pi]), kind="restream_unused", owner=rid)
         return True
 
     def _finish_restream(self, slot: int, live: _Live, now: float) -> None:
@@ -619,7 +748,7 @@ class Server:
         resume's final prefill chunk does) and record the resume's time."""
         alloc = self.engine.allocator
         for hp in alloc.register_prefix(slot, live.feed_tokens(), tick=self.tick):
-            self.engine.host_free(hp)
+            self.engine.host_free(hp, kind="promote", owner=live.req.rid)
         self._close_resume(live, now)
 
     def _close_resume(self, live: _Live, now: float) -> None:
@@ -661,6 +790,9 @@ class Server:
                 if pair is not None:
                     eng.copy_page(*pair)
                     obs.counter("kv_cow_copies")
+                    if self._ledger is not None:
+                        self._ledger.event(live.req.rid, "cow_copy", tick=self.tick,
+                                           src=pair[0], dst=pair[1], phase="prefill")
             tokens[slot, :n] = p[live.base : live.base + n]
             base[slot] = live.base
             chunk_lens[slot] = n
@@ -682,15 +814,23 @@ class Server:
                 self._temp, self._topk,
             )
         t_first = time.perf_counter()
+        if self.sentinel is not None:
+            self.sentinel.observe_phases(self.tick, prefill=t_first - now)
         if self.stream is not None:
             self.stream.observe("prefill_tick", t_first - now)
         for slot, live in self.prefilling.items():
-            live.base += int(chunk_lens[slot])
+            n = int(chunk_lens[slot])
+            live.base += n
+            if n:
+                live.last_touch = self.tick
+                if self._ledger is not None:
+                    self._ledger.event(live.req.rid, "prefill_chunk", tick=self.tick,
+                                       chunk=n, dur_s=t_first - now, t=t_first)
         for slot, live in finishing:
             del self.prefilling[slot]
             for hp in alloc.register_prefix(slot, live.feed_tokens(), tick=self.tick):
                 # Promoted: the prefix is on the pool again.
-                eng.host_free(hp)
+                eng.host_free(hp, kind="promote", owner=live.req.rid)
             if live.tokens:
                 # Resumed: this chunk's token is the decode step the
                 # eviction displaced.
@@ -743,6 +883,16 @@ class Server:
             admit[slot] = True
             self._temp[slot] = live.req.temperature
             self._topk[slot] = live.req.top_k
+            live.last_touch = self.tick
+            # The dense cache's capacity is slot-granular: one slot
+            # granted an admission, freed at retirement.
+            self._memledger.grant(
+                "kv_slots", self.engine.slot_bytes, owner=live.req.rid,
+                tenant=live.req.tenant or None, tick=self.tick, kind="admit",
+            )
+            if self._ledger is not None:
+                self._ledger.event(live.req.rid, "slot_bind", slot=slot, tick=self.tick,
+                                   resumed=False, t=now)
             obs.span_at("queue_wait", live.submit_t, now, **self._span_attrs(live.req))
             if self.stream is not None:
                 self.stream.observe("queue_wait", now - live.submit_t)
@@ -757,9 +907,16 @@ class Server:
                 tokens, lens, admit, self._temp, self._topk
             )
         t_first = time.perf_counter()
+        self.admissions += len(batch)
+        if self.sentinel is not None:
+            self.sentinel.observe_phases(self.tick, prefill=t_first - now)
         if self.stream is not None:
             self.stream.observe("prefill_tick", t_first - now)
-        self.admissions += len(batch)
+        if self._ledger is not None:
+            # One whole-prompt chunk; the batch's wall is each request's.
+            for slot, live in batch:
+                self._ledger.event(live.req.rid, "prefill_chunk", tick=self.tick,
+                                   chunk=len(live.req.prompt), dur_s=t_first - now, t=t_first)
         for slot, live in batch:
             live.first_token_t = t_first
             live.tokens = [int(first[slot])]
@@ -787,8 +944,12 @@ class Server:
             # Unmap the slot's pages: sole-owner pages return to the free
             # list (handed out again without zeroing) and the prefix
             # entries citing them die, unless the host tier takes them.
-            self._spill_dying_prefixes(slot)
+            self._spill_dying_prefixes(slot, owner=req.rid)
             self.engine.allocator.free_slot(slot)
+        else:
+            self._memledger.free("kv_slots", self.engine.slot_bytes, owner=req.rid,
+                                 kind="retire")
+        self._memledger.forget(req.rid)
         self.free.append(slot)
         self._temp[slot] = 0.0
         self._topk[slot] = 0
@@ -800,6 +961,18 @@ class Server:
         truncated = (
             full and tok != req.eos_id and len(live.tokens) < req.max_new_tokens
         )
+        if self._ledger is not None:
+            if req.eos_id is not None and tok == req.eos_id:
+                reason = "eos"
+            elif len(live.tokens) >= req.max_new_tokens:
+                reason = "max_tokens"
+            else:
+                reason = "cache_full"
+            self._ledger.event(req.rid, "retire", tick=self.tick, reason=reason,
+                               generated=len(live.tokens), t=now)
+            self._ledger.retire(req.rid, t=now,
+                                status="truncated" if truncated else "completed",
+                                reason=reason)
         self.completed.append(
             Completed(
                 rid=req.rid,
@@ -846,6 +1019,9 @@ class Server:
                     if pair is not None:
                         eng.copy_page(*pair)
                         obs.counter("kv_cow_copies")
+                        if self._ledger is not None:
+                            self._ledger.event(live.req.rid, "cow_copy", tick=self.tick,
+                                               src=pair[0], dst=pair[1], phase="spec")
         n_live = int(active.sum())
         rids = [live.req.rid for live in self.live.values()]
         labels = dict(active=n_live, attention=self._attn_mode, sampler=self._sampler,
@@ -854,11 +1030,14 @@ class Server:
         with obs.span("decode", spec_k=k, **labels):
             with obs.span("spec_draft", **labels):
                 eng.spec_draft(active, self._temp, self._topk)
+            t1 = time.perf_counter()
             with obs.span("spec_verify", **labels):
                 emit, n_emit, n_acc = eng.spec_verify(
                     active, self._temp, self._topk, budget, eos
                 )
         now = time.perf_counter()
+        if self.sentinel is not None:
+            self.sentinel.observe_phases(self.tick, decode=now - t0)
         emitted = int(n_emit.sum())
         accepted = int(n_acc.sum())
         obs.counter("serve_tokens", float(emitted))
@@ -871,9 +1050,14 @@ class Server:
         if self.stream is not None:
             self.stream.inc("serve_tokens", float(emitted))
             self.stream.observe("decode_tick", now - t0)
+            self.stream.observe("spec_draft_tick", t1 - t0)
+            self.stream.observe("spec_verify_tick", now - t1)
+            if n_live:
+                self.stream.observe("accepted_tokens_per_tick", emitted / n_live)
+                self.stream.observe("draft_acceptance_rate", accepted / (k * n_live))
+        lens = np.asarray([live.cache_fill() for live in self.live.values()])
         if self._attn_mode == "kernel":
             # The plain tick's tile accounting at the verify's T = k + 1.
-            lens = np.asarray([live.cache_fill() for live in self.live.values()])
             bk = eng.decode_block_k
             total = eng.max_len // bk
             visited = num_kv_blocks(lens, k + 1, eng.max_len, bk)
@@ -882,10 +1066,21 @@ class Server:
                 "decode_blocks_skipped",
                 float(total * eng.slots - int(visited.sum()) - n_free),
             )
+        # The verify's modeled bytes over the verify's own wall (the
+        # draft's time would depress the rate on a healthy engine).
+        self._feed_roofline("spec_verify", lens, k + 1, now - t1)
+        if self._ledger is not None:
+            # Per slot: a slow request's rollback streak shows only here.
+            for slot, live in self.live.items():
+                self._ledger.event(
+                    live.req.rid, "spec_tick", tick=self.tick, dur_s=now - t0, drafted=k,
+                    t=now, accepted=int(n_acc[slot]), emitted=int(n_emit[slot]),
+                )
         for slot in list(self.live):
             n = int(n_emit[slot])
             live = self.live[slot]
             live.tokens.extend(int(t) for t in emit[slot, :n])
+            live.last_touch = self.tick
             if live.resume_mode == "restream":
                 self._finish_restream(slot, live, now)
             self._maybe_retire(slot, now)
@@ -909,6 +1104,9 @@ class Server:
                 if pair is not None:
                     self.engine.copy_page(*pair)
                     obs.counter("kv_cow_copies")
+                    if self._ledger is not None:
+                        self._ledger.event(live.req.rid, "cow_copy", tick=self.tick,
+                                           src=pair[0], dst=pair[1], phase="decode")
         t0 = time.perf_counter()
         with obs.span(
             "decode", active=int(active.sum()), attention=self._attn_mode,
@@ -918,15 +1116,24 @@ class Server:
         ):
             toks = self.engine.decode(active, self._temp, self._topk)
         now = time.perf_counter()
+        if self.sentinel is not None:
+            self.sentinel.observe_phases(self.tick, decode=now - t0)
         obs.counter("serve_tokens", float(active.sum()))
         if self.stream is not None:
             self.stream.inc("serve_tokens", float(active.sum()))
             self.stream.observe("decode_tick", now - t0)
+        if self._ledger is not None:
+            # Tick membership: the tick's wall is every resident
+            # request's latency cost.
+            n_live = int(active.sum())
+            for live in self.live.values():
+                self._ledger.event(live.req.rid, "decode_tick", tick=self.tick,
+                                   dur_s=now - t0, active=n_live, t=now)
+        lens = np.asarray([live.cache_fill() for live in self.live.values()])
         if self._attn_mode == "kernel":
             # Cache tiles the length-aware kernel skipped this tick, by
             # the kernel's own bound (num_kv_blocks). Free slots run
             # with length 0 and visit one tile each.
-            lens = np.asarray([live.cache_fill() for live in self.live.values()])
             bk = self.engine.decode_block_k
             total = self.engine.max_len // bk
             visited = num_kv_blocks(lens, 1, self.engine.max_len, bk)
@@ -935,12 +1142,32 @@ class Server:
                 "decode_blocks_skipped",
                 float(total * self.engine.slots - int(visited.sum()) - n_free),
             )
+        self._feed_roofline("decode", lens, 1, now - t0)
         for slot in list(self.live):
             live = self.live[slot]
             live.tokens.append(int(toks[slot]))
+            live.last_touch = self.tick
             if live.resume_mode == "restream":
                 self._finish_restream(slot, live, now)
             self._maybe_retire(slot, now)
+
+    def _feed_roofline(self, phase: str, lens, t_q: int, seconds: float) -> None:
+        """The tick's length-aware modeled bytes as explicit work of
+        ``phase`` (a kernel engine's only), into the stream windows
+        (``decode_hbm_bytes``, and ``decode_flops`` from the registered
+        cost) and the utilization watch (GB/s over ``seconds``)."""
+        ach = self.engine.decode_achieved_hbm_bytes(lens, t_q=t_q)
+        if ach is None:
+            return
+        self._decode_hbm_bytes += ach
+        obs.roofline.work(phase, hbm_bytes=ach)
+        if self.stream is not None:
+            self.stream.inc("decode_hbm_bytes", ach)
+            flops = (self.engine.roofline_costs or {}).get(phase, {}).get("flops", 0.0)
+            if flops:
+                self.stream.inc("decode_flops", flops)
+        if self._util_watch is not None and seconds > 0:
+            self._util_watch.observe("decode_hbm_gbps", self.tick, ach / seconds / 1e9)
 
     def _pending(self) -> bool:
         """Work outstanding: queued (FIFO or the policy's tiers),
@@ -968,10 +1195,118 @@ class Server:
                 in_use = alloc.host_pages_in_use
                 self._host_in_use_peak = max(self._host_in_use_peak, in_use)
                 gauges["kv_host_pages_in_use"] = float(in_use)
+        gauges.update(self._memory_gauges(kv_tokens))
         for name, val in gauges.items():
             obs.gauge(name, val)
             if self.stream is not None:
                 self.stream.set_gauge(name, val)
+
+    def _memory_gauges(self, kv_tokens: float) -> dict:
+        """Held bytes, the KV subsystem's held bytes and headroom and, on
+        the pool, fragmentation (granted page rows no cached token
+        fills); the run's peak held and least headroom are kept here,
+        once a tick."""
+        ml = self._memledger
+        held = ml.held()
+        self._held_peak = max(self._held_peak, int(held))
+        head = self._kv_headroom()
+        gauges = {"hbm_held_bytes": float(held)}
+        if self._host_tier:
+            host_held = int(ml.held("kv_host_pages"))
+            self._host_held_peak = max(self._host_held_peak, host_held)
+            gauges["host_held_bytes"] = float(host_held)
+        sub = "kv_pages" if self._paged else "kv_slots"
+        kv_held = ml.held(sub) + (ml.held("kv_cow_reserve") if self._paged else 0.0)
+        gauges["kv_held_bytes"] = float(kv_held)
+        if "kv_headroom_pct" in head:
+            pct = head["kv_headroom_pct"]
+            self._headroom_min_pct = (
+                pct if self._headroom_min_pct is None else min(self._headroom_min_pct, pct)
+            )
+            gauges["kv_headroom_pct"] = pct
+        if self._paged:
+            granted = self.engine.allocator.pages_in_use * self.engine.page_size
+            gauges["kv_frag_pct"] = (
+                round(100.0 * (1.0 - kv_tokens / granted), 2) if granted else 0.0
+            )
+        return gauges
+
+    def _kv_headroom(self) -> dict:
+        """The KV capacity an admission verdict has right now: free
+        grantable pages (the COW reserve is promised) or free slots, as
+        bytes and percent, beside the total held."""
+        ml = self._memledger
+        sub = "kv_pages" if self._paged else "kv_slots"
+        cap = ml.capacity(sub)
+        if not cap:
+            return {}
+        held = ml.held(sub) + (ml.held("kv_cow_reserve") if self._paged else 0.0)
+        headroom = cap - held
+        return {
+            "kv_headroom_bytes": int(headroom),
+            "kv_headroom_pct": round(100.0 * headroom / cap, 2),
+            "hbm_held_bytes": int(ml.held()),
+        }
+
+    def _exhaustion_dump(self) -> dict:
+        """The ranked holders at a pool-exhaustion edge: each request's
+        exclusive bytes (what evicting it returns), the tenants' totals,
+        the COW reserve, the prefix index's health, the host tier's
+        state and the ledger's decomposition."""
+        alloc = self.engine.allocator
+        pb = self.engine.page_bytes
+        holders = []
+        for slot, live in list(self.live.items()) + list(self.prefilling.items()):
+            owned, shared = alloc.slot_page_stats(slot)
+            holders.append({
+                "rid": live.req.rid,
+                "tenant": live.req.tenant or "",
+                "bytes": int(owned * pb),
+                "shared_pages": shared,
+                "last_touch_tick": live.last_touch,
+            })
+        holders.sort(key=lambda e: (-e["bytes"], str(e["rid"])))
+        tenants: dict[str, int] = {}
+        for h in holders:
+            tenants[h["tenant"]] = tenants.get(h["tenant"], 0) + h["bytes"]
+        sole, dead = self._prefix_entry_counts()
+        out = {
+            "tick": self.tick,
+            "free_pages": alloc.free_pages,
+            "queued": self._qdepth(),
+            "top_holders": holders[:8],
+            "tenants": dict(sorted(tenants.items(), key=lambda kv: -kv[1])),
+            "cow_reserve_bytes": int(alloc.reserved * pb),
+            "sole_reader_prefix_entries": sole,
+            "dead_prefix_entries": dead,  # 0 by construction; a leak shows here
+        }
+        if self._host_tier:
+            out["host_free_pages"] = len(alloc.host_free)
+            out["host_pages"] = alloc.host_pages
+            out["host_parked_records"] = len(alloc._parked)
+            out["host_resident_entries"] = alloc.host_resident_entries
+        out["tier_pressure"] = (
+            "both_tiers" if self._host_tier and not alloc.host_free else "hbm_only"
+        )
+        out["subsystems"] = self._memledger.decompose()
+        out.update(self._kv_headroom())
+        return out
+
+    def _prefix_entry_counts(self) -> tuple[int, int]:
+        """(sole-reader, dead) pool prefix entries: every page at refcount
+        1 (retiring one slot reclaims them), or one at refcount 0 (never,
+        by construction). Host entries name host seats and are skipped."""
+        alloc = self.engine.allocator
+        sole = dead = 0
+        for entry in alloc._index.values():
+            if entry.tier != "hbm":
+                continue
+            refs = [int(alloc.refcount[p]) for p in entry.pages]
+            if any(r == 0 for r in refs):
+                dead += 1
+            elif all(r == 1 for r in refs):
+                sole += 1
+        return sole, dead
 
     def _run_tick(self) -> None:
         """One loop iteration: land last tick's spills, admit, prefill
@@ -1001,6 +1336,14 @@ class Server:
         self._kv_gauges()
         if self.live:
             self._decode_tick()
+        if self.slo is not None:
+            transitions = self.slo.evaluate(tick=self.tick)
+            if self._ledger is not None and self.slo.sentinel is None:
+                # Without a sentinel the monitor's transitions pin the
+                # in-flight set here (with one, its note chain did).
+                for tr in transitions:
+                    if tr.get("event") == "slo_breach":
+                        self._ledger.pin_inflight("slo_breach", step=self.tick)
         self.tick += 1
 
     def run(self, *, max_ticks: int = 1_000_000) -> list[Completed]:
@@ -1013,6 +1356,8 @@ class Server:
             self._run_tick()
         if self._pending():
             self._truncated = True
+        if self.slo is not None:
+            self.slo.finish()
         return self.completed
 
     def run_timed(
@@ -1060,6 +1405,10 @@ class Server:
                 delay = min(wake - now, 0.05)
                 if delay > 0:
                     time.sleep(delay)
+                # An idle stretch still advances SLO time: a breach does
+                # not end because traffic paused.
+                if self.slo is not None:
+                    self.slo.evaluate(tick=self.tick)
                 if on_tick is not None:
                     on_tick(self, now)
                 continue
@@ -1068,6 +1417,11 @@ class Server:
                 on_tick(self, time.perf_counter() - t0)
         if self._pending():
             self._truncated = True
+        if self.slo is not None:
+            # Work admitted or shed after the last evaluation still gets
+            # a verdict.
+            self.slo.evaluate(tick=self.tick)
+            self.slo.finish()
         return self.completed
 
     # -- reporting ----------------------------------------------------------
@@ -1088,14 +1442,165 @@ class Server:
                     e["ttft_p95_s"] = round(sk.quantile(0.95), 6)
         return dict(sorted(out.items()))
 
+    def _eviction_candidates(self, cap: int = 16) -> list:
+        """What an eviction policy should reclaim first, coldest first by
+        last-touch tick: ``parked_victim`` (a preempted request in the
+        policy's queue: the bytes its re-admission will claim),
+        ``idle_tail`` (a live slot's exclusive bytes: it decodes every
+        tick, so it ranks hottest), ``sole_reader_prefix`` (a pool prefix
+        entry no one shares, nested entries deduped to the longest) and
+        ``host_prefix`` (an entry on the host tier). Each names its
+        ``tier``."""
+        pb = self.engine.page_bytes
+        out = []
+        if self.policy is not None and pb:
+            alloc = self.engine.allocator
+            parked = getattr(alloc, "_parked", {})
+            for st in self.policy._tiers.values():
+                for q in st.queues.values():
+                    for live in q:
+                        if live.feed is None:
+                            continue  # a fresh submission holds nothing yet
+                        pages = alloc.pages_for(len(live.feed), live.remaining_new())
+                        out.append({
+                            "kind": "parked_victim",
+                            "rid": live.req.rid,
+                            "tenant": live.req.tenant or "",
+                            "bytes": int(pages * pb),
+                            "last_touch_tick": live.park_tick,
+                            "tier": "host" if live.req.rid in parked else "none",
+                        })
+        if self._paged and pb:
+            alloc = self.engine.allocator
+            for slot, live in self.live.items():
+                owned, _ = alloc.slot_page_stats(slot)
+                out.append({
+                    "kind": "idle_tail",
+                    "rid": live.req.rid,
+                    "tenant": live.req.tenant or "",
+                    "bytes": int(owned * pb),
+                    "last_touch_tick": live.last_touch,
+                    "tier": "hbm",
+                })
+            for tier, kind in (("hbm", "sole_reader_prefix"), ("host", "host_prefix")):
+                best: dict[int, tuple] = {}
+                for key, entry in alloc._index.items():
+                    if entry.tier != tier or not entry.pages:
+                        continue
+                    if tier == "hbm" and any(int(alloc.refcount[p]) != 1 for p in entry.pages):
+                        continue
+                    first = entry.pages[0]
+                    if first not in best or key[0] > best[first][0][0]:
+                        best[first] = (key, entry)
+                for key, entry in best.values():
+                    out.append({
+                        "kind": kind,
+                        "key": f"prefix[{key[0]}t]",
+                        "bytes": int(len(entry.pages) * pb),
+                        "last_touch_tick": alloc._prefix_touch.get(key, 0),
+                        "tier": tier,
+                    })
+        elif not self._paged and self.engine.slot_bytes:
+            for live in self.live.values():
+                out.append({
+                    "kind": "idle_tail",
+                    "rid": live.req.rid,
+                    "tenant": live.req.tenant or "",
+                    "bytes": int(self.engine.slot_bytes),
+                    "last_touch_tick": live.last_touch,
+                    "tier": "hbm",
+                })
+        out.sort(key=lambda c: (c["last_touch_tick"], str(c.get("rid", c.get("key", "")))))
+        return out[:cap]
+
+    def _memory_stats(self) -> dict:
+        """``stats()["memory"]``: the ledger's held decomposition and its
+        conservation verdict, the KV capacity and headroom (now and the
+        run's least), the host tier's bytes, per-request and per-tenant
+        bytes from the allocator's own state, the eviction ranking, the
+        last exhaustion and, on the card, the reconciliation with
+        ``torch.cuda.memory_allocated`` (less what the process held
+        before the engine). ``source: memledger`` is what ``obs
+        capacity`` looks for."""
+        ml = self._memledger
+        out = {
+            "source": "memledger",
+            "worker_id": self.worker_id,
+            "role": self.role,
+            "platform": ml.platform,
+            "held_bytes": int(ml.held()),
+            "held_peak_bytes": int(max(self._held_peak, int(ml.held()))),
+            "held_by_subsystem": ml.decompose(),
+            "conservation": ml.conservation(),
+        }
+        sub = "kv_pages" if self._paged else "kv_slots"
+        cap = ml.capacity(sub)
+        if cap:
+            out["kv_capacity_bytes"] = int(cap)
+            out.update(self._kv_headroom())
+            out.pop("hbm_held_bytes", None)  # held_bytes says it
+        if self._headroom_min_pct is not None:
+            out["kv_headroom_min_pct"] = self._headroom_min_pct
+        eng = self.engine
+        if self._host_tier:
+            held = int(ml.held("kv_host_pages"))
+            self._host_held_peak = max(self._host_held_peak, held)
+            out["host_held_bytes"] = held
+            out["host_held_peak_bytes"] = int(self._host_held_peak)
+            out["host_capacity_bytes"] = int(ml.capacity("kv_host_pages") or 0)
+            out["spill_bytes_total"] = int(eng.host_spill_bytes)
+            out["restream_bytes"] = int(eng.host_restream_bytes)
+        per_req: dict[str, dict] = {}
+        if self._paged and eng.page_bytes:
+            alloc = eng.allocator
+            for slot, live in list(self.live.items()) + list(self.prefilling.items()):
+                owned, shared = alloc.slot_page_stats(slot)
+                per_req[str(live.req.rid)] = {
+                    "bytes": int(owned * eng.page_bytes),
+                    "shared_pages": shared,
+                    "tenant": live.req.tenant or "",
+                }
+            out["shared_bytes"] = int(int((alloc.refcount >= 2).sum()) * eng.page_bytes)
+        elif not self._paged and eng.slot_bytes:
+            for live in self.live.values():
+                per_req[str(live.req.rid)] = {
+                    "bytes": int(eng.slot_bytes), "shared_pages": 0,
+                    "tenant": live.req.tenant or "",
+                }
+        per_tenant: dict[str, int] = {}
+        for e in per_req.values():
+            per_tenant[e["tenant"]] = per_tenant.get(e["tenant"], 0) + e["bytes"]
+        if per_req:
+            out["per_request"] = dict(sorted(per_req.items(), key=lambda kv: -kv[1]["bytes"]))
+            out["per_tenant"] = dict(sorted(per_tenant.items(), key=lambda kv: -kv[1]))
+        ev = self._eviction_candidates()
+        if ev:
+            out["eviction_candidates"] = ev
+        out["reconciliation"] = ml.reconcile(
+            eng.device if eng.platform == "cuda" else None,
+            baseline_bytes=eng.device_bytes_before,
+        )
+        snap = ml.snapshot()
+        if "exhaustion" in snap:
+            out["exhaustion"] = snap["exhaustion"]
+            out["exhaustions"] = snap["exhaustions"]
+        return out
+
+    def _roofline(self) -> dict:
+        """The installed recorder's roofline roll-up ({} without
+        registered costs)."""
+        rec = obs.get_recorder()
+        if rec is None or not rec.costs:
+            return {}
+        return rec.summary().get("roofline", {})
+
     def stats(self) -> dict:
         """Host-side serving roll-up (the obs summary carries the
         span-derived histograms; this is the request-math view)."""
         done = self.completed
         out = {
-            # A standalone server (fleet workers arrive in a later slice).
-            "worker_id": "single",
-            "role": "standalone",
+            "worker_id": self.worker_id,
+            "role": self.role,
             "requests_completed": len(done),
             "ticks": self.tick,
             "admissions": self.admissions,
@@ -1107,7 +1612,12 @@ class Server:
             "concurrency_peak": self._concurrency_peak,
             "kv_dtype": self.engine.kv_dtype,
             "weights_dtype": self.engine.weights_dtype,
+            # Kernel-library builds inside engine calls (on the card, 0
+            # after warm-up: the engine builds its kernels at construction).
+            "engine_compiles": self.engine.compile_watch.compiles,
         }
+        if self._decode_hbm_bytes:
+            out["decode_hbm_bytes_modeled"] = round(self._decode_hbm_bytes, 1)
         if self._spec:
             # Tokens emitted per slot-tick (1.0 = plain decode) and the
             # fraction of drafted tokens the target kept.
@@ -1172,9 +1682,22 @@ class Server:
             pol = self.policy.stats()
             out["preemptions"] = pol["preemptions"]
             out["policy"] = pol
+        if self._ledger is not None:
+            # The retained tail exemplars, worst first, and the ledger's
+            # aggregate view (what why-slow reads).
+            out["exemplars"] = self._ledger.exemplars()
+            out["ledger"] = self._ledger.stats()
         tenants = self._tenant_rollup()
         if tenants:
             out["tenants"] = tenants
+        out["memory"] = self._memory_stats()
+        roof = self._roofline()
+        if roof:
+            out["roofline"] = roof
+        if self.slo is not None:
+            out["slo"] = self.slo.report()
+        if self.sentinel is not None:
+            out["sentinel"] = self.sentinel.report()
         if done:
             lat = np.asarray([c.latency_s for c in done])
             ttft = np.asarray([c.ttft_s for c in done])

@@ -30,8 +30,8 @@ exact rejection sampling (Leviathan et al., arXiv 2211.17192): accept
 ``norm(max(p − q, 0))``; the bonus token (all ``k`` accepted) is the
 same formula with ``q = 0``, a plain target sample.
 
-The JAX package's ``register_draft_store`` (the draft's bytes in the
-HBM memory ledger) arrives with the ledger (ROADMAP.md §A 11).
+:func:`register_draft_store` puts the draft's device bytes in the
+engine's memory ledger.
 """
 
 from __future__ import annotations
@@ -40,7 +40,39 @@ import torch
 
 from mpit_tpu_torch.ops.lm_head import gumbel_columns
 
-__all__ = ["accept_emit", "draft_distribution", "modified_logits", "verify_reference"]
+__all__ = [
+    "accept_emit",
+    "draft_distribution",
+    "modified_logits",
+    "register_draft_store",
+    "verify_reference",
+]
+
+
+def register_draft_store(
+    memledger, draft_params, *, target_params=None, kv_bytes: float = 0.0
+) -> float:
+    """Register a speculative engine's draft with the memory ledger:
+    its weights under ``draft_weights`` (only the tensors that do not
+    share storage with ``target_params``:
+    :func:`~mpit_tpu_torch.serve.weights.register_param_store`) and its
+    cache tensors (``kv_bytes``) on the ``kv_pool`` line. The port's
+    draft model loads its own copy of every leaf, even of the leaves a
+    :func:`~mpit_tpu_torch.serve.weights.draft_from_target` draft shares
+    with the target in the JAX package, so its weights are real bytes
+    here. Returns the granted weight bytes; ``memledger=None`` does
+    nothing."""
+    if memledger is None:
+        return 0.0
+    from mpit_tpu_torch.serve.weights import register_param_store
+
+    granted = register_param_store(
+        memledger, draft_params, subsystem="draft_weights", alias_of=target_params
+    )
+    if kv_bytes:
+        memledger.grant("kv_pool", float(kv_bytes), kind="draft_kv")
+    return granted
+
 
 def modified_logits(logits, temperature, top_k):
     """Per slot: threshold at the k-th largest logit when ``top_k > 0``,

@@ -42,6 +42,7 @@ __all__ = [
     "params_from_jax",
     "params_wire_bytes",
     "quantize_gpt2_params",
+    "register_param_store",
     "shard_gpt2_params",
     "validate_params",
 ]
@@ -224,6 +225,39 @@ def params_wire_bytes(state: Mapping) -> float:
     entry's bytes is the ``weight_wire_bytes`` rule: int8 plus one f32
     scale per row for the int8 store, the dtype's size for the rest."""
     return float(sum(t.numel() * t.element_size() for t in state.values()))
+
+
+def _storage_key(t) -> tuple:
+    """What identifies a tensor's memory: its storage's address and size
+    (a view or a tied weight shares its parent's)."""
+    st = t.untyped_storage()
+    return (t.device.type, t.device.index, st.data_ptr(), st.nbytes())
+
+
+def register_param_store(
+    memledger, params: Mapping, *, subsystem: str = "weights", alias_of=None
+) -> float:
+    """Register one parameter store's device bytes with the memory
+    ledger: one grant of the bytes of every distinct storage among
+    ``params``' tensors (a ``state_dict``: an int8 store's ``.q`` and
+    ``.scale`` entries, a tensor-parallel model's rank-stacked shards, a
+    tied head counted once), under ``subsystem``. Tensors whose storage
+    is one of ``alias_of``'s cost nothing: their bytes are on that
+    store's line already. Returns the granted bytes; ``memledger=None``
+    does nothing."""
+    if memledger is None:
+        return 0.0
+    seen = {_storage_key(t) for t in (alias_of or {}).values()}
+    total = 0
+    for t in params.values():
+        key = _storage_key(t)
+        if key in seen:
+            continue
+        seen.add(key)
+        total += key[3]
+    memledger.register(subsystem, capacity_bytes=total)
+    memledger.grant(subsystem, total, kind="param_store")
+    return float(total)
 
 
 def _blocks(state: Mapping) -> dict:

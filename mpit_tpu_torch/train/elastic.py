@@ -93,9 +93,6 @@ _TAG_NAMES = {TAG_REG: "register", TAG_HB: "heartbeat", TAG_EXCH: "exchange",
               TAG_CENTER: "center", TAG_QUAR: "quarantine",
               TAG_REJOIN: "rejoin", TAG_STOP: "stop"}
 
-_SENTINEL = "the observability slice of the port (ROADMAP.md §A 11)"
-
-
 @dataclasses.dataclass
 class ElasticConfig:
     """Knobs of the elastic tier (the ``asyncsgd`` flags). ``alpha`` is
@@ -132,11 +129,6 @@ def _ctrl(step: int) -> torch.Tensor:
     return torch.tensor([step], dtype=torch.int32)
 
 
-def _refuse_sentinel(sentinel) -> None:
-    if sentinel is not None:
-        raise ValueError(f"elastic: the step-time sentinel arrives with {_SENTINEL}")
-
-
 # ---------------------------------------------------------------------------
 # Server actor.
 # ---------------------------------------------------------------------------
@@ -170,8 +162,9 @@ def anchor_server(
     the final ``center``, ``version``, ``alpha_final`` and the ``events``
     (``registered`` / ``evicted`` / ``rejoined`` / ``quarantined`` /
     ``staleness_exceeded`` / ``stopped`` tuples) with their counts.
-    ``sentinel`` must be None (the sentinel arrives with a later slice)."""
-    _refuse_sentinel(sentinel)
+    ``sentinel`` (a :class:`~mpit_tpu_torch.obs.Sentinel`) is noted each
+    eviction and staleness breach, so they land in the run's anomaly
+    report beside the step-time findings."""
     nreplicas = cfg.replicas if nreplicas is None else nreplicas
     if cfg.lease_s < 2 * cfg.heartbeat_s:
         warnings.warn(
@@ -209,6 +202,8 @@ def anchor_server(
     def _note(kind: str, rank: int, **extra):
         events.append((kind, rank, *extra.values()))
         _obs.instant(instant_names.get(kind, kind), rank=rank, **extra)
+        if sentinel is not None and kind in ("evicted", "staleness_exceeded"):
+            sentinel.note(kind, "anchor", version, rank=rank, **extra)
 
     def _gauges():
         _obs.gauge("active_replicas", _active_count())
@@ -627,14 +622,14 @@ def run_elastic(
     faults on the job's wire and step faults in the replica wrapper.
     ``flight``: a recorder per rank, gathered to the server at the end
     (the result's ``flight``: the skew report, the flight record and
-    ``step_straggler_rank``). ``sentinel`` must be None (a later slice).
-    ``job_timeout_s``: the compat job's wall-clock limit.
+    ``step_straggler_rank``). ``sentinel``: the anchor server notes its
+    evictions and staleness breaches into it (the result's ``sentinel``
+    is its report). ``job_timeout_s``: the compat job's wall-clock limit.
 
     Returns ``{"server", "replicas", "center", "version", "flight",
-    "fault_events"}``."""
+    "fault_events"[, "sentinel"]}``."""
     from mpit_tpu_torch.obs import aggregate
 
-    _refuse_sentinel(sentinel)
     state0, _ = init_replica()
     init_flat = state0.params.detach().clone()
     del state0
@@ -644,7 +639,7 @@ def run_elastic(
                    else contextlib.nullcontext())
         with rec_ctx:
             if rank == SERVER_RANK:
-                out = anchor_server(init_flat, cfg)
+                out = anchor_server(init_flat, cfg, sentinel=sentinel)
             else:
                 out = _replica_body(rank, rank - 1, cfg, init_replica, stream_factory,
                                     fault_plan, items_per_batch, verbose)
@@ -675,4 +670,6 @@ def run_elastic(
         out["flight"] = flight_doc
     if fault_plan is not None:
         out["fault_events"] = fault_plan.events()
+    if sentinel is not None:
+        out["sentinel"] = sentinel.report()
     return out

@@ -2,9 +2,8 @@
 divergence guard and restore, checkpoint cadence and the SIGTERM drain.
 
 The port of :func:`mpit_tpu.train.loop.hardened_loop`, without the
-profile window, the roofline registration, the sentinel and the
 dispatch fence (JAX's fetch-only fence bounds XLA's async dispatch; an
-eager step has none to bound): those arrive with later slices.
+eager step has none to bound).
 
 - **Prefetch.** A background thread draws host batches ahead of the
   step into a queue of ``prefetch_depth``, as torch tensors in pinned
@@ -54,6 +53,31 @@ eager step has none to bound): those arrive with later slices.
   ``eval`` span; its metrics are logged as ``eval_<name>`` and the last
   result is returned as ``eval``. The device time of an eval falls into
   the next step's ``step_ms`` (its mark is taken before the eval).
+- **Sentinel** (``sentinel``: a :class:`~mpit_tpu_torch.obs.Sentinel`).
+  It is fed, under JAX's metric names, each step's device time
+  (``step``: between the step's end mark and the previous one) and the
+  loop's wait for its batch (``prefetch_wait``), at the read-back that
+  proves the step done. JAX feeds the host's iteration wall, which its
+  dispatch fence bounds; an eager step's host wall here is its enqueue
+  time, and the wall of a lagged read-back is the wait for queued work,
+  so a host-wall detector would flag every read-back. The report is
+  returned as ``sentinel`` and logged as the ``sentinel_report`` record.
+- **Profile window** (``profile_dir``): steps 2..5 of the run under
+  ``torch.profiler`` (:func:`mpit_tpu_torch.utils.profiling.trace`; on
+  the card, CUDA activity too — a capture without device events raises),
+  its Chrome trace in ``profile_dir/trace.json``; returned as
+  ``profile``.
+- **Roofline** (``roofline``: one step's modeled cost, ``{"flops",
+  "hbm_bytes"[, "dtype", "source"]}``, e.g.
+  :func:`~mpit_tpu_torch.utils.profiling.gpt2_step_cost`): the steps'
+  modeled work against their device seconds between step-end marks, not
+  against the ``step`` spans, which close when the step is enqueued. Left
+  out: the first step (it holds the set-up) and the profile window's
+  steps with the one after it (traced, and waiting on the trace's
+  export). Returned as ``roofline`` (percentages only on a known card).
+- **Builds** — a kernel library built or loaded inside a step is a
+  ``compile`` span; one after the first step is an
+  ``unexpected_recompile`` (a sentinel note with a sentinel).
 """
 
 from __future__ import annotations
@@ -70,6 +94,7 @@ import torch
 
 from mpit_tpu_torch import obs
 from mpit_tpu_torch.data.loader import shard_batch
+from mpit_tpu_torch.utils import profiling
 from mpit_tpu_torch.train.guard import Diverged, DivergenceGuard
 from mpit_tpu_torch.train.metrics import MetricLogger
 
@@ -155,6 +180,9 @@ def hardened_loop(
     world=None,
     eval_every: int = 0,
     eval_hook: Callable | None = None,
+    sentinel=None,
+    profile_dir: str = "",
+    roofline: dict | None = None,
 ) -> dict:
     """Drive ``step_fn(state, batch) -> (state, metrics)`` from
     ``state.step`` to ``steps``; ``metrics["loss"]`` is a device scalar.
@@ -166,11 +194,14 @@ def hardened_loop(
     ``max_restores`` / ``final_save``: the checkpoint cadence and the
     divergence restore (module docstring). ``eval_hook(state) ->
     metrics`` runs every ``eval_every`` steps and after the last step.
+    ``sentinel`` / ``profile_dir`` / ``roofline``: module docstring.
     Returns ``{"state", "steps", "losses", "final_loss", "restores",
     "preempted", "step_ms"}`` (``step_ms``: one per step run, the first
     holding the run's set-up) plus ``items_per_sec`` (best window),
     ``items_per_sec_last`` and ``items_per_sec_mean`` once a window
-    closed, and ``eval`` (the last hook's metrics) once one ran."""
+    closed, ``eval`` (the last hook's metrics) once one ran, and
+    ``sentinel``, ``profile``, ``roofline`` and ``compiles`` when
+    asked for or observed."""
     device = torch.device(device)
     logger = logger or MetricLogger()
     step_attrs = step_attrs or {}
@@ -201,6 +232,16 @@ def hardened_loop(
     marks = {step: mark()}
     segments = [[marks[step]]]
     last_eval: dict | None = None
+    # The sentinel's feed: steps up to ``observed`` are fed; ``pf_wait``
+    # holds each step's wait for its batch until then.
+    observed = step
+    pf_wait: dict[int, float] = {}
+    prof_window = None
+    if profile_dir and steps > start:
+        prof_window = (min(start + 2, steps - 1), min(start + 5, steps - 1))
+    tracing = None  # the open trace's context manager
+    profile: dict | None = None
+    compile_watch = obs.roofline.CompileWatch(scope="train_step", sentinel=sentinel)
 
     preempted = {"flag": False}
 
@@ -214,6 +255,20 @@ def hardened_loop(
     except ValueError:  # not the main thread: no handler
         prev_handler, handler_installed = None, False
 
+    def feed_sentinel(upto: int) -> None:
+        """Feed the sentinel every step up to ``upto`` (done on the device
+        by now) not fed yet: its device time and its batch wait."""
+        nonlocal observed
+        if sentinel is None:
+            return
+        for t in range(observed + 1, upto + 1):
+            if t - 1 in marks and t in marks:
+                sentinel.observe_step(
+                    t - 1, step_s=elapsed_s(marks[t - 1], marks[t]),
+                    prefetch_wait_s=pf_wait.pop(t - 1, None),
+                )
+        observed = max(observed, upto)
+
     def consume(entry, at_step: int, close: bool) -> None:
         """Read back and check one waiting loss; a ``log`` entry is
         logged, and with ``close`` it ends a throughput window over the
@@ -222,6 +277,7 @@ def hardened_loop(
         s, loss, kind = entry
         with obs.span("host_fence", why=kind, lag=at_step - s):
             val = float(loss)
+        feed_sentinel(s)
         guard.check(s, val, detected_step=at_step)
         if kind != "log":
             return
@@ -244,6 +300,7 @@ def hardened_loop(
     stream = _Prefetcher(batches, device, prefetch_depth)
     try:
         while True:
+            pf_t0 = time.perf_counter()
             with obs.span("prefetch_wait"):
                 try:
                     batch = next(stream)
@@ -251,6 +308,7 @@ def hardened_loop(
                     batch = None
                 if batch is not None and world is not None:
                     batch = shard_batch(world, batch)
+            pf_wait[step] = time.perf_counter() - pf_t0
             try:
                 if batch is None or step >= steps:
                     drain(step)
@@ -268,10 +326,21 @@ def hardened_loop(
                     logger.log(step, {"event": "preempted_checkpoint_and_exit",
                                       "resumable": bool(ckpt)})
                     break
+                if prof_window and tracing is None and profile is None \
+                        and step == prof_window[0]:
+                    tracing = profiling.trace(profile_dir, cuda=device.type == "cuda")
+                    profile = tracing.__enter__()
                 with obs.span("step", **step_attrs):
-                    state, metrics = step_fn(state, batch)
+                    state, metrics = compile_watch.call("step", step_fn, state, batch)
+                if step == start:
+                    # Builds in the first step are its own; later ones
+                    # are unexpected.
+                    compile_watch.expected = compile_watch.compiles
                 marks[step + 1] = mark()
                 segments[-1].append(marks[step + 1])
+                if tracing is not None and step >= prof_window[1]:
+                    tracing.__exit__(None, None, None)  # waits for the card
+                    tracing = None
                 should_log = (step + 1) % log_every == 0 or step + 1 == steps
                 should_save = bool(ckpt and ckpt_every and (step + 1) % ckpt_every == 0)
                 should_eval = bool(
@@ -311,6 +380,10 @@ def hardened_loop(
                     raise
                 target = max(candidates)
                 restores += 1
+                if tracing is not None:
+                    # The step counter goes back: end the capture here.
+                    tracing.__exit__(None, None, None)
+                    tracing = None
                 with obs.span("divergence_restore", target=target):
                     state = ckpt.restore(state, step=target)
                 step = state.step
@@ -321,6 +394,7 @@ def hardened_loop(
                 log_step = None  # a fresh window: the step counter went back
                 marks = {step: mark()}
                 segments.append([marks[step]])
+                observed = step
                 logger.log(step, {"event": "restored_after_divergence",
                                   "bad_loss": dvg.loss, "restores": restores,
                                   "diverged_step": dvg.step,
@@ -329,6 +403,8 @@ def hardened_loop(
             step += 1
     finally:
         stream.close()
+        if tracing is not None:  # the run ended (or raised) inside the window
+            tracing.__exit__(None, None, None)
         if handler_installed:
             signal.signal(
                 signal.SIGTERM, prev_handler if prev_handler is not None else signal.SIG_DFL
@@ -340,6 +416,7 @@ def hardened_loop(
                 ckpt.save(step, state)
             ckpt.wait()
 
+    feed_sentinel(step)
     step_ms = [elapsed_s(a, b) * 1e3 for seg in segments for a, b in zip(seg, seg[1:])]
     losses = [v for _, v in loss_trace]
     out = {
@@ -357,4 +434,32 @@ def hardened_loop(
         out["items_per_sec"] = round(max(rate_trace), 2)
         out["items_per_sec_last"] = round(rate_trace[-1], 2)
         out["items_per_sec_mean"] = round(sum(rate_trace) / len(rate_trace), 2)
+    if compile_watch.compiles:
+        out["compiles"] = compile_watch.compiles
+    if profile is not None:
+        out["profile"] = profile
+    # Device seconds from the step-end marks (the step span closes when
+    # the step is enqueued, not when the card finishes it), on the final
+    # trajectory, past the set-up and the profile window.
+    skip = {start} | (set(range(prof_window[0], prof_window[1] + 2)) if prof_window else set())
+    timed = [elapsed_s(marks[t], marks[t + 1]) for t in sorted(marks)
+             if t + 1 in marks and t not in skip]
+    if roofline is not None and timed:
+        cost = {
+            "flops": float(roofline.get("flops", 0.0)),
+            "hbm_bytes": float(roofline.get("hbm_bytes", 0.0)),
+            "platform": device.type,
+            "source": roofline.get("source", "analytic"),
+            **obs.roofline.chip_peaks(dtype=roofline.get("dtype", "bf16")),
+        }
+        out["roofline"] = obs.roofline.rollup(
+            {"step": cost}, {}, {"step": {"count": len(timed), "total_s": sum(timed)}},
+        )
+    if sentinel is not None:
+        out["sentinel"] = sentinel.report()
+        logger.log(step, {
+            "event": "sentinel_report",
+            "sentinel_clean": out["sentinel"]["clean"],
+            **{f"sentinel_{k}": v for k, v in out["sentinel"]["anomaly_counts"].items()},
+        })
     return out

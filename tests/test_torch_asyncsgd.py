@@ -177,11 +177,12 @@ _NOW = {
     "imagenet_augment_true": (["imagenet", "--augment", "true", "--augment-mode", "rrc"],
                               "need --data-dir"),
     "imagenet_trainsize_128": (["imagenet", "--train-size", "128"], "need --data-dir"),
-    "mnist_mode_elastic": (["mnist", "--mode", "elastic", "--sentinel", "true"], "slice"),
+    "mnist_mode_elastic": (["mnist", "--mode", "elastic", "--sentinel", "true",
+                            "--native", "true"], "slice"),
     "imagenet_mode_elastic": (["imagenet", "--mode", "elastic"], "mnist only"),
     "mnist_leases_2": (["mnist", "--mode", "elastic", "--lease-s", "2", "--profile-dir", "/p"],
-                       "slice"),
-    "mnist_easgd_true": (["mnist", "--easgd", "true", "--profile-dir", "/p"], "slice"),
+                       "profile window is the SPMD"),
+    "mnist_easgd_true": (["mnist", "--easgd", "true", "--prefetch-workers", "2"], "slice"),
     # The model axis serves now; training on it is TP training's (§A 8b).
     "mnist_mesh_data=2,model=2": (["mnist", "--mesh", "data=2,model=2"], "§A 8b"),
 }

@@ -26,7 +26,11 @@ into a bound four-rank state, bit for bit); and speculative decoding's
 shapes (the decode kernel at the verify's T 2 to 5 on each body, the
 matmul at its 40 rows, also from four threads) and its engine (f32
 greedy tokens of the speculative kernel engine against the plain and
-the speculative reference engines).
+the speculative reference engines); and the observability layers on
+the card (the engine's modeled visited tiles against the decode
+kernel's own count, the memory ledger against
+``torch.cuda.memory_allocated``, the profile window's trace holding the
+flash kernels' device events).
 
 Every test here needs an NVIDIA GPU (the kernel has no CPU mode): each
 carries the ``cuda`` marker and skips, with its reason, where there is
@@ -1712,3 +1716,96 @@ def test_host_tier_spill_survives_the_next_prefill_rewriting_its_page(cuda, kv_d
     done = {c.rid: c.tokens for c in server.run()}
     assert len(done["v"]) == 20 and len(done["b"]) == 4
     assert len(server.resume_durations["restream"]) == 1
+
+
+# -- observability on the card ----------------------------------------------
+
+
+def _obs_engine(kw):
+    cfg = GPT2Config.tiny(vocab_size=64, max_seq_len=128, num_layers=2, num_heads=4,
+                          d_model=64, dtype=torch.bfloat16)
+    state = GPT2(cfg, generator=torch.Generator().manual_seed(0)).state_dict()
+    return cfg, Engine(cfg, state, slots=3, max_len=128, prefill_len=64, **kw)
+
+
+@pytest.mark.parametrize("kw", [{}, {"kv_pages": 40, "kv_page_size": 16, "prefill_chunk": 16},
+                                {"kv_dtype": "int8"}], ids=["dense", "paged", "dense_int8"])
+def test_modeled_visited_tiles_equal_the_kernels(cuda, kw):
+    """After a few ticks, the decode kernel over the engine's cache at the
+    live fills (free slots at 0) reports the tiles the engine's roofline
+    model counts, bit for bit."""
+    from mpit_tpu_torch.obs import roofline
+
+    cfg, engine = _obs_engine(kw)
+    server = Server(engine)
+    for rid, (n, new) in enumerate(((5, 30), (40, 20))):
+        server.submit(Request(rid=rid, prompt=list(range(1, n + 1)), max_new_tokens=new))
+    server.run(max_ticks=6)
+    fills = np.zeros(engine.slots, np.int32)
+    for slot, live in server.live.items():
+        fills[slot] = live.cache_fill()
+    live = fills[sorted(server.live)]
+    q = torch.randn((engine.slots, 1, cfg.num_heads, cfg.head_dim), device="cuda").bfloat16()
+    c = engine.cache
+    lens = torch.tensor(fills, device="cuda")
+    if engine.paged:
+        _, vis = tda.flash_paged_decode_attention(
+            q, c.k[0], c.v[0], lens, engine._block_tables(), block_k=engine.decode_block_k,
+            return_visited=True)
+    else:
+        k0 = c.k[0] if not hasattr(c.k, "q") else type(c.k)(q=c.k.q[0], scale=c.k.scale[0])
+        v0 = c.v[0] if not hasattr(c.v, "q") else type(c.v)(q=c.v.q[0], scale=c.v.scale[0])
+        _, vis = tda.flash_decode_attention(q, k0, v0, lens, block_k=engine.decode_block_k,
+                                            return_visited=True)
+    vis = vis.cpu().numpy()
+    assert np.array_equal(vis, tda.num_kv_blocks(fills, 1, engine.max_len, engine.decode_block_k))
+    assert engine.decode_achieved_hbm_bytes(live) == roofline.decode_step_hbm_bytes(
+        int(vis.sum()), block_k=engine.decode_block_k, kv_row_bytes=engine._kv_row_bytes,
+        num_layers=cfg.num_layers, param_bytes=engine._param_bytes, appended_rows=len(live))
+
+
+@pytest.mark.parametrize("kw", [{}, {"kv_pages": 40, "kv_page_size": 16, "kv_dtype": "int8"},
+                                {"weights_dtype": "int8"}],
+                         ids=["dense", "paged_int8_kv", "int8_weights"])
+def test_ledger_reconciles_with_memory_allocated(cuda, kw):
+    """The engine's ledger against ``torch.cuda.memory_allocated`` less what
+    the process held before the engine, during and after a served run: a
+    four-layer GPT-2 at small's width (about 130 MB of bf16 weights),
+    cuBLAS's workspace made first (the process's, not the engine's)."""
+    import gc
+
+    gc.collect()
+    for dt in (torch.float32, torch.bfloat16):
+        torch.ones((8, 8), dtype=dt, device="cuda") @ torch.ones((8, 8), dtype=dt, device="cuda")
+    cfg = GPT2Config.small(num_layers=4)
+    state = GPT2(cfg, generator=torch.Generator().manual_seed(0)).state_dict()
+    engine = Engine(cfg, state, slots=3, max_len=128, prefill_len=64, **kw)
+    server = Server(engine)
+    for rid in range(4):
+        server.submit(Request(rid=rid, prompt=list(range(1, 9 + rid)), max_new_tokens=12))
+    server.run(max_ticks=5)
+    rec = server.stats()["memory"]["reconciliation"]
+    assert rec["device_bytes"] is not None and rec["within_tolerance"], rec
+    server.run()
+    mem = server.stats()["memory"]
+    assert mem["conservation"]["ok"] and mem["reconciliation"]["within_tolerance"]
+
+
+def test_profile_dir_traces_the_flash_kernels(cuda, tmp_path):
+    """``gpt2 --profile-dir`` on the card: the profiler's Chrome trace holds
+    the flash kernels' device events; the step's roofline carries shares."""
+    from mpit_tpu_torch.asyncsgd.gpt2 import main
+    from mpit_tpu_torch.utils.profiling import device_events
+
+    out = main(["--steps", "7", "--vocab-size", "128", "--seq-len", "64", "--num-layers", "2",
+                "--num-heads", "2", "--d-model", "128", "--flash", "true", "--log-every", "1",
+                "--sentinel", "true", "--profile-dir", str(tmp_path)])
+    names = [e["name"] for e in device_events(out["profile"]["path"])]
+    for kernel in ("fwd_kernel", "dq_kernel", "dkv_kernel"):
+        assert any(kernel in n for n in names), kernel
+    step = out["roofline"]["phases"]["step"]
+    # Steps 0 (set-up) and 2..6 (the window and the export) are left out.
+    assert step["platform"] == "cuda" and step["executions"] == 1
+    assert {"mfu_pct", "hbm_util_pct"} <= set(step) and step["hbm_util_pct"] <= 100
+    assert step["achieved_flops"] > 0 and step["seconds"] > 0
+    assert out["sentinel"]["metrics"]["step"]["count"] == 7

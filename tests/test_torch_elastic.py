@@ -18,7 +18,9 @@
   (``AnchorTimeoutError``): the same event kinds for the faulted
   replica, every registration and stop, and the same replica statistics
   (the leases are wall-clock, so ages, the order of concurrent events
-  and a loaded host's starved heartbeats are not compared);
+  and a loaded host's starved heartbeats are not compared); in both
+  packages the anchor notes each eviction and staleness breach into the
+  run's sentinel;
 - the refusals.
 
 Every compat job carries its own time limit.
@@ -38,6 +40,7 @@ import torch
 from mpit_tpu import compat as jcompat
 from mpit_tpu.asyncsgd import mnist as jmnist
 from mpit_tpu.models import LeNet as JLeNet
+from mpit_tpu.obs import Sentinel as JSentinel
 from mpit_tpu.train import TrainState as JTrainState
 from mpit_tpu.train import elastic as jelastic
 from mpit_tpu_torch import compat as tcompat
@@ -46,6 +49,7 @@ from mpit_tpu_torch.asyncsgd.__main__ import main as cli_main
 from mpit_tpu_torch.compat import FaultPlan, MessageRule
 from mpit_tpu_torch.models import LeNet
 from mpit_tpu_torch.models.layers import params_from_jax
+from mpit_tpu_torch.obs import Sentinel
 from mpit_tpu_torch.train import AnchorTimeoutError, TrainState
 from mpit_tpu_torch.train import elastic as telastic
 
@@ -121,12 +125,14 @@ def test_anchor_server_equals_jax_for_a_fixed_order():
 
 
 def test_anchor_refuses_sentinel_and_unknown_tags():
-    with pytest.raises(ValueError, match="sentinel"):
-        telastic.anchor_server(torch.zeros(2), telastic.ElasticConfig(), sentinel=object())
+    # The anchor takes a sentinel now (the evictions it notes: the fault
+    # paths below); an unknown tag still fails the job with one wired.
+    sentinel = Sentinel()
 
     def main(rank: int):
         if rank == 0:
-            return telastic.anchor_server(torch.zeros(2), telastic.ElasticConfig(replicas=1))
+            return telastic.anchor_server(torch.zeros(2), telastic.ElasticConfig(replicas=1),
+                                          sentinel=sentinel)
         ship = tcompat.Comm_dup(None, key=telastic.ANCHOR_CHANNEL)
         tcompat.Send(torch.zeros(2), dest=0, tag=99, comm=ship)
         return None
@@ -233,12 +239,13 @@ def _fleet(pkg: str, plan_kw: dict, cfg_kw: dict, ckpt: bool):
             init_state, step = _jax_toy()
             cfg = jelastic.ElasticConfig(**base)
             return jelastic.run_elastic(mpit_tpu.init(), cfg, init_state, step, _streams,
-                                        fault_plan=plan, job_timeout_s=JOB_TIMEOUT)
+                                        fault_plan=plan, sentinel=JSentinel(),
+                                        job_timeout_s=JOB_TIMEOUT)
         rules = [MessageRule(**r) for r in plan_kw.pop("rules", [])]
         plan = FaultPlan(message_rules=rules, **plan_kw)
         cfg = telastic.ElasticConfig(**base)
         return telastic.run_elastic(cfg, _torch_toy, _streams, fault_plan=plan,
-                                    job_timeout_s=JOB_TIMEOUT)
+                                    sentinel=Sentinel(), job_timeout_s=JOB_TIMEOUT)
 
 
 _FAULTS = {  # id: (FaultPlan keywords, ElasticConfig keywords, checkpoints, faulted rank)
@@ -283,6 +290,12 @@ def test_fault_paths_give_jax_event_kinds(case):
         rejoined = [e for e in got["server"]["events"] if e[0] == "rejoined"]
         assert rejoined and rejoined[0][2] in ("heartbeat", "exchange")
         assert 1 in [e[1] for e in got["server"]["events"] if e[0] == "evicted"]
+    for out in (got, want):  # every eviction and staleness breach noted
+        counts = out["sentinel"]["anomaly_counts"]
+        for kind in ("evicted", "staleness_exceeded"):
+            assert counts.get(kind, 0) == sum(e[0] == kind for e in out["server"]["events"])
+    if case == "hang_readmit":
+        assert not got["sentinel"]["clean"]
 
 
 def test_dead_anchor_is_a_structured_failure():
@@ -308,7 +321,7 @@ _SMALL_IMAGES = ["--image-size", "32", "--num-classes", "10"]
     (["gpt2", "--easgd", "true", "--device", "cpu"], "ignores --easgd"),
     (["resnet", "--save-dense", "x.npz", *_SMALL_IMAGES], "ZeRO-1 DP layout"),
     (["mnist", "--save-dense", "x.npz", "--zero1", "false"], "ZeRO-1 DP layout"),
-    (["mnist", "--mode", "elastic", "--sentinel", "true"], "observability slice"),
+    (["mnist", "--mode", "elastic", "--profile-dir", "/p"], "profile window is the SPMD"),
     (["mnist", "--native", "true"], "data-pipeline slice"),
 ], ids=["imagenet_elastic", "resnet_elastic", "gpt2_elastic", "easgd_spmd",
         "resnet_save_dense", "zero1_false_save_dense", "sentinel", "native"])

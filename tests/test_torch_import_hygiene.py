@@ -46,5 +46,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "mpit_tpu_torch.models.layers", "mpit_tpu_torch.models.norm",
                  "mpit_tpu_torch.models.resnet", "mpit_tpu_torch.asyncsgd.resnet",
                  "mpit_tpu_torch.data.augment", "mpit_tpu_torch.data.filedata",
-                 "mpit_tpu_torch.data.images"):
+                 "mpit_tpu_torch.data.images", "mpit_tpu_torch.obs.sentinel",
+                 "mpit_tpu_torch.obs.slo", "mpit_tpu_torch.obs.roofline",
+                 "mpit_tpu_torch.obs.memledger", "mpit_tpu_torch.obs.baseline",
+                 "mpit_tpu_torch.obs.__main__", "mpit_tpu_torch.utils.profiling"):
         assert name in out["modules"], name

@@ -7,7 +7,8 @@ and targets), and so must ``split_arrivals`` and ``parse_load_spec``.
 ``Server.run_timed`` over a short trace answers every admitted request
 with ``drain=True``; ``max_queue`` sheds and does not raise. The serve
 CLI runs ``--loadgen`` with ``--policy`` and ``--kv-host-pages`` on the
-CPU, and still refuses the flags of ROADMAP.md §A 11.
+CPU; the serving obs flags (SLOs, sentinel, trace) drive one Server,
+so beside ``--fleet`` they refuse.
 """
 
 from __future__ import annotations
@@ -205,11 +206,11 @@ def test_cli_open_loop_dense_fifo():
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--slo-ttft-p95", "0.5"], "§A 11"),
-    (["--slo-latency-p95", "0.5"], "§A 11"),
-    (["--slo-shed-rate", "0.1"], "§A 11"),
-    (["--sentinel", "true"], "§A 11"),
-    (["--trace", "t.json"], "§A 11"),
+    (["--fleet", "prefill=1,decode=1", "--slo-ttft-p95", "0.5"], "fleet's router"),
+    (["--fleet", "prefill=1,decode=1", "--slo-latency-p95", "0.5"], "fleet's router"),
+    (["--fleet", "prefill=1,decode=1", "--slo-shed-rate", "0.1"], "fleet's router"),
+    (["--fleet", "prefill=1,decode=1", "--sentinel", "true"], "fleet's router"),
+    (["--fleet", "prefill=1,decode=1", "--trace", "t.json"], "fleet's router"),
     (["--loadgen", "rate=8,new_max=60"], "max-len"),
     (["--kv-pages", "3", "--kv-page-size", "8", "--loadgen",
       "rate=8,prompt_max=16,new_max=16"], "kv-pages 3"),
@@ -218,7 +219,8 @@ def test_cli_open_loop_dense_fifo():
 ], ids=["slo_ttft", "slo_latency", "slo_shed", "sentinel", "trace", "max_len", "pool",
         "bad_spec", "fleet"])
 def test_cli_refusals(flags, match):
-    """§A 11's flags still refuse, naming it; a load the engine could not
-    take refuses before the window, a model or a worker is built."""
+    """The serving obs flags are the single Server's: beside ``--fleet``
+    they refuse; a load the engine could not take refuses before the
+    window, a model or a worker is built."""
     with pytest.raises(SystemExit, match=match):
         main([*CLI, *flags])

@@ -7,9 +7,9 @@
   ``Server`` gives the very tokens ``mpit_tpu``'s ``Server`` gives on
   the same weights, in both attention modes;
 - the CLI: ``main`` returns the stats keys, serves through the paged
-  pool (f32/bf16 and int8), rejects the flags of later slices and the
-  combinations the JAX CLI rejects, and defaults to the GPU (it raises
-  here, where there is none).
+  pool (f32/bf16 and int8), rejects the combinations the JAX CLI rejects
+  and the single Server's flags beside ``--fleet``, and defaults to the
+  GPU (it raises here, where there is none).
 """
 
 from __future__ import annotations
@@ -216,22 +216,23 @@ def test_main_returns_stats_keys():
         # path is the parity oracle, not an int8 serving path).
         ["--kv-dtype", "int8", "--decode-attention", "reference"],
         ["--weights-dtype", "int8", "--decode-attention", "reference"],
-        # Speculation is served now; beside a later slice's flag it still
-        # refuses, before a model is built.
-        ["--spec-k", "2", "--draft-config", "truncate:1", "--trace", "t.json"],
+        # Speculation and the trace are served now; a dense geometry
+        # without the verify's headroom refuses, before a model is built.
+        ["--spec-k", "2", "--draft-config", "truncate:1", "--trace", "t.json",
+         "--max-len", "24"],
         # --mesh serves now (tensor parallelism); beside --fleet it refuses,
         # naming the item that brings the fleet over it.
         ["--mesh", "model=2", "--fleet", "prefill=1,decode=1"],
-        # The load harness is served now; beside the SLO monitor's flag
-        # (ROADMAP.md §A 11) it still refuses.
-        ["--loadgen", "rate=8", "--slo-shed-rate", "0.1"],
+        # The load harness and the SLO monitor are served now; beside the
+        # fleet's router (its own admission) they refuse.
+        ["--loadgen", "rate=8", "--slo-shed-rate", "0.1", "--fleet", "prefill=1,decode=1"],
         # The policy is served now; a bad spec refuses before a model is built.
         ["--policy", "quantum=0"],
         # The fleet's router runs its own closed-loop admission: the
         # Server's policy refuses beside it, before any worker starts.
         ["--fleet", "prefill=1,decode=1", "--policy", "on"],
-        ["--slo-ttft-p95", "0.5"],
-        ["--sentinel", "true"],
+        ["--fleet", "prefill=1,decode=1", "--slo-ttft-p95", "0.5"],
+        ["--fleet", "prefill=1,decode=1", "--sentinel", "true"],
         # Bounded intake is served now; a load class the prefill buffer
         # cannot hold refuses before the window.
         ["--max-queue", "4", "--loadgen", "rate=8,prompt_max=40"],
@@ -245,7 +246,7 @@ def test_later_slice_flags_are_rejected(flags):
         else "pass --kv-pages" if "--kv-host-pages" in flags
         else "quantum" if "quantum=0" in flags
         else "prefill-len" if "--max-queue" in flags
-        else "§A 11"
+        else "max-len"
     )
     with pytest.raises(SystemExit, match=match):
         main(["--device", "cpu", *flags])

@@ -405,7 +405,7 @@ def test_draft_from_target(weights):
 
 def _cli_tokens(argv):
     cfg = cli.from_argv(cli.ServeConfig, [*argv, *CPU])
-    cli._reject_later_slices(cfg)
+    cli._check_flags(cfg)
     engine, mcfg = cli._build_engine(cfg)
     server = Server(engine)
     for req in cli.synthetic_requests(cfg, mcfg.vocab_size):

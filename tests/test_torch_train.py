@@ -362,13 +362,17 @@ def test_later_slice_flags_raise(argv):
             "gpt2_easgdbeta_0.5": ["resnet", "--mode", "elastic", *small],
             "gpt2_maxrestores_3": ["mnist", "--mode", "elastic", "--native", "true"],
             "gpt2_ckptevery_5": ["mnist", "--mode", "elastic", "--profile-dir", "/p"],
-            "gpt2_leases_2": ["mnist", "--mode", "elastic", "--sentinel", "true"],
+            "gpt2_leases_2": ["mnist", "--mode", "elastic", "--sentinel", "true",
+                              "--native", "true"],
+            "gpt2_profiledir_/p": ["gpt2", "--profile-dir", "/p", "--mode", "parity"],
+            "gpt2_sentinel_true": ["gpt2", "--sentinel", "true", "--native", "true"],
             }.get("_".join(argv).replace("-", ""), argv)
     # The model axis serves since the TP serving slice; training on it and
     # --fsdp-axis name TP training (ROADMAP.md §A 8b).
     match = (r"need --data-dir" if argv[0] == "imagenet" and "rrc" in argv
              else r"§A 8b" if "model=2" in argv[-1] or "--fsdp-axis" in argv
-             else r"slice|SPMD-only|mnist only|ZeRO-1 DP layout|ignores --easgd")
+             else r"slice|SPMD-only|mnist only|ZeRO-1 DP layout|ignores --easgd"
+                  r"|profile window is the SPMD")
     with pytest.raises(SystemExit, match=match):
         cli_main([*argv[:1], "--device", "cpu", *argv[1:]] if argv[0] == "gpt2" else argv)
 
