@@ -11,6 +11,7 @@ one GPU, training on one rank and over four data-parallel ranks.
     python3 chip_smoke.py spec                 # phases 3s, 4s, 5s and 4z (after 4 and 5)
     python3 chip_smoke.py tp                   # phases 3m, 4m and 5m (after 5)
     python3 chip_smoke.py policy               # phase 4p alone
+    python3 chip_smoke.py tiers                # phases 3t, 4mt and 4sq alone
 
 Run from the root of a checkout on a machine with an NVIDIA GPU (written
 for an H100). Phases, each of which raises (exit code != 0) on failure:
@@ -178,7 +179,7 @@ the one card, Megatron blocks and a head-sharded cache (records in
    with int8 weights 4 x p x layers matmul launches a call, all ``mma``;
    greedy tokens against the one-rank run of the same form, a parting
    failing where the plain path, teacher-forced on the one-rank tokens,
-   ranks the one-rank token above the TP run's by more than ``TP_TIE``;
+   ranks the one-rank token above the TP run's by more than ``BF16_TIE``;
    tick p50 beside the one-rank tick, launches a tick, and profiles of
    eight dense ticks at p 1, 2 and 4 (device time by family, idle share);
 5m. TP parity — f32 at GPT-2 small's width (phase 5's weights and
@@ -197,15 +198,19 @@ Open-loop serving under the scheduling policy (records in
    drained) of two classes, interactive (priority 0, a 20 ms TTFT target)
    and batch (priority 1, 96-160 new tokens), under the policy with
    admission shedding off: bf16 and int8 K/V with 160 host pages (resumes
-   restream), int8 weights without (resumes recompute). Gates: every
+   restream), int8 weights without (resumes recompute), and that
+   int8-weight run again over GPT-2 small in f32. Gates: every
    arrival answered in full; preemptions above 0, and resumes of the
    run's mode (restreamed pages with the host tier); every restored page
    equal bit for bit to its page as the spill began (``PageCheck``);
    attention launches on the form's ``split`` and ``mma``/``q8mma``
-   bodies alone, the matmul's all on ``mma`` in the int8-weight run and
-   none elsewhere; the preempted requests' tokens equal to their
-   closed-loop run (FIFO, no policy, the same engine) or parted one-sided
-   within ``INT8_TIE``, the plain path teacher-forced. Prints spill and
+   bodies alone (``rows`` for ``mma`` in f32), the matmul's all on
+   ``mma`` (``fma`` in f32) in the int8-weight runs and none elsewhere;
+   the preempted requests' tokens equal to their closed-loop run (FIFO,
+   no policy, the same engine) or parted one-sided within ``BF16_TIE``
+   in bf16 and ``F32_TIE`` in f32, the plain path teacher-forced (the
+   open loop's schedule depends on the wall clock, so which requests
+   are preempted, and where, differs from run to run). Prints spill and
    restore ms a page (32 pages, wall clock, idle engine), resume p50/p95
    by mode and TTFT p50/p95 by tier.
 
@@ -251,6 +256,44 @@ Open-loop serving under the scheduling policy (records in
 5t. train parity — f32, TF32 off, the same seeded initial weights, three
    goo_adam steps through the flash-kernel step and the plain-attention
    step at full width and depth: per-step losses within 1e-4 relative.
+
+Training on the model, fsdp and seq axes, the pjit tier and the
+context-parallel tier (records in ``chiprun_out/chip_smoke_tiers.json``):
+
+3t. kernel vs plain in the tiers' forms — the flash forward, dq and
+   dk/dv on a TP rank's head shard (B 8, T 512, 6 and 3 heads; f32 at 6;
+   6 heads at B 4, a data rank's rows at data 2 x model 2),
+   the ring block at every (q_offset, k_offset) that 4 seq ranks over
+   T/S 128 give (B 4, 12 heads; the wholly-future blocks too: o exactly 0,
+   lse exactly -1e30), each ring step's launch (step s over ranks s..3:
+   B (4 - s) x 4 at offsets (128 s, 0); f32 at s 1) and Ulysses' inner
+   call (B 4, T 512, 6 heads), with 3d's tolerances, beside SDPA where
+   one call computes the block (causal on the diagonal, unmasked on a
+   wholly visible block; none for a wholly-future one) and the bound;
+   then f32 parity (TF32 off): GPT-2 small at full width and 2 layers,
+   three goo_adam steps, the pjit tier at ``model=2``, ``model=4`` and
+   ``data=2,model=2`` with FSDP against the one-rank step of its unfused
+   loss, the CP tier (ring-flash, Ulysses-flash, plain ring) against its
+   one-rank step: per-step losses within 1e-4 relative;
+4mt. TP training — ``asyncsgd.gpt2``'s ``main`` with ``--flash true
+   --steps 16``: GPT-2 small at full width (vocab 50257 padded per rank,
+   12 layers, d 768, 12 heads, seq 512, batch 8, bf16, goo_adam) on
+   ``--mesh model=2``, ``model=4`` and ``data=2,model=2 --fsdp-axis
+   data``: finite losses whose last four average below the first four;
+   fwd, dq and dkv launches, set to 0 just before, each exactly layers x
+   model ranks x data ranks x steps, all on ``mma`` and all at the rank's
+   geometry (B/data rows, 12/model heads); step time, tokens/s, MFU and
+   peak memory; the ``model=2`` run's main path profiled by its own loop
+   (``--profile-dir``: steps 2..5, device time by family, idle share);
+4sq. CP training — the same model on ``--mesh data=2,seq=4`` (ring-flash),
+   ``data=4,seq=2 --ulysses true`` (Ulysses-flash) and ``data=2,seq=4
+   --flash false`` (the plain ring), unpatched: falling losses; launches
+   by geometry as the ring gives them — ring-flash: layers x 2 x steps at
+   each ring step s (B (4 - s) x 4, T/S 128, offsets (128 s, 0)); Ulysses:
+   layers x 4 x steps at B 4, T 512, 6 heads; the plain ring none; then
+   each run again for two untimed steps with every merged attention row
+   checked finite on the card; the ring-flash run's main path profiled by
+   its own loop, as 4mt's.
 3e. kernel vs plain, ring collectives — the reduce-scatter and all-gather
    kernels, sum and int8 wire, against their plain versions (the same
    ring order hop by hop), BIT FOR BIT (the bits of every element, signed
@@ -468,7 +511,10 @@ launches; the TP shapes as ``<form>_tp<p>``, ``<form>_tp<p>_prefill``,
 ``flash_decode_attention_tp2_verify`` and ``quantized_matmul_tp<p>_<layer>``,
 with phase 4m's launches; the paged forms as ``<form>_policy`` and
 ``<form>_policy_prefill`` and the matmul as ``quantized_matmul_policy``,
-with phase 4p's launches; every number in it
+with phase 4p's launches; the flash kernels in the tiers' forms as
+``flash_<kind>_tp6``, ``_tp3``, ``_tp6_fsdp``, ``_ring_s<step>`` and
+``_ulysses``, each with its run's launches at that geometry as the
+counts read them (phases 4mt and 4sq); every number in it
 but ``bound_ms`` measured in this run, so the earlier design's times,
 ``before_ms``, stay in the per-case records), the card's name and power
 limit as ``nvidia-smi`` prints them, and ``{"ok": true, "device":
@@ -501,6 +547,20 @@ LSE_TOL = 1e-4  # the flash forward's f32 lse, in both dtypes
 # dense reference (observed on an H100 at seed 0: 0.00014 and 0.0014;
 # a wrong page or scale moves logits by tenths).
 INT8_TIE = 0.01
+# The widest gap (logits) at which bf16 greedy tokens from two schedules
+# of the same model may part. bf16 activations are rounded at every
+# layer, so where the two schedules round differently the logits move by
+# about 1e-2, where INT8_TIE was set for f32's last-bit differences. 4m:
+# each TP rank's bf16 partial is rounded before the sum (first seen on an
+# H100: partings at gaps of 0.0017-0.0121). 4p: a recompute resume takes
+# the generated tokens' K/V from prefill chunks where the closed-loop run
+# took them from ticks (one-sided gaps up to 0.0147 seen on an H100). A
+# wrong shard, head or scale, or a shifted resume feed, moves them by
+# tenths; one wrong token in a resume feed stayed within 0.0086 in bf16,
+# so 5m holds the f32 TP engines to the one-rank tokens exactly, and 4p's
+# f32 run holds the recompute resume within F32_TIE (it parted that
+# feed's requests at 0.0067-0.018).
+BF16_TIE = 0.05
 B, H, DH = 8, 12, 64  # GPT-2 small's head geometry, 8 slots
 SERVE_ARGS = [
     "--model", "small", "--slots", "8", "--max-len", "512",
@@ -662,6 +722,21 @@ def load_peaks() -> None:
 
     HBM_BYTES_PER_S = H100_SXM.hbm_bandwidth
     PEAK_OPS_PER_S = {"bfloat16": H100_SXM.peak_flops_bf16, "float32": H100_SXM.peak_flops_f32}
+
+
+_SEEDED = {}  # (config, seed) -> a seeded GPT-2's state_dict, on the host
+
+
+def seeded_gpt2_state(torch, cfg, seed: int) -> dict:
+    """The ``state_dict`` of ``GPT2(cfg, generator=manual_seed(seed))``,
+    drawn once for each config and seed (the CPU's normals take seconds
+    a model) and handed out as a fresh copy each time."""
+    from mpit_tpu_torch.models import GPT2
+
+    key = (repr(cfg), seed)
+    if key not in _SEEDED:
+        _SEEDED[key] = GPT2(cfg, generator=torch.Generator().manual_seed(seed)).state_dict()
+    return {n: t.clone() for n, t in _SEEDED[key].items()}
 
 
 def import_port():
@@ -1120,13 +1195,13 @@ def parity_phase(torch):
     """Phase 5: f32 greedy tokens, dense kernel engine vs reference engine.
     Returns the config, the state and the kernel engine's tokens."""
     from mpit_tpu_torch.config import from_argv
-    from mpit_tpu_torch.models import GPT2, GPT2Config
+    from mpit_tpu_torch.models import GPT2Config
     from mpit_tpu_torch.serve import Engine, Server
     from mpit_tpu_torch.serve.__main__ import ServeConfig, synthetic_requests
 
     cfg = from_argv(ServeConfig, SERVE_ARGS)
     mcfg = GPT2Config.small(dtype=torch.float32)
-    state = GPT2(mcfg, generator=torch.Generator().manual_seed(cfg.seed)).state_dict()
+    state = seeded_gpt2_state(torch, mcfg, cfg.seed)
     tokens = {}
     for mode in ("kernel", "reference"):
         engine = Engine(
@@ -2020,11 +2095,11 @@ def dp_parity_phase(torch, q8_losses):
 
     from mpit_tpu_torch.asyncsgd.gpt2 import main
     from mpit_tpu_torch.data import SyntheticLM, shard_batch
-    from mpit_tpu_torch.models import GPT2, GPT2Config
+    from mpit_tpu_torch.models import GPT2Config
 
     fa = importlib.import_module("mpit_tpu_torch.ops.flash_attention")
     cfg = GPT2Config.small(dtype=torch.float32, max_seq_len=512)
-    init = GPT2(cfg, generator=torch.Generator().manual_seed(0)).state_dict()
+    init = seeded_gpt2_state(torch, cfg, 0)
     losses = {}
     for mode in ("psum", "ring"):
         models = dp_models(torch, cfg, init, fa.flash_attention)
@@ -2067,13 +2142,12 @@ def dp_profile(torch, mode: str, steps: int = 3) -> dict:
     from mpit_tpu_torch.asyncsgd.config import from_argv
     from mpit_tpu_torch.asyncsgd.gpt2 import GPT2TrainConfig
     from mpit_tpu_torch.data import SyntheticLM, shard_batch
-    from mpit_tpu_torch.models import GPT2
     from mpit_tpu_torch.ops import ring_collectives as rc
 
     fa = importlib.import_module("mpit_tpu_torch.ops.flash_attention")
     cfg = from_argv(GPT2TrainConfig, DP_ARGS)
     mcfg = cfg.model_config()
-    init = GPT2(mcfg, generator=torch.Generator().manual_seed(cfg.seed)).state_dict()
+    init = seeded_gpt2_state(torch, mcfg, cfg.seed)
     models = dp_models(torch, mcfg, init, mcfg.attention_fn)
     world, state, step_fn = dp_step(torch, models, mode, cfg.lr)
     batches = SyntheticLM(vocab_size=cfg.vocab_size, seed=cfg.seed).batches(
@@ -2110,7 +2184,7 @@ def train_parity_phase(torch):
 
     fa = importlib.import_module("mpit_tpu_torch.ops.flash_attention")
     cfg = GPT2Config.small(dtype=torch.float32, max_seq_len=512)
-    init = GPT2(cfg, generator=torch.Generator().manual_seed(0)).state_dict()
+    init = seeded_gpt2_state(torch, cfg, 0)
     losses = {}
     for label, attn in (("flash", fa.flash_attention), ("plain", default_attention)):
         model = GPT2(dataclasses.replace(cfg, attention_fn=attn), device="cuda")
@@ -2322,7 +2396,7 @@ def fleet_phase(torch, card, ship_cases, tokens: dict):
     from mpit_tpu_torch.serve import quantize_gpt2_params
     from mpit_tpu_torch.serve.__main__ import main
 
-    state = GPT2(GPT2Config.small(), generator=torch.Generator().manual_seed(0)).state_dict()
+    state = seeded_gpt2_state(torch, GPT2Config.small(), 0)
     judge = GPT2(GPT2Config.small(), device="cuda")
     judge.load_state_dict(state)
     # The int8-weight model, teacher-forced to judge that run's partings.
@@ -2402,13 +2476,13 @@ def fleet_parity_phase(torch):
     re-queue), the same tokens again. Returns the two runs' results."""
     from mpit_tpu_torch.compat import FaultPlan
     from mpit_tpu_torch.config import from_argv
-    from mpit_tpu_torch.models import GPT2, GPT2Config
+    from mpit_tpu_torch.models import GPT2Config
     from mpit_tpu_torch.serve import Engine, Server, run_fleet
     from mpit_tpu_torch.serve.__main__ import ServeConfig, synthetic_requests
 
     cfg = from_argv(ServeConfig, SERVE_ARGS + ["--requests", "4"])
     mcfg = GPT2Config.small(dtype=torch.float32)
-    state = GPT2(mcfg, generator=torch.Generator().manual_seed(cfg.seed)).state_dict()
+    state = seeded_gpt2_state(torch, mcfg, cfg.seed)
     geo = dict(slots=cfg.slots, max_len=cfg.max_len, prefill_len=cfg.prefill_len,
                seed=cfg.seed, device="cuda")
     server = Server(Engine(mcfg, state, **geo))
@@ -3844,7 +3918,7 @@ def spec_serve_phase(torch, card, serve_records, tokens: dict) -> dict:
     from mpit_tpu_torch.serve import quantize_gpt2_params
     from mpit_tpu_torch.serve.__main__ import main
 
-    state = GPT2(GPT2Config.small(), generator=torch.Generator().manual_seed(0)).state_dict()
+    state = seeded_gpt2_state(torch, GPT2Config.small(), 0)
     judge = GPT2(GPT2Config.small(), device="cuda")
     judge.load_state_dict(state)
     judge_int8w = GPT2(
@@ -4146,14 +4220,6 @@ def spec_phases(torch, card, flush, serve_records, mcfg, state, plans, tokens: d
 # Tensor-parallel serving (phases 3m, 4m, 5m): the model axis's ranks of
 # GPT-2 small, all on the one card (``--mesh model=p``).
 TP_P = (2, 4)
-# 4m: the widest gap (logits) at which bf16 TP tokens may part from the
-# one-rank run's. Each rank's bf16 partial is rounded before the sum, so
-# the logits move by about 1e-2 (first seen on an H100: partings at gaps
-# of 0.0017-0.0118, each at a position whose top two the plain path puts
-# that close), where INT8_TIE was set for the last-bit differences of two
-# schedules of one rank; a wrong shard, head or scale moves them by
-# tenths. 5m holds the f32 TP engines to the one-rank tokens exactly.
-TP_TIE = 0.05
 TP_T = (1, 2, 3, 4, SPEC_K + 1)  # the tick and the verify's widths; + prefill
 
 
@@ -4333,7 +4399,7 @@ def tp_serve_phase(torch, card, tokens: dict, one_rank_ticks: dict) -> dict:
     one-rank run of the same form (:func:`server_tokens`), each parting
     judged by the plain path teacher-forced on the one-rank tokens, one-
     sided as in 4s: it fails where that path ranks the one-rank token
-    above the TP run's by more than ``TP_TIE`` (bf16 partials are
+    above the TP run's by more than ``BF16_TIE`` (bf16 partials are
     rounded per rank before the sum; where the plain path ranks the TP
     token higher, the one-rank run, not the TP run, parted from it: seen
     at the prefill's first token, gap -0.0108).
@@ -4350,7 +4416,7 @@ def tp_serve_phase(torch, card, tokens: dict, one_rank_ticks: dict) -> dict:
     from mpit_tpu_torch.serve import quantize_gpt2_params
     from mpit_tpu_torch.serve.__main__ import main
 
-    state = GPT2(GPT2Config.small(), generator=torch.Generator().manual_seed(0)).state_dict()
+    state = seeded_gpt2_state(torch, GPT2Config.small(), 0)
     judge = GPT2(GPT2Config.small(), device="cuda")
     judge.load_state_dict(state)
     judge_int8w = GPT2(
@@ -4401,7 +4467,7 @@ def tp_serve_phase(torch, card, tokens: dict, one_rank_ticks: dict) -> dict:
             fail(f"{tag}: matmul launches {mm} by body {mm_paths}, expected {need_mm} on mma")
         ties = fleet_divergences(torch, judge_int8w if int8w else judge, prompts, served.tokens,
                                  want, quantized="--kv-dtype" in args, what=tag, one_sided=True,
-                                 tie=TP_TIE)
+                                 tie=BF16_TIE)
         bodies[name] = paths
         qmm_launches[name] = mm
         calls = n_prefill + n_tick
@@ -4658,27 +4724,40 @@ def policy_cli_run(torch, card) -> dict:
             "launches_by_body": paths}
 
 
-def policy_run(torch, card, name, args, form, judge) -> dict:
-    """One 4p run: the engine the CLI builds for ``args``, warmed, then
-    ``Server.run_timed`` over the seeded two-class trace under the
-    policy, drained, every restore checked against its spill; then the
-    preempted requests closed loop (FIFO, no policy) on the same engine,
-    their tokens held against the open-loop run's (``INT8_TIE``, one
-    sided, the plain path teacher-forced)."""
+def policy_run(torch, card, name, args, form, judge, f32_state=None) -> dict:
+    """One 4p run: the engine the CLI builds for ``args`` (with
+    ``f32_state``, the same engine over GPT-2 small in f32 with those
+    weights), warmed, then ``Server.run_timed`` over the seeded two-class
+    trace under the policy, drained, every restore checked against its
+    spill; then the preempted requests closed loop (FIFO, no policy) on
+    the same engine, their tokens held against the open-loop run's (one
+    sided, the plain path teacher-forced: within ``BF16_TIE`` in bf16,
+    ``F32_TIE`` in f32)."""
     from mpit_tpu_torch.config import from_argv
+    from mpit_tpu_torch.models import GPT2Config
     from mpit_tpu_torch.obs.stream import StreamRegistry
     from mpit_tpu_torch.ops import decode_attention as da
     from mpit_tpu_torch.ops import quantized_matmul as qm
     from mpit_tpu_torch.serve import (
-        Request, SchedulingPolicy, Server, generate_arrivals, loadgen, parse_policy_spec,
-        warm_engine,
+        Engine, Request, SchedulingPolicy, Server, generate_arrivals, loadgen,
+        parse_policy_spec, warm_engine,
     )
     from mpit_tpu_torch.serve.__main__ import ServeConfig, _build_engine
 
     import numpy as np
 
     cfg = from_argv(ServeConfig, SERVE_ARGS + args)
-    engine, mcfg = _build_engine(cfg)
+    if f32_state is None:
+        engine, mcfg = _build_engine(cfg)
+    else:
+        mcfg = GPT2Config.small(dtype=torch.float32)
+        engine = Engine(
+            mcfg, f32_state, slots=cfg.slots, max_len=cfg.max_len, prefill_len=cfg.prefill_len,
+            seed=cfg.seed, device="cuda", kv_pages=cfg.kv_pages,
+            kv_page_size=cfg.kv_page_size, prefill_chunk=cfg.prefill_chunk,
+            kv_dtype=cfg.kv_dtype or None, weights_dtype=cfg.weights_dtype or None,
+            kv_host_pages=cfg.kv_host_pages or None,
+        )
     host = engine.host_pages > 0
     warm_engine(engine)
     copy = tier_copy_ms(torch, engine) if host else None
@@ -4720,11 +4799,12 @@ def policy_run(torch, card, name, args, form, judge) -> dict:
     if check is not None and (check.bad or not check.checked):
         fail(f"{tag}: restored pages differ from their spills at (seat, page) {check.bad} "
              f"of {check.checked}")
-    body = "q8mma" if form.endswith("_int8") else "mma"
+    bf16 = f32_state is None
+    body = "q8mma" if form.endswith("_int8") else "mma" if bf16 else "rows"
     if set(paths) != {f"{form}/split", f"{form}/{body}"}:
         fail(f"{tag}: attention launches by body {paths}")
     int8w = "--weights-dtype" in args
-    if int8w != bool(qmm) or (int8w and qmm_paths != {"mma": qmm}):
+    if int8w != bool(qmm) or (int8w and qmm_paths != {"mma" if bf16 else "fma": qmm}):
         fail(f"{tag}: quantized_matmul launches {qmm} by body {qmm_paths}")
     # The preempted requests' closed-loop run on the same engine.
     engine.reset()
@@ -4739,10 +4819,11 @@ def policy_run(torch, card, name, args, form, judge) -> dict:
     want = {c.rid: list(c.tokens) for c in closed.run()}
     ties = fleet_divergences(torch, judge, {r: by_rid[r].prompt for r in want},
                              {r: got[r] for r in want}, want, quantized="--kv-dtype" in args,
-                             what=tag, one_sided=True)
+                             what=tag, one_sided=True, tie=BF16_TIE if bf16 else F32_TIE)
     durs = {m: d for m, d in server.resume_durations.items() if d}
     rec = {
-        "card": card, "run": name, "args": args, "wall_s": wall,
+        "card": card, "run": name, "args": args, "dtype": "bf16" if bf16 else "f32",
+        "wall_s": wall,
         "arrivals": len(arrivals), "requests_completed": len(done),
         "generated_tokens": st["generated_tokens"], "ticks": st["ticks"],
         "preemptions": st["preemptions"], "policy": st["policy"], "resumes": resumes,
@@ -4777,9 +4858,11 @@ def policy_run(torch, card, name, args, form, judge) -> dict:
 
 def policy_phase(torch, card) -> dict:
     """Phase 4p: the CLI's open-loop path once, then the bf16 and int8 K/V
-    pools with the host tier and the int8-weight pool without one; its
-    records go to ``chiprun_out/chip_smoke_policy.json``. Returns the
-    runs' attention and matmul launches by body."""
+    pools with the host tier and the int8-weight pool without one, then
+    that int8-weight run in f32; its records go to
+    ``chiprun_out/chip_smoke_policy.json``. Returns the bf16 runs'
+    attention and matmul launches by body (the f32 run's are in its
+    record: a parity check, not the bf16 rows of the kernels line)."""
     import dataclasses
 
     from mpit_tpu_torch.models import GPT2, GPT2Config
@@ -4789,7 +4872,7 @@ def policy_phase(torch, card) -> dict:
     t0 = time.perf_counter()
     records = [policy_cli_run(torch, card)]
     print(json.dumps(records[-1]), flush=True)
-    state = GPT2(GPT2Config.small(), generator=torch.Generator().manual_seed(0)).state_dict()
+    state = seeded_gpt2_state(torch, GPT2Config.small(), 0)
     judge = GPT2(GPT2Config.small(), device="cuda")
     judge.load_state_dict(state)
     judge_int8w = GPT2(
@@ -4807,11 +4890,22 @@ def policy_phase(torch, card) -> dict:
         records.append(policy_run(torch, card, name, args, form, j))
     del judge, judge_int8w
     torch.cuda.empty_cache()
+    # The int8-weight recompute run again in f32 (TF32 off): the resume
+    # held within F32_TIE, where bf16's rounding does not hide a fault.
+    f32 = GPT2Config.small(dtype=torch.float32)
+    state = seeded_gpt2_state(torch, f32, 0)
+    judge = GPT2(dataclasses.replace(f32, quant_matmul_fn=qm.quantized_matmul_reference),
+                 device="cuda", quantized=True)
+    judge.load_state_dict(quantize_gpt2_params(state))
+    f32_run = policy_run(torch, card, "int8_weights_recompute_f32", POLICY_ARGS + INT8W_ARGS,
+                         FORMS[2], judge, f32_state=state)
+    del judge, state
+    torch.cuda.empty_cache()
     seconds = time.perf_counter() - t0
     print(f"phase 4p: {seconds:.1f} s", flush=True)
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke_policy.json").write_text(json.dumps(
-        {"card": card, "seconds": seconds, "runs": records}, indent=1, default=str))
+        {"card": card, "seconds": seconds, "runs": records + [f32_run]}, indent=1, default=str))
     return {r["run"]: {"attention": r["attention_launches_by_body"],
                        "matmul": r["matmul_launches"]} for r in records[1:]}
 
@@ -5111,6 +5205,502 @@ def obs_phase(torch, card) -> dict:
     }
 
 
+# Phases 3t, 4mt and 4sq: GPT-2 small training on the model, fsdp and seq
+# axes (the pjit tier and the context-parallel tier) over the flash
+# kernels in their three new forms.
+TIER_STEPS = 16
+TIER_PROFILE_STEPS = 7  # the loop's profile window: steps 2..5
+TIER_BATCH, TIER_T = 8, 512  # GPT-2 small's global batch and sequence
+TP_TIER_RUNS = {  # name: (extra args, model ranks, data ranks)
+    "tp_model2": (["--mesh", "model=2"], 2, 1),
+    "tp_model4": (["--mesh", "model=4"], 4, 1),
+    "tp_data2_model2_fsdp": (["--mesh", "data=2,model=2", "--fsdp-axis", "data"], 2, 2),
+}
+CP_TIER_RUNS = {  # name: (extra args, data ranks, seq ranks, flash, ulysses)
+    "cp_ring_flash": (["--mesh", "data=2,seq=4"], 2, 4, True, False),
+    "cp_ulysses_flash": (["--mesh", "data=4,seq=2", "--ulysses", "true"], 4, 2, True, True),
+    "cp_ring": (["--mesh", "data=2,seq=4", "--flash", "false"], 2, 4, False, False),
+}
+TIER_PARITY_TOL = 1e-4  # relative, per-step loss, f32, against the one-rank step
+RING_S, RING_TL = 4, 128  # the ring-flash run's seq ranks and T/S
+
+
+def tier_args(steps: int) -> list:
+    return ["--flash", "true", "--steps", str(steps), "--log-every", "1"]
+
+
+def tier_geometries(name: str, layers: int) -> dict:
+    """A tier run's flash launches of each kind by geometry ``(B, T, H,
+    q_offset, k_offset)``, as the tier lays the work out: a TP run one
+    launch a layer, model rank and data rank at the data rank's rows and
+    its H/m heads; the ring-flash run one a layer, data rank and ring
+    step ``s``, over the ``(S - s)·b`` rows of ranks ``s..S-1`` at
+    offsets ``(s·T/S, 0)``; Ulysses one a layer and data rank over ``S·b``
+    rows at H/S heads and the whole T; the plain ring none."""
+    if name in TP_TIER_RUNS:
+        _, m, d = TP_TIER_RUNS[name]
+        return {(TIER_BATCH // d, TIER_T, H // m, 0, 0): layers * m * d * TIER_STEPS}
+    _, d, s, flash, ulysses = CP_TIER_RUNS[name]
+    b, n = TIER_BATCH // d, layers * d * TIER_STEPS
+    if not flash:
+        return {}
+    if ulysses:
+        return {(s * b, TIER_T, H // s, 0, 0): n}
+    tl = TIER_T // s
+    return {((s - st) * b, tl, H, st * tl, 0): n for st in range(s)}
+
+
+def flash_form_case(torch, flush, form: str, name: str, b: int, t: int, h: int,
+                    q_off: int = 0, k_off: int = 0, iters: int = 20) -> list:
+    """The flash forward, dq and dk/dv kernels against their plain
+    versions at one shape and placement: three records (errors, body,
+    kernel, plain and library times, bound). The library call is SDPA
+    where one computes the block: causal on the diagonal, unmasked on a
+    wholly visible block, with the visibility mask otherwise; none for a
+    wholly-future block (its o = 0 and lse = -1e30 are no SDPA's)."""
+    import importlib
+
+    import torch.nn.functional as F
+
+    fa = importlib.import_module("mpit_tpu_torch.ops.flash_attention")
+    dtype = getattr(torch, name)
+    gen = torch.Generator(device="cuda").manual_seed(7 * b + t + h + 3 * q_off + k_off)
+    q, k, v, do = (torch.randn((b, t, h, DH), generator=gen, device="cuda").to(dtype)
+                   for _ in range(4))
+    geo = dict(q_offset=q_off, k_offset=k_off, causal=True)
+    before, before_kind = dict(fa.path_launches), dict(fa.launches)
+    o, lse = fa.flash_fwd(q, k, v, q_off, k_off, True)
+    delta = fa._delta(o, do, None)
+    got = {"o": o, "lse": lse, "dq": fa.flash_dq(q, k, v, do, lse, delta, q_off, k_off, True)}
+    got["dk"], got["dv"] = fa.flash_dkv(q, k, v, do, lse, delta, q_off, k_off, True)
+    torch.cuda.synchronize()
+    ran = {n: c - before[n] for n, c in fa.path_launches.items() if c != before[n]}
+    body = "mma" if name == "bfloat16" else "fma"
+    label = f"{form} {name} B={b} T={t} H={h} q_off={q_off} k_off={k_off}"
+    if ran != {f"{kind}/{body}": 1 for kind in ("fwd", "dq", "dkv")}:
+        fail(f"{label}: launches by body {ran}, expected one of each on {body}")
+    p_o, p_lse = fa.flash_fwd_plain(q, k, v, **geo)
+    p_delta = fa._delta(p_o, do, None)
+    plain = {"o": p_o, "lse": p_lse,
+             "dq": fa.flash_dq_plain(q, k, v, do, p_lse, p_delta, **geo)}
+    plain["dk"], plain["dv"] = fa.flash_dkv_plain(q, k, v, do, p_lse, p_delta, **geo)
+    errs = {}
+    for key, ref in plain.items():
+        err = (got[key].float() - ref.float()).abs().max().item()
+        tol = LSE_TOL if key == "lse" else TOL[name]
+        if not math.isfinite(err) or err > tol:
+            fail(f"kernel vs plain {label}: {key} {err} > {tol}")
+        errs[key] = err
+    future = k_off >= q_off + t
+    if future and not (bool((o == 0).all()) and bool((lse == -1e30).all())):
+        fail(f"{label}: a future key block must give o = 0 and lse = -1e30 exactly")
+    pairs = visible_pairs(t, q_off, k_off)
+    library = library_device = {"fwd": None, "bwd": None}
+    lib_name = "none computes a wholly-future block's o = 0, lse = -1e30"
+    if not future:
+        qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        if q_off == k_off:
+            kw, lib_name = {"is_causal": True}, "sdpa causal"
+        elif pairs == t * t:
+            kw, lib_name = {}, "sdpa unmasked (every key visible)"
+        else:
+            vis = (q_off + torch.arange(t, device="cuda"))[:, None] >= (
+                k_off + torch.arange(t, device="cuda"))[None, :]
+            kw, lib_name = {"attn_mask": vis}, "sdpa with the visibility mask"
+        lib_out = F.scaled_dot_product_attention(qh, kh, vh, **kw)
+        do_h = do.transpose(1, 2)
+        lib_fwd = lambda: F.scaled_dot_product_attention(qh, kh, vh, **kw)  # noqa: E731
+        lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
+            lib_out, (qh, kh, vh), do_h, retain_graph=True)
+        library = {"fwd": cold_time_ms(lib_fwd, torch, flush, iters=iters),
+                   "bwd": cold_time_ms(lib_bwd, torch, flush, iters=iters)}
+        library_device = {
+            "fwd": cold_time_ms(lib_fwd, torch, flush, iters=iters, lead_cycles=HOST_LEAD_CYCLES),
+            "bwd": cold_time_ms(lib_bwd, torch, flush, iters=iters, lead_cycles=HOST_LEAD_CYCLES),
+        }
+    steps = {
+        "fwd": (lambda: fa.flash_fwd(q, k, v, q_off, k_off, True),
+                lambda: fa.flash_fwd_plain(q, k, v, **geo), library["fwd"]),
+        "dq": (lambda: fa.flash_dq(q, k, v, do, lse, delta, q_off, k_off, True),
+               lambda: fa.flash_dq_plain(q, k, v, do, lse, delta, **geo), library["bwd"]),
+        "dkv": (lambda: fa.flash_dkv(q, k, v, do, lse, delta, q_off, k_off, True),
+                lambda: fa.flash_dkv_plain(q, k, v, do, lse, delta, **geo), library["bwd"]),
+    }
+    out = []
+    for kind, (kernel, plain_fn, lib_ms) in steps.items():
+        lib_device_ms = library_device["fwd" if kind == "fwd" else "bwd"]
+        bound_ms, bound_by = flash_bound(kind, b, t, h, DH, pairs, name)
+        out.append({
+            "form": form, "kernel": f"flash_{kind}", "path": body, "dtype": name,
+            "B": b, "T": t, "H": h, "Dh": DH, "q_offset": q_off, "k_offset": k_off,
+            "visible_pairs_per_head": pairs, "wholly_future": future,
+            "max_abs_err": max(v for key, v in errs.items() if key != "lse"),
+            "lse_err": errs["lse"], "tol": TOL[name],
+            "ms": cold_time_ms(kernel, torch, flush, iters=iters),
+            # Without the wrapper's host time before the launch.
+            "device_ms": cold_time_ms(kernel, torch, flush, iters=iters,
+                                      lead_cycles=HOST_LEAD_CYCLES),
+            "plain_ms": cold_time_ms(plain_fn, torch, flush, iters=iters),
+            "library_ms": lib_ms, "library_device_ms": lib_device_ms,
+            "library": lib_name if kind == "fwd" or lib_ms is None
+            else lib_name + " backward (dq, dk, dv in one call)",
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        })
+    # The launches of the check and the timing are no main path's.
+    fa.path_launches.update(before)
+    fa.launches.update(before_kind)
+    return out
+
+
+def tier_kernel_phase(torch, flush) -> list:
+    """Phase 3t: B2 in the tiers' forms against its plain version: on a
+    TP rank's head shard (T 512, 6 and 3 heads, B 8; f32 at 6; 6 heads at
+    B 4, a data rank's rows of data 2 x model 2), the ring
+    block at every (q_offset, k_offset) of S 4 over T/S 128 (B 4, the
+    wholly-future ones too, which the ring does not launch), the ring's
+    launches (step s over ranks s..3: B (4 - s) x 4 at offsets (128 s,
+    0); f32 at s 1) and Ulysses' inner call (T 512, 6 heads, B 4)."""
+    t0 = time.perf_counter()
+    cases = []
+    runs = [("tp_head_shard", "bfloat16", FLASH_B, 512, 6, 0, 0),
+            ("tp_head_shard", "bfloat16", FLASH_B, 512, 3, 0, 0),
+            ("tp_head_shard", "float32", FLASH_B, 512, 6, 0, 0),
+            ("tp_head_shard", "bfloat16", FLASH_B // 2, 512, 6, 0, 0)]
+    runs += [("ring_block", "bfloat16", 4, RING_TL, H, r * RING_TL, src * RING_TL)
+             for r in range(RING_S) for src in range(RING_S)]
+    runs += [("ring_step", "bfloat16", (RING_S - s) * 4, RING_TL, H, s * RING_TL, 0)
+             for s in range(RING_S)]
+    runs += [("ring_step", "float32", (RING_S - 1) * 4, RING_TL, H, RING_TL, 0),
+             ("ulysses_inner", "bfloat16", 4, 512, H // 2, 0, 0)]
+    for form, name, b, t, h, q_off, k_off in runs:
+        iters = 10 if form == "ring_block" else 20
+        cases += flash_form_case(torch, flush, form, name, b, t, h, q_off, k_off, iters=iters)
+        torch.cuda.empty_cache()
+    print(f"phase 3t: {len(cases)} cases in {time.perf_counter() - t0:.1f} s", flush=True)
+    return cases
+
+
+def tier_losses_fall(name: str, losses: list) -> tuple[float, float]:
+    import numpy as np
+
+    if len(losses) != TIER_STEPS or not all(math.isfinite(x) for x in losses):
+        fail(f"{name}: {len(losses)} losses of {TIER_STEPS}, {losses}")
+    first, last = float(np.mean(losses[:4])), float(np.mean(losses[-4:]))
+    if not last < first:
+        fail(f"{name}: mean of the last four losses {last} >= the first four {first}")
+    return first, last
+
+
+def tier_run(torch, card, name: str, args: list, init: dict, want: dict) -> dict:
+    """One tier run through ``asyncsgd.gpt2``'s ``main`` from ``init``
+    (the seeded one-rank state), unpatched: the launch counts set to 0
+    just before and read just after, by geometry held to ``want``
+    (:func:`tier_geometries`, each kind) and by body all on ``mma``;
+    falling finite losses; step time, tokens/s, MFU and peak memory."""
+    import importlib
+
+    import numpy as np
+
+    from mpit_tpu_torch.asyncsgd.gpt2 import main
+
+    fa = importlib.import_module("mpit_tpu_torch.ops.flash_attention")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches.update(dict.fromkeys(fa.launches, 0))
+    fa.path_launches.update(dict.fromkeys(fa.path_launches, 0))
+    fa.shape_launches.clear()
+    t0 = time.perf_counter()
+    out = main(tier_args(TIER_STEPS) + args, initial_params=init)
+    wall = time.perf_counter() - t0
+    by_shape = {k: n for k, n in fa.shape_launches.items() if n}
+    bodies = {k: n for k, n in fa.path_launches.items() if n}
+    want_shape = {(kind, *geo): n for geo, n in want.items() for kind in ("fwd", "dq", "dkv")}
+    want_body = {f"{kind}/mma": sum(want.values()) for kind in ("fwd", "dq", "dkv")} if want else {}
+    if by_shape != want_shape or bodies != want_body:
+        fail(f"{name}: flash launches by geometry {by_shape} and by body {bodies}, "
+             f"expected {want_shape} and {want_body}")
+    first, last = tier_losses_fall(name, out["losses"])
+    step_ms = np.asarray(out["step_ms"][2:])
+    record = {
+        "run": name, "args": tier_args(TIER_STEPS) + args, "tier": out["tier"],
+        "world": out["world"], "steps": out["steps"], "losses": out["losses"],
+        "first4_mean": first, "last4_mean": last, "launches_by_body": bodies,
+        "launches_by_geometry": {" ".join(map(str, k)): n for k, n in sorted(by_shape.items())},
+        "step_ms_p50": float(np.percentile(step_ms, 50)),
+        "step_ms_p95": float(np.percentile(step_ms, 95)),
+        "tokens_per_sec": out.get("items_per_sec"),
+        "roofline": (out.get("roofline") or {}).get("phases", {}).get("step"),
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30, "wall_s": wall,
+    }
+    print(json.dumps({"card": card, "tier_run": record}), flush=True)
+    return record, {k: n for k, n in by_shape.items()}
+
+
+def tier_rows_finite(torch, name: str, args: list, init: dict, steps: int = 2) -> int:
+    """A short untimed run of a CP tier through ``main`` with every call of
+    its sequence attention checked on the card (each merged row finite,
+    read once at the end); the timed run is left unpatched. Returns the
+    calls checked."""
+    import importlib
+
+    from mpit_tpu_torch.asyncsgd.gpt2 import main
+
+    cp = importlib.import_module("mpit_tpu_torch.parallel.cp")
+    seq_attention, finite = cp.make_seq_attention, []
+
+    def checked_seq_attention(*a, **kw):
+        fn = seq_attention(*a, **kw)
+
+        def attention_fn(q, k, v, *, causal=True):
+            o = fn(q, k, v, causal=causal)
+            finite.append(torch.isfinite(o).all())
+            return o
+
+        return attention_fn
+
+    cp.make_seq_attention = checked_seq_attention
+    try:
+        main(tier_args(steps) + args, initial_params=init)
+    finally:
+        cp.make_seq_attention = seq_attention
+    if not finite or not bool(torch.stack(finite).all()):
+        fail(f"{name}: {len(finite)} sequence-attention calls, not every merged row finite")
+    return len(finite)
+
+
+def trace_breakdown(path: str, steps: int, families=None) -> dict:
+    """Device busy time by kernel family (:data:`FAMILIES`) and the
+    device's idle share of a profile window, from its Chrome trace: busy
+    the sum of the device events' durations, the window's wall the span
+    of all its events, both over ``steps`` steps."""
+    from mpit_tpu_torch.utils.profiling import device_events
+
+    families = FAMILIES if families is None else families
+    doc = json.loads(Path(path).read_text())
+    spans = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+             for e in doc.get("traceEvents", []) if e.get("ph") == "X" and "ts" in e]
+    wall_ms = (max(b for _, b in spans) - min(a for a, _ in spans)) / 1e3
+    busy, kernels = {}, {}
+    for e in device_events(path):
+        name = e["name"].lower()
+        fam = next((f for f, keys in families.items() if any(k in name for k in keys)), "other")
+        busy[fam] = busy.get(fam, 0.0) + float(e.get("dur", 0)) / 1e3
+        kernels[e["name"][:80]] = kernels.get(e["name"][:80], 0.0) + float(e.get("dur", 0)) / 1e3
+    total = sum(busy.values())
+    return {
+        "steps": steps,
+        "wall_ms_per_step": wall_ms / steps,
+        "device_busy_ms_per_step": total / steps,
+        "device_idle_share": max(0.0, 1.0 - total / wall_ms),
+        "busy_ms_per_step_by_family": {f: v / steps for f, v in sorted(busy.items())},
+        "top_kernels_ms_per_step": {
+            k: v / steps for k, v in sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+        },
+    }
+
+
+def tier_main_profile(torch, args: list, init: dict) -> dict:
+    """A tier's main path profiled by its own loop: ``main`` with
+    ``--profile-dir`` (steps 2..5 under ``torch.profiler``, in a temporary
+    directory), read by :func:`trace_breakdown`."""
+    import tempfile
+
+    from mpit_tpu_torch.asyncsgd.gpt2 import main
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = main(tier_args(TIER_PROFILE_STEPS) + args + ["--profile-dir", tmp],
+                   initial_params=init)
+        prof = trace_breakdown(out["profile"]["path"], 4)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return prof
+
+
+def tier_step(torch, mesh: dict, cfg, init: dict, *, flash: bool, ulysses: bool = False):
+    """``(state, step_fn)`` of the pjit tier (a model axis) or the CP tier
+    (a seq axis) over ``mesh`` on the card, built as ``asyncsgd.gpt2``
+    builds it, from the one-rank state ``init``; one rank when ``mesh``
+    is empty (the pjit tier's unfused loss)."""
+    import dataclasses
+
+    from mpit_tpu_torch import comm
+    from mpit_tpu_torch.models import GPT2, default_attention
+    from mpit_tpu_torch.ops.flash_attention import flash_attention
+    from mpit_tpu_torch.opt import goo_adam
+    from mpit_tpu_torch.parallel.cp import make_gpt2_cp_train_step
+    from mpit_tpu_torch.parallel.tp import gpt2_tp_rules, make_tp_train_step
+    from mpit_tpu_torch.serve.tp import TPGPT2
+    from mpit_tpu_torch.serve.weights import shard_gpt2_params
+    from mpit_tpu_torch.train import make_train_step
+
+    tx = goo_adam(3e-4)
+    if "seq" in mesh:
+        world = comm.init({"data": 1, **mesh}, devices=["cuda"])
+        init_fn, step_fn, _ = make_gpt2_cp_train_step(cfg, tx, world, flash=flash,
+                                                      ulysses=ulysses)
+        return init_fn(init), lambda st, b: step_fn(st, {"tokens": b["tokens"][:, :-1]})
+    cfg = dataclasses.replace(cfg, attention_fn=flash_attention if flash else default_attention)
+    if not mesh:
+        model = GPT2(cfg, device="cuda")
+        model.load_state_dict(init)
+        init_fn, step_fn = make_train_step(
+            lambda p, b: (GPT2.loss_fn(model(b["tokens"][:, :-1]), b["tokens"]), {}), tx)
+        return init_fn(dict(model.named_parameters())), step_fn
+    world = comm.init(mesh, devices=["cuda"])
+    m = world.size("model")
+    model = TPGPT2(cfg, m, device="cuda", vocab_parallel=True)
+    model.load_state_dict(shard_gpt2_params(init, m, vocab_parallel=True))
+
+    def loss_fn(params, batch):
+        t = batch["tokens"]
+        return model(t[:, :-1], targets=t[:, 1:]).mean(), {}
+
+    init_fn, step_fn, _ = make_tp_train_step(
+        loss_fn, tx, world, gpt2_tp_rules(), fsdp_axis="data" if "data" in mesh else None)
+    return init_fn(dict(model.named_parameters())), step_fn
+
+
+def tier_batches(torch, cfg, n: int, batch: int = 8):
+    from mpit_tpu_torch.data import SyntheticLM
+
+    stream = SyntheticLM(vocab_size=cfg.vocab_size, seed=0).batches(batch, cfg.max_seq_len)
+    return [{"tokens": torch.from_numpy(next(stream)["tokens"]).long().cuda()}
+            for _ in range(n)]
+
+
+def tier_parity_phase(torch) -> dict:
+    """f32 (TF32 off) parity of both tiers at full width and 2 layers,
+    three goo_adam steps from one seeded state: the pjit tier at model 2,
+    model 4 and data 2 x model 2 with FSDP against the one-rank step of
+    its unfused loss; the CP tier (ring-flash, Ulysses-flash, plain ring)
+    against its one-rank step (one seq rank, one data rank). Per-step
+    losses within ``TIER_PARITY_TOL`` relative."""
+    from mpit_tpu_torch.models import GPT2Config
+
+    cfg = GPT2Config.small(dtype=torch.float32, num_layers=2, max_seq_len=512)
+    init = seeded_gpt2_state(torch, cfg, 0)
+    batches = tier_batches(torch, cfg, 3)
+    cases = {  # name: (reference mesh, mesh, flash, ulysses)
+        "tp_model2": ({}, {"model": 2}, True, False),
+        "tp_model4": ({}, {"model": 4}, True, False),
+        "tp_data2_model2_fsdp": ({}, {"data": 2, "model": 2}, True, False),
+        "cp_ring_flash": ({"seq": 1}, {"data": 2, "seq": 4}, True, False),
+        "cp_ulysses_flash": ({"seq": 1}, {"data": 4, "seq": 2}, True, True),
+        "cp_ring": ({"seq": 1}, {"data": 2, "seq": 4}, False, False),
+    }
+    refs, out = {}, {}
+    for name, (ref, mesh, flash, ulysses) in cases.items():
+        losses = {}
+        for label, m, fl, uly in (("ref", ref, flash, False), ("tier", mesh, flash, ulysses)):
+            key = (str(ref), fl) if label == "ref" else None
+            if key in refs:
+                losses[label] = refs[key]
+                continue
+            state, step_fn = tier_step(torch, m, cfg, init, flash=fl, ulysses=uly)
+            losses[label] = []
+            for b in batches:
+                state, metrics = step_fn(state, b)
+                losses[label].append(metrics["loss"].item())
+            if key is not None:
+                refs[key] = losses[label]
+            del state, step_fn
+            gc.collect()
+            torch.cuda.empty_cache()
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses["tier"], losses["ref"])]
+        if not max(rel) <= TIER_PARITY_TOL:
+            fail(f"tier parity {name}: losses {losses} differ by {rel} > {TIER_PARITY_TOL}")
+        out[name] = {"losses": losses, "max_rel_diff": max(rel)}
+    print(json.dumps({"tier_parity_f32": out}), flush=True)
+    return out
+
+
+def tier_phases(torch, card, flush) -> dict:
+    """Phases 3t, 4mt and 4sq (the f32 parity of both tiers, then the
+    full-width runs, a profile of one run of each tier through its main
+    path and the CP runs' merged rows checked in short runs of their
+    own); records in ``chiprun_out/chip_smoke_tiers.json``. Returns the
+    3t cases and each run's flash launches by geometry."""
+    from mpit_tpu_torch.asyncsgd.config import from_argv
+    from mpit_tpu_torch.asyncsgd.gpt2 import GPT2TrainConfig
+
+    t0 = time.perf_counter()
+    cases = tier_kernel_phase(torch, flush)
+    t1 = time.perf_counter()
+    parity = tier_parity_phase(torch)
+    t2 = time.perf_counter()
+    tcfg = from_argv(GPT2TrainConfig, tier_args(TIER_STEPS))
+    if (tcfg.batch_size, tcfg.seq_len) != (TIER_BATCH, TIER_T):
+        fail(f"the tiers' batch and sequence {tcfg.batch_size}, {tcfg.seq_len} are not "
+             f"{TIER_BATCH}, {TIER_T}")
+    cfg = tcfg.model_config()
+    init = seeded_gpt2_state(torch, cfg, 0)
+    layers = cfg.num_layers
+    runs, launches = {}, {}
+    for name, (args, _, _) in TP_TIER_RUNS.items():
+        runs[name], launches[name] = tier_run(torch, card, name, args, init,
+                                              tier_geometries(name, layers))
+    runs["tp_model2"]["profile"] = tier_main_profile(torch, TP_TIER_RUNS["tp_model2"][0], init)
+    t3 = time.perf_counter()
+    for name, (args, *_) in CP_TIER_RUNS.items():
+        runs[name], launches[name] = tier_run(torch, card, name, args, init,
+                                              tier_geometries(name, layers))
+        runs[name]["seq_attention_calls_checked_finite"] = tier_rows_finite(
+            torch, name, args, init)
+    runs["cp_ring_flash"]["profile"] = tier_main_profile(
+        torch, CP_TIER_RUNS["cp_ring_flash"][0], init)
+    t4 = time.perf_counter()
+    seconds = {"3t": t1 - t0, "parity": t2 - t1, "4mt": t3 - t2, "4sq": t4 - t3}
+    print(f"phases 3t, 4mt, 4sq: {seconds}", flush=True)
+    OUT.mkdir(exist_ok=True)
+    (OUT / "chip_smoke_tiers.json").write_text(json.dumps(
+        {"card": card, "seconds": seconds, "cases": cases, "runs": runs,
+         "parity_f32": parity}, indent=1, default=str))
+    return {"cases": cases, "launches": launches}
+
+
+def tier_kernel_rows(tiers: dict) -> list:
+    """The kernels line's rows of phases 3t, 4mt and 4sq: each flash
+    kernel at each geometry a tier run launched it, with that run's
+    launches at that geometry as the launch counts read them and the 3t
+    case of the same form and geometry: a TP rank's head shard (6 heads
+    at B 8: model 2; 3 heads: model 4; 6 heads at B 4: data 2 x model 2
+    with FSDP), each ring step's launch of the ring-flash run, and
+    Ulysses' inner call."""
+    rows = []
+    sources = {"fwd": (121, 362), "dq": (195, 408), "dkv": (237, 428)}
+    groups = [  # (row suffix, 3t form, run, (B, T, H, q_offset, k_offset))
+        ("tp6", "tp_head_shard", "tp_model2", (FLASH_B, TIER_T, H // 2, 0, 0)),
+        ("tp3", "tp_head_shard", "tp_model4", (FLASH_B, TIER_T, H // 4, 0, 0)),
+        ("tp6_fsdp", "tp_head_shard", "tp_data2_model2_fsdp",
+         (FLASH_B // 2, TIER_T, H // 2, 0, 0)),
+        *[(f"ring_s{s}", "ring_step", "cp_ring_flash",
+           ((RING_S - s) * 4, RING_TL, H, s * RING_TL, 0)) for s in range(RING_S)],
+        ("ulysses", "ulysses_inner", "cp_ulysses_flash", (4, TIER_T, H // 2, 0, 0)),
+    ]
+    for suffix, form, run, geo in groups:
+        b, t, h, q_off, k_off = geo
+        for kind, (body, call) in sources.items():
+            head = next(c for c in tiers["cases"] if c["form"] == form and c["B"] == b
+                        and c["T"] == t and c["H"] == h and c["q_offset"] == q_off
+                        and c["k_offset"] == k_off and c["dtype"] == "bfloat16"
+                        and c["kernel"] == f"flash_{kind}")
+            n = tiers["launches"][run].get((kind, *geo), 0)
+            rows.append({
+                "name": f"flash_{kind}_{suffix}", "route": "cuda", "path": head["path"],
+                "source": "mpit_tpu_torch/csrc/flash_attention.cu",
+                "replaces": f"mpit_tpu/ops/flash_attention.py:{body}",
+                "call_site": f"mpit_tpu/ops/flash_attention.py:{call}",
+                "launches": n, "launches_by_run": {run: n},
+                **{k: head[k] for k in ("max_abs_err", "tol", "ms", "device_ms", "plain_ms",
+                                        "bound_ms", "bound_by", "library_ms",
+                                        "library_device_ms", "library")},
+                "shape": {k: head[k] for k in ("dtype", "B", "T", "H", "Dh", "q_offset",
+                                               "k_offset")},
+            })
+    return rows
+
+
 def main() -> None:
     import torch
 
@@ -5215,6 +5805,17 @@ def main() -> None:
         print(json.dumps({"card": card, "obs_launches": launches}))
         print(f"chip_smoke obs: {time.perf_counter() - t_start:.1f} s in all", flush=True)
         return
+    if sys.argv[1:2] == ["tiers"]:  # phases 3t, 4mt and 4sq alone
+        build.build(build.KERNEL_SOURCES)
+        flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+        warm_up(torch)
+        tiers = tier_phases(torch, card, flush)
+        print(json.dumps({"card": card, "tier_launches": {
+            run: {" ".join(map(str, k)): n for k, n in sorted(by.items())}
+            for run, by in tiers["launches"].items()}}))
+        print(json.dumps({"kernels": tier_kernel_rows(tiers)}))
+        print(f"chip_smoke tiers: {time.perf_counter() - t_start:.1f} s in all", flush=True)
+        return
     if sys.argv[1:2] == ["recovery"]:  # phases 4k, 4kd, 4kx and 4e alone
         build.build(build.KERNEL_SOURCES)
         rec = recovery_phases(torch, card, convnet_bucket_plans(torch))
@@ -5301,8 +5902,9 @@ def main() -> None:
         {"card": card, "fleet_runs": fleet_records, "parity_fleet_f32": fleet_parity}, indent=1
     ))
     flash_launches = train_phase(torch, card, flush)
-    del flush
     train_parity_phase(torch)
+    tiers = tier_phases(torch, card, flush)
+    del flush
     ring_launches, q8_forms = {}, {}
     dp_losses = {}
     for mode in ("ring", "ring_q8"):
@@ -5441,6 +6043,7 @@ def main() -> None:
                                     "library_ms", "library")},
             "shape": {k: head[k] for k in ("dtype", "B", "T", "H", "Dh")},
         })
+    kernels += tier_kernel_rows(tiers)
     ring_bodies = {"ring_rs": 350, "ring_rs_q8": 387, "ring_ag": 429, "ring_ag_q8": 457}
     for name, body in ring_bodies.items():
         head = next(

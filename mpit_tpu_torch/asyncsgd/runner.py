@@ -86,10 +86,11 @@ LATER_FLAGS = {
 }
 
 
-def reject_later_slices(cfg: TrainConfig) -> None:
+def reject_later_slices(cfg: TrainConfig, axes: tuple = ("data",)) -> None:
     """``SystemExit`` for the values of the config's fields that the
-    port does not run: an unknown ``--mode``, a mesh axis other than
-    ``data`` (the model and fsdp axes naming TP training), and, as in
+    port does not run: an unknown ``--mode``, a mesh axis outside
+    ``axes`` (the workload's tiers: ``gpt2`` trains on the fsdp, model
+    and seq axes too; the pipe and expert axes name §A 10), and, as in
     JAX, ``--augment-mode rrc`` or ``--train-size`` without
     ``--data-dir`` (the synthetic streams shift-crop only)."""
     if not cfg.data_dir and ((cfg.augment and cfg.augment_mode != "shift") or cfg.train_size):
@@ -105,16 +106,18 @@ def reject_later_slices(cfg: TrainConfig) -> None:
             "loop's; the parity and elastic modes run their ranks as compat threads"
         )
     mesh = cfg.mesh_shape() or {}
-    if {"model", "fsdp"} & set(mesh):
+    if {"pipe", "expert"} & set(mesh):
         raise SystemExit(
-            f"--mesh {cfg.mesh}: training on the model and fsdp axes arrives with "
-            "tensor-parallel training (ROADMAP.md §A 8b); the port serves on the "
-            "model axis (python -m mpit_tpu_torch.serve --mesh model=N)"
+            f"--mesh {cfg.mesh}: the pipe and expert axes arrive with the pipeline- and "
+            "expert-parallel tiers (ROADMAP.md §A 10)"
         )
-    if set(mesh) - {"data"}:
+    if set(mesh) - set(axes):
         raise SystemExit(
-            f"--mesh {cfg.mesh}: the seq/pipe/expert axes arrive with the slices of "
-            "the other training tiers (ROADMAP.md §A 10)"
+            f"--mesh {cfg.mesh}: this workload trains on the {'/'.join(axes)} "
+            f"{'axis' if len(axes) == 1 else 'axes'}; "
+            "the fsdp, model and seq axes train gpt2 (its pjit and context-parallel "
+            "tiers), and the port serves on the model axis "
+            "(python -m mpit_tpu_torch.serve --mesh model=N)"
         )
 
 

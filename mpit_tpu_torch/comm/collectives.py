@@ -1,10 +1,16 @@
-"""The collectives the training step and the tensor-parallel blocks use,
-over a World's rank-stacked tensors: the port of the subset of
-:mod:`mpit_tpu.comm.collectives` (and of ``lax.psum``) that the
-data-parallel step and :mod:`mpit_tpu_torch.parallel.megatron` call.
+"""The collectives the training step and the parallel tiers use, over a
+World's rank-stacked tensors: the port of the subset of
+:mod:`mpit_tpu.comm.collectives` (and of ``lax.psum``, ``lax.ppermute``
+and ``lax.all_to_all``) that the data-parallel step,
+:mod:`mpit_tpu_torch.parallel.megatron`, the FSDP cut of
+:mod:`mpit_tpu_torch.parallel.tp` and the context-parallel attention of
+:mod:`mpit_tpu_torch.parallel.ring_attention` and
+:mod:`~mpit_tpu_torch.parallel.ulysses` call.
 
 Every function takes a tensor whose leading dimension is the rank and
-returns one of the same layout, row ``r`` being rank ``r``'s result.
+returns one of the same layout, row ``r`` being rank ``r``'s result;
+:func:`gather_shards` and :func:`scatter_sum` name the dimension that
+holds one axis' ranks of a several-axis World instead.
 They are plain PyTorch reductions over the rank dimension: the port's
 ``psum`` mode, standing where XLA's stock collectives stand in the JAX
 package. :func:`rank_sum` (``lax.psum``) adds the ranks one after the
@@ -18,7 +24,10 @@ import torch
 
 from mpit_tpu_torch import obs
 
-__all__ = ["allgather", "pmean", "rank_sum", "reduce_scatter"]
+__all__ = [
+    "all_to_all", "allgather", "gather_shards", "pmean", "rank_sum", "reduce_scatter",
+    "scatter_sum", "shift",
+]
 
 
 def _charge(name: str, x) -> None:
@@ -77,3 +86,63 @@ def allgather(shards, *, gather_axis: int | None = None):
     _charge("allgather", shards)
     full = shards.reshape(1, p * m, *shards.shape[2:])
     return full.expand(p, *full.shape[1:]).clone()
+
+
+def gather_shards(x, *, rank_dim: int, dim: int):
+    """The rank-order all-gather over one axis of a several-axis World:
+    ``x`` holds that axis' shards at ``rank_dim`` (its other leading
+    dimensions are other axes' ranks); returns them joined in rank order
+    along ``dim``, a dimension of the result, which has no ``rank_dim``
+    (the whole, held once over that axis). :func:`scatter_sum` is its
+    adjoint."""
+    _charge("allgather", x.movedim(rank_dim, 0))
+    return torch.cat(x.unbind(rank_dim), dim=dim)
+
+
+def scatter_sum(xs, p: int, *, rank_dim: int, dim: int):
+    """The reduce-scatter that is :func:`gather_shards`' adjoint: the
+    terms ``xs`` (one whole tensor from each rank of the reducing axis,
+    e.g. each data rank's gradient) summed in rank order, then cut into
+    ``p`` shards along ``dim`` and stacked at ``rank_dim``."""
+    acc = xs[0]
+    for x in xs[1:]:
+        acc = acc + x
+    if acc.shape[dim] % p:
+        raise ValueError(f"dim {dim} ({acc.shape[dim]}) is not divisible by the {p} ranks")
+    return torch.stack(acc.chunk(p, dim=dim), dim=rank_dim)
+
+
+def shift(x, offset: int = 1):
+    """The ring shift (JAX's ``C.shift``, a ``lax.ppermute`` of ``i → i
+    + offset``) as an index operation on the rank dimension: rank ``i``
+    receives rank ``i - offset``'s row (mod ``p``)."""
+    _charge("shift", x)
+    return torch.roll(x, offset, dims=0)
+
+
+def all_to_all(x, *, split_axis: int, concat_axis: int):
+    """JAX's tiled ``lax.all_to_all`` as a reshape and a transpose of the
+    rank dimension: each rank cuts its tensor into ``p`` pieces along
+    ``split_axis`` and sends piece ``j`` to rank ``j``; rank ``i`` joins
+    the pieces it receives in the senders' rank order along
+    ``concat_axis`` (both axes of each rank's tensor, without the rank
+    dimension). ``[p, B, T/p, H, D]`` with ``split_axis=2,
+    concat_axis=1`` gives ``[p, B, T, H/p, D]`` (Ulysses' head re-shard);
+    the swapped axes invert it."""
+    p, shape = x.shape[0], list(x.shape[1:])
+    nd = len(shape)
+    sa, ca = split_axis % nd, concat_axis % nd
+    if shape[sa] % p:
+        raise ValueError(f"split axis {sa} ({shape[sa]}) is not divisible by the {p} ranks")
+    _charge("all_to_all", x)
+    # [src, e_0 .. e_{sa-1}, dest, e_sa / p, e_{sa+1} ..]
+    y = x.reshape(p, *shape[:sa], p, shape[sa] // p, *shape[sa + 1:])
+    per_rank = [*range(1, sa + 1), sa + 2, *range(sa + 3, nd + 2)]
+    perm = [sa + 1]
+    for j, d in enumerate(per_rank):
+        if j == ca:
+            perm.append(0)  # the senders, in rank order, just before the joined axis
+        perm.append(d)
+    shape[sa] //= p
+    shape[ca] *= p
+    return y.permute(perm).reshape(p, *shape)

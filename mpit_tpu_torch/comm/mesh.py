@@ -10,11 +10,14 @@ rank shares the CPU. The ring kernels carry all ``p`` ranks in one
 launch through a per-rank pointer table, so the same kernels serve
 ranks on several cards later, one launch per card with peer pointers.
 
-Two axes are ported: ``data`` (data parallelism, the training step's)
-and ``model`` (tensor parallelism, the serving engine's). Ranks are
-numbered data-major, as JAX's mesh lays out the axes it is given: under
-``{"data": d, "model": m}`` rank ``r`` is data index ``r // m`` and
-model index ``r % m``. The seq, pipe, expert and fsdp axes raise
+Four axes are ported: ``data`` (data parallelism), ``fsdp`` (the
+parameter cut of FSDP, :mod:`mpit_tpu_torch.parallel.tp`), ``model``
+(tensor parallelism, in serving and training) and ``seq`` (context
+parallelism, :mod:`mpit_tpu_torch.parallel.cp`). Ranks are numbered
+data-major in the order of JAX's axis names (``data``, ``fsdp``,
+``model``, ``seq``; ``mpit_tpu/comm/mesh.py``), whatever order they are
+given in: under ``{"data": d, "model": m}`` rank ``r`` is data index
+``r // m`` and model index ``r % m``. The pipe and expert axes raise
 ``SystemExit`` naming the item that brings them, and ranks spread over
 more than one device raise naming the multi-card launch.
 """
@@ -30,12 +33,10 @@ import torch
 __all__ = ["DATA_AXIS", "World", "init"]
 
 DATA_AXIS = "data"
-_AXES = (DATA_AXIS, "model")  # in the order JAX's mesh lays them out
+_AXES = (DATA_AXIS, "fsdp", "model", "seq")  # JAX's axis names, in its order
 _LATER_AXES = {
-    "fsdp": "tensor-parallel training (ROADMAP.md §A 8b)",
-    "seq": "the context-parallel tier, after the ring-collectives slice",
-    "pipe": "the pipeline-parallel tier, after the ring-collectives slice",
-    "expert": "the expert-parallel tier, after the ring-collectives slice",
+    "pipe": "the pipeline-parallel tier (ROADMAP.md §A 10)",
+    "expert": "the expert-parallel tier (ROADMAP.md §A 10)",
 }
 _MULTI_CARD = "the multi-card launch (ROADMAP.md §A 14, 4 cards)"
 
@@ -44,8 +45,8 @@ _MULTI_CARD = "the multi-card launch (ROADMAP.md §A 14, 4 cards)"
 class World:
     """The ranks on each axis and the device of each rank.
 
-    ``shape`` is ``{"data": d}``, ``{"model": m}`` or ``{"data": d,
-    "model": m}`` (data-major); ``devices`` the distinct devices the
+    ``shape`` maps each axis of the World to its size, in the order of
+    :data:`_AXES` (data-major); ``devices`` the distinct devices the
     ranks are laid over, in order."""
 
     shape: Mapping[str, int]
@@ -58,6 +59,10 @@ class World:
 
     def axis_size(self, axis: str) -> int:
         return self.shape[axis]
+
+    def size(self, axis: str) -> int:
+        """The axis' size, 1 for an axis the World does not have."""
+        return self.shape.get(axis, 1)
 
     def rank_device(self, rank: int) -> torch.device:
         return self.devices[rank % len(self.devices)]
@@ -90,8 +95,9 @@ def init(
 ) -> World:
     """Build a :class:`World` (the ``mpiT.Init()`` analogue).
 
-    ``axis_shapes``: ``{"data": d}``, ``{"model": m}`` or both (laid
-    out data-major, whatever order they are given in); a size of ``-1``
+    ``axis_shapes``: sizes of any of ``data``, ``fsdp``, ``model`` and
+    ``seq`` (laid out data-major, whatever order they are given in); a
+    size of ``-1``
     is the device count (one axis only); ``None`` is one rank per device
     on the data axis. ``devices``: the devices to lay the ranks over,
     default every CUDA device (raises without one: pass

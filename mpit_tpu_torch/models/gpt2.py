@@ -478,11 +478,30 @@ class GPT2(nn.Module):
         :class:`QuantizedTensor` in a quantized model."""
         return _weight(self.wte if self.head is None else self.head)
 
+    def embed(self, tokens):
+        """The token embeddings ``[B, T, d_model]`` (f32, or the
+        dequantized rows of an int8 table)."""
+        emb = _weight(self.wte)[tokens]
+        if isinstance(emb, QuantizedTensor):
+            # The gathered int8 rows and their scales: activation-sized,
+            # never the [vocab, d_model] table.
+            emb = dequantize_tensor(emb)
+        return emb
+
+    def head_xent(self, x, targets):
+        """Per-token losses ``[B, T]`` of the head over the final hiddens
+        ``x``: the fused blocked cross entropy."""
+        return lm_head_xent(x, self.head_weight(), targets, compute_dtype=self.cfg.head_dtype)
+
     def forward(
         self, tokens, cache=None, paged_cache=None, return_hidden=False,
-        targets=None,
+        targets=None, positions=None,
     ):
         """``tokens`` ``[B, T]`` → logits ``[B, T, vocab]`` f32.
+
+        ``positions`` (``[T]`` or ``[B, T]``; JAX's ``positions``, no
+        cache) replaces the default ``0 .. T - 1``: under context
+        parallelism each shard's tokens sit at ``s·T_local + arange``.
 
         ``targets`` ``[B, T]`` (training; no cache) switches the head to
         the fused blocked cross entropy and returns per-token losses
@@ -535,8 +554,10 @@ class GPT2(nn.Module):
             write_idx = paged_write_index(
                 self.write_pool(cache_k), cache_lengths, block_tables, t, write_valid
             )
+        if positions is not None and (cache is not None or paged_cache is not None):
+            raise ValueError("positions= is the training path's; a cache places its own rows")
         if cache is None and paged_cache is None:
-            pe = self.wpe[:t]
+            pe = self.wpe[:t] if positions is None else self.wpe[positions]
         else:
             positions = cache_lengths.long()[:, None] + torch.arange(
                 t, device=tokens.device
@@ -544,12 +565,7 @@ class GPT2(nn.Module):
             if paged_cache is not None:
                 positions = positions.clamp(max=cfg.max_seq_len - 1)
             pe = self.wpe[positions]
-        emb = _weight(self.wte)[tokens]
-        if isinstance(emb, QuantizedTensor):
-            # The gathered int8 rows and their scales: activation-sized,
-            # never the [vocab, d_model] table.
-            emb = dequantize_tensor(emb)
-        x = emb.to(cfg.dtype) + pe.to(cfg.dtype)
+        x = self.embed(tokens).to(cfg.dtype) + pe.to(cfg.dtype)
         for i, block in enumerate(self.blocks):
             if cache is not None:
                 x = block(x, (self.cache_layer(cache_k, i), self.cache_layer(cache_v, i),
@@ -567,10 +583,10 @@ class GPT2(nn.Module):
         x = self.ln_f(x)
         if return_hidden:
             return x, (cache_k, cache_v)
+        if targets is not None:
+            return self.head_xent(x, targets)
         hd = cfg.head_dtype
         head = self.head_weight()
-        if targets is not None:
-            return lm_head_xent(x, head, targets, compute_dtype=hd)
         if isinstance(head, QuantizedTensor):
             logits = quantized_matmul_t(
                 x.to(hd), head, block_rows=cfg.quant_block_rows or None

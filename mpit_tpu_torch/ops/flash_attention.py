@@ -44,6 +44,7 @@ CUDA kernels take one head per block and have no interpret mode.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
@@ -63,6 +64,7 @@ __all__ = [
     "path_launches",
     "reference_attention",
     "reference_attention_with_lse",
+    "shape_launches",
 ]
 
 _NEG_BIG = -1e30  # large-but-finite: -inf breaks the exp-shift of an empty row
@@ -78,6 +80,11 @@ _C_PATHS = ("fma", "mma")  # mpit_flash_path's answers, in order
 # The same launches by body, keyed "<kind>/<body>": counted by the body the
 # C library names for the launch (``mpit_flash_path``).
 path_launches = {f"{kind}/{body}": 0 for kind in launches for body in _C_PATHS}
+# The same launches by geometry, keyed ``(kind, B, T, H, q_offset,
+# k_offset)`` from the launch's own arguments: a ring step's launches
+# apart from the next step's, a head shard's from the whole model's.
+# Set to 0 with ``shape_launches.clear()``.
+shape_launches: collections.Counter = collections.Counter()
 
 
 def _path(dtype) -> str:
@@ -284,6 +291,7 @@ def _run(kind: str, fn, ptrs, q, q_offset, k_offset, causal):
         raise RuntimeError(f"flash-attention {kind} kernel launch failed ({err}): {msg}")
     launches[kind] += 1
     path_launches[f"{kind}/{path}"] += 1
+    shape_launches[(kind, b, t, h, int(q_offset), int(k_offset))] += 1
 
 
 def _fwd_kernel(q, k, v, q_offset, k_offset, causal):

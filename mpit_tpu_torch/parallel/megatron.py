@@ -30,7 +30,18 @@ follow the kernel's rows: a column shard keeps every row, so its scales
 are replicated (held once, ``[D, 1]``); a row shard cuts the rows, so
 its scales are cut with them (``[p, F/p, 1]``).
 
-Only the forward is ported; the backward comes with TP training.
+Every function trains through autograd over the rank loop: the
+row-parallel sum's gradient reaches every rank's partial, and the
+gradients of a replicated input that several ranks read (the
+column-parallel all-reduce of dx) accumulate into it.
+
+The vocab-parallel head (:func:`vocab_parallel_embed`,
+:func:`vocab_parallel_xent`) is the counterpart of the GSPMD tier's
+vocab-cut ``wte``: ``wte`` ``[p, V_pad/p, D]``, ``V_pad`` the vocabulary
+rounded up to a multiple of ``p``, the pad rows zero and never read.
+JAX's rule cuts ``wte`` over the vocabulary unpadded, which no even
+``p`` does at GPT-2's 50257 (ROADMAP.md §C); with a ``p`` that divides
+the vocabulary the layouts are equal.
 """
 
 from __future__ import annotations
@@ -56,6 +67,8 @@ __all__ = [
     "tp_mlp",
     "tp_transformer_block",
     "unpack_qkv",
+    "vocab_parallel_embed",
+    "vocab_parallel_xent",
 ]
 
 _COLUMN = ("qkv", "fc")  # column-parallel: the output features are cut
@@ -280,3 +293,54 @@ def stack_block(params: Mapping, p: int) -> dict:
         name: t if block_cut(name) is None else torch.stack([s[name] for s in shards])
         for name, t in params.items()
     }
+
+
+def _vocab_rows(vocab: int, p: int, rows: int, r: int) -> int:
+    """How many of rank ``r``'s ``rows`` vocabulary rows are real (the
+    rest pad the vocabulary to a multiple of ``p``)."""
+    return min(max(vocab - r * rows, 0), rows)
+
+
+def vocab_parallel_embed(wte, tokens):
+    """The token embeddings ``[..., D]`` from the vocab-cut table ``wte``
+    ``[p, V_pad/p, D]``: each rank looks up the tokens in its rows (zeros
+    elsewhere), and the ranks' lookups are summed in rank order (one rank
+    holds each token, so the sum is its row exactly). Held once."""
+    rows = wte.shape[1]
+    out = None
+    for r in range(wte.shape[0]):
+        local = tokens - r * rows
+        inside = (local >= 0) & (local < rows)
+        e = torch.where(inside[..., None], wte[r][local.clamp(0, rows - 1)], 0.0)
+        out = e if out is None else out + e
+    return out
+
+
+def vocab_parallel_xent(h, wte, targets, vocab: int, *, compute_dtype=torch.float32):
+    """Per-token cross entropy ``[...]`` f32 of the tied head over the
+    vocab-cut ``wte`` ``[p, V_pad/p, D]``: each rank's logits ``h @
+    wte_r[:real]ᵀ`` (operands rounded to ``compute_dtype``, products
+    summed in f32, as the one-rank unfused head), the pad rows left out;
+    ``lse`` from the max over the ranks' maxima and the rank-order sum of
+    each rank's exponentials; the target's logit from the rank that holds
+    it. ``h`` ``[..., D]`` replicated, ``targets`` ``[...]``."""
+    p, rows = wte.shape[:2]
+    hc = h.to(compute_dtype).float()
+    logits = []
+    for r in range(p):
+        real = _vocab_rows(vocab, p, rows, r)
+        logits.append(hc @ wte[r, :real].to(compute_dtype).float().T if real else None)
+    live = [z for z in logits if z is not None]
+    mx = torch.stack([z.amax(dim=-1) for z in live]).amax(dim=0).detach()
+    sum_exp, picked = None, None
+    for r, z in enumerate(logits):
+        if z is None:
+            continue
+        e = torch.exp(z - mx[..., None]).sum(dim=-1)
+        sum_exp = e if sum_exp is None else sum_exp + e
+        local = targets.long() - r * rows
+        inside = (local >= 0) & (local < z.shape[-1])
+        t = z.gather(-1, local.clamp(0, z.shape[-1] - 1)[..., None])[..., 0]
+        t = torch.where(inside, t, 0.0)
+        picked = t if picked is None else picked + t
+    return mx + torch.log(sum_exp) - picked

@@ -89,6 +89,7 @@ from mpit_tpu_torch.serve.weights import (
     params_from_jax,
     params_wire_bytes,
     quantize_gpt2_params,
+    join_gpt2_params,
     shard_gpt2_params,
     validate_params,
 )
@@ -132,6 +133,7 @@ __all__ = [
     "run_fleet",
     "sample_tokens",
     "send_shipment",
+    "join_gpt2_params",
     "shard_gpt2_params",
     "ship_kv_remote",
     "split_arrivals",

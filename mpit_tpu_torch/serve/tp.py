@@ -132,15 +132,53 @@ class TPBlock(nn.Module):
 class TPGPT2(GPT2):
     """GPT-2 over ``ranks`` tensor-parallel ranks on one device: the
     replicated parts of :class:`~mpit_tpu_torch.models.gpt2.GPT2` around
-    :class:`TPBlock` s. Loaded (from
+    :class:`TPBlock` s, the one block of tensor-parallel serving and
+    training. Loaded (from
     :func:`~mpit_tpu_torch.serve.weights.shard_gpt2_params`), never
     initialised. Its cache buffers are rank-stacked: layer ``i`` is
-    ``buf[:, i]``."""
+    ``buf[:, i]``.
 
-    def __init__(self, cfg: GPT2Config, ranks: int, *, device=None, quantized=False):
+    ``vocab_parallel`` (training, the pjit tier's vocab-cut ``wte``): the
+    tied table is ``[ranks, V_pad/ranks, D]``
+    (:func:`~mpit_tpu_torch.parallel.megatron.vocab_parallel_embed`) and
+    ``forward(tokens, targets=)`` returns the per-token losses of the
+    unfused vocab-parallel head
+    (:func:`~mpit_tpu_torch.parallel.megatron.vocab_parallel_xent`);
+    such a model has no cache path and no logits."""
+
+    def __init__(self, cfg: GPT2Config, ranks: int, *, device=None, quantized=False,
+                 vocab_parallel: bool = False):
         super().__init__(cfg, device=device, quantized=quantized,
                          make_block=functools.partial(TPBlock, ranks=ranks))
+        if cfg.num_heads % ranks:
+            raise ValueError(
+                f"num_heads ({cfg.num_heads}) must divide by the {ranks} model ranks: each "
+                "rank runs whole heads"
+            )
         self.ranks = ranks
+        self.vocab_parallel = vocab_parallel
+        if vocab_parallel:
+            if quantized or not cfg.tie_head:
+                raise ValueError("the vocab-parallel head is the tied f32 table's")
+            rows = -(-cfg.vocab_size // ranks)
+            self.wte = nn.Parameter(torch.empty(ranks, rows, cfg.d_model, device=device))
+
+    def embed(self, tokens):
+        if self.vocab_parallel:
+            return M.vocab_parallel_embed(self.wte, tokens)
+        return super().embed(tokens)
+
+    def head_xent(self, x, targets):
+        if self.vocab_parallel:
+            return M.vocab_parallel_xent(x, self.wte, targets, self.cfg.vocab_size,
+                                         compute_dtype=self.cfg.head_dtype)
+        return super().head_xent(x, targets)
+
+    def forward(self, tokens, cache=None, paged_cache=None, return_hidden=False,
+                targets=None, positions=None):
+        if self.vocab_parallel and targets is None:
+            raise ValueError("a vocab-parallel model trains: pass targets=")
+        return super().forward(tokens, cache, paged_cache, return_hidden, targets, positions)
 
     def cache_layer(self, buf, i: int):
         return buf[:, i]

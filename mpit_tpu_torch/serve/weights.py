@@ -15,7 +15,8 @@ tree, as the port's :class:`~mpit_tpu_torch.models.GPT2` state.
 - :func:`quantize_gpt2_params` / :func:`params_wire_bytes` — the int8
   weight store over a ``state_dict``, and the bytes a state occupies;
 - :func:`shard_gpt2_params` — a state cut for the tensor-parallel
-  engine's :class:`~mpit_tpu_torch.serve.tp.TPGPT2`;
+  model :class:`~mpit_tpu_torch.serve.tp.TPGPT2` (serving, and training
+  with the vocab-cut table); :func:`join_gpt2_params` its inverse;
 - :func:`draft_from_target` — a layer-truncated self-draft for
   speculative decoding.
 """
@@ -37,6 +38,7 @@ __all__ = [
     "draft_from_target",
     "expected_param_shapes",
     "infer_config",
+    "join_gpt2_params",
     "load_dense",
     "load_gpt2_params",
     "params_from_jax",
@@ -271,7 +273,9 @@ def _blocks(state: Mapping) -> dict:
     return out
 
 
-def shard_gpt2_params(state: Mapping, p: int, *, quantize: bool = False) -> dict:
+def shard_gpt2_params(
+    state: Mapping, p: int, *, quantize: bool = False, vocab_parallel: bool = False
+) -> dict:
     """A GPT-2 ``state_dict`` as the tensor-parallel model over ``p``
     ranks loads it, in the JAX engine's order
     (``mpit_tpu/serve/engine.py:698-714``): each block's qkv repacked for
@@ -281,7 +285,17 @@ def shard_gpt2_params(state: Mapping, p: int, *, quantize: bool = False) -> dict
     keeps its rows' scales, which quantizing the shards one by one would
     change); then each block cut and laid out rank-stacked
     (:func:`~mpit_tpu_torch.parallel.megatron.stack_block`). ``wte``,
-    ``wpe``, ``ln_f`` and an untied ``head`` stay whole (replicated)."""
+    ``wpe``, ``ln_f`` and an untied ``head`` stay whole (replicated).
+
+    Training (the pjit tier's working layout): ``vocab_parallel`` cuts
+    ``wte`` over the vocabulary instead, padded with zero rows to a
+    multiple of ``p``: ``[p, V_pad/p, D]``
+    (:class:`~mpit_tpu_torch.serve.tp.TPGPT2`'s ``vocab_parallel``); the
+    tier's step cuts it again over fsdp
+    (:func:`mpit_tpu_torch.parallel.tp.fsdp_cut`).
+    :func:`join_gpt2_params` inverts it."""
+    if quantize and vocab_parallel:
+        raise ValueError("the vocab-parallel table is the f32 training layout")
     blocks = {i: M.repack_qkv(b, p) for i, b in _blocks(state).items()}
     whole = {k: t for k, t in state.items() if not str(k).startswith("blocks.")}
     for i, b in blocks.items():
@@ -291,6 +305,28 @@ def shard_gpt2_params(state: Mapping, p: int, *, quantize: bool = False) -> dict
     out = {k: t for k, t in whole.items() if not str(k).startswith("blocks.")}
     for i, b in _blocks(whole).items():
         out.update({f"blocks.{i}.{k}": t for k, t in M.stack_block(b, p).items()})
+    if vocab_parallel:
+        wte = out["wte"]
+        rows = -(-wte.shape[0] // p)
+        out["wte"] = torch.nn.functional.pad(wte, (0, 0, 0, rows * p - wte.shape[0])).view(
+            p, rows, wte.shape[1])
+    return out
+
+
+def join_gpt2_params(sharded: Mapping, p: int, *, vocab_size: int | None = None) -> dict:
+    """Inverse of :func:`shard_gpt2_params` (unquantized): a vocab-cut
+    ``wte`` joined and its pad rows dropped (``vocab_size``), each block's
+    shards joined (:func:`~mpit_tpu_torch.parallel.megatron.join_block`)
+    and its qkv unpacked: the one-rank ``state_dict`` (for checkpoints and
+    for holding the tensor-parallel tiers against one rank)."""
+    out = {k: t for k, t in sharded.items() if not str(k).startswith("blocks.")}
+    if out["wte"].dim() == 3:
+        out["wte"] = out["wte"].reshape(-1, out["wte"].shape[-1])[:vocab_size]
+    for i, b in _blocks(sharded).items():
+        shards = [{k: t if M.block_cut(k) is None else t[r] for k, t in b.items()}
+                  for r in range(p)]
+        joined = M.unpack_qkv(M.join_block(shards), p)
+        out.update({f"blocks.{i}.{k}": t for k, t in joined.items()})
     return out
 
 

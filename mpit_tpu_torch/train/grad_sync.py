@@ -136,11 +136,13 @@ class GradSync:
                                  out=full[:, :, r0:r1])
         return full.view(p, -1)[:, :size]
 
-    def allreduce_grads(self, flat):
+    def allreduce_grads(self, flat, *, mean: bool = True):
         """Mean-allreduce ``[p, N]`` flat gradients, the plain-DP sync:
         ``pmean`` in psum mode, else the bucketed ring reduce-scatter and
-        all-gather of the sum divided by ``p``."""
+        all-gather of the sum divided by ``p``. ``mean`` False: the sum
+        (in psum mode the rank-order sum on every rank)."""
         p, n = flat.shape
         if self.mode == "psum":
-            return C.pmean(flat)
-        return self.gather_updates(self.scatter_grads(flat) / p, n)
+            return C.pmean(flat) if mean else C.rank_sum(flat).expand_as(flat)
+        summed = self.scatter_grads(flat)
+        return self.gather_updates(summed / p if mean else summed, n)

@@ -165,6 +165,7 @@ def make_train_step(
     stateful: bool = False,
     grad_sync: str = "psum",
     grad_bucket_mb: float = 4.0,
+    mean_grads: bool = True,
 ):
     """Build ``(init_fn, step_fn)`` for training on one rank (``world``
     None) or over a :class:`~mpit_tpu_torch.comm.World`'s ranks.
@@ -178,7 +179,10 @@ def make_train_step(
     ``extra`` itself, updated in place). ``tx`` is a goo rule
     (:mod:`mpit_tpu_torch.opt.goo`). ``grad_sync``: ``psum`` | ``ring``
     | ``ring_q8``, in ``grad_bucket_mb`` buckets (a World of one rank
-    syncs nothing).
+    syncs nothing). ``mean_grads`` False: the ranks' gradients and
+    losses are summed, not averaged (JAX's ``sharded(...,
+    mean_grads=False)``, for a loss each rank already divides by the
+    global count, as the context-parallel step's does).
 
     ``init_fn(params, extra=None) -> TrainState``: one mapping (one rank)
     or a list of one per rank, the ranks' parameters rebound into one
@@ -195,7 +199,7 @@ def make_train_step(
     if world is None:
         return _one_rank(loss_fn, tx, stateful)
     return _ranks(loss_fn, tx, world, zero1, stateful,
-                  GradSync(world, grad_sync, bucket_mb=grad_bucket_mb))
+                  GradSync(world, grad_sync, bucket_mb=grad_bucket_mb), mean_grads)
 
 
 def _call_loss(loss_fn, params, extra, batch, stateful: bool):
@@ -236,12 +240,13 @@ def _one_rank(loss_fn, tx, stateful: bool):
     return init_fn, step_fn
 
 
-def _ranks(loss_fn, tx, world, zero1: bool, stateful: bool, gs: GradSync):
+def _ranks(loss_fn, tx, world, zero1: bool, stateful: bool, gs: GradSync,
+           mean_grads: bool = True):
     p = world.num_devices
     loss_fns = list(loss_fn) if isinstance(loss_fn, (list, tuple)) else [loss_fn] * p
     if len(loss_fns) != p:
         raise ValueError(f"{len(loss_fns)} loss functions for {p} ranks")
-    stx = sharded(tx, world, comm=gs) if zero1 else None
+    stx = sharded(tx, world, mean_grads=mean_grads, comm=gs) if zero1 else None
 
     def init_fn(params_list, extra=None) -> TrainState:
         if len(params_list) != p:
@@ -275,13 +280,14 @@ def _ranks(loss_fn, tx, world, zero1: bool, stateful: bool, gs: GradSync):
             if zero1:
                 updates = stx.update(flat.grads, state.opt_state, flat.params)
             else:
-                (updates,) = tx.update([gs.allreduce_grads(flat.grads)], state.opt_state,
-                                       [flat.params])
+                (updates,) = tx.update([gs.allreduce_grads(flat.grads, mean=mean_grads)],
+                                       state.opt_state, [flat.params])
             flat.params[:, : updates.shape[1]].add_(updates)
         state.step += 1
-        metrics = {"loss": sum(losses) / p}
+        n = p if mean_grads else 1
+        metrics = {"loss": sum(losses) / n}
         for key in auxes[0]:
-            metrics[key] = sum(a[key] for a in auxes) / p
+            metrics[key] = sum(a[key] for a in auxes) / n
         return state, metrics
 
     step_fn.grad_sync_mode = gs.exec_mode

@@ -183,8 +183,10 @@ _NOW = {
     "mnist_leases_2": (["mnist", "--mode", "elastic", "--lease-s", "2", "--profile-dir", "/p"],
                        "profile window is the SPMD"),
     "mnist_easgd_true": (["mnist", "--easgd", "true", "--prefetch-workers", "2"], "slice"),
-    # The model axis serves now; training on it is TP training's (§A 8b).
-    "mnist_mesh_data=2,model=2": (["mnist", "--mesh", "data=2,model=2"], "§A 8b"),
+    # The model axis serves, and trains gpt2 (its pjit tier); mnist still
+    # trains on the data axis alone.
+    "mnist_mesh_data=2,model=2": (["mnist", "--mesh", "data=2,model=2"],
+                                  "this workload trains on the data axis"),
 }
 
 

@@ -265,9 +265,9 @@ def test_run_meta_equals_jax(case):
     jcls, tcls, argv = _META_CASES[case]
     want = jrunner.run_meta(jconfig.from_argv(jcls, argv))
     got = runner.run_meta(from_argv(tcls, argv, later=runner.LATER_FLAGS))
-    if case == "gpt2":  # the fields of JAX's other tiers (CP, PP, EP, TP)
-        others = {"ulysses", "microbatches", "pp_schedule", "pp_chunks", "moe_experts", "moe_k",
-                  "moe_capacity", "moe_every", "aux_weight", "fsdp_axis"}
+    if case == "gpt2":  # the fields of JAX's other tiers (PP, EP)
+        others = {"microbatches", "pp_schedule", "pp_chunks", "moe_experts", "moe_k",
+                  "moe_capacity", "moe_every", "aux_weight"}
         assert set(want) - set(got) == others
         want = {k: v for k, v in want.items() if k not in others}
     assert got == want

@@ -30,7 +30,10 @@ the speculative reference engines); and the observability layers on
 the card (the engine's modeled visited tiles against the decode
 kernel's own count, the memory ledger against
 ``torch.cuda.memory_allocated``, the profile window's trace holding the
-flash kernels' device events).
+flash kernels' device events); and the pjit and context-parallel
+training tiers over the flash kernels (the TP step on each rank's head
+shard and the ring's chain of offset flash blocks against their plain
+versions, the CP step against the CPU's).
 
 Every test here needs an NVIDIA GPU (the kernel has no CPU mode): each
 carries the ``cuda`` marker and skips, with its reason, where there is
@@ -1809,3 +1812,115 @@ def test_profile_dir_traces_the_flash_kernels(cuda, tmp_path):
     assert {"mfu_pct", "hbm_util_pct"} <= set(step) and step["hbm_util_pct"] <= 100
     assert step["achieved_flops"] > 0 and step["seconds"] > 0
     assert out["sentinel"]["metrics"]["step"]["count"] == 7
+
+
+# ---- the pjit and context-parallel tiers over the flash kernels -------------
+
+
+def _tier_cfg():
+    return GPT2Config.tiny(vocab_size=130, max_seq_len=64, num_layers=2, num_heads=4,
+                           d_model=64, dtype=torch.float32)
+
+
+@pytest.mark.parametrize("mesh,fsdp", [({"data": 2, "model": 2}, None),
+                                       ({"data": 2, "model": 2}, "data"), ({"model": 4}, None)],
+                         ids=["tp", "tp_fsdp", "model4"])
+def test_tp_flash_step_matches_plain(cuda, mesh, fsdp):
+    """Three goo_adam steps of the pjit tier (a vocabulary of 130, padded
+    per rank) on the card through the flash kernels, on each rank's H/m
+    heads, against the same tier through plain attention: losses within
+    1e-4 relative; each kernel ran layers x model ranks x data ranks x
+    steps times, all on the f32 body."""
+    import dataclasses
+
+    from mpit_tpu_torch import comm
+    from mpit_tpu_torch.models import default_attention
+    from mpit_tpu_torch.ops import flash_attention as tfa
+    from mpit_tpu_torch.opt import goo_adam
+    from mpit_tpu_torch.parallel.tp import gpt2_tp_rules, make_tp_train_step
+    from mpit_tpu_torch.serve.tp import TPGPT2
+    from mpit_tpu_torch.serve.weights import shard_gpt2_params
+
+    cfg = _tier_cfg()
+    init = GPT2(cfg, generator=torch.Generator().manual_seed(0)).state_dict()
+    tokens = torch.randint(0, 130, (3, 4, 65), generator=torch.Generator().manual_seed(1)).cuda()
+    world = comm.init(mesh, devices=["cuda"])
+    m, d = world.size("model"), world.size("data")
+    losses, ran = {}, {}
+    for label, attn in (("flash", tfa.flash_attention), ("plain", default_attention)):
+        model = TPGPT2(dataclasses.replace(cfg, attention_fn=attn), m, device="cuda",
+                       vocab_parallel=True)
+        model.load_state_dict(shard_gpt2_params(init, m, vocab_parallel=True))
+
+        def loss_fn(params, batch, model=model):
+            t = batch["tokens"]
+            return model(t[:, :-1], targets=t[:, 1:]).mean(), {}
+
+        init_fn, step_fn, _ = make_tp_train_step(loss_fn, goo_adam(1e-3), world,
+                                                 gpt2_tp_rules(), fsdp_axis=fsdp)
+        state = init_fn(dict(model.named_parameters()))
+        before = dict(tfa.path_launches)
+        losses[label] = []
+        for t in tokens:
+            state, metrics = step_fn(state, {"tokens": t})
+            losses[label].append(metrics["loss"].item())
+        ran[label] = {k: n - before[k] for k, n in tfa.path_launches.items() if n != before[k]}
+    want = cfg.num_layers * m * d * len(tokens)
+    assert ran["flash"] == {f"{k}/fma": want for k in ("fwd", "dq", "dkv")}
+    assert ran["plain"] == {}
+    np.testing.assert_allclose(losses["flash"], losses["plain"], rtol=1e-4)
+
+
+@pytest.mark.parametrize("s", [2, 4])
+def test_ring_flash_block_chain_matches_plain(cuda, s):
+    """The ring of flash blocks on the card (each step one launch over the
+    ranks it reaches, at offsets (s·T/S, 0)) against the same chain of
+    the plain versions on the CPU: f32 output and gradients within 1e-4;
+    S launches of each kernel a call, one a ring step (step ``st`` over
+    the ``(S - st)·B`` rows at offsets ``(st·T/S, 0)``), none for the
+    wholly-future blocks."""
+    from mpit_tpu_torch.ops import flash_attention as tfa
+    from mpit_tpu_torch.parallel.ring_attention import ring_flash_attention
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        q, k, v, w = (_randn((s, 2, 128, 3, 64), i, torch.float32).to(dev) for i in range(4))
+        q, k, v = (x.requires_grad_() for x in (q, k, v))
+        before, by_shape = dict(tfa.launches), tfa.shape_launches.copy()
+        o = ring_flash_attention(q, k, v)
+        grads = torch.autograd.grad((o * w).sum(), (q, k, v))
+        out[dev] = (o.detach().cpu(), *(g.cpu() for g in grads))
+        if dev == "cuda":
+            assert {n: tfa.launches[n] - before[n] for n in before} == dict.fromkeys(before, s)
+            assert tfa.shape_launches - by_shape == {
+                (kind, (s - st) * 2, 128, 3, st * 128, 0): 1
+                for kind in ("fwd", "dq", "dkv") for st in range(s)}
+    for a, b in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("mesh,ulysses", [({"data": 2, "seq": 2}, False),
+                                          ({"data": 2, "seq": 2}, True)],
+                         ids=["ring_flash", "ulysses_flash"])
+def test_cp_flash_step_on_the_card_matches_the_cpu(cuda, mesh, ulysses):
+    """Three steps of the CP tier on the card through the flash kernels
+    against the same step on the CPU (the kernels' plain versions):
+    losses within 1e-4 relative."""
+    from mpit_tpu_torch import comm
+    from mpit_tpu_torch.opt import goo_adam
+    from mpit_tpu_torch.parallel.cp import make_gpt2_cp_train_step
+
+    cfg = _tier_cfg()
+    init = GPT2(cfg, generator=torch.Generator().manual_seed(0)).state_dict()
+    tokens = torch.randint(0, 130, (3, 4, 64), generator=torch.Generator().manual_seed(2))
+    losses = {}
+    for dev in ("cuda", "cpu"):
+        world = comm.init(mesh, devices=[dev])
+        init_fn, step_fn, _ = make_gpt2_cp_train_step(cfg, goo_adam(1e-3), world, flash=True,
+                                                      ulysses=ulysses)
+        state = init_fn(init)
+        losses[dev] = []
+        for t in tokens:
+            state, metrics = step_fn(state, {"tokens": t.to(dev)})
+            losses[dev].append(metrics["loss"].item())
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)

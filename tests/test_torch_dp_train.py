@@ -347,8 +347,8 @@ def test_world_and_batch_split():
     tp = comm.init({"model": 2, "data": 2}, devices=["cpu"])
     assert tp.shape == {"data": 2, "model": 2} and tp.num_devices == 4
     assert tp.axis_size("model") == 2 and tp.device == torch.device("cpu")
-    with pytest.raises(SystemExit, match="§A 8b"):
-        comm.init({"data": 2, "fsdp": 2}, devices=["cpu"])
+    with pytest.raises(SystemExit, match="§A 10"):
+        comm.init({"data": 2, "pipe": 2}, devices=["cpu"])
     spread = comm.World(shape={"data": 2}, devices=(torch.device("cpu"), torch.device("meta")))
     with pytest.raises(SystemExit, match="multi-card"):
         spread.device

@@ -252,8 +252,8 @@ def test_refusals(weights):
         e.inject_kv_rows(0, None, None, 1, 0)
     with pytest.raises(SystemExit, match="8c"):
         cli.main([*CPU, "--mesh", "model=2", "--fleet", "prefill=1,decode=1"])
-    with pytest.raises(SystemExit, match="8b"):
-        comm.init({"data": 2, "fsdp": 2}, devices=["cpu"])
+    with pytest.raises(SystemExit, match="§A 10"):
+        comm.init({"data": 2, "expert": 2}, devices=["cpu"])
 
 
 # -- the CLI --------------------------------------------------------------------

@@ -366,11 +366,19 @@ def test_later_slice_flags_raise(argv):
                               "--native", "true"],
             "gpt2_profiledir_/p": ["gpt2", "--profile-dir", "/p", "--mode", "parity"],
             "gpt2_sentinel_true": ["gpt2", "--sentinel", "true", "--native", "true"],
+            # TP training and the CP tier train on the model, fsdp and seq
+            # axes now: their cases hold the 3-D meshes, which stay refused.
+            "gpt2_mesh_data=1,model=2": ["gpt2", "--mesh", "data=1,seq=2,model=2"],
+            "gpt2_mesh_seq=2": ["gpt2", "--mesh", "model=2,pipe=2"],
             }.get("_".join(argv).replace("-", ""), argv)
-    # The model axis serves since the TP serving slice; training on it and
-    # --fsdp-axis name TP training (ROADMAP.md §A 8b).
+    # The pipe and expert axes, the 3-D meshes and the pp/ep flags name
+    # the other training tiers (ROADMAP.md §A 10); --ulysses off the CP
+    # tier and --fsdp-axis off the pjit tier are what JAX's tier ignores.
     match = (r"need --data-dir" if argv[0] == "imagenet" and "rrc" in argv
-             else r"§A 8b" if "model=2" in argv[-1] or "--fsdp-axis" in argv
+             else r"§A 10" if "--mesh" in argv or "--moe-experts" in argv
+             or "--pp-schedule" in argv
+             else r"requires the cp tier" if "--ulysses" in argv
+             else r"JAX's other tiers ignore the flag" if "--fsdp-axis" in argv
              else r"slice|SPMD-only|mnist only|ZeRO-1 DP layout|ignores --easgd"
                   r"|profile window is the SPMD")
     with pytest.raises(SystemExit, match=match):
